@@ -1,0 +1,189 @@
+"""ELAS dense MAP matching: the CUDA kernel and its plain version.
+
+Reference: computeDisparity/findMatch (elas.cpp:661-907). Per pixel the
+candidate walk (grid candidates outside the plane window, then the plane
+window with a log-prior penalty) is one keyed minimum over d:
+
+    cost = SAD16(q[v', u], t[v', u -/+ d]),  v' = clamp(v, 2, H-3)
+    S1   = d in the pixel's grid-cell candidate set, outside the window
+    S2   = d in the plane window [d_plane - r, d_plane + r]
+    key  = (cost + (S2 ? prior * P[|d - d_plane|] : 0) + 16) * 512 + rank,
+    rank = d (S1) | 256 + d (S2)
+
+over candidates whose warped column lies in [2, W-3], at pixels that are
+covered by a triangle, lie in u in [2, W-3] and pass the texture gate. The
+keys are unique per pixel (the rank carries d), so the minimum does not
+depend on the order d is visited, and it reproduces the reference's
+strict-< visit order (S1 ascending d, then S2 ascending d). The result is
+d, -1 (no candidate) or -10 (pixel not matched).
+
+dense_match() runs the CUDA kernel (csrc/elas_dense_kernel.cu) on CUDA
+tensors and dense_match_plain() on CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...config import ElasParams
+from ...ops import cuda_lib
+
+_WINDOW = 2          # findMatch window_size (elas.cpp:689)
+_KEY_BIAS = 16       # priors reach -14; keep keys non-negative
+_BIG = 1 << 30
+_MAX_RADIUS = 7      # the kernel takes P[0..7] by value
+
+launches = 0         # elas_dense kernel launches since the last reset
+
+
+def prior_table(params: ElasParams = ElasParams()) -> np.ndarray:
+    """P[delta_d] int32 (elas.cpp:802-805), C-cast truncation."""
+    dd = np.arange(params.disp_num, dtype=np.float64)
+    two_s2 = 2.0 * params.sigma * params.sigma
+    val = (-np.log(params.gamma + np.exp(-dd * dd / two_s2))
+           + np.log(params.gamma)) / params.beta
+    return val.astype(np.int32)  # trunc toward zero, like (int32_t)(float)
+
+
+def _views(desc1, desc2, right_image):
+    return (desc2, desc1, 1) if right_image else (desc1, desc2, -1)
+
+
+def dense_match_plain(
+    desc1: torch.Tensor,        # [B, H, W, 16] uint8 (left descriptor)
+    desc2: torch.Tensor,        # [B, H, W, 16] uint8 (right descriptor)
+    d_plane: torch.Tensor,      # [B, H, W] int (int)(a*u+b*v+c)
+    plane_valid: torch.Tensor,  # [B, H, W] bool (|a|<0.7 both images)
+    covered: torch.Tensor,      # [B, H, W] bool (pixel rasterized by a tri)
+    grid_words: torch.Tensor,   # [B, gh, gw, ceil(D/32)] int32 (pack_grid)
+    params: ElasParams = ElasParams(),
+    right_image: bool = False,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: [B, H, W] float32."""
+    B, H, W, _ = desc1.shape
+    D = params.disp_num
+    gs = params.grid_size
+    radius = params.plane_radius
+    dev = desc1.device
+    q, t, sign = _views(desc1, desc2, right_image)
+
+    vidx = torch.clamp(torch.arange(H, device=dev), 2, H - 3)
+    qc = q[:, vidx].to(torch.int32)                      # [B, H, W, 16]
+    tc = t[:, vidx].to(torch.int32)
+    u = torch.arange(W, device=dev)
+    tex = (qc - 128).abs().sum(-1)
+    u_ok = (u >= _WINDOW) & (u < W - _WINDOW)
+    pixel_ok = covered & u_ok & (tex >= params.match_texture)
+
+    dp = d_plane.to(torch.int32)
+    d_min = torch.clamp(dp - radius, min=0)
+    d_max = torch.clamp(dp + radius, max=D - 1)
+    prior = plane_valid.to(torch.int32)
+    P = [int(x) for x in prior_table(params)[:radius + 1]]
+    rows = (torch.arange(H, device=dev) // gs)[:, None]
+    cols = (torch.arange(W, device=dev) // gs)[None, :]
+
+    best = torch.full((B, H, W), _BIG, dtype=torch.int32, device=dev)
+    for d in range(D):
+        warp = u + sign * d
+        warp_ok = (warp >= _WINDOW) & (warp < W - _WINDOW)
+        if sign < 0:
+            t_sh = F.pad(tc, (0, 0, d, 0))[:, :, :W]
+        else:
+            t_sh = F.pad(tc, (0, 0, 0, d))[:, :, d:d + W]
+        cost = (qc - t_sh).abs().sum(-1, dtype=torch.int32)
+        in_grid = ((grid_words[:, rows, cols, d // 32] >> (d % 32)) & 1) > 0
+        in_win = (d >= d_min) & (d <= d_max)
+        dd = (d - dp).abs()
+        pd = torch.zeros_like(dp)
+        for j, pj in enumerate(P):
+            pd = torch.where(dd == j, pj, pd)
+        val = cost + torch.where(in_win, prior * pd, 0)
+        rank = d + 256 * in_win.to(torch.int32)
+        key = (val + _KEY_BIAS) * 512 + rank
+        live = (in_grid | in_win) & warp_ok & pixel_ok
+        best = torch.minimum(best, torch.where(live, key, _BIG))
+
+    d_best = (best % 512) % 256
+    out = torch.where(best < _BIG, d_best.to(torch.float32), -1.0)
+    return torch.where(pixel_ok, out, -10.0)
+
+
+class _PriorTable(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_int * (_MAX_RADIUS + 1))]
+
+
+def pack_grid(grid_mask: np.ndarray) -> np.ndarray:
+    """[..., D] bool candidate sets -> [..., ceil(D/32)] int32 bit words
+    (bit k of word w is candidate d = 32w + k). Runs on the host, where the
+    native prior makes the grid, so 1/8 of its bytes cross to the card."""
+    D = grid_mask.shape[-1]
+    pad = [(0, 0)] * (grid_mask.ndim - 1) + [(0, -D % 32)]
+    return np.packbits(np.pad(grid_mask, pad), axis=-1,
+                       bitorder="little").view("<i4")
+
+
+def _dense_match_cuda(desc1, desc2, d_plane, plane_valid, covered,
+                      grid_words, params, right_image):
+    global launches
+    B, H, W, C = desc1.shape
+    D = params.disp_num
+    gs = params.grid_size
+    radius = params.plane_radius
+    dev = desc1.device
+    if D > 256 or radius > _MAX_RADIUS or H < 5 or W < 5:
+        raise ValueError(f"dense kernel needs D <= 256, plane_radius <= "
+                         f"{_MAX_RADIUS}, H, W >= 5; got D={D}, "
+                         f"radius={radius}, {H}x{W}")
+    gh, gw, nw = grid_words.shape[1:4]
+    if gh * gs < H or gw * gs < W or nw != -(-D // 32):
+        raise ValueError(f"grid {gh}x{gw}x{nw} words of cell {gs} does not "
+                         f"cover {H}x{W}x{D}")
+    q, t, sign = _views(desc1, desc2, right_image)
+    dp = d_plane.to(torch.int32).contiguous()
+    pv = plane_valid.contiguous()
+    cv = covered.contiguous()
+    for name, x, dt, shp in (
+            ("desc1", desc1, torch.uint8, (B, H, W, 16)),
+            ("desc2", desc2, torch.uint8, (B, H, W, 16)),
+            ("d_plane", dp, torch.int32, (B, H, W)),
+            ("plane_valid", pv, torch.bool, (B, H, W)),
+            ("covered", cv, torch.bool, (B, H, W)),
+            ("grid_words", grid_words, torch.int32, (B, gh, gw, nw))):
+        cuda_lib.expect(x, name, dt, shp, dev)
+    P = _PriorTable()
+    for j, pj in enumerate(prior_table(params)[:radius + 1]):
+        P.p[j] = int(pj)
+    lib = cuda_lib.load("elas_dense_kernel")
+    fn = lib.elas_dense
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+                   + [_PriorTable, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    out = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    err = fn(q.data_ptr(), t.data_ptr(), dp.data_ptr(), pv.data_ptr(),
+             cv.data_ptr(), grid_words.data_ptr(), out.data_ptr(),
+             B, H, W, D, gh, gw, nw, gs, radius, sign,
+             params.match_texture, P, cuda_lib.stream_ptr(desc1))
+    cuda_lib.check(err, "elas_dense")
+    launches += 1
+    return out
+
+
+def dense_match(desc1, desc2, d_plane, plane_valid, covered, grid_words,
+                params: ElasParams = ElasParams(),
+                right_image: bool = False) -> torch.Tensor:
+    """Dense disparity [B, H, W] float32 of one view; the CUDA kernel on
+    CUDA tensors, the plain version on CPU tensors. grid_words is the
+    candidate grid as pack_grid gives it."""
+    if params.subsampling:
+        raise NotImplementedError(
+            "ELAS subsampling waits for a later slice of the port "
+            "(ROADMAP Queue 1, item 6)")
+    if desc1.is_cuda:
+        return _dense_match_cuda(desc1, desc2, d_plane, plane_valid, covered,
+                                 grid_words, params, right_image)
+    return dense_match_plain(desc1, desc2, d_plane, plane_valid, covered,
+                             grid_words, params, right_image)

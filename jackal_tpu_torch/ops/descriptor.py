@@ -1,0 +1,77 @@
+"""ELAS Sobel descriptor in PyTorch integer ops.
+
+Reproduces the reference's uint8 gradient encoding and 16-byte per-pixel
+feature exactly on the interior (the SSE code leaves image borders
+uninitialized; they are defined deterministically):
+
+  - filter::sobel3x3 (filter.cpp:408-416): column pass [1,2,1]/[1,0,-1],
+    row pass with arithmetic >>2, +128 offset, uint8 saturation.
+    Gradient sign convention: du(u) ~ smooth_v(u-1) - smooth_v(u+1).
+  - Descriptor::createDescriptor (descriptor.cpp:42-114): 16 samples from a
+    5x5 neighborhood of (du, dv) — 12 from du (center duplicated), 4 from dv.
+
+Valid region: u in [3, W-4], v in [3, H-4] (descriptor.cpp:84,92); outside
+is 0, the reference's fresh-page contents.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+# (dy, dx, use_dv) sample offsets, in reference channel order
+# (descriptor.cpp:94-109)
+DESC_OFFSETS = (
+    (-2, 0, 0),
+    (-1, -2, 0),
+    (-1, 0, 0),
+    (-1, 2, 0),
+    (0, -1, 0),
+    (0, 0, 0),
+    (0, 0, 0),
+    (0, 1, 0),
+    (1, -2, 0),
+    (1, 0, 0),
+    (1, 2, 0),
+    (2, 0, 0),
+    (-1, 0, 1),
+    (0, -1, 1),
+    (0, 1, 1),
+    (1, 0, 1),
+)
+
+
+def _sat_u8(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(0, 255).to(torch.uint8)
+
+
+def sobel3x3(img_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bias-128 uint8 Sobel gradients (du, dv), each [..., H, W].
+
+    Interior exact vs filter::sobel3x3; 1-px border fixed to 128."""
+    im = img_u8.to(torch.int32)
+    # column pass (convolve_cols_3x3): smooth [1,2,1] and diff [1,0,-1]
+    tv = im[..., :-2, :] + 2 * im[..., 1:-1, :] + im[..., 2:, :]
+    th = im[..., :-2, :] - im[..., 2:, :]
+    # row pass: du = (tv[u-1]-tv[u+1])>>2 + 128 ; dv = (th[u-1]+2th[u]+th[u+1])>>2 + 128
+    du_i = ((tv[..., :-2] - tv[..., 2:]) >> 2) + 128
+    dv_i = ((th[..., :-2] + 2 * th[..., 1:-1] + th[..., 2:]) >> 2) + 128
+    du = F.pad(_sat_u8(du_i), (1, 1, 1, 1), value=128)
+    dv = F.pad(_sat_u8(dv_i), (1, 1, 1, 1), value=128)
+    return du, dv
+
+
+def create_descriptor(img_u8: torch.Tensor) -> torch.Tensor:
+    """16-channel uint8 descriptor [..., H, W, 16] of u8 images [..., H, W]
+    (full resolution; the subsampling variant waits for a later slice)."""
+    du, dv = sobel3x3(img_u8)
+    H, W = img_u8.shape[-2:]
+    dup = F.pad(du, (2, 2, 2, 2), value=128)
+    dvp = F.pad(dv, (2, 2, 2, 2), value=128)
+    desc = torch.stack(
+        [(dvp if use_dv else dup)[..., 2 + dy:2 + dy + H, 2 + dx:2 + dx + W]
+         for dy, dx, use_dv in DESC_OFFSETS], dim=-1)
+    out = torch.zeros_like(desc)
+    out[..., 3:H - 3, 3:W - 3, :] = desc[..., 3:H - 3, 3:W - 3, :]
+    return out
