@@ -10,16 +10,33 @@ Phases (any failure exits non-zero and prints no success line):
      support and dense at 640x480, D = 256, on the two 640x480 golden
      fixtures, and on two seeded random frames at a width that is not a
      multiple of 32;
+  2b. (a) the raster kernel against its plain version (torch.equal) on
+     every chunk of the two 640x480 golden fixtures batched by chunks of 1
+     and 2, on wide triangles and on planes that overflow int32; (b) the
+     card's device prior against the C++ host prior: covered, valid,
+     d_plane where covered and grids equal, planes bit-equal to
+     fit_planes_native, coefficients (slopes, planes, grids) equal to the
+     CPU's;
   3. ELAS on the card against libelas: D1/D2 of both 640x480 fixtures;
+     (c) the batched path on the card: both fixtures in one batch, chunk 1
+     and chunk 2, against libelas; the 9 synthetic node frames against the
+     per-frame elas_match;
   4. the node: make_pipeline(engine="elas") at 640x480 and process_frame on
      seeded raw 640x360 pairs of a known scene (pipeline/synthetic.py),
      with the launch counters reset just before and read just after;
      per-stage medians, fps, the device's busy time under torch.profiler,
      a per-stage breakdown of one frame, and the kernels' and plain
      versions' device time per call under torch.profiler;
+  4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
+     the launch counters reset just before and read just after; fps, the
+     frames published, the device's busy time and idle share under
+     torch.profiler beside process_batch's, and a per-stage breakdown of
+     one batch;
   5. the roofline bound of each kernel from this run's inputs; the peak
      rate of its byte SADs is measured on the card (csrc/sad_rate.cu),
-     and cuobjdump shows the instructions __vsadu4 became;
+     and cuobjdump shows the instructions __vsadu4 became and that the
+     raster kernel has no FFMA; (e) the raster kernel's device time, its
+     plain version's and its bound from this run's live tile slots;
   6. a "kernels" JSON line, the card line, and the final JSON line.
 """
 from __future__ import annotations
@@ -38,6 +55,9 @@ GOLDEN = ("elas_golden_s640_boxes", "elas_golden_photo")
 # published H100 SXM HBM rate (NVIDIA data sheet); the rate of the
 # kernels' operations (byte SADs) is measured in phase 5
 PEAK_BYTES_PER_S = 3.35e12
+# float32 and integer operations outside the tensor cores (the same sheet);
+# the raster's operations are of that kind
+PEAK_F32_OPS_PER_S = 67e12
 DEVICE = "cuda:0"
 
 
@@ -70,18 +90,21 @@ def _union_ms(spans) -> float:
     return busy_us / 1e3
 
 
-def device_busy(fn, name: str = ""):
+def device_busy(fn, name: str = "", host_ops: bool = True):
     """(wall ms, device-busy ms, ms of the kernels named ``name``) of fn()
     under torch.profiler: the union of the intervals in which a CUDA kernel
     or copy ran, and of those whose name contains ``name`` (None when no
-    name is given). Raises if the profiler recorded no device activity, or
-    none in a kernel of that name: there is no other yardstick."""
+    name is given). host_ops=False traces the card alone, which keeps the
+    profiler's own host cost out of a multi-threaded run's wall time.
+    Raises if the profiler recorded no device activity, or none in a
+    kernel of that name: there is no other yardstick."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -135,8 +158,9 @@ def sad_rate(dev) -> float:
     return sads / (ms * 1e-3)
 
 
-def sass_opcodes(path: str, top: int = 8) -> str:
-    """The most frequent SASS opcodes of a built library (cuobjdump)."""
+def sass_opcodes(path: str, top=8, prefix: str = "") -> str:
+    """The most frequent SASS opcodes of a built library (cuobjdump), or
+    all of those that start with ``prefix``."""
     import collections
     import os
     import re
@@ -149,7 +173,8 @@ def sass_opcodes(path: str, top: int = 8) -> str:
     ops = collections.Counter(re.findall(
         r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
         sass))
-    return ", ".join(f"{op} {n}" for op, n in ops.most_common(top))
+    return ", ".join(f"{op} {n}" for op, n in ops.most_common(top)
+                     if op.startswith(prefix))
 
 
 def prior_inputs(desc1, desc2, params, dev):
@@ -227,6 +252,101 @@ def dense_work(desc1, desc2, d_plane, valid, covered, words, params, right):
     return nbytes, count
 
 
+def raster_work(table, sel, Tp, W, H):
+    """(bytes, operations, live slots) of one raster call on these inputs:
+    the table, the tile lists and the key map each moved once. Per live
+    tile slot, the columns of the tile inside the triangle's span [A_u,
+    C_u) need 17 float and integer operations each (two scanline bounds
+    with their intercepts, the span test, pa*u) and 11 per row (the plane
+    value's two adds, truncation, clamp, key, the row test, the maximum),
+    and each row 2 (pb*v); columns outside the span and pad slots need
+    nothing."""
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    CH, SC, _ = sel.shape
+    tab = table.cpu().numpy().reshape(CH, Tp, -1).astype(np.int64)
+    sl = sel.cpu().numpy()
+    rows = tab[np.arange(CH)[:, None, None], sl]          # [CH, SC, Ts, 16]
+    live = (sl != Tp - 1) & (rows[..., 12] >= 0)
+    s, c = np.divmod(np.arange(SC), -(-W // dp._RASTER_CTILE))
+    c0 = (c * dp._RASTER_CTILE)[None, :, None]
+    c1 = np.minimum(c0 + dp._RASTER_CTILE, W)
+    nr = np.minimum(dp._RASTER_SLAB, H - s * dp._RASTER_SLAB)[None, :, None]
+    ncols = np.clip(np.minimum(rows[..., 2], c1)
+                    - np.maximum(rows[..., 0], c0), 0, None)
+    ops = int((live * (ncols * (17 + 11 * nr) + 2 * nr)).sum())
+    nbytes = 4 * (table.numel() + sel.numel() + CH * H * W)
+    return nbytes, ops, int(live.sum())
+
+
+def batch_chunks(params, lb, rb, chunk, dev):
+    """The batched path's host side, as elas_match_batch_device runs it, for
+    uint8 [B, H, W] pairs: per chunk (flat wire on the host, Np, Tp, Ts,
+    per frame (support, left and right triangulations, wire)). Frames keep
+    their order (the kernels do not depend on it)."""
+    import torch
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.matching.elas.native_prior import (
+        collect_support_points_native)
+    from jackal_tpu_torch.matching.elas.prior import delaunay
+
+    B, H, W = lb.shape
+    _, _, dcan = ep._front(torch.from_numpy(lb).to(dev),
+                           torch.from_numpy(rb).to(dev), params)
+    dcan = dcan.cpu().numpy()
+    out = []
+    for c0 in range(0, B, chunk):
+        frames = []
+        for b in range(c0, c0 + chunk):
+            sp = collect_support_points_native(dcan[b], params, W, H)
+            rp = np.stack([sp[:, 0] - sp[:, 2], sp[:, 1]], -1)
+            frames.append((sp, delaunay(sp[:, :2].astype(np.float32)),
+                           delaunay(rp.astype(np.float32)),
+                           ep._prior_tri_job(dcan[b], params, W, H)))
+        wires = [f[3] for f in frames]
+        Np, Tp, Ts = ep._chunk_pads(wires)
+        out.append((torch.from_numpy(ep._flatten_chunk_wire(wires, Np, Tp,
+                                                            Ts)),
+                    Np, Tp, Ts, frames))
+    return out
+
+
+def raster_overflow_case(rng, CH, T, W, H, Ts):
+    """Random triangles, and three top-painted ones whose planes leave the
+    int32 range (pa = pc = +1e17, -1e17, NaN), each listed first in every
+    third tile (tests/test_torch_cuda.py runs it too)."""
+    import torch
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    u = np.sort(rng.integers(-20, W + 20, (CH, T, 3)), -1)
+    v = rng.integers(-10, H + 10, (CH, T, 3))
+    tab = np.zeros((CH, T, 16), np.int32)
+    tab[..., 0:3], tab[..., 3:5] = u, v[..., :2]
+    tab[..., 5:8] = rng.uniform(-3, 3, (CH, T, 3)).astype(
+        np.float32).view(np.int32)
+    tab[..., 8:11] = np.stack([rng.uniform(-0.6, 0.6, (CH, T)),
+                               rng.uniform(-0.3, 0.3, (CH, T)),
+                               rng.uniform(-50, 300, (CH, T))],
+                              -1).astype(np.float32).view(np.int32)
+    tab[..., 11] = rng.random((CH, T)) < 0.7
+    tab[..., 12] = np.arange(T)
+    big = np.array([1e17, -1e17, np.nan], np.float32).view(np.int32)
+    tab[:, 0:3, 0:3] = [[0, W // 2, W]]
+    tab[:, 0:3, 3:5] = [[0, -1]]
+    tab[:, 0:3, 5:8] = np.array([0.0, -1.0, 0.0], np.float32).view(np.int32)
+    tab[:, 0:3, 8] = tab[:, 0:3, 10] = big
+    tab[:, 0:3, 9] = 0
+    tab[:, 0:3, 12] = T + 1
+    tab[:, -1] = 0
+    tab[:, -1, 12] = -1
+    SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
+    sel = rng.integers(3, T - 1, (CH, SC, Ts))
+    sel[rng.random(sel.shape) < 0.3] = T - 1
+    sel[:, :, 0] = np.arange(SC) % 3
+    return (torch.from_numpy(tab.reshape(CH * T, 16)),
+            torch.from_numpy(sel.astype(np.int32)))
+
+
 def bound_ms(nbytes, ops, ops_per_s):
     tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -252,8 +372,13 @@ def main() -> int:
     from jackal_tpu_torch import native
     from jackal_tpu_torch.config import ElasParams, PipelineParams
     from jackal_tpu_torch.matching.elas import dense as dense_mod
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
     from jackal_tpu_torch.matching.elas import support as support_mod
-    from jackal_tpu_torch.matching.elas.pipeline import elas_match
+    from jackal_tpu_torch.matching.elas.native_prior import (
+        build_priors_native, fit_planes_native)
+    from jackal_tpu_torch.matching.elas.pipeline import (
+        elas_match, elas_match_batch_device)
     from jackal_tpu_torch.ops import cuda_lib
     from jackal_tpu_torch.ops.descriptor import create_descriptor
     from jackal_tpu_torch.pipeline.default import make_pipeline
@@ -280,7 +405,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions ------------------------
-    max_err = {"support": 0.0, "elas_dense": 0.0}
+    max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -331,6 +456,101 @@ def main() -> int:
     if support_mod.launches == 0 or dense_mod.launches == 0:
         raise AssertionError("a kernel wrapper never launched its kernel")
 
+    # ---- 2b. the raster kernel and the device prior -----------------------
+    H, W = 480, 640
+    gold_l = np.stack([frames[f][0]["left"] for f in GOLDEN])
+    gold_r = np.stack([frames[f][0]["right"] for f in GOLDEN])
+    dp.launches = 0
+    n_chunks = 0
+    for chunk in (1, 2):
+        for flat, Np, Tp, Ts, fr in batch_chunks(params, gold_l, gold_r,
+                                                 chunk, dev):
+            CH = len(fr)
+            coeffs = ep._chunk_coeffs(flat.to(dev), CH, Np, Tp, Ts, W, H,
+                                      params)
+            coeffs_cpu = ep._chunk_coeffs(flat, CH, Np, Tp, Ts, W, H, params)
+            for side, ((tab, sel, words), cpu) in enumerate(zip(coeffs,
+                                                               coeffs_cpu)):
+                # slopes (f32 division), planes (f64 fit) and grids: the
+                # card's equal the CPU's and the C++ engine's
+                for x, y in zip((tab, sel, words), cpu):
+                    if not torch.equal(x.cpu(), y):
+                        raise AssertionError(f"chunk {chunk} side {side}: "
+                                             f"card != CPU coefficients")
+                for f, (sp, _, _, wire) in enumerate(fr):
+                    tw = wire[1 + 2 * side]
+                    want = fit_planes_native(sp, tw)[:, 3 * side:3 * side + 3]
+                    got = tab[f * Tp:f * Tp + len(tw), 8:11].cpu().numpy()
+                    if not np.array_equal(got, want.view(np.int32)):
+                        raise AssertionError("planes != fit_planes_native")
+                win = dp.raster(tab, sel, Tp, W, H)
+                hold("raster", f"raster chunk {chunk} side {side}", [win],
+                     [dp.raster_plain(tab, sel, Tp, W, H)])
+                dpl, valid, cov = (x.cpu().numpy() for x in dp.decode_win(win))
+                for f, (sp, t1, t2, _) in enumerate(fr):
+                    host = build_priors_native(sp, W, H, params, tri_left=t1,
+                                               tri_right=t2)
+                    m, g = host[side], host[2 + side]
+                    c = m.tri_id >= 0
+                    if not (np.array_equal(cov[f], c)
+                            and np.array_equal(valid[f], m.valid)
+                            and np.array_equal(dpl[f][c], m.d_plane[c])
+                            and np.array_equal(words[f].cpu().numpy(),
+                                               dense_mod.pack_grid(g))):
+                        raise AssertionError(
+                            f"device prior != C++ host prior (chunk {chunk},"
+                            f" frame {f}, side {side})")
+            n_chunks += 1
+    print(f"raster kernel == plain (torch.equal) and device prior == C++ "
+          f"host prior, planes == fit_planes_native, card coefficients == "
+          f"CPU's: {n_chunks} chunks of the golden pair, both sides")
+    rng_w = np.random.default_rng(11)
+    sp = np.stack([rng_w.choice(np.arange(8, W - 8), 14, replace=False),
+                   rng_w.choice(np.arange(8, H - 8), 14, replace=False),
+                   rng_w.integers(6, 120, 14)], -1).astype(np.int32)
+    rp = np.stack([sp[:, 0] - sp[:, 2], sp[:, 1]], -1).astype(np.float32)
+    from jackal_tpu_torch.matching.elas.prior import delaunay
+    from jackal_tpu_torch.matching.elas.native_prior import (
+        tri_wire_and_bin_native)
+    t1, t2 = delaunay(sp[:, :2].astype(np.float32)), delaunay(rp)
+    a1 = tri_wire_and_bin_native(sp.astype(np.int16), t1, W, H, 16, 128)
+    a2 = tri_wire_and_bin_native(sp.astype(np.int16), t2, W, H, 16, 128,
+                                 right=True)
+    wire = (sp.astype(np.int16), a1[0], a1[1], a2[0], a2[1], a1[2], a2[2])
+    Np, Tp, Ts = ep._chunk_pads([wire])
+    flat = torch.from_numpy(ep._flatten_chunk_wire([wire], Np, Tp, Ts))
+    host = build_priors_native(sp, W, H, params, tri_left=t1, tri_right=t2)
+    for side, (tab, sel, _) in enumerate(ep._chunk_coeffs(
+            flat.to(dev), 1, Np, Tp, Ts, W, H, params)):
+        win = dp.raster(tab, sel, Tp, W, H)
+        hold("raster", f"raster wide triangles side {side}", [win],
+             [dp.raster_plain(tab, sel, Tp, W, H)])
+        c = host[side].tri_id >= 0
+        dpl, _, cov = (x[0].cpu().numpy() for x in dp.decode_win(win))
+        if not (np.array_equal(cov, c)
+                and np.array_equal(dpl[c], host[side].d_plane[c])):
+            raise AssertionError("wide triangles: device prior != host")
+    tab, sel = raster_overflow_case(np.random.default_rng(5), 2, 300, W, H,
+                                    48)
+    win = dp.raster(tab.to(dev), sel.to(dev), 300, W, H)
+    hold("raster", "raster overflowing planes", [win],
+         [dp.raster_plain(tab.to(dev), sel.to(dev), 300, W, H)])
+    dpl = dp.decode_win(win)[0].cpu().numpy()
+    v, u = np.mgrid[0:H, 0:W]
+    want = np.array([511, -512, 0])[((v // 16) * 5 + u // 128) % 3]
+    if not np.array_equal(dpl[:, :, 1:], np.broadcast_to(want[:, 1:],
+                                                         (2, H, W - 1))):
+        raise AssertionError("overflowing planes: not XLA's saturation")
+    probe = torch.tensor([3e9, -3e9, float("nan")], device=dev)
+    from jackal_tpu_torch.ops.convert import to_int32
+    print(f"raster kernel == plain on wide triangles and overflowing planes "
+          f"(+1e17 -> 511, -1e17 -> -512, NaN -> 0); float->int32 of "
+          f"[3e9, -3e9, nan] on the card: torch cast "
+          f"{probe.to(torch.int32).tolist()}, to_int32 "
+          f"{to_int32(probe).tolist()}")
+    if dp.launches == 0:
+        raise AssertionError("the raster wrapper never launched its kernel")
+
     # ---- 3. ELAS on the card against libelas ------------------------------
     for fix, (g, _, _) in frames.items():
         D1, D2 = elas_match(g["left"], g["right"], params, device=dev)
@@ -341,6 +561,17 @@ def main() -> int:
                     f"{fix} {nm}: {int((got != ref).sum())} pixels differ "
                     f"from libelas")
         print(f"elas_match on the card == libelas D1/D2 bit for bit: {fix}")
+    for chunk in (1, 2):
+        D1, D2 = elas_match_batch_device(gold_l, gold_r, params, chunk=chunk,
+                                         device=dev)
+        for i, fix in enumerate(GOLDEN):
+            for nm, got in (("D1", D1[i]), ("D2", D2[i])):
+                if not torch.equal(got, torch.from_numpy(
+                        frames[fix][0][nm]).to(dev)):
+                    raise AssertionError(f"batch chunk {chunk} {fix} {nm} "
+                                         f"!= libelas")
+    print(f"elas_match_batch_device on the card == libelas D1/D2 bit for bit:"
+          f" {', '.join(GOLDEN)} in one batch, chunk 1 and chunk 2")
 
     # ---- 4. the node -----------------------------------------------------
     pipe = make_pipeline(engine="elas", params=PipelineParams(
@@ -349,6 +580,16 @@ def main() -> int:
     # seeded raw 640x360 pairs: walls and slanted surfaces (synthetic.py)
     pairs = [synthetic_raw_pair(pipe, seed, 8.0 + 6 * seed, 0.03 * (seed % 3))
              for seed in range(9)]
+    raw_l = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    raw_r = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    L9, R9 = pipe._rectify_crop(raw_l, raw_r)
+    B1, B2 = elas_match_batch_device(L9, R9, params, chunk=3, device=dev)
+    for b in range(len(pairs)):
+        s1, s2 = elas_match(L9[b], R9[b], params, device=dev)
+        if not (torch.equal(B1[b], s1) and torch.equal(B2[b], s2)):
+            raise AssertionError(f"synthetic frame {b}: batch != per-frame")
+    print(f"elas_match_batch_device on the card == elas_match on the "
+          f"{len(pairs)} synthetic node frames (chunk 3), D1 and D2")
     support_mod.launches = dense_mod.launches = 0
     results, walls = [], []
     for i, (lr, rr) in enumerate(pairs):
@@ -435,6 +676,115 @@ def main() -> int:
         print(f"  stage {k}: {v:.3f} ms")
     print("stages: " + json.dumps({k: round(v, 4) for k, v in st.items()}))
 
+    # ---- 4b. the batched node ---------------------------------------------
+    from jackal_tpu_torch.io_bus.bus import TopicBus
+    from jackal_tpu_torch.matching.elas.post import (
+        postprocess_batch, remove_small_segments_batch)
+    from jackal_tpu_torch.ops.transfer import HostCopy, to_device
+    from jackal_tpu_torch.pipeline.runner import (TOPIC_DEPTH, TOPIC_SCAN,
+                                                  StreamingRunner)
+    n_frames, batch = 48, 8
+    stream = [pairs[i % len(pairs)] for i in range(n_frames)]
+    bus = TopicBus()
+    depth_msgs, scan_msgs = [], []
+    bus.subscribe(TOPIC_DEPTH, depth_msgs.append)
+    bus.subscribe(TOPIC_SCAN, scan_msgs.append)
+    runner = StreamingRunner(pipe, bus, batch_size=batch,
+                             stage_sample_every=3)
+    runner.run(iter(stream[:2 * batch]))                # warm-up
+    depth_msgs.clear()
+    scan_msgs.clear()
+    support_mod.launches = dense_mod.launches = dp.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = runner.run(iter(stream))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t
+    launches_b = {"support": support_mod.launches,
+                  "elas_dense": dense_mod.launches, "raster": dp.launches}
+    print(f"batched node launches over {done} frames: {launches_b}")
+    if min(launches_b.values()) == 0:
+        raise AssertionError(f"the batched node bypassed a kernel: "
+                             f"{launches_b}")
+    if done != n_frames or len(depth_msgs) != n_frames \
+            or len(scan_msgs) != n_frames:
+        raise AssertionError(f"published {len(depth_msgs)} depth maps and "
+                             f"{len(scan_msgs)} scans of {done} frames")
+    for i, m in enumerate(depth_msgs):
+        if not np.array_equal(m.data, results[i % len(pairs)].dmap):
+            raise AssertionError(f"published depth map {i} != process_frame")
+    print(f"batched node (StreamingRunner, batch {batch}, 640x480): "
+          f"{done} frames in {stream_s * 1e3:.3f} ms = "
+          f"{done / stream_s:.2f} fps, {len(depth_msgs)} depth maps and "
+          f"{len(scan_msgs)} scans published, each equal to process_frame's")
+    raw_b = [(torch.from_numpy(np.stack([p[0] for p in stream[i:i + batch]])
+                               ).to(dev),
+              torch.from_numpy(np.stack([p[1] for p in stream[i:i + batch]])
+                               ).to(dev))
+             for i in range(0, n_frames, batch)]
+
+    def batches():
+        return [pipe.process_batch(lb, rb) for lb, rb in raw_b]
+    batches()
+    t = time.perf_counter()
+    batches()
+    torch.cuda.synchronize()
+    pb_s = time.perf_counter() - t
+    print(f"process_batch, the same {n_frames} frames one batch after "
+          f"another: {pb_s * 1e3:.3f} ms = {n_frames / pb_s:.2f} fps")
+    for host_ops in (True, False):
+        wall_s, busy_s, _ = device_busy(lambda: runner.run(iter(stream)),
+                                        host_ops=host_ops)
+        wall_b, busy_b, _ = device_busy(batches, host_ops=host_ops)
+        print(f"device busy under torch.profiler ("
+              f"{'host ops and card' if host_ops else 'card alone'}) over "
+              f"{n_frames} frames: stream {busy_s:.3f} ms of {wall_s:.3f} ms"
+              f" wall, idle share {1 - busy_s / wall_s:.3f}; process_batch "
+              f"{busy_b:.3f} ms of {wall_b:.3f} ms wall, idle share "
+              f"{1 - busy_b / wall_b:.3f}")
+    lb8, rb8 = raw_b[0]
+
+    # per-stage breakdown of one batch of 8 in one chunk (process_batch)
+    L8, R8 = pipe._rectify_crop(lb8, rb8)
+    sb = {}
+    sb["front (descriptors + support, 8 frames)"] = host_ms(
+        lambda: ep._front(L8, R8, params), 5)
+    bd1, bd2, dcan_dev = ep._front(L8, R8, params)
+    sb["candidate grids to the host"] = host_ms(
+        lambda: HostCopy(dcan_dev).numpy(), 5)
+    dcan8 = HostCopy(dcan_dev).numpy()
+    sb["host prior, per frame"] = host_ms(
+        lambda: [ep._prior_tri_job(dcan8[b], params, W, H)
+                 for b in range(batch)], 3) / batch
+    wires = [ep._prior_tri_job(dcan8[b], params, W, H) for b in range(batch)]
+    Np, Tp, Ts = ep._chunk_pads(wires)
+    lad = ep._lr_ladder(wires, params)
+    sb["wire flatten + upload"] = host_ms(
+        lambda: to_device(ep._flatten_chunk_wire(wires, Np, Tp, Ts), dev), 5)
+    flat = to_device(ep._flatten_chunk_wire(wires, Np, Tp, Ts), dev)[0]
+    sb["coefficients + grids (both sides)"] = host_ms(
+        lambda: ep._chunk_coeffs(flat, batch, Np, Tp, Ts, W, H, params), 5)
+    coeffs = ep._chunk_coeffs(flat, batch, Np, Tp, Ts, W, H, params)
+    sb["raster (2 x kernel C + decode)"] = host_ms(
+        lambda: ep._chunk_raster(coeffs, Tp, W, H), 5)
+    m1, m2 = ep._chunk_raster(coeffs, Tp, W, H)
+    sb["dense, both views (2 x kernel B)"] = host_ms(lambda: (
+        dense_mod.dense_match(bd1, bd2, *m1, params, False),
+        dense_mod.dense_match(bd1, bd2, *m2, params, True)), 5)
+    BD1 = dense_mod.dense_match(bd1, bd2, *m1, params, False)
+    BD2 = dense_mod.dense_match(bd1, bd2, *m2, params, True)
+    sb["postprocess (L/R, speckle, tail)"] = host_ms(
+        lambda: postprocess_batch(BD1, BD2, params, lad), 3)
+    BL1, _ = left_right_consistency_check(BD1, BD2, params, lad)
+    sb["  of which the speckle filter (left view)"] = host_ms(
+        lambda: remove_small_segments_batch(BL1, params), 3)
+    dmaps8 = pipe._dmap_u8(postprocess_batch(BD1, BD2, params, lad)[0])
+    sb["scan"] = host_ms(lambda: pipe._scan_stage(dmaps8), 5)
+    for k, v in sb.items():
+        print(f"  batch stage {k}: {v:.3f} ms")
+    print(f"batch stages (Np {Np}, Tp {Tp}, Ts {Ts}, lr_smax {lad}): "
+          + json.dumps({k: round(v, 4) for k, v in sb.items()}))
+
     # ---- 5. the kernels' roofline bounds --------------------------------
     rate = sad_rate(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -447,6 +797,11 @@ def main() -> int:
     for name in cuda_lib.KERNEL_SOURCES + ("sad_rate",):
         print(f"  sass {name}: "
               f"{sass_opcodes(cuda_lib.library(name).path)}")
+    ffma = sass_opcodes(cuda_lib.library("raster_kernel").path, top=None,
+                        prefix="FFMA")
+    print(f"  sass raster_kernel FFMA instructions: {ffma or 'none'}")
+    if ffma:
+        raise AssertionError("the raster kernel contracts into FFMA")
 
     # kernel timing at the node's shapes, beside the plain versions
     ncv = -(-H // step)
@@ -476,6 +831,18 @@ def main() -> int:
           f"{bB:.5f} by {byB}: {nbB} bytes, {float(count.float().mean()):.2f}"
           f" candidates a pixel)")
 
+    tabC, selC, _ = coeffs[0]
+    nbC, opsC, liveC = raster_work(tabC, selC, Tp, W, H)
+    bC, byC = bound_ms(nbC, opsC, PEAK_F32_OPS_PER_S)
+    kC, kC_only = device_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50,
+                            "raster_kernel")
+    pC, _ = device_ms(lambda: dp.raster_plain(tabC, selC, Tp, W, H), 3)
+    print(f"device ms a call under torch.profiler: raster, left side of a "
+          f"chunk of {batch} frames {kC:.4f} (kernel alone {kC_only:.4f}; "
+          f"plain {pC:.3f}; bound {bC:.5f} by {byC}: {nbC} bytes, {opsC} "
+          f"operations over {liveC} live tile slots of "
+          f"{selC.numel()}, Ts {Ts})")
+
     kernels = [
         {"name": "support", "route": "cuda",
          "source": "jackal_tpu_torch/csrc/support_kernel.cu",
@@ -489,6 +856,12 @@ def main() -> int:
          "launches": launches["elas_dense"],
          "max_abs_err": max_err["elas_dense"],
          "ms": kB, "plain_ms": pB, "bound_ms": bB, "bound_by": byB,
+         "library_ms": None},
+        {"name": "raster", "route": "cuda",
+         "source": "jackal_tpu_torch/csrc/raster_kernel.cu",
+         "replaces": "jackal_tpu/ops/pallas/raster_kernel.py:59",
+         "launches": launches_b["raster"], "max_abs_err": max_err["raster"],
+         "ms": kC, "plain_ms": pC, "bound_ms": bC, "bound_by": byC,
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

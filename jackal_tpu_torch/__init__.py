@@ -1,17 +1,24 @@
 """jackal_tpu_torch: the stereo obstacle-avoidance stack in PyTorch + CUDA.
 
 A port of the ``jackal_tpu`` package (JAX/XLA/Pallas for TPU) to PyTorch
-on an NVIDIA H100. It grows slice by slice; this slice is the point_cloud
-node's per-frame ELAS path:
+on an NVIDIA H100. It grows slice by slice; so far it has the point_cloud
+node's ELAS paths, per frame and batched:
 
     raw u8 stereo pair -> rectify (15-bit fixed-point remap)
-      -> ELAS: descriptors, support search [CUDA kernel], host prior (C++),
-         dense MAP matching of both views [CUDA kernel], L/R check,
-         speckle (C++ BFS), gap fill, adaptive mean, median
+      -> ELAS: descriptors, support search [CUDA kernel A], host prior
+         (C++), dense MAP matching of both views [CUDA kernel B], L/R
+         check, speckle (C++ BFS), gap fill, adaptive mean, median
       -> u8 disparity map -> 90-bin obstacle scan
 
+    batched: the same, with only support pruning and Delaunay on the host
+      (worker threads) and the plane fit, candidate grids, prior raster
+      [CUDA kernel C] and the speckle filter on the card
+
 Entry points: ``pipeline.default.make_pipeline(engine="elas")`` then
-``StereoPipeline.process_frame``, and ``matching.elas.pipeline.elas_match``.
+``StereoPipeline.process_frame`` or ``process_batch``;
+``pipeline.runner.StreamingRunner`` (the node's --batch > 1 loop); and
+``matching.elas.pipeline.elas_match``, ``elas_match_batch(_device)``,
+``elas_match_stream``.
 
 Rules of the port:
 

@@ -3,7 +3,10 @@
 Same contract as the reference's elas.cpp host stages, with the sequential
 pruning, plane fit, rasterization, plane-map evaluation, candidate-grid
 build and BFS speckle removal in C++ (native/prior_engine.cpp), reached
-through ctypes. Triangulation is prior.delaunay.
+through ctypes. Triangulation is prior.delaunay. The batched path uses
+only the pruning, the triangulation and the triangle wire
+(native/wire_engine.cpp); build_grid_native and fit_planes_native are
+the references its device grid and plane fit are held to.
 """
 from __future__ import annotations
 
@@ -58,6 +61,70 @@ def collect_support_points_native(
     if params.add_corners and width and height:
         sp = add_corner_support_points(sp, width, height)
     return np.ascontiguousarray(sp, np.int32)
+
+
+def build_grid_native(
+    support: np.ndarray, width: int, height: int, right: bool,
+    params: ElasParams = ElasParams(),
+) -> np.ndarray:
+    """Candidate grid (createGrid, elas.cpp:579-659) alone, bool
+    [gh, gw, disp_max+1]."""
+    lib = load_native()
+    sp = np.ascontiguousarray(support, np.int32)
+    gs = params.grid_size
+    gw = -(-width // gs)
+    gh = -(-height // gs)
+    grid = np.zeros((gh, gw, params.disp_max + 1), np.uint8)
+    lib.build_grid(_ptr(sp, ctypes.c_int32), len(sp), width, height,
+                   int(right), gs, params.disp_max,
+                   _ptr(grid, ctypes.c_uint8))
+    return grid.astype(bool)
+
+
+def tri_wire_and_bin_native(
+    support: np.ndarray, tri: np.ndarray, W: int, H: int,
+    slab: int, ctile: int, right: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """device_prior.tri_wire + slab_select in one C++ pass
+    (native/wire_engine.cpp): (tri_sorted int16 [T, 3], paint int16 [T],
+    sel int16 [S*C, Ts], -1 padded)."""
+    lib = load_native()
+    T = len(tri)
+    S = -(-H // slab)
+    C = -(-W // ctile)
+    if T == 0:
+        return (np.zeros((0, 3), np.int16), np.zeros((0,), np.int16),
+                np.full((S * C, 1), -1, np.int16))
+    sp = np.ascontiguousarray(support, np.int16)
+    tr = np.ascontiguousarray(tri, np.int32)
+    tri_out = np.empty((T, 3), np.int16)
+    paint = np.empty((T,), np.int16)
+    cap = 48
+    while True:
+        sel = np.empty((S * C, cap), np.int16)
+        got = lib.tri_wire_and_bin(
+            _ptr(sp, ctypes.c_int16), len(sp), _ptr(tr, ctypes.c_int32), T,
+            W, H, slab, ctile, int(right), cap,
+            _ptr(tri_out, ctypes.c_int16), _ptr(paint, ctypes.c_int16),
+            _ptr(sel, ctypes.c_int16))
+        if got <= cap:
+            return tri_out, paint, sel[:, :max(got, 1)]
+        cap = got
+
+
+def fit_planes_native(support: np.ndarray, tri: np.ndarray) -> np.ndarray:
+    """Per-triangle plane fit [T, 6] float32 (t1a, t1b, t1c, t2a, t2b,
+    t2c) by the C++ full-pivot solve (prior_engine.cpp fit_planes)."""
+    lib = load_native()
+    sp = np.ascontiguousarray(support, np.int32)
+    tri = np.ascontiguousarray(tri, np.int32)
+    t = len(tri)
+    planes = np.zeros((max(t, 1), 6), np.float32)
+    if t:
+        lib.fit_planes(_ptr(sp, ctypes.c_int32), len(sp),
+                       _ptr(tri, ctypes.c_int32), t,
+                       _ptr(planes, ctypes.c_float))
+    return planes[:t]
 
 
 def build_priors_native(

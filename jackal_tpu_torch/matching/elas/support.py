@@ -149,7 +149,9 @@ def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
     in_v = (vs >= _GAP) & (vs <= H - _GAP - 1)                       # [nv]
     tex1 = (desc1[:, vs].to(torch.int32) - 128).abs().sum(-1)        # [B,nv,W]
     tex2 = (desc2[:, vs].to(torch.int32) - 128).abs().sum(-1)
-    thr = torch.tensor(params.support_threshold, dtype=torch.float32)
+    # filled on the device: a copy from the host would wait for the stream
+    thr = torch.full((), params.support_threshold, dtype=torch.float32,
+                     device=dev)
 
     def accept(k1, k2, tex, dmax_col, ok_col):
         cnt = torch.clamp(dmax_col - params.disp_min + 1, min=0)
@@ -159,7 +161,7 @@ def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
             & (cnt[None, None, :] >= 2)
             & (k1 < _KBIG)
             & ((k1 >> 9).to(torch.float32)
-               < thr.to(dev) * (k2 >> 9).to(torch.float32))
+               < thr * (k2 >> 9).to(torch.float32))
         )
         return torch.where(acc, k1 & 511, -1)
 

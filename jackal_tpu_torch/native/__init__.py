@@ -5,9 +5,9 @@ The library builds at first use with g++ into the package's _build/
 the float32 plane evaluation and raster tie-breaks equal to the reference.
 
 The library is built from the same three sources as the reference's.
-wire_engine.cpp (tri_wire_and_bin, flatten_chunk_wire) serves only the
-batched chunk-wire path, which the port does not have yet: nothing here
-binds or calls it until that path is ported.
+wire_engine.cpp (tri_wire_and_bin, flatten_chunk_wire) serves the batched
+path: the per-frame triangle wire with its slab binning, and one chunk's
+flat int32 wire (matching/elas/pipeline.py).
 """
 from __future__ import annotations
 
@@ -54,5 +54,13 @@ def load() -> ctypes.CDLL:
             c_f32p, i, i, ctypes.c_float, i]
         lib.delaunay_exact.argtypes = [c_f32p, i, c_i32p, i, i]
         lib.delaunay_exact.restype = i
+        lib.tri_wire_and_bin.argtypes = [
+            c_i16p, i, c_i32p, i, i, i, i, i, i, i,
+            c_i16p, c_i16p, c_i16p]
+        lib.tri_wire_and_bin.restype = i
+        c_i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.flatten_chunk_wire.argtypes = [
+            c_i64p, c_i32p, c_i64p, c_i64p, c_i32p, c_i64p, c_i32p,
+            i, i, i, i, i, c_i16p]
         _lib = lib
         return lib

@@ -20,7 +20,7 @@ import torch
 from ..build import PKG_DIR, Library, build
 
 CSRC = os.path.join(PKG_DIR, "csrc")
-KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel")
+KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,9 +1,11 @@
-"""The point_cloud node's per-frame path: rectify -> ELAS -> scan.
+"""The point_cloud node: rectify -> ELAS -> scan, per frame or per batch.
 
 Equivalent of point_cloud.cpp:431-471 + 213-296: one startup precompute
 (rectification maps and the valid-disparity cache, point_cloud.cpp:543-558)
-and a per-frame function. Rectification, ELAS's device stages and the scan
-run on ``device``; ELAS's host prior and speckle filter run in C++.
+and a per-frame function, process_frame, whose ELAS host prior and speckle
+filter run in C++. process_batch is the node's --batch > 1 step: the
+batched ELAS path (matching/elas/pipeline.elas_match_batch_device), which
+keeps only pruning and triangulation on the host.
 
 Per-stage wall-clock times mirror the -l/-d/-s hooks (point_cloud.cpp:
 446-462); with ``timing=True`` each stage ends in a device synchronize.
@@ -21,7 +23,7 @@ from ..config import ElasParams, GroundPlaneParams, PipelineParams, ScanParams
 from ..device import DeviceLike, resolve_device
 from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
 from ..geometry.remap import remap_bilinear
-from ..matching.elas.pipeline import elas_match
+from ..matching.elas.pipeline import elas_match, elas_match_batch_device
 from ..scan.obstacle import ScanResult, obstacle_scan_from_disparity
 from ..scan.valid_disp import cache_disparity_values
 
@@ -59,6 +61,7 @@ class StereoPipeline:
                 "gen_pcl waits for a later slice of the port "
                 "(ROADMAP Queue 1, item 4)")
         self.device = dev = resolve_device(device)
+        self.engine = engine
         self.calib = calib
         self.p = params
         self.elas_params = elas_params
@@ -89,12 +92,19 @@ class StereoPipeline:
             scan_params)).to(dev)
 
     def _rectify_crop(self, left_raw: torch.Tensor, right_raw: torch.Tensor):
+        """Rectify and crop uint8 [..., H, W] raw frames on the device."""
         p = self.p
         left = remap_bilinear(left_raw, *self.lmap)
         right = remap_bilinear(right_raw, *self.rmap)
-        sl = (slice(p.crop_offset_y, p.crop_offset_y + p.crop_im_height),
+        sl = (Ellipsis,
+              slice(p.crop_offset_y, p.crop_offset_y + p.crop_im_height),
               slice(p.crop_offset_x, p.crop_offset_x + p.crop_im_width))
         return left[sl], right[sl]
+
+    @staticmethod
+    def _dmap_u8(D1: torch.Tensor) -> torch.Tensor:
+        """The published mono8 disparity: round, clip to [0, 255]."""
+        return torch.clamp(torch.round(D1), 0, 255).to(torch.uint8)
 
     def _scan_stage(self, dmap_u8: torch.Tensor) -> ScanResult:
         return obstacle_scan_from_disparity(
@@ -117,10 +127,38 @@ class StereoPipeline:
                                          torch.as_tensor(right_raw).to(dev))
         t0 = self._sync(timing)
         D1, _ = elas_match(left, right, self.elas_params, device=dev)
-        dmap_t = torch.clamp(torch.round(D1), 0, 255).to(torch.uint8)
+        dmap_t = self._dmap_u8(D1)
         dmap = dmap_t.cpu().numpy()
         t1 = time.perf_counter()
         scan = self._scan_stage(dmap_t)
         t2 = self._sync(timing)
         return FrameResult(dmap=dmap, scan=scan, dmap_time=t1 - t0,
                            scan_time=t2 - t1, rect_time=t0 - tr)
+
+    def process_batch(self, left_raw_b, right_raw_b):
+        """Raw uint8 [B, H, W] stereo batches -> (u8 disparity maps
+        [B, h, w] and a ScanResult of [B, bins] / [B] tensors), both on the
+        device; each frame equal to process_frame's. ELAS runs batched in
+        chunks of the largest of 1, 2, 4, 8 that divides B."""
+        dev = self.device
+        left_b, right_b = self._rectify_crop(
+            torch.as_tensor(left_raw_b).to(dev),
+            torch.as_tensor(right_raw_b).to(dev))
+        B = left_b.shape[0]
+        chunk = max(c for c in (1, 2, 4, 8) if B % c == 0 and c <= B)
+        D1, _ = elas_match_batch_device(left_b, right_b, self.elas_params,
+                                        chunk=chunk, device=dev)
+        dmaps = self._dmap_u8(D1)
+        return dmaps, self._scan_stage(dmaps)
+
+    def process_batch_fused(self, left_raw_b, right_raw_b):
+        raise NotImplementedError(
+            "the fused batch step is the BM/SGM engines' and waits for "
+            "their slice of the port (ROADMAP Queue 1, items 2-3)")
+
+    def process_batch_pcl(self, left_raw_b, right_raw_b, color_bgr_b=None):
+        raise NotImplementedError(
+            "gen_pcl waits for a later slice of the port "
+            "(ROADMAP Queue 1, item 4)")
+
+    process_batch_fused_pcl = process_batch_pcl

@@ -31,29 +31,39 @@ class ScanResult:
     """LaserScan payload as tensors on the device (the host formats the
     message)."""
 
-    scan: torch.Tensor        # [bin_size] min range per bin, INF if empty
-    angle_min: torch.Tensor   # [] radians (400 / -400 if no point)
+    scan: torch.Tensor        # [..., bin_size] min range per bin, INF if empty
+    angle_min: torch.Tensor   # [...] radians (400 / -400 if no point)
     angle_max: torch.Tensor
     range_min: torch.Tensor
     range_max: torch.Tensor
 
 
 def _bin_and_reduce(Xr, Yr, accept, sp: ScanParams) -> ScanResult:
-    """Polar binning + per-bin minimum range over accepted points."""
+    """Polar binning + per-bin minimum range over accepted points of
+    [..., H, W] frames; a leading batch axis gives [B, bins] and [B]."""
     theta = torch.atan2(Yr, Xr)
     theta_deg = theta * (180.0 / REF_PI)
     r = torch.sqrt(Xr * Xr + Yr * Yr)
     k = torch.floor(sp.bin_size * (sp.fov_deg / 2.0 - theta_deg)
                     / sp.fov_deg).to(torch.int64)
     use = accept & (k >= 0) & (k < sp.bin_size)
-    scan = torch.full((sp.bin_size,), INF, dtype=r.dtype, device=r.device)
-    scan = scan.scatter_reduce(0, k[use], r[use], "amin")
+    batch = accept.shape[:-2]
+    nb = int(np.prod(batch, dtype=np.int64))
+    frame = torch.arange(nb, device=r.device).reshape(*batch, 1, 1)
+    slot = (frame * sp.bin_size + k).expand(accept.shape)
+    scan = torch.full((nb * sp.bin_size,), INF, dtype=r.dtype,
+                      device=r.device)
+    scan = scan.scatter_reduce(0, slot[use], r[use], "amin")
+
+    def over_frame(x, fill, fn):
+        return fn(torch.where(accept, x, fill).flatten(-2), dim=-1).values
+
     return ScanResult(
-        scan,
-        torch.where(accept, theta, 400.0).min(),
-        torch.where(accept, theta, -400.0).max(),
-        torch.where(accept, r, INF).min(),
-        torch.where(accept, r, -500.0).max())
+        scan.reshape(*batch, sp.bin_size),
+        over_frame(theta, 400.0, torch.min),
+        over_frame(theta, -400.0, torch.max),
+        over_frame(r, INF, torch.min),
+        over_frame(r, -500.0, torch.max))
 
 
 def obstacle_scan_from_disparity(
@@ -61,9 +71,10 @@ def obstacle_scan_from_disparity(
     XR: torch.Tensor, XT: torch.Tensor, sp: ScanParams = ScanParams(),
     crop_offset_x: int = 0, crop_offset_y: int = 0,
 ) -> ScanResult:
-    """Scan from a uint8 [H, W] disparity map with the valid-range cache
-    valid_disp [H, W, 2] uint8 (dmin, dmax): accept iff
-    dmin <= d <= dmax; no ground-plane re-check."""
+    """Scan from a uint8 [..., H, W] disparity map (one frame, or a batch
+    whose frames are scanned each as on its own) with the valid-range cache
+    valid_disp [H, W, 2] uint8 (dmin, dmax): accept iff dmin <= d <= dmax;
+    no ground-plane re-check."""
     d = dmap_u8.to(torch.int32)
     accept = ((d >= valid_disp[..., 0].to(torch.int32))
               & (d <= valid_disp[..., 1].to(torch.int32)))

@@ -95,3 +95,68 @@ def test_node_on_the_card_equals_cpu(dev):
     np.testing.assert_allclose(a.scan.scan.cpu().numpy(),
                                b.scan.scan.numpy(), rtol=1e-5)
     assert dataclasses.is_dataclass(a.scan)
+
+
+@pytest.mark.parametrize("CH,T,W,H,Ts", [
+    (2, 40, 150, 37, 16), (1, 25, 333, 70, 200), (3, 300, 640, 480, 48)])
+def test_raster_kernel_equals_plain(dev, CH, T, W, H, Ts):
+    from chip_smoke import raster_overflow_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    # random triangles and three whose planes overflow int32, listed first
+    # in every third tile
+    table, sel = raster_overflow_case(np.random.default_rng(W), CH, T, W, H,
+                                      Ts)
+    n0 = dp.launches
+    got = dp.raster(table.to(dev), sel.to(dev), T, W, H)
+    assert dp.launches == n0 + 1
+    want = dp.raster_plain(table, sel, T, W, H)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(dp.raster_plain(table.to(dev), sel.to(dev), T, W, H),
+                       got)
+    dpl = dp.decode_win(got)[0].cpu()
+    C = -(-W // dp._RASTER_CTILE)
+    v, u = np.mgrid[0:H, 0:W]
+    tile = (v // dp._RASTER_SLAB) * C + u // dp._RASTER_CTILE
+    want_dp = np.array([511, -512, 0])[tile % 3]
+    np.testing.assert_array_equal(dpl[..., 1:].numpy(),
+                                  np.broadcast_to(want_dp[:, 1:],
+                                                  (CH, H, W - 1)))
+
+
+def test_fit_and_slopes_on_the_card_equal_native(dev):
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas.device_fit import fit_planes_device
+    from jackal_tpu_torch.matching.elas.native_prior import fit_planes_native
+
+    rng = np.random.default_rng(3)
+    n = 600
+    sp = np.stack([rng.integers(0, 640, n), rng.integers(0, 480, n),
+                   rng.integers(0, 256, n)], -1).astype(np.int32)
+    tri = rng.integers(0, n, (6000, 3)).astype(np.int32)
+    got = fit_planes_device(sp, tri, device=dev).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  fit_planes_native(sp, tri).view(np.int32))
+    flags = torch.from_numpy(rng.random(len(tri)) < 0.5)
+    cpu = dp._tri_coeffs_impl(torch.from_numpy(sp), torch.from_numpy(tri),
+                              flags)
+    card = dp._tri_coeffs_impl(torch.from_numpy(sp).to(dev),
+                               torch.from_numpy(tri).to(dev), flags.to(dev))
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_batch_on_the_card_equals_per_frame(dev):
+    from jackal_tpu_torch.matching.elas.pipeline import (
+        elas_match, elas_match_batch_device)
+
+    g = np.load(f"{FIX}/elas_golden_s320_boxes.npz")
+    lb = np.stack([g["left"], g["left"][:, ::-1], np.full_like(g["left"], 9)])
+    rb = np.stack([g["right"], g["right"][:, ::-1],
+                   np.full_like(g["right"], 9)])
+    lb, rb = np.ascontiguousarray(lb), np.ascontiguousarray(rb)
+    D1, D2 = elas_match_batch_device(lb, rb, chunk=3, device=dev)
+    for b in range(3):
+        s1, s2 = elas_match(lb[b], rb[b], device=dev)
+        assert torch.equal(D1[b], s1) and torch.equal(D2[b], s2)
+    assert torch.equal(D1[0].cpu(), torch.from_numpy(g["D1"]))

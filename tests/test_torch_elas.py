@@ -4,9 +4,22 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from jackal_tpu_torch.config import ElasParams
 from jackal_tpu_torch.matching.elas.pipeline import elas_match
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these many small CPU ops: when test workers
+    share the cores, torch's thread pool spends its time waiting on itself
+    (a file ran over 20x slower on 4 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIX = "tests/fixtures"
 GOLDENS = sorted(os.path.basename(p)[len("elas_golden_"):-len(".npz")]

@@ -37,6 +37,13 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 20, names
 assert not bad, bad
+batched = {"jackal_tpu_torch.matching.elas.device_prior",
+           "jackal_tpu_torch.matching.elas.device_fit",
+           "jackal_tpu_torch.ops.convert", "jackal_tpu_torch.ops.transfer",
+           "jackal_tpu_torch.io_bus.bus", "jackal_tpu_torch.io_bus.messages",
+           "jackal_tpu_torch.io_bus.timelog",
+           "jackal_tpu_torch.pipeline.runner"}
+assert batched <= set(names), batched - set(names)
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -74,6 +81,19 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
     D1, D2 = elas_match(img, img, ElasParams(), device="cpu")
     assert D1.device.type == "cpu" and (D1 == -10).all()
 
+    from jackal_tpu_torch.matching.elas.device_fit import fit_planes_device
+    from jackal_tpu_torch.matching.elas.pipeline import (
+        elas_match_batch_device, elas_match_stream)
+    batch = np.zeros((2, 40, 64), np.uint8)
+    for call in (lambda: elas_match_batch_device(batch, batch),
+                 lambda: next(elas_match_stream(iter([(batch, batch)]))),
+                 lambda: fit_planes_device(np.zeros((3, 3), np.int32),
+                                           np.zeros((1, 3), np.int32))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    B1, _ = elas_match_batch_device(batch, batch, device="cpu")
+    assert B1.device.type == "cpu" and (B1 == -10).all()
+
 
 def test_later_slices_raise_not_implemented():
     import dataclasses
@@ -94,3 +114,7 @@ def test_later_slices_raise_not_implemented():
         elas_match(img, img, dataclasses.replace(ElasParams(),
                                                  subsampling=True),
                    device="cpu")
+    pipe = make_pipeline(engine="elas", device="cpu")
+    for call in (pipe.process_batch_fused, pipe.process_batch_pcl):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(img[None], img[None])

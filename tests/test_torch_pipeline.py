@@ -29,6 +29,18 @@ from jackal_tpu_torch.pipeline.frame_pipeline import StereoPipeline
 from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
 from jackal_tpu_torch.scan.obstacle import format_laser_scan_ranges
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these many small CPU ops: when test workers
+    share the cores, torch's thread pool spends its time waiting on itself
+    (a file ran over 20x slower on 4 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SCAN_RTOL = 1e-5
 
 

@@ -13,6 +13,18 @@ from jackal_tpu_torch.matching.elas import post
 from jackal_tpu_torch.matching.elas.native_prior import (
     remove_small_segments_native)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these many small CPU ops: when test workers
+    share the cores, torch's thread pool spends its time waiting on itself
+    (a file ran over 20x slower on 4 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIX = "tests/fixtures"
 
 
