@@ -25,19 +25,39 @@ Phases (any failure exits non-zero and prints no success line):
      seeded raw 640x360 pairs of a known scene (pipeline/synthetic.py),
      with the launch counters reset just before and read just after;
      per-stage medians, fps, the device's busy time under torch.profiler,
-     a per-stage breakdown of one frame, and the kernels' and plain
-     versions' device time per call under torch.profiler;
+     a per-stage breakdown of one frame;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after; fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
      one batch;
   5. the roofline bound of each kernel from this run's inputs; the peak
-     rate of its byte SADs is measured on the card (csrc/sad_rate.cu),
-     and cuobjdump shows the instructions __vsadu4 became and that the
-     raster kernel has no FFMA; (e) the raster kernel's device time, its
-     plain version's and its bound from this run's live tile slots;
-  6. a "kernels" JSON line, the card line, and the final JSON line.
+     rate of its byte SADs is measured on the card (csrc/sad_rate.cu, the
+     median of 7 windows, refused above the card's cap), and cuobjdump
+     shows the instructions __vsadu4 became and that the raster kernel has
+     no FFMA; (e) the raster kernel's device time, its plain version's and
+     its bound from this run's live tile slots;
+  6. SGM: (a) kernels D (census), E (paths) and F (WTA maps) against their
+     plain versions (torch.equal) on the golden pair at 640x480, D = 64,
+     and on seeded awkward shapes, 4 paths and true_right; (b)
+     sgm_match_batch on the card against the CPU's plain path on both
+     golden scenes at D = 64 and 128, with the pooled RMSE and mask
+     agreement against libelas; (c) the SGM node, make_pipeline() at
+     640x480: process_frame on 9 synthetic pairs, stage medians, fps, idle
+     share; process_batch_fused at batch 4 against process_frame;
+     StreamingRunner at batch 4 over 48 frames; the SGM stages of one
+     frame; (d) BASELINE config 3, process_batch_fused at 1280x960, D = 64,
+     B = 4; each of these four paths with the launch counters of D, E and
+     F set to 0 just before and read just after; (e) each kernel against
+     its plain version (torch.equal), its device time, its plain version's
+     and its bound at the node's shape and at config 3's;
+  7. a "kernels" JSON line, the card line, and the final JSON line.
+
+A kernel's time a call ("ms") is CUDA events around calls queued behind a
+spin kernel (events_ms); torch.profiler only splits it by kernel, since it
+leaves some launches of these kernels unrecorded. A plain version's time
+is CUDA events around its calls, host gaps included. Integer operations
+are bounded at 64 a clock an SM (int_ops_rate), float ones at 67e12 /s.
 """
 from __future__ import annotations
 
@@ -55,10 +75,14 @@ GOLDEN = ("elas_golden_s640_boxes", "elas_golden_photo")
 # published H100 SXM HBM rate (NVIDIA data sheet); the rate of the
 # kernels' operations (byte SADs) is measured in phase 5
 PEAK_BYTES_PER_S = 3.35e12
-# float32 and integer operations outside the tensor cores (the same sheet);
-# the raster's operations are of that kind
+# float32 operations outside the tensor cores (the same sheet); the
+# raster's operations are of that kind. The SGM kernels' 32-bit integer
+# operations run at int_ops_rate().
 PEAK_F32_OPS_PER_S = 67e12
 DEVICE = "cuda:0"
+# BASELINE config 3 of the reference package (bench.py bench_sgm): SGM at
+# 1280x960, D = 64, batch 4
+CONFIG3 = (4, 960, 1280)
 
 
 def card_line() -> str:
@@ -91,13 +115,14 @@ def _union_ms(spans) -> float:
 
 
 def device_busy(fn, name: str = "", host_ops: bool = True):
-    """(wall ms, device-busy ms, ms of the kernels named ``name``) of fn()
-    under torch.profiler: the union of the intervals in which a CUDA kernel
-    or copy ran, and of those whose name contains ``name`` (None when no
-    name is given). host_ops=False traces the card alone, which keeps the
-    profiler's own host cost out of a multi-threaded run's wall time.
-    Raises if the profiler recorded no device activity, or none in a
-    kernel of that name: there is no other yardstick."""
+    """(wall ms, device-busy ms, ms of the kernels named ``name``, their
+    launches' device times in ms) of fn() under torch.profiler: the union
+    of the intervals in which a CUDA kernel or copy ran, and of those whose
+    name contains ``name`` (None and [] when no name is given).
+    host_ops=False traces the card alone, which keeps the profiler's own
+    host cost out of a multi-threaded run's wall time. Raises if the
+    profiler recorded no device activity, or none in a kernel of that
+    name: there is no other yardstick."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -119,24 +144,81 @@ def device_busy(fn, name: str = "", host_ops: bool = True):
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     return (wall, _union_ms(spans), _union_ms(
         (e.time_range.start, e.time_range.end) for e in named)
-        if name else None)
+        if name else None,
+        [(e.time_range.end - e.time_range.start) / 1e3 for e in named])
 
 
-def device_ms(fn, reps: int, name: str = ""):
-    """(ms, kernel ms): device time per call of fn() after two warm-up
-    calls, the busy time under torch.profiler over reps calls divided by
-    reps, so host gaps between launches do not count; kernel ms is the part
-    spent in the kernels named ``name`` (None when no name is given)."""
+def launch_ms(fn, reps: int, name: str):
+    """(ms, launches recorded): the mean device time of the launches of
+    the kernels named ``name`` that torch.profiler recorded over reps calls
+    of fn() after two warm-ups, the split of a call's time by kernel. The
+    profiler leaves some launches of these kernels unrecorded (PERF.md,
+    Findings), so a call's time comes from events_ms instead."""
     for _ in range(2):
         fn()
-    _, busy, named = device_busy(lambda: [fn() for _ in range(reps)], name)
-    return busy / reps, (named / reps if name else None)
+    *_, times = device_busy(lambda: [fn() for _ in range(reps)], name)
+    return statistics.mean(times), len(times)
 
 
-def sad_rate(dev) -> float:
-    """Byte SADs per second that __vsadu4 sustains on the card, from the
-    microbenchmark csrc/sad_rate.cu: 8 resident blocks of 256 threads on
-    every SM, device time under torch.profiler."""
+def events_ms(fn, reps: int, spin: bool = True) -> float:
+    """Device ms a call of fn(): CUDA events around reps calls after two
+    warm-ups. With ``spin`` the calls are queued behind a spin kernel of
+    about 50 ms, so the card runs them back to back whatever the host's
+    pace; raises if the host took longer to queue them than the spin
+    lasted (then the card may have waited on it). Without it the time
+    includes the host's gaps between launches: what a caller of a
+    host-bound function (a plain version) waits."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    if spin:
+        torch.cuda._sleep(100_000_000)       # ~50 ms at 1980 MHz
+    ev[1].record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ev[2].record()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    spun = ev[0].elapsed_time(ev[1])
+    if spin and host_ms >= spun:
+        raise RuntimeError(f"events_ms: the host took {host_ms:.3f} ms to "
+                           f"queue the calls, the spin lasted {spun:.3f} ms")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def max_sm_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout)
+
+
+def int_ops_rate(dev) -> float:
+    """32-bit integer operations (add, min, compare, logic, shift) a
+    second: 64 a clock an SM on compute capability 9.0 (CUDA C++
+    Programming Guide, arithmetic instruction throughput), at the maximum
+    SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 64 * max_sm_hz()
+
+
+def sad_rate(dev):
+    """(rate, cap): byte SADs per second that __vsadu4 sustains on the
+    card, from the microbenchmark csrc/sad_rate.cu (8 resident blocks of
+    256 threads on every SM), and the most the card could do: one 64-lane
+    __vsadu4 unit an SM (256 byte SADs a clock) at the maximum SM clock.
+    The rate is the median of 7 windows of 3 launches, each timed by
+    events_ms (torch.profiler both misses launches of this kernel and has
+    been seen to record one at half its time). Raises when
+    the median is above the cap, which no card can reach."""
     import ctypes
 
     import torch
@@ -145,17 +227,29 @@ def sad_rate(dev) -> float:
     lib = cuda_lib.load("sad_rate")
     lib.sad_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
         ctypes.c_uint32, ctypes.c_void_p]
-    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
-    threads, iters = 256, 16384
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = 8 * sms
+    threads, iters, reps = 256, 16384, 3
     out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
 
     def run():
         cuda_lib.check(lib.sad_rate(out.data_ptr(), blocks, threads, iters,
                                     12345, cuda_lib.stream_ptr(out)),
                        "sad_rate")
-    _, ms = device_ms(run, 5, "sad_rate_kernel")
     sads = blocks * threads * iters * lib.sad_rate_chains() * 4
-    return sads / (ms * 1e-3)
+    windows = [sads / (events_ms(run, reps) * 1e-3) for _ in range(7)]
+    mhz = max_sm_hz() / 1e6
+    cap = sms * mhz * 1e6 * 64 * 4
+    rate = statistics.median(windows)
+    print(f"byte SAD rate windows (csrc/sad_rate.cu, {reps} launches each, "
+          f"CUDA events): " + ", ".join(f"{w:.6g}" for w in windows))
+    print(f"byte SAD rate, median: {rate:.6g} /s = {rate / 4 / (sms * mhz * 1e6):.2f}"
+          f" __vsadu4 a clock per SM at the {mhz:.0f} MHz max SM clock, "
+          f"{sms} SMs; cap (64 a clock per SM) {cap:.6g} /s")
+    if rate > cap:
+        raise AssertionError(f"byte SAD rate {rate:.6g} /s is above the "
+                             f"card's cap {cap:.6g} /s: a faulty reading")
+    return rate, cap
 
 
 def sass_opcodes(path: str, top=8, prefix: str = "") -> str:
@@ -352,6 +446,292 @@ def bound_ms(nbytes, ops, ops_per_s):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def sgm_work(kernel, B, H, W, D, num_paths=8):
+    """(bytes, 32-bit integer operations) the SGM kernel ``kernel`` must do
+    on [B, H, W] frames at D disparities. census (2B images): one byte read
+    and an int32 code written a pixel; 24 compares and 24 bit inserts.
+    sgm_paths: the int16 cost read and the int16 sum written once a cell;
+    11 operations a cell a path (csrc/sgm_paths_kernel.cu). sgm_wta: the
+    sum read once, ten int16 maps written; a compare and a select a value
+    in each of two walks over d, both views."""
+    px = B * H * W
+    if kernel == "census":
+        return 2 * px * (1 + 4), 2 * px * 48
+    if kernel == "sgm_paths":
+        return 4 * px * D, 11 * num_paths * px * D
+    return 2 * px * D + 20 * px, 8 * px * D
+
+
+def sgm_phase(dev, hold):
+    """Phase 6: kernels D, E, F against their plain versions, the card's
+    SGM against the CPU's on the golden scenes, the SGM node, BASELINE
+    config 3 and the kernels' times. Returns the kernels' JSON entries."""
+    import dataclasses
+
+    import torch
+    from jackal_tpu_torch.config import PipelineParams, SGMParams
+    from jackal_tpu_torch.io_bus.bus import TopicBus
+    from jackal_tpu_torch.matching import sgm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.runner import (TOPIC_DEPTH,
+                                                  StreamingRunner)
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    gold = [np.load(f"{FIX}/{f}.npz") for f in GOLDEN]
+    gl = torch.from_numpy(np.stack([g["left"] for g in gold])).to(dev)
+    gr = torch.from_numpy(np.stack([g["right"] for g in gold])).to(dev)
+
+    # (a) D, E, F == their plain versions on the card, bit for bit
+    def hold_sgm(name, left, right, p):
+        B = left.shape[0]
+        imgs = torch.cat([left, right])
+        codes = sk.census5x5_batch(imgs)
+        hold("census", f"census {name}", [codes],
+             [sk.census5x5_batch_plain(imgs)])
+        cost = sgm.census_cost_volume_hdw(codes[:B], codes[B:], p.disp_num)
+        costs = [cost] + ([sgm.shift_by_d(cost, -2)] if p.true_right else [])
+        for c in costs:
+            S = sk.aggregate_paths_bhdw(c, p)
+            hold("sgm_paths", f"paths {name}", [S],
+                 [sk.aggregate_paths_bhdw_plain(c, p)])
+            hold("sgm_wta", f"wta {name}", [sk.sgm_wta_maps(S)],
+                 [sk.sgm_wta_maps_plain(S)])
+
+    hold_sgm("golden 640x480 D=64", gl, gr, SGMParams())
+    rng = np.random.default_rng(6)
+    for B, H, W, D, kw in ((2, 23, 150, 24, {}), (1, 41, 333, 48, {}),
+                           (1, 97, 200, 48, {"num_paths": 4}),
+                           (2, 31, 130, 24, {"true_right": True})):
+        left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+        right = np.roll(left, 6, axis=2)
+        p = dataclasses.replace(SGMParams(disp_num=D), **kw)
+        hold_sgm(f"seeded B={B} {H}x{W} D={D} {kw}",
+                 torch.from_numpy(left).to(dev),
+                 torch.from_numpy(right).to(dev), p)
+    torch.cuda.synchronize()
+    print("6a. SGM kernels == plain (torch.equal): census, paths, WTA maps "
+          "on the golden pair at 640x480 D=64 and on seeded frames (odd H, "
+          "W % 32 != 0, D 24 and 48, 4 paths, true_right)")
+
+    # (b) the card's sgm_match_batch == the CPU's plain path; accuracy
+    for D in (64, 128):
+        p = SGMParams(disp_num=D)
+        card = sgm.sgm_match_batch(gl, gr, p, device=dev)
+        cpu = sgm.sgm_match_batch(gl.cpu(), gr.cpu(), p, device="cpu")
+        for nm, a, b in zip(("D_left", "D_right"), card, cpu):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"SGM D={D} {nm}: card != CPU in "
+                                     f"{int((a.cpu() != b).sum())} pixels")
+        se, n, agree, tot = 0.0, 0, 0.0, 0
+        for b, g in enumerate(gold):
+            Dl, ref = card[0][b].cpu().numpy(), g["D1"]
+            both = (Dl >= 0) & (ref >= 0)
+            se += float(((Dl[both] - ref[both]) ** 2).sum())
+            n += int(both.sum())
+            agree += float(((Dl >= 0) == (ref >= 0)).sum())
+            tot += ref.size
+        print(f"6b. sgm_match_batch on the card == the CPU's plain path "
+              f"(D_left, D_right) on {', '.join(GOLDEN)} at D={D}; against "
+              f"libelas D1, pooled: RMSE {np.sqrt(se / max(n, 1)):.6f} px, "
+              f"mask agreement {agree / tot:.6f}")
+
+    # (c) the SGM node: make_pipeline() at 640x480, D = 64
+    pipe = make_pipeline(params=PipelineParams(
+        im_width=640, im_height=480, crop_im_width=640, crop_im_height=480),
+        device=dev)
+    pairs = [synthetic_raw_pair(pipe, s, 8.0 + 5 * s, 0.03 * (s % 3))
+             for s in range(9)]
+    def counted(label, fn):
+        """fn() with the counters of D, E and F set to 0 just before and
+        read just after: (its result, the counts); raises if a kernel was
+        launched no time."""
+        for k in sk.launches:
+            sk.launches[k] = 0
+        out = fn()
+        n = dict(sk.launches)
+        print(f"6c. launches of {label}: {n}")
+        if min(n.values()) == 0:
+            raise AssertionError(f"{label} bypassed a kernel: {n}")
+        return out, n
+
+    pipe.process_frame(*pairs[0])                       # warm-up
+    results, walls = [], []
+
+    def frames():
+        for lr, rr in pairs:
+            t = time.perf_counter()
+            results.append(pipe.process_frame(lr, rr, timing=True))
+            walls.append(time.perf_counter() - t)
+    _, launches = counted(f"the SGM node, process_frame over {len(pairs)} "
+                          f"frames", frames)
+    for fr in results:
+        sc = fr.scan.scan
+        if fr.dmap.shape != (480, 640) or fr.dmap.dtype != np.uint8 \
+                or sc.shape != (90,) or not bool(torch.isfinite(sc).all()):
+            raise AssertionError("SGM node output has the wrong shape/type")
+    valid = float(np.mean([(fr.dmap > 0).mean() for fr in results]))
+    filled = float(np.mean([(fr.scan.scan < 1e9 - 1).sum().item()
+                            for fr in results]))
+    if valid < 0.3 or filled < 10:
+        raise AssertionError(f"SGM node output implausible: {valid} valid,"
+                             f" {filled} bins filled")
+    med = {k: statistics.median(getattr(fr, k) for fr in results) * 1e3
+           for k in ("rect_time", "dmap_time", "scan_time")}
+    wall = statistics.median(walls) * 1e3
+    print(f"SGM node 640x480 D=64 (median of {len(pairs)} frames after 1 "
+          f"warm-up): rectify {med['rect_time']:.3f} ms, dmap "
+          f"{med['dmap_time']:.3f} ms, scan {med['scan_time']:.3f} ms, frame "
+          f"{wall:.3f} ms = {1e3 / wall:.2f} fps; dmap valid {valid:.3f}, "
+          f"scan bins filled {filled:.1f}")
+    wall_p, busy, *_ = device_busy(
+        lambda: [pipe.process_frame(lr, rr) for lr, rr in pairs[:3]])
+    print(f"SGM node device busy over 3 frames under torch.profiler: "
+          f"{busy:.3f} ms of {wall_p:.3f} ms wall, idle share "
+          f"{1 - busy / wall_p:.3f}")
+    lb = np.stack([p[0] for p in pairs[:4]])
+    rb = np.stack([p[1] for p in pairs[:4]])
+    (dm4, sc4), _ = counted("process_batch_fused at batch 4",
+                            lambda: pipe.process_batch_fused(lb, rb))
+    for b in range(4):
+        if not (np.array_equal(dm4[b].cpu().numpy(), results[b].dmap)
+                and torch.equal(sc4.scan[b], results[b].scan.scan)):
+            raise AssertionError(f"process_batch_fused frame {b} != "
+                                 f"process_frame")
+    print("process_batch_fused at batch 4 == process_frame, frame by frame")
+    n_frames, batch = 48, 4
+    stream = [pairs[i % len(pairs)] for i in range(n_frames)]
+    bus = TopicBus()
+    depth = []
+    bus.subscribe(TOPIC_DEPTH, depth.append)
+    runner = StreamingRunner(pipe, bus, batch_size=batch,
+                             stage_sample_every=4)
+    runner.run(iter(stream[:2 * batch]))                # warm-up
+    depth.clear()
+
+    def timed_stream():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = runner.run(iter(stream))
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t
+    (done, stream_s), _ = counted(f"StreamingRunner at batch {batch} over "
+                                  f"{n_frames} frames", timed_stream)
+    if done != n_frames or len(depth) != n_frames or not all(
+            np.array_equal(m.data, results[i % len(pairs)].dmap)
+            for i, m in enumerate(depth)):
+        raise AssertionError("SGM StreamingRunner did not publish "
+                             "process_frame's maps")
+    wall_s, busy_s, *_ = device_busy(lambda: runner.run(iter(stream)),
+                                    host_ops=False)
+    print(f"SGM StreamingRunner batch {batch}, 640x480: {done} frames in "
+          f"{stream_s * 1e3:.3f} ms = {done / stream_s:.2f} fps, each "
+          f"depth map == process_frame's; card alone under torch.profiler: "
+          f"busy {busy_s:.3f} ms of {wall_s:.3f} ms wall, idle share "
+          f"{1 - busy_s / wall_s:.3f}")
+
+    # the SGM stages of one frame, each alone
+    p = pipe.sgm_params
+    D = p.disp_num
+    lt, rt = pipe._rectify_crop(torch.from_numpy(lb[:1]).to(dev),
+                                torch.from_numpy(rb[:1]).to(dev))
+    st = {}
+    imgs = torch.cat([lt, rt])
+    st["rectify"] = host_ms(lambda: pipe._rectify_crop(
+        torch.from_numpy(lb[:1]).to(dev), torch.from_numpy(rb[:1]).to(dev)),
+        5)
+    st["census (kernel D)"] = host_ms(lambda: sk.census5x5_batch(imgs), 5)
+    codes = sk.census5x5_batch(imgs)
+    st["cost volume (plain torch)"] = host_ms(
+        lambda: sgm.census_cost_volume_hdw(codes[:1], codes[1:], D), 5)
+    cost = sgm.census_cost_volume_hdw(codes[:1], codes[1:], D)
+    st["aggregation (kernel E + 2 transposes)"] = host_ms(
+        lambda: sk.aggregate_paths_bhdw(cost, p), 5)
+    S = sk.aggregate_paths_bhdw(cost, p)
+    st["WTA maps (kernel F)"] = host_ms(lambda: sk.sgm_wta_maps(S), 5)
+    m = sk.sgm_wta_maps(S).to(torch.int32)
+
+    def epilogue():
+        dL = sgm._wta_from_maps(*m[:, :, 0:5].unbind(2), D, p)
+        dR = sgm._wta_from_maps(*m[:, :, 5:10].unbind(2), D, p)
+        return pipe._dmap_u8(sgm._lr_tail(dL, dR, D, p)[0])
+    st["epilogue (uniqueness, sub-pixel, L/R, u8)"] = host_ms(epilogue, 5)
+    dm = epilogue()
+    st["scan"] = host_ms(lambda: pipe._scan_stage(dm), 5)
+    for k, v in st.items():
+        print(f"  SGM stage {k}: {v:.3f} ms")
+    print("SGM stages: " + json.dumps({k: round(v, 4) for k, v in st.items()}))
+
+    # (d) BASELINE config 3: process_batch_fused at 1280x960, D = 64, B = 4
+    B3, H3, W3 = CONFIG3
+    big = make_pipeline(params=PipelineParams(
+        calib_im_size=(640, 360), im_width=W3, im_height=H3,
+        crop_im_width=W3, crop_im_height=H3), device=dev)
+    rng3 = np.random.default_rng(0)
+    l3, r3 = ((torch.from_numpy((rng3.random(CONFIG3) * 255)
+                                .astype(np.uint8)).to(dev)) for _ in range(2))
+    counted(f"BASELINE config 3, process_batch_fused at {W3}x{H3}, B={B3}",
+            lambda: big.process_batch_fused(l3, r3))
+    ms3 = host_ms(lambda: big.process_batch_fused(l3, r3), 5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    big.process_batch_fused(l3, r3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"6d. BASELINE config 3 (process_batch_fused {W3}x{H3}, D={D}, "
+          f"B={B3}): {ms3:.3f} ms a batch = {B3 * 1e3 / ms3:.2f} fps; peak "
+          f"device memory {peak:.2f} GiB")
+
+    # (e) each kernel against its plain version, its device time, the plain
+    # version's and its bound, at the node's shape and at config 3's
+    ops_rate = int_ops_rate(dev)
+    print(f"32-bit integer operations: {ops_rate:.6g} /s (64 a clock an SM "
+          f"at the maximum SM clock)")
+    out = {}
+    for label, (Bs, Hs, Ws) in (("node", (1, 480, 640)),
+                                ("config 3", CONFIG3)):
+        if label == "node":
+            li, ri = lt, rt
+        else:
+            li, ri = big._rectify_crop(l3, r3)
+        im = torch.cat([li, ri])
+        cd = sk.census5x5_batch(im)
+        cv = sgm.census_cost_volume_hdw(cd[:Bs], cd[Bs:], D)
+        Sv = sk.aggregate_paths_bhdw(cv, p)
+        reps_plain = 3 if label == "node" else 1
+        for kname, fn, plain, kern in (
+                ("census", lambda: sk.census5x5_batch(im),
+                 lambda: sk.census5x5_batch_plain(im), "census5x5_kernel"),
+                ("sgm_paths", lambda: sk.aggregate_paths_bhdw(cv, p),
+                 lambda: sk.aggregate_paths_bhdw_plain(cv, p),
+                 "sgm_dir_kernel"),
+                ("sgm_wta", lambda: sk.sgm_wta_maps(Sv),
+                 lambda: sk.sgm_wta_maps_plain(Sv), "sgm_wta_maps_kernel")):
+            hold(kname, f"{kname} at {label} shape", [fn()], [plain()])
+            per_call = (8 if p.num_paths >= 8 else 4) \
+                if kname == "sgm_paths" else 1
+            k_ms = events_ms(fn, 20)
+            l_ms, seen = launch_ms(fn, 20, kern)
+            p_ms = events_ms(plain, reps_plain, spin=False)
+            nb, ops = sgm_work(kname, Bs, Hs, Ws, D)
+            b_ms, by = bound_ms(nb, ops, ops_rate)
+            print(f"6e. {kname} at {label} shape (B={Bs}, {Hs}x{Ws}, D={D}):"
+                  f" == plain (torch.equal); device ms a call {k_ms:.4f} "
+                  f"(CUDA events, calls queued behind a spin); its "
+                  f"{per_call} kernel launches {l_ms * per_call:.4f} (mean "
+                  f"of the {seen} of {20 * per_call} launches torch.profiler"
+                  f" recorded); plain {p_ms:.3f}; bound {b_ms:.5f} by {by} "
+                  f"({nb} bytes, {ops} operations)")
+            if label == "node":
+                out[kname] = (k_ms, p_ms, b_ms, by)
+    srcs = {"census": ("census_kernel", 327), "sgm_paths":
+            ("sgm_paths_kernel", 64), "sgm_wta": ("sgm_wta_kernel", 415)}
+    return [{"name": k, "route": "cuda",
+             "source": f"jackal_tpu_torch/csrc/{srcs[k][0]}.cu",
+             "replaces": f"jackal_tpu/ops/pallas/sgm_kernel.py:{srcs[k][1]}",
+             "launches": launches[k], "ms": out[k][0], "plain_ms": out[k][1],
+             "bound_ms": out[k][2], "bound_by": out[k][3],
+             "library_ms": None} for k in ("census", "sgm_paths", "sgm_wta")]
+
+
 def main() -> int:
     import torch
 
@@ -405,7 +785,8 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions ------------------------
-    max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0}
+    max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0,
+               "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -622,7 +1003,7 @@ def main() -> int:
           f" scan {med['scan_time']:.3f} ms, frame {wall:.3f} ms = "
           f"{1e3 / wall:.2f} fps; dmap valid {valid_frac:.3f}, "
           f"scan bins filled {filled:.1f}")
-    wall_p, busy, _ = device_busy(
+    wall_p, busy, *_ = device_busy(
         lambda: [pipe.process_frame(lr, rr) for lr, rr in pairs[1:4]])
     print(f"node device busy over 3 frames under torch.profiler: "
           f"{busy:.3f} ms of {wall_p:.3f} ms wall, "
@@ -733,9 +1114,9 @@ def main() -> int:
     print(f"process_batch, the same {n_frames} frames one batch after "
           f"another: {pb_s * 1e3:.3f} ms = {n_frames / pb_s:.2f} fps")
     for host_ops in (True, False):
-        wall_s, busy_s, _ = device_busy(lambda: runner.run(iter(stream)),
+        wall_s, busy_s, *_ = device_busy(lambda: runner.run(iter(stream)),
                                         host_ops=host_ops)
-        wall_b, busy_b, _ = device_busy(batches, host_ops=host_ops)
+        wall_b, busy_b, *_ = device_busy(batches, host_ops=host_ops)
         print(f"device busy under torch.profiler ("
               f"{'host ops and card' if host_ops else 'card alone'}) over "
               f"{n_frames} frames: stream {busy_s:.3f} ms of {wall_s:.3f} ms"
@@ -786,14 +1167,7 @@ def main() -> int:
           + json.dumps({k: round(v, 4) for k, v in sb.items()}))
 
     # ---- 5. the kernels' roofline bounds --------------------------------
-    rate = sad_rate(dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, check=True).stdout)
-    print(f"byte SAD rate (csrc/sad_rate.cu, measured): {rate:.6g} /s = "
-          f"{rate / 4 / (sms * mhz * 1e6):.2f} __vsadu4 a clock per SM at "
-          f"the {mhz:.0f} MHz max SM clock, {sms} SMs")
+    rate, _ = sad_rate(dev)
     for name in cuda_lib.KERNEL_SOURCES + ("sad_rate",):
         print(f"  sass {name}: "
               f"{sass_opcodes(cuda_lib.library(name).path)}")
@@ -816,30 +1190,36 @@ def main() -> int:
     def den():
         return dense_mod.dense_match(d1, d2, *v1, params, False)
 
-    kA, kA_only = device_ms(sup, 50, "support_keys_kernel")
-    pA, _ = device_ms(
-        lambda: support_mod.support_keys_plain(Q, T, 0, D), 3)
+    kA, kB = events_ms(sup, 50), events_ms(den, 50)
+    lA, seenA = launch_ms(sup, 50, "support_keys_kernel")
+    lB, seenB = launch_ms(den, 50, "elas_dense_kernel")
+    pA = events_ms(lambda: support_mod.support_keys_plain(Q, T, 0, D), 3,
+                   spin=False)
     nbB, count = dense_work(d1, d2, *v1, params, False)
     bB, byB = bound_ms(nbB, int(count.sum()) * 16, rate)
-    kB, kB_only = device_ms(den, 50, "elas_dense_kernel")
-    pB, _ = device_ms(lambda: dense_mod.dense_match_plain(
-        d1, d2, *v1, params, False), 3)
-    print(f"device ms a call under torch.profiler: support {kA:.4f} "
-          f"(kernel alone {kA_only:.4f}; plain {pA:.3f}; bound {bA:.5f} by "
-          f"{byA}: {nb} bytes, {sads} byte SADs); dense, left view "
-          f"{kB:.4f} (kernel alone {kB_only:.4f}; plain {pB:.3f}; bound "
+    pB = events_ms(lambda: dense_mod.dense_match_plain(
+        d1, d2, *v1, params, False), 3, spin=False)
+    print(f"device ms a call (CUDA events, calls queued behind a spin): "
+          f"support {kA:.4f} (its kernel launch {lA:.4f}, the mean of the "
+          f"{seenA} of 50 torch.profiler recorded; plain {pA:.3f}; bound "
+          f"{bA:.5f} by {byA}: {nb} bytes, {sads} byte SADs); dense, left "
+          f"view {kB:.4f} (its kernel launch {lB:.4f}, {seenB} of 50 "
+          f"recorded; plain {pB:.3f}; bound "
           f"{bB:.5f} by {byB}: {nbB} bytes, {float(count.float().mean()):.2f}"
           f" candidates a pixel)")
 
     tabC, selC, _ = coeffs[0]
     nbC, opsC, liveC = raster_work(tabC, selC, Tp, W, H)
     bC, byC = bound_ms(nbC, opsC, PEAK_F32_OPS_PER_S)
-    kC, kC_only = device_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50,
-                            "raster_kernel")
-    pC, _ = device_ms(lambda: dp.raster_plain(tabC, selC, Tp, W, H), 3)
-    print(f"device ms a call under torch.profiler: raster, left side of a "
-          f"chunk of {batch} frames {kC:.4f} (kernel alone {kC_only:.4f}; "
-          f"plain {pC:.3f}; bound {bC:.5f} by {byC}: {nbC} bytes, {opsC} "
+    kC = events_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50)
+    lC, seenC = launch_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50,
+                          "raster_kernel")
+    pC = events_ms(lambda: dp.raster_plain(tabC, selC, Tp, W, H), 3,
+                   spin=False)
+    print(f"device ms a call (CUDA events behind a spin): raster, left side "
+          f"of a chunk of {batch} frames {kC:.4f} (its kernel launch "
+          f"{lC:.4f}, {seenC} of 50 recorded; plain {pC:.3f}; bound "
+          f"{bC:.5f} by {byC}: {nbC} bytes, {opsC} "
           f"operations over {liveC} live tile slots of "
           f"{selC.numel()}, Ts {Ts})")
 
@@ -864,6 +1244,13 @@ def main() -> int:
          "ms": kC, "plain_ms": pC, "bound_ms": bC, "bound_by": byC,
          "library_ms": None},
     ]
+
+    # ---- 6. SGM: kernels D, E, F, the engine, the node, config 3 ---------
+    for entry in sgm_phase(dev, hold):
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
+
+    # ---- 7. the kernels line, the card, the result -----------------------
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 A port of the ``jackal_tpu`` package (JAX/XLA/Pallas for TPU) to PyTorch
 on an NVIDIA H100. It grows slice by slice; so far it has the point_cloud
-node's ELAS paths, per frame and batched:
+node's ELAS paths, per frame and batched, and its SGM engine:
 
     raw u8 stereo pair -> rectify (15-bit fixed-point remap)
       -> ELAS: descriptors, support search [CUDA kernel A], host prior
@@ -14,11 +14,18 @@ node's ELAS paths, per frame and batched:
       (worker threads) and the plane fit, candidate grids, prior raster
       [CUDA kernel C] and the speckle filter on the card
 
-Entry points: ``pipeline.default.make_pipeline(engine="elas")`` then
-``StereoPipeline.process_frame`` or ``process_batch``;
-``pipeline.runner.StreamingRunner`` (the node's --batch > 1 loop); and
+    SGM (make_pipeline's default engine): rectify -> census [CUDA kernel
+      D] -> Hamming cost volume -> 8-path aggregation [CUDA kernel E] ->
+      WTA maps of both views [CUDA kernel F] -> uniqueness, sub-pixel, L/R
+      check -> u8 disparity -> scan, all on the card
+
+Entry points: ``pipeline.default.make_pipeline()`` (SGM) or
+``make_pipeline(engine="elas")``, then ``StereoPipeline.process_frame``,
+``process_batch`` or ``process_batch_fused`` (SGM);
+``pipeline.runner.StreamingRunner`` (the node's --batch > 1 loop);
 ``matching.elas.pipeline.elas_match``, ``elas_match_batch(_device)``,
-``elas_match_stream``.
+``elas_match_stream``; ``matching.sgm.sgm_match(_batch)``; and
+``entry.entry()``, the rectify -> SGM -> scan step as one callable.
 
 Rules of the port:
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config import ElasParams
+from ...ops.shifts import shifted_row_lookup
 
 
 def left_right_consistency_check(
@@ -44,10 +45,7 @@ def left_right_consistency_check(
         uw = u.to(torch.float32) + sign * Da
         ok = (Da >= 0) & (uw >= 0) & (uw < W)
         s = torch.clamp(sign * (uw.to(torch.int32) - u), 0, smax)
-        col = u + sign * s
-        inside = (col >= 0) & (col < W)
-        other = torch.gather(Db, -1, torch.clamp(col, 0, W - 1).to(torch.int64))
-        other = torch.where(inside, other, -1e9)
+        other = shifted_row_lookup(Db, s, smax, sign, fill=-1e9)
         ok = ok & ((other - Da).abs() <= params.lr_threshold)
         return torch.where(ok, Da, -10.0)
 

@@ -20,7 +20,8 @@ import torch
 from ..build import PKG_DIR, Library, build
 
 CSRC = os.path.join(PKG_DIR, "csrc")
-KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel")
+KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
+                  "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

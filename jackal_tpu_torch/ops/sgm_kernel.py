@@ -1,0 +1,124 @@
+"""SGM's three CUDA kernels, their wrappers and their plain versions.
+
+  census5x5_batch       kernel D  csrc/census_kernel.cu
+  aggregate_paths_bhdw  kernel E  csrc/sgm_paths_kernel.cu
+  sgm_wta_maps          kernel F  csrc/sgm_wta_kernel.cu
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
+its plain twin, ``<name>_plain``, for a CPU tensor. The plain twins are
+the reference engine of matching/sgm.py in the kernels' layouts. The
+volumes keep the reference kernels' [B, H, D, W] layout at the wrappers.
+``launches`` counts the calls that launched a kernel, by kernel name.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import SGMParams
+from ..matching.sgm import (_CARRY_BIG, aggregate_paths, census5x5,
+                            right_view_volume, wta_maps)
+from . import cuda_lib
+
+launches = {"census": 0, "sgm_paths": 0, "sgm_wta": 0}
+
+D_RANGE = (2, 256)      # the disparity counts the kernels take
+_P_MAX = (1 << 31) - 1 - _CARRY_BIG     # penalties the path kernel takes
+
+
+def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
+    fn = getattr(cuda_lib.load(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_d(D: int) -> None:
+    if not D_RANGE[0] <= D <= D_RANGE[1]:
+        raise ValueError(f"the SGM kernels take {D_RANGE[0]} <= D <= "
+                         f"{D_RANGE[1]}, got D = {D}")
+
+
+# ---- D: census ------------------------------------------------------------
+
+def census5x5_batch_plain(img_u8_b: torch.Tensor) -> torch.Tensor:
+    return census5x5(img_u8_b)
+
+
+def census5x5_batch(img_u8_b: torch.Tensor) -> torch.Tensor:
+    """uint8 [N, H, W] -> int32 [N, H, W] 24-bit census codes."""
+    if not img_u8_b.is_cuda:
+        return census5x5_batch_plain(img_u8_b)
+    N, H, W = img_u8_b.shape
+    cuda_lib.expect(img_u8_b, "img", torch.uint8, (N, H, W), img_u8_b.device)
+    out = torch.empty((N, H, W), dtype=torch.int32, device=img_u8_b.device)
+    err = _fn("census_kernel", "census5x5", 2, 3)(
+        img_u8_b.data_ptr(), out.data_ptr(), N, H, W,
+        cuda_lib.stream_ptr(img_u8_b))
+    cuda_lib.check(err, "census5x5")
+    launches["census"] += 1
+    return out
+
+
+# ---- E: path aggregation ----------------------------------------------------
+
+def aggregate_paths_bhdw_plain(cost_bhdw: torch.Tensor, params: SGMParams
+                               ) -> torch.Tensor:
+    return aggregate_paths(cost_bhdw.transpose(-3, -2), params
+                           ).transpose(-3, -2).contiguous()
+
+
+def aggregate_paths_bhdw(cost_bhdw: torch.Tensor, params: SGMParams
+                         ) -> torch.Tensor:
+    """8-path (4-path when num_paths < 8) aggregation of an int16 cost
+    volume [B, H, D, W] -> int16 S [B, H, D, W]. The kernel walks a
+    [B, H, W, D] copy (one step of a path reads D contiguous costs) and
+    its sum is moved back to [B, H, D, W]."""
+    if not cost_bhdw.is_cuda:
+        return aggregate_paths_bhdw_plain(cost_bhdw, params)
+    B, H, D, W = cost_bhdw.shape
+    _check_d(D)
+    # P1, P2 >= 0 keeps every path value >= 0, which the kernel's single
+    # clamp of the sum relies on; the upper limit keeps carry + P in int32
+    if not (0 <= params.p1 <= _P_MAX and 0 <= params.p2 <= _P_MAX):
+        raise ValueError(f"the path kernel takes 0 <= P1, P2 <= {_P_MAX}, "
+                         f"got {params.p1}, {params.p2}")
+    cuda_lib.expect(cost_bhdw, "cost", torch.int16, (B, H, D, W),
+                    cost_bhdw.device)
+    cost_bhwd = cost_bhdw.transpose(2, 3).contiguous()
+    S_bhwd = torch.empty_like(cost_bhwd)
+    err = _fn("sgm_paths_kernel", "sgm_paths", 2, 7)(
+        cost_bhwd.data_ptr(), S_bhwd.data_ptr(), B, H, W, D, params.p1,
+        params.p2, 8 if params.num_paths >= 8 else 4,
+        cuda_lib.stream_ptr(cost_bhdw))
+    cuda_lib.check(err, "sgm_paths")
+    launches["sgm_paths"] += 1
+    return S_bhwd.transpose(2, 3).contiguous()
+
+
+# ---- F: WTA maps ----------------------------------------------------------
+
+def sgm_wta_maps_plain(S_bhdw: torch.Tensor) -> torch.Tensor:
+    vol = S_bhdw.transpose(-3, -2)                       # [B, D, H, W]
+    maps = wta_maps(vol) + wta_maps(right_view_volume(vol))
+    return torch.stack(maps, dim=-2).to(torch.int16)
+
+
+def sgm_wta_maps(S_bhdw: torch.Tensor) -> torch.Tensor:
+    """int16 [B, H, D, W] aggregated volume -> int16 [B, H, 10, W]: best,
+    best_d, second, cost at d-1, cost at d+1 of the left view, then of the
+    right view SR[d, v, u] = S[d, v, u+d] (_INVALID past the edge)."""
+    if not S_bhdw.is_cuda:
+        return sgm_wta_maps_plain(S_bhdw)
+    B, H, D, W = S_bhdw.shape
+    _check_d(D)
+    cuda_lib.expect(S_bhdw, "S", torch.int16, (B, H, D, W), S_bhdw.device)
+    out = torch.empty((B, H, 10, W), dtype=torch.int16, device=S_bhdw.device)
+    err = _fn("sgm_wta_kernel", "sgm_wta_maps", 2, 4)(
+        S_bhdw.data_ptr(), out.data_ptr(), B, H, D, W,
+        cuda_lib.stream_ptr(S_bhdw))
+    cuda_lib.check(err, "sgm_wta_maps")
+    launches["sgm_wta"] += 1
+    return out

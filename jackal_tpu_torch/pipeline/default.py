@@ -26,8 +26,7 @@ def make_pipeline(
     **kw,
 ) -> StereoPipeline:
     """StereoPipeline on ``device`` (the card unless ``device="cpu"``).
-    The default engine stays "sgm", as in the reference package, and
-    raises NotImplementedError until SGM is ported; pass engine="elas"."""
+    The default engine is "sgm", as in the reference package."""
     calib = load_calibration(calib_file) if calib_file \
         else default_calibration()
     return StereoPipeline(calib, params or PipelineParams(), engine,

@@ -1,11 +1,17 @@
-"""The point_cloud node: rectify -> ELAS -> scan, per frame or per batch.
+"""The point_cloud node: rectify -> disparity -> scan, per frame or batch.
 
 Equivalent of point_cloud.cpp:431-471 + 213-296: one startup precompute
 (rectification maps and the valid-disparity cache, point_cloud.cpp:543-558)
-and a per-frame function, process_frame, whose ELAS host prior and speckle
-filter run in C++. process_batch is the node's --batch > 1 step: the
-batched ELAS path (matching/elas/pipeline.elas_match_batch_device), which
-keeps only pruning and triangulation on the host.
+and a per-frame function, process_frame. Two engines:
+
+  - "elas": process_frame's ELAS host prior and speckle filter run in C++;
+    process_batch, the node's --batch > 1 step, is the batched ELAS path
+    (matching/elas/pipeline.elas_match_batch_device), which keeps only
+    pruning and triangulation on the host;
+  - "sgm": every stage on the device (matching/sgm.sgm_match_batch,
+    kernels D, E, F); process_frame runs it on a batch of one, and
+    process_batch is process_batch_fused, rectify -> SGM -> scan on the
+    whole batch.
 
 Per-stage wall-clock times mirror the -l/-d/-s hooks (point_cloud.cpp:
 446-462); with ``timing=True`` each stage ends in a device synchronize.
@@ -19,11 +25,13 @@ import numpy as np
 import torch
 
 from ..calib import StereoCalibration
-from ..config import ElasParams, GroundPlaneParams, PipelineParams, ScanParams
+from ..config import (ElasParams, GroundPlaneParams, PipelineParams,
+                      ScanParams, SGMParams)
 from ..device import DeviceLike, resolve_device
 from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
 from ..geometry.remap import remap_bilinear
 from ..matching.elas.pipeline import elas_match, elas_match_batch_device
+from ..matching.sgm import sgm_match_batch
 from ..scan.obstacle import ScanResult, obstacle_scan_from_disparity
 from ..scan.valid_disp import cache_disparity_values
 
@@ -48,13 +56,14 @@ class StereoPipeline:
         elas_params: ElasParams = ElasParams(),
         gp_params: GroundPlaneParams = GroundPlaneParams(),
         scan_params: ScanParams = ScanParams(),
+        sgm_params: SGMParams = SGMParams(),
         device: DeviceLike = None,
     ):
-        if engine in ("bm", "sgm"):
+        if engine == "bm":
             raise NotImplementedError(
-                f"engine={engine!r} waits for a later slice of the port "
-                f"(ROADMAP Queue 1, items 2-3); use engine='elas'")
-        if engine != "elas":
+                "engine='bm' waits for a later slice of the port "
+                "(ROADMAP Queue 1, item 3); use engine='sgm' or 'elas'")
+        if engine not in ("elas", "sgm"):
             raise ValueError(f"unknown engine {engine!r}")
         if params.gen_pcl:
             raise NotImplementedError(
@@ -65,6 +74,7 @@ class StereoPipeline:
         self.calib = calib
         self.p = params
         self.elas_params = elas_params
+        self.sgm_params = sgm_params
         self.sp = scan_params
 
         size = (params.im_width, params.im_height)
@@ -126,8 +136,11 @@ class StereoPipeline:
         left, right = self._rectify_crop(torch.as_tensor(left_raw).to(dev),
                                          torch.as_tensor(right_raw).to(dev))
         t0 = self._sync(timing)
-        D1, _ = elas_match(left, right, self.elas_params, device=dev)
-        dmap_t = self._dmap_u8(D1)
+        if self.engine == "elas":
+            D1, _ = elas_match(left, right, self.elas_params, device=dev)
+            dmap_t = self._dmap_u8(D1)
+        else:
+            dmap_t = self._match_batch(left[None], right[None])[0]
         dmap = dmap_t.cpu().numpy()
         t1 = time.perf_counter()
         scan = self._scan_stage(dmap_t)
@@ -138,8 +151,11 @@ class StereoPipeline:
     def process_batch(self, left_raw_b, right_raw_b):
         """Raw uint8 [B, H, W] stereo batches -> (u8 disparity maps
         [B, h, w] and a ScanResult of [B, bins] / [B] tensors), both on the
-        device; each frame equal to process_frame's. ELAS runs batched in
-        chunks of the largest of 1, 2, 4, 8 that divides B."""
+        device; each frame equal to process_frame's. SGM runs
+        process_batch_fused; ELAS runs batched in chunks of the largest of
+        1, 2, 4, 8 that divides B."""
+        if self.engine != "elas":
+            return self.process_batch_fused(left_raw_b, right_raw_b)
         dev = self.device
         left_b, right_b = self._rectify_crop(
             torch.as_tensor(left_raw_b).to(dev),
@@ -151,10 +167,35 @@ class StereoPipeline:
         dmaps = self._dmap_u8(D1)
         return dmaps, self._scan_stage(dmaps)
 
-    def process_batch_fused(self, left_raw_b, right_raw_b):
-        raise NotImplementedError(
-            "the fused batch step is the BM/SGM engines' and waits for "
-            "their slice of the port (ROADMAP Queue 1, items 2-3)")
+    def process_batch_fused(self, left_raw_b, right_raw_b,
+                            timing: bool = False):
+        """The SGM engine's batched step: raw uint8 [B, H, W] stereo
+        batches -> (u8 disparity maps, ScanResult of the batch), device
+        tensors; rectify, SGM and scan of the whole batch at once. With
+        ``timing``, each stage ends in a device synchronize and a third
+        item follows: (dmap_time, scan_time) per frame, in seconds."""
+        if self.engine == "elas":
+            raise ValueError("the fused batch path needs engine='sgm'")
+        dev = self.device
+        left_b, right_b = self._rectify_crop(
+            torch.as_tensor(left_raw_b).to(dev),
+            torch.as_tensor(right_raw_b).to(dev))
+        t0 = self._sync(timing)
+        dmaps = self._match_batch(left_b, right_b)
+        t1 = self._sync(timing)
+        scans = self._scan_stage(dmaps)
+        if not timing:
+            return dmaps, scans
+        n = left_b.shape[0]
+        return dmaps, scans, ((t1 - t0) / n, (self._sync(True) - t1) / n)
+
+    def _match_batch(self, left_b: torch.Tensor, right_b: torch.Tensor
+                     ) -> torch.Tensor:
+        """SGM disparity of rectified uint8 [B, h, w] batches as u8 maps
+        (kernels D, E and F on the card)."""
+        dL, _ = sgm_match_batch(left_b, right_b, self.sgm_params,
+                                device=self.device)
+        return self._dmap_u8(dL)
 
     def process_batch_pcl(self, left_raw_b, right_raw_b, color_bgr_b=None):
         raise NotImplementedError(

@@ -1,21 +1,28 @@
-"""Streaming node loop: batched ELAS on a frame stream, published per frame.
+"""Streaming node loop: batched disparity on a frame stream, published
+per frame.
 
 The reference overlaps its stages by ROS process pipelining. Here one host
-process keeps the card fed: frames are gathered into batches, rectified on
-the card, and run through matching.elas.pipeline.elas_match_stream, which
-keeps two batches in flight so one batch's host prior (support
-pruning, Delaunay) overlaps the card's work on the batch before. Every
-frame's depth map and obstacle scan are published on the topic bus under
-the reference's topic names, in order, by a publisher thread that waits
-only for its own batch's copies to the host.
+process keeps the card fed: frames are gathered into batches and
+rectified on the card. ELAS runs them through
+matching.elas.pipeline.elas_match_stream, which keeps two batches in
+flight so one batch's host prior (support pruning, Delaunay) overlaps the
+card's work on the batch before. SGM runs
+StereoPipeline.process_batch_fused on batch k+1 while batch k is
+published. Every frame's depth map and obstacle scan are published on the
+topic bus under the reference's topic names, in order, by a publisher
+thread that waits only for its own batch's copies to the host.
 
 Per-stage times: every stage_sample_every-th batch is timed with device
-synchronizes: dmap = the batch interval up to its disparity maps, per
-frame (what a consumer of the depth topic sees in the stream), scan = the
-scan stage, per frame. Other batches log nothing.
+synchronizes, per frame. ELAS: dmap = the batch interval up to its
+disparity maps (what a consumer of the depth topic sees in the stream),
+scan = the scan stage. SGM: the sampled batch runs process_batch_fused
+with timing, dmap = rectified pair to u8 maps, scan = the scan stage.
+Other batches log nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -76,41 +83,34 @@ class StreamingRunner:
                 self.tl_pub.publish(JackalTimeLog(hdr, pcl_t, scan_t, dmap_t))
             self.seq += 1
 
+    def _batches(self, stream: Iterable[Tuple[np.ndarray, ...]],
+                 max_frames: Optional[int]):
+        """(left [B, H, W], right, n): the stream's (left, right) frames in
+        batches of B, at most max_frames in all; a short last batch holds
+        n frames and is padded to the batch shape with its last one."""
+        it = iter(stream)
+        taken = 0
+        while max_frames is None or taken < max_frames:
+            want = self.B if max_frames is None \
+                else min(self.B, max_frames - taken)
+            frames = list(itertools.islice(it, want))
+            if not frames:
+                return
+            n = len(frames)
+            taken += n
+            frames += [frames[-1]] * (self.B - n)
+            yield (np.stack([f[0] for f in frames]),
+                   np.stack([f[1] for f in frames]), n)
+
     def _run_elas_stream(self, stream: Iterable[Tuple[np.ndarray, ...]],
                          max_frames: Optional[int] = None) -> int:
         pipe = self.pipe
         dev = pipe.device
         B = self.B
-        it = iter(stream)
         meta: deque = deque()
-        taken = 0
-
-        def take_batch():
-            nonlocal taken
-            lefts, rights = [], []
-            while len(lefts) < B:
-                if max_frames is not None and taken + len(lefts) >= max_frames:
-                    break
-                frame = next(it, None)
-                if frame is None:
-                    break
-                lefts.append(frame[0])
-                rights.append(frame[1])
-            if not lefts:
-                return None
-            n = len(lefts)
-            taken += n
-            while len(lefts) < B:        # pad to the batch shape
-                lefts.append(lefts[-1])
-                rights.append(rights[-1])
-            return np.stack(lefts), np.stack(rights), n
 
         def pairs():
-            while True:
-                nxt = take_batch()
-                if nxt is None:
-                    return
-                lb, rb, n = nxt
+            for lb, rb, n in self._batches(stream, max_frames):
                 meta.append(n)
                 yield pipe._rectify_crop(to_device(lb, dev)[0],
                                          to_device(rb, dev)[0])
@@ -119,6 +119,34 @@ class StreamingRunner:
         # same per chunk whatever its size (it is launch-bound), so fewer,
         # larger chunks are faster
         chunk = max(c for c in (1, 2, 4, 8) if B % c == 0 and c <= B)
+        done = 0
+        t_last = time.perf_counter()
+        with self._ordered_publisher() as publish:
+            for D1, _ in elas_match_stream(pairs(), pipe.elas_params,
+                                           chunk=chunk, device=dev):
+                n = meta.popleft()
+                sampled = self.batch_no % self.stage_sample_every == 0
+                self.batch_no += 1
+                dmaps = pipe._dmap_u8(D1)
+                stage_times = None
+                if sampled:
+                    t1 = pipe._sync(True)
+                    dmap_t = (t1 - t_last) / B
+                scans = pipe._scan_stage(dmaps)
+                if sampled:
+                    stage_times = (dmap_t, 0.0, (pipe._sync(True) - t1) / B)
+                publish(dmaps, scans, n, stage_times)
+                done += n
+                t_last = time.perf_counter()
+        return done
+
+    @contextlib.contextmanager
+    def _ordered_publisher(self):
+        """Yields publish(dmaps, scans, n, stage_times): starts the copies
+        of a batch's first n u8 maps and scans to the host and queues them
+        for a thread that publishes them in order, waiting only on those
+        copies. At most two batches wait; an error of the thread is raised
+        on the caller's at its next publish or on leaving."""
         q: "queue.Queue" = queue.Queue(maxsize=2)
         err: list = []
 
@@ -134,47 +162,49 @@ class StreamingRunner:
                 except BaseException as e:   # raised on the caller's thread
                     err.append(e)
 
-        done = 0
-        t_last = time.perf_counter()
+        def publish(dmaps, scans, n, stage_times):
+            if err:
+                raise err[0]
+            q.put((HostCopy(dmaps),
+                   [HostCopy(x) for x in (scans.scan, scans.angle_min,
+                                          scans.angle_max, scans.range_min,
+                                          scans.range_max)],
+                   n, stage_times))
+
         pub_thread = threading.Thread(target=publisher, daemon=True)
         pub_thread.start()
         try:
-            for D1, _ in elas_match_stream(pairs(), pipe.elas_params,
-                                           chunk=chunk, device=dev):
-                n = meta.popleft()
-                sampled = self.batch_no % self.stage_sample_every == 0
-                self.batch_no += 1
-                dmaps = pipe._dmap_u8(D1)
-                stage_times = None
-                if sampled:
-                    t1 = pipe._sync(True)
-                    dmap_t = (t1 - t_last) / B
-                scans = pipe._scan_stage(dmaps)
-                if sampled:
-                    stage_times = (dmap_t, 0.0, (pipe._sync(True) - t1) / B)
-                if err:
-                    raise err[0]
-                q.put((HostCopy(dmaps),
-                       [HostCopy(x) for x in (scans.scan, scans.angle_min,
-                                              scans.angle_max,
-                                              scans.range_min,
-                                              scans.range_max)],
-                       n, stage_times))
-                done += n
-                t_last = time.perf_counter()
+            yield publish
         finally:
             q.put(None)
             pub_thread.join()
         if err:
             raise err[0]
+
+    def _run_batches(self, stream: Iterable[Tuple[np.ndarray, ...]],
+                     max_frames: Optional[int] = None) -> int:
+        """The SGM loop: process_batch_fused on batch k+1 while the
+        publisher thread waits for batch k's copies and publishes it."""
+        pipe = self.pipe
+        dev = pipe.device
+        done = 0
+        with self._ordered_publisher() as publish:
+            for lb, rb, n in self._batches(stream, max_frames):
+                sampled = self.batch_no % self.stage_sample_every == 0
+                self.batch_no += 1
+                dmaps, scans, *times = pipe.process_batch_fused(
+                    to_device(lb, dev)[0], to_device(rb, dev)[0],
+                    timing=sampled)
+                stage_times = (times[0][0], 0.0, times[0][1]) \
+                    if sampled else None
+                publish(dmaps, scans, n, stage_times)
+                done += n
         return done
 
     def run(self, stream: Iterable[Tuple[np.ndarray, ...]],
             max_frames: Optional[int] = None) -> int:
         """Consume (left, right) raw uint8 frames; returns the number of
         frames published."""
-        if self.pipe.engine != "elas":
-            raise NotImplementedError(
-                "the streaming loop of the BM/SGM engines waits for their "
-                "slice of the port (ROADMAP Queue 1, items 2-3)")
-        return self._run_elas_stream(stream, max_frames)
+        if self.pipe.engine == "elas":
+            return self._run_elas_stream(stream, max_frames)
+        return self._run_batches(stream, max_frames)

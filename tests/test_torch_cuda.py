@@ -160,3 +160,109 @@ def test_batch_on_the_card_equals_per_frame(dev):
         s1, s2 = elas_match(lb[b], rb[b], device=dev)
         assert torch.equal(D1[b], s1) and torch.equal(D2[b], s2)
     assert torch.equal(D1[0].cpu(), torch.from_numpy(g["D1"]))
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 37, 61), (4, 480, 640), (1, 5, 333)])
+def test_census_kernel_equals_plain(dev, N, H, W):
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    img = torch.from_numpy(np.random.default_rng(W).integers(
+        0, 256, (N, H, W)).astype(np.uint8)).to(dev)
+    n0 = sk.launches["census"]
+    got = sk.census5x5_batch(img)
+    assert sk.launches["census"] == n0 + 1
+    assert torch.equal(got, sk.census5x5_batch_plain(img))
+
+
+@pytest.mark.parametrize("B,H,W,D,num_paths", [
+    (2, 23, 150, 16, 8), (1, 40, 96, 48, 8), (1, 16, 128, 24, 4),
+    (1, 31, 70, 2, 8), (1, 20, 300, 256, 8), (1, 120, 160, 128, 8)])
+def test_path_and_wta_kernels_equal_plain(dev, B, H, W, D, num_paths):
+    """Odd H, W % 32 != 0, D not a power of two, D > W/2, D at both ends
+    of the kernels' range, 4 paths; the 12000 cells of d > u make the
+    _CARRY_BIG clamp bind."""
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.matching import sgm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    rng = np.random.default_rng(H * W + D)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    codes = sgm.census5x5(torch.from_numpy(np.stack([left, np.roll(
+        left, 5, axis=2)])).to(dev))
+    cost = sgm.census_cost_volume_hdw(codes[0], codes[1], D)
+    p = SGMParams(disp_num=D, num_paths=num_paths)
+    n0 = dict(sk.launches)
+    S = sk.aggregate_paths_bhdw(cost, p)
+    want = sk.aggregate_paths_bhdw_plain(cost, p)
+    assert torch.equal(S, want)
+    if D > 2:
+        assert (want == 28000).any()
+    maps = sk.sgm_wta_maps(S)
+    assert torch.equal(maps, sk.sgm_wta_maps_plain(S))
+    assert sk.launches["sgm_paths"] == n0["sgm_paths"] + 1
+    assert sk.launches["sgm_wta"] == n0["sgm_wta"] + 1
+
+
+def test_sgm_kernels_refuse_what_they_do_not_take(dev):
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    for D in (1, 257):
+        vol = torch.zeros((1, 4, D, 8), dtype=torch.int16, device=dev)
+        with pytest.raises(ValueError, match="D = "):
+            sk.aggregate_paths_bhdw(vol, SGMParams(disp_num=D))
+        with pytest.raises(ValueError, match="D = "):
+            sk.sgm_wta_maps(vol)
+    vol = torch.zeros((1, 4, 8, 8), dtype=torch.int16, device=dev)
+    for kw in ({"p1": -1}, {"p2": -1}, {"p2": 1 << 31}):
+        with pytest.raises(ValueError, match="P1, P2"):
+            sk.aggregate_paths_bhdw(vol, SGMParams(disp_num=8, **kw))
+    with pytest.raises(ValueError, match="int16"):
+        sk.sgm_wta_maps(vol.to(torch.int32))
+
+
+@pytest.mark.parametrize("p1,p2", [(6000, 100000), (40000, 5000),
+                                   (0, (1 << 31) - 1 - 28000)])
+def test_path_kernel_takes_large_penalties(dev, p1, p2):
+    """Penalties far above the int16 range: the recurrence runs in int32
+    and only the stored values are clamped, on the card as on the CPU."""
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.matching import sgm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    left = np.random.default_rng(p1).integers(0, 256, (2, 29, 90)).astype(
+        np.uint8)
+    codes = sgm.census5x5(torch.from_numpy(np.stack([left, np.roll(
+        left, 4, axis=2)])).to(dev))
+    cost = sgm.census_cost_volume_hdw(codes[0], codes[1], 24)
+    p = SGMParams(disp_num=24, p1=p1, p2=p2)
+    assert torch.equal(sk.aggregate_paths_bhdw(cost, p),
+                       sk.aggregate_paths_bhdw_plain(cost, p))
+
+
+@pytest.mark.parametrize("kw", [{}, {"true_right": True},
+                                {"num_paths": 4, "disp_num": 48}])
+def test_sgm_on_the_card_equals_cpu(dev, kw):
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.matching.sgm import sgm_match_batch
+
+    g = np.load(f"{FIX}/elas_golden_s320_boxes.npz")
+    lb = np.stack([g["left"], g["left"][::-1]])
+    rb = np.stack([g["right"], g["right"][::-1]])
+    p = dataclasses.replace(SGMParams(), **kw)
+    got = sgm_match_batch(lb, rb, p, device=dev)
+    want = sgm_match_batch(lb, rb, p, device="cpu")
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sgm_node_on_the_card_equals_cpu(dev):
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    gpu, cpu = make_pipeline(device=dev), make_pipeline(device="cpu")
+    left, right = synthetic_raw_pair(cpu, 2, 9.0, 0.05)
+    a, b = gpu.process_frame(left, right), cpu.process_frame(left, right)
+    np.testing.assert_array_equal(a.dmap, b.dmap)
+    np.testing.assert_allclose(a.scan.scan.cpu().numpy(),
+                               b.scan.scan.numpy(), rtol=1e-5)

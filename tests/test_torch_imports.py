@@ -44,6 +44,9 @@ batched = {"jackal_tpu_torch.matching.elas.device_prior",
            "jackal_tpu_torch.io_bus.timelog",
            "jackal_tpu_torch.pipeline.runner"}
 assert batched <= set(names), batched - set(names)
+sgm = {"jackal_tpu_torch.matching.sgm", "jackal_tpu_torch.ops.sgm_kernel",
+       "jackal_tpu_torch.ops.shifts", "jackal_tpu_torch.entry"}
+assert sgm <= set(names), sgm - set(names)
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -94,6 +97,17 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
     B1, _ = elas_match_batch_device(batch, batch, device="cpu")
     assert B1.device.type == "cpu" and (B1 == -10).all()
 
+    from jackal_tpu_torch.entry import entry
+    from jackal_tpu_torch.matching.sgm import sgm_match, sgm_match_batch
+    for call in (make_pipeline, lambda: make_pipeline(engine="sgm"),
+                 lambda: sgm_match_batch(batch, batch),
+                 lambda: sgm_match(img, img), entry):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    S1, _ = sgm_match_batch(batch, batch, device="cpu")
+    assert S1.device.type == "cpu" and S1.shape == (2, 40, 64)
+    assert make_pipeline(device="cpu").engine == "sgm"
+
 
 def test_later_slices_raise_not_implemented():
     import dataclasses
@@ -101,20 +115,21 @@ def test_later_slices_raise_not_implemented():
     from jackal_tpu_torch.matching.elas.pipeline import elas_match
     from jackal_tpu_torch.pipeline.default import make_pipeline
 
-    for engine in ("sgm", "bm"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_pipeline(engine="bm", device="cpu")
+    for engine in ("elas", "sgm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_pipeline(engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline(device="cpu")     # the default engine is still sgm
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline(engine="elas", device="cpu",
-                      params=PipelineParams(gen_pcl=True))
+            make_pipeline(engine=engine, device="cpu",
+                          params=PipelineParams(gen_pcl=True))
     img = np.zeros((40, 64), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         elas_match(img, img, dataclasses.replace(ElasParams(),
                                                  subsampling=True),
                    device="cpu")
     pipe = make_pipeline(engine="elas", device="cpu")
-    for call in (pipe.process_batch_fused, pipe.process_batch_pcl):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(img[None], img[None])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipe.process_batch_pcl(img[None], img[None])
+    with pytest.raises(ValueError, match="engine='sgm'"):
+        pipe.process_batch_fused(img[None], img[None])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_pipeline(device="cpu").process_batch_pcl(img[None], img[None])
