@@ -51,7 +51,23 @@ Phases (any failure exits non-zero and prints no success line):
      F set to 0 just before and read just after; (e) each kernel against
      its plain version (torch.equal), its device time, its plain version's
      and its bound at the node's shape and at config 3's;
-  7. a "kernels" JSON line, the card line, and the final JSON line.
+  7. BM and gen_pcl: (a) kernel G against its plain twin (torch.equal) on
+     both golden pairs at D = 64 and 256 and on seeded awkward shapes; (b)
+     the BM node, make_pipeline(engine="bm") at 640x480, D = 64:
+     process_frame on 9 synthetic pairs (stage medians, fps, idle share),
+     process_batch_fused at batch 8 against process_frame, StreamingRunner
+     at batch 8 over 48 frames; (c) BASELINE config 5, the headline:
+     process_batch_fused_pcl at B = 32 on the golden scenes interleaved
+     (fps, peak memory, its stages), its maps against process_batch_fused's,
+     one frame's cloud (points exact) and scan against the CPU's and G
+     against its plain twin on the rectified batch; (d) bench_bm256's
+     process_batch_fused at B = 16, D = 256, and G against its plain twin
+     on that rectified batch; each of these paths with G's
+     launch counter set to 0 just before and read just after (9, 1, 6, 1,
+     1); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
+     device time, its plain twin's and its bound at the node's shape and
+     at D = 256, and G' (the per-part timing) in its four modes;
+  8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
 spin kernel (events_ms); torch.profiler only splits it by kernel, since it
@@ -83,6 +99,10 @@ DEVICE = "cuda:0"
 # BASELINE config 3 of the reference package (bench.py bench_sgm): SGM at
 # 1280x960, D = 64, batch 4
 CONFIG3 = (4, 960, 1280)
+# BASELINE config 5, the reference package's headline (bench.py
+# bench_headline): BM, D = 64, gen_pcl, 640x480, batch 32; and bench_bm256:
+# BM at D = 256, batch 16
+CONFIG5_B, BM256_B = 32, 16
 
 
 def card_line() -> str:
@@ -732,6 +752,318 @@ def sgm_phase(dev, hold):
              "library_ms": None} for k in ("census", "sgm_paths", "sgm_wta")]
 
 
+def bm_work(B, H, W, D):
+    """(bytes, 32-bit integer operations) kernel G must do on [B, H, W]
+    pairs at D disparities: the two u8 images read and the two f32 maps
+    written once (10 bytes a pixel); per (pixel, d) 12 operations, a lower
+    bound for a single streaming pass: the cost's two running box sums (the
+    absolute difference fused with the vertical add in one SAD instruction,
+    the vertical subtract, the horizontal add and subtract: 4) and, in
+    each view, a packed (cost, d) key, the duel with the best (a minimum
+    and a maximum) and the second best's minimum (4 each). Not counted:
+    the invalid-d selects (a loop can skip those d), the costs at best_d
+    -+ 1 (recomputable once a pixel) and the keys of the +-1 exclusion."""
+    px = B * H * W
+    return 10 * px, 12 * px * D
+
+
+def bm_phase(dev, hold):
+    """Phase 7: kernel G against its plain twin, the BM node, BASELINE
+    config 5 (BM + gen_pcl) and bench_bm256's configuration, BM's accuracy
+    against libelas, G's times and G''s parts. Returns G's JSON entry."""
+    import torch
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.io_bus.bus import TopicBus
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.runner import (TOPIC_DEPTH, TOPIC_PCL,
+                                                  StreamingRunner)
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    gold = [np.load(f"{FIX}/{f}.npz") for f in GOLDEN]
+    gl = torch.from_numpy(np.stack([g["left"] for g in gold])).to(dev)
+    gr = torch.from_numpy(np.stack([g["right"] for g in gold])).to(dev)
+
+    # (a) G == its plain twin on the card, bit for bit
+    def hold_bm(name, left, right, p):
+        hold("bm", f"bm {name}", bk.bm_match_fused(left, right, p),
+             bk.bm_match_fused_plain(left, right, p))
+
+    for D in (64, 256):
+        hold_bm(f"golden 640x480 D={D}", gl, gr, BMParams(disp_num=D))
+    rng = np.random.default_rng(7)
+    for B, H, W, D, win, shift in ((3, 37, 333, 33, 9, 7),
+                                   (1, 61, 150, 64, 5, 20),
+                                   (2, 23, 1280, 128, 7, 45)):
+        left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+        hold_bm(f"seeded B={B} {H}x{W} D={D} window {win}",
+                torch.from_numpy(left).to(dev),
+                torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev),
+                BMParams(disp_num=D, window=win))
+    torch.cuda.synchronize()
+    print("7a. kernel G == plain (torch.equal, both views) on the golden "
+          "pair at 640x480 D=64 and 256 and on seeded frames (B=3, odd H "
+          "and D, W % 32 != 0, W=1280, windows 5 and 7)")
+
+    def counted(label, fn, want):
+        """(fn(), G's launches in it): the counter set to 0 just before and
+        read just after; raises unless G was launched ``want`` times."""
+        bk.launches["bm"] = 0
+        out = fn()
+        n = bk.launches["bm"]
+        print(f"7. launches of G in {label}: {n}")
+        if n != want:
+            raise AssertionError(f"{label}: G launched {n} times, not {want}")
+        return out, n
+
+    # (b) the BM node at 640x480, D = 64
+    size = dict(im_width=640, im_height=480, crop_im_width=640,
+                crop_im_height=480)
+    pipe = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
+                         params=PipelineParams(**size), device=dev)
+    pairs = [synthetic_raw_pair(pipe, s, 8.0 + 5 * s, 0.03 * (s % 3))
+             for s in range(9)]
+    pipe.process_frame(*pairs[0])                       # warm-up
+    results, walls = [], []
+
+    def frames():
+        for lr, rr in pairs:
+            t = time.perf_counter()
+            results.append(pipe.process_frame(lr, rr, timing=True))
+            walls.append(time.perf_counter() - t)
+    _, node_launches = counted(
+        f"the BM node, process_frame over {len(pairs)} frames", frames,
+        len(pairs))
+    for fr in results:
+        sc = fr.scan.scan
+        if fr.dmap.shape != (480, 640) or fr.dmap.dtype != np.uint8 \
+                or sc.shape != (90,) or not bool(torch.isfinite(sc).all()):
+            raise AssertionError("BM node output has the wrong shape/type")
+    valid = float(np.mean([(fr.dmap > 0).mean() for fr in results]))
+    filled = float(np.mean([(fr.scan.scan < 1e9 - 1).sum().item()
+                            for fr in results]))
+    if valid < 0.3 or filled < 10:
+        raise AssertionError(f"BM node output implausible: {valid} valid, "
+                             f"{filled} bins filled")
+    med = {k: statistics.median(getattr(fr, k) for fr in results) * 1e3
+           for k in ("rect_time", "dmap_time", "scan_time")}
+    wall = statistics.median(walls) * 1e3
+    print(f"7b. BM node 640x480 D=64 (median of {len(pairs)} frames after 1 "
+          f"warm-up): rectify {med['rect_time']:.3f} ms, dmap "
+          f"{med['dmap_time']:.3f} ms, scan {med['scan_time']:.3f} ms, frame "
+          f"{wall:.3f} ms = {1e3 / wall:.2f} fps; dmap valid {valid:.3f}, "
+          f"scan bins filled {filled:.1f}")
+    wall_p, busy, *_ = device_busy(
+        lambda: [pipe.process_frame(lr, rr) for lr, rr in pairs[:3]])
+    print(f"BM node device busy over 3 frames under torch.profiler: "
+          f"{busy:.3f} ms of {wall_p:.3f} ms wall, idle share "
+          f"{1 - busy / wall_p:.3f}")
+    batch = 8
+    lb = np.stack([pairs[i % len(pairs)][0] for i in range(batch)])
+    rb = np.stack([pairs[i % len(pairs)][1] for i in range(batch)])
+    (dm8, sc8), _ = counted(f"process_batch_fused at batch {batch}",
+                            lambda: pipe.process_batch_fused(lb, rb), 1)
+    for b in range(batch):
+        fr = results[b % len(pairs)]
+        if not (np.array_equal(dm8[b].cpu().numpy(), fr.dmap)
+                and torch.equal(sc8.scan[b], fr.scan.scan)):
+            raise AssertionError(f"BM process_batch_fused frame {b} != "
+                                 f"process_frame")
+    print(f"BM process_batch_fused at batch {batch} == process_frame, frame "
+          f"by frame")
+    n_frames = 48
+    stream = [pairs[i % len(pairs)] for i in range(n_frames)]
+    bus = TopicBus()
+    depth = []
+    bus.subscribe(TOPIC_DEPTH, depth.append)
+    runner = StreamingRunner(pipe, bus, batch_size=batch,
+                             stage_sample_every=3)
+    runner.run(iter(stream[:2 * batch]))                # warm-up
+    depth.clear()
+
+    def timed_stream():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = runner.run(iter(stream))
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t
+    (done, stream_s), _ = counted(f"StreamingRunner at batch {batch} over "
+                                  f"{n_frames} frames", timed_stream,
+                                  n_frames // batch)
+    if done != n_frames or len(depth) != n_frames or not all(
+            np.array_equal(m.data, results[i % len(pairs)].dmap)
+            for i, m in enumerate(depth)):
+        raise AssertionError("BM StreamingRunner did not publish "
+                             "process_frame's maps")
+    wall_s, busy_s, *_ = device_busy(lambda: runner.run(iter(stream)),
+                                    host_ops=False)
+    print(f"BM StreamingRunner batch {batch}, 640x480: {done} frames in "
+          f"{stream_s * 1e3:.3f} ms = {done / stream_s:.2f} fps, each depth "
+          f"map == process_frame's; card alone under torch.profiler: busy "
+          f"{busy_s:.3f} ms of {wall_s:.3f} ms wall, idle share "
+          f"{1 - busy_s / wall_s:.3f}")
+
+    # (c) BASELINE config 5: process_batch_fused_pcl, B = 32, D = 64, on
+    # the golden scenes interleaved as bench.py's _fixture_batch does
+    pp5 = PipelineParams(calib_im_size=(640, 360), gen_pcl=True, **size)
+    p64 = BMParams(disp_num=64)
+    cfg5 = make_pipeline(engine="bm", bm_params=p64, params=pp5, device=dev)
+    scene = np.arange(CONFIG5_B) % len(gold)
+    l5 = torch.from_numpy(np.stack([gold[s]["left"] for s in scene])).to(dev)
+    r5 = torch.from_numpy(np.stack([gold[s]["right"] for s in scene])).to(dev)
+    cfg5.process_batch_fused_pcl(l5, r5)                # warm-up
+    (dm5, cloud5, sc5), _ = counted(
+        f"BASELINE config 5, process_batch_fused_pcl at B={CONFIG5_B}",
+        lambda: cfg5.process_batch_fused_pcl(l5, r5), 1)
+    if not torch.equal(dm5, cfg5.process_batch_fused(l5, r5)[0]):
+        raise AssertionError("config 5 maps != process_batch_fused's")
+    if cloud5[0].shape != (CONFIG5_B, 480 * 640, 3) \
+            or not bool(torch.isfinite(sc5.scan).all()):
+        raise AssertionError("config 5 output has the wrong shape")
+    ms5 = host_ms(lambda: cfg5.process_batch_fused_pcl(l5, r5), 5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg5.process_batch_fused_pcl(l5, r5)
+    peak5 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    wall5, busy5, *_ = device_busy(
+        lambda: cfg5.process_batch_fused_pcl(l5, r5))
+    print(f"7c. BASELINE config 5 (BM D=64 + gen_pcl, process_batch_fused_pcl"
+          f" 640x480, B={CONFIG5_B}): {ms5:.3f} ms a batch = "
+          f"{CONFIG5_B * 1e3 / ms5:.2f} fps (median of 5); peak device "
+          f"memory {peak5:.2f} GiB; device busy {busy5:.3f} ms of "
+          f"{wall5:.3f} ms wall, idle share {1 - busy5 / wall5:.3f}; maps "
+          f"== process_batch_fused's")
+    # one frame with a seeded colour frame: the card's cloud and scan
+    # against the CPU's plain path
+    cpu5 = make_pipeline(engine="bm", bm_params=p64, params=pp5, device="cpu")
+    col = np.random.default_rng(5).integers(0, 256, (1, 480, 640, 3)).astype(
+        np.uint8)
+    a = cfg5.process_batch_fused_pcl(l5[1:2], r5[1:2], col)
+    c = cpu5.process_batch_fused_pcl(l5[1:2].cpu(), r5[1:2].cpu(), col)
+    if not (torch.equal(a[0].cpu(), c[0])
+            and torch.equal(a[1][1].cpu().view(torch.int32),
+                            c[1][1].view(torch.int32))
+            and torch.equal(a[1][2].cpu(), c[1][2])):
+        raise AssertionError("config 5 frame: card != CPU map/rgb/mask")
+    ws, gs = c[2].scan.numpy(), a[2].scan.cpu().numpy()
+    filled5 = ws < 1e9 - 1
+    if not (np.array_equal(gs < 1e9 - 1, filled5) and np.allclose(
+            gs[filled5], ws[filled5], rtol=1e-5, atol=0)):
+        raise AssertionError("config 5 frame: card scan != CPU scan")
+    v = c[1][2].numpy()[0]
+    if not np.array_equal(a[1][0].cpu().numpy()[0][v], c[1][0].numpy()[0][v]):
+        raise AssertionError("config 5 frame: card points != CPU points")
+    print(f"config 5, the photo frame with a seeded colour frame: card == "
+          f"CPU plain path (u8 map, rgb bits, valid mask and the "
+          f"{int(v.sum())} valid points exact; scan within relative 1e-5, "
+          f"{int(filled5.sum())} bins)")
+    # G against its plain twin on config 5's rectified batch
+    L5, R5 = cfg5._rectify_crop(l5, r5)
+    hold_bm(f"config 5's rectified batch B={CONFIG5_B} D=64", L5, R5, p64)
+    torch.cuda.empty_cache()
+    print(f"7c. kernel G == plain (torch.equal, both views) on config 5's "
+          f"rectified batch (B={CONFIG5_B}, 640x480, D=64)")
+    # its stages, each alone
+    st = {}
+    st["rectify (both images)"] = host_ms(
+        lambda: cfg5._rectify_crop(l5, r5), 5)
+    st["G (kernel)"] = host_ms(lambda: bk.bm_match_fused(L5, R5, p64), 5)
+    dL5 = bk.bm_match_fused(L5, R5, p64)[0]
+    st["texture gate + u8"] = host_ms(lambda: cfg5._dmap_u8(
+        bm.bm_texture_gate(L5, dL5, p64)), 5)
+    st["cloud"] = host_ms(lambda: cfg5._cloud_stage(dm5), 5)
+    st["scan from the points"] = host_ms(lambda: cfg5._points_scan(cloud5),
+                                         5)
+    for k, v_ms in st.items():
+        print(f"  config 5 stage {k}: {v_ms:.3f} ms")
+    print("config 5 stages: " + json.dumps({k: round(x, 4)
+                                            for k, x in st.items()}))
+    # the pcl topic of the stream at config 5's shape
+    clouds = []
+    bus.subscribe(TOPIC_PCL, clouds.append)
+    StreamingRunner(cfg5, bus, batch_size=batch).run(
+        iter([(gold[i % 2]["left"], gold[i % 2]["right"]) for i in
+              range(batch)]))
+    if len(clouds) != batch or len(clouds[1].points) != int(
+            (dm5[1] >= 2).sum()):
+        raise AssertionError("the gen_pcl stream did not publish the clouds")
+    print(f"gen_pcl StreamingRunner: {len(clouds)} clouds published, "
+          f"{len(clouds[1].points)} points in the photo frame's")
+
+    # (d) bench_bm256's configuration: process_batch_fused, B = 16, D = 256
+    p256 = BMParams(disp_num=256)
+    big = make_pipeline(engine="bm", bm_params=p256, params=PipelineParams(
+        calib_im_size=(640, 360), **size), device=dev)
+    l16, r16 = l5[:BM256_B], r5[:BM256_B]
+    big.process_batch_fused(l16, r16)                   # warm-up
+    counted(f"bench_bm256, process_batch_fused at B={BM256_B}, D=256",
+            lambda: big.process_batch_fused(l16, r16), 1)
+    ms256 = host_ms(lambda: big.process_batch_fused(l16, r16), 5)
+    L16, R16 = big._rectify_crop(l16, r16)
+    hold_bm(f"bench_bm256's rectified batch B={BM256_B} D=256", L16, R16,
+            p256)
+    del L16, R16
+    torch.cuda.empty_cache()
+    print(f"7d. bench_bm256 (BM D=256, process_batch_fused 640x480, "
+          f"B={BM256_B}): {ms256:.3f} ms a batch = "
+          f"{BM256_B * 1e3 / ms256:.2f} fps (median of 5); kernel G == "
+          f"plain (torch.equal, both views) on its rectified batch")
+
+    # (e) BM-64 against libelas D1, pooled over both scenes
+    dl = bm.bm_texture_gate(gl, bk.bm_match_fused(gl, gr, p64)[0], p64)
+    se, n, agree, tot = 0.0, 0, 0.0, 0
+    for b, g in enumerate(gold):
+        Dl, ref = dl[b].cpu().numpy(), g["D1"]
+        both = (Dl >= 0) & (ref >= 0)
+        se += float(((Dl[both] - ref[both]) ** 2).sum())
+        n += int(both.sum())
+        agree += float(((Dl >= 0) == (ref >= 0)).sum())
+        tot += ref.size
+    print(f"7e. BM D=64 (G + texture gate) against libelas D1 on "
+          f"{', '.join(GOLDEN)}, pooled: RMSE {np.sqrt(se / max(n, 1)):.6f} "
+          f"px, mask agreement {agree / tot:.6f}")
+
+    # (f) G's device time, its plain twin's and its bound; G''s parts
+    ops_rate = int_ops_rate(dev)
+    lt, rt = pipe._rectify_crop(torch.from_numpy(lb[:1]).to(dev),
+                                torch.from_numpy(rb[:1]).to(dev))
+    out = None
+    for label, (li, ri), p in (("node", (lt, rt), p64),
+                               ("D=256", (L5[:1], R5[:1]), p256)):
+        hold("bm", f"bm at the {label} shape", bk.bm_match_fused(li, ri, p),
+             bk.bm_match_fused_plain(li, ri, p))
+        k_ms = events_ms(lambda: bk.bm_match_fused(li, ri, p), 20)
+        p_ms = events_ms(lambda: bk.bm_match_fused_plain(li, ri, p), 3,
+                         spin=False)
+        nb, ops = bm_work(1, 480, 640, p.disp_num)
+        b_ms, by = bound_ms(nb, ops, ops_rate)
+        print(f"7f. G at the {label} shape (B=1, 640x480, D={p.disp_num}): "
+              f"== plain (torch.equal); device ms a call {k_ms:.4f} (CUDA "
+              f"events, calls queued behind a spin); plain {p_ms:.3f}; bound "
+              f"{b_ms:.5f} by {by} ({nb} bytes, {ops} operations); library: "
+              f"none")
+        if label == "node":
+            out = (k_ms, p_ms, b_ms, by)
+    k5 = events_ms(lambda: bk.bm_match_fused(L5, R5, p64), 10)
+    nb5, ops5 = bm_work(CONFIG5_B, 480, 640, 64)
+    b5, by5 = bound_ms(nb5, ops5, ops_rate)
+    print(f"7f. G at config 5's shape (B={CONFIG5_B}, D=64): device ms a "
+          f"call {k5:.4f}; bound {b5:.5f} by {by5}")
+    parts = {mode: events_ms(lambda: bk.bm_match_diag(lt, rt, p64, mode), 20)
+             for mode in bk.DIAG_MODES}
+    if not all(torch.equal(x, y) for x, y in zip(
+            bk.bm_match_diag(lt, rt, p64, "full"),
+            bk.bm_match_fused(lt, rt, p64))):
+        raise AssertionError("G' full != G")
+    print("7f. G' (per-part timing of G, B=1, 640x480, D=64, device ms a "
+          "call): " + ", ".join(f"{m} {t:.4f}" for m, t in parts.items()))
+    return {"name": "bm", "route": "cuda",
+            "source": "jackal_tpu_torch/csrc/bm_kernel.cu",
+            "replaces": "jackal_tpu/ops/pallas/bm_kernel.py:107",
+            "launches": node_launches, "ms": out[0], "plain_ms": out[1],
+            "bound_ms": out[2], "bound_by": out[3], "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -776,17 +1108,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc: {nvcc}")
     t = time.perf_counter()
     buildmod.build([native.LIBRARY] + [
-        cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES + ("sad_rate",)])
+        cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES
+        + ("bm_kernel_diag", "sad_rate")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
-    for name in cuda_lib.KERNEL_SOURCES:
+    for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
         for line in buildmod.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions ------------------------
     max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0,
-               "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0}
+               "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -1250,7 +1583,12 @@ def main() -> int:
         entry["max_abs_err"] = max_err[entry["name"]]
         kernels.append(entry)
 
-    # ---- 7. the kernels line, the card, the result -----------------------
+    # ---- 7. BM and gen_pcl: kernel G, the BM node, configs 5 and bm256 ----
+    entry = bm_phase(dev, hold)
+    entry["max_abs_err"] = max_err["bm"]
+    kernels.append(entry)
+
+    # ---- 8. the kernels line, the card, the result -----------------------
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,116 @@
+"""BM's CUDA kernel G, its wrapper and its plain version.
+
+  bm_match_fused   kernel G   csrc/bm_kernel.cu
+  bm_match_diag    G'         the same source built with its diagnostic
+                              entry: a per-part timing of G
+
+bm_match_fused launches G for CUDA tensors (or raises) and runs its plain
+twin, bm_match_fused_plain, for CPU tensors. Both return what the
+reference package's bm_match_pallas returns: both views' disparities, the
+left one after the L/R check and before the texture gate
+(matching/bm.bm_texture_gate, which the pipeline applies next).
+bm_match_diag is called by chip_smoke.py alone, on the card. ``launches``
+counts the calls that launched a kernel, by kernel name.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ..config import BMParams
+from ..matching.bm import bm_views
+from ..matching.sgm import _lr_tail
+from . import cuda_lib
+
+launches = {"bm": 0, "bm_diag": 0}
+
+D_RANGE = (2, 256)       # the disparity counts the kernel takes
+WINDOW_MAX = 255         # keeps every real cost below the key's 2^24 - 1
+DIAG_MODES = ("full", "onewta", "boxonly", "nobox")
+
+
+def _fn(lib_name: str, fn_name: str, n_int: int):
+    fn = getattr(cuda_lib.load(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] * 2 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bm_match_fused_plain(left_b: torch.Tensor, right_b: torch.Tensor,
+                         params: BMParams = BMParams()
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dL, dR = bm_views(left_b, right_b, params)
+    return _lr_tail(dL, dR, params.disp_num, params)
+
+
+def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
+             lib_name: str):
+    """Contiguous copies of the inputs, or ValueError for what the kernel
+    does not take."""
+    D, win = params.disp_num, params.window
+    if not D_RANGE[0] <= D <= D_RANGE[1]:
+        raise ValueError(f"the BM kernel takes {D_RANGE[0]} <= D <= "
+                         f"{D_RANGE[1]}, got D = {D}")
+    if win % 2 == 0 or not 1 <= win <= WINDOW_MAX:
+        raise ValueError(f"the BM kernel takes an odd window of 1 to "
+                         f"{WINDOW_MAX}, got {win}")
+    if left_b.dim() != 3 or left_b.shape != right_b.shape \
+            or left_b.dtype != torch.uint8 or right_b.dtype != torch.uint8 \
+            or right_b.device != left_b.device:
+        raise ValueError(f"need two uint8 [B, H, W] batches of one shape on "
+                         f"one device, got {left_b.dtype} "
+                         f"{tuple(left_b.shape)} on {left_b.device} and "
+                         f"{right_b.dtype} {tuple(right_b.shape)} on "
+                         f"{right_b.device}")
+    W = left_b.shape[-1]
+    fn = cuda_lib.load(lib_name).bm_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    if fn(W, D, win // 2) < 0:
+        raise ValueError(f"the BM kernel cannot hold a band of W = {W} at "
+                         f"D = {D}, window {win} in shared memory")
+    return left_b.contiguous(), right_b.contiguous()
+
+
+def _launch(lib_name, fn_name, left_b, right_b, params, *extra):
+    left_b, right_b = _checked(left_b, right_b, params, lib_name)
+    B, H, W = left_b.shape
+    dl = torch.empty((B, H, W), dtype=torch.float32, device=left_b.device)
+    dr = torch.empty_like(dl)
+    err = _fn(lib_name, fn_name, len(extra))(
+        left_b.data_ptr(), right_b.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+        B, H, W, params.disp_num, params.window // 2,
+        float(params.lr_threshold), float(params.uniqueness), *extra,
+        cuda_lib.stream_ptr(left_b))
+    cuda_lib.check(err, fn_name)
+    return dl, dr
+
+
+def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
+                   params: BMParams = BMParams()
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """uint8 [B, H, W] pairs -> (D_left after the L/R check, D_right),
+    float32 [B, H, W], -1 for invalid: kernel G on the card."""
+    if not left_b.is_cuda:
+        return bm_match_fused_plain(left_b, right_b, params)
+    out = _launch("bm_kernel", "bm_match", left_b, right_b, params)
+    launches["bm"] += 1
+    return out
+
+
+def bm_match_diag(left_b: torch.Tensor, right_b: torch.Tensor,
+                  params: BMParams, mode: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G' on the card: G with its per-d work gated by ``mode`` (one of
+    DIAG_MODES), for timing its parts. "full" is G; "onewta" the left
+    view's WTA only (dr = dl, no L/R check); "boxonly" the cost and box
+    without a WTA (both outputs the cost summed over d); "nobox" both WTAs
+    on the centre row's AD without the box."""
+    if not left_b.is_cuda:
+        raise ValueError("bm_match_diag runs on the card only")
+    out = _launch("bm_kernel_diag", "bm_match_diag", left_b, right_b, params,
+                  DIAG_MODES.index(mode))
+    launches["bm_diag"] += 1
+    return out

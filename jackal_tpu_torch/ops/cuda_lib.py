@@ -21,9 +21,13 @@ from ..build import PKG_DIR, Library, build
 
 CSRC = os.path.join(PKG_DIR, "csrc")
 KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
-                  "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel")
+                  "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel",
+                  "bm_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# libraries built from another library's source with extra flags: the BM
+# kernel's per-part timing (G') is the BM source with its diagnostic entry
+VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",))}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -38,8 +42,9 @@ def _nvcc() -> str:
 
 
 def library(name: str) -> Library:
-    return Library(name=name, compiler=_nvcc(), flags=NVCC_FLAGS,
-                   sources=(os.path.join(CSRC, f"{name}.cu"),))
+    src, extra = VARIANTS.get(name, (name, ()))
+    return Library(name=name, compiler=_nvcc(), flags=NVCC_FLAGS + extra,
+                   sources=(os.path.join(CSRC, f"{src}.cu"),))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -266,3 +266,121 @@ def test_sgm_node_on_the_card_equals_cpu(dev):
     np.testing.assert_array_equal(a.dmap, b.dmap)
     np.testing.assert_allclose(a.scan.scan.cpu().numpy(),
                                b.scan.scan.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,W,D,window,shift", [
+    (3, 37, 333, 33, 9, 7),          # odd D, W % 32 != 0, B = 3, odd H
+    (1, 50, 130, 64, 5, 60),         # D about W / 2
+    (2, 21, 1280, 128, 9, 40),       # the widest frames of a config
+    (1, 9, 2000, 16, 3, 3),          # near the kernel's widest
+    (1, 16, 300, 256, 9, 100),       # bench_bm256's D
+    (1, 12, 90, 2, 1, 1)])           # the smallest D and window
+def test_bm_kernel_equals_plain(dev, B, H, W, D, window, shift):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    rng = np.random.default_rng(W + D)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    lt = torch.from_numpy(left).to(dev)
+    rt = torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev)
+    p = BMParams(disp_num=D, window=window)
+    n0 = bk.launches["bm"]
+    got = bk.bm_match_fused(lt, rt, p)
+    assert bk.launches["bm"] == n0 + 1
+    want = bk.bm_match_fused_plain(lt, rt, p)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0] >= 0).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_bm_kernel_on_the_golden_pair(dev, D):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    gold = [np.load(f"{FIX}/elas_golden_{f}.npz")
+            for f in ("s640_boxes", "photo")]
+    lt = torch.from_numpy(np.stack([g["left"] for g in gold])).to(dev)
+    rt = torch.from_numpy(np.stack([g["right"] for g in gold])).to(dev)
+    p = BMParams(disp_num=D)
+    for g, w in zip(bk.bm_match_fused(lt, rt, p),
+                    bk.bm_match_fused_plain(lt, rt, p)):
+        assert torch.equal(g, w)
+
+
+def test_bm_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+
+    monkeypatch.setattr(bk, "bm_match_fused_plain", refuse)
+    img = torch.zeros((1, 20, 64), dtype=torch.uint8, device=dev)
+    dl, dr = bk.bm_match_fused(img, img, BMParams(disp_num=16))
+    assert dl.is_cuda and dl.shape == (1, 20, 64)
+
+
+def test_bm_kernel_refuses_what_it_does_not_take(dev):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    img = torch.zeros((1, 20, 64), dtype=torch.uint8, device=dev)
+    for D in (1, 257):
+        with pytest.raises(ValueError, match="D = "):
+            bk.bm_match_fused(img, img, BMParams(disp_num=D))
+    for window in (8, 257):
+        with pytest.raises(ValueError, match="window"):
+            bk.bm_match_fused(img, img, BMParams(window=window))
+    wide = torch.zeros((1, 4, 4096), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.bm_match_fused(wide, wide, BMParams())
+    tall = torch.zeros((1, 300, 640), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.bm_match_fused(tall, tall, BMParams(window=255))
+    with pytest.raises(ValueError, match="uint8"):
+        bk.bm_match_fused(img.to(torch.int32), img, BMParams())
+
+
+def test_bm_diag_modes_run(dev):
+    """G', the per-part timing: "full" is G itself; the other modes run."""
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    left = np.random.default_rng(1).integers(0, 256, (2, 40, 200)).astype(
+        np.uint8)
+    lt = torch.from_numpy(left).to(dev)
+    rt = torch.from_numpy(np.roll(left, -5, axis=2)).to(dev)
+    p = BMParams(disp_num=32)
+    want = bk.bm_match_fused(lt, rt, p)
+    for mode in bk.DIAG_MODES:
+        got = bk.bm_match_diag(lt, rt, p, mode)
+        torch.cuda.synchronize()
+        if mode == "full":
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert got[0].shape == (2, 40, 200)
+
+
+@pytest.mark.parametrize("engine", ["bm", "sgm"])
+def test_gen_pcl_node_on_the_card_equals_cpu(dev, engine):
+    from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    pp = PipelineParams(gen_pcl=True)
+    gpu = make_pipeline(engine=engine, device=dev, params=pp)
+    cpu = make_pipeline(engine=engine, device="cpu", params=pp)
+    pairs = [synthetic_raw_pair(cpu, s, 9.0 + 3 * s, 0.05) for s in range(2)]
+    col = np.random.default_rng(2).integers(0, 256, (2, 360, 640, 3)).astype(
+        np.uint8)
+    lb, rb = (np.stack([p[i] for p in pairs]) for i in range(2))
+    a = gpu.process_batch_fused_pcl(lb, rb, col)
+    b = cpu.process_batch_fused_pcl(lb, rb, col)
+    assert torch.equal(a[0].cpu(), b[0])
+    assert torch.equal(a[1][1].cpu(), b[1][1])
+    assert torch.equal(a[1][2].cpu(), b[1][2])
+    v = b[1][2].numpy()
+    np.testing.assert_allclose(a[1][0].cpu().numpy()[v], b[1][0].numpy()[v],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(a[2].scan.cpu().numpy(), b[2].scan.numpy(),
+                               rtol=1e-5)

@@ -47,6 +47,8 @@ assert batched <= set(names), batched - set(names)
 sgm = {"jackal_tpu_torch.matching.sgm", "jackal_tpu_torch.ops.sgm_kernel",
        "jackal_tpu_torch.ops.shifts", "jackal_tpu_torch.entry"}
 assert sgm <= set(names), sgm - set(names)
+bm = {"jackal_tpu_torch.matching.bm", "jackal_tpu_torch.ops.bm_kernel"}
+assert bm <= set(names), bm - set(names)
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -108,28 +110,50 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
     assert S1.device.type == "cpu" and S1.shape == (2, 40, 64)
     assert make_pipeline(device="cpu").engine == "sgm"
 
+    from jackal_tpu_torch.config import PipelineParams
+    for kw in ({"engine": "bm"},
+               {"engine": "bm", "params": PipelineParams(gen_pcl=True)},
+               {"engine": "elas", "params": PipelineParams(gen_pcl=True)}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_pipeline(**kw)
+        assert make_pipeline(device="cpu", **kw).device.type == "cpu"
+
 
 def test_later_slices_raise_not_implemented():
     import dataclasses
-    from jackal_tpu_torch.config import ElasParams, PipelineParams
+    from jackal_tpu_torch.config import ElasParams
     from jackal_tpu_torch.matching.elas.pipeline import elas_match
     from jackal_tpu_torch.pipeline.default import make_pipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline(engine="bm", device="cpu")
-    for engine in ("elas", "sgm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_pipeline(engine=engine, device="cpu",
-                          params=PipelineParams(gen_pcl=True))
     img = np.zeros((40, 64), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         elas_match(img, img, dataclasses.replace(ElasParams(),
                                                  subsampling=True),
                    device="cpu")
     pipe = make_pipeline(engine="elas", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.process_batch_pcl(img[None], img[None])
     with pytest.raises(ValueError, match="engine='sgm'"):
         pipe.process_batch_fused(img[None], img[None])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline(device="cpu").process_batch_pcl(img[None], img[None])
+    with pytest.raises(ValueError, match="engine='sgm'"):
+        pipe.process_batch_fused_pcl(img[None], img[None])
+
+
+@pytest.mark.parametrize("engine", ["elas", "sgm", "bm"])
+def test_gen_pcl_builds_on_the_cpu(engine):
+    """Every engine takes gen_pcl on device="cpu" and gives a cloud of
+    every pixel beside its map; BM builds with its parameters."""
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    pipe = make_pipeline(engine=engine, device="cpu",
+                         bm_params=BMParams(disp_num=32),
+                         params=PipelineParams(
+                             gen_pcl=True, calib_im_size=(128, 72),
+                             im_width=64, im_height=36, crop_im_width=64,
+                             crop_im_height=36))
+    assert pipe.engine == engine and pipe.bm_params.disp_num == 32
+    img = np.random.default_rng(0).integers(0, 256, (2, 72, 128)).astype(
+        np.uint8)
+    dmaps, (pts, rgb, valid), scans = pipe.process_batch_pcl(img, img)
+    assert dmaps.shape == (2, 36, 64) and pts.shape == (2, 36 * 64, 3)
+    assert rgb.dtype == torch.float32 and valid.dtype == torch.bool
+    assert scans.scan.shape == (2, 90)
