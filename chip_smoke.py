@@ -38,8 +38,10 @@ Phases (any failure exits non-zero and prints no success line):
      no FFMA; (e) the raster kernel's device time, its plain version's and
      its bound from this run's live tile slots;
   6. SGM: (a) kernels D (census), E (paths) and F (WTA maps) against their
-     plain versions (torch.equal) on the golden pair at 640x480, D = 64,
-     and on seeded awkward shapes, 4 paths and true_right; (b)
+     plain versions (torch.equal) on the golden pair at 640x480, D = 64
+     and 128, and on seeded awkward shapes (4 paths, true_right, penalties
+     past E's 16-bit lanes, lines shorter than E's ring, H and W under 32,
+     D > W); (b)
      sgm_match_batch on the card against the CPU's plain path on both
      golden scenes at D = 64 and 128, with the pooled RMSE and mask
      agreement against libelas; (c) the SGM node, make_pipeline() at
@@ -50,9 +52,14 @@ Phases (any failure exits non-zero and prints no success line):
      B = 4; each of these four paths with the launch counters of D, E and
      F set to 0 just before and read just after; (e) each kernel against
      its plain version (torch.equal), its device time, its plain version's
-     and its bound at the node's shape and at config 3's;
+     and its bound (and E's bound as counted before its 16-bit lanes) at
+     the node's shape and at config 3's, and E's device memory a call; a
+     time below its bound fails;
   7. BM and gen_pcl: (a) kernel G against its plain twin (torch.equal) on
-     both golden pairs at D = 64 and 256 and on seeded awkward shapes; (b)
+     both golden pairs at D = 64 and 256 and on seeded awkward shapes
+     (W = 2000, W % 64 != 0, D past G's strip, H and W under 32, fewer rows
+     than the window, windows 1 to 21, B = 32 batches in G's 64-column
+     strip); (b)
      the BM node, make_pipeline(engine="bm") at 640x480, D = 64:
      process_frame on 9 synthetic pairs (stage medians, fps, idle share),
      process_batch_fused at batch 8 against process_frame, StreamingRunner
@@ -65,8 +72,11 @@ Phases (any failure exits non-zero and prints no success line):
      on that rectified batch; each of these paths with G's
      launch counter set to 0 just before and read just after (9, 1, 6, 1,
      1); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
-     device time, its plain twin's and its bound at the node's shape and
-     at D = 256, and G' (the per-part timing) in its four modes;
+     device time, its plain twin's and its bound (and the bound as counted
+     before G's packed instructions) at the node's shape, at D = 256, at
+     config 5's and at bench_bm256's, a time below its bound failing, at
+     the last two beside G' "full32" (32-column strips), and G' (the
+     per-part timing) in its five modes;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -467,19 +477,29 @@ def bound_ms(nbytes, ops, ops_per_s):
 
 
 def sgm_work(kernel, B, H, W, D, num_paths=8):
-    """(bytes, 32-bit integer operations) the SGM kernel ``kernel`` must do
-    on [B, H, W] frames at D disparities. census (2B images): one byte read
-    and an int32 code written a pixel; 24 compares and 24 bit inserts.
+    """(bytes, 32-bit integer instructions) the SGM kernel ``kernel`` must
+    do on [B, H, W] frames at D disparities. census (2B images): one byte
+    read and an int32 code written a pixel; 24 compares and 24 bit inserts.
     sgm_paths: the int16 cost read and the int16 sum written once a cell;
-    11 operations a cell a path (csrc/sgm_paths_kernel.cu). sgm_wta: the
-    sum read once, ten int16 maps written; a compare and a select a value
-    in each of two walks over d, both views."""
+    per cell, d and path at least 3.25 instructions: the carry's minimum
+    (a three-way min of 16-bit pairs, 0.25), the neighbours + P1 against
+    the carry (two min(a + b, c) of pairs, 1), the minimum with m + P2,
+    best - m, C + best - m against BIG and the add into the sum (a pair
+    each, 2) (csrc/sgm_paths_kernel.cu; before the kernel packed 16-bit
+    pairs the count was 11 operations, SGM_PATHS_OPS_32). sgm_wta: the sum
+    read once, ten int16 maps written; a compare and a select a value in
+    each of two walks over d, both views."""
     px = B * H * W
     if kernel == "census":
         return 2 * px * (1 + 4), 2 * px * 48
     if kernel == "sgm_paths":
-        return 4 * px * D, 11 * num_paths * px * D
+        return 4 * px * D, 3.25 * num_paths * px * D
     return 2 * px * D + 20 * px, 8 * px * D
+
+
+# the path kernel's operations a cell, d and path as counted one a 32-bit
+# instruction, before its 16-bit pairs, kept beside the restated count
+SGM_PATHS_OPS_32 = 11
 
 
 def sgm_phase(dev, hold):
@@ -519,10 +539,17 @@ def sgm_phase(dev, hold):
                  [sk.sgm_wta_maps_plain(S)])
 
     hold_sgm("golden 640x480 D=64", gl, gr, SGMParams())
+    hold_sgm("golden 640x480 D=128", gl, gr, SGMParams(disp_num=128))
     rng = np.random.default_rng(6)
     for B, H, W, D, kw in ((2, 23, 150, 24, {}), (1, 41, 333, 48, {}),
                            (1, 97, 200, 48, {"num_paths": 4}),
-                           (2, 31, 130, 24, {"true_right": True})):
+                           (2, 31, 130, 24, {"true_right": True}),
+                           # E's 32-bit path, and its 16-bit lanes' limit
+                           (1, 29, 90, 24, {"p1": 6000, "p2": 100000}),
+                           (2, 40, 77, 64, {"p1": 4767, "p2": 4767}),
+                           # lines shorter than E's ring; H, W < 32; D > W
+                           (1, 3, 5, 24, {}), (2, 7, 31, 64, {}),
+                           (1, 40, 6, 100, {}), (1, 33, 97, 192, {})):
         left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
         right = np.roll(left, 6, axis=2)
         p = dataclasses.replace(SGMParams(disp_num=D), **kw)
@@ -531,8 +558,10 @@ def sgm_phase(dev, hold):
                  torch.from_numpy(right).to(dev), p)
     torch.cuda.synchronize()
     print("6a. SGM kernels == plain (torch.equal): census, paths, WTA maps "
-          "on the golden pair at 640x480 D=64 and on seeded frames (odd H, "
-          "W % 32 != 0, D 24 and 48, 4 paths, true_right)")
+          "on the golden pair at 640x480 D=64 and 128 and on seeded frames "
+          "(odd H, W % 32 != 0, D 24, 48, 64, 100 and 192, 4 paths, "
+          "true_right, penalties past the 16-bit lanes and at their limit, "
+          "lines shorter than the ring, H and W under 32, D > W)")
 
     # (b) the card's sgm_match_batch == the CPU's plain path; accuracy
     for D in (64, 128):
@@ -665,7 +694,7 @@ def sgm_phase(dev, hold):
     st["cost volume (plain torch)"] = host_ms(
         lambda: sgm.census_cost_volume_hdw(codes[:1], codes[1:], D), 5)
     cost = sgm.census_cost_volume_hdw(codes[:1], codes[1:], D)
-    st["aggregation (kernel E + 2 transposes)"] = host_ms(
+    st["aggregation (kernel E)"] = host_ms(
         lambda: sk.aggregate_paths_bhdw(cost, p), 5)
     S = sk.aggregate_paths_bhdw(cost, p)
     st["WTA maps (kernel F)"] = host_ms(lambda: sk.sgm_wta_maps(S), 5)
@@ -716,30 +745,50 @@ def sgm_phase(dev, hold):
         cd = sk.census5x5_batch(im)
         cv = sgm.census_cost_volume_hdw(cd[:Bs], cd[Bs:], D)
         Sv = sk.aggregate_paths_bhdw(cv, p)
+        # E's device memory a call: its layout copy, one int16 path volume a
+        # direction and S, above what was allocated before the call
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sk.aggregate_paths_bhdw(cv, p)
+        torch.cuda.synchronize()
+        print(f"6e. E's device memory a call at {label} shape: "
+              f"{(torch.cuda.max_memory_allocated(dev) - before) / 2 ** 30:.3f}"
+              f" GiB (its cost volume in: "
+              f"{cv.numel() * cv.element_size() / 2 ** 30:.3f} GiB)")
         reps_plain = 3 if label == "node" else 1
         for kname, fn, plain, kern in (
                 ("census", lambda: sk.census5x5_batch(im),
                  lambda: sk.census5x5_batch_plain(im), "census5x5_kernel"),
                 ("sgm_paths", lambda: sk.aggregate_paths_bhdw(cv, p),
-                 lambda: sk.aggregate_paths_bhdw_plain(cv, p),
-                 "sgm_dir_kernel"),
+                 lambda: sk.aggregate_paths_bhdw_plain(cv, p), "sgm_"),
                 ("sgm_wta", lambda: sk.sgm_wta_maps(Sv),
                  lambda: sk.sgm_wta_maps_plain(Sv), "sgm_wta_maps_kernel")):
             hold(kname, f"{kname} at {label} shape", [fn()], [plain()])
-            per_call = (8 if p.num_paths >= 8 else 4) \
-                if kname == "sgm_paths" else 1
+            # E is three kernels a call: the cost's layout, the path lines
+            # and their sum
+            per_call = 3 if kname == "sgm_paths" else 1
             k_ms = events_ms(fn, 20)
             l_ms, seen = launch_ms(fn, 20, kern)
             p_ms = events_ms(plain, reps_plain, spin=False)
             nb, ops = sgm_work(kname, Bs, Hs, Ws, D)
             b_ms, by = bound_ms(nb, ops, ops_rate)
+            old = ""
+            if kname == "sgm_paths":
+                ob, oby = bound_ms(nb, SGM_PATHS_OPS_32 * 8 * Bs * Hs * Ws * D,
+                                   ops_rate)
+                old = (f"; the bound counted one operation an instruction "
+                       f"(unpacked) {ob:.5f} by {oby}")
             print(f"6e. {kname} at {label} shape (B={Bs}, {Hs}x{Ws}, D={D}):"
                   f" == plain (torch.equal); device ms a call {k_ms:.4f} "
                   f"(CUDA events, calls queued behind a spin); its "
                   f"{per_call} kernel launches {l_ms * per_call:.4f} (mean "
                   f"of the {seen} of {20 * per_call} launches torch.profiler"
                   f" recorded); plain {p_ms:.3f}; bound {b_ms:.5f} by {by} "
-                  f"({nb} bytes, {ops} operations)")
+                  f"({nb} bytes, {ops:.6g} instructions){old}")
+            if k_ms < b_ms:
+                raise AssertionError(f"{kname} at {label}: {k_ms} ms is "
+                                     f"below its bound {b_ms} ms")
             if label == "node":
                 out[kname] = (k_ms, p_ms, b_ms, by)
     srcs = {"census": ("census_kernel", 327), "sgm_paths":
@@ -753,18 +802,24 @@ def sgm_phase(dev, hold):
 
 
 def bm_work(B, H, W, D):
-    """(bytes, 32-bit integer operations) kernel G must do on [B, H, W]
+    """(bytes, 32-bit integer instructions) kernel G must do on [B, H, W]
     pairs at D disparities: the two u8 images read and the two f32 maps
-    written once (10 bytes a pixel); per (pixel, d) 12 operations, a lower
-    bound for a single streaming pass: the cost's two running box sums (the
-    absolute difference fused with the vertical add in one SAD instruction,
-    the vertical subtract, the horizontal add and subtract: 4) and, in
-    each view, a packed (cost, d) key, the duel with the best (a minimum
-    and a maximum) and the second best's minimum (4 each). Not counted:
-    the invalid-d selects (a loop can skip those d), the costs at best_d
-    -+ 1 (recomputable once a pixel) and the keys of the +-1 exclusion."""
+    written once (10 bytes a pixel); per (pixel, d) 5.75 instructions, the
+    least that any design computing G's function needs when it packs what
+    it can: the cost's two running box sums (the absolute difference, four
+    a __vabsdiffu4; the vertical add and subtract and the horizontal add
+    and subtract, two 16-bit lanes an instruction: 1.75) and, in each view,
+    two minima a d, at least an instruction each: one for the best (cost,
+    d) and one for the least cost outside best_d +- 1 (2 a view, as a
+    design that walks the d twice needs). Not counted: the invalid-d selects (a loop can skip those
+    d), the costs at best_d -+ 1 (read once a pixel) and whatever a
+    one-pass design adds to keep the second best. Before the kernel's
+    redesign the count was 12, one operation an instruction (BM_OPS_32)."""
     px = B * H * W
-    return 10 * px, 12 * px * D
+    return 10 * px, 5.75 * px * D
+
+
+BM_OPS_32 = 12
 
 
 def bm_phase(dev, hold):
@@ -795,16 +850,33 @@ def bm_phase(dev, hold):
     rng = np.random.default_rng(7)
     for B, H, W, D, win, shift in ((3, 37, 333, 33, 9, 7),
                                    (1, 61, 150, 64, 5, 20),
-                                   (2, 23, 1280, 128, 7, 45)):
+                                   (2, 23, 1280, 128, 7, 45),
+                                   (1, 9, 2000, 16, 3, 3),
+                                   (1, 30, 200, 64, 1, 9),
+                                   # D past the 64-column strip, H and W
+                                   # under 32, fewer rows than the window
+                                   (2, 17, 150, 100, 7, 30),
+                                   (1, 5, 20, 16, 5, 2),
+                                   (1, 3, 64, 8, 7, 1),
+                                   # batches that take the 64-column strip
+                                   (32, 161, 333, 101, 21, 17),
+                                   (32, 330, 333, 33, 1, 3)):
         left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
-        hold_bm(f"seeded B={B} {H}x{W} D={D} window {win}",
-                torch.from_numpy(left).to(dev),
-                torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev),
-                BMParams(disp_num=D, window=win))
+        p = BMParams(disp_num=D, window=win)
+        sw = bk.strip_width((B, H, W), p)
+        if B == 32 and sw != 64:
+            raise AssertionError(f"G took a {sw}-column strip at B={B} "
+                                 f"{H}x{W} D={D}, not 64")
+        hold_bm(f"seeded B={B} {H}x{W} D={D} window {win} ({sw}-column "
+                f"strip)", torch.from_numpy(left).to(dev),
+                torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev), p)
     torch.cuda.synchronize()
     print("7a. kernel G == plain (torch.equal, both views) on the golden "
           "pair at 640x480 D=64 and 256 and on seeded frames (B=3, odd H "
-          "and D, W % 32 != 0, W=1280, windows 5 and 7)")
+          "and D, W % 64 != 0, W=1280 and 2000, windows 1, 3, 5, 7, 9 and "
+          "21, D past the strip, H and W under 32, fewer rows than the "
+          "window; B=32 at H % 64 != 0, W % 64 != 0, odd D, in the "
+          "64-column strip)")
 
     def counted(label, fn, want):
         """(fn(), G's launches in it): the counter set to 0 just before and
@@ -1002,7 +1074,6 @@ def bm_phase(dev, hold):
     L16, R16 = big._rectify_crop(l16, r16)
     hold_bm(f"bench_bm256's rectified batch B={BM256_B} D=256", L16, R16,
             p256)
-    del L16, R16
     torch.cuda.empty_cache()
     print(f"7d. bench_bm256 (BM D=256, process_batch_fused 640x480, "
           f"B={BM256_B}): {ms256:.3f} ms a batch = "
@@ -1037,18 +1108,46 @@ def bm_phase(dev, hold):
                          spin=False)
         nb, ops = bm_work(1, 480, 640, p.disp_num)
         b_ms, by = bound_ms(nb, ops, ops_rate)
+        ob, oby = bound_ms(nb, BM_OPS_32 * 480 * 640 * p.disp_num, ops_rate)
         print(f"7f. G at the {label} shape (B=1, 640x480, D={p.disp_num}): "
               f"== plain (torch.equal); device ms a call {k_ms:.4f} (CUDA "
               f"events, calls queued behind a spin); plain {p_ms:.3f}; bound "
-              f"{b_ms:.5f} by {by} ({nb} bytes, {ops} operations); library: "
-              f"none")
+              f"{b_ms:.5f} by {by} ({nb} bytes, {ops:.6g} instructions; "
+              f"counted one operation an instruction, unpacked: "
+              f"{ob:.5f} by {oby}); library: none")
+        if k_ms < b_ms:
+            raise AssertionError(f"G at {label}: {k_ms} ms is below its "
+                                 f"bound {b_ms} ms")
         if label == "node":
             out = (k_ms, p_ms, b_ms, by)
-    k5 = events_ms(lambda: bk.bm_match_fused(L5, R5, p64), 10)
-    nb5, ops5 = bm_work(CONFIG5_B, 480, 640, 64)
-    b5, by5 = bound_ms(nb5, ops5, ops_rate)
-    print(f"7f. G at config 5's shape (B={CONFIG5_B}, D=64): device ms a "
-          f"call {k5:.4f}; bound {b5:.5f} by {by5}")
+    # the batched shapes, where G takes 64-column strips: G against G'
+    # "full32" (32-column strips), timed G, 32, G, 32 in one process
+    for label, (li, ri), p in (
+            (f"config 5's shape (B={CONFIG5_B}, D=64)", (L5, R5), p64),
+            (f"bench_bm256's shape (B={BM256_B}, D=256)", (L16, R16), p256)):
+        if not all(torch.equal(x, y) for x, y in zip(
+                bk.bm_match_diag(li, ri, p, "full32"),
+                bk.bm_match_fused(li, ri, p))):
+            raise AssertionError(f"G' full32 != G at {label}")
+        sw = bk.strip_width(tuple(li.shape), p)
+        ks, k32s = [], []
+        for _ in range(2):
+            ks.append(events_ms(lambda: bk.bm_match_fused(li, ri, p), 10))
+            k32s.append(events_ms(
+                lambda: bk.bm_match_diag(li, ri, p, "full32"), 10))
+        nbb, opsb = bm_work(li.shape[0], 480, 640, p.disp_num)
+        bb, byb = bound_ms(nbb, opsb, ops_rate)
+        obb, obyb = bound_ms(nbb, BM_OPS_32 * li.shape[0] * 480 * 640
+                             * p.disp_num, ops_rate)
+        print(f"7f. G at {label}: device ms a call "
+              f"{', '.join(f'{k:.4f}' for k in ks)} ({sw}-column strips); "
+              f"with 32-column strips (G' full32, equal to G) "
+              f"{', '.join(f'{k:.4f}' for k in k32s)}; bound {bb:.5f} by "
+              f"{byb} (counted one operation an instruction, unpacked: "
+              f"{obb:.5f} by {obyb})")
+        if min(ks) < bb:
+            raise AssertionError(f"G at {label}: {min(ks)} ms is below its "
+                                 f"bound")
     parts = {mode: events_ms(lambda: bk.bm_match_diag(lt, rt, p64, mode), 20)
              for mode in bk.DIAG_MODES}
     if not all(torch.equal(x, y) for x, y in zip(

@@ -25,44 +25,51 @@
 // clip(u - uw, 0, D), keep dL where dL >= 0, dR(u - s) >= 0 and
 // |dR(u - s) - dL| <= lr_threshold. dl, dr are float32 [B, H, W].
 //
-// What bounds it on an H100. Per (pixel, disparity) no single streaming
-// pass can do less than 12 32-bit integer operations: the cost's two
-// running box sums (the absolute difference fused with the vertical add in
-// one SAD instruction, the vertical subtract, the horizontal add and
-// subtract: 4) and, in each view, a packed (cost, d) key, the duel with
-// the best (a minimum and a maximum) and the second best's minimum (4).
-// That count leaves out the invalid-d selects (a loop can run over the
-// valid d alone), the capture of the costs at best_d -+ 1 (they can be
-// recomputed once a pixel) and the keys the +-1 exclusion needs, so it is
-// a lower bound: 2.4e8 for a 640x480 frame at D = 64, 0.014 ms at the
-// card's 1.67e13 integer operations a second; its bytes (two u8 images in,
-// two f32 maps out, 10 a pixel) take 0.0009 ms. So the integer operations
-// bound it, by 15x.
+// What bounds it on an H100. Per (pixel, disparity) no design can do less
+// than the cost's two running box sums (the absolute difference fused with
+// the vertical add, the vertical subtract, the horizontal add and
+// subtract: 4 operations, on 16-bit lanes at best two a 32-bit
+// instruction, the absolute difference four: 1.75 instructions) and, in
+// each view, two minima (the best (cost, d) and the least cost outside
+// best_d +- 1: 2 instructions): 5.75 instructions, 1.13e8 for a 640x480
+// frame at D = 64, 0.0068 ms at the card's 64 instructions a clock an SM
+// (chip_smoke.bm_work); its bytes (two u8 images in, two f32 maps out, 10
+// a pixel) take 0.0009 ms. So the integer operations bound it.
 //
-// The design. One block per (frame, band of TH rows) over the full width,
-// so that the right view's cost_L(u + d, d) and the L/R check's dR(u - s)
-// are reads of shared memory. The band's L and R rows and a halo of r rows
-// above and below sit in shared memory (R with D zero columns in front, so
-// x - d < 0 reads 0); the cost volume never leaves the SM. A thread owns
-// CW columns (u = thread + T * j) of all TH rows and keeps both views'
-// streaming WTA state of its TH * CW pixels in registers: the four least
-// (cost, d) keys packed as (min(cost, 2^24 - 1) << 8) | d (real costs stay
-// below 255 * 255^2 < 2^24 - 1, so the packing keeps the order, and d
-// enters in increasing order, so ties keep the first d), the costs at
-// best_d -+ 1 captured as they stream by. Per d: the vertical box of the
-// thread's own columns as a running sum (no neighbour needed) into a
-// shared row with r zero columns on either side; a barrier; the
-// horizontal box from it, the left view's update and the cost row into
-// shared memory; a barrier; the right view's update from cost_L(u + d, d).
-// Registers bound the pixels a thread can own (TH * CW <= 8), so a wide
-// frame gets a shorter band: the vertical halo is then recomputed more
-// often, the price of keeping the volume on chip.
+// The design: a block owns a strip of kSW output columns of one frame (64,
+// or 32 where a batch is too small to fill the card with 64) and a chunk
+// of RH rows, and walks down them. Per row it needs cost_L(u, d) (the left
+// view) and cost_L(u + d, d) (the right view) for its kSW columns u: two
+// segments a disparity of kSW + 2r columns each, seg 0 at x = u - r ..
+// u + r and seg 1 shifted by d, so that both views have the same shape.
+//  - Vertical box: per (segment, d, column) the running vertical sum V of
+//    the AD in shared memory, updated a row at a time from a ring of the
+//    last 2r + 3 rows of L and R (each row is read from device memory once
+//    a block, a step ahead). Four columns at a time: the absolute
+//    differences by one __vabsdiffu4, V as 16-bit pairs (a sum is at most
+//    255 * 255) by __vsub2 (the row that leaves) and __vadd2 (the new
+//    one). The walk starts 2r rows above the chunk, with zero rows before
+//    the first.
+//  - Horizontal box: the same thread (one a segment and d) runs along its
+//    segment's columns right after each V update, one add and one
+//    subtract a column, and writes the row's cost C[segment][u][d].
+//  - WTA: after a barrier every d of the row is at hand, so each pixel
+//    finishes within its row: Q threads a (pixel, view) take every Q-th
+//    valid d (and the first four invalid ones: the others cannot be among
+//    the least), keep the four least packed keys (cost << 8) | d, merge
+//    them by shuffles, read cm, cp from C and finish as before. No WTA
+//    state outlives a row; two barriers a row, none a disparity.
+// A second kernel, lr_check_kernel, applies the L/R check: it reads
+// dR(u - s), up to D columns left of the strip. Costs computed a row: 2
+// (kSW + 2r) per d against the W that a full-width row would need (the
+// right view's shifted segment is the price of the strip).
 //
 // Built with -DBM_KERNEL_DIAG, the library also exports bm_match_diag, a
 // per-part timing of this kernel (the port of tools/diag_bm_kernel.py
 // diag_kernel, pallas_call l.105): the same kernel with a compile-time mode
-// that gates the per-d work. The production library compiles only the
-// full mode.
+// that gates its parts (see bm_match_diag). The production library
+// compiles only the full mode.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -70,26 +77,33 @@ namespace {
 
 constexpr int kBig = 1 << 24;                    // bm_match's invalid cost
 constexpr uint32_t kKeyCostMax = (1u << 24) - 1; // kBig's cost in a key
-constexpr int kMaxCW = 8;                        // columns a thread: W <= 2048
-constexpr int kMaxThreads = 256;
+constexpr int kWide = 64, kNarrow = 32;         // output columns a block
 constexpr int kSmemMax = 232448;                 // a block's shared memory
+constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kFull = 0, kOneWta = 1, kBoxOnly = 2, kNoBox = 3 };
+enum Mode { kFullMode = 0, kOneWta = 1, kBoxOnly = 2, kNoBox = 3 };
 
 struct Plan {
-  int th, cw, threads, smem;
+  int dpad, threads, q;  // padded D, threads, WTA threads a (pixel, view)
+  int vp, cp, nw;        // pitches: V (uint16), C (int32), a ring row
+  int smem;
 };
 
-// Rows a block, columns a thread, threads and shared bytes for a width.
-__host__ __device__ inline Plan plan(int W, int D, int r) {
+__host__ __device__ inline Plan plan(int D, int r, int kSW) {
   Plan p;
-  p.cw = (W + kMaxThreads - 1) / kMaxThreads;
-  p.th = p.cw >= 8 ? 1 : 8 / p.cw;
-  if (p.th < 1) p.th = 1;
-  const int per = (W + p.cw - 1) / p.cw;
-  p.threads = (per + 31) / 32 * 32;
-  const int thh = p.th + 2 * r;
-  p.smem = 4 * p.th * (2 * W + 2 * r) + thh * (2 * W + D);
+  p.dpad = (D + 31) / 32 * 32;
+  // a box thread a (segment, d); at least a WTA thread a (pixel, view)
+  p.threads = 2 * p.dpad > 2 * kSW ? 2 * p.dpad : 2 * kSW;
+  p.q = 1;  // a power of 2, for the shuffles that merge their keys
+  while (2 * p.q * 2 * kSW <= p.threads) p.q *= 2;
+  // V rows hold the box columns rounded up to groups of 4, at an odd
+  // word pitch (no bank conflicts between the d of a warp)
+  p.vp = (kSW + 2 * r + 3) / 4 * 4 + 2;
+  p.cp = p.dpad + 1;
+  // a ring row: L then R, each with 8 bytes of slack for the word loads
+  p.nw = (kSW + D - 1 + 2 * r + 8 + 3) / 4 * 4;
+  p.smem = 4 * 2 * kSW * p.cp + 2 * 2 * p.dpad * p.vp +
+           (2 * r + 3) * 2 * p.nw;
   return p;
 }
 
@@ -98,291 +112,390 @@ __device__ __forceinline__ int key_cost(uint32_t key) {
   return c == static_cast<int>(kKeyCostMax) ? kBig : c;
 }
 
-// Streaming winner-take-all over increasing d of one view at one pixel.
-struct Wta {
-  uint32_t best, t1, t2, t3;  // the four least keys, ascending
-  int cm, cp, prev;           // costs at best_d - 1, best_d + 1, d - 1
-  bool take_cp;               // best improved at the last d
+// The key of a valid cost (always below 2^24 - 1) and of an invalid one.
+__device__ __forceinline__ uint32_t valid_key(int cost, int d) {
+  return static_cast<uint32_t>(cost) * 256u + static_cast<uint32_t>(d);
+}
+__device__ __forceinline__ uint32_t invalid_key(int d) {
+  return (kKeyCostMax << 8) | static_cast<uint32_t>(d);
+}
 
-  __device__ __forceinline__ void init() {
-    best = t1 = t2 = t3 = 0xFFFFFFFFu;
-    cm = cp = prev = kBig;
-    take_cp = false;
-  }
+// Four bytes of a shared-memory row from byte i on: two aligned words and
+// a funnel shift (i need not be a multiple of 4)
+__device__ __forceinline__ uint32_t load4(const uint8_t* row, int i) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (i >> 2);
+  return __funnelshift_r(w[0], w[1], 8 * (i & 3));
+}
 
-  __device__ __forceinline__ void update(int cost, int d) {
-    const uint32_t key =
-        (static_cast<uint32_t>(min(cost, static_cast<int>(kKeyCostMax))) << 8) |
-        static_cast<uint32_t>(d);
-    const bool improved = key < best;
-    if (improved) cm = prev;
-    if (take_cp) cp = cost;
-    take_cp = improved;
-    uint32_t k = improved ? best : key;  // the loser of the duel for best
-    best = improved ? key : best;
-    uint32_t lo = min(k, t1);
-    k = max(k, t1);
-    t1 = lo;
-    lo = min(k, t2);
-    k = max(k, t2);
-    t2 = lo;
-    t3 = min(k, t3);
-    prev = cost;
-  }
+// The four least keys, ascending.
+struct Top4 {
+  uint32_t k0, k1, k2, k3;
 
-  __device__ __forceinline__ float finish(int D, float uniq) const {
-    const int bd = static_cast<int>(best & 255u);
-    const int bc = key_cost(best);
-    // at most two of t1..t3 lie at best_d +- 1, so the first that does not
-    // is the least cost outside them
-    const int second =
-        abs(static_cast<int>(t1 & 255u) - bd) > 1   ? key_cost(t1)
-        : abs(static_cast<int>(t2 & 255u) - bd) > 1 ? key_cost(t2)
-                                                    : key_cost(t3);
-    const bool unique = static_cast<float>(bc) <
-                        __fmul_rn(uniq, static_cast<float>(second));
-    const int den = cm + cp - 2 * bc;
-    const float offs =
-        (bd > 0 && bd < D - 1 && den > 0)
-            ? __fdiv_rn(static_cast<float>(cm - cp),
-                        __fmul_rn(2.0f, static_cast<float>(den)))
-            : 0.0f;
-    return unique ? __fadd_rn(static_cast<float>(bd), offs) : -1.0f;
+  __device__ __forceinline__ void insert(uint32_t k) {
+    uint32_t lo = min(k, k0);
+    k = max(k, k0);
+    k0 = lo;
+    lo = min(k, k1);
+    k = max(k, k1);
+    k1 = lo;
+    lo = min(k, k2);
+    k = max(k, k2);
+    k2 = lo;
+    k3 = min(k, k3);
   }
 };
 
-template <int TH, int CW, int MODE>
-__global__ void __launch_bounds__(kMaxThreads)
-    bm_band_kernel(const uint8_t* __restrict__ L, const uint8_t* __restrict__ R,
-                   float* __restrict__ dl_out, float* __restrict__ dr_out,
-                   int H, int W, int D, int r, float lr_threshold,
-                   float uniq) {
+// Disparity of one pixel of one view from its four least keys and its
+// costs at best_d -+ 1 (kBig where invalid).
+__device__ __forceinline__ float finish(const Top4& t, int cm, int cp, int D,
+                                        float uniq) {
+  const int bd = static_cast<int>(t.k0 & 255u);
+  const int bc = key_cost(t.k0);
+  // at most two of k1..k3 lie at best_d +- 1, so the first that does not
+  // is the least cost outside them
+  const int second =
+      abs(static_cast<int>(t.k1 & 255u) - bd) > 1   ? key_cost(t.k1)
+      : abs(static_cast<int>(t.k2 & 255u) - bd) > 1 ? key_cost(t.k2)
+                                                    : key_cost(t.k3);
+  const bool unique =
+      static_cast<float>(bc) < __fmul_rn(uniq, static_cast<float>(second));
+  const int den = cm + cp - 2 * bc;
+  const float offs =
+      (bd > 0 && bd < D - 1 && den > 0)
+          ? __fdiv_rn(static_cast<float>(cm - cp),
+                      __fmul_rn(2.0f, static_cast<float>(den)))
+          : 0.0f;
+  return unique ? __fadd_rn(static_cast<float>(bd), offs) : -1.0f;
+}
+
+template <int kSW, int MODE>
+__global__ void __launch_bounds__(512)
+    bm_strip_kernel(const uint8_t* __restrict__ L, const uint8_t* __restrict__ R,
+                    float* __restrict__ dl_out, float* __restrict__ dr_out,
+                    int H, int W, int D, int r, int RH, float uniq) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, tid = threadIdx.x;
-  const int ws = W + 2 * r;  // pitch of the vertical sums, r zeros each side
-  const int thh = TH + 2 * r;
-  const int rp = D + W;      // pitch of the R rows, D zeros in front
-  int* colsum = reinterpret_cast<int*>(smem);       // [TH][ws]
-  int* cost = colsum + TH * ws;                     // [TH][W]
-  uint8_t* Ls = reinterpret_cast<uint8_t*>(cost + TH * W);  // [thh][W]
-  uint8_t* Rs = Ls + thh * W;                                // [thh][rp]
-  const int v0 = blockIdx.x * TH;
-  const size_t frame = static_cast<size_t>(blockIdx.y) * H * W;
+  const Plan p = plan(D, r, kSW);
+  const int tid = threadIdx.x;
+  const int u0 = blockIdx.x * kSW, v0 = blockIdx.y * RH;
+  const size_t frame = static_cast<size_t>(blockIdx.z) * H * W;
+  // 2r + 2 rows in the box's walk and the next row, loaded during a step
+  const int win = 2 * r + 1, nring = 2 * r + 3;
+  int* C = reinterpret_cast<int*>(smem);                       // [2][kSW][cp]
+  uint16_t* V = reinterpret_cast<uint16_t*>(C + 2 * kSW * p.cp);  // [2][dpad][vp]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(V + 2 * p.dpad * p.vp);
+  // ring[slot][0] holds L at x = u0 - r + k, ring[slot][1] R at
+  // x = u0 - r - (D - 1) + k, k < nw
+  const int loL = u0 - r, loR = u0 - r - (D - 1);
+  auto fetch = [&](int y, int k) -> uint8_t {
+    const int side = k >= p.nw;
+    const int x = (side ? loR : loL) + k - side * p.nw;
+    if (y < 0 || y >= H || x < 0 || x >= W) return 0;
+    return (side ? R : L)[frame + static_cast<size_t>(y) * W + x];
+  };
 
-  for (int i = tid; i < TH * ws; i += T) colsum[i] = 0;
-  for (int y = 0; y < thh; ++y) {
-    const int v = v0 - r + y;
-    const bool in = v >= 0 && v < H;
-    const uint8_t* lrow = L + frame + static_cast<size_t>(in ? v : 0) * W;
-    const uint8_t* rrow = R + frame + static_cast<size_t>(in ? v : 0) * W;
-    for (int x = tid; x < W; x += T) Ls[y * W + x] = in ? lrow[x] : 0;
-    for (int x = tid - D; x < W; x += T)
-      Rs[y * rp + D + x] = (in && x >= 0) ? rrow[x] : 0;
-  }
-  __syncthreads();
+  // this thread's (segment, d) in the box phase
+  const int seg = tid / p.dpad, d = tid % p.dpad;
+  const bool boxer = seg < 2 && d < D && (MODE != kOneWta || seg == 0);
+  uint16_t* Vs = V + (seg * p.dpad + d) * p.vp;
+  uint32_t* Vw = reinterpret_cast<uint32_t*>(Vs);  // pairs of columns
+  int* Cs = C + seg * kSW * p.cp + d;
+  const int ncol = kSW + 2 * r;
+  // per column j: seg 0 reads L[j], R[j - d + D - 1] and x = u0 - r + j;
+  // seg 1 reads L[d + j], R[j + D - 1] and x = u0 + d - r + j
+  const int lofs = seg == 0 ? 0 : d, rofs = p.nw + (seg == 0 ? D - 1 - d : D - 1);
+  const int xofs = u0 - r + (seg == 0 ? 0 : d);
 
-  Wta wl[TH][CW], wr[TH][CW];
-  int acc[TH][CW];
-#pragma unroll
-  for (int i = 0; i < TH; ++i)
-#pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      wl[i][j].init();
-      wr[i][j].init();
-      acc[i][j] = 0;
-    }
+  const int rows = min(RH, H - v0);
+  const int warm = MODE == kNoBox ? 0 : 2 * r;
+  const int ylead = MODE == kNoBox ? 0 : r;  // the new row: v + ylead
+  for (int i = tid; i < 2 * p.dpad * p.vp; i += blockDim.x) V[i] = 0;
+  for (int i = tid; i < nring * 2 * p.nw; i += blockDim.x)
+    ring[i] = i < 2 * p.nw ? fetch(v0 - warm + ylead, i) : 0;
 
-  for (int d = 0; d < D; ++d) {
-    // the vertical box of the AD down each of the thread's columns
-#pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      const int u = tid + j * T;
-      if (u >= W) continue;
-      const uint8_t* lc = Ls + u;
-      const uint8_t* rc = Rs + D + u - d;
-      auto ad = [&](int y) {
-        return abs(static_cast<int>(lc[y * W]) - static_cast<int>(rc[y * rp]));
-      };
-      if (MODE == kNoBox) {
-#pragma unroll
-        for (int i = 0; i < TH; ++i) colsum[i * ws + r + u] = ad(i + r);
-      } else {
-        int s = 0;
-        for (int y = 0; y <= 2 * r; ++y) s += ad(y);
-        colsum[r + u] = s;
-#pragma unroll
-        for (int i = 1; i < TH; ++i) {
-          s += ad(i + 2 * r) - ad(i - 1);
-          colsum[i * ws + r + u] = s;
-        }
-      }
-    }
+  // the WTA phase: Q threads a (pixel, view)
+  const int pr = tid / p.q, q = tid % p.q;
+  const bool wta = pr < 2 * kSW;
+  const int wseg = pr / kSW, wi = pr % kSW, wu = u0 + wi;
+
+  constexpr int kPre = 4;  // bytes of the next row a thread holds
+  for (int step = -warm; step < rows; ++step) {
+    const int ynext = v0 + step + ylead + 1;
+    const uint8_t* nrow = ring + ((step + warm) % nring) * 2 * p.nw;
+    uint8_t* next = ring + ((step + warm + 1) % nring) * 2 * p.nw;
+    // this step's row is in; the last step's reads of C are done. The
+    // next row's slot was last read a step ago.
     __syncthreads();
-    // the horizontal box, the left view, the cost row for the right view
+    uint8_t pre[kPre];
 #pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      const int u = tid + j * T;
-      if (u >= W) continue;
+    for (int n = 0; n < kPre; ++n) {
+      const int k = tid + n * blockDim.x;
+      pre[n] = k < 2 * p.nw ? fetch(ynext, k) : 0;
+    }
+    const bool emit = step >= 0;
+    if (boxer && MODE == kNoBox) {
+      // the centre row's AD as the cost, no box
+      for (int i = 0; i < kSW; ++i) {
+        const int j = i + r;
+        const int x = xofs + j;
+        Cs[i * p.cp] = static_cast<unsigned>(x) < static_cast<unsigned>(W)
+                           ? abs(static_cast<int>(nrow[lofs + j]) -
+                                 static_cast<int>(nrow[rofs + j]))
+                           : 0;
+      }
+    } else if (boxer) {
+      // the row that leaves the box: 2r + 1 rows above the new one
+      const uint8_t* orow =
+          ring + ((step + warm + nring - win) % nring) * 2 * p.nw;
+      int c = 0;
+      // four columns at a time: their absolute differences four to an
+      // instruction, the vertical sums two (16-bit lanes: a sum is at most
+      // 255 * 255, and the row that leaves is taken away first)
+      for (int j = 0; j < ncol; j += 4) {
+        uint32_t an = __vabsdiffu4(load4(nrow, lofs + j), load4(nrow, rofs + j));
+        uint32_t ao = __vabsdiffu4(load4(orow, lofs + j), load4(orow, rofs + j));
+        const int x = xofs + j;
+        if (x < 0 || x + 3 >= W) {  // columns outside the frame add 0
+          uint32_t m = 0;
 #pragma unroll
-      for (int i = 0; i < TH; ++i) {
-        int c;
-        if (MODE == kNoBox) {
-          c = colsum[i * ws + r + u];
-        } else {
-          const int* row = colsum + i * ws + u;
-          c = 0;
-          for (int k = 0; k <= 2 * r; ++k) c += row[k];
+          for (int k = 0; k < 4; ++k)
+            if (static_cast<unsigned>(x + k) < static_cast<unsigned>(W))
+              m |= 0xffu << (8 * k);
+          an &= m;
+          ao &= m;
         }
-        if (MODE == kBoxOnly) {
-          acc[i][j] += c;
-          continue;
+        const uint32_t w0 = __vadd2(__vsub2(Vw[j / 2], __byte_perm(ao, 0, 0x4140)),
+                                    __byte_perm(an, 0, 0x4140));
+        const uint32_t w1 = __vadd2(__vsub2(Vw[j / 2 + 1], __byte_perm(ao, 0, 0x4342)),
+                                    __byte_perm(an, 0, 0x4342));
+        Vw[j / 2] = w0;
+        Vw[j / 2 + 1] = w1;
+        if (emit) {
+          const int vk[4] = {static_cast<int>(w0 & 0xffffu),
+                             static_cast<int>(w0 >> 16),
+                             static_cast<int>(w1 & 0xffffu),
+                             static_cast<int>(w1 >> 16)};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int jj = j + k;
+            c += vk[k];
+            if (jj >= win) c -= Vs[jj - win];
+            if (jj >= 2 * r && jj < ncol) Cs[(jj - 2 * r) * p.cp] = c;
+          }
         }
-        cost[i * W + u] = c;
-        wl[i][j].update(u >= d ? c : kBig, d);
       }
     }
+    // the next row into its slot, read from the next step on
+#pragma unroll
+    for (int n = 0; n < kPre; ++n) {
+      const int k = tid + n * blockDim.x;
+      if (k < 2 * p.nw) next[k] = pre[n];
+    }
+    for (int k = tid + kPre * blockDim.x; k < 2 * p.nw; k += blockDim.x)
+      next[k] = fetch(ynext, k);
+    if (!emit) continue;
     __syncthreads();
-    if (MODE == kFull || MODE == kNoBox) {
-#pragma unroll
-      for (int j = 0; j < CW; ++j) {
-        const int u = tid + j * T;
-        if (u >= W) continue;
-#pragma unroll
-        for (int i = 0; i < TH; ++i)
-          wr[i][j].update(u + d < W ? cost[i * W + u + d] : kBig, d);
+    if (!wta) continue;
+    const int v = v0 + step;
+    const int* Cp = C + (wseg * kSW + wi) * p.cp;
+    if (MODE == kBoxOnly) {
+      int s = 0;
+      for (int dd = q; dd < D; dd += p.q) s += Cp[dd];
+      for (int o = p.q / 2; o > 0; o /= 2) s += __shfl_xor_sync(kFull, s, o);
+      if (q == 0 && wu < W) {
+        const size_t o = frame + static_cast<size_t>(v) * W + wu;
+        (wseg == 0 ? dl_out : dr_out)[o] = static_cast<float>(s);
       }
+      continue;
     }
-  }
-  __syncthreads();  // every read of the last cost row is done
-
-  float* drs = reinterpret_cast<float*>(cost);  // the right map, [TH][W]
-  float dlv[TH][CW];
-#pragma unroll
-  for (int j = 0; j < CW; ++j) {
-    const int u = tid + j * T;
-    if (u >= W) continue;
-#pragma unroll
-    for (int i = 0; i < TH; ++i) {
-      const size_t o = frame + static_cast<size_t>(v0 + i) * W + u;
-      if (MODE == kBoxOnly) {
-        if (v0 + i < H) dl_out[o] = dr_out[o] = static_cast<float>(acc[i][j]);
-        continue;
-      }
-      dlv[i][j] = wl[i][j].finish(D, uniq);
-      const float dr = MODE == kOneWta ? dlv[i][j] : wr[i][j].finish(D, uniq);
-      drs[i * W + u] = dr;
-      if (v0 + i < H) dr_out[o] = dr;
+    if (MODE == kOneWta && wseg == 1) continue;  // whole warps
+    // the valid d of the pixel are d < nv: d <= u in the left view,
+    // u + d < W in the right one. Of the invalid keys, all at the invalid
+    // cost, only the first four can be among the four least.
+    const int nv = max(0, min(D, wseg == 0 ? wu + 1 : W - wu));
+    Top4 t{0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
+#pragma unroll 4
+    for (int dd = q; dd < nv; dd += p.q) t.insert(valid_key(Cp[dd], dd));
+    for (int dd = nv + q; dd < min(nv + 4, D); dd += p.q)
+      t.insert(invalid_key(dd));
+    for (int o = p.q / 2; o > 0; o /= 2) {
+      const uint32_t a = __shfl_xor_sync(kFull, t.k0, o);
+      const uint32_t b = __shfl_xor_sync(kFull, t.k1, o);
+      const uint32_t c = __shfl_xor_sync(kFull, t.k2, o);
+      const uint32_t e = __shfl_xor_sync(kFull, t.k3, o);
+      t.insert(a);
+      t.insert(b);
+      t.insert(c);
+      t.insert(e);
     }
-  }
-  if (MODE == kBoxOnly) return;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < CW; ++j) {
-    const int u = tid + j * T;
-    if (u >= W) continue;
-#pragma unroll
-    for (int i = 0; i < TH; ++i) {
-      if (v0 + i >= H) continue;
-      float dl = dlv[i][j];
-      if (MODE == kFull) {
-        const int uw =
-            min(max(static_cast<int>(__fsub_rn(static_cast<float>(u), dl)), 0),
-                W - 1);
-        const int idx = u - min(max(u - uw, 0), D);
-        const float other = (idx >= 0 && idx < W) ? drs[i * W + idx] : -1e9f;
-        const bool ok = dl >= 0.0f && other >= 0.0f &&
-                        fabsf(__fsub_rn(other, dl)) <= lr_threshold;
-        dl = ok ? dl : -1.0f;
-      }
-      dl_out[frame + static_cast<size_t>(v0 + i) * W + u] = dl;
+    if (q != 0 || wu >= W) continue;
+    // the view's cost at (wu, dd): kBig where the pair is invalid
+    auto cost = [&](int dd) { return dd < nv ? Cp[dd] : kBig; };
+    const int bd = static_cast<int>(t.k0 & 255u);
+    const int cm = bd > 0 ? cost(bd - 1) : kBig;
+    const int cp = bd < D - 1 ? cost(bd + 1) : kBig;
+    const float disp = finish(t, cm, cp, D, uniq);
+    const size_t o = frame + static_cast<size_t>(v) * W + wu;
+    if (wseg == 0) {
+      dl_out[o] = disp;
+      if (MODE == kOneWta) dr_out[o] = disp;
+    } else {
+      dr_out[o] = disp;
     }
   }
 }
 
-template <int TH, int CW, int MODE>
-cudaError_t launch_one(const uint8_t* L, const uint8_t* R, float* dl,
-                       float* dr, int B, int H, int W, int D, int r,
-                       float lr_threshold, float uniq, const Plan& p,
-                       cudaStream_t stream) {
-  auto kern = bm_band_kernel<TH, CW, MODE>;
-  cudaError_t e = cudaFuncSetAttribute(
+// The L/R check of the left view, in place: dl holds the left view's WTA.
+__global__ void lr_check_kernel(float* __restrict__ dl,
+                                const float* __restrict__ dr, int H, int W,
+                                int D, float lr_threshold, long long n) {
+  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (e >= n) return;
+  const int u = static_cast<int>(e % W);
+  const long long row = e - u;
+  const float d = dl[e];
+  const int uw =
+      min(max(static_cast<int>(__fsub_rn(static_cast<float>(u), d)), 0),
+          W - 1);
+  const int idx = u - min(max(u - uw, 0), D);
+  const float other = (idx >= 0 && idx < W) ? dr[row + idx] : -1e9f;
+  const bool ok =
+      d >= 0.0f && other >= 0.0f && fabsf(__fsub_rn(other, d)) <= lr_threshold;
+  dl[e] = ok ? d : -1.0f;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <int kSW, int MODE>
+cudaError_t launch_sw(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
+                      int B, int H, int W, int D, int r, int RH, float uniq,
+                      const Plan& p, cudaStream_t s) {
+  auto kern = bm_strip_kernel<kSW, MODE>;
+  const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((H + TH - 1) / TH, B);
-  kern<<<grid, p.threads, p.smem, stream>>>(L, R, dl, dr, H, W, D, r,
-                                           lr_threshold, uniq);
+  const dim3 grid((W + kSW - 1) / kSW, (H + RH - 1) / RH, B);
+  kern<<<grid, p.threads, p.smem, s>>>(L, R, dl, dr, H, W, D, r, RH, uniq);
   return cudaGetLastError();
+}
+
+// Blocks a grid of strips kSW wide and chunks of RH rows has, and blocks
+// the card holds at once at this plan
+long long blocks(int B, int H, int W, int kSW, int RH) {
+  return static_cast<long long>(B) * ((W + kSW - 1) / kSW) * ((H + RH - 1) / RH);
+}
+long long resident(const Plan& p) {
+  return static_cast<long long>(sm_count()) *
+         max(1, min(2048 / p.threads, kSmemMax / p.smem));
+}
+
+// The strip width and the rows a block that the launch at this shape takes.
+// Strips of 64 columns where chunks of 64 rows of them give the card two
+// rounds of blocks (less halo a column: config 5's and bench_bm256's
+// batches), else of 32 (twice the blocks, half the walk a block: a frame
+// at a time); only 32 if ``narrow_only``. Rows a block: the most (64 to 16)
+// that still gives two rounds (a block also walks 2r rows above its chunk).
+// sw = 0 for a shape the kernel does not take.
+struct Choice {
+  int sw, RH;
+};
+Choice choose(int B, int H, int W, int D, int r, bool narrow_only) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || D < 2 || D > 256 || r < 0 ||
+      r > 127)
+    return {0, 0};
+  const Plan wide = plan(D, r, kWide), narrow = plan(D, r, kNarrow);
+  if (narrow.smem > kSmemMax) return {0, 0};
+  const bool use_wide = !narrow_only && wide.smem <= kSmemMax &&
+                        blocks(B, H, W, kWide, 64) >= 2 * resident(wide);
+  const Plan& p = use_wide ? wide : narrow;
+  const int sw = use_wide ? kWide : kNarrow;
+  int RH = 64;
+  while (RH > 16 && blocks(B, H, W, sw, RH) < 2 * resident(p)) RH /= 2;
+  if ((H + RH - 1) / RH > 65535) return {0, 0};
+  return {sw, RH};
 }
 
 template <int MODE>
 cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
                    int B, int H, int W, int D, int r, float lr_threshold,
-                   float uniq, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || W < 1 || D < 2 || D > 256 || r < 0 ||
-      r > 127)
-    return cudaErrorInvalidValue;
-  const Plan p = plan(W, D, r);
-  if (p.cw > kMaxCW || p.smem > kSmemMax) return cudaErrorInvalidValue;
+                   float uniq, bool narrow_only, void* stream) {
+  const Choice c = choose(B, H, W, D, r, narrow_only);
+  if (c.sw == 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-#define BM_CASE(CW_)                                                        \
-  case CW_:                                                                 \
-    return launch_one<(CW_ >= 8 ? 1 : 8 / CW_), CW_, MODE>(                 \
-        L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq, p, s);
-  switch (p.cw) {
-    BM_CASE(1)
-    BM_CASE(2)
-    BM_CASE(3)
-    BM_CASE(4)
-    BM_CASE(5)
-    BM_CASE(6)
-    BM_CASE(7)
-    BM_CASE(8)
-  }
-#undef BM_CASE
-  return cudaErrorInvalidValue;
+  cudaError_t e =
+      c.sw == kWide
+          ? launch_sw<kWide, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
+                                   plan(D, r, kWide), s)
+          : launch_sw<kNarrow, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
+                                     plan(D, r, kNarrow), s);
+  if (e != cudaSuccess || MODE != kFullMode) return e;
+  const long long n = static_cast<long long>(B) * H * W;
+  lr_check_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      dl, dr, H, W, D, lr_threshold, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared bytes a block needs at this width, D and r; -1 if the width is
-// more than the kernel's threads can cover or the bytes pass a block's
-// 227 KB. The wrapper refuses a shape that gives -1.
-extern "C" int bm_smem_bytes(int W, int D, int r) {
-  const Plan p = plan(W, D, r);
-  return p.cw > kMaxCW || p.smem > kSmemMax ? -1 : p.smem;
+// Shared bytes a block needs at this D and r (any width); -1 if they pass
+// a block's 227 KB. The wrapper refuses a shape that gives -1.
+extern "C" int bm_smem_bytes(int D, int r) {
+  const Plan p = plan(D, r, kNarrow);
+  return p.smem > kSmemMax ? -1 : p.smem;
+}
+
+// The strip width (64 or 32 columns) that bm_match takes at this shape, 0
+// for a shape it refuses: lets a test see which instantiation it held.
+extern "C" int bm_strip_width(int B, int H, int W, int D, int r) {
+  return choose(B, H, W, D, r, false).sw;
 }
 
 extern "C" int bm_match(const uint8_t* L, const uint8_t* R, float* dl,
                         float* dr, int B, int H, int W, int D, int r,
                         float lr_threshold, float uniq, void* stream) {
-  return static_cast<int>(
-      launch<kFull>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq, stream));
+  return static_cast<int>(launch<kFullMode>(L, R, dl, dr, B, H, W, D, r,
+                                            lr_threshold, uniq, false,
+                                            stream));
 }
 
 #ifdef BM_KERNEL_DIAG
-// mode: 0 full (the production kernel), 1 left WTA only (dr = dl, no L/R
-// check), 2 cost and box only (both outputs the cost summed over d), 3 the
-// AD of the centre row without the box.
+// mode: 0 full (the production kernel), 1 the left view alone (its box
+// and WTA; dr = dl, no L/R check), 2 the boxes alone (both outputs the
+// view's cost summed over d, no WTA), 3 both WTAs on the centre row's AD
+// without the box, no L/R check, 4 full with strips of 32 columns at every
+// shape (what the 64-column strip gains where it is taken).
 extern "C" int bm_match_diag(const uint8_t* L, const uint8_t* R, float* dl,
                              float* dr, int B, int H, int W, int D, int r,
                              float lr_threshold, float uniq, int mode,
                              void* stream) {
   cudaError_t e = cudaErrorInvalidValue;
   switch (mode) {
-    case kFull:
-      e = launch<kFull>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq, stream);
+    case kFullMode:
+    case 4:
+      e = launch<kFullMode>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
+                            mode == 4, stream);
       break;
     case kOneWta:
       e = launch<kOneWta>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                          stream);
+                          false, stream);
       break;
     case kBoxOnly:
       e = launch<kBoxOnly>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                           stream);
+                           false, stream);
       break;
     case kNoBox:
       e = launch<kNoBox>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                         stream);
+                         false, stream);
       break;
   }
   return static_cast<int>(e);

@@ -9,7 +9,8 @@ twin, bm_match_fused_plain, for CPU tensors. Both return what the
 reference package's bm_match_pallas returns: both views' disparities, the
 left one after the L/R check and before the texture gate
 (matching/bm.bm_texture_gate, which the pipeline applies next).
-bm_match_diag is called by chip_smoke.py alone, on the card. ``launches``
+bm_match_diag and strip_width serve chip_smoke.py and the card's tests
+alone. ``launches``
 counts the calls that launched a kernel, by kernel name.
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ launches = {"bm": 0, "bm_diag": 0}
 
 D_RANGE = (2, 256)       # the disparity counts the kernel takes
 WINDOW_MAX = 255         # keeps every real cost below the key's 2^24 - 1
-DIAG_MODES = ("full", "onewta", "boxonly", "nobox")
+DIAG_MODES = ("full", "onewta", "boxonly", "nobox", "full32")
 
 
 def _fn(lib_name: str, fn_name: str, n_int: int):
@@ -65,12 +66,11 @@ def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
                          f"{tuple(left_b.shape)} on {left_b.device} and "
                          f"{right_b.dtype} {tuple(right_b.shape)} on "
                          f"{right_b.device}")
-    W = left_b.shape[-1]
     fn = cuda_lib.load(lib_name).bm_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 3
-    if fn(W, D, win // 2) < 0:
-        raise ValueError(f"the BM kernel cannot hold a band of W = {W} at "
-                         f"D = {D}, window {win} in shared memory")
+    fn.argtypes = [ctypes.c_int] * 2
+    if fn(D, win // 2) < 0:
+        raise ValueError(f"the BM kernel cannot hold a strip at D = {D}, "
+                         f"window {win} in shared memory")
     return left_b.contiguous(), right_b.contiguous()
 
 
@@ -100,14 +100,25 @@ def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
     return out
 
 
+def strip_width(shape: Tuple[int, int, int], params: BMParams) -> int:
+    """The columns a block of G owns (64 or 32) at a [B, H, W] shape, as
+    bm_match_fused's launch chooses them; 0 for a shape it refuses."""
+    fn = cuda_lib.load("bm_kernel").bm_strip_width
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn(*shape, params.disp_num, params.window // 2)
+
+
 def bm_match_diag(left_b: torch.Tensor, right_b: torch.Tensor,
                   params: BMParams, mode: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G' on the card: G with its per-d work gated by ``mode`` (one of
-    DIAG_MODES), for timing its parts. "full" is G; "onewta" the left
-    view's WTA only (dr = dl, no L/R check); "boxonly" the cost and box
-    without a WTA (both outputs the cost summed over d); "nobox" both WTAs
-    on the centre row's AD without the box."""
+    """G' on the card: G with its parts gated by ``mode`` (one of
+    DIAG_MODES), for timing them. "full" is G; "onewta" the left view
+    alone, its box and WTA (dr = dl, no L/R check); "boxonly" both views'
+    boxes without a WTA (each output its view's cost summed over d);
+    "nobox" both WTAs on the centre row's AD without the box, no L/R
+    check; "full32" G with strips of 32 columns at every shape (G takes 64
+    where a batch fills the card, see strip_width)."""
     if not left_b.is_cuda:
         raise ValueError("bm_match_diag runs on the card only")
     out = _launch("bm_kernel_diag", "bm_match_diag", left_b, right_b, params,

@@ -73,9 +73,11 @@ def aggregate_paths_bhdw_plain(cost_bhdw: torch.Tensor, params: SGMParams
 def aggregate_paths_bhdw(cost_bhdw: torch.Tensor, params: SGMParams
                          ) -> torch.Tensor:
     """8-path (4-path when num_paths < 8) aggregation of an int16 cost
-    volume [B, H, D, W] -> int16 S [B, H, D, W]. The kernel walks a
-    [B, H, W, D] copy (one step of a path reads D contiguous costs) and
-    its sum is moved back to [B, H, D, W]."""
+    volume [B, H, D, W] -> int16 S [B, H, D, W]; the costs are >= 0, as the
+    census volume's are. The kernels lay the cost out as [B, H, W, DP], d
+    innermost and padded with _CARRY_BIG to DP (a multiple of 64), so that
+    one step of a path reads DP contiguous costs; every direction writes
+    its own path volume, and their sum is written in [B, H, D, W]."""
     if not cost_bhdw.is_cuda:
         return aggregate_paths_bhdw_plain(cost_bhdw, params)
     B, H, D, W = cost_bhdw.shape
@@ -87,15 +89,20 @@ def aggregate_paths_bhdw(cost_bhdw: torch.Tensor, params: SGMParams
                          f"got {params.p1}, {params.p2}")
     cuda_lib.expect(cost_bhdw, "cost", torch.int16, (B, H, D, W),
                     cost_bhdw.device)
-    cost_bhwd = cost_bhdw.transpose(2, 3).contiguous()
-    S_bhwd = torch.empty_like(cost_bhwd)
-    err = _fn("sgm_paths_kernel", "sgm_paths", 2, 7)(
-        cost_bhwd.data_ptr(), S_bhwd.data_ptr(), B, H, W, D, params.p1,
-        params.p2, 8 if params.num_paths >= 8 else 4,
+    n_paths = 8 if params.num_paths >= 8 else 4
+    DP = -(-D // 64) * 64
+    dev = cost_bhdw.device
+    padded = torch.empty((B, H, W, DP), dtype=torch.int16, device=dev)
+    paths = torch.empty((n_paths, B, H, W, DP), dtype=torch.int16,
+                        device=dev)
+    S = torch.empty_like(cost_bhdw)
+    err = _fn("sgm_paths_kernel", "sgm_paths", 4, 7)(
+        cost_bhdw.data_ptr(), padded.data_ptr(), paths.data_ptr(),
+        S.data_ptr(), B, H, W, D, params.p1, params.p2, n_paths,
         cuda_lib.stream_ptr(cost_bhdw))
     cuda_lib.check(err, "sgm_paths")
     launches["sgm_paths"] += 1
-    return S_bhwd.transpose(2, 3).contiguous()
+    return S
 
 
 # ---- F: WTA maps ----------------------------------------------------------

@@ -203,6 +203,48 @@ def test_path_and_wta_kernels_equal_plain(dev, B, H, W, D, num_paths):
     assert sk.launches["sgm_wta"] == n0["sgm_wta"] + 1
 
 
+@pytest.mark.parametrize("B,H,W,D,num_paths", [
+    (1, 3, 5, 24, 8),        # lines shorter than the ring of 8 steps
+    (2, 7, 31, 64, 8),       # H and W under 32, B > 1
+    (1, 40, 6, 100, 8),      # D past a 64-pair of lanes, W < 8
+    (1, 33, 97, 192, 4),     # six values a lane, 4 paths
+    (3, 12, 65, 63, 8)])     # odd D, padded to 64
+def test_path_kernel_edge_shapes(dev, B, H, W, D, num_paths):
+    """The redesigned path kernel at the shapes its design makes awkward,
+    with the plain version's penalties and with penalties past the 16-bit
+    lanes (its 32-bit path)."""
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.matching import sgm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    rng = np.random.default_rng(B * H * W + D)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    codes = sgm.census5x5(torch.from_numpy(np.stack([left, np.roll(
+        left, 3, axis=2)])).to(dev))
+    cost = sgm.census_cost_volume_hdw(codes[0], codes[1], D)
+    for p1, p2 in ((10, 120), (4767, 4767), (7000, 4767)):
+        p = SGMParams(disp_num=D, num_paths=num_paths, p1=p1, p2=p2)
+        n0 = sk.launches["sgm_paths"]
+        got = sk.aggregate_paths_bhdw(cost, p)
+        assert sk.launches["sgm_paths"] == n0 + 1
+        assert torch.equal(got, sk.aggregate_paths_bhdw_plain(cost, p))
+
+
+def test_path_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+
+    monkeypatch.setattr(sk, "aggregate_paths_bhdw_plain", refuse)
+    monkeypatch.setattr(sk, "aggregate_paths", refuse)
+    cost = torch.zeros((1, 20, 16, 40), dtype=torch.int16, device=dev)
+    S = sk.aggregate_paths_bhdw(cost, SGMParams(disp_num=16))
+    assert S.is_cuda and S.shape == (1, 20, 16, 40)
+    assert int(S.max()) == 0
+
+
 def test_sgm_kernels_refuse_what_they_do_not_take(dev):
     from jackal_tpu_torch.config import SGMParams
     from jackal_tpu_torch.ops import sgm_kernel as sk
@@ -308,6 +350,49 @@ def test_bm_kernel_on_the_golden_pair(dev, D):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("B,H,W,D,window,shift", [
+    (1, 30, 200, 64, 9, 9),          # W not a multiple of the 64-column strip
+    (2, 17, 150, 100, 7, 30),        # D past the strip's width
+    (1, 5, 20, 16, 5, 2),            # H and W under 32, W under a strip
+    (1, 70, 333, 200, 3, 50),        # D > W / 2, rows past a 64-row chunk
+    (1, 3, 64, 8, 7, 1)])            # fewer rows than the window
+def test_bm_kernel_edge_shapes(dev, B, H, W, D, window, shift):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    rng = np.random.default_rng(H * W + D)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    lt = torch.from_numpy(left).to(dev)
+    rt = torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev)
+    p = BMParams(disp_num=D, window=window)
+    for g, w in zip(bk.bm_match_fused(lt, rt, p),
+                    bk.bm_match_fused_plain(lt, rt, p)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,H,W,D,window,shift", [
+    (32, 161, 333, 101, 3, 40),      # odd D past the strip, W % 64 != 0,
+    (32, 161, 333, 101, 21, 17),     # H % 64 != 0; small and large windows
+    (32, 330, 333, 33, 9, 7),        # odd D under the strip
+    (32, 330, 333, 33, 1, 3)])
+def test_bm_kernel_wide_strip_edge_shapes(dev, B, H, W, D, window, shift):
+    """Batches large enough that G takes its 64-column strip, at the edges
+    that strip has; its 32-column twin (G' "full32") agrees."""
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    rng = np.random.default_rng(H * W + D + window)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    lt = torch.from_numpy(left).to(dev)
+    rt = torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev)
+    p = BMParams(disp_num=D, window=window)
+    assert bk.strip_width((B, H, W), p) == 64
+    want = bk.bm_match_fused_plain(lt, rt, p)
+    for got in (bk.bm_match_fused(lt, rt, p),
+                bk.bm_match_diag(lt, rt, p, "full32")):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_bm_kernel_never_runs_the_plain_twin(dev, monkeypatch):
     from jackal_tpu_torch.config import BMParams
     from jackal_tpu_torch.ops import bm_kernel as bk
@@ -332,9 +417,10 @@ def test_bm_kernel_refuses_what_it_does_not_take(dev):
     for window in (8, 257):
         with pytest.raises(ValueError, match="window"):
             bk.bm_match_fused(img, img, BMParams(window=window))
+    # a strip of columns holds any width: only D and the window bound the
+    # shared memory
     wide = torch.zeros((1, 4, 4096), dtype=torch.uint8, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        bk.bm_match_fused(wide, wide, BMParams())
+    assert bk.bm_match_fused(wide, wide, BMParams())[0].shape == (1, 4, 4096)
     tall = torch.zeros((1, 300, 640), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         bk.bm_match_fused(tall, tall, BMParams(window=255))
@@ -343,7 +429,8 @@ def test_bm_kernel_refuses_what_it_does_not_take(dev):
 
 
 def test_bm_diag_modes_run(dev):
-    """G', the per-part timing: "full" is G itself; the other modes run."""
+    """G', the per-part timing: "full" and "full32" are G itself; the
+    other modes run."""
     from jackal_tpu_torch.config import BMParams
     from jackal_tpu_torch.ops import bm_kernel as bk
 
@@ -356,7 +443,7 @@ def test_bm_diag_modes_run(dev):
     for mode in bk.DIAG_MODES:
         got = bk.bm_match_diag(lt, rt, p, mode)
         torch.cuda.synchronize()
-        if mode == "full":
+        if mode in ("full", "full32"):
             assert all(torch.equal(g, w) for g, w in zip(got, want))
         assert got[0].shape == (2, 40, 200)
 

@@ -14,6 +14,7 @@ rounds both, an ulp or two at these magnitudes. Scans: relative 1e-5 per
 filled bin with the same filled bins, as in tests/test_torch_pipeline.py.
 """
 import dataclasses
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -110,12 +111,12 @@ def test_point_cloud_equals_jax(refs, colour):
 def test_ground_mask_and_points_scan_equal_jax():
     """Seeded robot-frame points in front of the robot, a fifth of them
     placed on the ground threshold (Zr = thresh(Xr) in float64, rounded to
-    float32), where the mask is decided by an ulp. The port's mask equals
-    the reference's evaluated op by op (both round the product and the
-    sum, and both take a float32 tan). Under jit XLA:CPU contracts the
-    threshold's product and sum into a fused multiply-add: then 150 of the
-    2 x 4000 points come out the other way, every one of them a point
-    placed on the threshold. The scans are compared on the other points."""
+    float32), where the mask is decided by an ulp. The reference package
+    ships obstacle_scan_from_points under jit, where XLA:CPU contracts the
+    threshold's product and sum into one fused multiply-add; the port
+    rounds the threshold once as well, so its mask equals the jitted
+    reference's on every point, and the scans agree on every valid point,
+    the threshold's included."""
     rng = np.random.default_rng(3)
     B, N = 2, 4000
     Xr = rng.uniform(0.1, 6.0, (B, N))
@@ -135,25 +136,64 @@ def test_ground_mask_and_points_scan_equal_jax():
     X, Z = (jnp.asarray(pts[..., i]) for i in (0, 2))
     got_g = obs._ground_mask(torch.from_numpy(pts[..., 0]),
                              torch.from_numpy(pts[..., 2]), gp).numpy()
-    np.testing.assert_array_equal(
-        got_g, np.asarray(jobs._ground_mask_jnp(X, Z, JaxGP())))
-    assert 0.2 < got_g.mean() < 0.8
     fused = np.asarray(jax.jit(jobs._ground_mask_jnp, static_argnums=2)(
         X, Z, JaxGP()))
-    assert (got_g != fused).sum() == 150 and on[got_g != fused].all()
-    keep = valid & ~on
+    np.testing.assert_array_equal(got_g, fused)
+    assert 0.2 < got_g.mean() < 0.8
+    # the points on the threshold do decide by an ulp: rounding the
+    # product and the sum apart flips some of them, and only them
+    split = np.asarray(jobs._ground_mask_jnp(X, Z, JaxGP()))
+    assert (split != got_g).any() and on[split != got_g].all()
     got = obs.obstacle_scan_from_points(torch.from_numpy(pts),
-                                        torch.from_numpy(keep), ScanParams(),
+                                        torch.from_numpy(valid), ScanParams(),
                                         gp)
     assert got.scan.shape == (B, 90) and got.range_min.shape == (B,)
     for b in range(B):
         want = jobs.obstacle_scan_from_points(jnp.asarray(pts[b]),
-                                              jnp.asarray(keep[b]), JaxSP(),
+                                              jnp.asarray(valid[b]), JaxSP(),
                                               JaxGP())
         one = obs.obstacle_scan_from_points(torch.from_numpy(pts[b]),
-                                            torch.from_numpy(keep[b]))
+                                            torch.from_numpy(valid[b]))
         _scans_close(one, want)
         assert torch.equal(one.scan, got.scan[b])
+
+
+def _f32_round(q: Fraction) -> np.float32:
+    """The float32 nearest to the exact q, ties to even."""
+    f = np.float32(float(q))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    dist = [abs(Fraction(float(c)) - q) for c in cands]
+    best = min(dist)
+    near = [c for c, e in zip(cands, dist) if e == best]
+    return min(near, key=lambda c: int(np.array(c).view(np.int32)) & 1)
+
+
+def test_fma_f32_rounds_once():
+    """obstacle.fma_f32 against an exact reference (fractions.Fraction) on
+    seeded inputs and on sums that land on a float32 halfway point in
+    float64, where rounding twice goes the wrong way."""
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-4, 4, 2000).astype(np.float32)
+    x = rng.uniform(-8, 8, 2000).astype(np.float32)
+    c = (rng.uniform(-2, 2, 2000) * 10.0 ** rng.integers(-3, 3, 2000)
+         ).astype(np.float32)
+    # halfway cases: c odd in its last bit, a * x = +-ulp(c) / 2 * (1 - 2^-46)
+    for k in rng.integers(-20, 20, 64):
+        cc = np.float32((1 + 2.0 ** -23) * 2.0 ** k)
+        for sign in (1, -1):
+            a = np.append(a, np.float32(sign * 2.0 ** (k - 24)
+                                        * (1 + 2.0 ** -23)))
+            x = np.append(x, np.float32(1 - 2.0 ** -23))
+            c = np.append(c, cc)
+    got = obs.fma_f32(torch.from_numpy(a), torch.from_numpy(x),
+                      torch.from_numpy(c)).numpy()
+    want = np.array([_f32_round(Fraction(float(ai)) * Fraction(float(xi))
+                                + Fraction(float(ci)))
+                     for ai, xi, ci in zip(a, x, c)], np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    twice = (a.astype(np.float64) * x + c).astype(np.float32)
+    assert (twice[-128:] != want[-128:]).all()
 
 
 def test_rectify_crop_color_equals_jax():
