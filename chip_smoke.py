@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no success line):
      multiple of 32;
   2b. (a) the raster kernel against its plain version (torch.equal) on
      every chunk of the two 640x480 golden fixtures batched by chunks of 1
-     and 2, on wide triangles and on planes that overflow int32; (b) the
+     and 2, on wide triangles, on planes that overflow int32 and on
+     chip_smoke.RASTER_EDGE_CASES (three rounds of slots, a triangle over
+     every tile, tiles of pad slots only, 8 frames at 640x480); (b) the
      card's device prior against the C++ host prior: covered, valid,
      d_plane where covered and grids equal, planes bit-equal to
      fit_planes_native, coefficients (slopes, planes, grids) equal to the
@@ -35,13 +37,19 @@ Phases (any failure exits non-zero and prints no success line):
      rate of its byte SADs is measured on the card (csrc/sad_rate.cu, the
      median of 7 windows, refused above the card's cap), and cuobjdump
      shows the instructions __vsadu4 became and that the raster kernel has
-     no FFMA; (e) the raster kernel's device time, its plain version's and
-     its bound from this run's live tile slots;
+     no FFMA; (e) the raster kernel against its plain version on the
+     batched node's chunk of 8 frames, its device time, its plain
+     version's and its bound from this run's live tile slots, by
+     instruction type (f32,
+     integer, conversions at their rates; the old f32-only bound beside
+     it; a time below the bound fails);
   6. SGM: (a) kernels D (census), E (paths) and F (WTA maps) against their
      plain versions (torch.equal) on the golden pair at 640x480, D = 64
      and 128, and on seeded awkward shapes (4 paths, true_right, penalties
      past E's 16-bit lanes, lines shorter than E's ring, H and W under 32,
-     D > W); (b)
+     D > W), and F alone on chip_smoke.WTA_EDGE_CASES (constant and
+     tie-heavy volumes at D = 2, 3 and 64, a single column, D = 256 at
+     W = 1280, config 3's B = 4 at 1280x960); (b)
      sgm_match_batch on the card against the CPU's plain path on both
      golden scenes at D = 64 and 128, with the pooled RMSE and mask
      agreement against libelas; (c) the SGM node, make_pipeline() at
@@ -83,7 +91,9 @@ A kernel's time a call ("ms") is CUDA events around calls queued behind a
 spin kernel (events_ms); torch.profiler only splits it by kernel, since it
 leaves some launches of these kernels unrecorded. A plain version's time
 is CUDA events around its calls, host gaps included. Integer operations
-are bounded at 64 a clock an SM (int_ops_rate), float ones at 67e12 /s.
+are bounded at 64 a clock an SM (int_ops_rate); the raster's f32
+operations at 128 a clock an SM and its conversions at 16
+(raster_bound_ms).
 """
 from __future__ import annotations
 
@@ -101,8 +111,9 @@ GOLDEN = ("elas_golden_s640_boxes", "elas_golden_photo")
 # published H100 SXM HBM rate (NVIDIA data sheet); the rate of the
 # kernels' operations (byte SADs) is measured in phase 5
 PEAK_BYTES_PER_S = 3.35e12
-# float32 operations outside the tensor cores (the same sheet); the
-# raster's operations are of that kind. The SGM kernels' 32-bit integer
+# float32 operations outside the tensor cores (the same sheet), counting an
+# FFMA as two: the raster's bound before it was counted by instruction type
+# (raster_bound_ms), printed beside it. The SGM kernels' 32-bit integer
 # operations run at int_ops_rate().
 PEAK_F32_OPS_PER_S = 67e12
 DEVICE = "cuda:0"
@@ -377,30 +388,99 @@ def dense_work(desc1, desc2, d_plane, valid, covered, words, params, right):
 
 
 def raster_work(table, sel, Tp, W, H):
-    """(bytes, operations, live slots) of one raster call on these inputs:
-    the table, the tile lists and the key map each moved once. Per live
-    tile slot, the columns of the tile inside the triangle's span [A_u,
-    C_u) need 17 float and integer operations each (two scanline bounds
-    with their intercepts, the span test, pa*u) and 11 per row (the plane
-    value's two adds, truncation, clamp, key, the row test, the maximum),
-    and each row 2 (pb*v); columns outside the span and pad slots need
-    nothing."""
+    """(bytes, operations by type, the old count, live slots) of one raster
+    call on these inputs: the table, the tile lists and the key map each
+    moved once. A live slot names a row of its frame other than the pad
+    row Tp-1 whose paint is >= 0. The operations are what this run's
+    triangles need, by the instruction type that runs them:
+      per live slot: its three intercepts (3 f32 multiplies, 3 subtracts,
+        4 int -> float conversions of its corners) and pb * v for each row
+        of its tile (1 f32 multiply);
+      per column of the tile inside its span [A_u, C_u): the two scanline
+        bounds and pa * u (5 f32 multiplies and adds; two float -> int
+        conversions and the column's int -> float; 10 integer operations:
+        the span test, the segment select, the bounds' minima and maxima
+        with H, the band's row range);
+      per pixel of the band the slot covers (lo <= v < hi): the plane
+        value's two f32 adds, one float -> int conversion, and 6 integer
+        operations: the clamp, the key and the maximum.
+    Columns outside the span, rows outside [lo, hi) and pad slots need
+    nothing. The scanline bounds are computed here as the kernel computes
+    them (float32, each product and sum rounded on its own, XLA's
+    saturating truncation, read as uint32). The old count, kept beside
+    it: 17 operations a column in the span and 11 a row of the tile for
+    each such column, 2 a row per slot, all at the f32 rate."""
     from jackal_tpu_torch.matching.elas import device_prior as dp
 
     CH, SC, _ = sel.shape
-    tab = table.cpu().numpy().reshape(CH, Tp, -1).astype(np.int64)
+    tab = table.cpu().numpy().reshape(CH, Tp, -1)
     sl = sel.cpu().numpy()
-    rows = tab[np.arange(CH)[:, None, None], sl]          # [CH, SC, Ts, 16]
-    live = (sl != Tp - 1) & (rows[..., 12] >= 0)
-    s, c = np.divmod(np.arange(SC), -(-W // dp._RASTER_CTILE))
+    rows = tab[np.arange(CH)[:, None, None], np.clip(sl, 0, Tp - 1)]
+    live = (sl >= 0) & (sl < Tp - 1) & (rows[..., 12] >= 0)
+    C = -(-W // dp._RASTER_CTILE)
+    s, c = np.divmod(np.arange(SC), C)
+    # the old count, over every slot of the lists
     c0 = (c * dp._RASTER_CTILE)[None, :, None]
     c1 = np.minimum(c0 + dp._RASTER_CTILE, W)
     nr = np.minimum(dp._RASTER_SLAB, H - s * dp._RASTER_SLAB)[None, :, None]
     ncols = np.clip(np.minimum(rows[..., 2], c1)
                     - np.maximum(rows[..., 0], c0), 0, None)
-    ops = int((live * (ncols * (17 + 11 * nr) + 2 * nr)).sum())
+    old = int((live * (ncols * (17 + 11 * nr) + 2 * nr)).sum())
+    # this run's work, over the live slots
+    _, tile, _ = np.nonzero(live)
+    r = rows[live]                                          # [N, 16]
+    v0 = (s[tile] * dp._RASTER_SLAB)[:, None]
+    nrow = np.minimum(dp._RASTER_SLAB, H - v0)
+    u = (c[tile] * dp._RASTER_CTILE)[:, None] + np.arange(dp._RASTER_CTILE)
+    span = (u >= r[:, 0:1]) & (u < r[:, 2:3]) & (u < W)
+    f32 = np.float32
+    sl_f = np.ascontiguousarray(r[:, 5:8]).view(f32)
+    A_u, B_u = r[:, 0:1].astype(f32), r[:, 1:2].astype(f32)
+    A_v, B_v = r[:, 3:4].astype(f32), r[:, 4:5].astype(f32)
+    u_f = u.astype(f32)
+
+    def line(k, b):
+        x = (sl_f[:, k:k + 1] * u_f + b).astype(np.float64)
+        i = np.where(np.isnan(x), 0, np.clip(np.trunc(np.nan_to_num(x)),
+                                             -2.0 ** 31, 2.0 ** 31 - 1))
+        return i.astype(np.int64) & 0xFFFFFFFF
+    with np.errstate(all="ignore"):
+        v1 = line(0, A_v - sl_f[:, 0:1] * A_u)
+        v2 = np.where(u < r[:, 1:2], line(1, A_v - sl_f[:, 1:2] * A_u),
+                      line(2, B_v - sl_f[:, 2:3] * B_u))
+    lo = np.minimum(np.minimum(v1, v2), H)
+    hi = np.minimum(np.maximum(v1, v2), H)
+    covered = np.clip(np.minimum(hi, v0 + nrow) - np.maximum(lo, v0), 0,
+                      None)
+    n_slots, n_cols = len(r), int(span.sum())
+    n_pix = int((covered * span).sum())
+    ops = {"f32": 6 * n_slots + int(nrow.sum()) + 5 * n_cols + 2 * n_pix,
+           "int": 10 * n_cols + 6 * n_pix,
+           "cvt": 4 * n_slots + 3 * n_cols + n_pix}
     nbytes = 4 * (table.numel() + sel.numel() + CH * H * W)
-    return nbytes, ops, int(live.sum())
+    return nbytes, ops, old, n_slots
+
+
+def raster_bound_ms(nbytes, ops, dev):
+    """(ms, by, the time of each type) of the raster's least time: the
+    larger of its bytes over the HBM rate and its operations, each type
+    at its rate on compute capability 9.0 (CUDA C++ Programming Guide,
+    arithmetic instruction throughput): f32 multiply and add 128 a clock
+    an SM, 32-bit integer 64 (int_ops_rate), conversions 16, at the
+    maximum SM clock. The types run on separate units, so the slowest of
+    them bounds the operations."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hz = max_sm_hz()
+    rates = {"f32": sms * 128 * hz, "int": int_ops_rate(dev),
+             "cvt": sms * 16 * hz}
+    times = {k: ops[k] / rates[k] * 1e3 for k in ops}
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    by = max(times, key=times.get)
+    if tb >= times[by]:
+        return tb, "bytes", times
+    return times[by], "operations", times
 
 
 def batch_chunks(params, lb, rb, chunk, dev):
@@ -469,6 +549,74 @@ def raster_overflow_case(rng, CH, T, W, H, Ts):
     sel[:, :, 0] = np.arange(SC) % 3
     return (torch.from_numpy(tab.reshape(CH * T, 16)),
             torch.from_numpy(sel.astype(np.int32)))
+
+
+# the WTA kernel's edges (tests/test_torch_cuda.py runs them too)
+WTA_EDGE_CASES = ("constant, D = 2", "constant, D = 3", "constant, D = 64",
+                  "ties, D = 2", "ties, D = 64", "one column, D = 24",
+                  "D = 256, W = 1280", "B = 4, 1280x960")
+
+
+def wta_edge_volume(name, dev):
+    """An int16 [B, H, D, W] path sum for one of WTA_EDGE_CASES, made on
+    dev from a seed: a constant 15000 (every d ties: best_d 0, the second
+    best the value, and the right view's 12000 wins at the border); values
+    of {0, 9000, 18000} (ties everywhere); a single column, where the
+    right view reads 12000 for every d > 0; D = 256 (the kernel's dynamic
+    shared memory); BASELINE config 3's batch. Values lie in [0, 28000],
+    the path sum's range, a tenth of them 28000 where drawn at random."""
+    import torch
+
+    i = WTA_EDGE_CASES.index(name)
+    B, H, D, W = ((1, 5, 2, 37), (2, 4, 3, 130), (1, 3, 64, 200),
+                  (1, 6, 2, 77), (1, 8, 64, 129), (1, 7, 24, 1),
+                  (1, 4, 256, 1280), (4, 960, 64, 1280))[i]
+    g = torch.Generator(dev).manual_seed(50 + i)
+    if name.startswith("constant"):
+        return torch.full((B, H, D, W), 15000, dtype=torch.int16, device=dev)
+    if name.startswith("ties"):
+        return (torch.randint(0, 3, (B, H, D, W), generator=g, device=dev)
+                * 9000).to(torch.int16)
+    S = torch.randint(0, 28001, (B, H, D, W), generator=g, device=dev)
+    S[torch.rand((B, H, D, W), generator=g, device=dev) < 0.1] = 28000
+    return S.to(torch.int16)
+
+
+# the raster's edges (tests/test_torch_cuda.py runs them too)
+RASTER_EDGE_CASES = ("Ts 300, three rounds of slots",
+                     "a triangle over the whole image",
+                     "tiles of pad slots only", "8 frames at 640x480")
+
+
+def raster_edge_case(name):
+    """(table, sel, Tp, W, H) of one of RASTER_EDGE_CASES, seeded, on the
+    pattern of raster_overflow_case: a tile list longer than two rounds of
+    the kernel's 128 slots; a triangle that covers every pixel of every
+    tile, painted in the middle of the others; tiles whose slots are all
+    the pad row or a row painted -1; 8 frames of the node's size."""
+    import torch
+
+    rng = np.random.default_rng(40 + RASTER_EDGE_CASES.index(name))
+    CH, T, W, H, Ts = {0: (2, 400, 333, 70, 300),
+                       3: (8, 300, 640, 480, 48)}.get(
+        RASTER_EDGE_CASES.index(name), (2, 60, 300, 50, 20))
+    tab, sel = (x.numpy() for x in raster_overflow_case(rng, CH, T, W, H,
+                                                        Ts))
+    tab = tab.reshape(CH, T, 16)
+    if name == RASTER_EDGE_CASES[1]:
+        # AC along v = 0, BC along v = H + 50 (B_u = A_u: no AB segment)
+        tab[:, 3, 0:5] = [0, 0, W, 0, H + 50]
+        tab[:, 3, 5:8] = 0
+        tab[:, 3, 8:11] = np.array([0.25, -0.5, 40.0],
+                                   np.float32).view(np.int32)
+        tab[:, 3, 11:13] = [1, T // 2]
+        sel[:, :, 1] = 3
+    elif name == RASTER_EDGE_CASES[2]:
+        tab[:, 4, 12] = -1
+        sel[:, ::2, :] = T - 1
+        sel[:, 1::4, :] = 4
+    return (torch.from_numpy(tab.reshape(CH * T, 16)),
+            torch.from_numpy(sel), T, W, H)
 
 
 def bound_ms(nbytes, ops, ops_per_s):
@@ -556,7 +704,14 @@ def sgm_phase(dev, hold):
         hold_sgm(f"seeded B={B} {H}x{W} D={D} {kw}",
                  torch.from_numpy(left).to(dev),
                  torch.from_numpy(right).to(dev), p)
+    for name in WTA_EDGE_CASES:
+        S = wta_edge_volume(name, dev)
+        hold("sgm_wta", f"wta {name}", [sk.sgm_wta_maps(S)],
+             [sk.sgm_wta_maps_plain(S)])
+    del S
     torch.cuda.synchronize()
+    print(f"6a. WTA maps kernel == plain (torch.equal) on "
+          f"{', '.join(WTA_EDGE_CASES)}")
     print("6a. SGM kernels == plain (torch.equal): census, paths, WTA maps "
           "on the golden pair at 640x480 D=64 and 128 and on seeded frames "
           "(odd H, W % 32 != 0, D 24, 48, 64, 100 and 192, 4 paths, "
@@ -1354,6 +1509,13 @@ def main() -> int:
     if not np.array_equal(dpl[:, :, 1:], np.broadcast_to(want[:, 1:],
                                                          (2, H, W - 1))):
         raise AssertionError("overflowing planes: not XLA's saturation")
+    for name in RASTER_EDGE_CASES:
+        tab, sel, Tp_e, W_e, H_e = (x.to(dev) if torch.is_tensor(x) else x
+                                    for x in raster_edge_case(name))
+        hold("raster", f"raster {name}", [dp.raster(tab, sel, Tp_e, W_e, H_e)],
+             [dp.raster_plain(tab, sel, Tp_e, W_e, H_e)])
+    print(f"raster kernel == plain (torch.equal): "
+          f"{', '.join(RASTER_EDGE_CASES)}")
     probe = torch.tensor([3e9, -3e9, float("nan")], device=dev)
     from jackal_tpu_torch.ops.convert import to_int32
     print(f"raster kernel == plain on wide triangles and overflowing planes "
@@ -1641,8 +1803,12 @@ def main() -> int:
           f" candidates a pixel)")
 
     tabC, selC, _ = coeffs[0]
-    nbC, opsC, liveC = raster_work(tabC, selC, Tp, W, H)
-    bC, byC = bound_ms(nbC, opsC, PEAK_F32_OPS_PER_S)
+    hold("raster", f"raster, left side of a chunk of {batch} frames",
+         [dp.raster(tabC, selC, Tp, W, H)],
+         [dp.raster_plain(tabC, selC, Tp, W, H)])
+    nbC, opsC, oldC, liveC = raster_work(tabC, selC, Tp, W, H)
+    bC, byC, typeC = raster_bound_ms(nbC, opsC, dev)
+    obC, obyC = bound_ms(nbC, oldC, PEAK_F32_OPS_PER_S)
     kC = events_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50)
     lC, seenC = launch_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50,
                           "raster_kernel")
@@ -1651,9 +1817,14 @@ def main() -> int:
     print(f"device ms a call (CUDA events behind a spin): raster, left side "
           f"of a chunk of {batch} frames {kC:.4f} (its kernel launch "
           f"{lC:.4f}, {seenC} of 50 recorded; plain {pC:.3f}; bound "
-          f"{bC:.5f} by {byC}: {nbC} bytes, {opsC} "
-          f"operations over {liveC} live tile slots of "
-          f"{selC.numel()}, Ts {Ts})")
+          f"{bC:.5f} by {byC}: {nbC} bytes, {liveC} live tile slots of "
+          f"{selC.numel()}, Ts {Ts}; operations f32 {opsC['f32']}, integer "
+          f"{opsC['int']}, conversions {opsC['cvt']}, ms at their rates "
+          + ", ".join(f"{k} {v:.5f}" for k, v in typeC.items())
+          + f"; the old bound, {oldC} operations at {PEAK_F32_OPS_PER_S:.3g}"
+          f" /s, {obC:.5f} by {obyC})")
+    if kC < bC:
+        raise AssertionError(f"raster: {kC} ms is below its bound {bC} ms")
 
     kernels = [
         {"name": "support", "route": "cuda",

@@ -6,9 +6,10 @@
 // jackal_tpu_torch/ops/sgm_kernel.py (wta_maps of matching/sgm.py on the
 // volume and on its right view); the wrapper is ops/sgm_kernel.sgm_wta_maps.
 //
-// What it computes. S is int16 [B, H, D, W]. For each pixel (b, v, u) and
-// each view, five statistics over d: the best (least) value, the FIRST d
-// that has it, the least value outside best_d +- 1, and the values at
+// What it computes. S is int16 [B, H, D, W], 2 <= D <= 256, with values in
+// [0, 28000] (the path sum's range, _CARRY_BIG). For each pixel (b, v, u)
+// and each view, five statistics over d: the best (least) value, the FIRST
+// d that has it, the least value outside best_d +- 1, and the values at
 // best_d - 1 and best_d + 1 (30000 where the d does not exist or no d is
 // left). The left view reads S[d, v, u]; the right view reads SR[d, v, u] =
 // S[d, v, u + d], and 12000 (the cost volume's "no such pair" sentinel,
@@ -19,65 +20,228 @@
 //
 // What bounds it on an H100. The least work is one read of S and the
 // writes of the maps: 2 D + 20 bytes a pixel, 39.3 MB + 6.1 MB for a
-// 640x480 frame at D = 64, 0.0136 ms at 3.35 TB/s; the arithmetic, a
-// compare and a select a value in each of two walks, both views, is
-// 0.0094 ms at the card's 32-bit integer rate, so it is bound by bytes.
-// The design: one thread per
-// (frame, row, column), 128 columns a block; every load of the walk over d
-// is coalesced along u (neighbouring threads, neighbouring columns; the
-// right view's loads are the same row shifted by d). Each view walks d
-// twice: first for the best and its first d, then for the second best and
-// the neighbours. The second walk reads the block's [D, 128] slab again,
-// 16 KB at D = 64, from L1 or L2, so device memory sees S about once.
+// 640x480 frame at D = 64, 0.0136 ms at 3.35 TB/s; the arithmetic is
+// below that at the card's 32-bit integer rate, so it is bound by bytes.
+// What keeps a simple design from it is latency: a thread that walks its
+// column's D values with scalar loads, or loads them a few d at a time,
+// waits on device memory many times a view; and a walk over d is a chain
+// of dependent minima.
+//
+// The design. A block takes one (frame, row) and 128 columns, a thread
+// two neighbouring columns as one 16-bit pair:
+//  - staging: the block copies the row's [D, 128 + halo] slab of S into
+//    shared memory with 16-byte cp.async copies, all in flight at once,
+//    one wait (the halo, at least D + 1 columns, holds the right view's
+//    S[d, u + d]; columns past W read 12000). Where W is not a multiple of
+//    8, a row does not start on 16 bytes and the block loads it by values;
+//  - both views read that slab: the left view the aligned pair of its
+//    columns, the right view the pair at column + d of row d (one 32-bit
+//    load for even d, two and a byte permute for odd d);
+//  - best and its first d: one 32-bit minimum of key = value << 8 | d
+//    (the value fits 16 bits, d 8) a column, built by one byte permute;
+//    four running minima over d break the dependency chain. Keys are
+//    distinct, so the order of the minima does not matter;
+//  - the second best: the values at best_d +- 1 are read, the slots best_d
+//    - 1 .. best_d + 1 of the column are set to 0xffff, and one __vminu2
+//    walk over all d (both columns an instruction) takes the least value
+//    left; 0xffff left means no d was. A slab value is read by exactly one
+//    left column and one right column, so the left view sets and then
+//    restores its slots, and the right view, after a barrier, sets its own;
+//  - the maps are stored as pairs.
+// Device memory sees S about once (a halo is the next tile's columns, read
+// from L2) and the maps once.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWtaBig = 30000;
-constexpr int kInvalid = 12000;
+constexpr int kThreads = 64;            // a thread takes two columns
+constexpr int kTile = 2 * kThreads;     // columns a block
+constexpr uint32_t kWtaBig = 30000;     // a statistic with no d
+constexpr uint16_t kInvalid = 12000;    // the right view past the border
+constexpr uint32_t kOut = 0xffffu;      // a value out of the second walk
 
-// get(d) -> the view's value at d
-template <typename Get>
-__device__ __forceinline__ void wta5(Get get, int D, int16_t* out,
-                                     int stride) {
-  int best = get(0), bd = 0;
-  for (int d = 1; d < D; ++d) {
-    const int x = get(d);
-    if (x < best) {  // strict: the first d at the minimum
-      best = x;
-      bd = d;
-    }
-  }
-  int second = kWtaBig;
-  for (int d = 0; d < D; ++d)
-    if (d < bd - 1 || d > bd + 1) second = min(second, get(d));
-  const int cm = bd > 0 ? get(bd - 1) : kWtaBig;
-  const int cp = bd < D - 1 ? get(bd + 1) : kWtaBig;
-  out[0] = static_cast<int16_t>(best);
-  out[stride] = static_cast<int16_t>(bd);
-  out[2 * stride] = static_cast<int16_t>(second);
-  out[3 * stride] = static_cast<int16_t>(cm);
-  out[4 * stride] = static_cast<int16_t>(cp);
+// columns of a slab row: the tile and a halo of at least D + 1 (the right
+// view's odd-d pairs read one column past u + d), a multiple of 8
+__host__ __device__ constexpr int row_len(int D) {
+  return kTile + (D + 8) / 8 * 8;
 }
 
-__global__ void sgm_wta_maps_kernel(const int16_t* __restrict__ S,
-                                    int16_t* __restrict__ out, int H, int D,
-                                    int W) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ uint32_t half(uint32_t x, int h) {
+  return h ? x >> 16 : x & 0xffffu;
+}
+
+// key = value << 8 | d of the low or high column of a pair; d < 256, so
+// byte 1 of d is 0 and fills the key's top byte
+__device__ __forceinline__ uint32_t key_lo(uint32_t w, uint32_t d) {
+  return __byte_perm(w, d, 0x5104);
+}
+__device__ __forceinline__ uint32_t key_hi(uint32_t w, uint32_t d) {
+  return __byte_perm(w, d, 0x5324);
+}
+
+// Stores a pair of int16 statistics at columns u, u + 1 of a map row.
+__device__ __forceinline__ void store_pair(int16_t* row, int u, int W,
+                                           uint32_t lo, uint32_t hi) {
   if (u >= W) return;
+  if (u + 1 < W && (reinterpret_cast<uintptr_t>(row + u) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(row + u) = lo | (hi << 16);
+    return;
+  }
+  row[u] = static_cast<int16_t>(lo);
+  if (u + 1 < W) row[u + 1] = static_cast<int16_t>(hi);
+}
+
+// A view of the slab for the thread's columns c, c + 1 (c = 2 p):
+// pair<kOdd>(d) is the view's two values at d (d odd iff kOdd), at(d, h)
+// the address of column h's.
+template <bool kRight>
+struct View {
+  const uint16_t* x;   // the slab, rows of L columns
+  int L, c;
+  template <bool kOdd>
+  __device__ __forceinline__ uint32_t pair(int d) const {
+    const uint16_t* r = x + d * L + c + (kRight ? d : 0);
+    if (!kRight || !kOdd) return *reinterpret_cast<const uint32_t*>(r);
+    return __byte_perm(*reinterpret_cast<const uint32_t*>(r - 1),
+                       *reinterpret_cast<const uint32_t*>(r + 1), 0x5432);
+  }
+  __device__ __forceinline__ uint16_t* at(int d, int h) const {
+    return const_cast<uint16_t*>(x) + d * L + c + (kRight ? d : 0) + h;
+  }
+};
+
+struct Stats {
+  uint32_t key[2], cm[2], cp[2];
+};
+
+// Pass 1: the least key of each column, and the values at best_d +- 1.
+template <bool kRight>
+__device__ __forceinline__ Stats best_of(const View<kRight>& v, int D) {
+  uint32_t k0 = ~0u, k1 = ~0u, k2 = ~0u, k3 = ~0u;
+  int d = 0;
+#pragma unroll 4
+  for (; d + 1 < D; d += 2) {
+    const uint32_t a = v.template pair<false>(d);
+    const uint32_t b = v.template pair<true>(d + 1);
+    k0 = min(k0, key_lo(a, d));
+    k1 = min(k1, key_hi(a, d));
+    k2 = min(k2, key_lo(b, d + 1));
+    k3 = min(k3, key_hi(b, d + 1));
+  }
+  if (d < D) {
+    const uint32_t a = v.template pair<false>(d);
+    k0 = min(k0, key_lo(a, d));
+    k1 = min(k1, key_hi(a, d));
+  }
+  Stats st;
+  st.key[0] = min(k0, k2);
+  st.key[1] = min(k1, k3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int bd = st.key[h] & 255u;
+    st.cm[h] = bd > 0 ? *v.at(bd - 1, h) : kWtaBig;
+    st.cp[h] = bd < D - 1 ? *v.at(bd + 1, h) : kWtaBig;
+  }
+  return st;
+}
+
+// Sets (or, with the values, restores) the slots best_d - 1 .. best_d + 1
+// of each column.
+template <bool kRight>
+__device__ __forceinline__ void mark(const View<kRight>& v, const Stats& st,
+                                     int D, bool restore) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int bd = st.key[h] & 255u;
+    if (bd > 0) *v.at(bd - 1, h) = restore ? st.cm[h] : kOut;
+    *v.at(bd, h) = restore ? st.key[h] >> 8 : kOut;
+    if (bd < D - 1) *v.at(bd + 1, h) = restore ? st.cp[h] : kOut;
+  }
+}
+
+// Pass 2: the least value left in each column, as a pair.
+template <bool kRight>
+__device__ __forceinline__ uint32_t second_of(const View<kRight>& v, int D) {
+  uint32_t m0 = ~0u, m1 = ~0u;
+  int d = 0;
+#pragma unroll 4
+  for (; d + 1 < D; d += 2) {
+    m0 = __vminu2(m0, v.template pair<false>(d));
+    m1 = __vminu2(m1, v.template pair<true>(d + 1));
+  }
+  if (d < D) m0 = __vminu2(m0, v.template pair<false>(d));
+  return __vminu2(m0, m1);
+}
+
+__device__ __forceinline__ void store(int16_t* o, int u, int W,
+                                      const Stats& st, uint32_t m) {
+  uint32_t second[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    second[h] = half(m, h) == kOut ? kWtaBig : half(m, h);
+  store_pair(o, u, W, st.key[0] >> 8, st.key[1] >> 8);
+  store_pair(o + W, u, W, st.key[0] & 255u, st.key[1] & 255u);
+  store_pair(o + 2 * W, u, W, second[0], second[1]);
+  store_pair(o + 3 * W, u, W, st.cm[0], st.cm[1]);
+  store_pair(o + 4 * W, u, W, st.cp[0], st.cp[1]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+sgm_wta_maps_kernel(const uint16_t* __restrict__ S, int16_t* __restrict__ out,
+                    int H, int D, int W) {
+  extern __shared__ uint4 smem[];
+  uint16_t* x = reinterpret_cast<uint16_t*>(smem);
+  const int L = row_len(D);
+  const int u0 = blockIdx.x * kTile, c = 2 * threadIdx.x, u = u0 + c;
   const size_t row = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
-  const int16_t* s = S + row * D * W;
-  int16_t* o = out + row * 10 * W + u;
-  wta5([&](int d) { return static_cast<int>(__ldg(s + static_cast<size_t>(d) * W + u)); },
-       D, o, W);
-  wta5([&](int d) {
-         return u + d < W
-                    ? static_cast<int>(__ldg(s + static_cast<size_t>(d) * W + u + d))
-                    : kInvalid;
-       },
-       D, o + 5 * W, W);
+  const uint16_t* s = S + row * D * W;
+
+  // stage [D, L] columns u0 .. u0 + L - 1 of the row, 12000 past W
+  if (W % 8 == 0) {
+    const int chunks = L / 8;
+    for (int i = threadIdx.x; i < D * chunks; i += kThreads) {
+      const int d = i / chunks, k = 8 * (i - d * chunks);
+      uint16_t* dst = x + d * L + k;
+      if (u0 + k < W) {
+        cp_async16(dst, s + static_cast<size_t>(d) * W + u0 + k);
+      } else {
+        const uint32_t inv = kInvalid | (static_cast<uint32_t>(kInvalid) << 16);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(inv, inv, inv, inv);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < D * L; i += kThreads) {
+      const int d = i / L, k = i - d * L;
+      x[i] = u0 + k < W ? __ldg(s + static_cast<size_t>(d) * W + u0 + k)
+                        : kInvalid;
+    }
+  }
+  __syncthreads();
+
+  const View<false> left{x, L, c};
+  const View<true> right{x, L, c};
+  const Stats sl = best_of(left, D);
+  const Stats sr = best_of(right, D);
+  __syncthreads();          // every right view has read its pass-1 values
+  mark(left, sl, D, false);
+  const uint32_t ml = second_of(left, D);
+  mark(left, sl, D, true);
+  __syncthreads();          // every left view is done with the slab
+  mark(right, sr, D, false);
+  const uint32_t mr = second_of(right, D);
+
+  int16_t* o = out + row * 10 * W;
+  store(o, u, W, sl, ml);
+  store(o + 5 * W, u, W, sr, mr);
 }
 
 }  // namespace
@@ -86,8 +250,16 @@ extern "C" int sgm_wta_maps(const int16_t* S, int16_t* out, int B, int H,
                             int D, int W, void* stream) {
   if (B < 1 || H < 1 || W < 1 || D < 2 || D > 256 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W + kThreads - 1) / kThreads, H, B);
-  sgm_wta_maps_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(S, out, H, D, W);
+  const int smem = D * row_len(D) * static_cast<int>(sizeof(uint16_t));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sgm_wta_maps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((W + kTile - 1) / kTile, H, B);
+  sgm_wta_maps_kernel<<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint16_t*>(S), out, H, D, W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -116,7 +116,9 @@ def sgm_wta_maps_plain(S_bhdw: torch.Tensor) -> torch.Tensor:
 def sgm_wta_maps(S_bhdw: torch.Tensor) -> torch.Tensor:
     """int16 [B, H, D, W] aggregated volume -> int16 [B, H, 10, W]: best,
     best_d, second, cost at d-1, cost at d+1 of the left view, then of the
-    right view SR[d, v, u] = S[d, v, u+d] (_INVALID past the edge)."""
+    right view SR[d, v, u] = S[d, v, u+d] (_INVALID past the edge). The
+    kernel takes S in [0, _CARRY_BIG], the path sum's range: it compares
+    the values as unsigned 16-bit lanes."""
     if not S_bhdw.is_cuda:
         return sgm_wta_maps_plain(S_bhdw)
     B, H, D, W = S_bhdw.shape

@@ -124,6 +124,61 @@ def test_raster_kernel_equals_plain(dev, CH, T, W, H, Ts):
                                                   (CH, H, W - 1)))
 
 
+@pytest.mark.parametrize("case", range(4))
+def test_raster_kernel_edges(dev, case):
+    """chip_smoke.RASTER_EDGE_CASES: Ts = 300 (three rounds of the
+    kernel's 128 slots), a triangle over every pixel, tiles of pad slots
+    only, 8 frames at 640x480."""
+    from chip_smoke import RASTER_EDGE_CASES, raster_edge_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    assert len(RASTER_EDGE_CASES) == 4
+    table, sel, T, W, H = raster_edge_case(RASTER_EDGE_CASES[case])
+    n0 = dp.launches
+    got = dp.raster(table.to(dev), sel.to(dev), T, W, H)
+    assert dp.launches == n0 + 1
+    want = dp.raster_plain(table, sel, T, W, H)
+    assert torch.equal(got.cpu(), want)
+    if case == 1:           # the whole-image triangle covers every pixel
+        assert bool((want >= 0).all())
+    if case == 2:           # the pad-only tiles stay uncovered
+        C = -(-W // dp._RASTER_CTILE)
+        v, u = np.mgrid[0:H, 0:W]
+        tile = (v // dp._RASTER_SLAB) * C + u // dp._RASTER_CTILE
+        dead = torch.from_numpy((tile % 2 == 0) | (tile % 4 == 1))
+        assert bool((want[:, dead] == -1).all())
+
+
+def test_raster_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    from chip_smoke import raster_overflow_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+
+    for name in ("raster_plain", "_slab_products_impl", "_slab_raster_impl"):
+        monkeypatch.setattr(dp, name, refuse)
+    table, sel = raster_overflow_case(np.random.default_rng(1), 1, 30, 200,
+                                      40, 8)
+    win = dp.raster(table.to(dev), sel.to(dev), 30, 200, 40)
+    assert win.is_cuda and win.shape == (1, 40, 200)
+
+
+def test_raster_kernel_refuses_what_it_does_not_take(dev):
+    from chip_smoke import raster_overflow_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    table, sel = raster_overflow_case(np.random.default_rng(2), 1, 30, 200,
+                                      40, 8)
+    table, sel = table.to(dev), sel.to(dev)
+    with pytest.raises(ValueError, match="table"):
+        dp.raster(table.long(), sel, 30, 200, 40)
+    with pytest.raises(ValueError, match="sel"):
+        dp.raster(table, sel.cpu(), 30, 200, 40)
+    with pytest.raises(ValueError, match="tiles"):
+        dp.raster(table, sel, 30, 400, 40)
+
+
 def test_fit_and_slopes_on_the_card_equal_native(dev):
     from jackal_tpu_torch.matching.elas import device_prior as dp
     from jackal_tpu_torch.matching.elas.device_fit import fit_planes_device
@@ -243,6 +298,48 @@ def test_path_kernel_never_runs_the_plain_twin(dev, monkeypatch):
     S = sk.aggregate_paths_bhdw(cost, SGMParams(disp_num=16))
     assert S.is_cuda and S.shape == (1, 20, 16, 40)
     assert int(S.max()) == 0
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_wta_kernel_edges(dev, case):
+    """chip_smoke.WTA_EDGE_CASES: constant volumes (every d ties) at D = 2,
+    3 and 64, tie-heavy volumes, a single column (the right view's 12000
+    wins), D = 256 at W = 1280 (dynamic shared memory), B = 4 at
+    1280x960."""
+    from chip_smoke import WTA_EDGE_CASES, wta_edge_volume
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    assert len(WTA_EDGE_CASES) == 8
+    name = WTA_EDGE_CASES[case]
+    S = wta_edge_volume(name, dev)
+    n0 = sk.launches["sgm_wta"]
+    got = sk.sgm_wta_maps(S)
+    assert sk.launches["sgm_wta"] == n0 + 1
+    want = sk.sgm_wta_maps_plain(S)
+    assert torch.equal(got, want)
+    D = S.shape[2]
+    if name.startswith("constant"):
+        assert bool((want[:, :, 0] == 15000).all())
+        assert bool((want[:, :, 1] == 0).all())
+        assert bool((want[:, :, 2] == (15000 if D > 2 else 30000)).all())
+        assert bool((want[:, :, 5, -1] == 12000).all())
+    if name.startswith("one column"):
+        assert bool((want[:, :, 5] == torch.minimum(
+            S[:, :, 0, :], torch.tensor(12000, device=dev))).all())
+
+
+def test_wta_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+
+    for name in ("sgm_wta_maps_plain", "wta_maps", "right_view_volume"):
+        monkeypatch.setattr(sk, name, refuse)
+    S = torch.full((1, 20, 16, 40), 7, dtype=torch.int16, device=dev)
+    maps = sk.sgm_wta_maps(S)
+    assert maps.is_cuda and maps.shape == (1, 20, 10, 40)
+    assert int(maps[:, :, 0].max()) == 7
 
 
 def test_sgm_kernels_refuse_what_they_do_not_take(dev):

@@ -148,29 +148,48 @@ def test_aggregate_paths_penalty_range():
     assert int(got.min()) >= 0 and int(got.max()) == sgm._CARRY_BIG
 
 
-def test_kernel_twins_equal_pallas(interpret_pallas):
+@pytest.mark.parametrize("case", ["aggregated", "ties", "D2"])
+def test_kernel_twins_equal_pallas(interpret_pallas, case):
     """Kernels E and F in interpret mode == the plain twins, at a tiny
-    shape with odd H; the right view reads 12000 past the border."""
+    shape with odd H; the right view reads 12000 past the border. F also
+    on a tie-heavy volume (values of {0, 9000, 18000} and a constant row:
+    the first d wins) and at D = 2 (no d is left for the second best)."""
     from jackal_tpu.ops.pallas.sgm_kernel import (
         aggregate_paths_pallas_bhdw, sgm_wta_maps_pallas)
 
     rng = np.random.default_rng(1)
-    B, H, W, D = 1, 9, 40, 8
-    left, right = _pair(rng, B, H, W, 3)
-    jp, tp = _params(D)
-    cl = jax.vmap(jsgm.census5x5)(jnp.asarray(left))
-    cr = jax.vmap(jsgm.census5x5)(jnp.asarray(right))
-    cost = jax.vmap(lambda a, b: jsgm.census_cost_volume_hdw(a, b, D))(cl, cr)
-    S = aggregate_paths_pallas_bhdw(cost, jp, hdw_layout=True)
-    got_S = sk.aggregate_paths_bhdw(torch.from_numpy(np.asarray(cost)), tp)
-    np.testing.assert_array_equal(got_S.numpy(), np.asarray(S))
+    if case == "aggregated":
+        B, H, W, D = 1, 9, 40, 8
+        left, right = _pair(rng, B, H, W, 3)
+        jp, tp = _params(D)
+        cl = jax.vmap(jsgm.census5x5)(jnp.asarray(left))
+        cr = jax.vmap(jsgm.census5x5)(jnp.asarray(right))
+        cost = jax.vmap(lambda a, b: jsgm.census_cost_volume_hdw(a, b, D))(
+            cl, cr)
+        S = aggregate_paths_pallas_bhdw(cost, jp, hdw_layout=True)
+        got_S = sk.aggregate_paths_bhdw(torch.from_numpy(np.asarray(cost)),
+                                        tp)
+        np.testing.assert_array_equal(got_S.numpy(), np.asarray(S))
+    else:
+        B, H, W, D = (2, 7, 45, 16) if case == "ties" else (1, 5, 33, 2)
+        S_np = (rng.integers(0, 3, (B, H, D, W)) * 9000).astype(np.int16)
+        S_np[:, 2] = 18000 if case == "ties" else rng.integers(
+            0, 28001, (B, D, W))
+        S, got_S = jnp.asarray(S_np), torch.from_numpy(S_np)
     maps = np.asarray(sgm_wta_maps_pallas(S))
     got = sk.sgm_wta_maps(got_S)
     assert got.dtype == torch.int16 and got.shape == (B, H, 10, W)
     np.testing.assert_array_equal(got.numpy(), maps)
-    # last column: only d = 0 lies inside, so the second best and the
-    # cost at d = 1 are the sentinel
-    assert (maps[:, :, 7:10:2, -1] == 12000).all()
+    if case == "aggregated":
+        # last column: only d = 0 lies inside, so the second best and the
+        # cost at d = 1 are the sentinel
+        assert (maps[:, :, 7:10:2, -1] == 12000).all()
+    elif case == "ties":
+        # the constant row: best_d 0, the second best the value
+        assert (maps[:, 2, 1] == 0).all() and (maps[:, 2, 2] == 18000).all()
+    else:
+        # D = 2: best_d +- 1 covers both d, nothing is left
+        assert (maps[:, :, 2] == 30000).all()
 
 
 @pytest.mark.parametrize("true_right", [False, True])
