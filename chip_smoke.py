@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no success line):
   2. kernels against their plain PyTorch versions on the card, bit for bit:
      support and dense at 640x480, D = 256, on the two 640x480 golden
      fixtures, and on two seeded random frames at a width that is not a
-     multiple of 32;
+     multiple of 32; support also on chip_smoke.SUPPORT_EDGE_CASES (the
+     node's and the batched node's shapes, D = 512 at W = 2112 and 4096,
+     W < D, disp_min near D, an odd width, constant descriptors);
   2b. (a) the raster kernel against its plain version (torch.equal) on
      every chunk of the two 640x480 golden fixtures batched by chunks of 1
      and 2, on wide triangles, on planes that overflow int32 and on
@@ -37,7 +39,11 @@ Phases (any failure exits non-zero and prints no success line):
      rate of its byte SADs is measured on the card (csrc/sad_rate.cu, the
      median of 7 windows, refused above the card's cap), and cuobjdump
      shows the instructions __vsadu4 became and that the raster kernel has
-     no FFMA; (e) the raster kernel against its plain version on the
+     no FFMA; the support kernel against its plain version on the batched
+     node's 8 frames, its time there and at the node's shape, its bound
+     restated in instructions (support_work; the old byte-SAD bound
+     beside it); a time of the support or the dense kernel below its
+     bound fails; (e) the raster kernel against its plain version on the
      batched node's chunk of 8 frames, its device time, its plain
      version's and its bound from this run's live tile slots, by
      instruction type (f32,
@@ -91,9 +97,10 @@ A kernel's time a call ("ms") is CUDA events around calls queued behind a
 spin kernel (events_ms); torch.profiler only splits it by kernel, since it
 leaves some launches of these kernels unrecorded. A plain version's time
 is CUDA events around its calls, host gaps included. Integer operations
-are bounded at 64 a clock an SM (int_ops_rate); the raster's f32
-operations at 128 a clock an SM and its conversions at 16
-(raster_bound_ms).
+are bounded at 64 a clock an SM (int_ops_rate: the support kernel's and
+D-G's instructions); the raster's f32 operations at 128 a clock an SM and
+its conversions at 16 (raster_bound_ms); the dense kernel's byte SADs at
+the measured byte SAD rate.
 """
 from __future__ import annotations
 
@@ -343,18 +350,30 @@ def random_prior(rng, B, H, W, params, dev):
 
 
 def support_work(Q, disp_min, D):
-    """(bytes, byte SADs) the support function needs: inputs read once,
-    the four key maps written once; the 64-byte SAD of every live
-    (column, d) of both views."""
+    """(bytes, instructions, the old count in byte SADs) of the support
+    function on Q's shape. Bytes: the inputs read once, the four key maps
+    written once. Instructions, the least the function needs: 8 __vsadu4
+    for each S(x, d) that some live key reads (its taps enumerated d by d:
+    x = c-2 and c+2 of the left view's live columns, c+d-2 and c+d+2 of
+    the right view's) and 3 for each live (c, d, view): the best-two
+    update with the key's add fused into __viaddmax_s32 and
+    __viaddmin_s32, then a min (csrc/support_kernel.cu). The old count: the
+    64 byte SADs of every live (c, d, view), at the measured byte SAD
+    rate."""
     B, nv, W, _ = Q.shape
     c = np.arange(W)
-    live_l = np.clip(np.minimum(D - 1, c - 5) - disp_min + 1, 0, None)
-    live_l[(c > W - 6) | (c < 5 + disp_min)] = 0
-    live_r = np.clip(np.minimum(D - 1, W - 5 - c) - disp_min + 1, 0, None)
-    live_r[(c < 5) | (c > W - 5 - disp_min)] = 0
-    pairs = B * nv * int(live_l.sum() + live_r.sum())
-    nbytes = 2 * Q.numel() + 4 * 4 * B * nv * W
-    return nbytes, pairs * 64
+    reads = live = 0
+    for d in range(disp_min, D):
+        lc = c[(c >= d + 5) & (c <= W - 6)]
+        rc = c[(c >= 5) & (c <= W - 5 - d)]
+        taps = np.zeros(W + 2, bool)
+        for x in (lc - 2, lc + 2, rc + d - 2, rc + d + 2):
+            taps[x] = True
+        reads += int(taps.sum())
+        live += len(lc) + len(rc)
+    rows = B * nv
+    nbytes = 2 * Q.numel() + 4 * 4 * rows * W
+    return nbytes, rows * (8 * reads + 3 * live), rows * live * 64
 
 
 def dense_work(desc1, desc2, d_plane, valid, covered, words, params, right):
@@ -580,6 +599,46 @@ def wta_edge_volume(name, dev):
     S = torch.randint(0, 28001, (B, H, D, W), generator=g, device=dev)
     S[torch.rand((B, H, D, W), generator=g, device=dev) < 0.1] = 28000
     return S.to(torch.int16)
+
+
+# the support kernel's edges (tests/test_torch_cuda.py runs them too)
+SUPPORT_EDGE_CASES = ("node, 640x480, D = 256", "B = 8 at 640x480",
+                      "D = 512 at W = 2112", "D = 512 at W = 4096",
+                      "W < D: W = 200, D = 256",
+                      "disp_min near D: 250 of 256",
+                      "odd W = 333, disp_min 4, B = 2",
+                      "constant descriptors, 640 wide")
+
+
+def support_edge_case(name, dev):
+    """(Q, T, disp_min, D) of one of SUPPORT_EDGE_CASES on dev, from a
+    seed: the grid-row blocks of a random frame and of the same frame
+    shifted by 9 columns (a true disparity of 9) at the node's shape, the
+    batched node's B = 8, wide frames at D = 512 (at W = 4096 the kernel's
+    shared table holds fewer d a chunk), W < D (the right view's top d are
+    dead), disp_min near D, an odd width; and constant descriptors, where
+    every cost ties."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import support as sm
+    from jackal_tpu_torch.ops.descriptor import create_descriptor
+
+    i = SUPPORT_EDGE_CASES.index(name)
+    B, H, W, disp_min, D = ((1, 480, 640, 0, 256), (8, 480, 640, 0, 256),
+                            (1, 40, 2112, 0, 512), (1, 30, 4096, 0, 512),
+                            (1, 60, 200, 0, 256), (1, 60, 640, 250, 256),
+                            (2, 60, 333, 4, 131), (1, 480, 640, 0, 256))[i]
+    step = sm.effective_stepsize(ElasParams())
+    ncv = -(-H // step)
+    if name.startswith("constant"):
+        Q = torch.full((B, ncv - 1, W, 32), 7, dtype=torch.uint8, device=dev)
+        return Q, Q.clone(), disp_min, D
+    rng = np.random.default_rng(60 + i)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    d1 = create_descriptor(torch.from_numpy(left).to(dev))
+    d2 = create_descriptor(torch.from_numpy(np.roll(left, -9, 2)).to(dev))
+    return (sm.grid_row_blocks(d1, step, ncv),
+            sm.grid_row_blocks(d2, step, ncv), disp_min, D)
 
 
 # the raster's edges (tests/test_torch_cuda.py runs them too)
@@ -1420,6 +1479,12 @@ def main() -> int:
                  [dense_mod.dense_match(d1, d2, *args, params, right)],
                  [dense_mod.dense_match_plain(d1, d2, *args, params, right)])
         print(f"kernels == plain (torch.equal, both views): {name}")
+    for name in SUPPORT_EDGE_CASES:
+        Qe, Te, lo, hi = support_edge_case(name, dev)
+        hold("support", f"support {name}", support_mod.support_keys(
+            Qe, Te, lo, hi), support_mod.support_keys_plain(Qe, Te, lo, hi))
+    print(f"support kernel == plain (torch.equal, both views): "
+          f"{', '.join(SUPPORT_EDGE_CASES)}")
     torch.cuda.synchronize()
     if support_mod.launches == 0 or dense_mod.launches == 0:
         raise AssertionError("a kernel wrapper never launched its kernel")
@@ -1775,8 +1840,9 @@ def main() -> int:
     ncv = -(-H // step)
     Q = support_mod.grid_row_blocks(d1, step, ncv)
     T = support_mod.grid_row_blocks(d2, step, ncv)
-    nb, sads = support_work(Q, params.disp_min, D)
-    bA, byA = bound_ms(nb, sads, rate)
+    nb, opsA, sads = support_work(Q, params.disp_min, D)
+    bA, byA = bound_ms(nb, opsA, int_ops_rate(dev))
+    obA, obyA = bound_ms(nb, sads, rate)
 
     def sup():
         return support_mod.support_keys(Q, T, 0, D)
@@ -1784,8 +1850,24 @@ def main() -> int:
     def den():
         return dense_mod.dense_match(d1, d2, *v1, params, False)
 
-    kA, kB = events_ms(sup, 50), events_ms(den, 50)
+    # A at the batched node's shape: its B = 8 descriptors (phase 4b)
+    Q8 = support_mod.grid_row_blocks(bd1, step, ncv)
+    T8 = support_mod.grid_row_blocks(bd2, step, ncv)
+    hold("support", f"support, the batched node's {batch} frames",
+         support_mod.support_keys(Q8, T8, 0, D),
+         support_mod.support_keys_plain(Q8, T8, 0, D))
+    nb8, ops8, sads8 = support_work(Q8, params.disp_min, D)
+    b8, by8 = bound_ms(nb8, ops8, int_ops_rate(dev))
+
+    def sup8():
+        return support_mod.support_keys(Q8, T8, 0, D)
+
+    kA, kB, kA8 = events_ms(sup, 50), events_ms(den, 50), events_ms(sup8, 20)
+    plans = {n: support_mod.plan(dev.index, *q.shape[:3], 0, D)
+             for n, q in ((1, Q), (batch, Q8))}
     lA, seenA = launch_ms(sup, 50, "support_keys_kernel")
+    lM, seenM = (launch_ms(sup, 50, "support_merge_kernel")
+                 if plans[1][0] > 1 else (0.0, 0))
     lB, seenB = launch_ms(den, 50, "elas_dense_kernel")
     pA = events_ms(lambda: support_mod.support_keys_plain(Q, T, 0, D), 3,
                    spin=False)
@@ -1794,13 +1876,24 @@ def main() -> int:
     pB = events_ms(lambda: dense_mod.dense_match_plain(
         d1, d2, *v1, params, False), 3, spin=False)
     print(f"device ms a call (CUDA events, calls queued behind a spin): "
-          f"support {kA:.4f} (its kernel launch {lA:.4f}, the mean of the "
-          f"{seenA} of 50 torch.profiler recorded; plain {pA:.3f}; bound "
-          f"{bA:.5f} by {byA}: {nb} bytes, {sads} byte SADs); dense, left "
+          f"support {kA:.4f} (R, DC = {plans[1]}: its keys kernel {lA:.4f}"
+          f" and its merge kernel {lM:.4f}, the means of the {seenA} and "
+          f"{seenM} of 50 launches torch.profiler recorded; plain {pA:.3f}; "
+          f"bound {bA:.5f} by {byA}: {nb} bytes, {opsA} instructions at "
+          f"the 32-bit integer rate; the old bound {obA:.5f} by {obyA}: "
+          f"{sads} byte SADs at the measured byte SAD rate); support at "
+          f"the batched node's B = {batch} {kA8:.4f} (R, DC = "
+          f"{plans[batch]}; bound {b8:.5f} by {by8}: {nb8} bytes, {ops8} "
+          f"instructions; the old bound "
+          f"{bound_ms(nb8, sads8, rate)[0]:.5f}); dense, left "
           f"view {kB:.4f} (its kernel launch {lB:.4f}, {seenB} of 50 "
           f"recorded; plain {pB:.3f}; bound "
           f"{bB:.5f} by {byB}: {nbB} bytes, {float(count.float().mean()):.2f}"
           f" candidates a pixel)")
+    for name, k, b in (("support", kA, bA), (f"support B = {batch}", kA8, b8),
+                       ("dense", kB, bB)):
+        if k < b:
+            raise AssertionError(f"{name}: {k} ms is below its bound {b} ms")
 
     tabC, selC, _ = coeffs[0]
     hold("raster", f"raster, left side of a chunk of {batch} frames",

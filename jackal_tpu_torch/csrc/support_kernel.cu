@@ -1,120 +1,303 @@
 // ELAS support-point matching: best-two keys of both views per grid row.
 //
 // Replaces the TPU kernel jackal_tpu/ops/pallas/support_kernel.py
-// (_support_kernel, pallas_call at l.183, wrapper
+// (_support_kernel l.61, pallas_call l.183, wrapper
 // support_candidates_pallas l.148). The plain PyTorch version of the same
 // function is support_keys_plain in matching/elas/support.py; the wrapper
-// there holds the acceptance tests (texture, ratio, bounds, fwd-bwd).
+// there (support_keys) holds the acceptance tests (texture, ratio, bounds,
+// fwd-bwd) in support_candidates.
 //
 // What it computes. Q and T are [B, nv, W, 32] uint8: per support-grid row
 // and column, the 16-byte descriptors of rows v-2 and v+2 side by side.
 // With S(x, d) = sum over 32 bytes |Q(x) - T(x-d)|:
 //   left  key(c, d) = (S(c-2, d) + S(c+2, d)) * 512 + d,  live d+5 <= c <= W-6
 //   right key(c, d) = (S(c+d-2, d) + S(c+d+2, d)) * 512 + d, live 5 <= c <= W-5-d
-// (cost_R(c, d) = cost_L(c+d, d)), d in [disp_min, D). Per view the kernel
-// keeps the two smallest keys; dead keys are KBIG. Keys are unique in d, so
-// the best-two set does not depend on the visit order; d still runs
-// ascending, the reference's order. Every live key's taps lie inside
-// [3, W-3], so no padding or wrap is needed (the TPU kernel rolled over a
-// padded width and masked the wrapped columns).
+// for d in [disp_min, D), D <= 512. Per view the two smallest keys survive;
+// dead keys are KBIG. The out array is int32 [4, B, nv, W]: l1, l2, r1, r2.
+// Every live key's taps lie in [d+3, W-3], so no padding is needed.
 //
-// What bounds it on an H100. Per frame (640x480, D = 256, nv = 95) the
-// work is ~95*640*256*2 views * 64 byte-SADs = 2.0e9 byte absolute
-// differences, on 3.9 MB of input: it is bound by integer operations, not
-// bytes. The design: one thread per (b, row, column) computes both views;
-// __vsadu4 does four byte SADs and their sum in one instruction; the
-// thread's fixed taps (Q(c+-2) for the left view, T(c+-2) for the right)
-// stay in registers and the moving taps are 16-byte __ldg loads that
-// neighbouring threads issue on neighbouring addresses, served by L1.
-// Tiling the moving row through shared memory is left for a later change.
+// What bounds it on an H100: integer instructions. Each S(x, d) that a
+// live key reads is 8 __vsadu4 (VABSDIFF4 with its accumulate) on 32
+// bytes; each live (c, d, view) is 3 more: with the table below holding
+// U = S * 1024 + d, the key doubled is U1 + U2 = 2 * key (order kept:
+// 2d < 1024), and the best-two update is __viaddmax_s32 (max(U1 + U2, k1)),
+// a min for k2, and __viaddmin_s32 for k1 (VIADDMNMX, VIMNMX). At 640x480
+// (nv = 95), D = 256 that is 95 * (129,920 * 8 + 257,536 * 3) = 172.1e6
+// instructions, 0.0103 ms at 64 a clock an SM (chip_smoke.support_work);
+// the bytes (inputs read once, the maps written once, 4.86 MB) take less.
+// A design that computes S per key computes each S(x, d) four times (the
+// two taps of a left key, and the right view's keys are the left's
+// shifted by d): 0.0236 ms at the measured byte SAD rate.
+//
+// The design. A block owns one (frame, grid row, range of d); the ranges
+// split the chunks of [disp_min, D) into R (1 to 8, a power of two) so
+// that B * nv * R blocks fill the card (support_keys_plan). A block walks
+// its range in chunks of DC disparities: DC = 16, fewer where W is so wide
+// that the table would not fit. Per chunk [da, db):
+//  - table: for every x in [da+3, W-3] and every d of the chunk, U =
+//    S(x, d) * 1024 + d is computed once into a shared table [DC][Wp]
+//    int32, Wp = W rounded up to 4. The x come in slabs of 384: the block
+//    copies the slab's Q taps and the T taps its d reach (384 + DC - 1)
+//    from device memory with coalesced 16-byte loads into word planes
+//    (word w of every tap side by side), then a thread takes 3
+//    consecutive x (lanes 3 words apart: no bank conflicts), keeps their
+//    Q in registers and slides over the chunk's d, reading one new T tap
+//    (8 shared loads) a step for 3 SADs. A layout with a thread's taps
+//    loaded from device memory (lanes 128 bytes apart) left the L1 at a
+//    fraction of its rate: 0.098 ms against 0.050 at 640x480 on an H100
+//    SXM at 700 W;
+//  - walk: after a barrier, a thread takes columns c = tid + k * 128 and
+//    walks the live d of the chunk ascending, both views in one loop,
+//    two shared loads a key (lanes on neighbouring columns, no bank
+//    conflicts). The best-two state of a column is kept across chunks in
+//    the block's partial of the four maps in device memory, read and
+//    written by the same thread.
+// Shared memory a block: DC * Wp * 4 + 25,856 bytes (the planes): 66,816
+// at W = 640 (DC = 16; 3 blocks an SM), 222,464 at W = 4096 (DC = 12);
+// W up to 51,648 fits at DC = 1.
+// Merge. With R > 1, support_merge_kernel folds the R partial pairs of a
+// (frame, row, column, view) with
+//   (a1, a2) + (b1, b2) = (min(a1, b1), min(max(a1, b1), min(a2, b2))),
+// which is exact: keys are unique in d and the ranges are disjoint, so the
+// two smallest of a union are the smaller first and the smaller of the
+// other first and both seconds; a dead key is KBIG in every partial. It
+// halves the doubled keys. With R = 1 the block writes the halved keys
+// itself and there is no second launch.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kKBig = 1 << 24;
+constexpr int kKBig2 = 2 << 24;  // KBIG, doubled
 constexpr int kGap = 5;
 constexpr int kThreads = 128;
+constexpr int kXT = 3;                 // x a thread's table item
+constexpr int kSlab = kXT * kThreads;  // x a slab of the table's fill
+constexpr int kDCMax = 16;             // d a chunk
+constexpr int kPlane = kSlab + kDCMax + 4;  // a plane's words, 4 mod 8
+constexpr int kPlaneBytes = 2 * 8 * kPlane * 4;  // Q's and T's planes
+constexpr int kRMax = 8;
+
+static_assert(kPlane % 8 == 4, "the staging's two halves on other banks");
 
 struct Tap {
-  uint4 a, b;  // 32 bytes
+  uint32_t w[8];  // 32 bytes
 };
 
-__device__ __forceinline__ Tap load_tap(const uint4* row, int x) {
-  Tap t;
-  t.a = __ldg(row + 2 * x);
-  t.b = __ldg(row + 2 * x + 1);
-  return t;
+// Taps [y0, y0 + n) of a row, y clamped to [0, W-1], into word planes:
+// word w of tap y at P[w * kPlane + y - y0]. Lanes read 16 consecutive
+// bytes each (coalesced); the two halves of a tap land 16 banks apart.
+__device__ __forceinline__ void stage(uint32_t* P, const uint4* row, int y0,
+                                      int n, int W) {
+  for (int i = threadIdx.x; i < 2 * n; i += kThreads) {
+    const int y = min(max(y0 + (i >> 1), 0), W - 1);
+    const uint4 v = __ldg(row + 2 * y + (i & 1));
+    uint32_t* p = P + (i & 1) * 4 * kPlane + (i >> 1);
+    p[0] = v.x;
+    p[kPlane] = v.y;
+    p[2 * kPlane] = v.z;
+    p[3 * kPlane] = v.w;
+  }
+}
+
+__device__ __forceinline__ void read_tap(Tap& t, const uint32_t* P, int i) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) t.w[w] = P[w * kPlane + i];
 }
 
 __device__ __forceinline__ int sad32(const Tap& p, const Tap& q) {
-  unsigned s = __vsadu4(p.a.x, q.a.x);
-  s += __vsadu4(p.a.y, q.a.y);
-  s += __vsadu4(p.a.z, q.a.z);
-  s += __vsadu4(p.a.w, q.a.w);
-  s += __vsadu4(p.b.x, q.b.x);
-  s += __vsadu4(p.b.y, q.b.y);
-  s += __vsadu4(p.b.z, q.b.z);
-  s += __vsadu4(p.b.w, q.b.w);
+  unsigned s = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) s = __vsadu4(p.w[w], q.w[w]) + s;
   return static_cast<int>(s);
 }
 
-__device__ __forceinline__ void best_two(int key, int& k1, int& k2) {
-  k2 = min(k2, max(k1, key));
-  k1 = min(k1, key);
+__host__ __device__ __forceinline__ int padded(int W) { return (W + 3) & ~3; }
+
+// U[d - da][x - (da + 3)] = S(x, d) * 1024 + d for the chunk [da, db) and
+// every x in [da + 3, W - 3]. Slabs of kSlab x: the block stages the
+// slab's Q taps and the T taps its d reach into word planes, then a thread
+// takes 3 consecutive x (lanes 3 words apart: no bank conflicts), keeps
+// their Q in registers and slides over the chunk's d, reading one new T
+// tap a step for 3 SADs. A thread stops at the last d its x need
+// (d <= x - 3); values at x > W-3 or x < d+3 are stored but never read.
+__device__ __forceinline__ void fill_table(int* __restrict__ U,
+                                           uint32_t* __restrict__ Qp,
+                                           uint32_t* __restrict__ Tp,
+                                           const uint4* q, const uint4* t,
+                                           int W, int Wp, int da, int db) {
+  const int xb = da + 3;
+  for (int xs = xb; xs <= W - 3; xs += kSlab) {
+    const int yb = xs - db + 1;  // T taps [yb, xs + kSlab - da)
+    if (xs > xb) __syncthreads();  // the last slab's planes are read
+    stage(Qp, q, xs, kSlab, W);
+    stage(Tp, t, yb, kSlab + db - da - 1, W);
+    __syncthreads();
+    const int x0 = xs + kXT * threadIdx.x;
+    const int de = min(db, min(x0 + kXT - 1, W - 3) - 2);
+    if (x0 > W - 3 || da >= de) continue;
+    Tap qx[kXT], w[kXT];
+#pragma unroll
+    for (int k = 0; k < kXT; ++k) {
+      read_tap(qx[k], Qp, x0 - xs + k);
+      read_tap(w[k], Tp, x0 + k - da - yb);
+    }
+    int* row = U + (x0 - xb);
+#pragma unroll
+    for (int j = 0; j < kDCMax; ++j) {
+      const int d = da + j;
+#pragma unroll
+      for (int k = 0; k < kXT; ++k) row[k] = sad32(qx[k], w[k]) * 1024 + d;
+      if (d + 1 >= de) break;
+      row += Wp;
+#pragma unroll
+      for (int k = kXT - 1; k > 0; --k) w[k] = w[k - 1];
+      read_tap(w[0], Tp, x0 - d - 1 - yb);
+    }
+  }
 }
 
-__global__ void support_keys_kernel(const uint8_t* __restrict__ Q,
-                                    const uint8_t* __restrict__ T,
-                                    int32_t* __restrict__ l1,
-                                    int32_t* __restrict__ l2,
-                                    int32_t* __restrict__ r1,
-                                    int32_t* __restrict__ r2,
-                                    int nv, int W, int disp_min, int D) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.z * nv + blockIdx.y;  // b * nv + r
-  if (c >= W) return;
-  const size_t base = static_cast<size_t>(row) * W;
+__device__ __forceinline__ void best_two(const int* p, int& k1, int& k2) {
+  k2 = min(k2, __viaddmax_s32(p[0], p[4], k1));
+  k1 = __viaddmin_s32(p[0], p[4], k1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+support_keys_kernel(const uint8_t* __restrict__ Q,
+                    const uint8_t* __restrict__ T, int32_t* __restrict__ dst,
+                    int nv, int W, int disp_min, int D, int chunk,
+                    int ranges) {
+  extern __shared__ int4 smem[];
+  int* U = reinterpret_cast<int*>(smem);
+  const int Wp = padded(W);
+  uint32_t* Qp = reinterpret_cast<uint32_t*>(U + chunk * Wp);
+  uint32_t* Tp = Qp + 8 * kPlane;
+  const int r = blockIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.z) * nv + blockIdx.y;
+  const size_t N = static_cast<size_t>(gridDim.z) * nv * W;
+  const size_t base = row * W;
   const uint4* q = reinterpret_cast<const uint4*>(Q + base * 32);
   const uint4* t = reinterpret_cast<const uint4*>(T + base * 32);
+  // with R = 1 dst is the out array, else this block's partial
+  int32_t* out = dst + (ranges > 1 ? r * 4 * N : 0) + base;
+  const int nchunks = (D - disp_min + chunk - 1) / chunk;
+  const int k0 = r * nchunks / ranges, k1 = (r + 1) * nchunks / ranges;
+  for (int k = k0; k < k1; ++k) {
+    const int da = disp_min + k * chunk, db = min(da + chunk, D);
+    if (k > k0) __syncthreads();  // the last chunk's walk is done
+    fill_table(U, Qp, Tp, q, t, W, Wp, da, db);
+    __syncthreads();
+    const int shift = (k == k1 - 1 && ranges == 1) ? 1 : 0;
+    for (int c = threadIdx.x; c < W; c += kThreads) {
+      int a1 = kKBig2, a2 = kKBig2, b1 = kKBig2, b2 = kKBig2;
+      if (k > k0) {
+        a1 = out[c];
+        a2 = out[N + c];
+        b1 = out[2 * N + c];
+        b2 = out[3 * N + c];
+      }
+      // live d of the chunk: left d <= c - 5 (c <= W - 6), right
+      // d <= W - 5 - c (c >= 5); both views in one loop where both live
+      const int nl = c <= W - kGap - 1 ? min(db, c - kGap + 1) - da : 0;
+      const int nr = c >= kGap ? min(db, W - kGap - c + 1) - da : 0;
+      const int* pl = U + c - kGap - da;  // U[j][c - 2 - (da + 3)]
+      const int* pr = U + c - kGap;       // U[j][c + d - 2 - (da + 3)]
+      int j = 0;
+#pragma unroll 4
+      for (; j < min(nl, nr); ++j, pl += Wp, pr += Wp + 1) {
+        best_two(pl, a1, a2);
+        best_two(pr, b1, b2);
+      }
+      for (; j < nl; ++j, pl += Wp) best_two(pl, a1, a2);
+      for (; j < nr; ++j, pr += Wp + 1) best_two(pr, b1, b2);
+      out[c] = a1 >> shift;
+      out[N + c] = a2 >> shift;
+      out[2 * N + c] = b1 >> shift;
+      out[3 * N + c] = b2 >> shift;
+    }
+  }
+}
 
-  int a1 = kKBig, a2 = kKBig;  // left view
-  if (c <= W - kGap - 1 && c >= kGap + disp_min) {
-    const Tap qm = load_tap(q, c - 2);
-    const Tap qp = load_tap(q, c + 2);
-    const int dmax = min(D - 1, c - kGap);
-    for (int d = disp_min; d <= dmax; ++d) {
-      const int cost = sad32(qm, load_tap(t, c - 2 - d)) +
-                       sad32(qp, load_tap(t, c + 2 - d));
-      best_two(cost * 512 + d, a1, a2);
+__global__ void support_merge_kernel(const int32_t* __restrict__ part,
+                                     int32_t* __restrict__ out, size_t N,
+                                     int ranges) {
+  const size_t n = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    int k1 = part[2 * v * N + n], k2 = part[(2 * v + 1) * N + n];
+    for (int r = 1; r < ranges; ++r) {
+      const int b1 = part[(4 * r + 2 * v) * N + n];
+      const int b2 = part[(4 * r + 2 * v + 1) * N + n];
+      k2 = min(max(k1, b1), min(k2, b2));
+      k1 = min(k1, b1);
     }
+    out[2 * v * N + n] = k1 >> 1;
+    out[(2 * v + 1) * N + n] = k2 >> 1;
   }
-  int b1 = kKBig, b2 = kKBig;  // right view
-  if (c >= kGap && c <= W - kGap - disp_min) {
-    const Tap tm = load_tap(t, c - 2);
-    const Tap tp = load_tap(t, c + 2);
-    const int dmax = min(D - 1, W - kGap - c);
-    for (int d = disp_min; d <= dmax; ++d) {
-      const int cost = sad32(load_tap(q, c + d - 2), tm) +
-                       sad32(load_tap(q, c + d + 2), tp);
-      best_two(cost * 512 + d, b1, b2);
-    }
-  }
-  l1[base + c] = a1;
-  l2[base + c] = a2;
-  r1[base + c] = b1;
-  r2[base + c] = b2;
 }
 
 }  // namespace
 
-extern "C" int support_keys(const uint8_t* Q, const uint8_t* T, int32_t* l1,
-                            int32_t* l2, int32_t* r1, int32_t* r2, int B,
-                            int nv, int W, int disp_min, int D,
-                            void* stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, nv, B);
-  support_keys_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      Q, T, l1, l2, r1, r2, nv, W, disp_min, D);
+// The launch plan for a shape on a device: the d ranges a row (R) and the
+// d a chunk (DC). Returns cudaErrorInvalidValue for a shape the kernel
+// does not take (D > 512, disp_min >= D, or a W whose table does not fit
+// in shared memory at DC = 1).
+extern "C" int support_keys_plan(int B, int nv, int W, int disp_min, int D,
+                                 int device, int* ranges, int* chunk) {
+  if (B < 1 || nv < 1 || W < 1 || disp_min < 0 || disp_min >= D || D > 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0, optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long row_bytes = 4LL * padded(W);
+  const int n = D - disp_min;
+  const int dc = static_cast<int>(std::min<long long>(
+      std::min(kDCMax, n), (optin - kPlaneBytes) / row_bytes));
+  if (dc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nchunks = (n + dc - 1) / dc;
+  int R = 1;
+  while (R < kRMax && 2 * R <= nchunks &&
+         static_cast<long long>(R) * B * nv < 4LL * sms)
+    R *= 2;
+  *ranges = R;
+  *chunk = dc;
+  return 0;
+}
+
+// out: int32 [4, B, nv, W]; part: int32 [R, 4, B, nv, W] when R > 1
+// (unused at R = 1). One launch at R = 1, two (keys, merge) above.
+extern "C" int support_keys(const uint8_t* Q, const uint8_t* T, int32_t* out,
+                            int32_t* part, int B, int nv, int W, int disp_min,
+                            int D, int ranges, int chunk, void* stream) {
+  if (ranges < 1 || ranges > kRMax || chunk < 1 || chunk > kDCMax ||
+      disp_min < 0 ||
+      disp_min >= D || D > 512 ||
+      ranges > (D - disp_min + chunk - 1) / chunk)  // a range of no chunk
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(chunk) * padded(W) * 4 + kPlaneBytes;
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        support_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  const dim3 grid(ranges, nv, B);
+  support_keys_kernel<<<grid, kThreads, smem, s>>>(
+      Q, T, ranges > 1 ? part : out, nv, W, disp_min, D, chunk, ranges);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ranges == 1) return static_cast<int>(err);
+  const size_t N = static_cast<size_t>(B) * nv * W;
+  const int threads = 256;
+  support_merge_kernel<<<static_cast<unsigned>((N + threads - 1) / threads),
+                         threads, 0, s>>>(part, out, N, ranges);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,7 @@ texture / ratio / bounds / forward-backward tests to either.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -37,7 +38,7 @@ from ...ops import cuda_lib
 _KBIG = 1 << 24   # > max key (32*255*2*512 + 255)
 _GAP = 5          # window(3) + u_step(2): min margin to the image edge
 
-launches = 0      # support_keys kernel launches since the last reset
+launches = 0      # support_keys calls (one or two launches) since the last reset
 
 
 def effective_stepsize(params: ElasParams) -> int:
@@ -92,6 +93,25 @@ def support_keys_plain(Q: torch.Tensor, T: torch.Tensor, disp_min: int,
     return l1, l2, r1, r2
 
 
+@functools.lru_cache(maxsize=None)
+def plan(device_index: int, B: int, nv: int, W: int, disp_min: int,
+         D: int) -> Tuple[int, int]:
+    """(R, DC) of the kernel at this shape on this card: the d ranges a
+    grid row (R blocks, merged by a second launch when R > 1) and the d a
+    chunk of its shared table. Raises ValueError for a W whose table does
+    not fit in shared memory; the d range must be one the kernel
+    takes (0 <= disp_min < D <= 512, checked by the caller)."""
+    fn = cuda_lib.load("support_kernel").support_keys_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    ranges, chunk = ctypes.c_int(), ctypes.c_int()
+    if fn(B, nv, W, disp_min, D, device_index, ctypes.byref(ranges),
+          ctypes.byref(chunk)):
+        raise ValueError(f"support_keys takes W up to the shared table's "
+                         f"width on this card, got W = {W}")
+    return ranges.value, chunk.value
+
+
 def _support_keys_cuda(Q: torch.Tensor, T: torch.Tensor, disp_min: int,
                        D: int) -> Tuple[torch.Tensor, ...]:
     global launches
@@ -100,17 +120,21 @@ def _support_keys_cuda(Q: torch.Tensor, T: torch.Tensor, disp_min: int,
         cuda_lib.expect(x, name, torch.uint8, (B, nv, W, 32), Q.device)
     if not 0 <= disp_min < D <= 512:
         raise ValueError(f"need 0 <= disp_min < D <= 512, got {disp_min}, {D}")
-    lib = cuda_lib.load("support_kernel")
-    fn = lib.support_keys
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = torch.empty((4, B, nv, W), dtype=torch.int32, device=Q.device)
+    if out.numel() == 0:        # nv = 0: no grid row, nothing to launch
+        return tuple(out)
+    ranges, chunk = plan(Q.device.index, B, nv, W, disp_min, D)
+    part = (torch.empty((ranges, 4, B, nv, W), dtype=torch.int32,
+                        device=Q.device) if ranges > 1 else out)
+    fn = cuda_lib.load("support_kernel").support_keys
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    outs = [torch.empty((B, nv, W), dtype=torch.int32, device=Q.device)
-            for _ in range(4)]
-    err = fn(Q.data_ptr(), T.data_ptr(), *(o.data_ptr() for o in outs),
-             B, nv, W, disp_min, D, cuda_lib.stream_ptr(Q))
+    err = fn(Q.data_ptr(), T.data_ptr(), out.data_ptr(), part.data_ptr(),
+             B, nv, W, disp_min, D, ranges, chunk, cuda_lib.stream_ptr(Q))
     cuda_lib.check(err, "support_keys")
     launches += 1
-    return tuple(outs)
+    return tuple(out)
 
 
 def support_keys(Q: torch.Tensor, T: torch.Tensor, disp_min: int, D: int

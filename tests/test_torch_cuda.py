@@ -28,7 +28,12 @@ def dev():
 
 
 @pytest.mark.parametrize("B,H,W,disp_max,disp_min", [
-    (2, 60, 160, 47, 0), (1, 43, 101, 30, 4), (1, 120, 333, 255, 0)])
+    (2, 60, 160, 47, 0), (1, 43, 101, 30, 4), (1, 120, 333, 255, 0),
+    (1, 480, 640, 255, 0),      # the node's shape
+    (8, 480, 640, 255, 0),      # the batched node's
+    (1, 40, 2112, 511, 0),      # D = 512 on a wide frame
+    (1, 60, 200, 255, 0),       # W < D
+    (1, 60, 320, 255, 250)])    # disp_min near D
 def test_support_kernel_equals_plain(dev, B, H, W, disp_max, disp_min):
     rng = np.random.default_rng(W)
     l = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
@@ -47,6 +52,53 @@ def test_support_kernel_equals_plain(dev, B, H, W, disp_max, disp_min):
     p = ElasParams(disp_max=disp_max, disp_min=disp_min)
     cpu = sm.support_candidates(d1.cpu(), d2.cpu(), p)
     assert torch.equal(sm.support_candidates(d1, d2, p).cpu(), cpu)
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_support_kernel_edges(dev, case):
+    """chip_smoke.SUPPORT_EDGE_CASES: the node's and the batched node's
+    shapes, D = 512 at W = 2112 and 4096 (fewer d a chunk), W < D,
+    disp_min near D, an odd width, constant descriptors (every cost
+    ties)."""
+    from chip_smoke import SUPPORT_EDGE_CASES, support_edge_case
+
+    assert len(SUPPORT_EDGE_CASES) == 8
+    name = SUPPORT_EDGE_CASES[case]
+    Q, T, disp_min, D = support_edge_case(name, dev)
+    n0 = sm.launches
+    got = sm.support_keys(Q, T, disp_min, D)
+    assert sm.launches == n0 + 1
+    want = sm.support_keys_plain(Q, T, disp_min, D)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if name.startswith("constant"):     # all ties: the lowest two d win
+        assert bool((want[0][:, :, 300:400] == 0).all())
+        assert bool((want[1][:, :, 300:400] == 1).all())
+
+
+def test_support_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+
+    monkeypatch.setattr(sm, "support_keys_plain", refuse)
+    Q = torch.full((1, 3, 40, 32), 9, dtype=torch.uint8, device=dev)
+    keys = sm.support_keys(Q, Q.clone(), 0, 20)
+    assert all(k.is_cuda and k.shape == (1, 3, 40) for k in keys)
+    assert int(keys[0][0, 0, 20]) == 0 and int(keys[1][0, 0, 20]) == 1
+
+
+def test_support_kernel_refuses_what_it_does_not_take(dev):
+    Q = torch.zeros((1, 3, 40, 32), dtype=torch.uint8, device=dev)
+    for lo, hi in ((0, 513), (20, 20), (30, 20), (-1, 10)):
+        with pytest.raises(ValueError, match="disp_min"):
+            sm.support_keys(Q, Q, lo, hi)
+    with pytest.raises(ValueError, match="^T:"):
+        sm.support_keys(Q, Q.to(torch.int32), 0, 20)
+    with pytest.raises(ValueError, match="^Q:"):
+        sm.support_keys(Q[..., :16].contiguous(), Q, 0, 20)
+    wide = torch.zeros((1, 1, 60000, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="W = 60000"):
+        sm.support_keys(wide, wide, 0, 20)
 
 
 @pytest.mark.parametrize("right_image", [False, True])

@@ -94,3 +94,44 @@ def test_key_maps_follow_the_sequential_best_two_rule():
             stack.sort(axis=1)
             np.testing.assert_array_equal(k1[:, :, c].reshape(-1), stack[:, 0])
             np.testing.assert_array_equal(k2[:, :, c].reshape(-1), stack[:, 1])
+
+
+def _merge(a, b):
+    """The CUDA kernel's merge of two d ranges' best-two pairs."""
+    (a1, a2), (b1, b2) = a, b
+    return (torch.minimum(a1, b1),
+            torch.minimum(torch.maximum(a1, b1), torch.minimum(a2, b2)))
+
+
+@pytest.mark.parametrize("case,B,nv,W,cuts", [
+    ("random", 2, 3, 48, (0, 8, 16, 24)),
+    ("constant", 1, 2, 40, (0, 5, 10, 15, 20)),       # every cost ties
+    ("random", 2, 2, 50, (3, 4, 13, 29)),             # disp_min > 0, uneven
+    ("random", 1, 3, 20, (0, 7, 16, 32)),             # W < D: dead ranges
+])
+def test_key_maps_merge_over_d_ranges(case, B, nv, W, cuts):
+    """The key maps over [disp_min, D) equal the merge of the key maps over
+    sub-ranges [lo, hi): the CUDA kernel's blocks own d ranges and a second
+    launch merges their best-two pairs this way. The live masks do not
+    depend on D, so each sub-range's plain maps are a block's partial."""
+    rng = np.random.default_rng(W)
+    shape = (B, nv, W, 32)
+    if case == "constant":
+        Q = torch.full(shape, 7, dtype=torch.uint8)
+        T = Q.clone()
+    else:
+        Q = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+        T = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+    want = sm.support_keys_plain(Q, T, cuts[0], cuts[-1])
+    parts = [sm.support_keys_plain(Q, T, lo, hi)
+             for lo, hi in zip(cuts[:-1], cuts[1:])]
+    left, right = parts[0][:2], parts[0][2:]
+    for p in parts[1:]:
+        left, right = _merge(left, p[:2]), _merge(right, p[2:])
+    for got, w in zip(left + right, want):
+        assert torch.equal(got, w)
+    if case == "constant":          # all ties: the lowest two d win
+        assert bool((want[0][:, :, 20:35] == cuts[0]).all())
+        assert bool((want[1][:, :, 20:35] == cuts[0] + 1).all())
+    if W < cuts[-1]:                # no live key in the top range
+        assert bool((torch.stack(parts[-1]) == sm._KBIG).all())
