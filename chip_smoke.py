@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no success line):
   2. kernels against their plain PyTorch versions on the card, bit for bit:
      support and dense at 640x480, D = 256, on the two 640x480 golden
      fixtures, and on two seeded random frames at a width that is not a
-     multiple of 32; support also on chip_smoke.SUPPORT_EDGE_CASES (the
+     multiple of 32 (dense each view alone and both views in one launch,
+     dense_match_pair; the pair call also at D = 32 and at D = 8 with
+     cells of one pixel); support also on chip_smoke.SUPPORT_EDGE_CASES (the
      node's and the batched node's shapes, D = 512 at W = 2112 and 4096,
      W < D, disp_min near D, an odd width, constant descriptors);
   2b. (a) the raster kernel against its plain version (torch.equal) on
@@ -27,19 +29,26 @@ Phases (any failure exits non-zero and prints no success line):
      per-frame elas_match;
   4. the node: make_pipeline(engine="elas") at 640x480 and process_frame on
      seeded raw 640x360 pairs of a known scene (pipeline/synthetic.py),
-     with the launch counters reset just before and read just after;
+     with the launch counters reset just before and read just after (the
+     dense kernel once a frame, both views in one launch);
      per-stage medians, fps, the device's busy time under torch.profiler,
      a per-stage breakdown of one frame;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
-     the launch counters reset just before and read just after; fps, the
+     the launch counters reset just before and read just after (the dense
+     kernel once a batch); fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
      one batch;
   5. the roofline bound of each kernel from this run's inputs; the peak
      rate of its byte SADs is measured on the card (csrc/sad_rate.cu, the
      median of 7 windows, refused above the card's cap), and cuobjdump
-     shows the instructions __vsadu4 became and that the raster kernel has
-     no FFMA; the support kernel against its plain version on the batched
+     shows the instructions __vsadu4 became (the dense and census kernels'
+     whole opcode mix) and that the raster kernel has no FFMA; the dense
+     kernel's pair call against its plain version on the batched node's 8
+     frames, its time there and at the node's shape, its bound for both
+     views (the bound a view at a time, summed, beside it) and the
+     candidates a pixel and warp steps of each view (dense_work); the
+     support kernel against its plain version on the batched
      node's 8 frames, its time there and at the node's shape, its bound
      restated in instructions (support_work; the old byte-SAD bound
      beside it); a time of the support or the dense kernel below its
@@ -67,8 +76,9 @@ Phases (any failure exits non-zero and prints no success line):
      F set to 0 just before and read just after; (e) each kernel against
      its plain version (torch.equal), its device time, its plain version's
      and its bound (and E's bound as counted before its 16-bit lanes) at
-     the node's shape and at config 3's, and E's device memory a call; a
-     time below its bound fails;
+     the node's shape and at config 3's (D's bound at its byte lanes' 26
+     instructions a pixel, the unpacked 48 beside it), and E's device
+     memory a call; a time below its bound fails;
   7. BM and gen_pcl: (a) kernel G against its plain twin (torch.equal) on
      both golden pairs at D = 64 and 256 and on seeded awkward shapes
      (W = 2000, W % 64 != 0, D past G's strip, H and W under 32, fewer rows
@@ -104,6 +114,7 @@ the measured byte SAD rate.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -377,10 +388,18 @@ def support_work(Q, disp_min, D):
 
 
 def dense_work(desc1, desc2, d_plane, valid, covered, words, params, right):
-    """(bytes, candidates per pixel) of one dense view on these inputs;
-    the operations are the 16 byte SADs of every candidate this run's
-    data visits at a matched pixel."""
+    """(bytes, candidates a pixel, warp steps) of one dense view on these
+    inputs. Bytes: the descriptor pair and the view's maps read once, its
+    output written once (a pair call reads the descriptors once for both
+    views: dense_pair_work). The operations are the 16 byte SADs of every
+    candidate this run's data visits at a matched pixel. Warp steps, over
+    the warps of 32 consecutive columns, summed over the warps: the
+    kernel's (2r+1 window steps plus its longest lane's grid candidates
+    outside the window), a warp-uniform walk's (2r+1 plus the size of the
+    union of the lanes' grid candidates outside their windows) and the
+    first design's (its longest lane's candidate count)."""
     import torch
+    import torch.nn.functional as F
 
     B, H, W, _ = desc1.shape
     D, gs, r = params.disp_num, params.grid_size, params.plane_radius
@@ -395,15 +414,41 @@ def dense_work(desc1, desc2, d_plane, valid, covered, words, params, right):
     dp = d_plane.to(torch.int32)
     lo, hi = torch.clamp(dp - r, min=0), torch.clamp(dp + r, max=D - 1)
     count = torch.zeros((B, H, W), dtype=torch.int64, device=dev)
+    grid_only = torch.zeros_like(count)
+    union = torch.zeros((B, H, -(-W // 32)), dtype=torch.int64, device=dev)
     sign = 1 if right else -1
+    pad = -W % 32
     for d in range(D):
         warp = u + sign * d
+        ok = (warp >= 2) & (warp < W - 2) & pixel_ok
         in_grid = ((words[:, rows, cols, d // 32] >> (d % 32)) & 1) > 0
-        count += (in_grid | ((d >= lo) & (d <= hi))) \
-            & (warp >= 2) & (warp < W - 2) & pixel_ok
-    nbytes = (2 * desc1.numel() + 4 * d_plane.numel() + valid.numel()
-              + covered.numel() + 4 * words.numel() + 4 * B * H * W)
-    return nbytes, count
+        in_win = (d >= lo) & (d <= hi)
+        count += (in_grid | in_win) & ok
+        g = in_grid & ~((d >= dp - r) & (d <= dp + r)) & ok
+        grid_only += g
+        union += F.pad(g, (0, pad)).view(B, H, -1, 32).any(-1)
+    lanes = F.pad(count, (0, pad)).view(B, H, -1, 32).amax(-1)
+    lanes_grid = F.pad(grid_only, (0, pad)).view(B, H, -1, 32).amax(-1)
+    window = (2 * r + 1) * union.numel()
+    nbytes = (2 * desc1.numel() + d_plane.numel() * d_plane.element_size()
+              + valid.numel() + covered.numel() + 4 * words.numel()
+              + 4 * B * H * W)
+    return nbytes, count, {"steps": window + int(lanes_grid.sum()),
+                           "uniform_steps": window + int(union.sum()),
+                           "first_design_steps": int(lanes.sum()),
+                           "warps": union.numel(),
+                           "grid_candidates": int(grid_only.sum())}
+
+
+def dense_pair_work(desc1, desc2, maps_left, maps_right, params):
+    """(bytes, byte SADs, per-view counts) of one pair call: the descriptor
+    pair read once, each view's maps and output once; the byte SADs of
+    both views' candidates (dense_work)."""
+    views = [dense_work(desc1, desc2, *m, params, right)
+             for m, right in ((maps_left, False), (maps_right, True))]
+    nbytes = sum(v[0] for v in views) - 2 * desc1.numel()
+    sads = sum(int(v[1].sum()) for v in views) * 16
+    return nbytes, sads, views
 
 
 def raster_work(table, sel, Tp, W, H):
@@ -686,7 +731,12 @@ def bound_ms(nbytes, ops, ops_per_s):
 def sgm_work(kernel, B, H, W, D, num_paths=8):
     """(bytes, 32-bit integer instructions) the SGM kernel ``kernel`` must
     do on [B, H, W] frames at D disparities. census (2B images): one byte
-    read and an int32 code written a pixel; 24 compares and 24 bit inserts.
+    read and an int32 code written a pixel; the least count of its
+    byte-lane packing, 26 instructions a pixel: 24 compares, each 4
+    instructions for 4 pixels (a subtract, a LOP3, a shift and a LOP3 into
+    the code byte), and 2 byte permutes of the codes' transpose
+    (csrc/census_kernel.cu; before, 24 compares and 24 bit inserts,
+    CENSUS_OPS_UNPACKED).
     sgm_paths: the int16 cost read and the int16 sum written once a cell;
     per cell, d and path at least 3.25 instructions: the carry's minimum
     (a three-way min of 16-bit pairs, 0.25), the neighbours + P1 against
@@ -698,7 +748,7 @@ def sgm_work(kernel, B, H, W, D, num_paths=8):
     each of two walks over d, both views."""
     px = B * H * W
     if kernel == "census":
-        return 2 * px * (1 + 4), 2 * px * 48
+        return 2 * px * (1 + 4), 2 * px * 26
     if kernel == "sgm_paths":
         return 4 * px * D, 3.25 * num_paths * px * D
     return 2 * px * D + 20 * px, 8 * px * D
@@ -707,13 +757,15 @@ def sgm_work(kernel, B, H, W, D, num_paths=8):
 # the path kernel's operations a cell, d and path as counted one a 32-bit
 # instruction, before its 16-bit pairs, kept beside the restated count
 SGM_PATHS_OPS_32 = 11
+# the census's instructions a pixel as counted before its byte lanes (a
+# compare and a bit insert a neighbour), kept beside the restated count
+CENSUS_OPS_UNPACKED = 48
 
 
 def sgm_phase(dev, hold):
     """Phase 6: kernels D, E, F against their plain versions, the card's
     SGM against the CPU's on the golden scenes, the SGM node, BASELINE
     config 3 and the kernels' times. Returns the kernels' JSON entries."""
-    import dataclasses
 
     import torch
     from jackal_tpu_torch.config import PipelineParams, SGMParams
@@ -993,6 +1045,11 @@ def sgm_phase(dev, hold):
                                    ops_rate)
                 old = (f"; the bound counted one operation an instruction "
                        f"(unpacked) {ob:.5f} by {oby}")
+            if kname == "census":
+                ob, oby = bound_ms(nb, CENSUS_OPS_UNPACKED * 2 * Bs * Hs * Ws,
+                                   ops_rate)
+                old = (f"; the bound counted a compare and a bit insert a "
+                       f"neighbour (unpacked) {ob:.5f} by {oby}")
             print(f"6e. {kname} at {label} shape (B={Bs}, {Hs}x{Ws}, D={D}):"
                   f" == plain (torch.equal); device ms a call {k_ms:.4f} "
                   f"(CUDA events, calls queued behind a spin); its "
@@ -1478,7 +1535,21 @@ def main() -> int:
             hold("elas_dense", f"dense {name} right={right}",
                  [dense_mod.dense_match(d1, d2, *args, params, right)],
                  [dense_mod.dense_match_plain(d1, d2, *args, params, right)])
-        print(f"kernels == plain (torch.equal, both views): {name}")
+        hold("elas_dense", f"dense pair {name}",
+             dense_mod.dense_match_pair(d1, d2, *views, params),
+             dense_mod.dense_match_pair_plain(d1, d2, *views, params))
+        print(f"kernels == plain (torch.equal, both views; dense also both "
+              f"views in one launch): {name}")
+    # one candidate word a cell (D <= 32), and cells of one pixel
+    d1, d2 = rdesc[0].contiguous(), rdesc[1].contiguous()
+    for Ds, gs in ((32, 20), (8, 1)):
+        ps = dataclasses.replace(params, disp_max=Ds - 1, grid_size=gs)
+        views = [random_prior(rng, 2, Hr, Wr, ps, dev) for _ in range(2)]
+        hold("elas_dense", f"dense pair D = {Ds}, cells of {gs}",
+             dense_mod.dense_match_pair(d1, d2, *views, ps),
+             dense_mod.dense_match_pair_plain(d1, d2, *views, ps))
+    print("dense kernel == plain (torch.equal, both views in one launch): "
+          "D = 32 with cells of 20, D = 8 with cells of 1")
     for name in SUPPORT_EDGE_CASES:
         Qe, Te, lo, hi = support_edge_case(name, dev)
         hold("support", f"support {name}", support_mod.support_keys(
@@ -1642,6 +1713,10 @@ def main() -> int:
     print(f"node launches over {len(pairs)} frames: {launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
+    if launches["elas_dense"] != len(pairs):
+        raise AssertionError(f"the node launched the dense kernel "
+                             f"{launches['elas_dense']} times over "
+                             f"{len(pairs)} frames, not once a frame")
     for fr in results:
         sc = fr.scan.scan
         if fr.dmap.shape != (480, 640) or fr.dmap.dtype != np.uint8 \
@@ -1699,11 +1774,10 @@ def main() -> int:
                           dense_mod.pack_grid(g))]
     v1, v2 = upload(m1, g1), upload(m2, g2)
     st["prior upload (grid packed on the host)"] = host_ms(lambda: (upload(m1, g1), upload(m2, g2)), 5)
-    st["dense, both views"] = host_ms(lambda: (
-        dense_mod.dense_match(d1, d2, *v1, params, False),
-        dense_mod.dense_match(d1, d2, *v2, params, True)), 5)
-    Da = dense_mod.dense_match(d1, d2, *v1, params, False)[0]
-    Db = dense_mod.dense_match(d1, d2, *v2, params, True)[0]
+    st["dense, both views (kernel B, one launch)"] = host_ms(
+        lambda: dense_mod.dense_match_pair(d1, d2, v1, v2, params), 5)
+    Da, Db = (x[0] for x in dense_mod.dense_match_pair(d1, d2, v1, v2,
+                                                        params))
     L1, L2 = left_right_consistency_check(Da, Db, params)
     st["L/R check"] = host_ms(
         lambda: left_right_consistency_check(Da, Db, params), 5)
@@ -1746,6 +1820,11 @@ def main() -> int:
     if min(launches_b.values()) == 0:
         raise AssertionError(f"the batched node bypassed a kernel: "
                              f"{launches_b}")
+    if launches_b["elas_dense"] != n_frames // batch:
+        raise AssertionError(f"the batched node launched the dense kernel "
+                             f"{launches_b['elas_dense']} times over "
+                             f"{n_frames // batch} batches, not once a "
+                             f"batch")
     if done != n_frames or len(depth_msgs) != n_frames \
             or len(scan_msgs) != n_frames:
         raise AssertionError(f"published {len(depth_msgs)} depth maps and "
@@ -1808,11 +1887,9 @@ def main() -> int:
     sb["raster (2 x kernel C + decode)"] = host_ms(
         lambda: ep._chunk_raster(coeffs, Tp, W, H), 5)
     m1, m2 = ep._chunk_raster(coeffs, Tp, W, H)
-    sb["dense, both views (2 x kernel B)"] = host_ms(lambda: (
-        dense_mod.dense_match(bd1, bd2, *m1, params, False),
-        dense_mod.dense_match(bd1, bd2, *m2, params, True)), 5)
-    BD1 = dense_mod.dense_match(bd1, bd2, *m1, params, False)
-    BD2 = dense_mod.dense_match(bd1, bd2, *m2, params, True)
+    sb["dense, both views (kernel B, one launch)"] = host_ms(
+        lambda: dense_mod.dense_match_pair(bd1, bd2, m1, m2, params), 5)
+    BD1, BD2 = dense_mod.dense_match_pair(bd1, bd2, m1, m2, params)
     sb["postprocess (L/R, speckle, tail)"] = host_ms(
         lambda: postprocess_batch(BD1, BD2, params, lad), 3)
     BL1, _ = left_right_consistency_check(BD1, BD2, params, lad)
@@ -1828,8 +1905,10 @@ def main() -> int:
     # ---- 5. the kernels' roofline bounds --------------------------------
     rate, _ = sad_rate(dev)
     for name in cuda_lib.KERNEL_SOURCES + ("sad_rate",):
+        # the two kernels redesigned last: their whole opcode mix
+        top = 40 if name in ("elas_dense_kernel", "census_kernel") else 8
         print(f"  sass {name}: "
-              f"{sass_opcodes(cuda_lib.library(name).path)}")
+              f"{sass_opcodes(cuda_lib.library(name).path, top=top)}")
     ffma = sass_opcodes(cuda_lib.library("raster_kernel").path, top=None,
                         prefix="FFMA")
     print(f"  sass raster_kernel FFMA instructions: {ffma or 'none'}")
@@ -1848,7 +1927,16 @@ def main() -> int:
         return support_mod.support_keys(Q, T, 0, D)
 
     def den():
-        return dense_mod.dense_match(d1, d2, *v1, params, False)
+        return dense_mod.dense_match_pair(d1, d2, v1, v2, params)
+
+    # B at the batched node's shape: its chunk of 8 frames (phase 4b; int16
+    # d_plane from the raster)
+    hold("elas_dense", f"dense pair, the batched node's {batch} frames",
+         dense_mod.dense_match_pair(bd1, bd2, m1, m2, params),
+         dense_mod.dense_match_pair_plain(bd1, bd2, m1, m2, params))
+
+    def den8():
+        return dense_mod.dense_match_pair(bd1, bd2, m1, m2, params)
 
     # A at the batched node's shape: its B = 8 descriptors (phase 4b)
     Q8 = support_mod.grid_row_blocks(bd1, step, ncv)
@@ -1863,6 +1951,7 @@ def main() -> int:
         return support_mod.support_keys(Q8, T8, 0, D)
 
     kA, kB, kA8 = events_ms(sup, 50), events_ms(den, 50), events_ms(sup8, 20)
+    kB8 = events_ms(den8, 20)
     plans = {n: support_mod.plan(dev.index, *q.shape[:3], 0, D)
              for n, q in ((1, Q), (batch, Q8))}
     lA, seenA = launch_ms(sup, 50, "support_keys_kernel")
@@ -1871,10 +1960,29 @@ def main() -> int:
     lB, seenB = launch_ms(den, 50, "elas_dense_kernel")
     pA = events_ms(lambda: support_mod.support_keys_plain(Q, T, 0, D), 3,
                    spin=False)
-    nbB, count = dense_work(d1, d2, *v1, params, False)
-    bB, byB = bound_ms(nbB, int(count.sum()) * 16, rate)
-    pB = events_ms(lambda: dense_mod.dense_match_plain(
-        d1, d2, *v1, params, False), 3, spin=False)
+    nbB, sadsB, viewsB = dense_pair_work(d1, d2, v1, v2, params)
+    bB, byB = bound_ms(nbB, sadsB, rate)
+    # the bound as counted before the pair call: each view alone, summed
+    obB = sum(bound_ms(v[0], int(v[1].sum()) * 16, rate)[0] for v in viewsB)
+    nb8B, sads8B, views8B = dense_pair_work(bd1, bd2, m1, m2, params)
+    b8B, by8B = bound_ms(nb8B, sads8B, rate)
+    ob8B = sum(bound_ms(v[0], int(v[1].sum()) * 16, rate)[0]
+               for v in views8B)
+    pB = events_ms(lambda: dense_mod.dense_match_pair_plain(
+        d1, d2, v1, v2, params), 3, spin=False)
+    for label, vw in (("node", viewsB), (f"B = {batch}", views8B)):
+        for side, (_, cnt, ws) in zip(("left", "right"), vw):
+            ok = cnt > 0
+            print(f"dense {label} {side} view: candidates a matched pixel "
+                  f"{float(cnt[ok].float().mean()):.3f} (grid outside the "
+                  f"window {ws['grid_candidates'] / max(int(ok.sum()), 1):.3f}"
+                  f"); warp steps a warp: this kernel "
+                  f"{ws['steps'] / ws['warps']:.3f} ({2 * params.plane_radius + 1}"
+                  f" window + the longest lane's grid walk), a warp-uniform "
+                  f"walk {ws['uniform_steps'] / ws['warps']:.3f} (the grid "
+                  f"union), the first design's longest lane "
+                  f"{ws['first_design_steps'] / ws['warps']:.3f}; "
+                  f"{ws['warps']} warps")
     print(f"device ms a call (CUDA events, calls queued behind a spin): "
           f"support {kA:.4f} (R, DC = {plans[1]}: its keys kernel {lA:.4f}"
           f" and its merge kernel {lM:.4f}, the means of the {seenA} and "
@@ -1885,13 +1993,15 @@ def main() -> int:
           f"the batched node's B = {batch} {kA8:.4f} (R, DC = "
           f"{plans[batch]}; bound {b8:.5f} by {by8}: {nb8} bytes, {ops8} "
           f"instructions; the old bound "
-          f"{bound_ms(nb8, sads8, rate)[0]:.5f}); dense, left "
-          f"view {kB:.4f} (its kernel launch {lB:.4f}, {seenB} of 50 "
-          f"recorded; plain {pB:.3f}; bound "
-          f"{bB:.5f} by {byB}: {nbB} bytes, {float(count.float().mean()):.2f}"
-          f" candidates a pixel)")
+          f"{bound_ms(nb8, sads8, rate)[0]:.5f}); dense, both views in one "
+          f"launch {kB:.4f} (its kernel launch {lB:.4f}, {seenB} of 50 "
+          f"recorded; plain, two views, {pB:.3f}; bound {bB:.5f} by {byB}: "
+          f"{nbB} bytes, {sadsB} byte SADs; the bound as counted a view, "
+          f"summed over both, {obB:.5f}); dense at the batched node's "
+          f"B = {batch} {kB8:.4f} (bound {b8B:.5f} by {by8B}: {nb8B} bytes, "
+          f"{sads8B} byte SADs; a view at a time, summed, {ob8B:.5f})")
     for name, k, b in (("support", kA, bA), (f"support B = {batch}", kA8, b8),
-                       ("dense", kB, bB)):
+                       ("dense", kB, bB), (f"dense B = {batch}", kB8, b8B)):
         if k < b:
             raise AssertionError(f"{name}: {k} ms is below its bound {b} ms")
 

@@ -1,35 +1,58 @@
-// ELAS dense MAP matching of one view: a keyed minimum over candidates.
+// ELAS dense MAP matching of both views: a keyed minimum over candidates.
 //
 // Replaces the TPU kernel jackal_tpu/ops/pallas/elas_dense_kernel.py
 // (_elas_dense_kernel, pallas_call at l.245, wrapper elas_dense_pallas
 // l.146). The plain PyTorch version of the same function is
-// dense_match_plain in matching/elas/dense.py.
+// dense_match_plain in matching/elas/dense.py, once a view.
 //
-// What it computes, per pixel (b, v, u), with q/t the query/target
-// descriptors [B, H, W, 16] (left view: q = left, t = right, sign = -1;
-// right view: swapped, sign = +1) and row v' = clamp(v, 2, H-3):
+// What it computes, per pixel (b, v, u) of a view, with q/t the
+// query/target descriptors [B, H, W, 16] (left view: q = left, t = right,
+// sign = -1; right view: swapped, sign = +1) and row v' = clamp(v, 2, H-3):
 //   pixel_ok = covered && 2 <= u < W-2 && sum|q(v',u) - 128| >= match_texture
 //   candidates d: bit d of the pixel's grid cell (v/gs, u/gs), or the plane
 //     window max(dp-r, 0) <= d <= min(dp+r, D-1), with 2 <= u + sign*d < W-2
 //   key = (SAD16(q(v',u), t(v',u+sign*d)) + [window] valid*P[|d-dp|] + 16)
 //         * 512 + (window ? 256 + d : d)
 //   out = !pixel_ok ? -10 : no candidate ? -1 : (min key % 512) % 256
-// The rank makes every key unique, so the minimum is independent of the
-// visit order; candidates are still visited in ascending d.
+// The rank makes every key unique, so the minimum does not depend on the
+// order the candidates are visited. The key's rank field holds d < 256: the
+// reference's own function is defined for D <= 256 only.
 //
-// What bounds it on an H100. ELAS evaluates only a few tens of candidates
-// per pixel (the grid cell's set plus a 5-wide window), so per frame the
-// work is H*W*(candidates per pixel)*16 byte-SADs, ~1e8-5e8 at 640x480,
-// against ~6 MB of input: a small, data-dependent amount of integer work,
-// bound by latency and divergence more than by bytes or operations. The
-// design: one thread per pixel; the grid's candidate set arrives
-// bit-packed (32 d per word, packed on the host by dense.pack_grid where
-// the native prior makes the grid), so a thread reads ceil(D/32) words of
-// its cell, ORs in its window bits, masks
-// the warp-invalid d range, and walks only the set bits with __ffs; each
-// candidate costs one 16-byte __ldg of the target and four __vsadu4. The
-// TPU kernel instead swept all D per pixel with a live-chunk skip; the
-// sparsity comes for free here.
+// What bounds it on an H100. ELAS evaluates few candidates a pixel: ~9
+// at a matched pixel of the golden 640x480 frames (the 2r+1 = 5-wide
+// window and ~4 grid candidates outside it), 16 byte SADs each, ~5e7
+// byte SADs a frame, against ~15 MB of input and output for both views:
+// bound by bytes. On the card it is bound by instruction issue: the
+// staged rows are always ready in time, and clock64 counters put a warp's
+// row at ~7,100 cycles for ~400 instructions (estimated from the SASS).
+// The first design (one thread a pixel of one view, each lane walking its
+// own candidate bits) gathered 32 scattered 16-byte target descriptors
+// from device memory at every step, read its cell's candidate words one
+// dependent load at a time, and read the descriptor pair once a view.
+// This design:
+// - one block owns one row v of one frame over a strip of columns (the
+//   whole row up to 1024 columns), a thread a column, for BOTH views: it
+//   stages the two descriptor rows the strip reads (its columns, D-1 on
+//   the side each view looks and kPad zero columns at each end) in shared
+//   memory with coalesced 16-byte cp.async, so each descriptor row reaches
+//   the SM once for both views; the strip's grid cells' candidate words of
+//   both views land beside them;
+// - blocks are persistent, as many as fit (3 an SM at 640 columns), and
+//   double-buffered: a block stages its next row, and loads that row's
+//   pixel maps (packed into one register a view), while it computes this
+//   one;
+// - the plane window is walked at a fixed 2r+1 steps (d = dp - r + j, the
+//   radius a template parameter): d_plane is clamped once so that every
+//   target lies in the padded span, so a step is one shared load at a
+//   constant offset, four accumulating VABSDIFF4 and the key;
+// - grid candidates outside the window are walked per lane, bit by bit,
+//   over the cell's non-empty words only (a mask a cell, made by one
+//   thread a cell per staged row). A warp-uniform walk (the warp's union
+//   of candidate words, every lane at the same d, coalesced reads) was
+//   measured too: its union is ~1.5x a lane's own set, and it ran 7-10 %
+//   slower than the per-lane walk, whose reads from shared memory are
+//   conflict-free within a cell;
+// - a warp whose lanes key nothing skips the walks.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,15 +63,38 @@ struct PriorTable {
   int p[kMaxRadius + 1];
 };
 
+// one view's prior maps and output
+struct ViewMaps {
+  const void* d_plane;      // int32 or int16 [B, H, W]
+  const uint8_t* valid;     // bool [B, H, W]
+  const uint8_t* covered;   // bool [B, H, W]
+  const uint32_t* grid;     // [B, gh, gw, nw] candidate words
+  float* out;               // [B, H, W]
+};
+
 namespace {
 
 constexpr int kBig = 1 << 30;
 constexpr int kWindow = 2;
 constexpr int kKeyBias = 16;
+constexpr int kStripMax = 1024;   // columns (threads) a block owns at most
+constexpr int kMaxD = 256;        // the key's rank field
+// zero columns beyond each end of a staged span, so that a window's
+// target at any d in [-2R-1, D+2R] lies in it and needs no clamp
+constexpr int kPad = 16;
 
+// sum over the 16 bytes of |a - b|, as one accumulating chain
 __device__ __forceinline__ int sad16(const uint4& a, const uint4& b) {
-  return static_cast<int>(__vsadu4(a.x, b.x) + __vsadu4(a.y, b.y) +
-                          __vsadu4(a.z, b.z) + __vsadu4(a.w, b.w));
+  uint32_t s;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(s) : "r"(a.x), "r"(b.x), "r"(0u));
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(s) : "r"(a.y), "r"(b.y), "r"(s));
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(s) : "r"(a.z), "r"(b.z), "r"(s));
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(s) : "r"(a.w), "r"(b.w), "r"(s));
+  return static_cast<int>(s);
 }
 
 // bits lo..hi (0 <= lo <= hi <= 31) set
@@ -57,82 +103,349 @@ __device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
   return upto_hi & ~((1u << lo) - 1u);
 }
 
-__global__ void elas_dense_kernel(
-    const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
-    const int32_t* __restrict__ d_plane, const uint8_t* __restrict__ valid,
-    const uint8_t* __restrict__ covered, const uint32_t* __restrict__ grid,
-    float* __restrict__ out, int H, int W, int D, int gh, int gw, int nw,
-    int gs, int radius, int sign, int match_texture, PriorTable P) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  const int v = blockIdx.y * blockDim.y + threadIdx.y;
-  const int b = blockIdx.z;
-  if (u >= W || v >= H) return;
-  const size_t pix = (static_cast<size_t>(b) * H + v) * W + u;
-  const int vr = min(max(v, 2), H - 3);
-  const size_t row = (static_cast<size_t>(b) * H + vr) * W;
-  const uint4* qrow = reinterpret_cast<const uint4*>(q) + row;
-  const uint4* trow = reinterpret_cast<const uint4*>(t) + row;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
 
-  const uint4 qq = __ldg(qrow + u);
-  const int tex = sad16(qq, make_uint4(0x80808080u, 0x80808080u,
-                                       0x80808080u, 0x80808080u));
-  if (!covered[pix] || u < kWindow || u >= W - kWindow ||
-      tex < match_texture) {
-    out[pix] = -10.0f;
-    return;
-  }
-  const int dp = d_plane[pix];
-  const int prior = valid[pix] ? 1 : 0;
-  const int wlo = max(dp - radius, 0);
-  const int whi = min(dp + radius, D - 1);
-  // largest d whose warped column u + sign*d stays in [2, W-3]
-  const int dwarp = sign < 0 ? u - kWindow : W - kWindow - 1 - u;
-  const uint32_t* cell =
-      grid + ((static_cast<size_t>(b) * gh + v / gs) * gw + u / gs) * nw;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
 
+// A pixel's prior maps in one view, packed in one register and loaded a
+// row ahead of their use: d_plane clamped to [-R-1, D+R] (a window that
+// lay outside [0, D-1] still does) in the low 16 bits, covered in bit 16,
+// valid in bit 17.
+__device__ __forceinline__ uint32_t load_maps(const ViewMaps& V, size_t pix,
+                                              int dp16, int R, int D) {
+  const int dp = dp16 ? static_cast<int>(
+                            reinterpret_cast<const int16_t*>(V.d_plane)[pix])
+                      : reinterpret_cast<const int32_t*>(V.d_plane)[pix];
+  return (static_cast<uint32_t>(min(max(dp, -R - 1), D + R)) & 0xFFFFu) |
+         (V.covered[pix] ? 1u << 16 : 0u) | (V.valid[pix] ? 1u << 17 : 0u);
+}
+
+__device__ __forceinline__ int maps_dp(uint32_t m) {
+  return static_cast<int>(static_cast<int16_t>(m & 0xFFFFu));
+}
+
+// The keyed minimum of one pixel of one view: the plane window (radius R),
+// then the cell's grid candidates outside it, bit by bit. qq is the query
+// descriptor, tb[kSign * d] the target at d (any d in [-2R-1, D+2R] lies in
+// the staged span), words the pixel's cell's candidate words and wmask the
+// cell's non-empty words; lim = dmax + 1, or 0 for a pixel that keys
+// nothing.
+template <int R, int kSign>
+__device__ __forceinline__ int best_key(const uint4 qq, const uint4* tb,
+                                        uint32_t m, const uint32_t* words,
+                                        uint32_t wmask, int lim,
+                                        const PriorTable& P) {
   int best = kBig;
-  for (int w = 0; w < nw; ++w) {
+  // a warp with no pixel to key skips the walks (a uniform branch)
+  if (!__any_sync(0xFFFFFFFFu, lim > 0)) return best;
+  const int dp = maps_dp(m);
+  const int prior = (m >> 17) & 1u;
+  const int k0 = (kKeyBias * 512 + 256) + dp - R;   // key of sad 0 at j = 0
+  const uint4* t0 = tb + kSign * (dp - R);
+  // the live steps j (0 <= d = dp - R + j < lim), a bit each
+  const int jlo = max(0, R - dp), jhi = min(2 * R, lim - 1 - dp + R);
+  const uint32_t live = jlo <= jhi ? bit_range(jlo, jhi) : 0u;
+#pragma unroll
+  for (int j = 0; j <= 2 * R; ++j) {
+    const int kj = prior * (P.p[j > R ? j - R : R - j] * 512) + (k0 + j);
+    const int key = sad16(qq, t0[kSign * j]) * 512 + kj;
+    if ((live >> j) & 1u) best = min(best, key);
+  }
+  // the cell's non-empty words below lim, each walked bit by bit
+  uint32_t M = wmask & ((1u << ((lim + 31) >> 5)) - 1u);
+  while (M) {
+    const int w = __ffs(M) - 1;
+    M &= M - 1;
     const int d0 = 32 * w;
-    if (d0 > dwarp) break;
-    uint32_t bits = __ldg(cell + w);
-    const int lo = max(wlo, d0), hi = min(whi, d0 + 31);
-    if (lo <= hi) bits |= bit_range(lo - d0, hi - d0);
-    if (dwarp < d0 + 31) bits &= bit_range(0, dwarp - d0);
-    while (bits) {
-      const int d = d0 + __ffs(bits) - 1;
-      bits &= bits - 1;
-      const bool in_win = d >= wlo && d <= whi;
-      int val = sad16(qq, __ldg(trow + u + sign * d));
-      if (in_win) {
-        const int dd = d > dp ? d - dp : dp - d;
-        val += prior * P.p[dd];
-      }
-      const int key = (val + kKeyBias) * 512 + (in_win ? 256 + d : d);
-      best = min(best, key);
+    uint32_t g = 0u;
+    if (d0 < lim) {
+      g = words[w];
+      if (lim < d0 + 32) g &= bit_range(0, lim - 1 - d0);
+      const int lo = max(dp - R, d0), hi = min(dp + R, d0 + 31);
+      if (lo <= hi) g &= ~bit_range(lo - d0, hi - d0);
+    }
+    while (g) {
+      const int k = __ffs(g) - 1;
+      g &= g - 1;
+      const int d = d0 + k;
+      best = min(best, sad16(qq, tb[kSign * d]) * 512 + (kKeyBias * 512 + d));
     }
   }
-  if (best < kBig) {
-    int r = best % 512;  // floor modulo, as the plain version's
-    if (r < 0) r += 512;
-    out[pix] = static_cast<float>(r % 256);
-  } else {
-    out[pix] = -1.0f;
+  return best;
+}
+
+// (best % 512) % 256 of a key, which is positive
+__device__ __forceinline__ float decode(int best, bool ok) {
+  return !ok ? -10.0f : best < kBig ? static_cast<float>(best & 255) : -1.0f;
+}
+
+// The strip's cells: the grid cells of row v that columns [c0, c0 + strip)
+// fall in, at most this many.
+__host__ __device__ __forceinline__ int strip_cells(int strip_p, int gs) {
+  return strip_p / gs + 2;
+}
+
+__host__ __device__ __forceinline__ int span_of(int strip_p, int D) {
+  return strip_p + D - 1 + 2 * kPad;
+}
+
+// One buffer of a row's staging, in uint4: span right descriptors, span
+// left descriptors, then both views' cells' words.
+__host__ __device__ __forceinline__ int buffer_u4(int strip_p, int D, int gs,
+                                                  int nw) {
+  return 2 * span_of(strip_p, D) + (2 * strip_cells(strip_p, gs) * nw + 3) / 4;
+}
+
+struct Shape {
+  int views, dp16, B, H, W, D, gh, gw, nw, gs, match_texture, strip,
+      nstrips;
+  // n / gs as __umulhi(n, ceil(2^32 / gs)): exact for n, gs < 2^16 (the
+  // error n * (mul * gs - 2^32) stays < 2^32); 0 stands for gs = 1, whose
+  // multiplier 2^32 does not fit
+  unsigned gs_mul;
+};
+
+__host__ __forceinline__ unsigned div_mul(int d) {
+  return d == 1 ? 0u : static_cast<unsigned>(((1ull << 32) + d - 1) / d);
+}
+
+__device__ __forceinline__ int div_by(int n, unsigned mul) {
+  return mul ? static_cast<int>(__umulhi(static_cast<unsigned>(n), mul)) : n;
+}
+
+// A row tuple t: frame b, row v, strip s starting at column c0; its cells
+// cell0 .. cell0 + ncell - 1 of grid row v / gs; row = b * H + v.
+struct Tuple {
+  int b, v, row, c0, cell0, ncell;
+};
+
+__device__ __forceinline__ Tuple tuple_of(int t, const Shape& S) {
+  Tuple T;
+  int s = 0;
+  T.row = t;
+  if (S.nstrips > 1) {
+    T.row = t / S.nstrips;
+    s = t - T.row * S.nstrips;
   }
+  T.b = T.row / S.H;
+  T.v = T.row - T.b * S.H;
+  T.c0 = s * S.strip;
+  T.cell0 = div_by(T.c0, S.gs_mul);
+  T.ncell = div_by(min(T.c0 + S.strip, S.W) - 1, S.gs_mul) - T.cell0 + 1;
+  return T;
+}
+
+// Issue the cp.async copies of row tuple t (frame b, row v, strip s) into
+// buf: the right descriptors of columns c0 - (D-1) - kPad .. (the left
+// view's targets and the right view's queries), the left descriptors of
+// columns c0 - kPad .. (the right view's targets and the left view's
+// queries), each span_of() long, then the strip's cells' candidate words
+// of the left and of the right view. Descriptor columns outside the image
+// are zero and never keyed.
+__device__ __forceinline__ void stage_row(
+    uint4* buf, const Tuple& T, int span, const uint8_t* __restrict__ desc1,
+    const uint8_t* __restrict__ desc2, const ViewMaps& left,
+    const ViewMaps& right, const Shape& S) {
+  const int strip_p = blockDim.x;
+  const int c0 = T.c0;
+  const int vr = min(max(T.v, 2), S.H - 3);
+  const size_t row = (static_cast<size_t>(T.b) * S.H + vr) * S.W;
+  const uint4* gR = reinterpret_cast<const uint4*>(desc2) + row;
+  const uint4* gL = reinterpret_cast<const uint4*>(desc1) + row;
+  const int r0 = c0 - (S.D - 1) - kPad;
+  for (int i = threadIdx.x; i < span; i += strip_p) {
+    const int col = r0 + i;
+    if (static_cast<unsigned>(col) < static_cast<unsigned>(S.W))
+      cp_async16(buf + i, gR + col);
+    else
+      buf[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < span; i += strip_p) {
+    const int col = c0 - kPad + i;
+    if (static_cast<unsigned>(col) < static_cast<unsigned>(S.W))
+      cp_async16(buf + span + i, gL + col);
+    else
+      buf[span + i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint32_t* sG = reinterpret_cast<uint32_t*>(buf + 2 * span);
+  const size_t cells =
+      (static_cast<size_t>(T.b) * S.gh + div_by(T.v, S.gs_mul)) * S.gw +
+      T.cell0;
+  const int nwords = T.ncell * S.nw;
+  for (int i = threadIdx.x; i < 2 * nwords; i += strip_p) {
+    const bool is_r = i >= nwords;
+    const uint32_t* grid = is_r ? right.grid : left.grid;
+    if (S.views & (is_r ? 2 : 1))
+      cp_async4(sG + i, grid + cells * S.nw + (is_r ? i - nwords : i));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// views: 1 left, 2 right, 3 both. A persistent block walks the row tuples
+// (frame, row, strip) t = blockIdx.x, + gridDim.x, ...: it stages tuple
+// t + gridDim.x into one buffer and loads its pixel maps into registers
+// while it computes tuple t from the other buffer. A thread owns column
+// u = c0 + x of the row in every view asked for; blockDim.x = strip_p, the
+// strip's width rounded up to 32.
+template <int R>
+__global__ void __launch_bounds__(kStripMax, 2) elas_dense_kernel(
+    const uint8_t* __restrict__ desc1, const uint8_t* __restrict__ desc2,
+    ViewMaps left, ViewMaps right, Shape S, PriorTable P) {
+  extern __shared__ uint4 smem[];
+  const int strip_p = blockDim.x;
+  const int span = span_of(strip_p, S.D);
+  const int bufsz = buffer_u4(strip_p, S.D, S.gs, S.nw);
+  // after the two buffers: each cell's non-empty words, both views
+  uint32_t* sMask = reinterpret_cast<uint32_t*>(smem + 2 * bufsz);
+  const int total = S.B * S.H * S.nstrips;
+  const int x = threadIdx.x;
+  const uint4 k80 = make_uint4(0x80808080u, 0x80808080u, 0x80808080u,
+                               0x80808080u);
+
+  int t = blockIdx.x;
+  if (t >= total) return;
+  auto load = [&](const Tuple& T, uint32_t& a, uint32_t& b) {
+    const int u = T.c0 + x;
+    a = b = 0u;
+    if (x < S.strip && u < S.W) {
+      const size_t pix = static_cast<size_t>(T.row) * S.W + u;
+      if (S.views & 1) a = load_maps(left, pix, S.dp16, R, S.D);
+      if (S.views & 2) b = load_maps(right, pix, S.dp16, R, S.D);
+    }
+  };
+  int cur = 0;
+  Tuple T = tuple_of(t, S);
+  stage_row(smem, T, span, desc1, desc2, left, right, S);
+  uint32_t ml, mr;
+  load(T, ml, mr);
+  for (; t < total; t += gridDim.x) {
+    const int tn = t + gridDim.x;
+    uint32_t nl = 0u, nr = 0u;
+    Tuple Tn = T;
+    if (tn < total) {
+      Tn = tuple_of(tn, S);
+      stage_row(smem + (cur ^ 1) * bufsz, Tn, span, desc1, desc2, left,
+                right, S);
+      load(Tn, nl, nr);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const uint4* sR = smem + cur * bufsz;
+    const uint4* sL = sR + span;
+    const uint32_t* sG = reinterpret_cast<const uint32_t*>(sR + 2 * span);
+    const int c0 = T.c0;
+    const int cell0 = T.cell0;
+    const int ncell = T.ncell;
+    const int nwords = ncell * S.nw;
+    // each cell's non-empty words, a bit a word, a thread a cell
+    for (int i = x; i < 2 * ncell; i += strip_p) {
+      uint32_t mk = 0u;
+      for (int w = 0; w < S.nw; ++w)
+        mk |= sG[i * S.nw + w] != 0u ? 1u << w : 0u;
+      sMask[i] = mk;
+    }
+    __syncthreads();
+
+    const int u = c0 + x;
+    const bool in_img = x < S.strip && u < S.W;
+    const size_t pix = static_cast<size_t>(T.row) * S.W + u;
+    const bool u_ok = in_img && u >= kWindow && u < S.W - kWindow;
+    const int cell = in_img ? div_by(u, S.gs_mul) - cell0 : 0;
+    if (S.views & 1) {   // left: q = left at u, t = right at u - d
+      const uint4 qq = sL[x + kPad];
+      const bool ok = u_ok && ((ml >> 16) & 1u) &&
+                      sad16(qq, k80) >= S.match_texture;
+      const int lim = ok ? min(S.D, u - kWindow + 1) : 0;
+      const int best = best_key<R, -1>(qq, sR + x + S.D - 1 + kPad, ml,
+                                       sG + cell * S.nw, sMask[cell], lim, P);
+      if (in_img) left.out[pix] = decode(best, ok);
+    }
+    if (S.views & 2) {   // right: q = right at u, t = left at u + d
+      const uint4 qq = sR[x + S.D - 1 + kPad];
+      const bool ok = u_ok && ((mr >> 16) & 1u) &&
+                      sad16(qq, k80) >= S.match_texture;
+      const int lim = ok ? min(S.D, S.W - kWindow - u) : 0;
+      const int best = best_key<R, 1>(qq, sL + x + kPad, mr,
+                                      sG + nwords + cell * S.nw,
+                                      sMask[ncell + cell], lim, P);
+      if (in_img) right.out[pix] = decode(best, ok);
+    }
+    __syncthreads();   // the buffer is restaged two tuples on
+    cur ^= 1;
+    T = Tn;
+    ml = nl;
+    mr = nr;
+  }
+}
+
+template <int R>
+int launch(const uint8_t* desc1, const uint8_t* desc2, ViewMaps left,
+           ViewMaps right, const Shape& S, PriorTable P, cudaStream_t stream) {
+  const int threads = (S.strip + 31) & ~31;
+  const int smem =
+      2 * buffer_u4(threads, S.D, S.gs, S.nw) * static_cast<int>(sizeof(uint4)) +
+      2 * strip_cells(threads, S.gs) * static_cast<int>(sizeof(uint32_t));
+  // as many persistent blocks as fit: 3 an SM at 640 columns needs the
+  // largest shared memory carveout
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      elas_dense_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(elas_dense_kernel<R>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, elas_dense_kernel<R>, threads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long total = 1LL * S.B * S.H * S.nstrips;
+  const int blocks = static_cast<int>(
+      total < 1LL * per_sm * sms ? total : 1LL * per_sm * sms);
+  elas_dense_kernel<R><<<blocks, threads, smem, stream>>>(desc1, desc2, left,
+                                                          right, S, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int elas_dense(const uint8_t* q, const uint8_t* t,
-                          const int32_t* d_plane, const uint8_t* valid,
-                          const uint8_t* covered, const int32_t* grid,
-                          float* out, int B, int H, int W, int D, int gh,
-                          int gw, int nw, int gs, int radius, int sign,
-                          int match_texture, PriorTable P, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 blocks((W + block.x - 1) / block.x, (H + block.y - 1) / block.y,
-                    B);
-  elas_dense_kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, t, d_plane, valid, covered, reinterpret_cast<const uint32_t*>(grid),
-      out, H, W, D, gh, gw, nw, gs, radius, sign, match_texture, P);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int elas_dense(const uint8_t* desc1, const uint8_t* desc2,
+                          ViewMaps left, ViewMaps right, int views, int dp16,
+                          int B, int H, int W, int D, int gh, int gw, int nw,
+                          int gs, int radius, int match_texture, PriorTable P,
+                          void* stream) {
+  if (views < 1 || views > 3 || B < 1 || H < 5 || W < 5 || H > 65535 ||
+      W > 65535 || D < 1 || D > kMaxD || radius < 2 || radius > kMaxRadius ||
+      gs < 1 || gs > 65535 || nw != (D + 31) / 32 ||
+      1LL * B * H * W >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the strips a row splits into: the fewest of at most kStripMax columns,
+  // of equal widths in multiples of 32 (the last may be narrower)
+  const int nstrips = (W + kStripMax - 1) / kStripMax;
+  const int strip = ((W + nstrips - 1) / nstrips + 31) & ~31;
+  const Shape S{views, dp16, B, H, W, D, gh, gw, nw, gs, match_texture,
+                strip, (W + strip - 1) / strip, div_mul(gs)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (radius) {   // the plane radius is at least 2 (elas.cpp:806)
+    case 2: return launch<2>(desc1, desc2, left, right, S, P, s);
+    case 3: return launch<3>(desc1, desc2, left, right, S, P, s);
+    case 4: return launch<4>(desc1, desc2, left, right, S, P, s);
+    case 5: return launch<5>(desc1, desc2, left, right, S, P, s);
+    case 6: return launch<6>(desc1, desc2, left, right, S, P, s);
+    default: return launch<7>(desc1, desc2, left, right, S, P, s);
+  }
 }

@@ -17,8 +17,10 @@ depend on the order d is visited, and it reproduces the reference's
 strict-< visit order (S1 ascending d, then S2 ascending d). The result is
 d, -1 (no candidate) or -10 (pixel not matched).
 
-dense_match() runs the CUDA kernel (csrc/elas_dense_kernel.cu) on CUDA
-tensors and dense_match_plain() on CPU tensors.
+dense_match_pair() runs the CUDA kernel (csrc/elas_dense_kernel.cu) once
+for both views on CUDA tensors and dense_match_pair_plain() (two
+dense_match_plain() calls) on CPU tensors; dense_match() does one view on
+the same kernel.
 """
 from __future__ import annotations
 
@@ -116,6 +118,11 @@ class _PriorTable(ctypes.Structure):
     _fields_ = [("p", ctypes.c_int * (_MAX_RADIUS + 1))]
 
 
+class _ViewMaps(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in
+                ("d_plane", "valid", "covered", "grid", "out")]
+
+
 def pack_grid(grid_mask: np.ndarray) -> np.ndarray:
     """[..., D] bool candidate sets -> [..., ceil(D/32)] int32 bit words
     (bit k of word w is candidate d = 32w + k). Runs on the host, where the
@@ -126,64 +133,118 @@ def pack_grid(grid_mask: np.ndarray) -> np.ndarray:
                        bitorder="little").view("<i4")
 
 
-def _dense_match_cuda(desc1, desc2, d_plane, plane_valid, covered,
-                      grid_words, params, right_image):
+def _checked_maps(maps, name, shape, grid_shape, dev):
+    """A view's (d_plane, plane_valid, covered, grid_words), contiguous and
+    checked for the kernel; d_plane stays int16 or becomes int32."""
+    d_plane, plane_valid, covered, grid_words = maps
+    if d_plane.dtype not in (torch.int16, torch.int32):
+        d_plane = d_plane.to(torch.int32)
+    out = [x.contiguous() for x in (d_plane, plane_valid, covered,
+                                    grid_words)]
+    for x, what, dt, shp in zip(
+            out, ("d_plane", "plane_valid", "covered", "grid_words"),
+            (out[0].dtype, torch.bool, torch.bool, torch.int32),
+            (shape, shape, shape, grid_shape)):
+        cuda_lib.expect(x, f"{name} {what}", dt, shp, dev)
+    return out
+
+
+def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
+    """Launch the kernel once for the views named by ``views`` (1 left, 2
+    right, 3 both); maps_* are the views' prior maps (the unused view's
+    may be None). Returns the views' outputs."""
     global launches
     B, H, W, C = desc1.shape
     D = params.disp_num
     gs = params.grid_size
     radius = params.plane_radius
     dev = desc1.device
-    if D > 256 or radius > _MAX_RADIUS or H < 5 or W < 5:
+    # the key's rank field holds d < 256 (256 + d marks a window candidate,
+    # decoded by % 512 % 256), as in the reference kernel: the function is
+    # the reference's for D <= 256 only, on the card and on the CPU
+    if D > 256 or radius > _MAX_RADIUS or not (5 <= H <= 65535
+                                                and 5 <= W <= 65535):
         raise ValueError(f"dense kernel needs D <= 256, plane_radius <= "
-                         f"{_MAX_RADIUS}, H, W >= 5; got D={D}, "
+                         f"{_MAX_RADIUS}, 5 <= H, W <= 65535; got D={D}, "
                          f"radius={radius}, {H}x{W}")
-    gh, gw, nw = grid_words.shape[1:4]
+    some = maps_left if maps_left is not None else maps_right
+    gh, gw, nw = some[3].shape[1:4]
     if gh * gs < H or gw * gs < W or nw != -(-D // 32):
         raise ValueError(f"grid {gh}x{gw}x{nw} words of cell {gs} does not "
                          f"cover {H}x{W}x{D}")
-    q, t, sign = _views(desc1, desc2, right_image)
-    dp = d_plane.to(torch.int32).contiguous()
-    pv = plane_valid.contiguous()
-    cv = covered.contiguous()
-    for name, x, dt, shp in (
-            ("desc1", desc1, torch.uint8, (B, H, W, 16)),
-            ("desc2", desc2, torch.uint8, (B, H, W, 16)),
-            ("d_plane", dp, torch.int32, (B, H, W)),
-            ("plane_valid", pv, torch.bool, (B, H, W)),
-            ("covered", cv, torch.bool, (B, H, W)),
-            ("grid_words", grid_words, torch.int32, (B, gh, gw, nw))):
-        cuda_lib.expect(x, name, dt, shp, dev)
+    cuda_lib.expect(desc1, "desc1", torch.uint8, (B, H, W, 16), dev)
+    cuda_lib.expect(desc2, "desc2", torch.uint8, (B, H, W, 16), dev)
+    checked = [None if m is None else
+               _checked_maps(m, nm, (B, H, W), (B, gh, gw, nw), dev)
+               for m, nm in ((maps_left, "left"), (maps_right, "right"))]
+    dts = {m[0].dtype for m in checked if m is not None}
+    if len(dts) != 1:
+        raise ValueError(f"both views' d_plane need one dtype, got {dts}")
+    outs, structs = [], []
+    for m in checked:
+        out = None if m is None else torch.empty((B, H, W),
+                                                 dtype=torch.float32,
+                                                 device=dev)
+        outs.append(out)
+        structs.append(_ViewMaps() if m is None else _ViewMaps(
+            *(x.data_ptr() for x in m), out.data_ptr()))
     P = _PriorTable()
     for j, pj in enumerate(prior_table(params)[:radius + 1]):
         P.p[j] = int(pj)
-    lib = cuda_lib.load("elas_dense_kernel")
-    fn = lib.elas_dense
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
-                   + [_PriorTable, ctypes.c_void_p])
+    fn = cuda_lib.load("elas_dense_kernel").elas_dense
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [_ViewMaps] * 2
+                   + [ctypes.c_int] * 12 + [_PriorTable, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    out = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    err = fn(q.data_ptr(), t.data_ptr(), dp.data_ptr(), pv.data_ptr(),
-             cv.data_ptr(), grid_words.data_ptr(), out.data_ptr(),
-             B, H, W, D, gh, gw, nw, gs, radius, sign,
+    err = fn(desc1.data_ptr(), desc2.data_ptr(), *structs, views,
+             int(torch.int16 in dts), B, H, W, D, gh, gw, nw, gs, radius,
              params.match_texture, P, cuda_lib.stream_ptr(desc1))
     cuda_lib.check(err, "elas_dense")
     launches += 1
-    return out
+    return outs
+
+
+def _no_subsampling(params):
+    if params.subsampling:
+        raise NotImplementedError(
+            "ELAS subsampling waits for a later slice of the port "
+            "(ROADMAP Queue 1, item 6)")
 
 
 def dense_match(desc1, desc2, d_plane, plane_valid, covered, grid_words,
                 params: ElasParams = ElasParams(),
                 right_image: bool = False) -> torch.Tensor:
-    """Dense disparity [B, H, W] float32 of one view; the CUDA kernel on
-    CUDA tensors, the plain version on CPU tensors. grid_words is the
-    candidate grid as pack_grid gives it."""
-    if params.subsampling:
-        raise NotImplementedError(
-            "ELAS subsampling waits for a later slice of the port "
-            "(ROADMAP Queue 1, item 6)")
+    """Dense disparity [B, H, W] float32 of one view; the CUDA kernel (one
+    launch for this view) on CUDA tensors, the plain version on CPU
+    tensors. grid_words is the candidate grid as pack_grid gives it."""
+    _no_subsampling(params)
     if desc1.is_cuda:
-        return _dense_match_cuda(desc1, desc2, d_plane, plane_valid, covered,
-                                 grid_words, params, right_image)
+        maps = (d_plane, plane_valid, covered, grid_words)
+        outs = _dense_match_cuda(desc1, desc2,
+                                 None if right_image else maps,
+                                 maps if right_image else None, params,
+                                 2 if right_image else 1)
+        return outs[1 if right_image else 0]
     return dense_match_plain(desc1, desc2, d_plane, plane_valid, covered,
                              grid_words, params, right_image)
+
+
+def dense_match_pair_plain(desc1, desc2, maps_left, maps_right,
+                           params: ElasParams = ElasParams()):
+    """The pair kernel's function in plain PyTorch: two dense_match_plain
+    calls."""
+    return (dense_match_plain(desc1, desc2, *maps_left, params, False),
+            dense_match_plain(desc1, desc2, *maps_right, params, True))
+
+
+def dense_match_pair(desc1, desc2, maps_left, maps_right,
+                     params: ElasParams = ElasParams()):
+    """Both views' dense disparities (D1, D2), each [B, H, W] float32:
+    one kernel launch for both on CUDA tensors, the plain version on CPU
+    tensors. maps_left / maps_right are each view's (d_plane, plane_valid,
+    covered, grid_words)."""
+    _no_subsampling(params)
+    if desc1.is_cuda:
+        return tuple(_dense_match_cuda(desc1, desc2, maps_left, maps_right,
+                                       params, 3))
+    return dense_match_pair_plain(desc1, desc2, maps_left, maps_right,
+                                  params)

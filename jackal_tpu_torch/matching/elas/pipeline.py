@@ -50,7 +50,7 @@ from ...native import load as load_native
 from ...ops.descriptor import create_descriptor
 from ...ops.transfer import HostCopy, ready, to_device
 from . import device_prior as dp
-from .dense import dense_match, pack_grid
+from .dense import dense_match_pair, pack_grid
 from .native_prior import (build_priors_native, collect_support_points_native,
                            remove_small_segments_native,
                            tri_wire_and_bin_native)
@@ -108,8 +108,8 @@ def elas_match(
         return [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
                 for a in host]
 
-    D1 = dense_match(desc1, desc2, *upload(maps1, grid1), params, False)[0]
-    D2 = dense_match(desc1, desc2, *upload(maps2, grid2), params, True)[0]
+    D1, D2 = (x[0] for x in dense_match_pair(
+        desc1, desc2, upload(maps1, grid1), upload(maps2, grid2), params))
 
     D1, D2 = left_right_consistency_check(D1, D2, params)
     D1 = _speckle(D1, params)
@@ -338,8 +338,7 @@ def _chunk_tail(flat: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     sides, dense matching of both views and the whole postprocess."""
     m1, m2 = _chunk_raster(
         _chunk_coeffs(flat, CH, Np, Tp, Ts, W, H, params), Tp, W, H)
-    D1 = dense_match(d1, d2, *m1, params, False)
-    D2 = dense_match(d1, d2, *m2, params, True)
+    D1, D2 = dense_match_pair(d1, d2, m1, m2, params)
     return postprocess_batch(D1, D2, params, lr_smax)
 
 

@@ -27,7 +27,8 @@ from . import cuda_lib
 
 launches = {"bm": 0, "bm_diag": 0}
 
-D_RANGE = (2, 256)       # the disparity counts the kernel takes
+# the disparity counts the kernel takes: its key packs (cost << 8) | d
+D_RANGE = (2, 256)
 WINDOW_MAX = 255         # keeps every real cost below the key's 2^24 - 1
 DIAG_MODES = ("full", "onewta", "boxonly", "nobox", "full32")
 
@@ -92,7 +93,12 @@ def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
                    params: BMParams = BMParams()
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """uint8 [B, H, W] pairs -> (D_left after the L/R check, D_right),
-    float32 [B, H, W], -1 for invalid: kernel G on the card."""
+    float32 [B, H, W], -1 for invalid: kernel G on the card.
+
+    On the card D is limited to 2 <= D <= 256 (D_RANGE: G packs (cost << 8)
+    | d into one 32-bit key) and a larger D raises ValueError, never a
+    switch to the plain twin; the plain twin (CPU tensors) takes any D, as
+    the reference package's bm_match does."""
     if not left_b.is_cuda:
         return bm_match_fused_plain(left_b, right_b, params)
     out = _launch("bm_kernel", "bm_match", left_b, right_b, params)

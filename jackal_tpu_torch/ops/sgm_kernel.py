@@ -23,7 +23,10 @@ from . import cuda_lib
 
 launches = {"census": 0, "sgm_paths": 0, "sgm_wta": 0}
 
-D_RANGE = (2, 256)      # the disparity counts the kernels take
+# the disparity counts the kernels E and F take; F's key packs
+# value << 8 | d. Past it they raise (the plain twins, on CPU tensors, take
+# any D, as the reference package does)
+D_RANGE = (2, 256)
 _P_MAX = (1 << 31) - 1 - _CARRY_BIG     # penalties the path kernel takes
 
 
@@ -77,7 +80,11 @@ def aggregate_paths_bhdw(cost_bhdw: torch.Tensor, params: SGMParams
     census volume's are. The kernels lay the cost out as [B, H, W, DP], d
     innermost and padded with _CARRY_BIG to DP (a multiple of 64), so that
     one step of a path reads DP contiguous costs; every direction writes
-    its own path volume, and their sum is written in [B, H, D, W]."""
+    its own path volume, and their sum is written in [B, H, D, W].
+
+    On the card D is limited to 2 <= D <= 256 (D_RANGE, the limit of F,
+    which runs next on the path) and a larger D raises ValueError; the
+    plain twin takes any D."""
     if not cost_bhdw.is_cuda:
         return aggregate_paths_bhdw_plain(cost_bhdw, params)
     B, H, D, W = cost_bhdw.shape
@@ -118,7 +125,11 @@ def sgm_wta_maps(S_bhdw: torch.Tensor) -> torch.Tensor:
     best_d, second, cost at d-1, cost at d+1 of the left view, then of the
     right view SR[d, v, u] = S[d, v, u+d] (_INVALID past the edge). The
     kernel takes S in [0, _CARRY_BIG], the path sum's range: it compares
-    the values as unsigned 16-bit lanes."""
+    the values as unsigned 16-bit lanes.
+
+    On the card D is limited to 2 <= D <= 256 (D_RANGE: the kernel packs
+    value << 8 | d into one 32-bit key) and a larger D raises ValueError;
+    the plain twin takes any D."""
     if not S_bhdw.is_cuda:
         return sgm_wta_maps_plain(S_bhdw)
     B, H, D, W = S_bhdw.shape

@@ -126,6 +126,25 @@ def test_bm_match_equals_jax(B, H, W, D, window, shift):
     assert torch.equal(fr, dr)
 
 
+def test_bm_match_past_the_card_limit_equals_jax():
+    """D = 320, past the card's D <= 256 (ops/bm_kernel.D_RANGE): the
+    port's plain engine and kernel G's plain twin compute the reference's
+    function there; only the card's kernel refuses the shape
+    (tests/test_torch_cuda.py::test_bm_and_sgm_card_limit_d256)."""
+    rng = np.random.default_rng(320)
+    left, right = _pair(rng, 1, 12, 360, 40)
+    jp, tp = _params(320)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    dl, dr = bm.bm_match(lt, rt, tp)
+    wl, wr = jbm.bm_match(jnp.asarray(left[0]), jnp.asarray(right[0]), jp)
+    np.testing.assert_array_equal(dl[0].numpy(), np.asarray(wl))
+    np.testing.assert_array_equal(dr[0].numpy(), np.asarray(wr))
+    assert (np.abs(np.asarray(wl) - 40) < 1).mean() > 0.5
+    fl, fr = bk.bm_match_fused(lt, rt, tp)
+    assert torch.equal(bm.bm_texture_gate(lt, fl, tp), dl)
+    assert torch.equal(fr, dr)
+
+
 @pytest.mark.parametrize("fix,crop,D", [
     ("elas_golden_s640_boxes", (slice(200, 296), slice(160, 480)), 256),
     ("elas_golden_photo", (slice(0, 96), slice(0, 320)), 64),

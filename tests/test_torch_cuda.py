@@ -101,26 +101,80 @@ def test_support_kernel_refuses_what_it_does_not_take(dev):
         sm.support_keys(wide, wide, 0, 20)
 
 
-@pytest.mark.parametrize("right_image", [False, True])
-@pytest.mark.parametrize("B,H,W,preset", [
-    (1, 40, 128, "robotics"), (2, 33, 75, "middlebury"),
-    (1, 480, 640, "robotics")])
-def test_dense_kernel_equals_plain(dev, B, H, W, preset, right_image):
-    rng = np.random.default_rng(H * W)
-    p = getattr(ElasParams, preset)()
+def _dense_inputs(rng, B, H, W, p, dev, covered=0.9):
+    """Seeded descriptors of a pair shifted 7 columns and each view's random
+    prior maps (d_plane, plane_valid, covered, grid words) on the card."""
+    gs = p.grid_size
     l = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
     d1 = create_descriptor(torch.from_numpy(l).to(dev))
     d2 = create_descriptor(torch.from_numpy(np.roll(l, 7, axis=2)).to(dev))
-    args = [torch.from_numpy(a).to(dev) for a in (
-        rng.integers(-3, 260, (B, H, W)).astype(np.int32),
-        rng.random((B, H, W)) < 0.7, rng.random((B, H, W)) < 0.9,
-        dm.pack_grid(rng.random((B, -(-H // 20), -(-W // 20), p.disp_num))
-                     < 0.1))]
+    maps = [[torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-3, p.disp_num + 4, (B, H, W)).astype(np.int32),
+        rng.random((B, H, W)) < 0.7, rng.random((B, H, W)) < covered,
+        dm.pack_grid(rng.random((B, -(-H // gs), -(-W // gs), p.disp_num))
+                     < 0.1))] for _ in range(2)]
+    return d1, d2, maps
+
+
+@pytest.mark.parametrize("right_image", [False, True])
+@pytest.mark.parametrize("B,H,W,preset,D,gs", [
+    (1, 40, 128, "robotics", 256, 20), (2, 33, 75, "middlebury", 256, 20),
+    (1, 480, 640, "robotics", 256, 20),     # the node's shape
+    (8, 48, 200, "robotics", 256, 20),      # B = 8, W % 32 != 0
+    (1, 45, 333, "robotics", 64, 20),       # windows across word edges
+    (2, 37, 130, "middlebury", 100, 20),    # D % 32 != 0
+    (1, 21, 1500, "robotics", 256, 20),     # two strips of columns
+    (2, 30, 150, "robotics", 8, 20),        # one candidate word (D < 32)
+    (1, 41, 200, "middlebury", 32, 20),     # one candidate word
+    (1, 36, 170, "robotics", 96, 7),        # three words, cells of 7
+    (2, 25, 90, "robotics", 32, 1),         # cells of one pixel
+    (1, 23, 140, "middlebury", 64, 1)])
+def test_dense_kernel_equals_plain(dev, B, H, W, preset, D, gs, right_image):
+    """Kernel B: both views from one launch (dense_match_pair) and one view
+    (dense_match) against the plain version, with int32 and int16
+    d_plane."""
+    rng = np.random.default_rng(H * W + D)
+    p = dataclasses.replace(getattr(ElasParams, preset)(), disp_max=D - 1,
+                            grid_size=gs)
+    d1, d2, (m1, m2) = _dense_inputs(rng, B, H, W, p, dev)
     n0 = dm.launches
-    got = dm.dense_match(d1, d2, *args, p, right_image)
+    got = dm.dense_match(d1, d2, *(m2 if right_image else m1), p,
+                         right_image)
     assert dm.launches == n0 + 1
-    want = dm.dense_match_plain(d1, d2, *args, p, right_image)
+    want = dm.dense_match_plain(d1, d2, *(m2 if right_image else m1), p,
+                                right_image)
     assert torch.equal(got, want)
+    pair = dm.dense_match_pair(d1, d2, m1, m2, p)
+    assert dm.launches == n0 + 2
+    assert torch.equal(pair[1 if right_image else 0], want)
+    short = [[m[0].to(torch.int16)] + m[1:] for m in (m1, m2)]
+    pair16 = dm.dense_match_pair(d1, d2, *short, p)
+    assert torch.equal(pair16[1 if right_image else 0], want)
+    assert (want >= 0).float().mean() > 0.3
+
+
+def test_dense_kernel_every_pixel_unmatched(dev):
+    """No pixel covered: every output is -10 in both views; the warps still
+    run their ballots with empty candidate sets."""
+    p = ElasParams()
+    d1, d2, maps = _dense_inputs(np.random.default_rng(3), 2, 40, 150, p,
+                                 dev, covered=0.0)
+    for out in dm.dense_match_pair(d1, d2, *maps, p):
+        assert bool((out == -10).all())
+
+
+def test_dense_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain twin")
+
+    monkeypatch.setattr(dm, "dense_match_plain", refuse)
+    monkeypatch.setattr(dm, "dense_match_pair_plain", refuse)
+    p = ElasParams()
+    d1, d2, maps = _dense_inputs(np.random.default_rng(4), 1, 20, 64, p, dev)
+    D1, D2 = dm.dense_match_pair(d1, d2, *maps, p)
+    assert D1.is_cuda and D2.shape == (1, 20, 64)
+    with pytest.raises(ValueError, match="D <= 256"):
+        dm.dense_match_pair(d1, d2, *maps, ElasParams(disp_max=256))
 
 
 @pytest.mark.parametrize("fix", ["s320_flat", "s320_boxes", "s320_mb"])
@@ -269,16 +323,26 @@ def test_batch_on_the_card_equals_per_frame(dev):
     assert torch.equal(D1[0].cpu(), torch.from_numpy(g["D1"]))
 
 
-@pytest.mark.parametrize("N,H,W", [(2, 37, 61), (4, 480, 640), (1, 5, 333)])
+@pytest.mark.parametrize("N,H,W", [
+    (2, 37, 61), (4, 480, 640), (1, 5, 333),
+    (2, 9, 13), (1, 6, 18), (3, 11, 31),        # W % 4 = 1, 2, 3
+    (1, 1, 1), (2, 2, 3), (1, 3, 5), (1, 5, 2), (2, 3, 8), (1, 2, 12),
+    (8, 960, 1280)])                            # BASELINE config 3's
 def test_census_kernel_equals_plain(dev, N, H, W):
     from jackal_tpu_torch.ops import sgm_kernel as sk
 
-    img = torch.from_numpy(np.random.default_rng(W).integers(
+    img = torch.from_numpy(np.random.default_rng(W * H).integers(
         0, 256, (N, H, W)).astype(np.uint8)).to(dev)
     n0 = sk.launches["census"]
     got = sk.census5x5_batch(img)
     assert sk.launches["census"] == n0 + 1
     assert torch.equal(got, sk.census5x5_batch_plain(img))
+    # ties and extremes: equal bytes are not darker, 0 and 255 edges
+    flat = torch.full((N, H, W), 128, dtype=torch.uint8, device=dev)
+    flat[..., ::3] = 0
+    flat[..., 1::5] = 255
+    assert torch.equal(sk.census5x5_batch(flat),
+                       sk.census5x5_batch_plain(flat))
 
 
 @pytest.mark.parametrize("B,H,W,D,num_paths", [
@@ -392,6 +456,50 @@ def test_wta_kernel_never_runs_the_plain_twin(dev, monkeypatch):
     maps = sk.sgm_wta_maps(S)
     assert maps.is_cuda and maps.shape == (1, 20, 10, 40)
     assert int(maps[:, :, 0].max()) == 7
+
+
+@pytest.mark.parametrize("D", [256, 257, 320])
+def test_bm_and_sgm_card_limit_d256(dev, D, monkeypatch):
+    """The card's line at D <= 256 (ops/bm_kernel.D_RANGE and
+    ops/sgm_kernel.D_RANGE; the reference takes any D, and so do the port's
+    plain engines: tests/test_torch_bm.py and test_torch_sgm.py at D =
+    320). At 256 BM's kernel and sgm_match on the card equal the CPU's;
+    past it they raise a ValueError that names the limit and never reach a
+    plain twin."""
+    from jackal_tpu_torch.config import BMParams, SGMParams
+    from jackal_tpu_torch.matching import sgm
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    left = np.random.default_rng(D).integers(0, 256, (1, 12, 360)).astype(
+        np.uint8)
+    lb, rb = torch.from_numpy(left), torch.from_numpy(np.roll(left, -40, 2))
+    rs = np.roll(left, 40, axis=2)
+    bp, sp = BMParams(disp_num=D), SGMParams(disp_num=D)
+    if D <= 256:
+        want = bk.bm_match_fused(lb, rb, bp)
+        got = bk.bm_match_fused(lb.to(dev), rb.to(dev), bp)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        want = sgm.sgm_match(left[0], rs[0], sp, device="cpu")
+        got = sgm.sgm_match(left[0], rs[0], sp, device=dev)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        return
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+
+    for mod, names in ((bk, ("bm_match_fused_plain",)),
+                       (sk, ("aggregate_paths_bhdw_plain", "aggregate_paths",
+                             "sgm_wta_maps_plain", "wta_maps"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    with pytest.raises(ValueError, match="D <= 256"):
+        bk.bm_match_fused(lb.to(dev), rb.to(dev), bp)
+    with pytest.raises(ValueError, match="D <= 256"):
+        sgm.sgm_match(left[0], rs[0], sp, device=dev)
+    vol = torch.zeros((1, 4, D, 8), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="D <= 256"):
+        sk.sgm_wta_maps(vol)
 
 
 def test_sgm_kernels_refuse_what_they_do_not_take(dev):

@@ -1,5 +1,7 @@
 """Port dense matching (the dense kernel's plain version) == JAX
-dense_match == libelas stage fixture, both views."""
+dense_match == libelas stage fixture, both views; the pair wrapper
+(dense_match_pair, one kernel launch for both views on the card) == two
+JAX calls and the fixture."""
 import dataclasses
 
 import numpy as np
@@ -76,6 +78,51 @@ def test_dense_matches_stage_fixture(right):
                                      maps.tri_id >= 0, dm.pack_grid(grid)),
                          ElasParams(), right)[0].numpy()
     np.testing.assert_array_equal(got, z["dense_D2" if right else "dense_D1"])
+
+
+@pytest.mark.parametrize("H,W,preset", [(40, 128, "robotics"),
+                                         (33, 75, "middlebury")])
+def test_dense_pair_matches_jax(H, W, preset):
+    """dense_match_pair on CPU tensors == the JAX package's dense_match of
+    each view, each view with its own prior maps."""
+    rng = np.random.default_rng(H + W)
+    jp = dataclasses.replace(getattr(JaxElasParams, preset)(), disp_max=63)
+    tp = dataclasses.replace(getattr(ElasParams, preset)(), disp_max=63)
+    left = (rng.random((H, W)) * 255).astype(np.uint8)
+    right = np.roll(left, 7, axis=1)
+    maps = [(rng.integers(-3, 40, (H, W)).astype(np.int32),
+             rng.random((H, W)) < 0.7, rng.random((H, W)) < 0.9,
+             rng.random((-(-H // 20), -(-W // 20), tp.disp_num)) < 0.1)
+            for _ in range(2)]
+    d1, d2 = jax_descriptor(jnp.asarray(left)), jax_descriptor(jnp.asarray(right))
+    want = [np.asarray(jax_dense(d1, d2, *(jnp.asarray(a) for a in m), jp,
+                                 right_image))
+            for m, right_image in zip(maps, (False, True))]
+    t1 = create_descriptor(torch.from_numpy(np.stack([left])))
+    t2 = create_descriptor(torch.from_numpy(np.stack([right])))
+    got = dm.dense_match_pair(
+        t1, t2, *(_t(*m[:3], dm.pack_grid(m[3])) for m in maps), tp)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0].numpy(), w)
+        assert (w >= 0).mean() > 0.3
+
+
+def test_dense_pair_matches_stage_fixture():
+    z = np.load(f"{FIX}/elas_stages_st160.npz")
+    sp = z["support"]
+    H, W = z["left"].shape
+    views = []
+    for right in (False, True):
+        maps = rasterize_planes(sp, z["tri2" if right else "tri1"],
+                                z["planes2" if right else "planes1"], W, H,
+                                right)
+        views.append(_t(maps.d_plane, maps.valid, maps.tri_id >= 0,
+                        dm.pack_grid(create_grid(sp, W, H, right))))
+    t1 = create_descriptor(torch.from_numpy(z["left"]))[None]
+    t2 = create_descriptor(torch.from_numpy(z["right"]))[None]
+    D1, D2 = dm.dense_match_pair(t1, t2, *views, ElasParams())
+    np.testing.assert_array_equal(D1[0].numpy(), z["dense_D1"])
+    np.testing.assert_array_equal(D2[0].numpy(), z["dense_D2"])
 
 
 def test_pack_grid_bits():

@@ -83,6 +83,21 @@ def test_census_equals_jax(interpret_pallas, B, H, W):
                                   .numpy(), want[0])
 
 
+@pytest.mark.parametrize("B,H,W", [
+    (2, 9, 13), (1, 6, 18), (3, 11, 31)] + [    # W % 4 = 1, 2, 3
+    (1, h, w) for h in (1, 2, 3, 5) for w in (1, 2, 3, 5)])
+def test_census_odd_shapes_equal_jax(B, H, W):
+    """Kernel D's plain twin at the widths its 4-pixel words make awkward
+    and at frames smaller than the 5x5 window, against jackal_tpu's
+    census5x5 (the Pallas kernel's own reference)."""
+    img = np.random.default_rng(H * 10 + W).integers(
+        0, 256, (B, H, W)).astype(np.uint8)
+    img[0, 0, 0] = img[0, -1, -1]       # a tie with the far corner
+    want = np.asarray(jax.vmap(jsgm.census5x5)(jnp.asarray(img)))
+    np.testing.assert_array_equal(
+        sk.census5x5_batch(torch.from_numpy(img)).numpy(), want)
+
+
 @pytest.mark.parametrize("H,W,D", [(23, 150, 16), (12, 40, 24), (9, 61, 48)])
 def test_cost_volume_equals_jax(H, W, D):
     rng = np.random.default_rng(H * W)
@@ -249,6 +264,21 @@ def test_sgm_match_batch_equals_jax(shape, kw):
         assert (np.asarray(wl) >= 0).mean() > 0.1
     one = sgm.sgm_match(left[-1], right[-1], tp, device="cpu")
     assert torch.equal(one[0], dl[-1]) and torch.equal(one[1], dr[-1])
+
+
+def test_sgm_match_past_the_card_limit_equals_jax():
+    """D = 320, past the card's D <= 256 (ops/sgm_kernel.D_RANGE): the
+    port's plain engine computes the reference's function there; only the
+    card's kernels refuse the shape
+    (tests/test_torch_cuda.py::test_bm_and_sgm_card_limit_d256)."""
+    rng = np.random.default_rng(320)
+    left, right = _pair(rng, 1, 12, 360, 40)
+    jp, tp = _params(320)
+    dl, dr = sgm.sgm_match(left[0], right[0], tp, device="cpu")
+    wl, wr = jsgm.sgm_match(jnp.asarray(left[0]), jnp.asarray(right[0]), jp)
+    np.testing.assert_array_equal(dl.numpy(), np.asarray(wl))
+    np.testing.assert_array_equal(dr.numpy(), np.asarray(wr))
+    assert (np.asarray(wl) >= 0).mean() > 0.1
 
 
 @pytest.mark.parametrize("D", [64, 128])

@@ -1,16 +1,26 @@
-"""Time the ELAS support kernel (A) of a checkout of jackal_tpu_torch on the
-card, at the per-frame node's shape (B = 1) and the batched node's (B = 8).
+"""Time a CUDA kernel of a checkout of jackal_tpu_torch on the card: the ELAS
+support kernel (A), the ELAS dense kernel (B) or the SGM census (D).
 
-    python3 tools/time_support_kernel.py --repo DIR [--reps 50]
+    python3 tools/time_support_kernel.py --repo DIR [--kernel support]
+                                         [--reps 50]
 
 DIR is the root of the checkout whose jackal_tpu_torch is imported (its
-csrc/support_kernel.cu is built there); the inputs are the golden 640x480
-pairs of this repository's tests/fixtures (B = 8: the two alternated), at
-the default ElasParams (D = 256), and the kernel is held equal to its
-plain version on them. Run it on two checkouts in one call, in the order
-A, B, B, A, to compare two versions of the kernel on one card. Prints one
-JSON line: the card, DIR, and the device ms a call at each shape
-(chip_smoke.events_ms: CUDA events around calls queued behind a spin).
+csrc/ kernel is built there). Inputs, from this repository's
+tests/fixtures and a seed:
+- support, dense: the golden 640x480 pairs at the default ElasParams
+  (D = 256), at the per-frame node's shape (B = 1) and the batched
+  node's (B = 8: the two pairs alternated). dense times both views: one
+  dense_match_pair call where the checkout has it, else two dense_match
+  calls (a checkout from before the pair call); its priors are the
+  native prior's of each frame (chip_smoke.prior_inputs);
+- census: the SGM node's batch (the first golden pair's two images,
+  2 x 480 x 640), the node's at batch 2 (both golden pairs, 4 x 480 x
+  640) and BASELINE config 3's (8 seeded 960 x 1280 images).
+Each call is held equal to its plain version on those inputs. Run it on
+two checkouts in one call, in the order A, B, B, A, to compare two
+versions of a kernel on one card. Prints one JSON line: the card, DIR,
+the kernel and the device ms a call at each shape (chip_smoke.events_ms:
+CUDA events around calls queued behind a spin).
 """
 import argparse
 import json
@@ -21,12 +31,82 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-from chip_smoke import FIX, GOLDEN, card_line, events_ms  # noqa: E402
+from chip_smoke import (CONFIG3, FIX, GOLDEN, card_line,  # noqa: E402
+                        events_ms, prior_inputs)
+
+
+def _held(name, got, want):
+    import torch
+
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel != plain")
+
+
+def time_support(d1, d2, params, reps):
+    from jackal_tpu_torch.matching.elas import support as sm
+
+    D = params.disp_num
+    step = sm.effective_stepsize(params)
+    ncv = -(-d1.shape[1] // step)
+    res = {}
+    for B in (1, 8):
+        Q = sm.grid_row_blocks(d1[:B], step, ncv)
+        T = sm.grid_row_blocks(d2[:B], step, ncv)
+        _held(f"support B = {B}", sm.support_keys(Q, T, params.disp_min, D),
+              sm.support_keys_plain(Q, T, params.disp_min, D))
+        res[f"ms_B{B}"] = events_ms(
+            lambda: sm.support_keys(Q, T, params.disp_min, D), reps)
+    return res
+
+
+def time_dense(d1, d2, params, reps):
+    import torch
+    from jackal_tpu_torch.matching.elas import dense as dm
+
+    per_frame = [prior_inputs(d1[b:b + 1], d2[b:b + 1], params, d1.device)
+                 for b in range(2)]
+    res = {"pair_call": hasattr(dm, "dense_match_pair")}
+    for B in (1, 8):
+        ml, mr = ([torch.cat([per_frame[b % 2][v][i] for b in range(B)])
+                   for i in range(4)] for v in (0, 1))
+        q1, q2 = d1[:B].contiguous(), d2[:B].contiguous()
+        want = (dm.dense_match_plain(q1, q2, *ml, params, False),
+                dm.dense_match_plain(q1, q2, *mr, params, True))
+        if res["pair_call"]:
+            def call():
+                return dm.dense_match_pair(q1, q2, ml, mr, params)
+        else:
+            def call():
+                return (dm.dense_match(q1, q2, *ml, params, False),
+                        dm.dense_match(q1, q2, *mr, params, True))
+        _held(f"dense B = {B}", call(), want)
+        res[f"ms_B{B}"] = events_ms(call, reps)
+    return res
+
+
+def time_census(left, right, reps):
+    import torch
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    dev = torch.device("cuda", 0)
+    node = torch.from_numpy(np.stack([left[0], right[0]])).to(dev)
+    b2 = torch.from_numpy(np.concatenate([left[:2], right[:2]])).to(dev)
+    cfg3 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2 * CONFIG3[0],) + CONFIG3[1:]).astype(np.uint8)).to(dev)
+    res = {}
+    for label, imgs in (("node", node), ("b2", b2), ("config3", cfg3)):
+        _held(f"census {label}", [sk.census5x5_batch(imgs)],
+              [sk.census5x5_batch_plain(imgs)])
+        res[f"ms_{label}"] = events_ms(lambda: sk.census5x5_batch(imgs),
+                                       reps)
+    return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", required=True)
+    ap.add_argument("--kernel", default="support",
+                    choices=("support", "dense", "census"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -36,29 +116,21 @@ def main() -> int:
         print("time_support_kernel: no CUDA device", file=sys.stderr)
         return 2
     from jackal_tpu_torch.config import ElasParams
-    from jackal_tpu_torch.matching.elas import support as sm
     from jackal_tpu_torch.ops.descriptor import create_descriptor
 
     dev = torch.device("cuda", 0)
     params = ElasParams()
-    D = params.disp_num
     gold = [np.load(os.path.join(HERE, FIX, f"{g}.npz")) for g in GOLDEN]
     left = np.stack([gold[i % 2]["left"] for i in range(8)])
     right = np.stack([gold[i % 2]["right"] for i in range(8)])
-    d1 = create_descriptor(torch.from_numpy(left).to(dev))
-    d2 = create_descriptor(torch.from_numpy(right).to(dev))
-    step = sm.effective_stepsize(params)
-    ncv = -(-left.shape[1] // step)
-    res = {"card": card_line(), "repo": args.repo}
-    for B in (1, 8):
-        Q = sm.grid_row_blocks(d1[:B], step, ncv)
-        T = sm.grid_row_blocks(d2[:B], step, ncv)
-        got = sm.support_keys(Q, T, params.disp_min, D)
-        want = sm.support_keys_plain(Q, T, params.disp_min, D)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{args.repo}: kernel != plain at B = {B}")
-        res[f"ms_B{B}"] = events_ms(
-            lambda: sm.support_keys(Q, T, params.disp_min, D), args.reps)
+    res = {"card": card_line(), "repo": args.repo, "kernel": args.kernel}
+    if args.kernel == "census":
+        res.update(time_census(left, right, args.reps))
+    else:
+        d1 = create_descriptor(torch.from_numpy(left).to(dev))
+        d2 = create_descriptor(torch.from_numpy(right).to(dev))
+        fn = time_support if args.kernel == "support" else time_dense
+        res.update(fn(d1, d2, params, args.reps))
     print(json.dumps(res))
     return 0
 
