@@ -2,7 +2,8 @@
 
 A port of the ``jackal_tpu`` package (JAX/XLA/Pallas for TPU) to PyTorch
 on an NVIDIA H100. It grows slice by slice; so far it has the point_cloud
-node's ELAS paths, per frame and batched, and its SGM engine:
+node's ELAS paths, per frame and batched, its SGM and BM engines, the
+gen-pcl point cloud, the node's CLI and the navigator:
 
     raw u8 stereo pair -> rectify (15-bit fixed-point remap)
       -> ELAS: descriptors, support search [CUDA kernel A], host prior
@@ -24,8 +25,13 @@ Entry points: ``pipeline.default.make_pipeline()`` (SGM) or
 ``process_batch`` or ``process_batch_fused`` (SGM);
 ``pipeline.runner.StreamingRunner`` (the node's --batch > 1 loop);
 ``matching.elas.pipeline.elas_match``, ``elas_match_batch(_device)``,
-``elas_match_stream``; ``matching.sgm.sgm_match(_batch)``; and
-``entry.entry()``, the rectify -> SGM -> scan step as one callable.
+``elas_match_stream``; ``matching.sgm.sgm_match(_batch)``;
+``entry.entry()``, the rectify -> SGM -> scan step as one callable; and
+the CLIs, ``python -m jackal_tpu_torch.cli.point_cloud`` (the node: frame
+sources in ``io_bus.camera``, live extrinsics with -m, ``--device cpu``
+for the plain versions), ``cli.navigate`` (``nav.navigate.Navigator`` on
+the node's scans), ``cli.bus_broker`` (``io_bus.socket_bus``, the two
+nodes as two processes) and ``cli.grab_frames``.
 
 Rules of the port:
 

@@ -2,13 +2,37 @@
 
 The per-pixel Q-matrix math of point_cloud.cpp:213-296 (scan straight from
 the disparity map): (X, Y, Z) = dehomogenized Q @ [u, v, d, 1], then
-XR @ p + XT, in float32, each product and sum rounded on its own.
+XR @ p + XT, in float32, each product and sum rounded on its own. The
+live-extrinsics mode (-m) composes XR and XT on the host in float64.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
+
+
+def compose_rotation_cam_to_robot(x: float, y: float, z: float) -> np.ndarray:
+    """Euler XYZ -> rotation, Z*Y*X composition (point_cloud.cpp:77-98),
+    for the live-extrinsics mode's PHI_X/Y/Z sliders. Each elementary
+    matrix is built from the float32-cast angle, as the reference does."""
+    x, y, z = np.float32(x), np.float32(y), np.float32(z)
+    cx, sx = math.cos(x), math.sin(x)
+    cy, sy = math.cos(y), math.sin(y)
+    cz, sz = math.cos(z), math.sin(z)
+    X = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]], dtype=np.float64)
+    Y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], dtype=np.float64)
+    Z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]], dtype=np.float64)
+    return Z @ Y @ X
+
+
+def compose_translation_cam_to_robot(x: float, y: float, z: float
+                                     ) -> np.ndarray:
+    """point_cloud.cpp:100-102: the float32-cast translation, as float64."""
+    return np.array([np.float32(x), np.float32(y), np.float32(z)],
+                    dtype=np.float64)
 
 
 def reproject_Q(u, v, d, Q) -> Tuple[torch.Tensor, ...]:

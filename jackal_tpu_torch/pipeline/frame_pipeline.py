@@ -23,6 +23,7 @@ colour frame, process_batch_fused_pcl (BM, SGM) and process_batch_pcl
 
 Per-stage wall-clock times mirror the -l/-d/-s hooks (point_cloud.cpp:
 446-462); with ``timing=True`` each stage ends in a device synchronize.
+update_extrinsics is the live camera->robot recalibration of -m.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ from ..config import (BMParams, ElasParams, GroundPlaneParams,
 from ..device import DeviceLike, resolve_device
 from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
 from ..geometry.remap import remap_bilinear
+from ..geometry.reproject import (compose_rotation_cam_to_robot,
+                                  compose_translation_cam_to_robot)
 from ..matching.bm import bm_texture_gate
 from ..matching.elas.pipeline import elas_match, elas_match_batch_device
 from ..matching.sgm import sgm_match_batch
@@ -100,16 +103,29 @@ class StereoPipeline:
 
         self.lmap = maps(calib.K1, calib.D1, rect.R1, rect.P1)
         self.rmap = maps(calib.K2, calib.D2, rect.R2, rect.P2)
-        XR = calib.XR if calib.XR is not None else np.eye(3)
-        XT = calib.XT if calib.XT is not None else np.zeros(3)
-        f32 = torch.float32
-        self.Q32 = torch.as_tensor(rect.Q, dtype=f32).to(dev)
+        self.Q32 = torch.as_tensor(rect.Q, dtype=torch.float32).to(dev)
+        self._set_extrinsics(
+            calib.XR if calib.XR is not None else np.eye(3),
+            calib.XT if calib.XT is not None else np.zeros(3))
+
+    def _set_extrinsics(self, XR: np.ndarray, XT: np.ndarray) -> None:
+        """The camera->robot transform on the device and the
+        valid-disparity cache built from it (point_cloud.cpp:543-558)."""
+        p, dev, f32 = self.p, self.device, torch.float32
         self.XR32 = torch.as_tensor(XR, dtype=f32).to(dev)
         self.XT32 = torch.as_tensor(XT, dtype=f32).to(dev)
         self.valid_disp = torch.from_numpy(cache_disparity_values(
-            rect.Q, XR, XT, params.crop_im_width, params.crop_im_height,
-            params.crop_offset_x, params.crop_offset_y, gp_params,
-            scan_params)).to(dev)
+            self.rect.Q, XR, XT, p.crop_im_width, p.crop_im_height,
+            p.crop_offset_x, p.crop_offset_y, self.gp, self.sp)).to(dev)
+
+    def update_extrinsics(self, phi_xyz, trans_xyz) -> None:
+        """Live camera->robot recalibration (-m, the dynamic_reconfigure
+        sliders PHI_* and TRANS_*, point_cloud.cpp:305-311, 492-495):
+        recompose XR and XT and rebuild the valid-disparity cache. The
+        stages read these attributes at call time, so the next frame or
+        batch of every path uses them."""
+        self._set_extrinsics(compose_rotation_cam_to_robot(*phi_xyz),
+                             compose_translation_cam_to_robot(*trans_xyz))
 
     def _rectify_crop(self, left_raw: torch.Tensor, right_raw: torch.Tensor):
         """Rectify and crop uint8 [..., H, W] raw frames on the device."""

@@ -11,9 +11,10 @@ StereoPipeline.process_batch_fused on batch k+1 while batch k is
 published. Every frame's depth map and obstacle scan are published on the
 topic bus under the reference's topic names, in order, by a publisher
 thread that waits only for its own batch's copies to the host. BM runs
-as SGM does. With gen_pcl, frames may be (left, right, color_bgr), each
-frame's compacted cloud is published too, and the scan comes from the
-cloud's points.
+as SGM does, and so does ELAS with elas_stream=False (process_batch(_pcl)
+a batch, with no stage times). With gen_pcl, frames may be (left, right,
+color_bgr), each frame's compacted cloud is published too, and the scan
+comes from the cloud's points.
 
 Per-stage times: every stage_sample_every-th batch is timed with device
 synchronizes, per frame. ELAS: dmap = the batch interval up to its
@@ -54,8 +55,10 @@ class StreamingRunner:
     def __init__(self, pipeline: StereoPipeline,
                  bus: Optional[TopicBus] = None, batch_size: int = 8,
                  timelog: Optional[TimeLogWriter] = None,
-                 stage_sample_every: int = 8):
+                 stage_sample_every: int = 8, elas_stream: bool = True):
         self.pipe = pipeline
+        self.elas_stream = elas_stream
+        self.used_elas_stream = False
         self.bus = bus or TopicBus()
         self.B = batch_size
         self.timelog = timelog
@@ -209,9 +212,9 @@ class StreamingRunner:
 
     def _run_batches(self, stream: Iterable[Tuple[np.ndarray, ...]],
                      max_frames: Optional[int] = None) -> int:
-        """The SGM and BM loop: process_batch_fused(_pcl) on batch k+1
-        while the publisher thread waits for batch k's copies and publishes
-        it."""
+        """The SGM and BM loop, and ELAS's without the stream scheduler:
+        batch k+1 on the device while the publisher thread waits for batch
+        k's copies and publishes it."""
         pipe = self.pipe
         dev = pipe.device
         done = 0
@@ -220,11 +223,18 @@ class StreamingRunner:
                 sampled = self.batch_no % self.stage_sample_every == 0
                 self.batch_no += 1
                 left, right = to_device(lb, dev)[0], to_device(rb, dev)[0]
-                if pipe.p.gen_pcl:
+                color = None if cb is None else to_device(cb, dev)[0]
+                if pipe.engine == "elas":   # no stage times without syncs
+                    stage_times = None
+                    if pipe.p.gen_pcl:
+                        dmaps, cloud, scans = pipe.process_batch_pcl(
+                            left, right, color)
+                    else:
+                        cloud = None
+                        dmaps, scans = pipe.process_batch(left, right)
+                elif pipe.p.gen_pcl:
                     dmaps, cloud, scans, *times = pipe.process_batch_fused_pcl(
-                        left, right,
-                        None if cb is None else to_device(cb, dev)[0],
-                        timing=sampled)
+                        left, right, color, timing=sampled)
                     stage_times = times[0] if sampled else None
                 else:
                     cloud = None
@@ -239,7 +249,9 @@ class StreamingRunner:
     def run(self, stream: Iterable[Tuple[np.ndarray, ...]],
             max_frames: Optional[int] = None) -> int:
         """Consume (left, right) raw uint8 frames, or (left, right,
-        color_bgr) with gen_pcl; returns the number of frames published."""
-        if self.pipe.engine == "elas":
+        color_bgr) with gen_pcl; returns the number of frames published.
+        ELAS runs on the stream scheduler unless elas_stream=False."""
+        if self.pipe.engine == "elas" and self.elas_stream:
+            self.used_elas_stream = True
             return self._run_elas_stream(stream, max_frames)
         return self._run_batches(stream, max_frames)
