@@ -64,7 +64,8 @@ Phases (any failure exits non-zero and prints no success line):
      past E's 16-bit lanes, lines shorter than E's ring, H and W under 32,
      D > W), and F alone on chip_smoke.WTA_EDGE_CASES (constant and
      tie-heavy volumes at D = 2, 3 and 64, a single column, D = 256 at
-     W = 1280, config 3's B = 4 at 1280x960); (b)
+     W = 1280, config 3's B = 4 at 1280x960), and E and F past D = 256 (D
+     = 320 and 512, their second paths); (b)
      sgm_match_batch on the card against the CPU's plain path on both
      golden scenes at D = 64 and 128, with the pooled RMSE and mask
      agreement against libelas; (c) the SGM node, make_pipeline() at
@@ -78,12 +79,14 @@ Phases (any failure exits non-zero and prints no success line):
      and its bound (and E's bound as counted before its 16-bit lanes) at
      the node's shape and at config 3's (D's bound at its byte lanes' 26
      instructions a pixel, the unpacked 48 beside it), and E's device
-     memory a call; a time below its bound fails;
+     memory a call; a time below its bound fails; (f) E's and F's D > 256
+     paths at the node's shape, D = 512: against their plain versions,
+     their device times, the plain versions' and their bounds;
   7. BM and gen_pcl: (a) kernel G against its plain twin (torch.equal) on
      both golden pairs at D = 64 and 256 and on seeded awkward shapes
      (W = 2000, W % 64 != 0, D past G's strip, H and W under 32, fewer rows
      than the window, windows 1 to 21, B = 32 batches in G's 64-column
-     strip); (b)
+     strip, G's D > 256 path at D = 320 and 512); (b)
      the BM node, make_pipeline(engine="bm") at 640x480, D = 64:
      process_frame on 9 synthetic pairs (stage medians, fps, idle share),
      process_batch_fused at batch 8 against process_frame, StreamingRunner
@@ -98,9 +101,9 @@ Phases (any failure exits non-zero and prints no success line):
      1); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
      device time, its plain twin's and its bound (and the bound as counted
      before G's packed instructions) at the node's shape, at D = 256, at
-     config 5's and at bench_bm256's, a time below its bound failing, at
-     the last two beside G' "full32" (32-column strips), and G' (the
-     per-part timing) in its five modes;
+     D = 512 (its D > 256 path), at config 5's and at bench_bm256's, a
+     time below its bound failing, at the last two beside G' "full32"
+     (32-column strips), and G' (the per-part timing) in its five modes;
   9. the node shell, the CLIs a user runs (cli/point_cloud.main in this
      process at 640x480 on ELAS): (a) per frame over 9 frames of the
      synthetic stream (synthetic:9) and of an NPZ replay of phase 4's
@@ -115,6 +118,12 @@ Phases (any failure exits non-zero and prints no success line):
      process_frame's after update_extrinsics, and unlike (a)'s; (d) the
      navigate CLI on (a)'s scans; each CLI call with the launch counters
      set to 0 just before it and read just after; one JSON line;
+  10. ELAS subsampling and the exact scan (subsampling_phase): kernel A on
+     half-resolution descriptors and kernel B under subsampling against
+     their plain twins; the card's subsampled elas_match against libelas's
+     final_D1 and against the CPU's, with A's and B's launch counters set
+     to 0 just before and read just after; the card's exact float64 scan
+     against the CPU's on phase 4's 9 maps at 640x480; one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -837,7 +846,10 @@ def sgm_phase(dev, hold):
                            (2, 40, 77, 64, {"p1": 4767, "p2": 4767}),
                            # lines shorter than E's ring; H, W < 32; D > W
                            (1, 3, 5, 24, {}), (2, 7, 31, 64, {}),
-                           (1, 40, 6, 100, {}), (1, 33, 97, 192, {})):
+                           (1, 40, 6, 100, {}), (1, 33, 97, 192, {}),
+                           # E's and F's D > 256 paths
+                           (1, 40, 400, 320, {}), (2, 24, 600, 512, {}),
+                           (1, 24, 600, 512, {"p1": 6000, "p2": 100000})):
         left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
         right = np.roll(left, 6, axis=2)
         p = dataclasses.replace(SGMParams(disp_num=D), **kw)
@@ -856,7 +868,8 @@ def sgm_phase(dev, hold):
           "on the golden pair at 640x480 D=64 and 128 and on seeded frames "
           "(odd H, W % 32 != 0, D 24, 48, 64, 100 and 192, 4 paths, "
           "true_right, penalties past the 16-bit lanes and at their limit, "
-          "lines shorter than the ring, H and W under 32, D > W)")
+          "lines shorter than the ring, H and W under 32, D > W; E and F "
+          "past D = 256 at D = 320 and 512)")
 
     # (b) the card's sgm_match_batch == the CPU's plain path; accuracy
     for D in (64, 128):
@@ -1091,6 +1104,36 @@ def sgm_phase(dev, hold):
                                      f"below its bound {b_ms} ms")
             if label == "node":
                 out[kname] = (k_ms, p_ms, b_ms, by)
+    # (f) E's and F's D > 256 paths at the node's shape, D = 512
+    Dw = 512
+    pw = dataclasses.replace(p, disp_num=Dw)
+    cd = sk.census5x5_batch(torch.cat([lt, rt]))
+    cw = sgm.census_cost_volume_hdw(cd[:1], cd[1:], Dw)
+    Sw = sk.aggregate_paths_bhdw(cw, pw)
+    wide = {}
+    for kname, fn, plain in (
+            ("sgm_paths", lambda: sk.aggregate_paths_bhdw(cw, pw),
+             lambda: sk.aggregate_paths_bhdw_plain(cw, pw)),
+            ("sgm_wta", lambda: sk.sgm_wta_maps(Sw),
+             lambda: sk.sgm_wta_maps_plain(Sw))):
+        hold(kname, f"{kname} D > 256 path at 640x480 D={Dw}", [fn()],
+             [plain()])
+        k_ms = events_ms(fn, 5)
+        p_ms = events_ms(plain, 1, spin=False)
+        nb, ops = sgm_work(kname, 1, 480, 640, Dw)
+        b_ms, by = bound_ms(nb, ops, ops_rate)
+        wide[kname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": by}
+        print(f"6f. {kname}, its D > 256 path at the node's shape (B=1, "
+              f"480x640, D={Dw}): == plain (torch.equal); device ms a call "
+              f"{k_ms:.4f} (CUDA events, calls queued behind a spin); plain "
+              f"{p_ms:.3f}; bound {b_ms:.5f} by {by} ({nb} bytes, "
+              f"{ops:.6g} instructions)")
+        if k_ms < b_ms:
+            raise AssertionError(f"{kname} at D={Dw}: {k_ms} ms is below "
+                                 f"its bound {b_ms} ms")
+    del cw, Sw
+    print(json.dumps({"d_past_256": wide}))
     srcs = {"census": ("census_kernel", 327), "sgm_paths":
             ("sgm_paths_kernel", 64), "sgm_wta": ("sgm_wta_kernel", 415)}
     return [{"name": k, "route": "cuda",
@@ -1160,15 +1203,20 @@ def bm_phase(dev, hold):
                                    (1, 3, 64, 8, 7, 1),
                                    # batches that take the 64-column strip
                                    (32, 161, 333, 101, 21, 17),
-                                   (32, 330, 333, 33, 1, 3)):
+                                   (32, 330, 333, 33, 1, 3),
+                                   # G's D > 256 path
+                                   (1, 40, 400, 320, 9, 40),
+                                   (2, 24, 600, 512, 5, 33),
+                                   (1, 9, 560, 512, 21, 100)):
         left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
         p = BMParams(disp_num=D, window=win)
         sw = bk.strip_width((B, H, W), p)
         if B == 32 and sw != 64:
             raise AssertionError(f"G took a {sw}-column strip at B={B} "
                                  f"{H}x{W} D={D}, not 64")
-        hold_bm(f"seeded B={B} {H}x{W} D={D} window {win} ({sw}-column "
-                f"strip)", torch.from_numpy(left).to(dev),
+        path = f"{sw}-column strip" if sw else "the D > 256 path"
+        hold_bm(f"seeded B={B} {H}x{W} D={D} window {win} ({path})",
+                torch.from_numpy(left).to(dev),
                 torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev), p)
     torch.cuda.synchronize()
     print("7a. kernel G == plain (torch.equal, both views) on the golden "
@@ -1176,7 +1224,8 @@ def bm_phase(dev, hold):
           "and D, W % 64 != 0, W=1280 and 2000, windows 1, 3, 5, 7, 9 and "
           "21, D past the strip, H and W under 32, fewer rows than the "
           "window; B=32 at H % 64 != 0, W % 64 != 0, odd D, in the "
-          "64-column strip)")
+          "64-column strip; G's D > 256 path at D = 320 and 512, windows "
+          "5, 9 and 21)")
 
     def counted(label, fn, want):
         """(fn(), G's launches in it): the counter set to 0 just before and
@@ -1400,7 +1449,9 @@ def bm_phase(dev, hold):
                                 torch.from_numpy(rb[:1]).to(dev))
     out = None
     for label, (li, ri), p in (("node", (lt, rt), p64),
-                               ("D=256", (L5[:1], R5[:1]), p256)):
+                               ("D=256", (L5[:1], R5[:1]), p256),
+                               ("D=512 (its D > 256 path)", (lt, rt),
+                                BMParams(disp_num=512))):
         hold("bm", f"bm at the {label} shape", bk.bm_match_fused(li, ri, p),
              bk.bm_match_fused_plain(li, ri, p))
         k_ms = events_ms(lambda: bk.bm_match_fused(li, ri, p), 20)
@@ -1461,6 +1512,117 @@ def bm_phase(dev, hold):
             "replaces": "jackal_tpu/ops/pallas/bm_kernel.py:107",
             "launches": node_launches, "ms": out[0], "plain_ms": out[1],
             "bound_ms": out[2], "bound_by": out[3], "library_ms": None}
+
+
+def subsampling_phase(dev, hold, pipe, dmaps):
+    """Phase 10: ELAS subsampling and the exact float64 scan on the card.
+    (a) kernel A on half-resolution descriptors against its plain twin and
+    kernel B under subsampling against the plain dense, both full and
+    after the subsampled output's slice, on libelas's subsampling fixture
+    and the two 640x480 golden pairs; (b) the card's subsampled elas_match
+    against libelas's final_D1 (with the fixture's triangulations) and
+    against the CPU's on the same inputs, with A's and B's launch counters
+    set to 0 just before and read just after; (c) the card's exact scan
+    against the CPU's on phase 4's 9 maps at 640x480 (pipe: phase 4's
+    node). Returns the phase's JSON line."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import dense as dense_mod
+    from jackal_tpu_torch.matching.elas import support as support_mod
+    from jackal_tpu_torch.matching.elas.pipeline import elas_match
+    from jackal_tpu_torch.ops.descriptor import create_descriptor
+    from jackal_tpu_torch.scan.exact_scan import (
+        obstacle_scan_from_disparity_exact)
+
+    sub = ElasParams(subsampling=True)
+    D = sub.disp_num
+    step = support_mod.effective_stepsize(sub)
+    st = np.load(f"{FIX}/elas_stages_sub320.npz")
+    cases = [("elas_stages_sub320", st["left"], st["right"])] + [
+        (f, g["left"], g["right"])
+        for f, g in ((f, np.load(f"{FIX}/{f}.npz")) for f in GOLDEN)]
+
+    # (a) A and B under subsampling against their plain twins
+    for name, left, right in cases:
+        H, W = left.shape
+        desc = create_descriptor(torch.from_numpy(np.stack([left, right]))
+                                 .to(dev), True)
+        d1, d2 = desc[0:1], desc[1:2]
+        ncv = -(-H // step)
+        Q = support_mod.grid_row_blocks(d1, step, ncv)
+        T = support_mod.grid_row_blocks(d2, step, ncv)
+        hold("support", f"support, half-resolution descriptors, {name}",
+             support_mod.support_keys(Q, T, 0, D),
+             support_mod.support_keys_plain(Q, T, 0, D))
+        views = prior_inputs(d1, d2, sub, dev)
+        got = dense_mod.dense_match_pair(d1, d2, *views, sub)
+        want = dense_mod.dense_match_pair_plain(d1, d2, *views, sub)
+        hold("elas_dense", f"dense pair under subsampling, {name}", got,
+             want)
+        hold("elas_dense", f"dense pair under subsampling, sliced, {name}",
+             [x[:, 0::2, 0::2][:, :H // 2, :W // 2] for x in got],
+             [x[:, 0::2, 0::2][:, :H // 2, :W // 2] for x in want])
+    torch.cuda.synchronize()
+    print(f"10a. kernel A on half-resolution descriptors == plain and "
+          f"kernel B under subsampling == plain dense (full, and sliced "
+          f"[0::2, 0::2]) (torch.equal): {', '.join(c[0] for c in cases)}")
+
+    # (b) the card's subsampled elas_match against libelas and the CPU
+    support_mod.launches = dense_mod.launches = 0
+    D1, _ = elas_match(st["left"], st["right"], sub, tri_left=st["tri1"],
+                       tri_right=st["tri2"], device=dev)
+    outs = [(name, elas_match(left, right, sub, device=dev))
+            for name, left, right in cases]
+    launches = {"support": support_mod.launches,
+                "elas_dense": dense_mod.launches}
+    print(f"10b. launches over {1 + len(cases)} subsampled elas_match calls"
+          f" on the card: {launches}")
+    if launches != {"support": 1 + len(cases),
+                    "elas_dense": 1 + len(cases)}:
+        raise AssertionError(f"subsampled elas_match did not launch A and "
+                             f"B once a call: {launches}")
+    ref = torch.from_numpy(st["final_D1"])
+    if not torch.equal(D1.cpu(), ref):
+        raise AssertionError(f"subsampled elas_match != libelas final_D1 in "
+                             f"{int((D1.cpu() != ref).sum())} pixels")
+    for (name, left, right), (_, card) in zip(cases, outs):
+        cpu = elas_match(left, right, sub, device="cpu")
+        H, W = left.shape
+        for nm, a, b in zip(("D1", "D2"), card, cpu):
+            if a.shape != (H // 2, W // 2) or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"subsampled elas_match {name} {nm}: "
+                                     f"card != CPU")
+    print(f"10b. subsampled elas_match on the card == libelas final_D1 "
+          f"(elas_stages_sub320, its triangulations) bit for bit, and == the"
+          f" CPU's D1, D2 on {', '.join(c[0] for c in cases)}")
+
+    # (c) the exact float64 scan: the card against the CPU
+    Q, XR, XT = pipe.rect.Q, pipe.calib.XR, pipe.calib.XT
+    valid = pipe.valid_disp.cpu().numpy()
+    ox, oy = pipe.p.crop_offset_x, pipe.p.crop_offset_y
+    fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
+    filled = []
+    for i, dm in enumerate(dmaps):
+        card = obstacle_scan_from_disparity_exact(dm, valid, Q, XR, XT, ox,
+                                                  oy, device=dev)
+        cpu = obstacle_scan_from_disparity_exact(dm, valid, Q, XR, XT, ox,
+                                                 oy, device="cpu")
+        for f in fields:
+            a, b = getattr(card, f), getattr(cpu, f)
+            if a.dtype != torch.float64 or a.device.type != dev.type:
+                raise AssertionError(f"exact scan {f}: {a.dtype} on "
+                                     f"{a.device}")
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+        filled.append(int((cpu.scan < 1e9 - 1).sum()))
+    t_card = host_ms(lambda: obstacle_scan_from_disparity_exact(
+        dmaps[0], valid, Q, XR, XT, ox, oy, device=dev), 5)
+    print(f"10c. exact float64 scan on the card == the CPU's "
+          f"(assert_array_equal, every field) on {len(dmaps)} maps at "
+          f"{dmaps[0].shape[1]}x{dmaps[0].shape[0]} (filled bins "
+          f"{filled}); host ms a call on the card {t_card:.3f}")
+    return {"subsampling": {"launches": launches,
+                            "exact_scan_frames": len(dmaps),
+                            "exact_scan_ms": t_card}}
 
 
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
@@ -2283,6 +2445,10 @@ def main() -> int:
 
     # ---- 9. the node shell: the point_cloud and navigate CLIs ------------
     print(json.dumps(shell_phase(dev)))
+
+    # ---- 10. ELAS subsampling (A, B under it) and the exact scan ---------
+    print(json.dumps(subsampling_phase(dev, hold, pipe,
+                                       [fr.dmap for fr in results])))
 
     # ---- 8. the kernels line, the card, the result -----------------------
     print(f"torch.profiler windows traced again for want of device activity:"

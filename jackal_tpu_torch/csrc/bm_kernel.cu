@@ -64,6 +64,19 @@
 // (kSW + 2r) per d against the W that a full-width row would need (the
 // right view's shifted segment is the price of the strip).
 //
+// D > 256: the strip's shared memory grows with D (the cost rows of kSW
+// columns by D, the vertical sums of 2 D segments) and d no longer fits a
+// key's 8 bits, so the launcher takes a second, simple path there, three
+// kernels a frame through a scratch of two int32 [H, W, D] volumes (d
+// innermost) that the wrapper allocates: bm_vsum_kernel, a thread a
+// (column, d) walking down the rows with the running vertical box sum of
+// the AD; bm_hsum_kernel, a thread a (row, d) walking along the row with
+// the running horizontal sum, the full box cost; bm_wta_wide_kernel, a
+// warp a (pixel, view) with the lanes striding d, the best (cost, d) as
+// one 64-bit key (cost << 32 | d: the first d wins ties) and the least
+// cost outside best_d +- 1 by warp minima. Then lr_check_kernel as above.
+// D <= 256 keeps the strip kernel.
+//
 // Built with -DBM_KERNEL_DIAG, the library also exports bm_match_diag, a
 // per-part timing of this kernel (the port of tools/diag_bm_kernel.py
 // diag_kernel, pallas_call l.105): the same kernel with a compile-time mode
@@ -145,18 +158,12 @@ struct Top4 {
   }
 };
 
-// Disparity of one pixel of one view from its four least keys and its
-// costs at best_d -+ 1 (kBig where invalid).
-__device__ __forceinline__ float finish(const Top4& t, int cm, int cp, int D,
-                                        float uniq) {
-  const int bd = static_cast<int>(t.k0 & 255u);
-  const int bc = key_cost(t.k0);
-  // at most two of k1..k3 lie at best_d +- 1, so the first that does not
-  // is the least cost outside them
-  const int second =
-      abs(static_cast<int>(t.k1 & 255u) - bd) > 1   ? key_cost(t.k1)
-      : abs(static_cast<int>(t.k2 & 255u) - bd) > 1 ? key_cost(t.k2)
-                                                    : key_cost(t.k3);
+// Disparity of one pixel of one view from its best d and cost, its least
+// cost outside best_d +- 1 and its costs at best_d -+ 1 (kBig where
+// invalid).
+__device__ __forceinline__ float disparity(int bd, int bc, int second,
+                                           int cm, int cp, int D,
+                                           float uniq) {
   const bool unique =
       static_cast<float>(bc) < __fmul_rn(uniq, static_cast<float>(second));
   const int den = cm + cp - 2 * bc;
@@ -166,6 +173,19 @@ __device__ __forceinline__ float finish(const Top4& t, int cm, int cp, int D,
                       __fmul_rn(2.0f, static_cast<float>(den)))
           : 0.0f;
   return unique ? __fadd_rn(static_cast<float>(bd), offs) : -1.0f;
+}
+
+// The same from a pixel's four least keys.
+__device__ __forceinline__ float finish(const Top4& t, int cm, int cp, int D,
+                                        float uniq) {
+  const int bd = static_cast<int>(t.k0 & 255u);
+  // at most two of k1..k3 lie at best_d +- 1, so the first that does not
+  // is the least cost outside them
+  const int second =
+      abs(static_cast<int>(t.k1 & 255u) - bd) > 1   ? key_cost(t.k1)
+      : abs(static_cast<int>(t.k2 & 255u) - bd) > 1 ? key_cost(t.k2)
+                                                    : key_cost(t.k3);
+  return disparity(bd, key_cost(t.k0), second, cm, cp, D, uniq);
 }
 
 template <int kSW, int MODE>
@@ -344,6 +364,87 @@ __global__ void __launch_bounds__(512)
   }
 }
 
+// ---- the D > 256 path ----------------------------------------------------
+
+// V[v, x, d] = the sum over rows v - r .. v + r of AD(y, x, d) = |L(y, x) -
+// R(y, x - d)| (R reads 0 for x < d, rows outside the frame add 0): a
+// thread a (x, d), d fastest, walking down the rows.
+__global__ void __launch_bounds__(256)
+    bm_vsum_kernel(const uint8_t* __restrict__ L,
+                   const uint8_t* __restrict__ R, int* __restrict__ V, int H,
+                   int W, int D, int r) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= static_cast<long long>(W) * D) return;
+  const int x = static_cast<int>(e / D), d = static_cast<int>(e % D);
+  auto ad = [&](int y) {
+    const int rv = x >= d ? R[static_cast<size_t>(y) * W + x - d] : 0;
+    return abs(static_cast<int>(L[static_cast<size_t>(y) * W + x]) - rv);
+  };
+  int sum = 0;
+  for (int y = 0; y < min(r, H); ++y) sum += ad(y);
+  for (int v = 0; v < H; ++v) {
+    if (v + r < H) sum += ad(v + r);
+    if (v - r - 1 >= 0) sum -= ad(v - r - 1);
+    V[(static_cast<size_t>(v) * W + x) * D + d] = sum;
+  }
+}
+
+// C[v, u, d] = the sum over columns u - r .. u + r inside the frame of
+// V[v, x, d]: a thread a (v, d), d fastest, walking along the row.
+__global__ void __launch_bounds__(256)
+    bm_hsum_kernel(const int* __restrict__ V, int* __restrict__ C, int H,
+                   int W, int D, int r) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= static_cast<long long>(H) * D) return;
+  const int v = static_cast<int>(e / D), d = static_cast<int>(e % D);
+  const int* src = V + static_cast<size_t>(v) * W * D + d;
+  int* dst = C + static_cast<size_t>(v) * W * D + d;
+  int sum = 0;
+  for (int x = 0; x < min(r, W); ++x) sum += src[static_cast<size_t>(x) * D];
+  for (int u = 0; u < W; ++u) {
+    if (u + r < W) sum += src[static_cast<size_t>(u + r) * D];
+    if (u - r - 1 >= 0) sum -= src[static_cast<size_t>(u - r - 1) * D];
+    dst[static_cast<size_t>(u) * D] = sum;
+  }
+}
+
+// Both views' WTA from the costs C of one frame: a warp a (pixel, view).
+// The left view's cost at (u, d) is C[v, u, d], kBig where d > u; the
+// right view's C[v, u + d, d], kBig where u + d >= W.
+__global__ void __launch_bounds__(256)
+    bm_wta_wide_kernel(const int* __restrict__ C, float* __restrict__ dl,
+                       float* __restrict__ dr, int H, int W, int D,
+                       float uniq) {
+  const long long warp = (blockIdx.x * 256LL + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= 2LL * H * W) return;  // the whole warp leaves
+  const int view = static_cast<int>(warp % 2);
+  const long long px = warp / 2;
+  const int u = static_cast<int>(px % W), v = static_cast<int>(px / W);
+  const int nv = view == 0 ? min(D, u + 1) : min(D, W - u);  // valid d < nv
+  const int* row = C + static_cast<size_t>(v) * W * D;
+  auto cost = [&](int d) {
+    return d < nv ? row[static_cast<size_t>(u + (view ? d : 0)) * D + d]
+                  : kBig;
+  };
+  unsigned long long key = ~0ull;
+  for (int d = lane; d < D; d += 32)
+    key = min(key, static_cast<unsigned long long>(cost(d)) << 32 |
+                       static_cast<unsigned>(d));
+  for (int o = 16; o > 0; o /= 2)
+    key = min(key, __shfl_xor_sync(kFull, key, o));
+  const int bd = static_cast<int>(key & 0xffffffffu);
+  int second = kBig;
+  for (int d = lane; d < D; d += 32)
+    if (abs(d - bd) > 1) second = min(second, cost(d));
+  second = __reduce_min_sync(kFull, second);
+  if (lane != 0) return;
+  const float disp = disparity(bd, static_cast<int>(key >> 32), second,
+                               bd > 0 ? cost(bd - 1) : kBig,
+                               bd < D - 1 ? cost(bd + 1) : kBig, D, uniq);
+  (view == 0 ? dl : dr)[px] = disp;
+}
+
 // The L/R check of the left view, in place: dl holds the left view's WTA.
 __global__ void lr_check_kernel(float* __restrict__ dl,
                                 const float* __restrict__ dr, int H, int W,
@@ -425,19 +526,53 @@ Choice choose(int B, int H, int W, int D, int r, bool narrow_only) {
   return {sw, RH};
 }
 
+constexpr int kStripMaxD = 256;   // the strip kernel's largest D
+
+// The D > 256 path over the frames, one after another through ``scratch``
+// (two int32 [H, W, D] volumes).
+cudaError_t launch_wide(const uint8_t* L, const uint8_t* R, float* dl,
+                        float* dr, int* scratch, int B, int H, int W, int D,
+                        int r, float uniq, cudaStream_t s) {
+  if (scratch == nullptr || B < 1 || H < 1 || W < 1 || r < 0 || r > 127)
+    return cudaErrorInvalidValue;
+  const size_t frame = static_cast<size_t>(H) * W;
+  int* V = scratch;
+  int* C = scratch + frame * D;
+  const long long nv = static_cast<long long>(W) * D,
+                  nh = static_cast<long long>(H) * D,
+                  nw = 64LL * H * W;  // 32 lanes a (pixel, view)
+  for (int b = 0; b < B; ++b) {
+    bm_vsum_kernel<<<static_cast<unsigned>((nv + 255) / 256), 256, 0, s>>>(
+        L + b * frame, R + b * frame, V, H, W, D, r);
+    bm_hsum_kernel<<<static_cast<unsigned>((nh + 255) / 256), 256, 0, s>>>(
+        V, C, H, W, D, r);
+    bm_wta_wide_kernel<<<static_cast<unsigned>((nw + 255) / 256), 256, 0,
+                         s>>>(C, dl + b * frame, dr + b * frame, H, W, D,
+                              uniq);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 template <int MODE>
 cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
-                   int B, int H, int W, int D, int r, float lr_threshold,
-                   float uniq, bool narrow_only, void* stream) {
-  const Choice c = choose(B, H, W, D, r, narrow_only);
-  if (c.sw == 0) return cudaErrorInvalidValue;
+                   int* scratch, int B, int H, int W, int D, int r,
+                   float lr_threshold, float uniq, bool narrow_only,
+                   void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      c.sw == kWide
-          ? launch_sw<kWide, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
-                                   plan(D, r, kWide), s)
-          : launch_sw<kNarrow, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
-                                     plan(D, r, kNarrow), s);
+  cudaError_t e;
+  if (MODE == kFullMode && D > kStripMaxD) {
+    e = launch_wide(L, R, dl, dr, scratch, B, H, W, D, r, uniq, s);
+  } else {
+    const Choice c = choose(B, H, W, D, r, narrow_only);
+    if (c.sw == 0) return cudaErrorInvalidValue;
+    e = c.sw == kWide
+            ? launch_sw<kWide, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
+                                     plan(D, r, kWide), s)
+            : launch_sw<kNarrow, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH,
+                                       uniq, plan(D, r, kNarrow), s);
+  }
   if (e != cudaSuccess || MODE != kFullMode) return e;
   const long long n = static_cast<long long>(B) * H * W;
   lr_check_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
@@ -447,24 +582,36 @@ cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
 
 }  // namespace
 
-// Shared bytes a block needs at this D and r (any width); -1 if they pass
-// a block's 227 KB. The wrapper refuses a shape that gives -1.
+// Shared bytes a block of the strip kernel needs at this D and r (any
+// width); -1 if they pass a block's 227 KB. The wrapper refuses a shape
+// that gives -1. 0 past D = 256: the path there uses no shared memory.
 extern "C" int bm_smem_bytes(int D, int r) {
+  if (D > kStripMaxD) return 0;
   const Plan p = plan(D, r, kNarrow);
   return p.smem > kSmemMax ? -1 : p.smem;
 }
 
 // The strip width (64 or 32 columns) that bm_match takes at this shape, 0
-// for a shape it refuses: lets a test see which instantiation it held.
+// for a shape it refuses or takes on the D > 256 path: lets a test see
+// which instantiation it held.
 extern "C" int bm_strip_width(int B, int H, int W, int D, int r) {
   return choose(B, H, W, D, r, false).sw;
 }
 
+// The scratch bytes bm_match needs at this shape: two int32 [H, W, D]
+// volumes where D > 256 (its D > 256 path), else 0.
+extern "C" long long bm_scratch_bytes(int H, int W, int D) {
+  return D > kStripMaxD ? 2LL * H * W * D * static_cast<long long>(sizeof(int))
+                        : 0;
+}
+
+// scratch: bm_scratch_bytes(H, W, D) bytes (null where that is 0).
 extern "C" int bm_match(const uint8_t* L, const uint8_t* R, float* dl,
                         float* dr, int B, int H, int W, int D, int r,
-                        float lr_threshold, float uniq, void* stream) {
-  return static_cast<int>(launch<kFullMode>(L, R, dl, dr, B, H, W, D, r,
-                                            lr_threshold, uniq, false,
+                        float lr_threshold, float uniq, int* scratch,
+                        void* stream) {
+  return static_cast<int>(launch<kFullMode>(L, R, dl, dr, scratch, B, H, W,
+                                            D, r, lr_threshold, uniq, false,
                                             stream));
 }
 
@@ -482,20 +629,20 @@ extern "C" int bm_match_diag(const uint8_t* L, const uint8_t* R, float* dl,
   switch (mode) {
     case kFullMode:
     case 4:
-      e = launch<kFullMode>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                            mode == 4, stream);
+      e = launch<kFullMode>(L, R, dl, dr, nullptr, B, H, W, D, r,
+                            lr_threshold, uniq, mode == 4, stream);
       break;
     case kOneWta:
-      e = launch<kOneWta>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                          false, stream);
+      e = launch<kOneWta>(L, R, dl, dr, nullptr, B, H, W, D, r,
+                          lr_threshold, uniq, false, stream);
       break;
     case kBoxOnly:
-      e = launch<kBoxOnly>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                           false, stream);
+      e = launch<kBoxOnly>(L, R, dl, dr, nullptr, B, H, W, D, r,
+                           lr_threshold, uniq, false, stream);
       break;
     case kNoBox:
-      e = launch<kNoBox>(L, R, dl, dr, B, H, W, D, r, lr_threshold, uniq,
-                         false, stream);
+      e = launch<kNoBox>(L, R, dl, dr, nullptr, B, H, W, D, r,
+                         lr_threshold, uniq, false, stream);
       break;
   }
   return static_cast<int>(e);

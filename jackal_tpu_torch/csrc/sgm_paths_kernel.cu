@@ -63,6 +63,11 @@
 //    __vsub2 and __viaddmin_u16x2 (C + best - m against BIG) a pair.
 //    Larger penalties take the 32-bit path (the same walk, one value a
 //    register, int32 arithmetic), as the plain version's int32 does.
+// D > 256 (DP > 256): K = DP / 32 values a lane would spill the ring's
+// registers, so the launcher takes a second, simple line kernel there,
+// sgm_lines_wide_kernel (below): the carry in shared memory, d strided
+// over the lanes, int32 at every penalty; the layout and sum kernels are
+// the same. D <= 256 keeps the register kernels.
 // Bytes: the layout pass (2 + 2 bytes a cell), the 8 paths' cost reads
 // (16, partly from L2: the volume is 39 MB at 640x480), their path volumes
 // written (16) and read back (16), S (2): about 52 bytes a cell, where the
@@ -218,14 +223,15 @@ __device__ __forceinline__ Vec<K> step32(const Vec<K>& prev, const Vec<K>& c,
   return out;
 }
 
-template <int K, bool WIDE>
-__global__ void __launch_bounds__(kWarps * 32)
-    sgm_lines_kernel(const int16_t* __restrict__ cost,
-                     int16_t* __restrict__ paths, int B, int H, int W,
-                     int DP, int p1, int p2, Work work) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= work.start[work.n_dirs]) return;  // the whole warp leaves
+// The line a warp walks: its direction k, its length, and the offsets
+// (in cells of DP values) of its first cell and of a step.
+struct Line {
+  int k, len;
+  long long first, step;
+};
+
+__device__ __forceinline__ Line line_of(int warp, const Work& work, int H,
+                                        int W, int DP) {
   int k = 0;
   while (warp >= work.start[k + 1]) ++k;
   const int dv = kDirs[k][0], du = kDirs[k][1];
@@ -246,12 +252,28 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   const int len_v = dv > 0 ? H - v : (dv < 0 ? v + 1 : INT_MAX);
   const int len_u = du > 0 ? W - u : (du < 0 ? u + 1 : INT_MAX);
-  const int len = min(len_v, len_u);
-  const long long step = (static_cast<long long>(dv) * W + du) * DP;
-  const long long first =
-      ((static_cast<long long>(b) * H + v) * W + u) * DP + lane * K;
+  Line ln;
+  ln.k = k;
+  ln.len = min(len_v, len_u);
+  ln.step = (static_cast<long long>(dv) * W + du) * DP;
+  ln.first = ((static_cast<long long>(b) * H + v) * W + u) * DP;
+  return ln;
+}
+
+template <int K, bool WIDE>
+__global__ void __launch_bounds__(kWarps * 32)
+    sgm_lines_kernel(const int16_t* __restrict__ cost,
+                     int16_t* __restrict__ paths, int B, int H, int W,
+                     int DP, int p1, int p2, Work work) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (warp >= work.start[work.n_dirs]) return;  // the whole warp leaves
+  const Line ln = line_of(warp, work, H, W, DP);
+  const int len = ln.len;
+  const long long step = ln.step;
+  const long long first = ln.first + lane * K;
   const int16_t* cl = cost + first;
-  int16_t* out = paths + static_cast<long long>(k) * B * H * W * DP + first;
+  int16_t* out = paths + static_cast<long long>(ln.k) * B * H * W * DP + first;
   const uint32_t p1x2 = WIDE ? 0u : __byte_perm(p1, p1, 0x1010);
 
   Vec<K> ring[kRing];
@@ -272,6 +294,49 @@ __global__ void __launch_bounds__(kWarps * 32)
                   : step16<K>(prev, c, lane, p1x2, p2);
       store_vec<K>(out + t * step, prev);
     }
+  }
+}
+
+// The D > 256 path (DP > 256): one warp a line as above, the lanes taking
+// d = lane, lane + 32, ..., the carry in shared memory (two int32 rows of
+// DP + 2 a warp, the previous step's and this one's, BIG at both ends for
+// the missing d - 1 / d + 1 neighbours), int32 arithmetic at every
+// penalty. A step: the carry's minimum m over all d (a lane's strided
+// minimum, then __reduce_min_sync), then each d's value, stored to the
+// path volume and into the other row; __syncwarp before the rows swap.
+__global__ void __launch_bounds__(kWarps * 32)
+    sgm_lines_wide_kernel(const int16_t* __restrict__ cost,
+                          int16_t* __restrict__ paths, int B, int H, int W,
+                          int DP, int p1, int p2, Work work, int wpb) {
+  extern __shared__ int carry[];  // [wpb][2][DP + 2]
+  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * wpb + wib;
+  if (wib >= wpb || warp >= work.start[work.n_dirs]) return;
+  const Line ln = line_of(warp, work, H, W, DP);
+  const int16_t* cl = cost + ln.first;
+  int16_t* out =
+      paths + static_cast<long long>(ln.k) * B * H * W * DP + ln.first;
+  int* prev = carry + wib * 2 * (DP + 2);
+  int* next = prev + DP + 2;
+  for (int d = lane; d < DP + 2; d += 32) prev[d] = next[d] = kBig;
+  __syncwarp();
+  for (int t = 0; t < ln.len; ++t) {
+    const int16_t* c = cl + t * ln.step;
+    int16_t* o = out + t * ln.step;
+    int mloc = kBig;
+    for (int d = lane; d < DP; d += 32) mloc = min(mloc, prev[d + 1]);
+    const int m = __reduce_min_sync(kFull, mloc);
+    for (int d = lane; d < DP; d += 32) {
+      const int best = min(min(prev[d + 1], m + p2),
+                           min(prev[d], prev[d + 2]) + p1);
+      const int val = min(c[d] + (best - m), kBig);
+      next[d + 1] = val;
+      o[d] = static_cast<int16_t>(val);
+    }
+    __syncwarp();
+    int* tmp = prev;
+    prev = next;
+    next = tmp;
   }
 }
 
@@ -357,6 +422,29 @@ cudaError_t launch_lines(const int16_t* cost, int16_t* paths, int B, int H,
   return cudaGetLastError();
 }
 
+constexpr int kSmemMax = 232448;   // a block's shared memory
+
+// The D > 256 path's launch: as many warps a block (at most kWarps) as
+// their carries fit in shared memory.
+cudaError_t launch_wide(const int16_t* cost, int16_t* paths, int B, int H,
+                        int W, int DP, int p1, int p2, const Work& work,
+                        cudaStream_t s) {
+  const int per_warp = 2 * (DP + 2) * static_cast<int>(sizeof(int));
+  const int wpb = min(kWarps, kSmemMax / per_warp);
+  if (wpb < 1) return cudaErrorInvalidValue;
+  const int smem = wpb * per_warp;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sgm_lines_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (work.start[work.n_dirs] + wpb - 1) / wpb;
+  sgm_lines_wide_kernel<<<blocks, kWarps * 32, smem, s>>>(
+      cost, paths, B, H, W, DP, p1, p2, work, wpb);
+  return cudaGetLastError();
+}
+
 template <bool WIDE>
 cudaError_t launch_k(const int16_t* cost, int16_t* paths, int B, int H,
                      int W, int DP, int p1, int p2, const Work& work,
@@ -384,7 +472,7 @@ extern "C" int sgm_paths(const int16_t* cost, int16_t* padded,
                          int16_t* paths, int16_t* S, int B, int H, int W,
                          int D, int p1, int p2, int num_paths, void* stream) {
   const int DP = sgm_padded_d(D);
-  if (B < 1 || H < 1 || W < 1 || D < 2 || D > 256 || p1 < 0 || p2 < 0 ||
+  if (B < 1 || H < 1 || W < 1 || D < 2 || p1 < 0 || p2 < 0 ||
       p1 > INT_MAX - kBig || p2 > INT_MAX - kBig ||
       (num_paths != 8 && num_paths != 4) ||
       static_cast<long long>(B) * H * ((W + kTileU - 1) / kTileU) > INT_MAX)
@@ -406,8 +494,11 @@ extern "C" int sgm_paths(const int16_t* cost, int16_t* padded,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool wide = p1 > 32767 - kBig || p2 > 32767 - kBig;
-  e = wide ? launch_k<true>(padded, paths, B, H, W, DP, p1, p2, work, s)
-           : launch_k<false>(padded, paths, B, H, W, DP, p1, p2, work, s);
+  if (DP > 256)
+    e = launch_wide(padded, paths, B, H, W, DP, p1, p2, work, s);
+  else
+    e = wide ? launch_k<true>(padded, paths, B, H, W, DP, p1, p2, work, s)
+             : launch_k<false>(padded, paths, B, H, W, DP, p1, p2, work, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   sgm_sum_kernel<<<tiles, 256, 0, s>>>(paths, S, B, H, W, D, DP, num_paths);
   return static_cast<int>(cudaGetLastError());

@@ -6,7 +6,7 @@
 // jackal_tpu_torch/ops/sgm_kernel.py (wta_maps of matching/sgm.py on the
 // volume and on its right view); the wrapper is ops/sgm_kernel.sgm_wta_maps.
 //
-// What it computes. S is int16 [B, H, D, W], 2 <= D <= 256, with values in
+// What it computes. S is int16 [B, H, D, W], D >= 2, with values in
 // [0, 28000] (the path sum's range, _CARRY_BIG). For each pixel (b, v, u)
 // and each view, five statistics over d: the best (least) value, the FIRST
 // d that has it, the least value outside best_d +- 1, and the values at
@@ -50,6 +50,15 @@
 //  - the maps are stored as pairs.
 // Device memory sees S about once (a halo is the next tile's columns, read
 // from L2) and the maps once.
+//
+// D > 256: the slab (D rows of at least D + 136 columns) outgrows shared
+// memory past D = 256 and d no longer fits the key's 8 bits, so the
+// launcher takes a second, simple kernel there, sgm_wta_maps_wide_kernel:
+// a thread a (frame, row, column) walks d in device memory (a warp's 32
+// columns are one coalesced load a d), two walks a view: the least key
+// value << 16 | d (values <= 30000 < 2^15, d < 2^16), then the least value
+// outside best_d +- 1 (D <= 32767, best_d's int16). It reads S four
+// times, mostly from L2. D <= 256 keeps the slab kernel above.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -244,12 +253,54 @@ sgm_wta_maps_kernel(const uint16_t* __restrict__ S, int16_t* __restrict__ out,
   store(o + 5 * W, u, W, sr, mr);
 }
 
+constexpr int kWideThreads = 128;       // columns a block, D > 256
+constexpr int kSlabMaxD = 256;          // the slab kernel's largest D
+
+// The D > 256 path: a thread a (frame, row, column), both views.
+__global__ void __launch_bounds__(kWideThreads)
+sgm_wta_maps_wide_kernel(const uint16_t* __restrict__ S,
+                         int16_t* __restrict__ out, int H, int D, int W) {
+  const int u = blockIdx.x * kWideThreads + threadIdx.x;
+  if (u >= W) return;
+  const size_t row = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
+  const uint16_t* s = S + row * D * W;
+  int16_t* o = out + row * 10 * W;
+#pragma unroll 1
+  for (int view = 0; view < 2; ++view) {
+    // the view's value at d: S[d, u] or, right, S[d, u + d] (12000 past W)
+    auto at = [&](int d) -> uint32_t {
+      const int x = u + (view ? d : 0);
+      return x < W ? s[static_cast<size_t>(d) * W + x] : kInvalid;
+    };
+    uint32_t key = ~0u;
+    for (int d = 0; d < D; ++d) key = min(key, at(d) << 16 | d);
+    const int bd = key & 0xffffu;
+    uint32_t second = kWtaBig;
+    for (int d = 0; d < bd - 1; ++d) second = min(second, at(d));
+    for (int d = bd + 2; d < D; ++d) second = min(second, at(d));
+    const uint32_t st[5] = {key >> 16, static_cast<uint32_t>(bd), second,
+                            bd > 0 ? at(bd - 1) : kWtaBig,
+                            bd < D - 1 ? at(bd + 1) : kWtaBig};
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      o[(5 * view + i) * W + u] = static_cast<int16_t>(st[i]);
+  }
+}
+
 }  // namespace
 
 extern "C" int sgm_wta_maps(const int16_t* S, int16_t* out, int B, int H,
                             int D, int W, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || D < 2 || D > 256 || H > 65535 || B > 65535)
+  if (B < 1 || H < 1 || W < 1 || D < 2 || D > 32767 || H > 65535 ||
+      B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kSlabMaxD) {
+    const dim3 grid((W + kWideThreads - 1) / kWideThreads, H, B);
+    sgm_wta_maps_wide_kernel<<<grid, kWideThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const uint16_t*>(S), out, H, D, W);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int smem = D * row_len(D) * static_cast<int>(sizeof(uint16_t));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -20,7 +20,9 @@ d, -1 (no candidate) or -10 (pixel not matched).
 dense_match_pair() runs the CUDA kernel (csrc/elas_dense_kernel.cu) once
 for both views on CUDA tensors and dense_match_pair_plain() (two
 dense_match_plain() calls) on CPU tensors; dense_match() does one view on
-the same kernel.
+the same kernel. Under subsampling the function is the same: the caller
+computes every pixel from the half-resolution descriptors and keeps the
+even ones (pipeline.elas_match, as the reference's elas_match does).
 """
 from __future__ import annotations
 
@@ -203,20 +205,12 @@ def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
     return outs
 
 
-def _no_subsampling(params):
-    if params.subsampling:
-        raise NotImplementedError(
-            "ELAS subsampling waits for a later slice of the port "
-            "(ROADMAP Queue 1, item 6)")
-
-
 def dense_match(desc1, desc2, d_plane, plane_valid, covered, grid_words,
                 params: ElasParams = ElasParams(),
                 right_image: bool = False) -> torch.Tensor:
     """Dense disparity [B, H, W] float32 of one view; the CUDA kernel (one
     launch for this view) on CUDA tensors, the plain version on CPU
     tensors. grid_words is the candidate grid as pack_grid gives it."""
-    _no_subsampling(params)
     if desc1.is_cuda:
         maps = (d_plane, plane_valid, covered, grid_words)
         outs = _dense_match_cuda(desc1, desc2,
@@ -242,7 +236,6 @@ def dense_match_pair(desc1, desc2, maps_left, maps_right,
     one kernel launch for both on CUDA tensors, the plain version on CPU
     tensors. maps_left / maps_right are each view's (d_plane, plane_valid,
     covered, grid_words)."""
-    _no_subsampling(params)
     if desc1.is_cuda:
         return tuple(_dense_match_cuda(desc1, desc2, maps_left, maps_right,
                                        params, 3))

@@ -15,7 +15,8 @@ Two paths. The per-frame path, elas_match, stage by stage:
 The frame crosses to the host twice: the int16 candidate grid before
 stage 3, and the int16 left (and, when both views are postprocessed, right)
 disparity before stage 6. Every stage is bit-equal to the reference build,
-so D1/D2 equal libelas's.
+so D1/D2 equal libelas's. It alone takes ElasParams.subsampling (half-
+resolution maps); the batched path raises the reference's ValueError.
 
 The batched path, elas_match_batch_device / elas_match_batch /
 elas_match_stream, keeps only pruning and triangulation on the host:
@@ -81,18 +82,19 @@ def elas_match(
     disparity maps on ``device`` (the card unless ``device="cpu"``).
 
     Invalid pixels are negative (-1 / -10), matching libelas encodings.
-    tri_left/tri_right override the Delaunay triangulation (tests)."""
-    if params.subsampling:
-        raise NotImplementedError(
-            "ELAS subsampling waits for a later slice of the port "
-            "(ROADMAP Queue 1, item 6)")
+    tri_left/tri_right override the Delaunay triangulation (tests). Under
+    params.subsampling (elas.h:82-84) the descriptors are half-resolution,
+    the support step even, and the maps [H // 2, W // 2]: the dense
+    matcher computes every pixel and the even ones are kept
+    (elas.cpp:793-795, 877-881); with fewer than 3 support points the
+    maps are [H, W] of -10, as the reference's bail-out returns them."""
     if tuple(left_u8.shape) != tuple(right_u8.shape):
         raise ValueError(
             f"left/right shape mismatch: {left_u8.shape} vs {right_u8.shape}")
     dev = resolve_device(device)
     H, W = left_u8.shape
     imgs = torch.stack([torch.as_tensor(left_u8), torch.as_tensor(right_u8)])
-    desc = create_descriptor(imgs.to(dev))                # [2, H, W, 16]
+    desc = create_descriptor(imgs.to(dev), params.subsampling)  # [2,H,W,16]
     desc1, desc2 = desc[0:1], desc[1:2]
 
     dcan = support_candidates(desc1, desc2, params)[0].cpu().numpy()
@@ -110,6 +112,9 @@ def elas_match(
 
     D1, D2 = (x[0] for x in dense_match_pair(
         desc1, desc2, upload(maps1, grid1), upload(maps2, grid2), params))
+    if params.subsampling:
+        D1, D2 = (x[0::2, 0::2][:H // 2, :W // 2].contiguous()
+                  for x in (D1, D2))
 
     D1, D2 = left_right_consistency_check(D1, D2, params)
     D1 = _speckle(D1, params)
@@ -346,11 +351,12 @@ def _index(order: np.ndarray, dev: torch.device) -> torch.Tensor:
     return to_device(order.astype(np.int64), dev)[0]
 
 
+_NO_SUBSAMPLING = "batched path does not support subsampling; use elas_match"
+
+
 def _batch_inputs(left_b, right_b, params: ElasParams, chunk, device):
     if params.subsampling:
-        raise NotImplementedError(
-            "ELAS subsampling waits for a later slice of the port "
-            "(ROADMAP Queue 1, item 6); the batched path has none")
+        raise ValueError(_NO_SUBSAMPLING)
     dev = resolve_device(device)
     left, right = (torch.as_tensor(x) for x in (left_b, right_b))
     if left.shape != right.shape or left.dim() != 3:
@@ -441,9 +447,7 @@ def elas_match_stream(
     the host prior of later batches overlaps the card's work on earlier
     ones."""
     if params.subsampling:
-        raise NotImplementedError(
-            "ELAS subsampling waits for a later slice of the port "
-            "(ROADMAP Queue 1, item 6); the batched path has none")
+        raise ValueError(_NO_SUBSAMPLING)
     dev = resolve_device(device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 

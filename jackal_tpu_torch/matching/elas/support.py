@@ -151,11 +151,9 @@ def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
     """Candidate grid [B, ncv, ncu] int16 from descriptors [B, H, W, 16]
     (calloc-0 border row/col 0). Entry (v_can, u_can) for u_can, v_can >= 1
     is the L/R-consistent support disparity at (u_can*step, v_can*step),
-    or -1."""
-    if params.subsampling:
-        raise NotImplementedError(
-            "ELAS subsampling waits for a later slice of the port "
-            "(ROADMAP Queue 1, item 6)")
+    or -1. Under subsampling the descriptors are the half-resolution ones
+    (create_descriptor(..., half_resolution=True)) and the step is even,
+    so the grid rows read only the rows those keep."""
     B, H, W, _ = desc1.shape
     step = effective_stepsize(params)
     ncu = -(-W // step)

@@ -27,16 +27,15 @@ from . import cuda_lib
 
 launches = {"bm": 0, "bm_diag": 0}
 
-# the disparity counts the kernel takes: its key packs (cost << 8) | d
-D_RANGE = (2, 256)
+D_MIN = 2                # the least disparity count the kernel takes
 WINDOW_MAX = 255         # keeps every real cost below the key's 2^24 - 1
 DIAG_MODES = ("full", "onewta", "boxonly", "nobox", "full32")
 
 
-def _fn(lib_name: str, fn_name: str, n_int: int):
+def _fn(lib_name: str, fn_name: str, extra_types):
     fn = getattr(cuda_lib.load(lib_name), fn_name)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float] * 2 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        ctypes.c_float] * 2 + list(extra_types) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -53,9 +52,8 @@ def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
     """Contiguous copies of the inputs, or ValueError for what the kernel
     does not take."""
     D, win = params.disp_num, params.window
-    if not D_RANGE[0] <= D <= D_RANGE[1]:
-        raise ValueError(f"the BM kernel takes {D_RANGE[0]} <= D <= "
-                         f"{D_RANGE[1]}, got D = {D}")
+    if D < D_MIN:
+        raise ValueError(f"the BM kernel takes D >= {D_MIN}, got D = {D}")
     if win % 2 == 0 or not 1 <= win <= WINDOW_MAX:
         raise ValueError(f"the BM kernel takes an odd window of 1 to "
                          f"{WINDOW_MAX}, got {win}")
@@ -75,12 +73,13 @@ def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
     return left_b.contiguous(), right_b.contiguous()
 
 
-def _launch(lib_name, fn_name, left_b, right_b, params, *extra):
+def _launch(lib_name, fn_name, left_b, right_b, params, extra,
+            extra_types):
     left_b, right_b = _checked(left_b, right_b, params, lib_name)
     B, H, W = left_b.shape
     dl = torch.empty((B, H, W), dtype=torch.float32, device=left_b.device)
     dr = torch.empty_like(dl)
-    err = _fn(lib_name, fn_name, len(extra))(
+    err = _fn(lib_name, fn_name, extra_types)(
         left_b.data_ptr(), right_b.data_ptr(), dl.data_ptr(), dr.data_ptr(),
         B, H, W, params.disp_num, params.window // 2,
         float(params.lr_threshold), float(params.uniqueness), *extra,
@@ -95,20 +94,29 @@ def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
     """uint8 [B, H, W] pairs -> (D_left after the L/R check, D_right),
     float32 [B, H, W], -1 for invalid: kernel G on the card.
 
-    On the card D is limited to 2 <= D <= 256 (D_RANGE: G packs (cost << 8)
-    | d into one 32-bit key) and a larger D raises ValueError, never a
-    switch to the plain twin; the plain twin (CPU tensors) takes any D, as
-    the reference package's bm_match does."""
+    Any D >= 2, as the reference package's bm_match: past D = 256 the
+    kernel takes its D > 256 path, which needs a scratch of two int32
+    [H, W, D] volumes (bm_scratch_bytes; allocated here, the frames run
+    one after another through it)."""
     if not left_b.is_cuda:
         return bm_match_fused_plain(left_b, right_b, params)
-    out = _launch("bm_kernel", "bm_match", left_b, right_b, params)
+    fn = cuda_lib.load("bm_kernel").bm_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    n = fn(*left_b.shape[1:], params.disp_num) if left_b.dim() == 3 else 0
+    scratch = (torch.empty(n, dtype=torch.uint8, device=left_b.device)
+               if n > 0 else None)
+    out = _launch("bm_kernel", "bm_match", left_b, right_b, params,
+                  (None if scratch is None else scratch.data_ptr(),),
+                  (ctypes.c_void_p,))
     launches["bm"] += 1
     return out
 
 
 def strip_width(shape: Tuple[int, int, int], params: BMParams) -> int:
     """The columns a block of G owns (64 or 32) at a [B, H, W] shape, as
-    bm_match_fused's launch chooses them; 0 for a shape it refuses."""
+    bm_match_fused's launch chooses them; 0 for a shape it refuses or
+    takes on its D > 256 path."""
     fn = cuda_lib.load("bm_kernel").bm_strip_width
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
@@ -128,6 +136,6 @@ def bm_match_diag(left_b: torch.Tensor, right_b: torch.Tensor,
     if not left_b.is_cuda:
         raise ValueError("bm_match_diag runs on the card only")
     out = _launch("bm_kernel_diag", "bm_match_diag", left_b, right_b, params,
-                  DIAG_MODES.index(mode))
+                  (DIAG_MODES.index(mode),), (ctypes.c_int,))
     launches["bm_diag"] += 1
     return out

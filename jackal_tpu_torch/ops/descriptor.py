@@ -62,9 +62,13 @@ def sobel3x3(img_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return du, dv
 
 
-def create_descriptor(img_u8: torch.Tensor) -> torch.Tensor:
-    """16-channel uint8 descriptor [..., H, W, 16] of u8 images [..., H, W]
-    (full resolution; the subsampling variant waits for a later slice)."""
+def create_descriptor(img_u8: torch.Tensor,
+                      half_resolution: bool = False) -> torch.Tensor:
+    """16-channel uint8 descriptor [..., H, W, 16] of u8 images [..., H, W].
+
+    half_resolution=True (the ELAS subsampling path, descriptor.cpp:48-78)
+    keeps only even rows 4 <= v <= H-4 and columns 3 <= u <= W-4; every
+    other pixel is 0, the reference's fresh-page contents."""
     du, dv = sobel3x3(img_u8)
     H, W = img_u8.shape[-2:]
     dup = F.pad(du, (2, 2, 2, 2), value=128)
@@ -73,5 +77,8 @@ def create_descriptor(img_u8: torch.Tensor) -> torch.Tensor:
         [(dvp if use_dv else dup)[..., 2 + dy:2 + dy + H, 2 + dx:2 + dx + W]
          for dy, dx, use_dv in DESC_OFFSETS], dim=-1)
     out = torch.zeros_like(desc)
-    out[..., 3:H - 3, 3:W - 3, :] = desc[..., 3:H - 3, 3:W - 3, :]
+    if half_resolution:
+        out[..., 4:H - 3:2, 3:W - 3, :] = desc[..., 4:H - 3:2, 3:W - 3, :]
+    else:
+        out[..., 3:H - 3, 3:W - 3, :] = desc[..., 3:H - 3, 3:W - 3, :]
     return out

@@ -23,10 +23,9 @@ from . import cuda_lib
 
 launches = {"census": 0, "sgm_paths": 0, "sgm_wta": 0}
 
-# the disparity counts the kernels E and F take; F's key packs
-# value << 8 | d. Past it they raise (the plain twins, on CPU tensors, take
-# any D, as the reference package does)
-D_RANGE = (2, 256)
+# the least disparity count the kernels E and F take; past D = 256 each
+# takes its second path (csrc/sgm_paths_kernel.cu, csrc/sgm_wta_kernel.cu)
+D_MIN = 2
 _P_MAX = (1 << 31) - 1 - _CARRY_BIG     # penalties the path kernel takes
 
 
@@ -39,9 +38,8 @@ def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
 
 
 def _check_d(D: int) -> None:
-    if not D_RANGE[0] <= D <= D_RANGE[1]:
-        raise ValueError(f"the SGM kernels take {D_RANGE[0]} <= D <= "
-                         f"{D_RANGE[1]}, got D = {D}")
+    if D < D_MIN:
+        raise ValueError(f"the SGM kernels take D >= {D_MIN}, got D = {D}")
 
 
 # ---- D: census ------------------------------------------------------------
@@ -80,11 +78,9 @@ def aggregate_paths_bhdw(cost_bhdw: torch.Tensor, params: SGMParams
     census volume's are. The kernels lay the cost out as [B, H, W, DP], d
     innermost and padded with _CARRY_BIG to DP (a multiple of 64), so that
     one step of a path reads DP contiguous costs; every direction writes
-    its own path volume, and their sum is written in [B, H, D, W].
-
-    On the card D is limited to 2 <= D <= 256 (D_RANGE, the limit of F,
-    which runs next on the path) and a larger D raises ValueError; the
-    plain twin takes any D."""
+    its own path volume, and their sum is written in [B, H, D, W]. Any
+    D >= 2; past D = 256 the kernel walks the lines with its carry in
+    shared memory."""
     if not cost_bhdw.is_cuda:
         return aggregate_paths_bhdw_plain(cost_bhdw, params)
     B, H, D, W = cost_bhdw.shape
@@ -125,11 +121,9 @@ def sgm_wta_maps(S_bhdw: torch.Tensor) -> torch.Tensor:
     best_d, second, cost at d-1, cost at d+1 of the left view, then of the
     right view SR[d, v, u] = S[d, v, u+d] (_INVALID past the edge). The
     kernel takes S in [0, _CARRY_BIG], the path sum's range: it compares
-    the values as unsigned 16-bit lanes.
-
-    On the card D is limited to 2 <= D <= 256 (D_RANGE: the kernel packs
-    value << 8 | d into one 32-bit key) and a larger D raises ValueError;
-    the plain twin takes any D."""
+    the values as unsigned 16-bit lanes. Any D >= 2; past D = 256 the
+    kernel walks d in device memory, a thread a column, with the key
+    value << 16 | d."""
     if not S_bhdw.is_cuda:
         return sgm_wta_maps_plain(S_bhdw)
     B, H, D, W = S_bhdw.shape

@@ -101,7 +101,7 @@ def test_batch_entry_points_raise_without_the_card(frames, monkeypatch):
         elas_match_batch_device(lb, rb)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         next(elas_match_stream(iter([(lb, rb)])))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="does not support subsampling"):
         elas_match_batch(lb, rb, dataclasses.replace(ElasParams(),
                                                      subsampling=True),
                          device="cpu")

@@ -127,13 +127,23 @@ def test_bm_match_equals_jax(B, H, W, D, window, shift):
 
 
 def test_bm_match_past_the_card_limit_equals_jax():
-    """D = 320, past the card's D <= 256 (ops/bm_kernel.D_RANGE): the
+    """D = 320, past G's strip kernel (ops/bm_kernel.STRIP_MAX_D): the
     port's plain engine and kernel G's plain twin compute the reference's
-    function there; only the card's kernel refuses the shape
-    (tests/test_torch_cuda.py::test_bm_and_sgm_card_limit_d256)."""
-    rng = np.random.default_rng(320)
-    left, right = _pair(rng, 1, 12, 360, 40)
-    jp, tp = _params(320)
+    function there; the card's D > 256 path equals them
+    (tests/test_torch_cuda.py::test_bm_and_sgm_card_past_d256_equal_cpu)."""
+    _past_the_strip(320, 360)
+
+
+@pytest.mark.parametrize("D,W", [(512, 560), (1024, 1100)])
+def test_bm_match_at_large_d_equals_jax(D, W):
+    """D = 512 and 1024 on narrow strips (W >= D + 40)."""
+    _past_the_strip(D, W)
+
+
+def _past_the_strip(D, W):
+    rng = np.random.default_rng(D)
+    left, right = _pair(rng, 1, 12, W, 40)
+    jp, tp = _params(D)
     lt, rt = torch.from_numpy(left), torch.from_numpy(right)
     dl, dr = bm.bm_match(lt, rt, tp)
     wl, wr = jbm.bm_match(jnp.asarray(left[0]), jnp.asarray(right[0]), jp)

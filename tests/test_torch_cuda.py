@@ -458,32 +458,31 @@ def test_wta_kernel_never_runs_the_plain_twin(dev, monkeypatch):
     assert int(maps[:, :, 0].max()) == 7
 
 
-@pytest.mark.parametrize("D", [256, 257, 320])
-def test_bm_and_sgm_card_limit_d256(dev, D, monkeypatch):
-    """The card's line at D <= 256 (ops/bm_kernel.D_RANGE and
-    ops/sgm_kernel.D_RANGE; the reference takes any D, and so do the port's
-    plain engines: tests/test_torch_bm.py and test_torch_sgm.py at D =
-    320). At 256 BM's kernel and sgm_match on the card equal the CPU's;
-    past it they raise a ValueError that names the limit and never reach a
-    plain twin."""
+@pytest.mark.parametrize("D", [256, 257, 320, 512, 1024])
+def test_bm_and_sgm_card_past_d256_equal_cpu(dev, D, monkeypatch):
+    """The card takes every D the CPU takes: BM's kernel and sgm_match on
+    the card equal the CPU's plain engines (which equal the reference at
+    D = 320, 512 and 1024: tests/test_torch_bm.py, test_torch_sgm.py), and
+    E and F alone equal their plain twins, at D = 256 (the register and
+    slab kernels) and past it (their D > 256 paths), on seeded 1 x 12 x W
+    strips, W = D + 76. No plain twin runs on a CUDA tensor."""
     from jackal_tpu_torch.config import BMParams, SGMParams
     from jackal_tpu_torch.matching import sgm
     from jackal_tpu_torch.ops import bm_kernel as bk
     from jackal_tpu_torch.ops import sgm_kernel as sk
 
-    left = np.random.default_rng(D).integers(0, 256, (1, 12, 360)).astype(
+    W = max(360, D + 76)
+    left = np.random.default_rng(D).integers(0, 256, (1, 12, W)).astype(
         np.uint8)
     lb, rb = torch.from_numpy(left), torch.from_numpy(np.roll(left, -40, 2))
     rs = np.roll(left, 40, axis=2)
     bp, sp = BMParams(disp_num=D), SGMParams(disp_num=D)
-    if D <= 256:
-        want = bk.bm_match_fused(lb, rb, bp)
-        got = bk.bm_match_fused(lb.to(dev), rb.to(dev), bp)
-        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-        want = sgm.sgm_match(left[0], rs[0], sp, device="cpu")
-        got = sgm.sgm_match(left[0], rs[0], sp, device=dev)
-        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-        return
+    want_bm = bk.bm_match_fused(lb, rb, bp)
+    want_sgm = sgm.sgm_match(left[0], rs[0], sp, device="cpu")
+    codes = sgm.census5x5(torch.from_numpy(np.concatenate([left, rs])))
+    cost = sgm.census_cost_volume_hdw(codes[:1], codes[1:], D)
+    want_S = sk.aggregate_paths_bhdw(cost, sp)
+    want_maps = sk.sgm_wta_maps(want_S)
 
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain twin")
@@ -493,20 +492,23 @@ def test_bm_and_sgm_card_limit_d256(dev, D, monkeypatch):
                              "sgm_wta_maps_plain", "wta_maps"))):
         for name in names:
             monkeypatch.setattr(mod, name, refuse)
-    with pytest.raises(ValueError, match="D <= 256"):
-        bk.bm_match_fused(lb.to(dev), rb.to(dev), bp)
-    with pytest.raises(ValueError, match="D <= 256"):
-        sgm.sgm_match(left[0], rs[0], sp, device=dev)
-    vol = torch.zeros((1, 4, D, 8), dtype=torch.int16, device=dev)
-    with pytest.raises(ValueError, match="D <= 256"):
-        sk.sgm_wta_maps(vol)
+    n0 = dict(sk.launches)
+    got = bk.bm_match_fused(lb.to(dev), rb.to(dev), bp)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want_bm))
+    got = sgm.sgm_match(left[0], rs[0], sp, device=dev)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want_sgm))
+    S = sk.aggregate_paths_bhdw(cost.to(dev), sp)
+    assert torch.equal(S.cpu(), want_S)
+    assert torch.equal(sk.sgm_wta_maps(S).cpu(), want_maps)
+    assert sk.launches["sgm_paths"] == n0["sgm_paths"] + 2
+    assert sk.launches["sgm_wta"] == n0["sgm_wta"] + 2
 
 
 def test_sgm_kernels_refuse_what_they_do_not_take(dev):
     from jackal_tpu_torch.config import SGMParams
     from jackal_tpu_torch.ops import sgm_kernel as sk
 
-    for D in (1, 257):
+    for D in (0, 1):
         vol = torch.zeros((1, 4, D, 8), dtype=torch.int16, device=dev)
         with pytest.raises(ValueError, match="D = "):
             sk.aggregate_paths_bhdw(vol, SGMParams(disp_num=D))
@@ -668,7 +670,7 @@ def test_bm_kernel_refuses_what_it_does_not_take(dev):
     from jackal_tpu_torch.ops import bm_kernel as bk
 
     img = torch.zeros((1, 20, 64), dtype=torch.uint8, device=dev)
-    for D in (1, 257):
+    for D in (0, 1):
         with pytest.raises(ValueError, match="D = "):
             bk.bm_match_fused(img, img, BMParams(disp_num=D))
     for window in (8, 257):

@@ -126,10 +126,12 @@ def test_later_slices_raise_not_implemented():
     from jackal_tpu_torch.pipeline.default import make_pipeline
 
     img = np.zeros((40, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        elas_match(img, img, dataclasses.replace(ElasParams(),
-                                                 subsampling=True),
-                   device="cpu")
+    # subsampling is the per-frame path's (a featureless pair has no
+    # support points: the reference's full-size -10 maps)
+    D1, _ = elas_match(img, img, dataclasses.replace(ElasParams(),
+                                                     subsampling=True),
+                       device="cpu")
+    assert D1.shape == (40, 64) and bool((D1 == -10).all())
     pipe = make_pipeline(engine="elas", device="cpu")
     with pytest.raises(ValueError, match="engine='sgm'"):
         pipe.process_batch_fused(img[None], img[None])

@@ -163,6 +163,31 @@ def test_aggregate_paths_penalty_range():
     assert int(got.min()) >= 0 and int(got.max()) == sgm._CARRY_BIG
 
 
+def test_penalties_past_int16_equal_pallas(interpret_pallas):
+    """Past the jnp engine's int16 line (P1 = 6000, P2 = 100000, the input
+    of test_aggregate_paths_penalty_range) the reference's two engines
+    part: the Pallas kernel E runs the recurrence in int32 and clamps on
+    store, as the port's engine and kernel E's plain twin do, and they
+    equal it bit for bit."""
+    from jackal_tpu.ops.pallas.sgm_kernel import aggregate_paths_pallas_bhdw
+
+    rng = np.random.default_rng(12)
+    D, H, W = 16, 13, 45
+    cost = rng.integers(0, 25, (D, H, W)).astype(np.int16)
+    cost = np.where(np.arange(D)[:, None, None] > np.arange(W), 12000,
+                    cost).astype(np.int16)
+    jp, tp = _params(D, p1=6000, p2=100000)
+    bhdw = np.ascontiguousarray(cost.transpose(1, 0, 2)[None])
+    want = np.asarray(aggregate_paths_pallas_bhdw(jnp.asarray(bhdw), jp,
+                                                  hdw_layout=True))
+    got = sgm.aggregate_paths(torch.from_numpy(cost), tp)
+    np.testing.assert_array_equal(got.numpy(), want[0].transpose(1, 0, 2))
+    twin = sk.aggregate_paths_bhdw(torch.from_numpy(bhdw), tp)
+    np.testing.assert_array_equal(twin.numpy(), want)
+    assert (np.asarray(jsgm.aggregate_paths(jnp.asarray(cost), jp))
+            != want[0].transpose(1, 0, 2)).any()
+
+
 @pytest.mark.parametrize("case", ["aggregated", "ties", "D2"])
 def test_kernel_twins_equal_pallas(interpret_pallas, case):
     """Kernels E and F in interpret mode == the plain twins, at a tiny
@@ -267,13 +292,23 @@ def test_sgm_match_batch_equals_jax(shape, kw):
 
 
 def test_sgm_match_past_the_card_limit_equals_jax():
-    """D = 320, past the card's D <= 256 (ops/sgm_kernel.D_RANGE): the
-    port's plain engine computes the reference's function there; only the
-    card's kernels refuse the shape
-    (tests/test_torch_cuda.py::test_bm_and_sgm_card_limit_d256)."""
-    rng = np.random.default_rng(320)
-    left, right = _pair(rng, 1, 12, 360, 40)
-    jp, tp = _params(320)
+    """D = 320, past the register paths of kernels E and F: the port's
+    plain engine computes the reference's function there; the card's
+    D > 256 paths equal it
+    (tests/test_torch_cuda.py::test_bm_and_sgm_card_past_d256_equal_cpu)."""
+    _past_256(320, 360)
+
+
+@pytest.mark.parametrize("D,W", [(512, 560), (1024, 1100)])
+def test_sgm_match_at_large_d_equals_jax(D, W):
+    """D = 512 and 1024 on narrow strips (W >= D + 40)."""
+    _past_256(D, W)
+
+
+def _past_256(D, W):
+    rng = np.random.default_rng(D)
+    left, right = _pair(rng, 1, 12, W, 40)
+    jp, tp = _params(D)
     dl, dr = sgm.sgm_match(left[0], right[0], tp, device="cpu")
     wl, wr = jsgm.sgm_match(jnp.asarray(left[0]), jnp.asarray(right[0]), jp)
     np.testing.assert_array_equal(dl.numpy(), np.asarray(wl))
