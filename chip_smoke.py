@@ -124,6 +124,14 @@ Phases (any failure exits non-zero and prints no success line):
      final_D1 and against the CPU's, with A's and B's launch counters set
      to 0 just before and read just after; the card's exact float64 scan
      against the CPU's on phase 4's 9 maps at 640x480; one JSON line;
+  11. the multi-device paths on meshes of this one card repeated
+     (multidevice_phase): DP SGM and DP BM against process_batch_fused,
+     TP BM at D = 64 and 256 against bm_match, the ELAS replicas against
+     the single-device batched path and libelas, each with the launches of
+     its kernels pinned, entry.dryrun_multichip(8); the filters, linalg,
+     the experiments and the coefficient-wire raster against the CPU; host
+     times beside the single-device calls (no scaling: one card); one
+     JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -330,9 +338,8 @@ def sad_rate(dev):
     out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
 
     def run():
-        cuda_lib.check(lib.sad_rate(out.data_ptr(), blocks, threads, iters,
-                                    12345, cuda_lib.stream_ptr(out)),
-                       "sad_rate")
+        cuda_lib.launch(lib.sad_rate, "sad_rate", out, out.data_ptr(), blocks,
+                        threads, iters, 12345)
     sads = blocks * threads * iters * lib.sad_rate_chains() * 4
     windows = [sads / (events_ms(run, reps) * 1e-3) for _ in range(7)]
     mhz = max_sm_hz() / 1e6
@@ -1625,6 +1632,288 @@ def subsampling_phase(dev, hold, pipe, dmaps):
                             "exact_scan_ms": t_card}}
 
 
+def _same(name, got, want) -> None:
+    """Raise unless got equals want (torch.equal, want moved to got's
+    device)."""
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want.to(got.device)):
+        raise AssertionError(f"{name}: not torch.equal")
+
+
+def _counted(mods):
+    """Set the launch counters of the kernels named by (module, key) pairs
+    (key None: the module's int) to 0; the returned function reads them."""
+    for m, k in mods:
+        if k is None:
+            m.launches = 0
+        else:
+            m.launches[k] = 0
+    return lambda: [m.launches if k is None else m.launches[k]
+                    for m, k in mods]
+
+
+def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
+    """Phase 11: the multi-device paths (parallel/mesh.py, the ELAS
+    replicas) and the last modules on meshes of one card repeated. (a) DP
+    SGM and DP BM, make_pipeline at 640x480, D = 64, B = 8 of phase 4's
+    raw pairs, on 4 and 8 ranks: maps, scans and closest against
+    process_batch_fused on the batch, the launches of D, E, F or G counted
+    under the step; (b) TP BM on phase 4's rectified frames: D = 64 on
+    2 x 2 and 1 x 4, D = 256 on 1 x 8, both maps against bm_match frame by
+    frame; (c) the ELAS replicas on 8 distinct 640x480 pairs (phase 4's
+    frames, frame b rolled 3 b columns) on 2 and 4 replicas, chunk 1 and
+    2, against elas_match_batch_device(chunk=1), A, B and C counted; on
+    the golden pairs against libelas; (d) entry.dryrun_multichip(8);
+    (e) filters, linalg, the experiments and the coefficient-wire raster
+    on the card against the CPU. Host-clock times (median of 5) beside
+    the single-device step's; every rank is this one card, so no time
+    here says anything of scaling. Returns the phase's JSON line."""
+    import torch
+    from jackal_tpu_torch import entry as entry_mod
+    from jackal_tpu_torch.config import BMParams, ElasParams, PipelineParams
+    from jackal_tpu_torch.experiments import confidence, feature_matching
+    from jackal_tpu_torch.matching.bm import bm_match
+    from jackal_tpu_torch.matching.elas import dense as dense_mod
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import support as support_mod
+    from jackal_tpu_torch.matching.elas.native_prior import (
+        build_priors_native, fit_planes_native)
+    from jackal_tpu_torch.matching.elas.pipeline import (
+        elas_match_batch_device, elas_match_batch_multichip)
+    from jackal_tpu_torch.matching.elas.prior import delaunay
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.ops import filters, linalg
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+    from jackal_tpu_torch.parallel.mesh import (bm_match_tp, dp_sharded_step,
+                                                gather, make_mesh)
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    out = {"dp": {}, "tp": {}, "elas": {}}
+    size = PipelineParams(im_width=640, im_height=480, crop_im_width=640,
+                          crop_im_height=480)
+
+    # (a) DP SGM and DP BM over the data rows
+    lb = np.stack([p[0] for p in raw_pairs[:8]])
+    rb = np.stack([p[1] for p in raw_pairs[:8]])
+    fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
+    for engine, keys in (("sgm", [(sk, "census"), (sk, "sgm_paths"),
+                                  (sk, "sgm_wta")]),
+                         ("bm", [(bk, "bm")])):
+        pipe = make_pipeline(engine=engine, params=size, device=dev)
+        wd, ws = pipe.process_batch_fused(lb, rb)
+        single = host_ms(lambda: pipe.process_batch_fused(lb, rb), 5)
+        for n in (4, 8):
+            step = dp_sharded_step(pipe, make_mesh(n, devices=[dev] * n))
+            read = _counted(keys)
+            dmaps, scans, closest = step(lb, rb)
+            torch.cuda.synchronize()
+            counts = dict(zip((k for _, k in keys), read()))
+            if any(c != n for c in counts.values()):
+                raise AssertionError(f"DP {engine} on {n} ranks launched "
+                                     f"{counts}, not once a shard")
+            _same(f"DP {engine} {n} dmaps", gather(dmaps), wd)
+            got = gather(scans)
+            for f in fields:
+                _same(f"DP {engine} {n} scans.{f}", getattr(got, f),
+                      getattr(ws, f))
+            _same(f"DP {engine} {n} closest", closest, ws.scan.min())
+            ms = host_ms(lambda: step(lb, rb), 5)
+            # the shards' work alone: n single-device calls of B / n
+            Bs = 8 // n
+            shards = host_ms(lambda: [pipe.process_batch_fused(
+                lb[i:i + Bs], rb[i:i + Bs]) for i in range(0, 8, Bs)], 5)
+            out["dp"][f"{engine}_{n}"] = {"launches": counts, "ms": ms,
+                                         "single_ms": single,
+                                         "shards_ms": shards}
+            print(f"11a. DP {engine} 640x480 D = 64 B = 8 on {n} ranks of "
+                  f"{dev}: dmaps, scans (every field), closest == "
+                  f"process_batch_fused (torch.equal); launches {counts}; "
+                  f"host ms a step {ms:.3f} (single-device on B = 8 "
+                  f"{single:.3f}, {n} single-device calls of B = {Bs} "
+                  f"{shards:.3f})")
+
+    # (b) TP BM on the rectified frames
+    for D, n, disp, B in ((64, 4, 2, 2), (64, 4, 4, 2), (256, 8, 8, 1)):
+        p = BMParams(disp_num=D)
+        mesh = make_mesh(n, disp_parallel=disp, devices=[dev] * n)
+        tp = bm_match_tp(mesh, p)
+        dl, dr = (gather(x) for x in tp(rect_l[:B], rect_r[:B]))
+        for b in range(B):
+            sl, sr = bm_match(rect_l[b], rect_r[b], p)
+            _same(f"TP BM D = {D} {mesh.shape} frame {b} left", dl[b], sl)
+            _same(f"TP BM D = {D} {mesh.shape} frame {b} right", dr[b], sr)
+        ms = host_ms(lambda: tp(rect_l[:B], rect_r[:B]), 5)
+        single = host_ms(lambda: bm_match(rect_l[:B], rect_r[:B], p), 5)
+        shape = f"{mesh.shape['data']}x{mesh.shape['disp']}"
+        out["tp"][f"d{D}_{shape}"] = {"frames": B, "ms": ms,
+                                      "single_ms": single}
+        print(f"11b. TP BM 640x480 D = {D} on {shape} (data x disp) of "
+              f"{dev}, {B} frames: both maps == bm_match frame by frame "
+              f"(torch.equal); host ms a call {ms:.3f} (bm_match on the "
+              f"batch {single:.3f})")
+
+    # (c) the ELAS replicas on 8 distinct pairs
+    params = ElasParams()
+    el = torch.stack([torch.roll(rect_l[b], 3 * b, 1) for b in range(8)])
+    er = torch.stack([torch.roll(rect_r[b], 3 * b, 1) for b in range(8)])
+    S1, S2 = elas_match_batch_device(el, er, params, chunk=1, device=dev)
+    single = {c: host_ms(lambda: elas_match_batch_device(
+        el, er, params, chunk=c, device=dev), 5) for c in (1, 2)}
+    keys = [(support_mod, None), (dense_mod, None), (dp, None)]
+    for n in (2, 4):
+        for chunk in (1, 2):
+            read = _counted(keys)
+            D1, D2 = elas_match_batch_multichip(el, er, params, chunk=chunk,
+                                                devices=[dev] * n)
+            counts = dict(zip(("support", "elas_dense", "raster"), read()))
+            want = {"support": n, "elas_dense": 8 // chunk,
+                    "raster": 2 * 8 // chunk}
+            if counts != want:
+                raise AssertionError(f"ELAS replicas {n} chunk {chunk}: "
+                                     f"launches {counts}, expected {want}")
+            _same(f"ELAS {n} replicas chunk {chunk} D1",
+                  torch.from_numpy(D1), S1)
+            _same(f"ELAS {n} replicas chunk {chunk} D2",
+                  torch.from_numpy(D2), S2)
+            ms = host_ms(lambda: elas_match_batch_multichip(
+                el, er, params, chunk=chunk, devices=[dev] * n), 5)
+            out["elas"][f"{n}_chunk{chunk}"] = {
+                "launches": counts, "ms": ms, "single_ms": single[chunk]}
+            print(f"11c. ELAS {n} replicas of {dev}, chunk {chunk}, 8 "
+                  f"distinct 640x480 pairs: D1, D2 == elas_match_batch_"
+                  f"device(chunk=1) (torch.equal); launches {counts}; host "
+                  f"ms a call {ms:.3f} (single-device at chunk {chunk} "
+                  f"{single[chunk]:.3f})")
+    gold = [np.load(f"{FIX}/{f}.npz") for f in GOLDEN]
+    G1, G2 = elas_match_batch_multichip(
+        np.stack([g["left"] for g in gold]),
+        np.stack([g["right"] for g in gold]), params, devices=[dev] * 2)
+    for i, g in enumerate(gold):
+        _same(f"ELAS replicas {GOLDEN[i]} D1", torch.from_numpy(G1[i]),
+              torch.from_numpy(g["D1"]))
+        _same(f"ELAS replicas {GOLDEN[i]} D2", torch.from_numpy(G2[i]),
+              torch.from_numpy(g["D2"]))
+    print(f"11c. ELAS on 2 replicas == libelas D1/D2 bit for bit: "
+          f"{', '.join(GOLDEN)}")
+
+    # (d) the dry run of every multi-device path
+    t = time.perf_counter()
+    entry_mod.dryrun_multichip(8, device=dev)
+    print(f"11d. entry.dryrun_multichip(8) on {dev}: passed in "
+          f"{time.perf_counter() - t:.3f} s")
+
+    # (e) the last modules on the card against the CPU
+    img = rect_l[0]
+    for fn in (filters.integral_image, filters.sobel5x5,
+               filters.checkerboard5x5, filters.blob5x5):
+        got, want = fn(img), fn(img.cpu())
+        got, want = (x if isinstance(x, tuple) else (x,)
+                     for x in (got, want))
+        for g, w in zip(got, want):
+            _same(f"{fn.__name__} 640x480", g, w)
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((4096, 3, 3))
+    Bm = rng.standard_normal((4096, 3, 2))
+    Ad, Bd = (torch.from_numpy(x).to(dev) for x in (A, Bm))
+    for name, got, want in (
+            ("gauss_jordan_solve", linalg.gauss_jordan_solve(Ad, Bd),
+             linalg.gauss_jordan_solve(A, Bm, "cpu")),
+            ("lu", linalg.lu(Ad), linalg.lu(A, "cpu"))):
+        for g, w in zip(got, want):
+            _same(f"{name} 4096 x 3x3 float64", g, w)
+    U, w, V = linalg.svd(Ad)
+    Uc, wc, Vc = linalg.svd(A, "cpu")
+    rec = U @ torch.diag_embed(w) @ V.transpose(-1, -2)
+    rec_err = float((rec.cpu() - Ad.cpu()).abs().max())
+    # singular values against the CPU's, relative to each system's largest
+    w_err = float(((w.cpu() - wc).abs() / wc[:, :1]).max())
+    if rec_err > 1e-12 or w_err > 1e-12:
+        raise AssertionError(f"svd on the card: reconstruction {rec_err}, "
+                             f"singular values {w_err}")
+    print(f"11e. filters at 640x480 (integral, sobel5x5, checkerboard5x5, "
+          f"blob5x5) and gauss_jordan_solve, lu on 4096 float64 3x3 "
+          f"systems == the CPU (torch.equal); svd: reconstruction within "
+          f"{rec_err:.3g} of A, singular values within {w_err:.3g} of the "
+          f"CPU's, relative to each system's largest (bound 1e-12 each)")
+    for i, g in enumerate(gold):
+        pl, pr = feature_matching.match_features(g["left"], g["right"],
+                                                 device=dev)
+        cl, cr = feature_matching.match_features(g["left"], g["right"],
+                                                 device="cpu")
+        if not (np.array_equal(pl, cl) and np.array_equal(pr, cr)):
+            raise AssertionError(f"match_features {GOLDEN[i]}: card != CPU")
+        H, W = g["left"].shape
+        prng = np.random.default_rng(i)
+        pts_l = np.stack([prng.integers(20, W - 20, 200),
+                          prng.integers(20, H - 20, 200)], -1)
+        pts_r = pts_l - np.stack([prng.integers(0, 60, 200),
+                                  np.zeros(200, int)], -1)
+        a = confidence.confidence_check(g["left"], g["right"], pts_l, pts_r,
+                                        device=dev)
+        b = confidence.confidence_check(g["left"], g["right"], pts_l, pts_r,
+                                        device="cpu")
+        if not np.array_equal(a, b):
+            raise AssertionError(f"confidence_check {GOLDEN[i]}: card != "
+                                 f"CPU")
+        print(f"11e. match_features ({len(pl)} matches) and "
+              f"confidence_check (200 pairs, {int(a.sum())} flagged) on "
+              f"the card == the CPU: {GOLDEN[i]}")
+    st = np.load(f"{FIX}/elas_stages_st320.npz")
+    support = st["support"].astype(np.int32)
+    H, W = st["left"].shape
+    tris = {False: delaunay(support[:, :2].astype(np.float32)),
+            True: delaunay(np.stack([support[:, 0] - support[:, 2],
+                                     support[:, 1]], -1).astype(np.float32))}
+    host = build_priors_native(support, W, H, params, tri_left=tris[False],
+                               tri_right=tris[True])
+    for right in (False, True):
+        tri = tris[right]
+        wire = dp.pad_coeff_wire(dp.sort_wire_rows(dp.prior_coeff_wire(
+            support, tri, right, fit_planes_native)), -(-len(tri) // 64) * 64)
+        rows = [getattr(wire, f)[None] for f in (
+            "corners_u", "corners_v", "slope_bits", "plane_bits", "pvalid",
+            "paint_idx")]
+        card = dp.prior_maps_device(
+            *(torch.from_numpy(np.ascontiguousarray(r)).to(dev)
+              for r in rows), W, H)
+        cpu = dp.prior_maps_device(*rows, W, H, device="cpu")
+        for nm, a, b in zip(("d_plane", "valid", "covered"), card, cpu):
+            _same(f"prior_maps_device {nm} right={right}", a, b)
+        maps = host[1] if right else host[0]
+        cov = torch.from_numpy(maps.tri_id >= 0)
+        _same(f"prior_maps_device covered right={right} vs host",
+              card[2][0], cov)
+        _same(f"prior_maps_device valid right={right} vs host", card[1][0],
+              torch.from_numpy(maps.valid))
+        _same(f"prior_maps_device d_plane right={right} vs host",
+              card[0][0].cpu()[cov], torch.from_numpy(maps.d_plane)[cov])
+    print("11e. prior_maps_device (the coefficient-wire raster) on the card "
+          "== the CPU (torch.equal) and == the C++ host prior's PlaneMaps "
+          "(covered, valid, d_plane where covered): elas_stages_st320, both "
+          "sides")
+
+    # (f) the host cost of the device guard that cuda_lib.launch puts
+    # around every ctypes launch, beside the stream lookup it always did
+    probe = torch.empty(16, device=dev)
+
+    def lookups(guarded: bool):
+        for _ in range(1000):
+            if guarded:
+                with torch.cuda.device(probe.device):
+                    torch.cuda.current_stream(probe.device).cuda_stream
+            else:
+                torch.cuda.current_stream(probe.device).cuda_stream
+
+    bare_us = host_ms(lambda: lookups(False), 5)        # ms / 1000 = us
+    guard_us = host_ms(lambda: lookups(True), 5)
+    out["launch_guard_us"] = {"guarded": guard_us, "bare": bare_us}
+    print(f"11f. host us a kernel launch for the stream argument: "
+          f"{guard_us:.3f} with the device guard, {bare_us:.3f} without "
+          f"(median of 5 loops of 1000)")
+    return {"multidevice": out}
+
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -2449,6 +2738,9 @@ def main() -> int:
     # ---- 10. ELAS subsampling (A, B under it) and the exact scan ---------
     print(json.dumps(subsampling_phase(dev, hold, pipe,
                                        [fr.dmap for fr in results])))
+
+    # ---- 11. the multi-device paths and the last modules ------------------
+    print(json.dumps(multidevice_phase(dev, pairs, L9, R9)))
 
     # ---- 8. the kernels line, the card, the result -----------------------
     print(f"torch.profiler windows traced again for want of device activity:"

@@ -282,13 +282,13 @@ extern "C" int support_keys(const uint8_t* Q, const uint8_t* T, int32_t* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(chunk) * padded(W) * 4 + kPlaneBytes;
-  static size_t smem_set = 48 * 1024;
-  if (smem > smem_set) {
+  // set on every launch: the attribute is the current card's, and a
+  // process may launch on several cards
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         support_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
   }
   const dim3 grid(ranges, nv, B);
   support_keys_kernel<<<grid, kThreads, smem, s>>>(

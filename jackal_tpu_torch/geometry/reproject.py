@@ -3,7 +3,9 @@
 The per-pixel Q-matrix math of point_cloud.cpp:213-296 (scan straight from
 the disparity map): (X, Y, Z) = dehomogenized Q @ [u, v, d, 1], then
 XR @ p + XT, in float32, each product and sum rounded on its own. The
-live-extrinsics mode (-m) composes XR and XT on the host in float64.
+live-extrinsics mode (-m) composes XR and XT on the host in float64, and
+the confidence experiment projects robot points to pixels there
+(robot_to_cam_pixel).
 """
 from __future__ import annotations
 
@@ -50,6 +52,20 @@ def cam_to_robot(X, Y, Z, XR, XT) -> Tuple[torch.Tensor, ...]:
     Yr = XR[1, 0] * X + XR[1, 1] * Y + XR[1, 2] * Z + XT[1]
     Zr = XR[2, 0] * X + XR[2, 1] * Y + XR[2, 2] * Z + XT[2]
     return Xr, Yr, Zr
+
+
+def robot_to_cam_pixel(pts_robot: np.ndarray, XR: np.ndarray, XT: np.ndarray,
+                       P: np.ndarray) -> np.ndarray:
+    """Forward projection robot -> camera -> pixel in float64 on the host
+    (confidence_checks.cpp:122-132). pts_robot: [..., 3]. Returns int64
+    pixel coordinates [..., 2], truncated like the reference's int cast."""
+    XR = np.asarray(XR, np.float64)
+    XT = np.asarray(XT, np.float64).reshape(3)
+    P = np.asarray(P, np.float64)
+    cam = (np.asarray(pts_robot, np.float64) - XT) @ np.linalg.inv(XR).T
+    hom = np.concatenate([cam, np.ones_like(cam[..., :1])], axis=-1)
+    img = hom @ P.T
+    return (img[..., :2] / img[..., 2:3]).astype(np.int64)
 
 
 def reproject_disparity_to_robot(

@@ -197,10 +197,10 @@ def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
     fn.argtypes = ([ctypes.c_void_p] * 2 + [_ViewMaps] * 2
                    + [ctypes.c_int] * 12 + [_PriorTable, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(desc1.data_ptr(), desc2.data_ptr(), *structs, views,
-             int(torch.int16 in dts), B, H, W, D, gh, gw, nw, gs, radius,
-             params.match_texture, P, cuda_lib.stream_ptr(desc1))
-    cuda_lib.check(err, "elas_dense")
+    cuda_lib.launch(fn, "elas_dense", desc1, desc1.data_ptr(),
+                    desc2.data_ptr(), *structs, views,
+                    int(torch.int16 in dts), B, H, W, D, gh, gw, nw, gs,
+                    radius, params.match_texture, P)
     launches += 1
     return outs
 

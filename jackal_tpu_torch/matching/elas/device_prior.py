@@ -29,16 +29,25 @@ the int32 range follow XLA's rule (ops/convert.to_int32).
 The host side (slab_select, tri_wire, pad_tri_wire) is a numpy copy of
 the reference package's; native_prior.tri_wire_and_bin_native is its C++
 twin.
+
+The reference package's older coefficient-wire raster is here too, which
+no path of either package runs: prior_coeff_wire computes each triangle's
+coefficients on the host (numpy), and prior_maps_device rasterizes them
+in eager float32 ops, its multiplies (_raster_mul_impl) apart from its
+adds (_raster_add_impl), bit-equal to the host rasterizer.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
+from ...device import DeviceLike, as_input
 from ...ops import cuda_lib
 from ...ops.convert import to_int32
+from .prior import compute_disparity_planes
 
 _RASTER_SLAB = 16       # rows of a raster tile
 _RASTER_CTILE = 128     # columns of a raster tile
@@ -371,9 +380,8 @@ def _raster_cuda(table: torch.Tensor, sel: torch.Tensor, Tp: int, W: int,
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     win = torch.empty((CH, H, W), dtype=torch.int32, device=dev)
-    err = fn(table.data_ptr(), sel.data_ptr(), win.data_ptr(),
-             CH, Tp, S, C, Ts, W, H, cuda_lib.stream_ptr(table))
-    cuda_lib.check(err, "raster")
+    cuda_lib.launch(fn, "raster", table, table.data_ptr(), sel.data_ptr(),
+                    win.data_ptr(), CH, Tp, S, C, Ts, W, H)
     launches += 1
     return win
 
@@ -387,3 +395,224 @@ def raster(table: torch.Tensor, sel: torch.Tensor, Tp: int, W: int,
         return _raster_cuda(table, sel, Tp, W, H)
     return raster_plain(table, sel, Tp, W, H)
 
+
+
+# ---------------------------------------------------------------------------
+# the coefficient-wire raster: host coefficients, eager device raster
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PriorCoeffWire:
+    """Per-triangle coefficients of one image side (numpy; padded by
+    pad_coeff_wire). Line intercepts are not sent: the device recomputes
+    b = A_v - a * A_u from the slope and the integer corner."""
+    corners_u: np.ndarray   # [T, 3] int16: int(A_u), int(B_u), int(C_u)
+    corners_v: np.ndarray   # [T, 2] int16: int(A_v), int(B_v)
+    slope_bits: np.ndarray  # [T, 3] int32: f32 bits of AC_a, AB_a, BC_a
+    plane_bits: np.ndarray  # [T, 3] int32: f32 bits of pa, pb, pc
+    pvalid: np.ndarray      # [T] uint8: |a| < 0.7 on both images
+    paint_idx: np.ndarray   # [T] int16: the row's paint order, which the
+    #                         raster's last-painted winner compares
+    vmin: np.ndarray        # [T] int16: the top corner row (sort key)
+
+
+def sort_wire_rows(w: PriorCoeffWire) -> PriorCoeffWire:
+    """The rows stably sorted by top row; paint_idx keeps the painted
+    result independent of the order."""
+    o = np.argsort(w.vmin, kind="stable")
+    return PriorCoeffWire(
+        w.corners_u[o], w.corners_v[o], w.slope_bits[o],
+        w.plane_bits[o], w.pvalid[o], w.paint_idx[o], w.vmin[o])
+
+
+def _corner_sort_f32(tu: np.ndarray, tv: np.ndarray):
+    """The reference's pairwise swap sequence (elas.cpp:847-854) on float32
+    corners [T, 3]; not a stable sort on ties."""
+    tu = tu.astype(np.float32).copy()
+    tv = tv.astype(np.float32).copy()
+    for j, k in ((1, 0), (2, 0), (2, 1)):
+        sw = tu[:, k] > tu[:, j]
+        for arr in (tu, tv):
+            a, b = arr[:, k].copy(), arr[:, j].copy()
+            arr[:, k] = np.where(sw, b, a)
+            arr[:, j] = np.where(sw, a, b)
+    return tu, tv
+
+
+def prior_coeff_wire(support: np.ndarray, tri: np.ndarray,
+                     right_image: bool, fit_fn=None) -> PriorCoeffWire:
+    """Each triangle's raster coefficients on the host, as the host
+    rasterizer computes them: sorted corners, the three edge slopes
+    (float32 divisions) and the plane. fit_fn(support, tri) -> [T, 6]
+    float32 planes; by default numpy's (prior.compute_disparity_planes);
+    native_prior.fit_planes_native gives the C++ prior's."""
+    T = len(tri)
+    if T == 0:
+        return PriorCoeffWire(
+            np.zeros((0, 3), np.int16), np.zeros((0, 2), np.int16),
+            np.zeros((0, 3), np.int32), np.zeros((0, 3), np.int32),
+            np.zeros((0,), np.uint8), np.zeros((0,), np.int16),
+            np.zeros((0,), np.int16))
+    s = support.astype(np.float32)
+    if right_image:
+        tu = (s[tri, 0] - s[tri, 2]).astype(np.float32)
+    else:
+        tu = s[tri, 0].astype(np.float32)
+    tv = s[tri, 1].astype(np.float32)
+    tu, tv = _corner_sort_f32(tu, tv)
+    A_u, B_u, C_u = tu[:, 0], tu[:, 1], tu[:, 2]
+    A_v, B_v, C_v = tv[:, 0], tv[:, 1], tv[:, 2]
+    iA, iB, iC = (x.astype(np.int64) for x in (A_u, B_u, C_u))
+
+    def slope(v0, v1, u0, u1, i0, i1):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.where(i0 != i1,
+                            (v0 - v1).astype(np.float32)
+                            / (u0 - u1).astype(np.float32),
+                            np.float32(0.0)).astype(np.float32)
+
+    AB_a = slope(A_v, B_v, A_u, B_u, iA, iB)
+    AC_a = slope(A_v, C_v, A_u, C_u, iA, iC)
+    BC_a = slope(B_v, C_v, B_u, C_u, iB, iC)
+
+    planes = (fit_fn or compute_disparity_planes)(support, tri)
+    if right_image:
+        pa, pb, pc, pother = (planes[:, 3], planes[:, 4], planes[:, 5],
+                              planes[:, 0])
+    else:
+        pa, pb, pc, pother = (planes[:, 0], planes[:, 1], planes[:, 2],
+                              planes[:, 3])
+    pvalid = (np.abs(pa) < 0.7) & (np.abs(pother) < 0.7)
+    return PriorCoeffWire(
+        np.stack([iA, iB, iC], axis=1).astype(np.int16),
+        np.stack([A_v, B_v], axis=1).astype(np.int16),
+        np.stack([AC_a, AB_a, BC_a], axis=1).view(np.int32),
+        np.stack([pa, pb, pc], axis=1).view(np.int32),
+        pvalid.astype(np.uint8), np.arange(T, dtype=np.int16),
+        np.minimum(np.minimum(A_v, B_v), C_v).astype(np.int16))
+
+
+def pad_coeff_wire(w: PriorCoeffWire, T_pad: int) -> PriorCoeffWire:
+    """Pad to T_pad rows of zeros: an empty column span (A = B = C = 0),
+    so a pad row never rasterizes."""
+    p = T_pad - len(w.corners_u)
+    if p <= 0:
+        return w
+    return PriorCoeffWire(*(
+        np.pad(getattr(w, f.name), ((0, p),) + ((0, 0),) * (
+            getattr(w, f.name).ndim - 1))
+        for f in dataclasses.fields(w)))
+
+
+def _raster_mul_impl(corners_u, slope_bits, plane_bits, *, W: int, H: int):
+    """Every float32 multiply of the raster of one frame's rows [T, ...],
+    each its own op, so none is fused with an add into an FMA: the line
+    terms a * u [T, W] and a * A_u [T, 1] of the three edges, and the
+    plane terms pa * u [T, W] and pb * v [T, H]."""
+    f32 = torch.float32
+    dev = corners_u.device
+    slopes = slope_bits.to(torch.int32).contiguous().view(f32)   # [T, 3]
+    planes = plane_bits.to(torch.int32).contiguous().view(f32)
+    u_f = torch.arange(W, dtype=f32, device=dev)[None, :]
+    v_f = torch.arange(H, dtype=f32, device=dev)[None, :]
+    A_u_f = corners_u[:, 0:1].to(f32)
+    B_u_f = corners_u[:, 1:2].to(f32)
+    return (slopes[:, 0:1] * u_f, slopes[:, 1:2] * u_f,
+            slopes[:, 2:3] * u_f, slopes[:, 0:1] * A_u_f,
+            slopes[:, 1:2] * A_u_f, slopes[:, 2:3] * B_u_f,
+            planes[:, 0:1] * u_f, planes[:, 1:2] * v_f)
+
+
+def _line_trunc(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The scanline bound (uint32)(int)(m + b) of elas.cpp:878-879, as an
+    int64 in [0, 2^32): a float32 add, truncation toward zero, and the
+    uint32 wrap of a negative value."""
+    return to_int32(m + b).to(torch.int64) & 0xFFFFFFFF
+
+
+def _raster_add_impl(corners_u, corners_v, plane_bits, pvalid, paint_idx,
+                     m_ac, m_ab, m_bc, s_ac, s_ab, s_bc, au, bv,
+                     *, W: int, H: int, chunk: int = 64, slab: int = 48):
+    """The scanline raster of one frame's rows from _raster_mul_impl's
+    products: float32 adds, compares and truncations only. Each pixel
+    takes the covering row of the largest paint_idx (the last painted)
+    and its plane value f = (pa*u + pb*v) + pc. Rows go in chunks of
+    ``chunk``; a chunk whose rows lie in one band of ``slab`` image rows
+    paints that band alone, else the whole height. Returns (d_plane int16,
+    valid, covered) [H, W]: d_plane = clip(trunc(f), -512, 511) where
+    covered, else 0."""
+    f32 = torch.float32
+    dev = corners_u.device
+    T = corners_u.shape[0]
+    u_i = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    A, B, C = (corners_u[:, i:i + 1].to(torch.int32) for i in range(3))
+    A_v_f = corners_v[:, 0:1].to(f32)
+    B_v_f = corners_v[:, 1:2].to(f32)
+    planes = plane_bits.to(torch.int32).contiguous().view(f32)
+    seg1 = (u_i >= A) & (u_i < B)
+    cover = (u_i >= A) & (u_i < C)                 # A <= B <= C (sorted)
+    v1 = _line_trunc(m_ac, A_v_f - s_ac)                       # AC line
+    v2 = torch.where(seg1, _line_trunc(m_ab, A_v_f - s_ab),    # AB line
+                     _line_trunc(m_bc, B_v_f - s_bc))          # BC line
+    lo = torch.clamp_max(torch.minimum(v1, v2), H)
+    hi = torch.clamp_max(torch.maximum(v1, v2), H)
+    lo = torch.where(cover, lo, 0).to(torch.int32)
+    hi = torch.where(cover, hi, 0).to(torch.int32)
+
+    pvi = pvalid.to(torch.bool)
+    pidx = paint_idx.to(torch.int32)
+    BH = min(slab, H)
+    tid = torch.full((H, W), -1, dtype=torch.int32, device=dev)
+    fmap = torch.zeros((H, W), dtype=f32, device=dev)
+    pvmap = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    n = min(chunk, T)
+    for ci in range(-(-T // chunk)):
+        # a chunk past the end starts earlier, as a clamped dynamic slice
+        sl = slice(min(ci * chunk, T - n), min(ci * chunk, T - n) + n)
+        lo_c, hi_c, au_c = lo[sl, None], hi[sl, None], au[sl, None]
+        bv_c = bv[sl]
+        pc_c = planes[sl, 2][:, None, None]
+        pv_c = pvi[sl, None, None]
+        idx = pidx[sl, None, None]
+        rlo = int(torch.where(hi_c > lo_c, lo_c, H).min())
+        rhi = int(hi_c.max())
+        r0 = min(max((rlo // 8) * 8, 0), max(H - BH, 0))
+        if rhi > r0 + BH:
+            r0, nrows = 0, H
+        else:
+            nrows = BH
+        rows = torch.arange(r0, r0 + nrows, dtype=torch.int32,
+                            device=dev)[None, :, None]
+        covered = (rows >= lo_c) & (rows < hi_c)       # [n, nrows, W]
+        best = torch.where(covered, idx, -1).amax(0)
+        win = covered & (idx == best[None])            # one row a pixel
+        f_c = (au_c + bv_c[:, r0:r0 + nrows, None]) + pc_c   # adds only
+        f_best = torch.where(win, f_c, 0.0).sum(0)
+        pv_best = (win & pv_c).any(0)
+        band = slice(r0, r0 + nrows)
+        upd = best > tid[band]
+        tid[band] = torch.maximum(tid[band], best)
+        fmap[band] = torch.where(upd, f_best, fmap[band])
+        pvmap[band] = torch.where(upd, pv_best, pvmap[band])
+
+    covered_px = tid >= 0
+    d_plane = torch.clamp(to_int32(fmap), -512, 511).to(torch.int16)
+    d_plane = torch.where(covered_px, d_plane, 0)
+    return d_plane, covered_px & pvmap, covered_px
+
+
+def prior_maps_device(corners_u, corners_v, slope_bits, plane_bits, pvalid,
+                      paint_idx, W: int, H: int, device: DeviceLike = None):
+    """Padded coefficient rows [B, T, ...] -> (d_plane int16, valid,
+    covered) [B, H, W], bit-equal to the host rasterizer's PlaneMaps
+    (d_plane where covered). Runs on ``device``; by default on the device
+    of corners_u when it is a tensor, else on the card. Every multiply is
+    done, for every frame, before any add."""
+    cu = as_input(corners_u, device)
+    cv, sb, pb, pv, pidx = (torch.as_tensor(x).to(cu.device) for x in (
+        corners_v, slope_bits, plane_bits, pvalid, paint_idx))
+    prods = [_raster_mul_impl(cu[b], sb[b], pb[b], W=W, H=H)
+             for b in range(cu.shape[0])]
+    maps = [_raster_add_impl(cu[b], cv[b], pb[b], pv[b], pidx[b], *prods[b],
+                             W=W, H=H) for b in range(cu.shape[0])]
+    return tuple(torch.stack(m) for m in zip(*maps))

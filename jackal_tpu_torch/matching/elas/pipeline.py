@@ -34,6 +34,8 @@ elas_match_stream, keeps only pruning and triangulation on the host:
 Frames are reordered by support count into content-homogeneous chunks
 (_content_perm) and the outputs return in arrival order. The stream form
 overlaps one batch's host prior with the previous batch's device work.
+elas_match_batch_multichip runs the batched path as one replica a device,
+each on its shard of the frames, with one host pool for all of them.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from ...config import ElasParams
-from ...device import DeviceLike, resolve_device
+from ...device import DeviceLike, device_list, resolve_device
 from ...native import load as load_native
 from ...ops.descriptor import create_descriptor
 from ...ops.transfer import HostCopy, ready, to_device
@@ -347,6 +349,17 @@ def _chunk_tail(flat: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     return postprocess_batch(D1, D2, params, lr_smax)
 
 
+def _upload_chunk(prior_futs, c0: int, chunk: int, params: ElasParams,
+                  dev: torch.device, side):
+    """A worker's job: wait for the chunk's host priors, build its flat
+    wire and start its upload to ``dev`` (on ``side`` when given). Returns
+    (flat, event, Np, Tp, Ts, L/R sweep bound)."""
+    wires = [prior_futs[b].result() for b in range(c0, c0 + chunk)]
+    Np, Tp, Ts = _chunk_pads(wires)
+    flat, ev = to_device(_flatten_chunk_wire(wires, Np, Tp, Ts), dev, side)
+    return flat, ev, Np, Tp, Ts, _lr_ladder(wires, params)
+
+
 def _index(order: np.ndarray, dev: torch.device) -> torch.Tensor:
     return to_device(order.astype(np.int64), dev)[0]
 
@@ -372,6 +385,62 @@ def _batch_inputs(left_b, right_b, params: ElasParams, chunk, device):
             right.to(dev, non_blocking=True), chunk)
 
 
+def _elas_replicas(shards, params: ElasParams, chunk: int):
+    """The batched path on one or more replicas. ``shards`` lists
+    (device, left, right), each [Bs, H, W] already on its device; returns
+    each replica's (D1, D2) on its device, in its frames' order. Three
+    phases:
+      1. every replica's front (descriptors, support candidates) is queued
+         before any download of the candidate grids;
+      2. one pool of 3 workers runs the host priors of every replica's
+         frames, then each chunk's wire build and upload, so one device's
+         chunks overlap another's priors;
+      3. each chunk's upload (a side stream a distinct card) and its tail
+         (raster, dense, postprocess) run on its replica's device, chunk by
+         chunk across the replicas."""
+    Bs, H, W = shards[0][1].shape
+    sides = {dev: torch.cuda.Stream(dev) for dev, _, _ in shards
+             if dev.type == "cuda"}
+    fronts = [_front(left, right, params) for _, left, right in shards]
+    copies = [HostCopy(f[2]) for f in fronts]
+    dcans = [c.numpy() for c in copies]
+    views, perms = [], []
+    for (dev, _, _), (d1, d2, _), dcan in zip(shards, fronts, dcans):
+        perm, inv, perm_id = _content_perm(dcan, Bs)
+        if not perm_id:
+            pj = _index(perm, dev)
+            d1, d2 = d1.index_select(0, pj), d2.index_select(0, pj)
+        views.append((d1, d2))
+        perms.append((perm, inv, perm_id))
+
+    outs = [[] for _ in shards]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        prior_futs = [[pool.submit(_prior_tri_job, dcan[perm[b]], params, W,
+                                   H) for b in range(Bs)]
+                      for dcan, (perm, _, _) in zip(dcans, perms)]
+        # queued after every prior job, so a worker never waits on a job
+        # that no other worker will run
+        up_futs = [(i, c0, pool.submit(_upload_chunk, prior_futs[i], c0,
+                                       chunk, params, dev, sides.get(dev)))
+                   for c0 in range(0, Bs, chunk)
+                   for i, (dev, _, _) in enumerate(shards)]
+        for i, c0, uf in up_futs:
+            flat, ev, Np, Tp, Ts, lad = uf.result()
+            d1, d2 = views[i]
+            sl = slice(c0, c0 + chunk)
+            outs[i].append(_chunk_tail(ready(flat, ev), d1[sl], d2[sl],
+                                       chunk, Np, Tp, Ts, W, H, params, lad))
+    maps = []
+    for (dev, _, _), chunks, (_, inv, perm_id) in zip(shards, outs, perms):
+        D1 = torch.cat([o[0] for o in chunks])
+        D2 = torch.cat([o[1] for o in chunks])
+        if not perm_id:
+            ij = _index(inv, dev)
+            D1, D2 = D1.index_select(0, ij), D2.index_select(0, ij)
+        maps.append((D1, D2))
+    return maps
+
+
 def elas_match_batch_device(
     left_b: Image, right_b: Image, params: ElasParams = ElasParams(),
     chunk: Optional[int] = None, device: DeviceLike = None,
@@ -385,41 +454,7 @@ def elas_match_batch_device(
     on a pool of threads while the card works."""
     dev, left, right, chunk = _batch_inputs(left_b, right_b, params, chunk,
                                             device)
-    B, H, W = left.shape
-    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    d1, d2, dcan_dev = _front(left, right, params)
-    dcan = HostCopy(dcan_dev).numpy()
-    perm, inv, perm_id = _content_perm(dcan, B)
-    if not perm_id:
-        pj = _index(perm, dev)
-        d1, d2 = d1.index_select(0, pj), d2.index_select(0, pj)
-
-    def upload_chunk(prior_futs, c0):
-        wires = [prior_futs[b].result() for b in range(c0, c0 + chunk)]
-        Np, Tp, Ts = _chunk_pads(wires)
-        flat, ev = to_device(_flatten_chunk_wire(wires, Np, Tp, Ts), dev,
-                              side)
-        return flat, ev, Np, Tp, Ts, _lr_ladder(wires, params)
-
-    outs = []
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        prior_futs = [pool.submit(_prior_tri_job, dcan[perm[b]], params, W, H)
-                      for b in range(B)]
-        # queued after every prior job, so a worker never waits on a job
-        # that no other worker will run
-        up_futs = [pool.submit(upload_chunk, prior_futs, c0)
-                   for c0 in range(0, B, chunk)]
-        for c0, uf in zip(range(0, B, chunk), up_futs):
-            flat, ev, Np, Tp, Ts, lad = uf.result()
-            sl = slice(c0, c0 + chunk)
-            outs.append(_chunk_tail(ready(flat, ev), d1[sl], d2[sl], chunk,
-                                    Np, Tp, Ts, W, H, params, lad))
-    D1 = torch.cat([o[0] for o in outs])
-    D2 = torch.cat([o[1] for o in outs])
-    if not perm_id:
-        ij = _index(inv, dev)
-        D1, D2 = D1.index_select(0, ij), D2.index_select(0, ij)
-    return D1, D2
+    return _elas_replicas([(dev, left, right)], params, chunk)[0]
 
 
 def elas_match_batch(
@@ -430,6 +465,40 @@ def elas_match_batch(
     D1, D2 = elas_match_batch_device(left_u8, right_u8, params, chunk,
                                      device)
     return D1.cpu().numpy(), D2.cpu().numpy()
+
+
+def elas_match_batch_multichip(
+    left_u8: Image, right_u8: Image, params: ElasParams = ElasParams(),
+    chunk: Optional[int] = None, devices: Optional[Iterable] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """ELAS data parallelism: replica a device, frames sharded. uint8
+    [B, H, W] pairs, B a multiple of len(devices) (every visible card by
+    default) -> host float32 [B, H, W] maps (D1, D2), equal to
+    elas_match_batch's.
+
+    The host prior sits mid-pipeline, so there is no single step to shard;
+    each device runs the batched path on its shard of B / n frames (the
+    reference's one ELAS a node), all replicas in one pass of
+    _elas_replicas, chunks of ``chunk`` frames."""
+    if params.subsampling:
+        raise ValueError(_NO_SUBSAMPLING)
+    devs = device_list(devices)
+    left, right = (torch.as_tensor(x) for x in (left_u8, right_u8))
+    B = left.shape[0]
+    n = len(devs)
+    if B % n:
+        raise ValueError(f"batch {B} not divisible by {n} devices")
+    Bs = B // n
+    if chunk is None or chunk >= Bs:
+        chunk = Bs
+    if Bs % chunk:
+        raise ValueError(f"chunk {chunk} must divide shard {Bs}")
+    shards = [(dev, left[i * Bs:(i + 1) * Bs].to(dev),
+               right[i * Bs:(i + 1) * Bs].to(dev))
+              for i, dev in enumerate(devs)]
+    maps = _elas_replicas(shards, params, chunk)
+    return (np.concatenate([D1.cpu().numpy() for D1, _ in maps]),
+            np.concatenate([D2.cpu().numpy() for _, D2 in maps]))
 
 
 def elas_match_stream(

@@ -56,6 +56,30 @@ def delaunay(points_uv: np.ndarray) -> np.ndarray:
     return tri.simplices.astype(np.int32)
 
 
+def compute_disparity_planes(support: np.ndarray, tri: np.ndarray
+                             ) -> np.ndarray:
+    """Per-triangle plane params [T, 6] float32 (t1a, t1b, t1c, t2a, t2b,
+    t2c) by numpy's float64 solve: t1 fitted on the left coordinates, t2
+    on the right ones (u - d); singular systems give zeros (elas.cpp:
+    543-547). The batched path and the C++ prior fit by full pivoting
+    instead (native_prior.fit_planes_native), which rounds differently."""
+    if len(tri) == 0:
+        return np.zeros((0, 6), np.float32)
+    s = support.astype(np.float64)
+    out = np.zeros((len(tri), 6), np.float32)
+    for k, right in ((0, False), (3, True)):
+        u = s[tri, 0] - (s[tri, 2] if right else 0.0)      # [T, 3]
+        v = s[tri, 1]
+        b = s[tri, 2]
+        A = np.stack([u, v, np.ones_like(u)], axis=-1)      # [T, 3, 3]
+        ok = np.abs(np.linalg.det(A)) > 1e-12
+        sol = np.zeros((len(tri), 3))
+        if ok.any():
+            sol[ok] = np.linalg.solve(A[ok], b[ok][..., None])[..., 0]
+        out[:, k:k + 3] = sol.astype(np.float32)
+    return out
+
+
 @dataclasses.dataclass
 class PlaneMaps:
     """Dense per-pixel prior for the dense matcher."""

@@ -130,9 +130,9 @@ def _support_keys_cuda(Q: torch.Tensor, T: torch.Tensor, disp_min: int,
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(Q.data_ptr(), T.data_ptr(), out.data_ptr(), part.data_ptr(),
-             B, nv, W, disp_min, D, ranges, chunk, cuda_lib.stream_ptr(Q))
-    cuda_lib.check(err, "support_keys")
+    cuda_lib.launch(fn, "support_keys", Q, Q.data_ptr(), T.data_ptr(),
+                    out.data_ptr(), part.data_ptr(), B, nv, W, disp_min, D,
+                    ranges, chunk)
     launches += 1
     return tuple(out)
 

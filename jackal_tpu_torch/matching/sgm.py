@@ -73,9 +73,10 @@ def census5x5(img_u8: torch.Tensor) -> torch.Tensor:
 
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of non-negative int32 values. The byte counts are summed
-    with shifts: the reference's multiply by 0x01010101 relies on int32
-    wrap-around."""
+    """Set bits of int32 values, negative ones too (the first step wraps
+    as the reference's does; every later step is masked non-negative).
+    The byte counts are summed with shifts: the reference's multiply by
+    0x01010101 relies on int32 wrap-around."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x += x >> 4

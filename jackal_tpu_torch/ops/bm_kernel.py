@@ -79,12 +79,11 @@ def _launch(lib_name, fn_name, left_b, right_b, params, extra,
     B, H, W = left_b.shape
     dl = torch.empty((B, H, W), dtype=torch.float32, device=left_b.device)
     dr = torch.empty_like(dl)
-    err = _fn(lib_name, fn_name, extra_types)(
-        left_b.data_ptr(), right_b.data_ptr(), dl.data_ptr(), dr.data_ptr(),
-        B, H, W, params.disp_num, params.window // 2,
-        float(params.lr_threshold), float(params.uniqueness), *extra,
-        cuda_lib.stream_ptr(left_b))
-    cuda_lib.check(err, fn_name)
+    cuda_lib.launch(_fn(lib_name, fn_name, extra_types), fn_name, left_b,
+                    left_b.data_ptr(), right_b.data_ptr(), dl.data_ptr(),
+                    dr.data_ptr(), B, H, W, params.disp_num,
+                    params.window // 2, float(params.lr_threshold),
+                    float(params.uniqueness), *extra)
     return dl, dr
 
 

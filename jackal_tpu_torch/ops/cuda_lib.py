@@ -54,8 +54,16 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def launch(fn, kernel: str, t: torch.Tensor, *args) -> None:
+    """fn(*args, stream) with t's card made current and that card's
+    current stream appended; raise if the kernel failed to launch. The C
+    entry points launch on whatever card the calling thread has current,
+    where torch's own ops follow their tensors, so every kernel launch goes
+    through here."""
+    with torch.cuda.device(t.device):
+        err = fn(*args, ctypes.c_void_p(
+            torch.cuda.current_stream(t.device).cuda_stream))
+    check(err, kernel)
 
 
 def check(err: int, kernel: str) -> None:

@@ -55,10 +55,8 @@ def census5x5_batch(img_u8_b: torch.Tensor) -> torch.Tensor:
     N, H, W = img_u8_b.shape
     cuda_lib.expect(img_u8_b, "img", torch.uint8, (N, H, W), img_u8_b.device)
     out = torch.empty((N, H, W), dtype=torch.int32, device=img_u8_b.device)
-    err = _fn("census_kernel", "census5x5", 2, 3)(
-        img_u8_b.data_ptr(), out.data_ptr(), N, H, W,
-        cuda_lib.stream_ptr(img_u8_b))
-    cuda_lib.check(err, "census5x5")
+    cuda_lib.launch(_fn("census_kernel", "census5x5", 2, 3), "census5x5",
+                    img_u8_b, img_u8_b.data_ptr(), out.data_ptr(), N, H, W)
     launches["census"] += 1
     return out
 
@@ -99,11 +97,10 @@ def aggregate_paths_bhdw(cost_bhdw: torch.Tensor, params: SGMParams
     paths = torch.empty((n_paths, B, H, W, DP), dtype=torch.int16,
                         device=dev)
     S = torch.empty_like(cost_bhdw)
-    err = _fn("sgm_paths_kernel", "sgm_paths", 4, 7)(
-        cost_bhdw.data_ptr(), padded.data_ptr(), paths.data_ptr(),
-        S.data_ptr(), B, H, W, D, params.p1, params.p2, n_paths,
-        cuda_lib.stream_ptr(cost_bhdw))
-    cuda_lib.check(err, "sgm_paths")
+    cuda_lib.launch(_fn("sgm_paths_kernel", "sgm_paths", 4, 7), "sgm_paths",
+                    cost_bhdw, cost_bhdw.data_ptr(), padded.data_ptr(),
+                    paths.data_ptr(), S.data_ptr(), B, H, W, D, params.p1,
+                    params.p2, n_paths)
     launches["sgm_paths"] += 1
     return S
 
@@ -130,9 +127,8 @@ def sgm_wta_maps(S_bhdw: torch.Tensor) -> torch.Tensor:
     _check_d(D)
     cuda_lib.expect(S_bhdw, "S", torch.int16, (B, H, D, W), S_bhdw.device)
     out = torch.empty((B, H, 10, W), dtype=torch.int16, device=S_bhdw.device)
-    err = _fn("sgm_wta_kernel", "sgm_wta_maps", 2, 4)(
-        S_bhdw.data_ptr(), out.data_ptr(), B, H, D, W,
-        cuda_lib.stream_ptr(S_bhdw))
-    cuda_lib.check(err, "sgm_wta_maps")
+    cuda_lib.launch(_fn("sgm_wta_kernel", "sgm_wta_maps", 2, 4),
+                    "sgm_wta_maps", S_bhdw, S_bhdw.data_ptr(), out.data_ptr(),
+                    B, H, D, W)
     launches["sgm_wta"] += 1
     return out

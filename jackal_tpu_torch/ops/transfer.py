@@ -5,7 +5,9 @@ default stream and waits for all work queued before it. The batched path
 keeps several batches in flight, so its copies go through pinned memory
 without blocking: a download records an event that only its reader waits
 for, and an upload may run on a side stream whose event the consumer's
-stream waits for. On the CPU these are plain tensors.
+stream waits for. Each copy and event is made with its tensor's card
+current, so any thread may copy to and from any card. On the CPU these
+are plain tensors.
 """
 from __future__ import annotations
 
@@ -22,9 +24,10 @@ class HostCopy:
         self.event = None
         if t.is_cuda:
             self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            with torch.cuda.device(t.device):
+                self.host.copy_(t, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
         else:
             self.host = t
 
@@ -44,12 +47,13 @@ def to_device(arr: np.ndarray, dev: torch.device,
     if dev.type != "cuda":
         return t.to(dev), None
     t = t.pin_memory()
-    if stream is None:
-        return t.to(dev, non_blocking=True), None
-    with torch.cuda.stream(stream):
-        out = t.to(dev, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(stream)
+    with torch.cuda.device(dev):
+        if stream is None:
+            return t.to(dev, non_blocking=True), None
+        with torch.cuda.stream(stream):
+            out = t.to(dev, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(stream)
     return out, ev
 
 

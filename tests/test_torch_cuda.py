@@ -730,3 +730,78 @@ def test_gen_pcl_node_on_the_card_equals_cpu(dev, engine):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(a[2].scan.cpu().numpy(), b[2].scan.numpy(),
                                rtol=1e-5)
+
+
+# ---- the multi-device paths and the L2 surface on the card ------------
+
+def _mesh_pairs(B):
+    g = np.load(f"{FIX}/elas_golden_s320_flat.npz")
+    return (np.stack([np.roll(g["left"], 5 * b, axis=0) for b in range(B)]),
+            np.stack([np.roll(g["right"], 5 * b, axis=0) for b in range(B)]))
+
+
+@pytest.mark.parametrize("disp", [1, 2, 4])
+def test_tp_bm_on_a_card_mesh_equals_bm_match(dev, disp):
+    """bm_match_tp on [cuda:0] * 4 (4 / disp data rows) == the port's
+    single-device bm_match on the card and on the CPU."""
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.matching.bm import bm_match
+    from jackal_tpu_torch.parallel.mesh import bm_match_tp, gather, make_mesh
+
+    B = 4 // disp
+    lb, rb = _mesh_pairs(B)
+    p = BMParams(disp_num=32)
+    mesh = make_mesh(4, disp_parallel=disp, devices=[dev] * 4)
+    dl, dr = (gather(x) for x in bm_match_tp(mesh, p)(lb, rb))
+    assert dl.device == dev
+    for b in range(B):
+        sl, sr = bm_match(torch.from_numpy(lb[b]).to(dev),
+                          torch.from_numpy(rb[b]).to(dev), p)
+        assert torch.equal(dl[b], sl) and torch.equal(dr[b], sr)
+        cl, cr = bm_match(lb[b], rb[b], p)
+        assert torch.equal(dl[b].cpu(), cl) and torch.equal(dr[b].cpu(), cr)
+
+
+@pytest.mark.parametrize("engine", ["bm", "sgm"])
+def test_dp_step_on_a_card_mesh_equals_unsharded(dev, engine):
+    """dp_sharded_step on [cuda:0] * 4 == process_batch_fused on the whole
+    batch (kernels G or D, E, F under both), maps and every scan field."""
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+    from jackal_tpu_torch.parallel.mesh import (dp_sharded_step, gather,
+                                                make_mesh)
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    pipe = make_pipeline(engine=engine, device=dev)
+    ps = [synthetic_raw_pair(pipe, s, 6 + 2 * s) for s in range(4)]
+    lb, rb = (np.stack([p[i] for p in ps]) for i in (0, 1))
+    mesh = make_mesh(4, devices=[dev] * 4)
+    n0 = bk.launches["bm"] + sk.launches["sgm_paths"]
+    dmaps, scans, closest = dp_sharded_step(pipe, mesh)(lb, rb)
+    assert bk.launches["bm"] + sk.launches["sgm_paths"] == n0 + 4
+    wd, ws = pipe.process_batch_fused(lb, rb)
+    assert torch.equal(gather(dmaps), wd)
+    got = gather(scans)
+    for f in ("scan", "angle_min", "angle_max", "range_min", "range_max"):
+        assert torch.equal(getattr(got, f), getattr(ws, f)), f
+    assert torch.equal(closest, ws.scan.min())
+
+
+def test_filters_and_linalg_on_the_card_equal_cpu(dev):
+    from jackal_tpu_torch.ops import filters as pf
+    from jackal_tpu_torch.ops import linalg as pl
+
+    img = np.load(f"{FIX}/elas_golden_photo.npz")["left"]
+    for fn in (pf.integral_image, pf.sobel5x5, pf.checkerboard5x5,
+               pf.blob5x5):
+        got, want = (x if isinstance(x, tuple) else (x,)
+                     for x in (fn(img, dev), fn(img, "cpu")))
+        for g, w in zip(got, want):
+            assert g.device == dev and torch.equal(g.cpu(), w)
+    rng = np.random.default_rng(0)
+    A, B = rng.standard_normal((256, 3, 3)), rng.standard_normal((256, 3, 2))
+    for g, w in zip(pl.gauss_jordan_solve(torch.from_numpy(A).to(dev),
+                                          torch.from_numpy(B).to(dev)),
+                    pl.gauss_jordan_solve(A, B, "cpu")):
+        assert torch.equal(g.cpu(), w)

@@ -253,3 +253,114 @@ def test_to_int32_saturates_like_xla():
     want = np.asarray(jnp.asarray(x).astype(jnp.int32))
     np.testing.assert_array_equal(to_int32(torch.from_numpy(x)).numpy(), want)
     assert list(want[:3]) == [2 ** 31 - 1, -2 ** 31, 0]
+
+
+# ---- the coefficient-wire raster (no path runs it; the reference's
+# tests/test_device_prior.py:34-175 holds its device raster to the host) --
+
+WIRE_FIELDS = ("corners_u", "corners_v", "slope_bits", "plane_bits",
+               "pvalid", "paint_idx", "vmin")
+RASTER_ARGS = WIRE_FIELDS[:-1]
+
+
+def _raster(mod, wire, W, H):
+    on_cpu = {"device": "cpu"} if mod is dp else {}
+    return mod.prior_maps_device(*(getattr(wire, f)[None]
+                                   for f in RASTER_ARGS), W, H, **on_cpu)
+
+
+def _assert_maps_equal(got, want, host=None):
+    """got: the port's (d_plane, valid, covered) [1, H, W]; want: the
+    reference's; host: the reference's host PlaneMaps."""
+    for g, w in zip(got, want):
+        assert g.dtype == {np.dtype(np.int16): torch.int16,
+                           np.dtype(bool): torch.bool}[np.asarray(w).dtype]
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if host is not None:
+        cov = host.tri_id >= 0
+        np.testing.assert_array_equal(got[2][0].numpy(), cov)
+        np.testing.assert_array_equal(got[1][0].numpy(), host.valid)
+        np.testing.assert_array_equal(got[0][0].numpy()[cov],
+                                      host.d_plane[cov])
+
+
+@pytest.mark.parametrize("fit", ["numpy", "native"])
+@pytest.mark.parametrize("right", [False, True])
+def test_prior_coeff_wire_equal_jax(st320, right, fit):
+    support, _, _, tris = st320
+    tri = tris[right]
+    fits = {"numpy": (None, None),
+            "native": (fit_planes_native, jax_fit_native)}[fit]
+    got = dp.prior_coeff_wire(support, tri, right, fits[0])
+    want = jdp.prior_coeff_wire(support, tri, right, fits[1])
+    for w in ((got, want), (dp.sort_wire_rows(got),
+                            jdp.sort_wire_rows(want)),
+              (dp.pad_coeff_wire(got, 640), jdp.pad_coeff_wire(want, 640))):
+        for f in WIRE_FIELDS:
+            a, b = getattr(w[0], f), getattr(w[1], f)
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    tu = support[tri, 0].astype(np.float32)
+    np.testing.assert_array_equal(
+        dp._corner_sort_f32(tu, support[tri, 1])[0],
+        jdp._corner_sort_f32(tu, support[tri, 1])[0])
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("right", [False, True])
+def test_prior_maps_device_equal_jax_and_host(st320, right, sort):
+    """elas_stages_st320, each side: the port's eager raster == the
+    reference's jitted one == the reference's host rasterizer, with the
+    wire in paint order and sorted by top row (paint_idx keeps the
+    winner)."""
+    from jackal_tpu.matching.elas.prior import (compute_disparity_planes,
+                                                rasterize_planes)
+    support, W, H, tris = st320
+    tri = tris[right]
+    wire = dp.prior_coeff_wire(support, tri, right)
+    jwire = jdp.prior_coeff_wire(support, tri, right)
+    if sort:
+        wire, jwire = dp.sort_wire_rows(wire), jdp.sort_wire_rows(jwire)
+        assert not np.all(np.diff(wire.paint_idx.astype(np.int32)) == 1)
+    Tp = -(-len(tri) // 64) * 64
+    got = _raster(dp, dp.pad_coeff_wire(wire, Tp), W, H)
+    want = _raster(jdp, jdp.pad_coeff_wire(jwire, Tp), W, H)
+    host = rasterize_planes(support, tri,
+                            compute_disparity_planes(support, tri), W, H,
+                            right)
+    _assert_maps_equal(got, want, host)
+    assert got[2].float().mean() > 0.5
+
+
+def test_prior_maps_device_empty_and_tiny_triangulations():
+    """One triangle padded to a chunk of 64 rows and to 100 (the last
+    chunk starts early, as the reference's clamped slice does), and no
+    triangle. Below 64 rows the reference's slice of a chunk fails
+    (TypeError); the port takes the rows it has, held to the host
+    rasterizer alone."""
+    from jackal_tpu.matching.elas.prior import (compute_disparity_planes,
+                                                rasterize_planes)
+    support = np.array([[10, 10, 5], [40, 10, 5], [25, 40, 5]], np.int32)
+    tri = np.array([[0, 1, 2]], np.int32)
+    host = rasterize_planes(support, tri,
+                            compute_disparity_planes(support, tri), 64, 64,
+                            False)
+    for pad in (64, 100):
+        got = _raster(dp, dp.pad_coeff_wire(
+            dp.prior_coeff_wire(support, tri, False), pad), 64, 64)
+        want = _raster(jdp, jdp.pad_coeff_wire(
+            jdp.prior_coeff_wire(support, tri, False), pad), 64, 64)
+        _assert_maps_equal(got, want, host)
+    assert got[2].any()
+    got1 = _raster(dp, dp.prior_coeff_wire(support, tri, False), 64, 64)
+    _assert_maps_equal(got1, got, host)
+    empty = np.zeros((0, 3), np.int32)
+    got = _raster(dp, dp.pad_coeff_wire(
+        dp.prior_coeff_wire(support, empty, False), 64), 64, 64)
+    want = _raster(jdp, jdp.pad_coeff_wire(
+        jdp.prior_coeff_wire(support, empty, False), 64), 64, 64)
+    _assert_maps_equal(got, want)
+    assert not got[2].any()
+    # the same rows, padded to no rows at all
+    got0 = _raster(dp, dp.prior_coeff_wire(support, empty, False), 64, 64)
+    assert got0[0].shape == (1, 64, 64) and not got0[2].any()

@@ -49,6 +49,11 @@ sgm = {"jackal_tpu_torch.matching.sgm", "jackal_tpu_torch.ops.sgm_kernel",
 assert sgm <= set(names), sgm - set(names)
 bm = {"jackal_tpu_torch.matching.bm", "jackal_tpu_torch.ops.bm_kernel"}
 assert bm <= set(names), bm - set(names)
+rest = {"jackal_tpu_torch.parallel.mesh", "jackal_tpu_torch.ops.filters",
+        "jackal_tpu_torch.ops.linalg",
+        "jackal_tpu_torch.experiments.feature_matching",
+        "jackal_tpu_torch.experiments.confidence"}
+assert rest <= set(names), rest - set(names)
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
