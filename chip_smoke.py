@@ -30,12 +30,15 @@ Phases (any failure exits non-zero and prints no success line):
   4. the node: make_pipeline(engine="elas") at 640x480 and process_frame on
      seeded raw 640x360 pairs of a known scene (pipeline/synthetic.py),
      with the launch counters reset just before and read just after (the
-     dense kernel once a frame, both views in one launch);
+     dense kernel once a frame, both views in one launch; H, I, J once a
+     frame, K never: ROBOTICS has no median);
      per-stage medians, fps, the device's busy time under torch.profiler,
-     a per-stage breakdown of one frame;
+     a per-stage breakdown of one frame (the L/R check and the tail
+     beside their plain versions on the card), and elas_match_batch_device
+     at chunk 1 on one frame beside elas_match;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
-     kernel once a batch); fps, the
+     kernel, H, I and J once a batch); fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
      one batch;
@@ -43,7 +46,8 @@ Phases (any failure exits non-zero and prints no success line):
      rate of its byte SADs is measured on the card (csrc/sad_rate.cu, the
      median of 7 windows, refused above the card's cap), and cuobjdump
      shows the instructions __vsadu4 became (the dense and census kernels'
-     whole opcode mix) and that the raster kernel has no FFMA; the dense
+     whole opcode mix) and that the raster kernel and the postprocess
+     kernels H-K have no FFMA; the dense
      kernel's pair call against its plain version on the batched node's 8
      frames, its time there and at the node's shape, its bound for both
      views (the bound a view at a time, summed, beside it) and the
@@ -132,6 +136,15 @@ Phases (any failure exits non-zero and prints no success line):
      the experiments and the coefficient-wire raster against the CPU; host
      times beside the single-device calls (no scaling: one card); one
      JSON line;
+  12. the ELAS postprocess kernels (postprocess_phase): H (L/R check), I
+     (gap interpolation), J (adaptive mean) and K (median) against their
+     plain versions, torch.equal and int32 bits, on
+     chip_smoke.POST_EDGE_CASES, the golden 640x480 maps and the node's and
+     batched node's dense maps; the MIDDLEBURY preset's elas_match (K's
+     path) against libelas with H-K's launches pinned; postprocess_batch
+     on the node's frame against the CPU;
+     H-K's times at the node's shape beside their plain versions' and
+     their byte bounds; one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -1914,6 +1927,214 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
     return {"multidevice": out}
 
 
+# the ELAS postprocess kernels' cases (tests/test_torch_cuda.py runs them too)
+POST_EDGE_CASES = ("W = 83, not a multiple of 4", "H and W under 9: 5 x 7",
+                   "3 x 2", "all invalid", "all valid",
+                   "abs-mask steps and signed zeros",
+                   "MIDDLEBURY, both views, long gaps",
+                   "subsampled, 240 x 320", "B = 8 at 640x480")
+
+
+def _post_maps(rng, B, H, W, holes=0.25):
+    """Seeded piecewise-smooth disparities in half steps with holes (-10)
+    and speckles (-1), the first three columns invalid."""
+    D = rng.random((B, H, W)) * 4 + np.linspace(5, 60, W)[None, None, :]
+    D = np.round(D * 2) / 2
+    D[rng.random((B, H, W)) < holes] = -10.0
+    D[rng.random((B, H, W)) < 0.05] = -1.0
+    D[:, :, :3] = -10.0
+    return D.astype(np.float32)
+
+
+def post_edge_case(name, dev):
+    """(D1, D2, params) of one of POST_EDGE_CASES on dev, from a seed: a
+    width that is not a multiple of 4 (the adaptive mean's lane rotation
+    along rows); frames under the filters' 9-pixel reach; all pixels
+    invalid (-10 and -1) and all valid; values on the abs-mask's steps
+    (differences at powers of two, one ulp either side) with -0.0 and
+    +0.0 among them; MIDDLEBURY (5000-pixel gaps, corner extrapolation,
+    median, both views) on maps with long holes and empty rows and
+    columns; half-resolution maps in quarter steps under subsampling (the
+    d/2 warp, the 4-tap mean); a batch of 8 at the node's size."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+
+    i = POST_EDGE_CASES.index(name)
+    rng = np.random.default_rng(80 + i)
+    p = ElasParams()
+    B, H, W = ((1, 48, 83), (1, 5, 7), (2, 3, 2), (1, 40, 64), (1, 40, 64),
+               (2, 37, 61), (2, 96, 130), (1, 240, 320), (8, 480, 640))[i]
+    D1, D2 = _post_maps(rng, B, H, W), _post_maps(rng, B, H, W)
+    if name == "all invalid":
+        D1 = np.where(rng.random((B, H, W)) < 0.5, -10.0, -1.0)
+        D2 = np.full((B, H, W), -10.0)
+    elif name == "all valid":
+        D1, D2 = (rng.random((2, B, H, W)) * 40).round()
+    elif name.startswith("abs-mask"):
+        steps = 2.0 ** np.arange(-3, 8)
+        vals = np.concatenate([steps, np.nextafter(steps, 0),
+                               np.nextafter(steps, 1e9), [0.0, -0.0, 3.0,
+                                                          -10.0, -1.0]])
+        base = rng.integers(1, 60, (B, H, W)).astype(np.float32)
+        D1 = base + rng.choice(vals, (B, H, W)).astype(np.float32)
+        D1[rng.random((B, H, W)) < 0.15] = -0.0
+        D1[rng.random((B, H, W)) < 0.15] = 0.0
+        D2 = rng.choice(vals, (B, H, W))
+    elif name.startswith("MIDDLEBURY"):
+        p = ElasParams.middlebury()
+        for D in (D1, D2):
+            D[rng.random((B, H, W)) < 0.3] = -10.0
+            D[:, 20:60, 30:100] = -10.0        # holes longer than 3
+            D[:, 5, :] = -10.0                 # an empty row
+            D[:, :, 7] = -1.0                  # an empty column
+    elif name.startswith("subsampled"):
+        p = dataclasses.replace(p, subsampling=True)
+        D1, D2 = (np.where(D >= 0, D / 2, D) for D in (D1, D2))
+    return (torch.from_numpy(np.ascontiguousarray(D1, np.float32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(D2, np.float32)).to(dev), p)
+
+
+def post_kernels_hold(D1, D2, params, hold, label, smax=-1):
+    """Kernels H, I, J, K against their plain versions on [..., H, W] maps
+    on the card (hold: torch.equal), and their bits equal (int32 views:
+    torch.equal takes -0.0 for +0.0). H under ``params`` and ``smax``; I
+    under params and under MIDDLEBURY's 5000-pixel gaps with
+    extrapolation; J's 8- and 4-tap variants; K; all on both views
+    stacked."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import post
+
+    X = torch.stack([D1, D2])
+    mb = ElasParams.middlebury()
+    checks = [("elas_lr", post.left_right_consistency_check(
+                   D1, D2, params, smax),
+               post.left_right_consistency_check_plain(D1, D2, params, smax))]
+    for p in (params, mb):
+        checks.append(("elas_gap", [post.gap_interpolation(X, p)],
+                       [post.gap_interpolation_plain(X, p)]))
+    checks += [("elas_mean", [post.adaptive_mean(X)],
+                [post.adaptive_mean_plain(X)]),
+               ("elas_mean", [post.adaptive_mean_sub(X)],
+                [post.adaptive_mean_sub_plain(X)]),
+               ("elas_median", [post.median_filter(X)],
+                [post.median_filter_plain(X)])]
+    for kernel, got, want in checks:
+        hold(kernel, f"{kernel} {label}", got, want)
+        for g, w in zip(got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"{kernel} {label}: bits differ at "
+                                     f"{int((g.view(torch.int32) != w.view(torch.int32)).sum())} pixels")
+
+
+def post_work(maps_in: int, maps_out: int, shape) -> int:
+    """Bytes a postprocess kernel must move: its float32 maps read once
+    and written once."""
+    return 4 * int(np.prod(shape)) * (maps_in + maps_out)
+
+
+def postprocess_phase(dev, hold, node, batch, node_launches):
+    """Phase 12: the ELAS postprocess kernels H-K. (a) each against its
+    plain version (post_kernels_hold: torch.equal and int32 bits) on
+    POST_EDGE_CASES, on the two golden fixtures' 640x480 maps, on the
+    node's dense maps of one frame and on the batched node's 8; (b) the
+    MIDDLEBURY preset's elas_match on its libelas fixture (184x320), K's
+    path, against libelas with the launches of H-K counted;
+    postprocess_batch on the node's frame, on the card against the CPU;
+    (c) each kernel's device time at the node's shape (640x480, B = 1)
+    beside its plain version's and its byte bound (a time below it
+    fails). node: (dense D1, dense D2, speckled D1) of phase 4's
+    frame; batch: (D1, D2, lr_smax) of phase 4b's
+    chunk; node_launches: H-K's launches over phase 4's 9 frames. Returns
+    (the phase's JSON line, the kernels line's entries of H-K)."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import post
+    from jackal_tpu_torch.matching.elas.pipeline import elas_match
+
+    params = ElasParams()
+    for name in POST_EDGE_CASES:
+        D1, D2, p = post_edge_case(name, dev)
+        for smax in (-1, 32):
+            post_kernels_hold(D1, D2, p, hold, name, smax)
+    for fix in GOLDEN:
+        g = np.load(f"{FIX}/{fix}.npz")
+        post_kernels_hold(torch.from_numpy(g["D1"]).to(dev),
+                          torch.from_numpy(g["D2"]).to(dev), params, hold, fix)
+    Da, Db, S1 = node
+    post_kernels_hold(Da, Db, params, hold, "the node's dense maps")
+    BD1, BD2, lad = batch
+    post_kernels_hold(BD1, BD2, params, hold, "the batched node's 8 frames",
+                      lad)
+    print(f"12a. kernels H-K == plain (torch.equal and int32 bits): "
+          f"{', '.join(POST_EDGE_CASES)}; {', '.join(GOLDEN)}; the node's "
+          f"frame; the batched node's 8 frames (lr_smax {lad})")
+
+    # (b) K's path: MIDDLEBURY, and the whole chain card vs CPU
+    g = np.load(f"{FIX}/elas_golden_s320_mb.npz")
+    mb = ElasParams.middlebury()
+    for k in post.launches:
+        post.launches[k] = 0
+    D1, D2 = elas_match(g["left"], g["right"], mb, device=dev)
+    mb_launches = dict(post.launches)
+    _same("MIDDLEBURY elas_match D1 vs libelas", D1, torch.from_numpy(g["D1"]))
+    _same("MIDDLEBURY elas_match D2 vs libelas", D2, torch.from_numpy(g["D2"]))
+    if mb_launches != {"elas_lr": 1, "elas_gap": 1, "elas_mean": 0,
+                       "elas_median": 1}:
+        raise AssertionError(f"MIDDLEBURY elas_match launched {mb_launches}")
+    print(f"12b. elas_match MIDDLEBURY on the card == libelas D1/D2 "
+          f"(elas_golden_s320_mb); launches {mb_launches}")
+    for p in (params, mb):
+        got = post.postprocess_batch(Da[None], Db[None], p)
+        want = post.postprocess_batch(Da[None].cpu(), Db[None].cpu(), p)
+        for x, y in zip(got, want):
+            _same("postprocess_batch card vs CPU", x, y)
+    print("12b. postprocess_batch (ROBOTICS, MIDDLEBURY) on the node's dense "
+          "maps: card == CPU")
+
+    # (c) times at the node's shape
+    X = S1
+    G = post.gap_interpolation(X, params)
+    shape = tuple(Da.shape)
+    runs = {
+        "elas_lr": (lambda: post.left_right_consistency_check(Da, Db, params),
+                    lambda: post.left_right_consistency_check_plain(
+                        Da, Db, params), post_work(2, 2, shape)),
+        "elas_gap": (lambda: post.gap_interpolation(X, params),
+                     lambda: post.gap_interpolation_plain(X, params),
+                     post_work(1, 1, shape)),
+        "elas_mean": (lambda: post.adaptive_mean(G),
+                      lambda: post.adaptive_mean_plain(G),
+                      post_work(1, 1, shape)),
+        "elas_median": (lambda: post.median_filter(G),
+                        lambda: post.median_filter_plain(G),
+                        post_work(1, 1, shape)),
+    }
+    replaces = {"elas_lr": 34, "elas_gap": 443, "elas_mean": 587,
+                "elas_median": 686}
+    entries, times = [], {}
+    for k, (kern, plain, nbytes) in runs.items():
+        ms = events_ms(kern, 50)
+        pms = events_ms(plain, 3, spin=False)
+        bms, by = bound_ms(nbytes, 0, PEAK_F32_OPS_PER_S)
+        times[k] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bytes": nbytes}
+        print(f"12c. {k} at 640x480, B = 1: {ms:.5f} ms a call (CUDA events "
+              f"behind a spin; plain {pms:.3f}; bound {bms:.6f} by {by}: "
+              f"{nbytes} bytes)")
+        if ms < bms:
+            raise AssertionError(f"{k}: {ms} ms is below its bound {bms} ms")
+        launches = mb_launches[k] if k == "elas_median" else node_launches[k]
+        entries.append({
+            "name": k, "route": "cuda",
+            "source": "jackal_tpu_torch/csrc/elas_post_kernel.cu",
+            "replaces": f"jackal_tpu/matching/elas/post.py:{replaces[k]}",
+            "launches": launches, "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    return {"postprocess": {"middlebury_launches": mb_launches,
+                            "times": times}}, entries
+
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -2160,7 +2381,9 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ------------------------
     max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0,
-               "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0}
+               "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0,
+               "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
+               "elas_median": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -2372,7 +2595,10 @@ def main() -> int:
             raise AssertionError(f"synthetic frame {b}: batch != per-frame")
     print(f"elas_match_batch_device on the card == elas_match on the "
           f"{len(pairs)} synthetic node frames (chunk 3), D1 and D2")
+    from jackal_tpu_torch.matching.elas import post as post_mod
     support_mod.launches = dense_mod.launches = 0
+    for k in post_mod.launches:
+        post_mod.launches[k] = 0
     results, walls = [], []
     for i, (lr, rr) in enumerate(pairs):
         t = time.perf_counter()
@@ -2381,9 +2607,16 @@ def main() -> int:
         results.append(fr)
     launches = {"support": support_mod.launches,
                 "elas_dense": dense_mod.launches}
-    print(f"node launches over {len(pairs)} frames: {launches}")
+    node_post = dict(post_mod.launches)
+    print(f"node launches over {len(pairs)} frames: {launches}, {node_post}")
     if min(launches.values()) == 0:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
+    n9 = len(pairs)
+    if node_post != {"elas_lr": n9, "elas_gap": n9, "elas_mean": n9,
+                     "elas_median": 0}:
+        raise AssertionError(f"the node launched the postprocess kernels "
+                             f"{node_post} times over {n9} frames, not H, I "
+                             f"and J once a frame")
     if launches["elas_dense"] != len(pairs):
         raise AssertionError(f"the node launched the dense kernel "
                              f"{launches['elas_dense']} times over "
@@ -2450,16 +2683,35 @@ def main() -> int:
     Da, Db = (x[0] for x in dense_mod.dense_match_pair(d1, d2, v1, v2,
                                                         params))
     L1, L2 = left_right_consistency_check(Da, Db, params)
-    st["L/R check"] = host_ms(
+    st["L/R check (kernel H)"] = host_ms(
         lambda: left_right_consistency_check(Da, Db, params), 5)
+    st["L/R check, plain version"] = host_ms(
+        lambda: post_mod.left_right_consistency_check_plain(Da, Db, params),
+        5)
     st["hop 2: speckle (D1 to host, C++ BFS, back)"] = host_ms(
         lambda: ep._speckle(L1, params), 5)
     S1 = ep._speckle(L1, params)
-    st["tail (gap, adaptive mean)"] = host_ms(
+    st["tail (gap, adaptive mean: kernels I, J)"] = host_ms(
         lambda: post_tail(S1, L2, params), 5)
+    st["tail, plain versions"] = host_ms(
+        lambda: post_mod.adaptive_mean_plain(
+            post_mod.gap_interpolation_plain(S1, params)), 5)
     for k, v in st.items():
         print(f"  stage {k}: {v:.3f} ms")
     print("stages: " + json.dumps({k: round(v, 4) for k, v in st.items()}))
+    # the batched path on one frame at chunk 1 beside the per-frame path
+    # (a measurement: the device prior, speckle and tail against the C++
+    # prior and the speckle hop)
+    one = {"elas_match": host_ms(
+               lambda: elas_match(lt, rt, params, device=dev), 5),
+           "elas_match_batch_device, B = 1, chunk 1": host_ms(
+               lambda: elas_match_batch_device(lt[None], rt[None], params,
+                                               chunk=1, device=dev), 5)}
+    _same("elas_match_batch_device(chunk=1) vs elas_match", elas_match_batch_device(
+        lt[None], rt[None], params, chunk=1, device=dev)[0][0],
+        elas_match(lt, rt, params, device=dev)[0])
+    print("one frame, host ms (median of 5): " + json.dumps(
+        {k: round(v, 4) for k, v in one.items()}))
 
     # ---- 4b. the batched node ---------------------------------------------
     from jackal_tpu_torch.io_bus.bus import TopicBus
@@ -2480,6 +2732,8 @@ def main() -> int:
     depth_msgs.clear()
     scan_msgs.clear()
     support_mod.launches = dense_mod.launches = dp.launches = 0
+    for k in post_mod.launches:
+        post_mod.launches[k] = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     done = runner.run(iter(stream))
@@ -2487,7 +2741,15 @@ def main() -> int:
     stream_s = time.perf_counter() - t
     launches_b = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches, "raster": dp.launches}
-    print(f"batched node launches over {done} frames: {launches_b}")
+    batch_post = dict(post_mod.launches)
+    print(f"batched node launches over {done} frames: {launches_b}, "
+          f"{batch_post}")
+    nb6 = n_frames // batch
+    if batch_post != {"elas_lr": nb6, "elas_gap": nb6, "elas_mean": nb6,
+                      "elas_median": 0}:
+        raise AssertionError(f"the batched node launched the postprocess "
+                             f"kernels {batch_post} times over {nb6} batches,"
+                             f" not H, I and J once a batch")
     if min(launches_b.values()) == 0:
         raise AssertionError(f"the batched node bypassed a kernel: "
                              f"{launches_b}")
@@ -2563,9 +2825,20 @@ def main() -> int:
     BD1, BD2 = dense_mod.dense_match_pair(bd1, bd2, m1, m2, params)
     sb["postprocess (L/R, speckle, tail)"] = host_ms(
         lambda: postprocess_batch(BD1, BD2, params, lad), 3)
-    BL1, _ = left_right_consistency_check(BD1, BD2, params, lad)
+    BL1, BL2 = left_right_consistency_check(BD1, BD2, params, lad)
+    sb["  L/R check (kernel H)"] = host_ms(
+        lambda: left_right_consistency_check(BD1, BD2, params, lad), 5)
+    sb["  L/R check, plain version"] = host_ms(
+        lambda: post_mod.left_right_consistency_check_plain(BD1, BD2, params,
+                                                            lad), 5)
     sb["  of which the speckle filter (left view)"] = host_ms(
         lambda: remove_small_segments_batch(BL1, params), 3)
+    BS1 = remove_small_segments_batch(BL1, params)
+    sb["  tail (kernels I, J)"] = host_ms(
+        lambda: post_tail(BS1, BL2, params), 5)
+    sb["  tail, plain versions"] = host_ms(
+        lambda: post_mod.adaptive_mean_plain(
+            post_mod.gap_interpolation_plain(BS1, params)), 5)
     dmaps8 = pipe._dmap_u8(postprocess_batch(BD1, BD2, params, lad)[0])
     sb["scan"] = host_ms(lambda: pipe._scan_stage(dmaps8), 5)
     for k, v in sb.items():
@@ -2580,11 +2853,12 @@ def main() -> int:
         top = 40 if name in ("elas_dense_kernel", "census_kernel") else 8
         print(f"  sass {name}: "
               f"{sass_opcodes(cuda_lib.library(name).path, top=top)}")
-    ffma = sass_opcodes(cuda_lib.library("raster_kernel").path, top=None,
-                        prefix="FFMA")
-    print(f"  sass raster_kernel FFMA instructions: {ffma or 'none'}")
-    if ffma:
-        raise AssertionError("the raster kernel contracts into FFMA")
+    for name in ("raster_kernel", "elas_post_kernel"):
+        ffma = sass_opcodes(cuda_lib.library(name).path, top=None,
+                            prefix="FFMA")
+        print(f"  sass {name} FFMA instructions: {ffma or 'none'}")
+        if ffma:
+            raise AssertionError(f"{name} contracts into FFMA")
 
     # kernel timing at the node's shapes, beside the plain versions
     ncv = -(-H // step)
@@ -2741,6 +3015,14 @@ def main() -> int:
 
     # ---- 11. the multi-device paths and the last modules ------------------
     print(json.dumps(multidevice_phase(dev, pairs, L9, R9)))
+
+    # ---- 12. the ELAS postprocess kernels H-K ------------------------------
+    line, entries = postprocess_phase(dev, hold, (Da, Db, S1),
+                                      (BD1, BD2, lad), node_post)
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
 
     # ---- 8. the kernels line, the card, the result -----------------------
     print(f"torch.profiler windows traced again for want of device activity:"

@@ -9,13 +9,20 @@ the device (remove_small_segments_batch): 4-connected components under
 |d_i - d_j| <= sim_threshold by min-label run scans to a fixed point, then
 a component-size kill, bit-equal to the BFS.
 
-Exactness: every float operation here is a single eager PyTorch op, so no
-multiply is fused into an add, and f32 division is correctly rounded on
-both the CPU and the card. The adaptive mean's sums keep the reference's
-SSE lane order.
+The L/R check, the gap interpolation, the adaptive mean and the median are
+each a wrapper: on CUDA tensors it launches its hand-written kernel
+(csrc/elas_post_kernel.cu: H, I, J, K), on CPU tensors it runs its plain
+version (the *_plain function), which the kernel equals bit for bit.
+``launches`` counts the wrapper calls that launched a kernel, by kernel.
+
+Exactness: every float operation of a plain version is a single eager
+PyTorch op, so no multiply is fused into an add, and f32 division is
+correctly rounded on both the CPU and the card. The adaptive mean's sums
+keep the reference's SSE lane order.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -23,10 +30,72 @@ import torch
 import torch.nn.functional as F
 
 from ...config import ElasParams
+from ...ops import cuda_lib
 from ...ops.shifts import shifted_row_lookup
+
+launches = {"elas_lr": 0, "elas_gap": 0, "elas_mean": 0, "elas_median": 0}
+
+
+def _frames(D: torch.Tensor, name: str) -> torch.Tensor:
+    """A CUDA map as a contiguous float32 [B, H, W] batch (B the product
+    of the leading dimensions); raises on what the kernels do not take."""
+    if D.dtype != torch.float32 or D.dim() < 2 or D.numel() == 0:
+        raise ValueError(f"{name}: expected a non-empty float32 [..., H, W] "
+                         f"map, got {D.dtype} {tuple(D.shape)}")
+    return D.contiguous().reshape(-1, *D.shape[-2:])
+
+
+def _entry(name: str, n_ptrs: int, n_ints: int, tail=()):
+    """A C entry point of csrc/elas_post_kernel.cu: n_ptrs pointers, n_ints
+    ints, the ctypes of ``tail``, then the stream."""
+    fn = getattr(cuda_lib.load("elas_post_kernel"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+        + list(tail) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lr_cuda(D1: torch.Tensor, D2: torch.Tensor, smax: int,
+             params: ElasParams):
+    X1, X2 = _frames(D1, "D1"), _frames(D2, "D2")
+    if X1.shape != X2.shape or X1.device != X2.device:
+        raise ValueError(f"L/R check: D1 {tuple(D1.shape)} on {D1.device} "
+                         f"and D2 {tuple(D2.shape)} on {D2.device}")
+    B, H, W = X1.shape
+    O1, O2 = torch.empty_like(X1), torch.empty_like(X1)
+    fn = _entry("elas_lr_check", 4, 4, (ctypes.c_float, ctypes.c_int))
+    cuda_lib.launch(fn, "elas_lr", X1, X1.data_ptr(), X2.data_ptr(),
+                    O1.data_ptr(), O2.data_ptr(), B, H, W, smax,
+                    float(params.lr_threshold), int(params.subsampling))
+    launches["elas_lr"] += 1
+    return O1.reshape(D1.shape), O2.reshape(D2.shape)
+
+
+def _two_pass_cuda(entry: str, kernel: str, D: torch.Tensor, *ints):
+    """A kernel of two passes (rows then columns, or horizontal then
+    vertical) through a scratch map: D -> T -> O."""
+    X = _frames(D, kernel)
+    B, H, W = X.shape
+    T, O = torch.empty_like(X), torch.empty_like(X)
+    cuda_lib.launch(_entry(entry, 3, 3 + len(ints)), kernel, X,
+                    X.data_ptr(), T.data_ptr(), O.data_ptr(), B, H, W, *ints)
+    launches[kernel] += 1
+    return O.reshape(D.shape)
 
 
 def left_right_consistency_check(
+    D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
+    smax: int = -1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """left_right_consistency_check_plain's contract: kernel H (both views
+    in one launch) on CUDA tensors, the plain version on CPU tensors."""
+    if D1.is_cuda:
+        smax = params.disp_max if smax < 0 else min(smax, params.disp_max)
+        return _lr_cuda(D1, D2, smax, params)
+    return left_right_consistency_check_plain(D1, D2, params, smax)
+
+
+def left_right_consistency_check_plain(
     D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
     smax: int = -1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,6 +204,16 @@ def _extrapolate_rows(D: torch.Tensor, gap_width: int) -> torch.Tensor:
 
 def gap_interpolation(D: torch.Tensor,
                       params: ElasParams = ElasParams()) -> torch.Tensor:
+    """gap_interpolation_plain's contract: kernel I (a row pass, then a
+    column pass) on CUDA tensors, the plain version on CPU tensors."""
+    if D.is_cuda:
+        return _two_pass_cuda("elas_gap_interp", "elas_gap", D,
+                              gap_width_eff(params), int(params.add_corners))
+    return gap_interpolation_plain(D, params)
+
+
+def gap_interpolation_plain(D: torch.Tensor,
+                            params: ElasParams = ElasParams()) -> torch.Tensor:
     """elas.cpp:1101-1284: row pass then column pass (on the row result)."""
     g = gap_width_eff(params)
     out = _gap_fill_rows(D, g)
@@ -224,6 +303,14 @@ def _adaptive_pass4(src: torch.Tensor, axis: int
 
 
 def adaptive_mean_sub(D: torch.Tensor) -> torch.Tensor:
+    """adaptive_mean_sub_plain's contract: kernel J's 4-tap variant on
+    CUDA tensors, the plain version on CPU tensors."""
+    if D.is_cuda:
+        return _two_pass_cuda("elas_adaptive_mean", "elas_mean", D, 4)
+    return adaptive_mean_sub_plain(D)
+
+
+def adaptive_mean_sub_plain(D: torch.Tensor) -> torch.Tensor:
     """adaptiveMean, subsampling branch (4-px window; elas.cpp:1323-1391).
 
     Horizontal writes rows [3, H-4] x cols [2, W-2] into D_tmp; vertical
@@ -245,6 +332,14 @@ def adaptive_mean_sub(D: torch.Tensor) -> torch.Tensor:
 
 
 def adaptive_mean(D: torch.Tensor) -> torch.Tensor:
+    """adaptive_mean_plain's contract: kernel J (8 taps) on CUDA tensors,
+    the plain version on CPU tensors."""
+    if D.is_cuda:
+        return _two_pass_cuda("elas_adaptive_mean", "elas_mean", D, 8)
+    return adaptive_mean_plain(D)
+
+
+def adaptive_mean_plain(D: torch.Tensor) -> torch.Tensor:
     """elas.cpp:1287-1492 (full-resolution 8-px variant), reproducing the
     reference's buffer semantics:
 
@@ -271,6 +366,14 @@ def adaptive_mean(D: torch.Tensor) -> torch.Tensor:
 
 
 def median_filter(D: torch.Tensor) -> torch.Tensor:
+    """median_filter_plain's contract: kernel K on CUDA tensors, the plain
+    version on CPU tensors."""
+    if D.is_cuda:
+        return _two_pass_cuda("elas_median", "elas_median", D)
+    return median_filter_plain(D)
+
+
+def median_filter_plain(D: torch.Tensor) -> torch.Tensor:
     """elas.cpp:1494-1560: separable 7-tap median, only where D >= 0,
     with D_temp's calloc-zero border."""
     H, W = D.shape[-2:]
@@ -297,18 +400,16 @@ def post_tail(D1: torch.Tensor, D2: torch.Tensor,
               params: ElasParams = ElasParams()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gap interpolation + optional filters (the post-speckle tail); the
-    adaptive mean is the subsampling branch's under subsampling."""
-    views = [D1] if params.postprocess_only_left else [D1, D2]
-    am = adaptive_mean_sub if params.subsampling else adaptive_mean
-    out = []
-    for Dv in views:
-        Dv = gap_interpolation(Dv, params)
-        if params.filter_adaptive_mean:
-            Dv = am(Dv)
-        if params.filter_median:
-            Dv = median_filter(Dv)
-        out.append(Dv)
-    return (out[0], D2) if params.postprocess_only_left else tuple(out)
+    adaptive mean is the subsampling branch's under subsampling. Both
+    views go through each step together, so on the card each of kernels
+    I, J, K launches once a call."""
+    X = D1 if params.postprocess_only_left else torch.stack([D1, D2])
+    X = gap_interpolation(X, params)
+    if params.filter_adaptive_mean:
+        X = adaptive_mean_sub(X) if params.subsampling else adaptive_mean(X)
+    if params.filter_median:
+        X = median_filter(X)
+    return (X, D2) if params.postprocess_only_left else (X[0], X[1])
 
 
 # ---------------------------------------------------------------------------

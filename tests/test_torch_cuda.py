@@ -805,3 +805,125 @@ def test_filters_and_linalg_on_the_card_equal_cpu(dev):
                                           torch.from_numpy(B).to(dev)),
                     pl.gauss_jordan_solve(A, B, "cpu")):
         assert torch.equal(g.cpu(), w)
+
+
+def _hold_equal(kernel, name, got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_postprocess_kernels_edges(dev, case):
+    """chip_smoke.POST_EDGE_CASES: kernels H-K against their plain versions
+    (torch.equal and int32 bits) at W % 4 != 0, H and W under 9, all
+    invalid and all valid maps, values on the abs-mask's steps with both
+    zeros, MIDDLEBURY's long gaps, subsampled maps and B = 8 at
+    640x480."""
+    from chip_smoke import (POST_EDGE_CASES, post_edge_case,
+                            post_kernels_hold)
+    from jackal_tpu_torch.matching.elas import post
+
+    assert len(POST_EDGE_CASES) == 9
+    name = POST_EDGE_CASES[case]
+    D1, D2, p = post_edge_case(name, dev)
+    n0 = dict(post.launches)
+    for smax in (-1, 32):
+        post_kernels_hold(D1, D2, p, _hold_equal, name, smax)
+    # per hold: H once, I twice, J twice (8 and 4 taps), K once
+    assert {k: post.launches[k] - n0[k] for k in n0} == {
+        "elas_lr": 2, "elas_gap": 4, "elas_mean": 4, "elas_median": 2}
+
+
+@pytest.mark.parametrize("fix", ["elas_golden_s640_boxes", "elas_golden_photo"])
+def test_postprocess_kernels_on_the_golden_maps(dev, fix):
+    """H-K on the 640x480 maps of both golden fixtures, ROBOTICS and
+    MIDDLEBURY, and post_tail / postprocess_batch on the card against the
+    CPU's plain chain."""
+    from chip_smoke import post_kernels_hold
+    from jackal_tpu_torch.matching.elas import post
+
+    g = np.load(f"{FIX}/{fix}.npz")
+    D1, D2 = (torch.from_numpy(g[k]).to(dev) for k in ("D1", "D2"))
+    for p in (ElasParams(), ElasParams.middlebury()):
+        post_kernels_hold(D1, D2, p, _hold_equal, fix)
+        for got, want in ((post.post_tail(D1, D2, p),
+                           post.post_tail(D1.cpu(), D2.cpu(), p)),
+                          (post.postprocess_batch(D1[None], D2[None], p),
+                           post.postprocess_batch(D1[None].cpu(),
+                                                  D2[None].cpu(), p))):
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu().view(torch.int32),
+                                   b.view(torch.int32))
+
+
+def test_postprocess_kernels_never_run_the_plain_twins(dev, monkeypatch):
+    from jackal_tpu_torch.matching.elas import post
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    for name in ("left_right_consistency_check_plain",
+                 "gap_interpolation_plain", "adaptive_mean_plain",
+                 "adaptive_mean_sub_plain", "median_filter_plain"):
+        monkeypatch.setattr(post, name, refuse)
+    rng = np.random.default_rng(3)
+    D1, D2 = (torch.from_numpy(rng.integers(-1, 40, (2, 30, 50))
+                               .astype(np.float32)).to(dev) for _ in range(2))
+    for p in (ElasParams(), ElasParams.middlebury(),
+              dataclasses.replace(ElasParams(), subsampling=True)):
+        post.postprocess_batch(D1, D2, p)
+        post.postprocess_batch(D1[:1], D2[:1], p)
+
+
+def test_postprocess_kernels_refuse_what_they_do_not_take(dev):
+    from jackal_tpu_torch.matching.elas import post
+
+    D = torch.zeros((4, 5), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        post.gap_interpolation(D.double())
+    with pytest.raises(ValueError, match="float32"):
+        post.median_filter(torch.zeros((0, 5), device=dev))
+    with pytest.raises(ValueError, match="L/R check"):
+        post.left_right_consistency_check(D, torch.zeros((4, 6), device=dev))
+
+
+def test_weighted_mean_division_equals_ieee_division(dev):
+    """Kernel J's division (div_even, through the elas_div_even entry
+    point) against torch's float32 '/' on the card, for every even divisor
+    in [2, 32]: every subnormal, every power of two with the float one ulp
+    either side, the largest float, +0, +inf and 4M seeded random positive
+    floats. A negative or NaN dividend comes back as it is (the kernel
+    stores no negative mean)."""
+    import ctypes
+
+    from jackal_tpu_torch.ops import cuda_lib
+
+    fn = cuda_lib.load("elas_post_kernel").elas_div_even
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def div_even(x, d):
+        out = torch.empty_like(x)
+        cuda_lib.launch(fn, "elas_div_even", x, x.data_ptr(), out.data_ptr(),
+                        x.numel(), d)
+        return out
+
+    pow2 = torch.arange(1, 255, dtype=torch.int32) << 23
+    rng = np.random.default_rng(0)
+    bits = torch.cat([
+        torch.arange(1, 1 << 23, dtype=torch.int32),      # subnormals
+        pow2 - 1, pow2, pow2 + 1,
+        torch.tensor([0, 0x7F7FFFFF, 0x7F800000], dtype=torch.int32),
+        torch.from_numpy(rng.integers(1, 0x7F800000, 4_000_000,
+                                      dtype=np.int32))])
+    x = bits.view(torch.float32).to(dev)
+    for d in range(2, 33, 2):
+        want = x / torch.full_like(x, float(d))
+        assert torch.equal(div_even(x, d).view(torch.int32),
+                           want.view(torch.int32)), d
+    neg = torch.tensor([-0.0, -1e-45, -1.5, -10.0, float("nan"),
+                        -float("inf")], device=dev)
+    for d in (2, 6, 32):
+        assert torch.equal(div_even(neg, d).view(torch.int32),
+                           neg.view(torch.int32)), d
