@@ -46,8 +46,10 @@ Phases (any failure exits non-zero and prints no success line):
      rate of its byte SADs is measured on the card (csrc/sad_rate.cu, the
      median of 7 windows, refused above the card's cap), and cuobjdump
      shows the instructions __vsadu4 became (the dense and census kernels'
-     whole opcode mix) and that the raster kernel and the postprocess
-     kernels H-K have no FFMA; the dense
+     whole opcode mix) and that the raster kernel has no FFMA and the
+     postprocess kernels H-K and the dense kernel no FFMA or DFMA; the
+     dense kernel's pair call against its plain version at plane radius
+     8 and 9 (its instantiation with the radius at run time); the dense
      kernel's pair call against its plain version on the batched node's 8
      frames, its time there and at the node's shape, its bound for both
      views (the bound a view at a time, summed, beside it) and the
@@ -90,7 +92,9 @@ Phases (any failure exits non-zero and prints no success line):
      both golden pairs at D = 64 and 256 and on seeded awkward shapes
      (W = 2000, W % 64 != 0, D past G's strip, H and W under 32, fewer rows
      than the window, windows 1 to 21, B = 32 batches in G's 64-column
-     strip, G's D > 256 path at D = 320 and 512); (b)
+     strip, G's path without shared memory at D = 320 and 512 and at the
+     windows its strip cannot hold: 255 at D = 64 on 300x640, 75 at D =
+     256, 227, and 257 on a 0/255 pair whose costs pass 1 << 24); (b)
      the BM node, make_pipeline(engine="bm") at 640x480, D = 64:
      process_frame on 9 synthetic pairs (stage medians, fps, idle share),
      process_batch_fused at batch 8 against process_frame, StreamingRunner
@@ -105,7 +109,8 @@ Phases (any failure exits non-zero and prints no success line):
      1); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
      device time, its plain twin's and its bound (and the bound as counted
      before G's packed instructions) at the node's shape, at D = 256, at
-     D = 512 (its D > 256 path), at config 5's and at bench_bm256's, a
+     D = 512 (its D > 256 path), at window 255 (its path without shared
+     memory), at config 5's and at bench_bm256's, a
      time below its bound failing, at the last two beside G' "full32"
      (32-column strips), and G' (the per-part timing) in its five modes;
   9. the node shell, the CLIs a user runs (cli/point_cloud.main in this
@@ -144,7 +149,9 @@ Phases (any failure exits non-zero and prints no success line):
      path) against libelas with H-K's launches pinned; postprocess_batch
      on the node's frame against the CPU;
      H-K's times at the node's shape beside their plain versions' and
-     their byte bounds; one JSON line;
+     their byte bounds, with the kernel launches a call (I and J one, K
+     two), and I's scan design on MIDDLEBURY's gaps over both views
+     (B = 2); one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -1185,6 +1192,17 @@ def bm_work(B, H, W, D):
 BM_OPS_32 = 12
 
 
+def binary_pair(seed=0, H=270, W=290, density=0.002):
+    """A seeded 0/255 pair (uint8 [H, W] each) whose absolute differences
+    are 255 nearly everywhere: a left image of 255 with sparse 0s and a
+    right one of 0 with sparse 255s. At window 257 its real costs pass
+    1 << 24 where the box lies inside the frame."""
+    rng = np.random.default_rng(seed)
+    left = np.where(rng.random((H, W)) < density, 0, 255).astype(np.uint8)
+    right = np.where(rng.random((H, W)) < density, 255, 0).astype(np.uint8)
+    return left, right
+
+
 def bm_phase(dev, hold):
     """Phase 7: kernel G against its plain twin, the BM node, BASELINE
     config 5 (BM + gen_pcl) and bench_bm256's configuration, BM's accuracy
@@ -1224,28 +1242,42 @@ def bm_phase(dev, hold):
                                    # batches that take the 64-column strip
                                    (32, 161, 333, 101, 21, 17),
                                    (32, 330, 333, 33, 1, 3),
-                                   # G's D > 256 path
+                                   # G's path without shared memory: D >
+                                   # 256, then windows the strip cannot
+                                   # hold (past 255, past its shared
+                                   # memory at D = 64 and 256)
                                    (1, 40, 400, 320, 9, 40),
                                    (2, 24, 600, 512, 5, 33),
-                                   (1, 9, 560, 512, 21, 100)):
+                                   (1, 9, 560, 512, 21, 100),
+                                   (1, 300, 640, 64, 255, 9),
+                                   (1, 96, 320, 256, 75, 40),
+                                   (2, 40, 300, 64, 227, 5)):
         left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
         p = BMParams(disp_num=D, window=win)
         sw = bk.strip_width((B, H, W), p)
         if B == 32 and sw != 64:
             raise AssertionError(f"G took a {sw}-column strip at B={B} "
                                  f"{H}x{W} D={D}, not 64")
-        path = f"{sw}-column strip" if sw else "the D > 256 path"
+        path = f"{sw}-column strip" if sw else "the path without shared memory"
         hold_bm(f"seeded B={B} {H}x{W} D={D} window {win} ({path})",
                 torch.from_numpy(left).to(dev),
                 torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev), p)
+    # window 257 on a 0/255 pair whose real costs pass the invalid cost
+    # 1 << 24 (tests/test_torch_bm.py holds the plain twin against the
+    # reference there)
+    bl, br = (torch.from_numpy(x).to(dev)[None] for x in binary_pair())
+    pb = BMParams(disp_num=64, window=257, uniqueness=1.0, lr_threshold=1000)
+    hold_bm("a 0/255 pair at window 257, costs past 1 << 24", bl, br, pb)
     torch.cuda.synchronize()
     print("7a. kernel G == plain (torch.equal, both views) on the golden "
           "pair at 640x480 D=64 and 256 and on seeded frames (B=3, odd H "
           "and D, W % 64 != 0, W=1280 and 2000, windows 1, 3, 5, 7, 9 and "
           "21, D past the strip, H and W under 32, fewer rows than the "
           "window; B=32 at H % 64 != 0, W % 64 != 0, odd D, in the "
-          "64-column strip; G's D > 256 path at D = 320 and 512, windows "
-          "5, 9 and 21)")
+          "64-column strip; G's path without shared memory at D = 320 and "
+          "512, windows 5, 9 and 21, and at windows the strip does not "
+          "hold: 255 at D = 64 on 300x640, 75 at D = 256, 227 at D = 64 "
+          "(B = 2), 257 on a 0/255 pair whose costs pass 1 << 24)")
 
     def counted(label, fn, want):
         """(fn(), G's launches in it): the counter set to 0 just before and
@@ -1471,7 +1503,10 @@ def bm_phase(dev, hold):
     for label, (li, ri), p in (("node", (lt, rt), p64),
                                ("D=256", (L5[:1], R5[:1]), p256),
                                ("D=512 (its D > 256 path)", (lt, rt),
-                                BMParams(disp_num=512))):
+                                BMParams(disp_num=512)),
+                               ("window 255 (its path without shared "
+                                "memory)", (lt, rt),
+                                BMParams(disp_num=64, window=255))):
         hold("bm", f"bm at the {label} shape", bk.bm_match_fused(li, ri, p),
              bk.bm_match_fused_plain(li, ri, p))
         k_ms = events_ms(lambda: bk.bm_match_fused(li, ri, p), 20)
@@ -1932,7 +1967,16 @@ POST_EDGE_CASES = ("W = 83, not a multiple of 4", "H and W under 9: 5 x 7",
                    "3 x 2", "all invalid", "all valid",
                    "abs-mask steps and signed zeros",
                    "MIDDLEBURY, both views, long gaps",
-                   "subsampled, 240 x 320", "B = 8 at 640x480")
+                   "subsampled, 240 x 320", "B = 8 at 640x480",
+                   # the 32 x 32 tiles of I and J, and I's two designs
+                   "70 x 101, not multiples of the tile",
+                   "gaps and valid runs across tile edges",
+                   "one row: 1 x 200", "one column: 200 x 1",
+                   "smaller than the halo: 4 x 6, gap width 8",
+                   "gap width 8, the tile design's widest",
+                   "gap width 9, the scan design",
+                   "add_corners at gap width 3",
+                   "lines past 1024 pixels: 1030 x 2100")
 
 
 def _post_maps(rng, B, H, W, holes=0.25):
@@ -1946,6 +1990,22 @@ def _post_maps(rng, B, H, W, holes=0.25):
     return D.astype(np.float32)
 
 
+def _runs(rng, D, max_run, n):
+    """D with n seeded runs of 1..max_run invalid pixels (-10 or -1) along
+    rows and as many along columns, in place."""
+    B, H, W = D.shape
+    for axis in (2, 1):
+        for _ in range(n):
+            b, y, x = (int(rng.integers(0, k)) for k in (B, H, W))
+            k = int(rng.integers(1, max_run + 1))
+            v = -10.0 if rng.random() < 0.7 else -1.0
+            if axis == 2:
+                D[b, y, x:x + k] = v
+            else:
+                D[b, y:y + k, x] = v
+    return D
+
+
 def post_edge_case(name, dev):
     """(D1, D2, params) of one of POST_EDGE_CASES on dev, from a seed: a
     width that is not a multiple of 4 (the adaptive mean's lane rotation
@@ -1955,7 +2015,14 @@ def post_edge_case(name, dev):
     +0.0 among them; MIDDLEBURY (5000-pixel gaps, corner extrapolation,
     median, both views) on maps with long holes and empty rows and
     columns; half-resolution maps in quarter steps under subsampling (the
-    d/2 warp, the 4-tap mean); a batch of 8 at the node's size."""
+    d/2 warp, the 4-tap mean); a batch of 8 at the node's size. Then the
+    32 x 32 tiles of I and J: H and W not multiples of the tile; runs of
+    invalid and valid pixels across the tiles' edges (columns and rows
+    around 32, 64 and 96); one-row and one-column maps; a map smaller than
+    I's halo at gap width 8 (9 pixels); gap widths 8 and 9, either side of
+    I's switch from its tile design to its scan design, on runs of 1 to 11
+    pixels; add_corners at gap width 3 (the scan design at a short gap);
+    rows and columns longer than the scan design's chunk of 1024."""
     import torch
     from jackal_tpu_torch.config import ElasParams
 
@@ -1963,7 +2030,10 @@ def post_edge_case(name, dev):
     rng = np.random.default_rng(80 + i)
     p = ElasParams()
     B, H, W = ((1, 48, 83), (1, 5, 7), (2, 3, 2), (1, 40, 64), (1, 40, 64),
-               (2, 37, 61), (2, 96, 130), (1, 240, 320), (8, 480, 640))[i]
+               (2, 37, 61), (2, 96, 130), (1, 240, 320), (8, 480, 640),
+               (2, 70, 101), (2, 100, 130), (2, 1, 200), (2, 200, 1),
+               (1, 4, 6), (2, 90, 110), (2, 90, 110), (2, 90, 110),
+               (1, 1030, 2100))[i]
     D1, D2 = _post_maps(rng, B, H, W), _post_maps(rng, B, H, W)
     if name == "all invalid":
         D1 = np.where(rng.random((B, H, W)) < 0.5, -10.0, -1.0)
@@ -1990,6 +2060,32 @@ def post_edge_case(name, dev):
     elif name.startswith("subsampled"):
         p = dataclasses.replace(p, subsampling=True)
         D1, D2 = (np.where(D >= 0, D / 2, D) for D in (D1, D2))
+    elif name.startswith("gaps and valid runs"):
+        for D in (D1, D2):
+            D[D < 0] = 7.5                     # only the runs below
+            for e in (32, 64, 96):
+                for k, lo in enumerate(range(e - 4, e + 1)):
+                    # runs of 1-5 pixels ending at, crossing and starting
+                    # at the edge, valid runs of 1-3 between them
+                    D[:, lo:lo + k % 4 + 1, 5 + 9 * k::17] = -10.0
+                    D[:, 5 + 9 * k::13, lo:lo + k % 4 + 1] = -1.0
+            D[:, 31:34, 31:34] = -10.0         # a hole on a tile corner
+            D[:, 32, 32] = 9.0                 # with one valid pixel in it
+    elif name.startswith("one column"):
+        D1, D2 = (np.ascontiguousarray(_post_maps(rng, B, W, H).transpose(
+            0, 2, 1)) for _ in range(2))
+    elif name.startswith(("smaller than the halo", "gap width 8")):
+        p = dataclasses.replace(p, ipol_gap_width=8)
+    elif name.startswith("gap width 9"):
+        p = dataclasses.replace(p, ipol_gap_width=9)
+    elif name.startswith("add_corners"):
+        p = dataclasses.replace(p, add_corners=True)
+    if name.startswith(("gap width", "add_corners")):
+        for D in (D1, D2):
+            D[D < 0] = 20.0
+            _runs(rng, D, 11, H * W // 40)
+            D[:, :, :4] = -10.0                # the corners' reach
+            D[:, -5:, :] = -1.0
     return (torch.from_numpy(np.ascontiguousarray(D1, np.float32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(D2, np.float32)).to(dev), p)
 
@@ -2043,7 +2139,9 @@ def postprocess_phase(dev, hold, node, batch, node_launches):
     postprocess_batch on the node's frame, on the card against the CPU;
     (c) each kernel's device time at the node's shape (640x480, B = 1)
     beside its plain version's and its byte bound (a time below it
-    fails). node: (dense D1, dense D2, speckled D1) of phase 4's
+    fails) and the kernel launches a call as the entry points report
+    them (pinned: H, I, J one, K two), and I's scan design on MIDDLEBURY's
+    gaps and corners over both views (B = 2, two launches). node: (dense D1, dense D2, speckled D1) of phase 4's
     frame; batch: (D1, D2, lr_smax) of phase 4b's
     chunk; node_launches: H-K's launches over phase 4's 9 frames. Returns
     (the phase's JSON line, the kernels line's entries of H-K)."""
@@ -2092,38 +2190,55 @@ def postprocess_phase(dev, hold, node, batch, node_launches):
     print("12b. postprocess_batch (ROBOTICS, MIDDLEBURY) on the node's dense "
           "maps: card == CPU")
 
-    # (c) times at the node's shape
+    # (c) times at the node's shape; I's scan design also on MIDDLEBURY's
+    # gaps and corners over both views (B = 2)
     X = S1
     G = post.gap_interpolation(X, params)
+    X2 = torch.stack([S1, Db])
     shape = tuple(Da.shape)
-    runs = {
-        "elas_lr": (lambda: post.left_right_consistency_check(Da, Db, params),
-                    lambda: post.left_right_consistency_check_plain(
-                        Da, Db, params), post_work(2, 2, shape)),
-        "elas_gap": (lambda: post.gap_interpolation(X, params),
-                     lambda: post.gap_interpolation_plain(X, params),
-                     post_work(1, 1, shape)),
-        "elas_mean": (lambda: post.adaptive_mean(G),
-                      lambda: post.adaptive_mean_plain(G),
-                      post_work(1, 1, shape)),
-        "elas_median": (lambda: post.median_filter(G),
-                        lambda: post.median_filter_plain(G),
-                        post_work(1, 1, shape)),
-    }
+    # (label, kernel, call, plain call, bytes, kernel launches a call)
+    runs = [
+        ("elas_lr", "elas_lr",
+         lambda: post.left_right_consistency_check(Da, Db, params),
+         lambda: post.left_right_consistency_check_plain(Da, Db, params),
+         post_work(2, 2, shape), 1),
+        ("elas_gap", "elas_gap", lambda: post.gap_interpolation(X, params),
+         lambda: post.gap_interpolation_plain(X, params),
+         post_work(1, 1, shape), 1),
+        ("elas_mean", "elas_mean", lambda: post.adaptive_mean(G),
+         lambda: post.adaptive_mean_plain(G), post_work(1, 1, shape), 1),
+        ("elas_median", "elas_median", lambda: post.median_filter(G),
+         lambda: post.median_filter_plain(G), post_work(1, 1, shape), 2),
+        ("elas_gap MIDDLEBURY B = 2", "elas_gap",
+         lambda: post.gap_interpolation(X2, mb),
+         lambda: post.gap_interpolation_plain(X2, mb),
+         post_work(1, 1, tuple(X2.shape)), 2),
+    ]
     replaces = {"elas_lr": 34, "elas_gap": 443, "elas_mean": 587,
                 "elas_median": 686}
     entries, times = [], {}
-    for k, (kern, plain, nbytes) in runs.items():
+    for label, k, kern, plain, nbytes, want in runs:
+        # the kernel launches of one call, as the entry point reports them
+        before = post.device_launches[k]
+        kern()
+        per_call = post.device_launches[k] - before
         ms = events_ms(kern, 50)
         pms = events_ms(plain, 3, spin=False)
         bms, by = bound_ms(nbytes, 0, PEAK_F32_OPS_PER_S)
-        times[k] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                    "bytes": nbytes}
-        print(f"12c. {k} at 640x480, B = 1: {ms:.5f} ms a call (CUDA events "
-              f"behind a spin; plain {pms:.3f}; bound {bms:.6f} by {by}: "
-              f"{nbytes} bytes)")
+        times[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                        "bytes": nbytes, "launches_a_call": per_call}
+        print(f"12c. {label} at 640x480{'' if 'B =' in label else ', B = 1'}"
+              f": {ms:.5f} ms a call (CUDA events behind a spin; plain "
+              f"{pms:.3f}; bound {bms:.6f} by {by}: {nbytes} bytes, "
+              f"{ms / bms:.1f}x; {per_call} kernel launches a call)")
         if ms < bms:
-            raise AssertionError(f"{k}: {ms} ms is below its bound {bms} ms")
+            raise AssertionError(f"{label}: {ms} ms is below its bound {bms}"
+                                 f" ms")
+        if per_call != want:
+            raise AssertionError(f"{label}: {per_call} kernel launches a "
+                                 f"call, not {want}")
+        if label != k:
+            continue
         launches = mb_launches[k] if k == "elas_median" else node_launches[k]
         entries.append({
             "name": k, "route": "cuda",
@@ -2598,7 +2713,7 @@ def main() -> int:
     from jackal_tpu_torch.matching.elas import post as post_mod
     support_mod.launches = dense_mod.launches = 0
     for k in post_mod.launches:
-        post_mod.launches[k] = 0
+        post_mod.launches[k] = post_mod.device_launches[k] = 0
     results, walls = [], []
     for i, (lr, rr) in enumerate(pairs):
         t = time.perf_counter()
@@ -2608,15 +2723,18 @@ def main() -> int:
     launches = {"support": support_mod.launches,
                 "elas_dense": dense_mod.launches}
     node_post = dict(post_mod.launches)
-    print(f"node launches over {len(pairs)} frames: {launches}, {node_post}")
+    node_post_dev = dict(post_mod.device_launches)
+    print(f"node launches over {len(pairs)} frames: {launches}, {node_post}"
+          f" (their kernel launches {node_post_dev})")
     if min(launches.values()) == 0:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
     n9 = len(pairs)
-    if node_post != {"elas_lr": n9, "elas_gap": n9, "elas_mean": n9,
-                     "elas_median": 0}:
-        raise AssertionError(f"the node launched the postprocess kernels "
-                             f"{node_post} times over {n9} frames, not H, I "
-                             f"and J once a frame")
+    once = {"elas_lr": n9, "elas_gap": n9, "elas_mean": n9, "elas_median": 0}
+    if node_post != once or node_post_dev != once:
+        raise AssertionError(f"the node called the postprocess kernels "
+                             f"{node_post} times ({node_post_dev} kernel "
+                             f"launches) over {n9} frames, not H, I and J "
+                             f"once a frame, one launch each")
     if launches["elas_dense"] != len(pairs):
         raise AssertionError(f"the node launched the dense kernel "
                              f"{launches['elas_dense']} times over "
@@ -2733,7 +2851,7 @@ def main() -> int:
     scan_msgs.clear()
     support_mod.launches = dense_mod.launches = dp.launches = 0
     for k in post_mod.launches:
-        post_mod.launches[k] = 0
+        post_mod.launches[k] = post_mod.device_launches[k] = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     done = runner.run(iter(stream))
@@ -2742,14 +2860,17 @@ def main() -> int:
     launches_b = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches, "raster": dp.launches}
     batch_post = dict(post_mod.launches)
+    batch_post_dev = dict(post_mod.device_launches)
     print(f"batched node launches over {done} frames: {launches_b}, "
-          f"{batch_post}")
+          f"{batch_post} (their kernel launches {batch_post_dev})")
     nb6 = n_frames // batch
-    if batch_post != {"elas_lr": nb6, "elas_gap": nb6, "elas_mean": nb6,
-                      "elas_median": 0}:
-        raise AssertionError(f"the batched node launched the postprocess "
-                             f"kernels {batch_post} times over {nb6} batches,"
-                             f" not H, I and J once a batch")
+    once = {"elas_lr": nb6, "elas_gap": nb6, "elas_mean": nb6,
+            "elas_median": 0}
+    if batch_post != once or batch_post_dev != once:
+        raise AssertionError(f"the batched node called the postprocess "
+                             f"kernels {batch_post} times ({batch_post_dev} "
+                             f"kernel launches) over {nb6} batches, not H, I"
+                             f" and J once a batch, one launch each")
     if min(launches_b.values()) == 0:
         raise AssertionError(f"the batched node bypassed a kernel: "
                              f"{launches_b}")
@@ -2853,12 +2974,16 @@ def main() -> int:
         top = 40 if name in ("elas_dense_kernel", "census_kernel") else 8
         print(f"  sass {name}: "
               f"{sass_opcodes(cuda_lib.library(name).path, top=top)}")
-    for name in ("raster_kernel", "elas_post_kernel"):
-        ffma = sass_opcodes(cuda_lib.library(name).path, top=None,
-                            prefix="FFMA")
-        print(f"  sass {name} FFMA instructions: {ffma or 'none'}")
-        if ffma:
-            raise AssertionError(f"{name} contracts into FFMA")
+    for name, ops in (("raster_kernel", ("FFMA",)),
+                      ("elas_post_kernel", ("FFMA", "DFMA")),
+                      ("elas_dense_kernel", ("FFMA", "DFMA"))):
+        path = cuda_lib.library(name).path
+        fma = ", ".join(x for x in (sass_opcodes(path, top=None, prefix=op)
+                                    for op in ops) if x)
+        print(f"  sass {name} {' and '.join(ops)} instructions: "
+              f"{fma or 'none'}")
+        if fma:
+            raise AssertionError(f"{name} contracts into {' or '.join(ops)}")
 
     # kernel timing at the node's shapes, beside the plain versions
     ncv = -(-H // step)
@@ -2882,6 +3007,21 @@ def main() -> int:
 
     def den8():
         return dense_mod.dense_match_pair(bd1, bd2, m1, m2, params)
+
+    # B past its unrolled plane radii (2 to 7): its instantiation that
+    # takes the radius at run time, P from a table on the card
+    for sradius in (8.0, 9.0):
+        pr = dataclasses.replace(params, sradius=sradius)
+        hold("elas_dense", f"dense pair at plane radius {pr.plane_radius}",
+             dense_mod.dense_match_pair(d1, d2, v1, v2, pr),
+             dense_mod.dense_match_pair_plain(d1, d2, v1, v2, pr))
+        hold("elas_dense", f"dense pair at plane radius {pr.plane_radius}, "
+             f"the batched node's {batch} frames",
+             dense_mod.dense_match_pair(bd1, bd2, m1, m2, pr),
+             dense_mod.dense_match_pair_plain(bd1, bd2, m1, m2, pr))
+    print("5. dense kernel == plain (torch.equal, both views in one launch) "
+          "at plane radius 8 and 9, the node's frame and the batched node's "
+          f"{batch}")
 
     # A at the batched node's shape: its B = 8 descriptors (phase 4b)
     Q8 = support_mod.grid_row_blocks(bd1, step, ncv)

@@ -7,8 +7,9 @@
 // jackal_tpu_torch/ops/bm_kernel.py (matching/bm.bm_views and the L/R
 // check); the wrapper is ops/bm_kernel.bm_match_fused. It computes what
 // matching/bm.bm_match computes before its texture gate, bit for bit, at
-// every D: the invalid cost is 1 << 24 (the Pallas kernel lowers it at
-// D > 64 to keep its int32 keys, and so differs from bm_match there).
+// every D and every odd window up to 2901: the invalid cost is 1 << 24 (the
+// Pallas kernel lowers it at D > 64 to keep its int32 keys, and so differs
+// from bm_match there).
 //
 // What it computes. L, R are uint8 [B, H, W]. For each d < D the cost is
 // the (2r+1)^2 box sum of AD(v, x) = |L(v, x) - R(v, x - d)|, where rows
@@ -64,18 +65,26 @@
 // (kSW + 2r) per d against the W that a full-width row would need (the
 // right view's shifted segment is the price of the strip).
 //
-// D > 256: the strip's shared memory grows with D (the cost rows of kSW
-// columns by D, the vertical sums of 2 D segments) and d no longer fits a
-// key's 8 bits, so the launcher takes a second, simple path there, three
-// kernels a frame through a scratch of two int32 [H, W, D] volumes (d
-// innermost) that the wrapper allocates: bm_vsum_kernel, a thread a
-// (column, d) walking down the rows with the running vertical box sum of
-// the AD; bm_hsum_kernel, a thread a (row, d) walking along the row with
-// the running horizontal sum, the full box cost; bm_wta_wide_kernel, a
-// warp a (pixel, view) with the lanes striding d, the best (cost, d) as
-// one 64-bit key (cost << 32 | d: the first d wins ties) and the least
-// cost outside best_d +- 1 by warp minima. Then lr_check_kernel as above.
-// D <= 256 keeps the strip kernel.
+// Where the strip does not serve, the launcher takes a second, simple path
+// that uses no shared memory: at D > 256 (the strip's shared memory grows
+// with D, and d no longer fits a key's 8 bits), at a window past 255 (r >
+// 127: a vertical sum passes its 16-bit lane, a cost the key's 24 bits) and
+// wherever the strip's shared memory passes a block's 227 KB (a window past
+// 225 at D = 64, 155 at D = 128, 73 at D = 256). Three kernels a frame
+// through a scratch of two int32 [H, W, D] volumes (d innermost) that the
+// wrapper allocates: bm_vsum_kernel, a thread a (column, d) walking down
+// the rows with the running vertical box sum of the AD; bm_hsum_kernel, a
+// thread a (row, d) walking along the row with the running horizontal sum,
+// the full box cost; bm_wta_wide_kernel, a warp a (pixel, view) with the
+// lanes striding d, the best (cost, d) as one 64-bit key (cost << 32 | d:
+// the first d wins ties) and the least cost outside best_d +- 1 by warp
+// minima. Then lr_check_kernel as above. Its keys carry the int32 cost
+// itself, so past r = 127, where a real cost can pass 1 << 24, the path
+// compares it with the invalid cost as bm_match does: an invalid d beats
+// it, cm and cp are min(cost, 1 << 24) and the parabola's denominator
+// wraps in int32 as bm_match's does. It takes r <= 1450, the largest r at
+// which bm_match's own int32 box sums, at most (2r + 1)^2 * 255, do not
+// wrap. Shapes the strip takes launch the strip kernel as before.
 //
 // Built with -DBM_KERNEL_DIAG, the library also exports bm_match_diag, a
 // per-part timing of this kernel (the port of tools/diag_bm_kernel.py
@@ -92,6 +101,8 @@ constexpr int kBig = 1 << 24;                    // bm_match's invalid cost
 constexpr uint32_t kKeyCostMax = (1u << 24) - 1; // kBig's cost in a key
 constexpr int kWide = 64, kNarrow = 32;         // output columns a block
 constexpr int kSmemMax = 232448;                 // a block's shared memory
+constexpr int kStripRMax = 127;   // the strip's vertical sums fit 16 bits
+constexpr int kBoxRMax = 1450;    // (2r + 1)^2 * 255 < 2^31
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kFullMode = 0, kOneWta = 1, kBoxOnly = 2, kNoBox = 3 };
@@ -125,7 +136,8 @@ __device__ __forceinline__ int key_cost(uint32_t key) {
   return c == static_cast<int>(kKeyCostMax) ? kBig : c;
 }
 
-// The key of a valid cost (always below 2^24 - 1) and of an invalid one.
+// The key of a valid cost (below 2^24 - 1 at r <= 127) and of an invalid
+// one.
 __device__ __forceinline__ uint32_t valid_key(int cost, int d) {
   return static_cast<uint32_t>(cost) * 256u + static_cast<uint32_t>(d);
 }
@@ -166,7 +178,10 @@ __device__ __forceinline__ float disparity(int bd, int bc, int second,
                                            float uniq) {
   const bool unique =
       static_cast<float>(bc) < __fmul_rn(uniq, static_cast<float>(second));
-  const int den = cm + cp - 2 * bc;
+  // in int32 with wrap-around, as bm_match: 2 * bc passes 2^31 past r = 1023
+  const int den = static_cast<int>(static_cast<unsigned>(cm) +
+                                   static_cast<unsigned>(cp) -
+                                   2u * static_cast<unsigned>(bc));
   const float offs =
       (bd > 0 && bd < D - 1 && den > 0)
           ? __fdiv_rn(static_cast<float>(cm - cp),
@@ -364,7 +379,7 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// ---- the D > 256 path ----------------------------------------------------
+// ---- the path without shared memory (D > 256, or past the strip) ---------
 
 // V[v, x, d] = the sum over rows v - r .. v + r of AD(y, x, d) = |L(y, x) -
 // R(y, x - d)| (R reads 0 for x < d, rows outside the frame add 0): a
@@ -410,7 +425,8 @@ __global__ void __launch_bounds__(256)
 
 // Both views' WTA from the costs C of one frame: a warp a (pixel, view).
 // The left view's cost at (u, d) is C[v, u, d], kBig where d > u; the
-// right view's C[v, u + d, d], kBig where u + d >= W.
+// right view's C[v, u + d, d], kBig where u + d >= W. A real cost may pass
+// kBig (r > 127); it enters the keys and minima as it is.
 __global__ void __launch_bounds__(256)
     bm_wta_wide_kernel(const int* __restrict__ C, float* __restrict__ dl,
                        float* __restrict__ dr, int H, int W, int D,
@@ -439,9 +455,11 @@ __global__ void __launch_bounds__(256)
     if (abs(d - bd) > 1) second = min(second, cost(d));
   second = __reduce_min_sync(kFull, second);
   if (lane != 0) return;
+  // bm_match's cm, cp: the least of the cost at best_d -+ 1 and 1 << 24
   const float disp = disparity(bd, static_cast<int>(key >> 32), second,
-                               bd > 0 ? cost(bd - 1) : kBig,
-                               bd < D - 1 ? cost(bd + 1) : kBig, D, uniq);
+                               bd > 0 ? min(cost(bd - 1), kBig) : kBig,
+                               bd < D - 1 ? min(cost(bd + 1), kBig) : kBig,
+                               D, uniq);
   (view == 0 ? dl : dr)[px] = disp;
 }
 
@@ -506,13 +524,13 @@ long long resident(const Plan& p) {
 // batches), else of 32 (twice the blocks, half the walk a block: a frame
 // at a time); only 32 if ``narrow_only``. Rows a block: the most (64 to 16)
 // that still gives two rounds (a block also walks 2r rows above its chunk).
-// sw = 0 for a shape the kernel does not take.
+// sw = 0 for a shape the strip does not take.
 struct Choice {
   int sw, RH;
 };
 Choice choose(int B, int H, int W, int D, int r, bool narrow_only) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || D < 2 || D > 256 || r < 0 ||
-      r > 127)
+      r > kStripRMax)
     return {0, 0};
   const Plan wide = plan(D, r, kWide), narrow = plan(D, r, kNarrow);
   if (narrow.smem > kSmemMax) return {0, 0};
@@ -526,14 +544,13 @@ Choice choose(int B, int H, int W, int D, int r, bool narrow_only) {
   return {sw, RH};
 }
 
-constexpr int kStripMaxD = 256;   // the strip kernel's largest D
-
-// The D > 256 path over the frames, one after another through ``scratch``
-// (two int32 [H, W, D] volumes).
+// The path without shared memory over the frames, one after another
+// through ``scratch`` (two int32 [H, W, D] volumes).
 cudaError_t launch_wide(const uint8_t* L, const uint8_t* R, float* dl,
                         float* dr, int* scratch, int B, int H, int W, int D,
                         int r, float uniq, cudaStream_t s) {
-  if (scratch == nullptr || B < 1 || H < 1 || W < 1 || r < 0 || r > 127)
+  if (scratch == nullptr || B < 1 || H < 1 || W < 1 || D < 2 || r < 0 ||
+      r > kBoxRMax)
     return cudaErrorInvalidValue;
   const size_t frame = static_cast<size_t>(H) * W;
   int* V = scratch;
@@ -555,18 +572,20 @@ cudaError_t launch_wide(const uint8_t* L, const uint8_t* R, float* dl,
   return cudaSuccess;
 }
 
+// Where the strip does not take the shape, box_path = true launches the
+// path without shared memory (bm_match); G' (box_path = false) refuses it.
 template <int MODE>
 cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
                    int* scratch, int B, int H, int W, int D, int r,
                    float lr_threshold, float uniq, bool narrow_only,
-                   void* stream) {
+                   bool box_path, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  const Choice c = choose(B, H, W, D, r, narrow_only);
   cudaError_t e;
-  if (MODE == kFullMode && D > kStripMaxD) {
+  if (c.sw == 0) {
+    if (MODE != kFullMode || !box_path) return cudaErrorInvalidValue;
     e = launch_wide(L, R, dl, dr, scratch, B, H, W, D, r, uniq, s);
   } else {
-    const Choice c = choose(B, H, W, D, r, narrow_only);
-    if (c.sw == 0) return cudaErrorInvalidValue;
     e = c.sw == kWide
             ? launch_sw<kWide, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
                                      plan(D, r, kWide), s)
@@ -582,37 +601,36 @@ cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
 
 }  // namespace
 
-// Shared bytes a block of the strip kernel needs at this D and r (any
-// width); -1 if they pass a block's 227 KB. The wrapper refuses a shape
-// that gives -1. 0 past D = 256: the path there uses no shared memory.
-extern "C" int bm_smem_bytes(int D, int r) {
-  if (D > kStripMaxD) return 0;
-  const Plan p = plan(D, r, kNarrow);
-  return p.smem > kSmemMax ? -1 : p.smem;
-}
-
 // The strip width (64 or 32 columns) that bm_match takes at this shape, 0
-// for a shape it refuses or takes on the D > 256 path: lets a test see
-// which instantiation it held.
+// where it takes the path without shared memory: lets a test see which
+// instantiation it held, and G' refuses a shape at which this is 0.
 extern "C" int bm_strip_width(int B, int H, int W, int D, int r) {
   return choose(B, H, W, D, r, false).sw;
 }
 
-// The scratch bytes bm_match needs at this shape: two int32 [H, W, D]
-// volumes where D > 256 (its D > 256 path), else 0.
-extern "C" long long bm_scratch_bytes(int H, int W, int D) {
-  return D > kStripMaxD ? 2LL * H * W * D * static_cast<long long>(sizeof(int))
-                        : 0;
+// Shared bytes a block of bm_match's launch at this shape takes: the
+// strip's, or 0 on the path without shared memory.
+extern "C" int bm_smem_bytes(int B, int H, int W, int D, int r) {
+  const int sw = choose(B, H, W, D, r, false).sw;
+  return sw == 0 ? 0 : plan(D, r, sw).smem;
 }
 
-// scratch: bm_scratch_bytes(H, W, D) bytes (null where that is 0).
+// The scratch bytes bm_match needs at this shape: two int32 [H, W, D]
+// volumes on the path without shared memory, else 0.
+extern "C" long long bm_scratch_bytes(int B, int H, int W, int D, int r) {
+  return choose(B, H, W, D, r, false).sw == 0
+             ? 2LL * H * W * D * static_cast<long long>(sizeof(int))
+             : 0;
+}
+
+// scratch: bm_scratch_bytes(B, H, W, D, r) bytes (null where that is 0).
 extern "C" int bm_match(const uint8_t* L, const uint8_t* R, float* dl,
                         float* dr, int B, int H, int W, int D, int r,
                         float lr_threshold, float uniq, int* scratch,
                         void* stream) {
   return static_cast<int>(launch<kFullMode>(L, R, dl, dr, scratch, B, H, W,
                                             D, r, lr_threshold, uniq, false,
-                                            stream));
+                                            true, stream));
 }
 
 #ifdef BM_KERNEL_DIAG
@@ -630,19 +648,19 @@ extern "C" int bm_match_diag(const uint8_t* L, const uint8_t* R, float* dl,
     case kFullMode:
     case 4:
       e = launch<kFullMode>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                            lr_threshold, uniq, mode == 4, stream);
+                            lr_threshold, uniq, mode == 4, false, stream);
       break;
     case kOneWta:
       e = launch<kOneWta>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                          lr_threshold, uniq, false, stream);
+                          lr_threshold, uniq, false, false, stream);
       break;
     case kBoxOnly:
       e = launch<kBoxOnly>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                           lr_threshold, uniq, false, stream);
+                           lr_threshold, uniq, false, false, stream);
       break;
     case kNoBox:
       e = launch<kNoBox>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                         lr_threshold, uniq, false, stream);
+                         lr_threshold, uniq, false, false, stream);
       break;
   }
   return static_cast<int>(e);

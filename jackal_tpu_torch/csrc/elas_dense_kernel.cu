@@ -42,9 +42,15 @@
 //   pixel maps (packed into one register a view), while it computes this
 //   one;
 // - the plane window is walked at a fixed 2r+1 steps (d = dp - r + j, the
-//   radius a template parameter): d_plane is clamped once so that every
-//   target lies in the padded span, so a step is one shared load at a
-//   constant offset, four accumulating VABSDIFF4 and the key;
+//   radius a template parameter, 2 to 7): d_plane is clamped once so that
+//   every target lies in the padded span, so a step is one shared load at
+//   a constant offset, four accumulating VABSDIFF4 and the key. Past
+//   radius 7 one more instantiation (R = 0) takes the radius at run time:
+//   it walks the window's live d alone (at most D, each a target in the
+//   span without padding), keeps d_plane in a register of its own (a
+//   window can be as wide as the radius) and reads P[0 .. min(r + 1, D))
+//   from a table the wrapper puts on the card, staged in shared memory once
+//   a block (P past the table is 0, as in the plain version);
 // - grid candidates outside the window are walked per lane, bit by bit,
 //   over the cell's non-empty words only (a mask a cell, made by one
 //   thread a cell per staged row). A warp-uniform walk (the warp's union
@@ -56,9 +62,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-constexpr int kMaxRadius = 7;
+constexpr int kMaxRadius = 7;   // the largest unrolled radius
 
-// P[|d - d_plane|] for |d - d_plane| <= plane radius, passed by value
+// P[|d - d_plane|] for |d - d_plane| <= plane radius <= kMaxRadius, passed
+// by value
 struct PriorTable {
   int p[kMaxRadius + 1];
 };
@@ -182,6 +189,55 @@ __device__ __forceinline__ int best_key(const uint4 qq, const uint4* tb,
   return best;
 }
 
+// The same past radius 7 (R = 0 in the kernel): the window's live d in
+// [max(dp - r, 0), min(dp + r, lim - 1)] walked one by one, P[|d - dp|]
+// from sP where |d - dp| < ntab (the table's length, min(r + 1, D)) and 0
+// past it. dp is the pixel's d_plane as it is; the bounds are taken in 64
+// bits, so no radius wraps them.
+template <int kSign>
+__device__ __forceinline__ int best_key_any(const uint4 qq, const uint4* tb,
+                                            uint32_t m, int dp,
+                                            const uint32_t* words,
+                                            uint32_t wmask, int lim, int r,
+                                            const int* sP, int ntab) {
+  int best = kBig;
+  if (!__any_sync(0xFFFFFFFFu, lim > 0)) return best;
+  const int prior = (m >> 17) & 1u;
+  const long long lo = max(static_cast<long long>(dp) - r, 0LL);
+  const long long hi = static_cast<long long>(dp) + r;
+  const int dlo = static_cast<int>(min(lo, static_cast<long long>(kMaxD)));
+  const int dhi = static_cast<int>(min(hi, static_cast<long long>(lim - 1)));
+  for (int d = dlo; d <= dhi; ++d) {
+    const long long k = d > dp ? static_cast<long long>(d) - dp
+                               : static_cast<long long>(dp) - d;
+    const int pk = k < ntab ? sP[k] : 0;
+    best = min(best, sad16(qq, tb[kSign * d]) * 512 +
+                         (prior * (pk * 512) + (kKeyBias * 512 + 256 + d)));
+  }
+  // the window within [0, D - 1], which the grid walk leaves out
+  const int wlo = dlo, whi = static_cast<int>(min(hi, static_cast<long long>(kMaxD)));
+  uint32_t M = wmask & ((1u << ((lim + 31) >> 5)) - 1u);
+  while (M) {
+    const int w = __ffs(M) - 1;
+    M &= M - 1;
+    const int d0 = 32 * w;
+    uint32_t g = 0u;
+    if (d0 < lim) {
+      g = words[w];
+      if (lim < d0 + 32) g &= bit_range(0, lim - 1 - d0);
+      const int a = max(wlo, d0), b = min(whi, d0 + 31);
+      if (a <= b) g &= ~bit_range(a - d0, b - d0);
+    }
+    while (g) {
+      const int k = __ffs(g) - 1;
+      g &= g - 1;
+      const int d = d0 + k;
+      best = min(best, sad16(qq, tb[kSign * d]) * 512 + (kKeyBias * 512 + d));
+    }
+  }
+  return best;
+}
+
 // (best % 512) % 256 of a key, which is positive
 __device__ __forceinline__ float decode(int best, bool ok) {
   return !ok ? -10.0f : best < kBig ? static_cast<float>(best & 255) : -1.0f;
@@ -207,6 +263,7 @@ __host__ __device__ __forceinline__ int buffer_u4(int strip_p, int D, int gs,
 struct Shape {
   int views, dp16, B, H, W, D, gh, gw, nw, gs, match_texture, strip,
       nstrips;
+  int radius, ntab;   // the plane radius and the length of P (R = 0 only)
   // n / gs as __umulhi(n, ceil(2^32 / gs)): exact for n, gs < 2^16 (the
   // error n * (mul * gs - 2^32) stays < 2^32); 0 stands for gs = 1, whose
   // multiplier 2^32 does not fit
@@ -289,7 +346,8 @@ __device__ __forceinline__ void stage_row(
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// views: 1 left, 2 right, 3 both. A persistent block walks the row tuples
+// views: 1 left, 2 right, 3 both. R: the plane radius, or 0 for S.radius
+// (past kMaxRadius) with P in Pdev. A persistent block walks the row tuples
 // (frame, row, strip) t = blockIdx.x, + gridDim.x, ...: it stages tuple
 // t + gridDim.x into one buffer and loads its pixel maps into registers
 // while it computes tuple t from the other buffer. A thread owns column
@@ -298,13 +356,18 @@ __device__ __forceinline__ void stage_row(
 template <int R>
 __global__ void __launch_bounds__(kStripMax, 2) elas_dense_kernel(
     const uint8_t* __restrict__ desc1, const uint8_t* __restrict__ desc2,
-    ViewMaps left, ViewMaps right, Shape S, PriorTable P) {
+    ViewMaps left, ViewMaps right, Shape S, PriorTable P,
+    const int* __restrict__ Pdev) {
   extern __shared__ uint4 smem[];
   const int strip_p = blockDim.x;
   const int span = span_of(strip_p, S.D);
   const int bufsz = buffer_u4(strip_p, S.D, S.gs, S.nw);
-  // after the two buffers: each cell's non-empty words, both views
+  // after the two buffers: each cell's non-empty words, both views; then,
+  // for R = 0, the prior table (read after the loop's first barrier)
   uint32_t* sMask = reinterpret_cast<uint32_t*>(smem + 2 * bufsz);
+  int* sP = reinterpret_cast<int*>(sMask + 2 * strip_cells(strip_p, S.gs));
+  if constexpr (R == 0)
+    for (int i = threadIdx.x; i < S.ntab; i += strip_p) sP[i] = Pdev[i];
   const int total = S.B * S.H * S.nstrips;
   const int x = threadIdx.x;
   const uint4 k80 = make_uint4(0x80808080u, 0x80808080u, 0x80808080u,
@@ -312,29 +375,43 @@ __global__ void __launch_bounds__(kStripMax, 2) elas_dense_kernel(
 
   int t = blockIdx.x;
   if (t >= total) return;
-  auto load = [&](const Tuple& T, uint32_t& a, uint32_t& b) {
+  // a view's d_plane as it is, for R = 0 (its maps word keeps the flags)
+  auto load_dp = [&](const ViewMaps& V, size_t pix) {
+    return S.dp16 ? static_cast<int>(
+                        reinterpret_cast<const int16_t*>(V.d_plane)[pix])
+                  : reinterpret_cast<const int32_t*>(V.d_plane)[pix];
+  };
+  auto load = [&](const Tuple& T, uint32_t& a, uint32_t& b, int& pa,
+                  int& pb) {
     const int u = T.c0 + x;
     a = b = 0u;
+    pa = pb = 0;
     if (x < S.strip && u < S.W) {
       const size_t pix = static_cast<size_t>(T.row) * S.W + u;
       if (S.views & 1) a = load_maps(left, pix, S.dp16, R, S.D);
       if (S.views & 2) b = load_maps(right, pix, S.dp16, R, S.D);
+      if constexpr (R == 0) {
+        if (S.views & 1) pa = load_dp(left, pix);
+        if (S.views & 2) pb = load_dp(right, pix);
+      }
     }
   };
   int cur = 0;
   Tuple T = tuple_of(t, S);
   stage_row(smem, T, span, desc1, desc2, left, right, S);
   uint32_t ml, mr;
-  load(T, ml, mr);
+  int pl, pr;
+  load(T, ml, mr, pl, pr);
   for (; t < total; t += gridDim.x) {
     const int tn = t + gridDim.x;
     uint32_t nl = 0u, nr = 0u;
+    int npl = 0, npr = 0;
     Tuple Tn = T;
     if (tn < total) {
       Tn = tuple_of(tn, S);
       stage_row(smem + (cur ^ 1) * bufsz, Tn, span, desc1, desc2, left,
                 right, S);
-      load(Tn, nl, nr);
+      load(Tn, nl, nr, npl, npr);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -367,8 +444,14 @@ __global__ void __launch_bounds__(kStripMax, 2) elas_dense_kernel(
       const bool ok = u_ok && ((ml >> 16) & 1u) &&
                       sad16(qq, k80) >= S.match_texture;
       const int lim = ok ? min(S.D, u - kWindow + 1) : 0;
-      const int best = best_key<R, -1>(qq, sR + x + S.D - 1 + kPad, ml,
-                                       sG + cell * S.nw, sMask[cell], lim, P);
+      int best;
+      if constexpr (R > 0)
+        best = best_key<R, -1>(qq, sR + x + S.D - 1 + kPad, ml,
+                               sG + cell * S.nw, sMask[cell], lim, P);
+      else
+        best = best_key_any<-1>(qq, sR + x + S.D - 1 + kPad, ml, pl,
+                                sG + cell * S.nw, sMask[cell], lim,
+                                S.radius, sP, S.ntab);
       if (in_img) left.out[pix] = decode(best, ok);
     }
     if (S.views & 2) {   // right: q = right at u, t = left at u + d
@@ -376,9 +459,16 @@ __global__ void __launch_bounds__(kStripMax, 2) elas_dense_kernel(
       const bool ok = u_ok && ((mr >> 16) & 1u) &&
                       sad16(qq, k80) >= S.match_texture;
       const int lim = ok ? min(S.D, S.W - kWindow - u) : 0;
-      const int best = best_key<R, 1>(qq, sL + x + kPad, mr,
-                                      sG + nwords + cell * S.nw,
-                                      sMask[ncell + cell], lim, P);
+      int best;
+      if constexpr (R > 0)
+        best = best_key<R, 1>(qq, sL + x + kPad, mr,
+                              sG + nwords + cell * S.nw,
+                              sMask[ncell + cell], lim, P);
+      else
+        best = best_key_any<1>(qq, sL + x + kPad, mr, pr,
+                               sG + nwords + cell * S.nw,
+                               sMask[ncell + cell], lim, S.radius, sP,
+                               S.ntab);
       if (in_img) right.out[pix] = decode(best, ok);
     }
     __syncthreads();   // the buffer is restaged two tuples on
@@ -386,16 +476,20 @@ __global__ void __launch_bounds__(kStripMax, 2) elas_dense_kernel(
     T = Tn;
     ml = nl;
     mr = nr;
+    pl = npl;
+    pr = npr;
   }
 }
 
 template <int R>
 int launch(const uint8_t* desc1, const uint8_t* desc2, ViewMaps left,
-           ViewMaps right, const Shape& S, PriorTable P, cudaStream_t stream) {
+           ViewMaps right, const Shape& S, PriorTable P, const int* Pdev,
+           cudaStream_t stream) {
   const int threads = (S.strip + 31) & ~31;
   const int smem =
       2 * buffer_u4(threads, S.D, S.gs, S.nw) * static_cast<int>(sizeof(uint4)) +
-      2 * strip_cells(threads, S.gs) * static_cast<int>(sizeof(uint32_t));
+      2 * strip_cells(threads, S.gs) * static_cast<int>(sizeof(uint32_t)) +
+      (R == 0 ? S.ntab * static_cast<int>(sizeof(int)) : 0);
   // as many persistent blocks as fit: 3 an SM at 640 columns needs the
   // largest shared memory carveout
   int per_sm = 0, dev = 0, sms = 0;
@@ -417,20 +511,24 @@ int launch(const uint8_t* desc1, const uint8_t* desc2, ViewMaps left,
   const int blocks = static_cast<int>(
       total < 1LL * per_sm * sms ? total : 1LL * per_sm * sms);
   elas_dense_kernel<R><<<blocks, threads, smem, stream>>>(desc1, desc2, left,
-                                                          right, S, P);
+                                                          right, S, P, Pdev);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// P: P[0 .. radius] by value for radius <= kMaxRadius; past it Pdev, an
+// int32 table of min(radius + 1, D) entries on the card.
 extern "C" int elas_dense(const uint8_t* desc1, const uint8_t* desc2,
                           ViewMaps left, ViewMaps right, int views, int dp16,
                           int B, int H, int W, int D, int gh, int gw, int nw,
                           int gs, int radius, int match_texture, PriorTable P,
-                          void* stream) {
+                          const int* Pdev, void* stream) {
+  const int ntab = radius < D - 1 ? radius + 1 : D;
   if (views < 1 || views > 3 || B < 1 || H < 5 || W < 5 || H > 65535 ||
-      W > 65535 || D < 1 || D > kMaxD || radius < 2 || radius > kMaxRadius ||
-      gs < 1 || gs > 65535 || nw != (D + 31) / 32 ||
+      W > 65535 || D < 1 || D > kMaxD || radius < 2 || gs < 1 ||
+      gs > 65535 || nw != (D + 31) / 32 ||
+      (radius > kMaxRadius && Pdev == nullptr) ||
       1LL * B * H * W >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   // the strips a row splits into: the fewest of at most kStripMax columns,
@@ -438,14 +536,15 @@ extern "C" int elas_dense(const uint8_t* desc1, const uint8_t* desc2,
   const int nstrips = (W + kStripMax - 1) / kStripMax;
   const int strip = ((W + nstrips - 1) / nstrips + 31) & ~31;
   const Shape S{views, dp16, B, H, W, D, gh, gw, nw, gs, match_texture,
-                strip, (W + strip - 1) / strip, div_mul(gs)};
+                strip, (W + strip - 1) / strip, radius, ntab, div_mul(gs)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (radius) {   // the plane radius is at least 2 (elas.cpp:806)
-    case 2: return launch<2>(desc1, desc2, left, right, S, P, s);
-    case 3: return launch<3>(desc1, desc2, left, right, S, P, s);
-    case 4: return launch<4>(desc1, desc2, left, right, S, P, s);
-    case 5: return launch<5>(desc1, desc2, left, right, S, P, s);
-    case 6: return launch<6>(desc1, desc2, left, right, S, P, s);
-    default: return launch<7>(desc1, desc2, left, right, S, P, s);
+    case 2: return launch<2>(desc1, desc2, left, right, S, P, Pdev, s);
+    case 3: return launch<3>(desc1, desc2, left, right, S, P, Pdev, s);
+    case 4: return launch<4>(desc1, desc2, left, right, S, P, Pdev, s);
+    case 5: return launch<5>(desc1, desc2, left, right, S, P, Pdev, s);
+    case 6: return launch<6>(desc1, desc2, left, right, S, P, Pdev, s);
+    case 7: return launch<7>(desc1, desc2, left, right, S, P, Pdev, s);
+    default: return launch<0>(desc1, desc2, left, right, S, P, Pdev, s);
   }
 }

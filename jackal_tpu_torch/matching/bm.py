@@ -58,9 +58,13 @@ def _wta(c: torch.Tensor, params: BMParams) -> torch.Tensor:
     best = c.gather(-3, best_d)
     ds = torch.arange(D, device=dev)[:, None, None]
     second = torch.where((ds - best_d).abs() <= 1, big, c).amin(-3)
-    cm = torch.where(best_d > 0, c.gather(-3, (best_d - 1).clamp_min(0)), big)
+    # the least of the cost at best_d -+ 1 and the invalid cost, as the
+    # reference's masked minima: a real cost passes 1 << 24 past window 255
+    cm = torch.where(best_d > 0, c.gather(-3, (best_d - 1).clamp_min(0)),
+                     big).clamp_max(_BIG)
     cp = torch.where(best_d < D - 1,
-                     c.gather(-3, (best_d + 1).clamp_max(D - 1)), big)
+                     c.gather(-3, (best_d + 1).clamp_max(D - 1)),
+                     big).clamp_max(_BIG)
     best_d, best, cm, cp = (x.squeeze(-3) for x in (best_d, best, cm, cp))
     ratio = torch.full((), params.uniqueness, dtype=f32, device=dev)
     unique = best.to(f32) < ratio * second.to(f32)

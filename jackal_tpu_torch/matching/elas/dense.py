@@ -38,7 +38,9 @@ from ...ops import cuda_lib
 _WINDOW = 2          # findMatch window_size (elas.cpp:689)
 _KEY_BIAS = 16       # priors reach -14; keep keys non-negative
 _BIG = 1 << 30
-_MAX_RADIUS = 7      # the kernel takes P[0..7] by value
+# the kernel takes P[0..radius] by value up to this radius (its unrolled
+# instantiations), from a table on the card past it
+_UNROLLED_RADIUS = 7
 
 launches = 0         # elas_dense kernel launches since the last reset
 
@@ -117,7 +119,7 @@ def dense_match_plain(
 
 
 class _PriorTable(ctypes.Structure):
-    _fields_ = [("p", ctypes.c_int * (_MAX_RADIUS + 1))]
+    _fields_ = [("p", ctypes.c_int * (_UNROLLED_RADIUS + 1))]
 
 
 class _ViewMaps(ctypes.Structure):
@@ -164,11 +166,9 @@ def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
     # the key's rank field holds d < 256 (256 + d marks a window candidate,
     # decoded by % 512 % 256), as in the reference kernel: the function is
     # the reference's for D <= 256 only, on the card and on the CPU
-    if D > 256 or radius > _MAX_RADIUS or not (5 <= H <= 65535
-                                                and 5 <= W <= 65535):
-        raise ValueError(f"dense kernel needs D <= 256, plane_radius <= "
-                         f"{_MAX_RADIUS}, 5 <= H, W <= 65535; got D={D}, "
-                         f"radius={radius}, {H}x{W}")
+    if D > 256 or not (5 <= H <= 65535 and 5 <= W <= 65535):
+        raise ValueError(f"dense kernel needs D <= 256, 5 <= H, W <= 65535; "
+                         f"got D={D}, {H}x{W}")
     some = maps_left if maps_left is not None else maps_right
     gh, gw, nw = some[3].shape[1:4]
     if gh * gs < H or gw * gs < W or nw != -(-D // 32):
@@ -190,17 +190,23 @@ def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
         outs.append(out)
         structs.append(_ViewMaps() if m is None else _ViewMaps(
             *(x.data_ptr() for x in m), out.data_ptr()))
-    P = _PriorTable()
-    for j, pj in enumerate(prior_table(params)[:radius + 1]):
-        P.p[j] = int(pj)
+    table = prior_table(params)[:radius + 1]
+    P, table_dev = _PriorTable(), None
+    if radius <= _UNROLLED_RADIUS:
+        for j, pj in enumerate(table):
+            P.p[j] = int(pj)
+    else:
+        table_dev = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
     fn = cuda_lib.load("elas_dense_kernel").elas_dense
     fn.argtypes = ([ctypes.c_void_p] * 2 + [_ViewMaps] * 2
-                   + [ctypes.c_int] * 12 + [_PriorTable, ctypes.c_void_p])
+                   + [ctypes.c_int] * 12
+                   + [_PriorTable, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     cuda_lib.launch(fn, "elas_dense", desc1, desc1.data_ptr(),
                     desc2.data_ptr(), *structs, views,
                     int(torch.int16 in dts), B, H, W, D, gh, gw, nw, gs,
-                    radius, params.match_texture, P)
+                    radius, params.match_texture, P,
+                    None if table_dev is None else table_dev.data_ptr())
     launches += 1
     return outs
 

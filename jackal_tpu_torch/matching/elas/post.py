@@ -13,7 +13,9 @@ The L/R check, the gap interpolation, the adaptive mean and the median are
 each a wrapper: on CUDA tensors it launches its hand-written kernel
 (csrc/elas_post_kernel.cu: H, I, J, K), on CPU tensors it runs its plain
 version (the *_plain function), which the kernel equals bit for bit.
-``launches`` counts the wrapper calls that launched a kernel, by kernel.
+``launches`` counts the wrapper calls that launched a kernel, by kernel;
+``device_launches`` the kernel launches those calls made (I: 1 a call up
+to GAP_TILE_MAX without corners, else 2; J: 1; H: 1; K: 2).
 
 Exactness: every float operation of a plain version is a single eager
 PyTorch op, so no multiply is fused into an add, and f32 division is
@@ -34,6 +36,10 @@ from ...ops import cuda_lib
 from ...ops.shifts import shifted_row_lookup
 
 launches = {"elas_lr": 0, "elas_gap": 0, "elas_mean": 0, "elas_median": 0}
+device_launches = dict(launches)
+# kernel I's one-launch tile design takes gap widths up to this without
+# corners (csrc/elas_post_kernel.cu kGapTileMax); its scan design the rest
+GAP_TILE_MAX = 8
 
 
 def _frames(D: torch.Tensor, name: str) -> torch.Tensor:
@@ -45,14 +51,21 @@ def _frames(D: torch.Tensor, name: str) -> torch.Tensor:
     return D.contiguous().reshape(-1, *D.shape[-2:])
 
 
-def _entry(name: str, n_ptrs: int, n_ints: int, tail=()):
-    """A C entry point of csrc/elas_post_kernel.cu: n_ptrs pointers, n_ints
-    ints, the ctypes of ``tail``, then the stream."""
+def _run(name: str, kernel: str, X: torch.Tensor, ptrs, ints, tail=()):
+    """Launch the C entry point ``name`` of csrc/elas_post_kernel.cu with
+    the pointers ``ptrs`` (None for a null one), the ints ``ints`` and the
+    (ctype, value) pairs of ``tail`` on X's card; count the call and the
+    kernel launches it reports."""
     fn = getattr(cuda_lib.load("elas_post_kernel"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
-        + list(tail) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) \
+        + [t for t, _ in tail] + [ctypes.POINTER(ctypes.c_int),
+                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    n = ctypes.c_int(0)
+    cuda_lib.launch(fn, kernel, X, *ptrs, *ints, *(v for _, v in tail),
+                    ctypes.byref(n))
+    launches[kernel] += 1
+    device_launches[kernel] += n.value
 
 
 def _lr_cuda(D1: torch.Tensor, D2: torch.Tensor, smax: int,
@@ -63,23 +76,25 @@ def _lr_cuda(D1: torch.Tensor, D2: torch.Tensor, smax: int,
                          f"and D2 {tuple(D2.shape)} on {D2.device}")
     B, H, W = X1.shape
     O1, O2 = torch.empty_like(X1), torch.empty_like(X1)
-    fn = _entry("elas_lr_check", 4, 4, (ctypes.c_float, ctypes.c_int))
-    cuda_lib.launch(fn, "elas_lr", X1, X1.data_ptr(), X2.data_ptr(),
-                    O1.data_ptr(), O2.data_ptr(), B, H, W, smax,
-                    float(params.lr_threshold), int(params.subsampling))
-    launches["elas_lr"] += 1
+    _run("elas_lr_check", "elas_lr", X1,
+         (X1.data_ptr(), X2.data_ptr(), O1.data_ptr(), O2.data_ptr()),
+         (B, H, W, smax), ((ctypes.c_float, float(params.lr_threshold)),
+                           (ctypes.c_int, int(params.subsampling))))
     return O1.reshape(D1.shape), O2.reshape(D2.shape)
 
 
-def _two_pass_cuda(entry: str, kernel: str, D: torch.Tensor, *ints):
-    """A kernel of two passes (rows then columns, or horizontal then
-    vertical) through a scratch map: D -> T -> O."""
+def _map_cuda(entry: str, kernel: str, D: torch.Tensor, ints,
+              scratch: Optional[bool] = None):
+    """A kernel of one map, D -> O. ``scratch`` for an entry point that
+    takes a scratch map T (a row pass, then a column pass through T): True
+    to allocate it, False to pass null (I's one-launch design); None for
+    one that takes none."""
     X = _frames(D, kernel)
-    B, H, W = X.shape
-    T, O = torch.empty_like(X), torch.empty_like(X)
-    cuda_lib.launch(_entry(entry, 3, 3 + len(ints)), kernel, X,
-                    X.data_ptr(), T.data_ptr(), O.data_ptr(), B, H, W, *ints)
-    launches[kernel] += 1
+    O = torch.empty_like(X)
+    T = torch.empty_like(X) if scratch else None
+    ptrs = (X.data_ptr(),) + (() if scratch is None else (
+        None if T is None else T.data_ptr(),)) + (O.data_ptr(),)
+    _run(entry, kernel, X, ptrs, tuple(X.shape) + tuple(ints))
     return O.reshape(D.shape)
 
 
@@ -204,11 +219,15 @@ def _extrapolate_rows(D: torch.Tensor, gap_width: int) -> torch.Tensor:
 
 def gap_interpolation(D: torch.Tensor,
                       params: ElasParams = ElasParams()) -> torch.Tensor:
-    """gap_interpolation_plain's contract: kernel I (a row pass, then a
-    column pass) on CUDA tensors, the plain version on CPU tensors."""
+    """gap_interpolation_plain's contract: kernel I on CUDA tensors (one
+    launch up to GAP_TILE_MAX without corners, else a row launch and a
+    column launch through a scratch map), the plain version on CPU
+    tensors."""
     if D.is_cuda:
-        return _two_pass_cuda("elas_gap_interp", "elas_gap", D,
-                              gap_width_eff(params), int(params.add_corners))
+        g = gap_width_eff(params)
+        corners = int(params.add_corners)
+        return _map_cuda("elas_gap_interp", "elas_gap", D, (g, corners),
+                         g > GAP_TILE_MAX or bool(corners))
     return gap_interpolation_plain(D, params)
 
 
@@ -306,7 +325,7 @@ def adaptive_mean_sub(D: torch.Tensor) -> torch.Tensor:
     """adaptive_mean_sub_plain's contract: kernel J's 4-tap variant on
     CUDA tensors, the plain version on CPU tensors."""
     if D.is_cuda:
-        return _two_pass_cuda("elas_adaptive_mean", "elas_mean", D, 4)
+        return _map_cuda("elas_adaptive_mean", "elas_mean", D, (4,))
     return adaptive_mean_sub_plain(D)
 
 
@@ -335,7 +354,7 @@ def adaptive_mean(D: torch.Tensor) -> torch.Tensor:
     """adaptive_mean_plain's contract: kernel J (8 taps) on CUDA tensors,
     the plain version on CPU tensors."""
     if D.is_cuda:
-        return _two_pass_cuda("elas_adaptive_mean", "elas_mean", D, 8)
+        return _map_cuda("elas_adaptive_mean", "elas_mean", D, (8,))
     return adaptive_mean_plain(D)
 
 
@@ -369,7 +388,7 @@ def median_filter(D: torch.Tensor) -> torch.Tensor:
     """median_filter_plain's contract: kernel K on CUDA tensors, the plain
     version on CPU tensors."""
     if D.is_cuda:
-        return _two_pass_cuda("elas_median", "elas_median", D)
+        return _map_cuda("elas_median", "elas_median", D, (), True)
     return median_filter_plain(D)
 
 

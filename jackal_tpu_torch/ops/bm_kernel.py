@@ -28,7 +28,9 @@ from . import cuda_lib
 launches = {"bm": 0, "bm_diag": 0}
 
 D_MIN = 2                # the least disparity count the kernel takes
-WINDOW_MAX = 255         # keeps every real cost below the key's 2^24 - 1
+# the widest window, r = 1450: the reference's int32 box sums, at most
+# (2r + 1)^2 * 255, wrap past it
+WINDOW_MAX = 2901
 DIAG_MODES = ("full", "onewta", "boxonly", "nobox", "full32")
 
 
@@ -37,6 +39,14 @@ def _fn(lib_name: str, fn_name: str, extra_types):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float] * 2 + list(extra_types) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _shape_fn(lib_name: str, fn_name: str, restype=ctypes.c_int):
+    """A C function of csrc/bm_kernel.cu of (B, H, W, D, r)."""
+    fn = getattr(cuda_lib.load(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = restype
     return fn
 
 
@@ -50,7 +60,8 @@ def bm_match_fused_plain(left_b: torch.Tensor, right_b: torch.Tensor,
 def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
              lib_name: str):
     """Contiguous copies of the inputs, or ValueError for what the kernel
-    does not take."""
+    does not take. G' (bm_kernel_diag) takes only the shapes G's strip
+    takes."""
     D, win = params.disp_num, params.window
     if D < D_MIN:
         raise ValueError(f"the BM kernel takes D >= {D_MIN}, got D = {D}")
@@ -65,11 +76,11 @@ def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
                          f"{tuple(left_b.shape)} on {left_b.device} and "
                          f"{right_b.dtype} {tuple(right_b.shape)} on "
                          f"{right_b.device}")
-    fn = cuda_lib.load(lib_name).bm_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 2
-    if fn(D, win // 2) < 0:
-        raise ValueError(f"the BM kernel cannot hold a strip at D = {D}, "
-                         f"window {win} in shared memory")
+    if lib_name == "bm_kernel_diag" and strip_width(
+            tuple(left_b.shape), params, lib_name) == 0:
+        raise ValueError(f"G' runs G's strip alone, which cannot hold "
+                         f"{tuple(left_b.shape)} at D = {D}, window {win} "
+                         f"in shared memory")
     return left_b.contiguous(), right_b.contiguous()
 
 
@@ -93,16 +104,17 @@ def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
     """uint8 [B, H, W] pairs -> (D_left after the L/R check, D_right),
     float32 [B, H, W], -1 for invalid: kernel G on the card.
 
-    Any D >= 2, as the reference package's bm_match: past D = 256 the
-    kernel takes its D > 256 path, which needs a scratch of two int32
+    Any D >= 2 and odd window up to WINDOW_MAX, as the reference package's
+    bm_match: where G's strip does not take the shape (D > 256, a window
+    past 255, a strip past a block's shared memory) the kernel takes its
+    path without shared memory, which needs a scratch of two int32
     [H, W, D] volumes (bm_scratch_bytes; allocated here, the frames run
     one after another through it)."""
     if not left_b.is_cuda:
         return bm_match_fused_plain(left_b, right_b, params)
-    fn = cuda_lib.load("bm_kernel").bm_scratch_bytes
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_longlong
-    n = fn(*left_b.shape[1:], params.disp_num) if left_b.dim() == 3 else 0
+    n = (_shape_fn("bm_kernel", "bm_scratch_bytes", ctypes.c_longlong)(
+        *left_b.shape, params.disp_num, params.window // 2)
+        if left_b.dim() == 3 else 0)
     scratch = (torch.empty(n, dtype=torch.uint8, device=left_b.device)
                if n > 0 else None)
     out = _launch("bm_kernel", "bm_match", left_b, right_b, params,
@@ -112,14 +124,13 @@ def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
     return out
 
 
-def strip_width(shape: Tuple[int, int, int], params: BMParams) -> int:
+def strip_width(shape: Tuple[int, int, int], params: BMParams,
+                lib_name: str = "bm_kernel") -> int:
     """The columns a block of G owns (64 or 32) at a [B, H, W] shape, as
-    bm_match_fused's launch chooses them; 0 for a shape it refuses or
-    takes on its D > 256 path."""
-    fn = cuda_lib.load("bm_kernel").bm_strip_width
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    return fn(*shape, params.disp_num, params.window // 2)
+    bm_match_fused's launch chooses them; 0 where it takes its path
+    without shared memory."""
+    return _shape_fn(lib_name, "bm_strip_width")(
+        *shape, params.disp_num, params.window // 2)
 
 
 def bm_match_diag(left_b: torch.Tensor, right_b: torch.Tensor,

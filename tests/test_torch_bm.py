@@ -3,7 +3,9 @@
 Each plain function against the reference package on seeded inputs: the
 box filter, the texture gate, bm_finalize, and bm_match at D = 16, 33, 64,
 128 and 256 on awkward shapes, a 96x320 golden crop and the full 640x480
-boxes scene. Kernel G's plain twin against the Pallas kernel in interpret
+boxes scene, and at the windows past kernel G's strip (257, where real
+costs pass the invalid cost 1 << 24, and 75 at D = 256). Kernel G's plain
+twin against the Pallas kernel in interpret
 mode (as tests/test_pallas_kernels.py runs it): bit for bit at D = 16 and
 33, where the Pallas kernel's invalid cost _big(D) is bm_match's 1 << 24;
 at D = 64 (2^24 - 1) and D = 128 (2^23 - 1) the Pallas kernel departs
@@ -153,6 +155,42 @@ def _past_the_strip(D, W):
     fl, fr = bk.bm_match_fused(lt, rt, tp)
     assert torch.equal(bm.bm_texture_gate(lt, fl, tp), dl)
     assert torch.equal(fr, dr)
+
+
+@pytest.mark.parametrize("case", ["binary pair, window 257",
+                                  "golden crop, D = 256, window 75"])
+def test_bm_match_wide_windows_equal_jax(case):
+    """Windows past kernel G's strip, which the card takes on its path
+    without shared memory: 257 (r = 128 > 127), where real costs pass the
+    invalid cost 1 << 24 and bm_match compares them as int32 against it
+    (an invalid d wins, cm and cp are clamped to it; uniqueness 1 and a
+    loose L/R threshold keep the pixels where the clamp moves the parabola
+    in the output: 3 of them differ without it), and 75 at D = 256, past
+    the strip's shared memory. The port's bm_match and G's plain twin
+    equal the reference's."""
+    if case.startswith("binary"):
+        from chip_smoke import binary_pair
+
+        left, right = binary_pair()
+        kw = dict(disp_num=64, window=257, uniqueness=1.0, lr_threshold=1000)
+        ad = np.abs(left.astype(np.int32) - right.astype(np.int32))
+        assert int(bm._box_filter(torch.from_numpy(ad), 128).max()) > 1 << 24
+    else:
+        g = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
+        crop = (slice(200, 296), slice(160, 480))
+        left, right = (np.ascontiguousarray(g[k][crop])
+                       for k in ("left", "right"))
+        kw = dict(disp_num=256, window=75)
+    jp, tp = JaxBMParams(**kw), BMParams(**kw)
+    wl, wr = jbm.bm_match(jnp.asarray(left), jnp.asarray(right), jp)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    dl, dr = bm.bm_match(lt, rt, tp)
+    np.testing.assert_array_equal(dl.numpy(), np.asarray(wl))
+    np.testing.assert_array_equal(dr.numpy(), np.asarray(wr))
+    assert (np.asarray(wl) >= 0).mean() > 0.1
+    fl, fr = bk.bm_match_fused(lt[None], rt[None], tp)
+    assert torch.equal(bm.bm_texture_gate(lt, fl[0], tp), dl)
+    assert torch.equal(fr[0], dr)
 
 
 @pytest.mark.parametrize("fix,crop,D", [

@@ -153,6 +153,27 @@ def test_dense_kernel_equals_plain(dev, B, H, W, preset, D, gs, right_image):
     assert (want >= 0).float().mean() > 0.3
 
 
+@pytest.mark.parametrize("sradius,D", [(8.0, 256), (9.0, 256), (9.0, 64),
+                                       (70.0, 64)])
+def test_dense_kernel_past_radius_7(dev, sradius, D):
+    """Kernel B past its unrolled radii (2 to 7): the radius at run time,
+    P from a table on the card (70 at D = 64: a window wider than D, the
+    table min(r + 1, D) long), both views and each alone, int32 and int16
+    d_plane."""
+    rng = np.random.default_rng(int(sradius) * D)
+    p = dataclasses.replace(ElasParams(), disp_max=D - 1, sradius=sradius)
+    assert p.plane_radius == int(sradius)
+    d1, d2, (m1, m2) = _dense_inputs(rng, 2, 45, 333, p, dev)
+    want = dm.dense_match_pair_plain(d1, d2, m1, m2, p)
+    for got in (dm.dense_match_pair(d1, d2, m1, m2, p),
+                (dm.dense_match(d1, d2, *m1, p, False),
+                 dm.dense_match(d1, d2, *m2, p, True)),
+                dm.dense_match_pair(d1, d2, *[[m[0].to(torch.int16)] + m[1:]
+                                              for m in (m1, m2)], p)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (want[0] >= 0).float().mean() > 0.3
+
+
 def test_dense_kernel_every_pixel_unmatched(dev):
     """No pixel covered: every output is -10 in both views; the warps still
     run their ballots with empty candidate sets."""
@@ -666,6 +687,10 @@ def test_bm_kernel_never_runs_the_plain_twin(dev, monkeypatch):
 
 
 def test_bm_kernel_refuses_what_it_does_not_take(dev):
+    """G refuses D < 2, even windows, windows past 2901 (r > 1450, where the
+    reference's int32 box sums wrap) and what is not a uint8 batch; G'
+    refuses what G's strip cannot hold. Window 257 and window 255 on
+    300x640 are no longer refused: test_bm_kernel_takes_every_window."""
     from jackal_tpu_torch.config import BMParams
     from jackal_tpu_torch.ops import bm_kernel as bk
 
@@ -673,7 +698,7 @@ def test_bm_kernel_refuses_what_it_does_not_take(dev):
     for D in (0, 1):
         with pytest.raises(ValueError, match="D = "):
             bk.bm_match_fused(img, img, BMParams(disp_num=D))
-    for window in (8, 257):
+    for window in (8, 2903):
         with pytest.raises(ValueError, match="window"):
             bk.bm_match_fused(img, img, BMParams(window=window))
     # a strip of columns holds any width: only D and the window bound the
@@ -682,9 +707,50 @@ def test_bm_kernel_refuses_what_it_does_not_take(dev):
     assert bk.bm_match_fused(wide, wide, BMParams())[0].shape == (1, 4, 4096)
     tall = torch.zeros((1, 300, 640), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        bk.bm_match_fused(tall, tall, BMParams(window=255))
+        bk.bm_match_diag(tall, tall, BMParams(window=255), "full")
     with pytest.raises(ValueError, match="uint8"):
         bk.bm_match_fused(img.to(torch.int32), img, BMParams())
+
+
+@pytest.mark.parametrize("B,H,W,D,window,shift", [
+    (1, 300, 640, 64, 255, 9),       # past the strip's shared memory
+    (1, 96, 320, 256, 75, 40),       # and at D = 256
+    (2, 40, 300, 64, 227, 5),        # just past it, r <= 127
+    (1, 50, 330, 64, 257, 7),        # r = 128: past the strip's 16 bits
+    (1, 30, 200, 16, 2901, 3)])      # r = 1450, the widest
+def test_bm_kernel_takes_every_window(dev, B, H, W, D, window, shift):
+    """Windows G's strip cannot hold go to its path without shared memory
+    and equal the plain twin."""
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    rng = np.random.default_rng(H * W + window)
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    lt = torch.from_numpy(left).to(dev)
+    rt = torch.from_numpy(np.roll(left, -shift, axis=2)).to(dev)
+    p = BMParams(disp_num=D, window=window)
+    assert bk.strip_width((B, H, W), p) == 0
+    assert bk._shape_fn("bm_kernel", "bm_smem_bytes")(
+        B, H, W, D, window // 2) == 0
+    for g, w in zip(bk.bm_match_fused(lt, rt, p),
+                    bk.bm_match_fused_plain(lt, rt, p)):
+        assert torch.equal(g, w)
+
+
+def test_bm_kernel_costs_past_the_invalid_cost(dev):
+    """Window 257 on chip_smoke.binary_pair, whose real costs pass 1 << 24
+    (tests/test_torch_bm.py holds the plain twin against the reference
+    there): G equals its plain twin."""
+    from chip_smoke import binary_pair
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    lt, rt = (torch.from_numpy(x).to(dev)[None] for x in binary_pair())
+    p = BMParams(disp_num=64, window=257, uniqueness=1.0, lr_threshold=1000)
+    want = bk.bm_match_fused_plain(lt, rt, p)
+    for g, w in zip(bk.bm_match_fused(lt, rt, p), want):
+        assert torch.equal(g, w)
+    assert (want[0] >= 0).float().mean() > 0.1
 
 
 def test_bm_diag_modes_run(dev):
@@ -812,26 +878,32 @@ def _hold_equal(kernel, name, got, want):
         assert torch.equal(g, w), name
 
 
-@pytest.mark.parametrize("case", range(9))
+@pytest.mark.parametrize("case", range(18))
 def test_postprocess_kernels_edges(dev, case):
     """chip_smoke.POST_EDGE_CASES: kernels H-K against their plain versions
     (torch.equal and int32 bits) at W % 4 != 0, H and W under 9, all
     invalid and all valid maps, values on the abs-mask's steps with both
-    zeros, MIDDLEBURY's long gaps, subsampled maps and B = 8 at
-    640x480."""
+    zeros, MIDDLEBURY's long gaps, subsampled maps, B = 8 at 640x480, and
+    the edges of I's and J's 32 x 32 tiles and of I's two designs."""
     from chip_smoke import (POST_EDGE_CASES, post_edge_case,
                             post_kernels_hold)
     from jackal_tpu_torch.matching.elas import post
 
-    assert len(POST_EDGE_CASES) == 9
+    assert len(POST_EDGE_CASES) == 18
     name = POST_EDGE_CASES[case]
     D1, D2, p = post_edge_case(name, dev)
-    n0 = dict(post.launches)
+    n0, d0 = dict(post.launches), dict(post.device_launches)
     for smax in (-1, 32):
         post_kernels_hold(D1, D2, p, _hold_equal, name, smax)
-    # per hold: H once, I twice, J twice (8 and 4 taps), K once
+    # per hold: H once, I twice (the case's params, then MIDDLEBURY's), J
+    # twice (8 and 4 taps), K once
     assert {k: post.launches[k] - n0[k] for k in n0} == {
         "elas_lr": 2, "elas_gap": 4, "elas_mean": 4, "elas_median": 2}
+    # kernel launches: I's tile design once, its scan design twice
+    tile = post.gap_width_eff(p) <= post.GAP_TILE_MAX and not p.add_corners
+    assert {k: post.device_launches[k] - d0[k] for k in d0} == {
+        "elas_lr": 2, "elas_gap": 2 * ((1 if tile else 2) + 2),
+        "elas_mean": 4, "elas_median": 4}
 
 
 @pytest.mark.parametrize("fix", ["elas_golden_s640_boxes", "elas_golden_photo"])

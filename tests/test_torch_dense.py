@@ -36,15 +36,28 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a))[None] for a in arrays]
 
 
+def _presets(preset):
+    """(JAX, port) ElasParams of a preset at D = 64. "robotics_r9" is
+    ROBOTICS with sradius 9: plane radius ceil(sigma * sradius) = 9, past
+    the card kernel's unrolled radii (2 to 7)."""
+    name, _, sradius = preset.partition("_r")
+    kw = dict(disp_max=63, **({"sradius": float(sradius)} if sradius else {}))
+    jp = dataclasses.replace(getattr(JaxElasParams, name)(), **kw)
+    tp = dataclasses.replace(getattr(ElasParams, name)(), **kw)
+    assert jp.plane_radius == tp.plane_radius == (int(sradius) if sradius
+                                                  else tp.plane_radius)
+    return jp, tp
+
+
 @pytest.mark.parametrize("right_image", [False, True])
 @pytest.mark.parametrize("H,W,preset", [
     (40, 128, "robotics"),     # the Pallas kernel test's shapes
     (33, 75, "middlebury"),    # odd sizes, plane radius 3, no texture gate
+    (40, 128, "robotics_r9"),  # plane radius 9
 ])
 def test_dense_matches_jax(H, W, preset, right_image):
     rng = np.random.default_rng(H * W)
-    jp = dataclasses.replace(getattr(JaxElasParams, preset)(), disp_max=63)
-    tp = dataclasses.replace(getattr(ElasParams, preset)(), disp_max=63)
+    jp, tp = _presets(preset)
     left = (rng.random((H, W)) * 255).astype(np.uint8)
     right = np.roll(left, 7, axis=1)
     d_plane = rng.integers(-3, 40, (H, W)).astype(np.int32)
@@ -81,13 +94,13 @@ def test_dense_matches_stage_fixture(right):
 
 
 @pytest.mark.parametrize("H,W,preset", [(40, 128, "robotics"),
-                                         (33, 75, "middlebury")])
+                                         (33, 75, "middlebury"),
+                                         (33, 75, "robotics_r9")])
 def test_dense_pair_matches_jax(H, W, preset):
     """dense_match_pair on CPU tensors == the JAX package's dense_match of
-    each view, each view with its own prior maps."""
+    each view, each view with its own prior maps (also at plane radius 9)."""
     rng = np.random.default_rng(H + W)
-    jp = dataclasses.replace(getattr(JaxElasParams, preset)(), disp_max=63)
-    tp = dataclasses.replace(getattr(ElasParams, preset)(), disp_max=63)
+    jp, tp = _presets(preset)
     left = (rng.random((H, W)) * 255).astype(np.uint8)
     right = np.roll(left, 7, axis=1)
     maps = [(rng.integers(-3, 40, (H, W)).astype(np.int32),

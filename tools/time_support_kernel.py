@@ -1,5 +1,6 @@
 """Time a CUDA kernel of a checkout of jackal_tpu_torch on the card: the ELAS
-support kernel (A), the ELAS dense kernel (B) or the SGM census (D).
+support kernel (A), the ELAS dense kernel (B), the SGM census (D), the BM
+kernel (G) or the ELAS gap interpolation and adaptive mean (I, J).
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -15,8 +16,14 @@ tests/fixtures and a seed:
   native prior's of each frame (chip_smoke.prior_inputs);
 - census: the SGM node's batch (the first golden pair's two images,
   2 x 480 x 640), the node's at batch 2 (both golden pairs, 4 x 480 x
-  640) and BASELINE config 3's (8 seeded 960 x 1280 images).
-Each call is held equal to its plain version on those inputs. Run it on
+  640) and BASELINE config 3's (8 seeded 960 x 1280 images);
+- bm: the golden 640x480 pairs at the BM node's shape (B = 1, D = 64),
+  at D = 256 (B = 1), at BASELINE config 5's (B = 32, D = 64) and at
+  bench_bm256's (B = 16, D = 256), the pairs alternated;
+- post: the golden 640x480 D1 maps: I at ROBOTICS (B = 1), I at
+  MIDDLEBURY on both views (B = 2), J with 8 taps and with 4 (B = 1).
+Each call is held equal to its plain version on those inputs (post: bit
+for bit, as int32). Run it on
 two checkouts in one call, in the order A, B, B, A, to compare two
 versions of a kernel on one card. Prints one JSON line: the card, DIR,
 the kernel and the device ms a call at each shape (chip_smoke.events_ms:
@@ -102,11 +109,55 @@ def time_census(left, right, reps):
     return res
 
 
+def time_bm(left, right, reps):
+    import torch
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    dev = torch.device("cuda", 0)
+    lt, rt = (torch.from_numpy(np.stack([x[i % 2] for i in range(32)])).to(dev)
+              for x in (left, right))
+    res = {}
+    for label, B, D in (("node", 1, 64), ("D256", 1, 256), ("config5", 32, 64),
+                        ("bm256", 16, 256)):
+        p = BMParams(disp_num=D)
+        li, ri = lt[:B].contiguous(), rt[:B].contiguous()
+        _held(f"bm {label}", bk.bm_match_fused(li, ri, p),
+              bk.bm_match_fused_plain(li, ri, p))
+        res[f"ms_{label}"] = events_ms(lambda: bk.bm_match_fused(li, ri, p),
+                                       reps)
+    return res
+
+
+def time_post(maps, reps):
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import post
+
+    dev = torch.device("cuda", 0)
+    D1 = torch.from_numpy(maps[0]).to(dev)
+    X2 = torch.from_numpy(np.stack(maps[:2])).to(dev)
+    rob, mb = ElasParams(), ElasParams.middlebury()
+    res = {}
+    for label, call, plain in (
+            ("gap_robotics_B1", lambda: post.gap_interpolation(D1, rob),
+             lambda: post.gap_interpolation_plain(D1, rob)),
+            ("gap_middlebury_B2", lambda: post.gap_interpolation(X2, mb),
+             lambda: post.gap_interpolation_plain(X2, mb)),
+            ("mean8_B1", lambda: post.adaptive_mean(D1),
+             lambda: post.adaptive_mean_plain(D1)),
+            ("mean4_B1", lambda: post.adaptive_mean_sub(D1),
+             lambda: post.adaptive_mean_sub_plain(D1))):
+        _held(label, [call().view(torch.int32)], [plain().view(torch.int32)])
+        res[f"ms_{label}"] = events_ms(call, reps)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", required=True)
     ap.add_argument("--kernel", default="support",
-                    choices=("support", "dense", "census"))
+                    choices=("support", "dense", "census", "bm", "post"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -126,6 +177,11 @@ def main() -> int:
     res = {"card": card_line(), "repo": args.repo, "kernel": args.kernel}
     if args.kernel == "census":
         res.update(time_census(left, right, args.reps))
+    elif args.kernel == "bm":
+        res.update(time_bm(left, right, args.reps))
+    elif args.kernel == "post":
+        res.update(time_post([g[k] for g in gold for k in ("D1", "D2")],
+                             args.reps))
     else:
         d1 = create_descriptor(torch.from_numpy(left).to(dev))
         d2 = create_descriptor(torch.from_numpy(right).to(dev))
