@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no success line):
      support and dense at 640x480, D = 256, on the two 640x480 golden
      fixtures, and on two seeded random frames at a width that is not a
      multiple of 32 (dense each view alone and both views in one launch,
-     dense_match_pair; the pair call also at D = 32 and at D = 8 with
+     dense_match_pair, and with the L/R check as its epilogue,
+     dense_match_pair_lr, at sweep bounds disp_max, 0 and 7; the pair call
+     also at D = 32 and at D = 8 with
      cells of one pixel); support also on chip_smoke.SUPPORT_EDGE_CASES (the
      node's and the batched node's shapes, D = 512 at W = 2112 and 4096,
      W < D, disp_min near D, an odd width, constant descriptors);
@@ -30,15 +32,18 @@ Phases (any failure exits non-zero and prints no success line):
   4. the node: make_pipeline(engine="elas") at 640x480 and process_frame on
      seeded raw 640x360 pairs of a known scene (pipeline/synthetic.py),
      with the launch counters reset just before and read just after (the
-     dense kernel once a frame, both views in one launch; H, I, J once a
-     frame, K never: ROBOTICS has no median);
+     dense kernel once a frame, both views and the L/R check as its
+     epilogue in one launch; I, J once a frame; H and K never: the check
+     is B's epilogue, ROBOTICS has no median);
      per-stage medians, fps, the device's busy time under torch.profiler,
-     a per-stage breakdown of one frame (the L/R check and the tail
-     beside their plain versions on the card), and elas_match_batch_device
+     a per-stage breakdown of one frame (B alone, B with the L/R epilogue,
+     kernel H alone and the tail beside their plain versions on the
+     card), and elas_match_batch_device
      at chunk 1 on one frame beside elas_match;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
-     kernel, H, I and J once a batch); fps, the
+     kernel with its L/R epilogue, I and J once a batch, H and K never);
+     fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
      one batch;
@@ -130,8 +135,10 @@ Phases (any failure exits non-zero and prints no success line):
   10. ELAS subsampling and the exact scan (subsampling_phase): kernel A on
      half-resolution descriptors and kernel B under subsampling against
      their plain twins; the card's subsampled elas_match against libelas's
-     final_D1 and against the CPU's, with A's and B's launch counters set
-     to 0 just before and read just after; the card's exact float64 scan
+     final_D1 and against the CPU's, with A's, B's and H's launch counters
+     set to 0 just before and read just after (H once a call: under
+     subsampling the check runs on the kept even pixels, after B); the
+     card's exact float64 scan
      against the CPU's on phase 4's 9 maps at 640x480; one JSON line;
   11. the multi-device paths on meshes of this one card repeated
      (multidevice_phase): DP SGM and DP BM against process_batch_fused,
@@ -146,12 +153,16 @@ Phases (any failure exits non-zero and prints no success line):
      plain versions, torch.equal and int32 bits, on
      chip_smoke.POST_EDGE_CASES, the golden 640x480 maps and the node's and
      batched node's dense maps; the MIDDLEBURY preset's elas_match (K's
-     path) against libelas with H-K's launches pinned; postprocess_batch
-     on the node's frame against the CPU;
+     path) against libelas with H-K's launches pinned (H none: B's L/R
+     epilogue launches once; K one launch); postprocess_batch on the
+     node's frame against the CPU;
      H-K's times at the node's shape beside their plain versions' and
-     their byte bounds, with the kernel launches a call (I and J one, K
-     two), and I's scan design on MIDDLEBURY's gaps over both views
-     (B = 2); one JSON line;
+     their byte bounds, with the kernel launches a call (one each), and
+     I's scan design on MIDDLEBURY's gaps over both views (B = 2); (d)
+     kernel B with the L/R epilogue against its plain version and timed
+     beside B alone, B then H and H alone at the node's and the batched
+     node's shapes, with B's bound, and the blocks an SM of B's two
+     instantiations; one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -1576,13 +1587,16 @@ def subsampling_phase(dev, hold, pipe, dmaps):
     after the subsampled output's slice, on libelas's subsampling fixture
     and the two 640x480 golden pairs; (b) the card's subsampled elas_match
     against libelas's final_D1 (with the fixture's triangulations) and
-    against the CPU's on the same inputs, with A's and B's launch counters
-    set to 0 just before and read just after; (c) the card's exact scan
+    against the CPU's on the same inputs, with A's, B's and H's launch
+    counters set to 0 just before and read just after (the L/R check runs
+    on the kept even pixels: kernel H once a call, B without its L/R
+    epilogue); (c) the card's exact scan
     against the CPU's on phase 4's 9 maps at 640x480 (pipe: phase 4's
     node). Returns the phase's JSON line."""
     import torch
     from jackal_tpu_torch.config import ElasParams
     from jackal_tpu_torch.matching.elas import dense as dense_mod
+    from jackal_tpu_torch.matching.elas import post
     from jackal_tpu_torch.matching.elas import support as support_mod
     from jackal_tpu_torch.matching.elas.pipeline import elas_match
     from jackal_tpu_torch.ops.descriptor import create_descriptor
@@ -1623,19 +1637,24 @@ def subsampling_phase(dev, hold, pipe, dmaps):
           f"[0::2, 0::2]) (torch.equal): {', '.join(c[0] for c in cases)}")
 
     # (b) the card's subsampled elas_match against libelas and the CPU
-    support_mod.launches = dense_mod.launches = 0
+    support_mod.launches = dense_mod.launches = dense_mod.lr_launches = 0
+    post.launches["elas_lr"] = post.device_launches["elas_lr"] = 0
     D1, _ = elas_match(st["left"], st["right"], sub, tri_left=st["tri1"],
                        tri_right=st["tri2"], device=dev)
     outs = [(name, elas_match(left, right, sub, device=dev))
             for name, left, right in cases]
     launches = {"support": support_mod.launches,
-                "elas_dense": dense_mod.launches}
+                "elas_dense": dense_mod.launches,
+                "elas_dense_lr": dense_mod.lr_launches,
+                "elas_lr": post.device_launches["elas_lr"]}
     print(f"10b. launches over {1 + len(cases)} subsampled elas_match calls"
           f" on the card: {launches}")
-    if launches != {"support": 1 + len(cases),
-                    "elas_dense": 1 + len(cases)}:
-        raise AssertionError(f"subsampled elas_match did not launch A and "
-                             f"B once a call: {launches}")
+    n = 1 + len(cases)
+    if launches != {"support": n, "elas_dense": n, "elas_dense_lr": 0,
+                    "elas_lr": n} or post.launches["elas_lr"] != n:
+        raise AssertionError(f"subsampled elas_match did not launch A, B "
+                             f"(without its L/R epilogue) and H once a "
+                             f"call: {launches}")
     ref = torch.from_numpy(st["final_D1"])
     if not torch.equal(D1.cpu(), ref):
         raise AssertionError(f"subsampled elas_match != libelas final_D1 in "
@@ -2129,24 +2148,52 @@ def post_work(maps_in: int, maps_out: int, shape) -> int:
     return 4 * int(np.prod(shape)) * (maps_in + maps_out)
 
 
-def postprocess_phase(dev, hold, node, batch, node_launches):
-    """Phase 12: the ELAS postprocess kernels H-K. (a) each against its
-    plain version (post_kernels_hold: torch.equal and int32 bits) on
-    POST_EDGE_CASES, on the two golden fixtures' 640x480 maps, on the
-    node's dense maps of one frame and on the batched node's 8; (b) the
-    MIDDLEBURY preset's elas_match on its libelas fixture (184x320), K's
-    path, against libelas with the launches of H-K counted;
+def dense_blocks_per_sm(W, params, lr):
+    """The blocks of kernel B (lr: its instantiation with the L/R
+    epilogue) that fit an SM at row width W: the occupancy its launcher
+    sizes the persistent grid by."""
+    import ctypes
+
+    from jackal_tpu_torch.ops import cuda_lib
+
+    fn = cuda_lib.load("elas_dense_kernel").elas_dense_per_sm
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    cuda_lib.check(fn(W, params.disp_num, params.grid_size,
+                      params.plane_radius, int(lr), ctypes.byref(n)),
+                   "elas_dense_per_sm")
+    return n.value
+
+
+def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
+                      path_launches):
+    """Phase 12: the ELAS postprocess kernels H-K and kernel B's L/R
+    epilogue. (a) H-K each against its plain version (post_kernels_hold:
+    torch.equal and int32 bits) on POST_EDGE_CASES, on the two golden
+    fixtures' 640x480 maps, on the node's dense maps of one frame and on
+    the batched node's 8; (b) the MIDDLEBURY preset's elas_match on its
+    libelas fixture (184x320), K's path, against libelas with the launches
+    of B's L/R epilogue and H-K counted (H never, K one launch);
     postprocess_batch on the node's frame, on the card against the CPU;
     (c) each kernel's device time at the node's shape (640x480, B = 1)
     beside its plain version's and its byte bound (a time below it
     fails) and the kernel launches a call as the entry points report
-    them (pinned: H, I, J one, K two), and I's scan design on MIDDLEBURY's
-    gaps and corners over both views (B = 2, two launches). node: (dense D1, dense D2, speckled D1) of phase 4's
-    frame; batch: (D1, D2, lr_smax) of phase 4b's
-    chunk; node_launches: H-K's launches over phase 4's 9 frames. Returns
-    (the phase's JSON line, the kernels line's entries of H-K)."""
+    them (pinned: one each), and I's scan design on MIDDLEBURY's gaps and
+    corners over both views (B = 2, two launches); (d) kernel B with the
+    L/R epilogue against its plain version and timed beside B alone and
+    B then H, at the node's shape and the batched node's, with B's bound,
+    and the blocks an SM of B's two instantiations. node: (dense D1,
+    dense D2, speckled D1) of phase 4's frame; batch: (D1, D2, lr_smax)
+    of phase 4b's chunk; node_launches: H-K's launches over phase 4's 9
+    frames; dense_cases: label -> (desc1, desc2, left maps, right maps,
+    lr_smax, B's bound ms, bound by) of phase 5; path_launches: the
+    launches of H on its path (phase 10, subsampled elas_match) and of B
+    with the epilogue on its (phase 4). Returns (the phase's JSON line,
+    the kernels line's entries of H-K and of B with the epilogue)."""
     import torch
     from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import dense as dense_mod
     from jackal_tpu_torch.matching.elas import post
     from jackal_tpu_torch.matching.elas.pipeline import elas_match
 
@@ -2172,16 +2219,22 @@ def postprocess_phase(dev, hold, node, batch, node_launches):
     g = np.load(f"{FIX}/elas_golden_s320_mb.npz")
     mb = ElasParams.middlebury()
     for k in post.launches:
-        post.launches[k] = 0
+        post.launches[k] = post.device_launches[k] = 0
+    dense_mod.lr_launches = 0
     D1, D2 = elas_match(g["left"], g["right"], mb, device=dev)
     mb_launches = dict(post.launches)
+    mb_dev = dict(post.device_launches)
+    mb_fused = dense_mod.lr_launches
     _same("MIDDLEBURY elas_match D1 vs libelas", D1, torch.from_numpy(g["D1"]))
     _same("MIDDLEBURY elas_match D2 vs libelas", D2, torch.from_numpy(g["D2"]))
-    if mb_launches != {"elas_lr": 1, "elas_gap": 1, "elas_mean": 0,
-                       "elas_median": 1}:
-        raise AssertionError(f"MIDDLEBURY elas_match launched {mb_launches}")
+    want = {"elas_lr": 0, "elas_gap": 1, "elas_mean": 0, "elas_median": 1}
+    if mb_launches != want or mb_fused != 1 or mb_dev["elas_median"] != 1:
+        raise AssertionError(f"MIDDLEBURY elas_match launched {mb_launches}"
+                             f" (kernel launches {mb_dev}), B with the L/R "
+                             f"epilogue {mb_fused} times")
     print(f"12b. elas_match MIDDLEBURY on the card == libelas D1/D2 "
-          f"(elas_golden_s320_mb); launches {mb_launches}")
+          f"(elas_golden_s320_mb); launches {mb_launches} (kernel launches "
+          f"{mb_dev}), kernel B with the L/R epilogue {mb_fused}")
     for p in (params, mb):
         got = post.postprocess_batch(Da[None], Db[None], p)
         want = post.postprocess_batch(Da[None].cpu(), Db[None].cpu(), p)
@@ -2208,7 +2261,7 @@ def postprocess_phase(dev, hold, node, batch, node_launches):
         ("elas_mean", "elas_mean", lambda: post.adaptive_mean(G),
          lambda: post.adaptive_mean_plain(G), post_work(1, 1, shape), 1),
         ("elas_median", "elas_median", lambda: post.median_filter(G),
-         lambda: post.median_filter_plain(G), post_work(1, 1, shape), 2),
+         lambda: post.median_filter_plain(G), post_work(1, 1, shape), 1),
         ("elas_gap MIDDLEBURY B = 2", "elas_gap",
          lambda: post.gap_interpolation(X2, mb),
          lambda: post.gap_interpolation_plain(X2, mb),
@@ -2239,15 +2292,73 @@ def postprocess_phase(dev, hold, node, batch, node_launches):
                                  f"call, not {want}")
         if label != k:
             continue
-        launches = mb_launches[k] if k == "elas_median" else node_launches[k]
+        # K runs on the MIDDLEBURY elas_match alone, H (off the presets'
+        # paths since it runs as B's epilogue) on the subsampled elas_match
+        launches = {"elas_median": mb_launches[k],
+                    "elas_lr": path_launches["elas_lr"]}.get(
+                        k, node_launches[k])
         entries.append({
             "name": k, "route": "cuda",
             "source": "jackal_tpu_torch/csrc/elas_post_kernel.cu",
             "replaces": f"jackal_tpu/matching/elas/post.py:{replaces[k]}",
             "launches": launches, "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
+        if k == "elas_lr":
+            entries[-1]["fused_into"] = "elas_dense_lr"
+
+    # (d) kernel B with H's epilogue beside B alone and B then H; its bound
+    # is B's (it writes the same two maps, already checked)
+    fused = {}
+    for label, (q1, q2, ml, mr, smax, bnd, by) in dense_cases.items():
+        hold("elas_dense_lr", f"dense pair + L/R, {label}",
+             dense_mod.dense_match_pair_lr(q1, q2, ml, mr, params, smax),
+             dense_mod.dense_match_pair_lr_plain(q1, q2, ml, mr, params,
+                                                 smax))
+        PD1, PD2 = dense_mod.dense_match_pair(q1, q2, ml, mr, params)
+
+        def b_then_h():
+            return post.left_right_consistency_check(
+                *dense_mod.dense_match_pair(q1, q2, ml, mr, params), params,
+                smax)
+        t = {"fused_ms": events_ms(lambda: dense_mod.dense_match_pair_lr(
+                 q1, q2, ml, mr, params, smax), 50),
+             "b_alone_ms": events_ms(lambda: dense_mod.dense_match_pair(
+                 q1, q2, ml, mr, params), 50),
+             "b_then_h_ms": events_ms(b_then_h, 50),
+             "h_alone_ms": events_ms(lambda: post.left_right_consistency_check(
+                 PD1, PD2, params, smax), 50),
+             "bound_ms": bnd, "bound_by": by}
+        if label == "node":
+            t["plain_ms"] = events_ms(
+                lambda: dense_mod.dense_match_pair_lr_plain(
+                    q1, q2, ml, mr, params, smax), 3, spin=False)
+        fused[label] = t
+        print(f"12d. kernel B with the L/R epilogue, {label} "
+              f"{tuple(q1.shape[:3])}: {t['fused_ms']:.5f} ms a call (B "
+              f"alone {t['b_alone_ms']:.5f}, B then H {t['b_then_h_ms']:.5f},"
+              f" H alone {t['h_alone_ms']:.5f}; bound {bnd:.5f} by {by}, "
+              f"{t['fused_ms'] / bnd:.2f}x)")
+        if t["fused_ms"] < bnd:
+            raise AssertionError(f"dense + L/R {label}: {t['fused_ms']} ms "
+                                 f"is below its bound {bnd} ms")
+    W = dense_cases["node"][0].shape[2]
+    per_sm = {("with" if lr else "without") + " the L/R epilogue":
+              dense_blocks_per_sm(W, params, lr) for lr in (False, True)}
+    print(f"12d. kernel B's blocks an SM at {W} columns, plane radius "
+          f"{params.plane_radius}: {per_sm}")
+    node_t = fused["node"]
+    entries.append({
+        "name": "elas_dense_lr", "route": "cuda",
+        "source": "jackal_tpu_torch/csrc/elas_dense_kernel.cu",
+        "replaces": "jackal_tpu/ops/pallas/elas_dense_kernel.py:30",
+        "fuses": "jackal_tpu/matching/elas/post.py:34",
+        "launches": path_launches["elas_dense_lr"], "ms": node_t["fused_ms"],
+        "plain_ms": node_t["plain_ms"], "bound_ms": node_t["bound_ms"],
+        "bound_by": node_t["bound_by"], "library_ms": None})
     return {"postprocess": {"middlebury_launches": mb_launches,
-                            "times": times}}, entries
+                            "middlebury_kernel_launches": mb_dev,
+                            "times": times, "dense_lr": fused,
+                            "dense_blocks_per_sm": per_sm}}, entries
 
 
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
@@ -2498,7 +2609,7 @@ def main() -> int:
     max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0,
                "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0,
                "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
-               "elas_median": 0.0}
+               "elas_median": 0.0, "elas_dense_lr": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -2547,8 +2658,14 @@ def main() -> int:
         hold("elas_dense", f"dense pair {name}",
              dense_mod.dense_match_pair(d1, d2, *views, params),
              dense_mod.dense_match_pair_plain(d1, d2, *views, params))
+        for smax in (-1, 0, 7):
+            hold("elas_dense_lr", f"dense pair + L/R (smax {smax}) {name}",
+                 dense_mod.dense_match_pair_lr(d1, d2, *views, params, smax),
+                 dense_mod.dense_match_pair_lr_plain(d1, d2, *views, params,
+                                                     smax))
         print(f"kernels == plain (torch.equal, both views; dense also both "
-              f"views in one launch): {name}")
+              f"views in one launch, and with the L/R epilogue at sweep "
+              f"bounds disp_max, 0 and 7): {name}")
     # one candidate word a cell (D <= 32), and cells of one pixel
     d1, d2 = rdesc[0].contiguous(), rdesc[1].contiguous()
     for Ds, gs in ((32, 20), (8, 1)):
@@ -2711,7 +2828,7 @@ def main() -> int:
     print(f"elas_match_batch_device on the card == elas_match on the "
           f"{len(pairs)} synthetic node frames (chunk 3), D1 and D2")
     from jackal_tpu_torch.matching.elas import post as post_mod
-    support_mod.launches = dense_mod.launches = 0
+    support_mod.launches = dense_mod.launches = dense_mod.lr_launches = 0
     for k in post_mod.launches:
         post_mod.launches[k] = post_mod.device_launches[k] = 0
     results, walls = [], []
@@ -2721,7 +2838,8 @@ def main() -> int:
         walls.append(time.perf_counter() - t)
         results.append(fr)
     launches = {"support": support_mod.launches,
-                "elas_dense": dense_mod.launches}
+                "elas_dense": dense_mod.launches,
+                "elas_dense_lr": dense_mod.lr_launches}
     node_post = dict(post_mod.launches)
     node_post_dev = dict(post_mod.device_launches)
     print(f"node launches over {len(pairs)} frames: {launches}, {node_post}"
@@ -2729,12 +2847,17 @@ def main() -> int:
     if min(launches.values()) == 0:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
     n9 = len(pairs)
-    once = {"elas_lr": n9, "elas_gap": n9, "elas_mean": n9, "elas_median": 0}
+    # the L/R check runs as kernel B's epilogue: H does not launch
+    once = {"elas_lr": 0, "elas_gap": n9, "elas_mean": n9, "elas_median": 0}
     if node_post != once or node_post_dev != once:
         raise AssertionError(f"the node called the postprocess kernels "
                              f"{node_post} times ({node_post_dev} kernel "
-                             f"launches) over {n9} frames, not H, I and J "
-                             f"once a frame, one launch each")
+                             f"launches) over {n9} frames, not I and J "
+                             f"once a frame, one launch each, H and K never")
+    if launches["elas_dense_lr"] != n9:
+        raise AssertionError(f"the node launched kernel B with the L/R "
+                             f"epilogue {launches['elas_dense_lr']} times "
+                             f"over {n9} frames, not once a frame")
     if launches["elas_dense"] != len(pairs):
         raise AssertionError(f"the node launched the dense kernel "
                              f"{launches['elas_dense']} times over "
@@ -2800,8 +2923,14 @@ def main() -> int:
         lambda: dense_mod.dense_match_pair(d1, d2, v1, v2, params), 5)
     Da, Db = (x[0] for x in dense_mod.dense_match_pair(d1, d2, v1, v2,
                                                         params))
-    L1, L2 = left_right_consistency_check(Da, Db, params)
-    st["L/R check (kernel H)"] = host_ms(
+    st["dense + L/R, both views (kernel B with H's epilogue, one launch; "
+       "the node's path)"] = host_ms(
+        lambda: dense_mod.dense_match_pair_lr(d1, d2, v1, v2, params), 5)
+    L1, L2 = (x[0] for x in dense_mod.dense_match_pair_lr(d1, d2, v1, v2,
+                                                           params))
+    _same("the node's fused L/R vs kernel H on B's maps", L1,
+          left_right_consistency_check(Da, Db, params)[0])
+    st["L/R check (kernel H alone, off the node's path)"] = host_ms(
         lambda: left_right_consistency_check(Da, Db, params), 5)
     st["L/R check, plain version"] = host_ms(
         lambda: post_mod.left_right_consistency_check_plain(Da, Db, params),
@@ -2834,7 +2963,7 @@ def main() -> int:
     # ---- 4b. the batched node ---------------------------------------------
     from jackal_tpu_torch.io_bus.bus import TopicBus
     from jackal_tpu_torch.matching.elas.post import (
-        postprocess_batch, remove_small_segments_batch)
+        postprocess_after_lr, postprocess_batch, remove_small_segments_batch)
     from jackal_tpu_torch.ops.transfer import HostCopy, to_device
     from jackal_tpu_torch.pipeline.runner import (TOPIC_DEPTH, TOPIC_SCAN,
                                                   StreamingRunner)
@@ -2849,7 +2978,8 @@ def main() -> int:
     runner.run(iter(stream[:2 * batch]))                # warm-up
     depth_msgs.clear()
     scan_msgs.clear()
-    support_mod.launches = dense_mod.launches = dp.launches = 0
+    support_mod.launches = dense_mod.launches = dense_mod.lr_launches = 0
+    dp.launches = 0
     for k in post_mod.launches:
         post_mod.launches[k] = post_mod.device_launches[k] = 0
     torch.cuda.synchronize()
@@ -2858,19 +2988,26 @@ def main() -> int:
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t
     launches_b = {"support": support_mod.launches,
-                  "elas_dense": dense_mod.launches, "raster": dp.launches}
+                  "elas_dense": dense_mod.launches,
+                  "elas_dense_lr": dense_mod.lr_launches,
+                  "raster": dp.launches}
     batch_post = dict(post_mod.launches)
     batch_post_dev = dict(post_mod.device_launches)
     print(f"batched node launches over {done} frames: {launches_b}, "
           f"{batch_post} (their kernel launches {batch_post_dev})")
     nb6 = n_frames // batch
-    once = {"elas_lr": nb6, "elas_gap": nb6, "elas_mean": nb6,
+    once = {"elas_lr": 0, "elas_gap": nb6, "elas_mean": nb6,
             "elas_median": 0}
     if batch_post != once or batch_post_dev != once:
         raise AssertionError(f"the batched node called the postprocess "
                              f"kernels {batch_post} times ({batch_post_dev} "
-                             f"kernel launches) over {nb6} batches, not H, I"
-                             f" and J once a batch, one launch each")
+                             f"kernel launches) over {nb6} batches, not I "
+                             f"and J once a batch, one launch each, H and K"
+                             f" never")
+    if launches_b["elas_dense_lr"] != nb6:
+        raise AssertionError(f"the batched node launched kernel B with the "
+                             f"L/R epilogue {launches_b['elas_dense_lr']} "
+                             f"times over {nb6} batches, not once a batch")
     if min(launches_b.values()) == 0:
         raise AssertionError(f"the batched node bypassed a kernel: "
                              f"{launches_b}")
@@ -2944,10 +3081,19 @@ def main() -> int:
     sb["dense, both views (kernel B, one launch)"] = host_ms(
         lambda: dense_mod.dense_match_pair(bd1, bd2, m1, m2, params), 5)
     BD1, BD2 = dense_mod.dense_match_pair(bd1, bd2, m1, m2, params)
-    sb["postprocess (L/R, speckle, tail)"] = host_ms(
+    sb["dense + L/R, both views (kernel B with H's epilogue, one launch; "
+       "the batched node's path)"] = host_ms(
+        lambda: dense_mod.dense_match_pair_lr(bd1, bd2, m1, m2, params,
+                                              lad), 5)
+    BL1, BL2 = dense_mod.dense_match_pair_lr(bd1, bd2, m1, m2, params, lad)
+    for x, y in zip((BL1, BL2),
+                    left_right_consistency_check(BD1, BD2, params, lad)):
+        _same("the batched node's fused L/R vs kernel H on B's maps", x, y)
+    sb["postprocess after the L/R check (speckle, tail)"] = host_ms(
+        lambda: postprocess_after_lr(BL1, BL2, params), 3)
+    sb["postprocess with kernel H (L/R, speckle, tail)"] = host_ms(
         lambda: postprocess_batch(BD1, BD2, params, lad), 3)
-    BL1, BL2 = left_right_consistency_check(BD1, BD2, params, lad)
-    sb["  L/R check (kernel H)"] = host_ms(
+    sb["  L/R check (kernel H alone, off the batched node's path)"] = host_ms(
         lambda: left_right_consistency_check(BD1, BD2, params, lad), 5)
     sb["  L/R check, plain version"] = host_ms(
         lambda: post_mod.left_right_consistency_check_plain(BD1, BD2, params,
@@ -2960,7 +3106,7 @@ def main() -> int:
     sb["  tail, plain versions"] = host_ms(
         lambda: post_mod.adaptive_mean_plain(
             post_mod.gap_interpolation_plain(BS1, params)), 5)
-    dmaps8 = pipe._dmap_u8(postprocess_batch(BD1, BD2, params, lad)[0])
+    dmaps8 = pipe._dmap_u8(postprocess_after_lr(BL1, BL2, params)[0])
     sb["scan"] = host_ms(lambda: pipe._scan_stage(dmaps8), 5)
     for k, v in sb.items():
         print(f"  batch stage {k}: {v:.3f} ms")
@@ -3149,16 +3295,20 @@ def main() -> int:
     # ---- 9. the node shell: the point_cloud and navigate CLIs ------------
     print(json.dumps(shell_phase(dev)))
 
-    # ---- 10. ELAS subsampling (A, B under it) and the exact scan ---------
-    print(json.dumps(subsampling_phase(dev, hold, pipe,
-                                       [fr.dmap for fr in results])))
+    # ---- 10. ELAS subsampling (A, B, H under it) and the exact scan -------
+    sub_line = subsampling_phase(dev, hold, pipe, [fr.dmap for fr in results])
+    print(json.dumps(sub_line))
 
     # ---- 11. the multi-device paths and the last modules ------------------
     print(json.dumps(multidevice_phase(dev, pairs, L9, R9)))
 
     # ---- 12. the ELAS postprocess kernels H-K ------------------------------
-    line, entries = postprocess_phase(dev, hold, (Da, Db, S1),
-                                      (BD1, BD2, lad), node_post)
+    line, entries = postprocess_phase(
+        dev, hold, (Da, Db, S1), (BD1, BD2, lad), node_post,
+        {"node": (d1, d2, v1, v2, -1, bB, byB),
+         f"B = {batch}": (bd1, bd2, m1, m2, lad, b8B, by8B)},
+        {"elas_lr": sub_line["subsampling"]["launches"]["elas_lr"],
+         "elas_dense_lr": launches["elas_dense_lr"]})
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

@@ -26,12 +26,13 @@ class Library:
     compiler: str
     flags: tuple
     sources: tuple
+    headers: tuple = ()   # files the sources include: hashed, not compiled
 
     @property
     def path(self) -> str:
         h = hashlib.sha256()
         h.update(" ".join((self.compiler,) + self.flags).encode())
-        for src in self.sources:
+        for src in self.sources + self.headers:
             with open(src, "rb") as f:
                 h.update(f.read())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")

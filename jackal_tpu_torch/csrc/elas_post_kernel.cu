@@ -13,7 +13,10 @@
 //  H  lr_check_kernel: per pixel and view, uw = u -/+ d (d/2 under
 //     subsampling), kept where d >= 0, 0 <= uw < W and the other view at
 //     u -/+ clamp(|trunc(uw) - u|, 0, smax) agrees within lr_threshold
-//     (-1e9 outside the row), else -10. Both views in one launch.
+//     (-1e9 outside the row), else -10 (lr_one, elas_lr.cuh). Both views
+//     in one launch. Where one block of kernel B owns whole rows (W <=
+//     1024, no subsampling: every preset) B runs the check as its
+//     epilogue instead, and this kernel does not launch.
 //  I  gap interpolation, a row pass and then a column pass over the row
 //     pass's result (elas.cpp:1122-1166): a run of 1..gap_width invalid
 //     pixels between two valid ones becomes (d1 + d2) / 2 where |d1 - d2|
@@ -30,11 +33,12 @@
 //     bits 0x4F000000 of the float 2^31), the lanes paired and summed in
 //     the order that rotates with the position (post._lane_mean), the
 //     D_copy / D_tmp buffers and their borders.
-//  K  median_h_kernel / median_v_kernel: the separable 7-tap median, only
+//  K  median_tile_kernel, one launch: the separable 7-tap median, only
 //     where D >= 0 and inside the 3-pixel border, D_temp zero outside it.
 //     The median is the 4th of the 7 taps in the order of their radix
 //     keys (-0.0 below +0.0, a NaN tap makes it NaN), the order in which
-//     torch.median on the card selects, so the bits equal the plain
+//     torch.median on the card selects, and a NaN comes back as
+//     torch.median returns it (median_taps), so the bits equal the plain
 //     version's on the card.
 //
 // Exactness: every multiply and add is __fmul_rn / __fadd_rn / __fsub_rn,
@@ -45,18 +49,22 @@
 // What bounds them on an H100: bytes. Each kernel reads its [B, H, W] map
 // (and the other view, or D, where it needs them) once and writes one map:
 // 1.23 MB each way for one 640x480 frame, well under a microsecond at
-// 3.35 TB/s. At these sizes they run bound by latency and launches: H and
-// K are a thread a pixel (K two launches through a scratch map). I's first
-// design walked each line with one thread (480 threads a frame, 193x its
-// bound); J's ran its two passes as two launches through a scratch map. I
-// and J now keep the pass between them in shared memory: a block owns a
-// 32 x 32 output tile and its halo (300 blocks a 640x480 frame, over two
-// rounds of the 132 SMs), with coalesced loads and one coalesced store;
-// I's scan design for long gaps has no thread walk a line: a block a line,
-// the nearest valid pixels from ballots.
+// 3.35 TB/s. At these sizes they run bound by latency and launches: H is
+// a thread a pixel, and a tile kernel's launch alone takes ~0.0045 ms at
+// 640x480, H's own time, so H gains only by fusion (into kernel B, which
+// holds both rows on chip already). I's first design walked each line with
+// one thread (480 threads a frame, 193x its bound); J's and K's ran their
+// two passes as two launches through a scratch map. I, J and K now keep
+// the pass between them in shared memory: a block owns a 32 x 32 output
+// tile and its halo (300 blocks a 640x480 frame, over two rounds of the
+// 132 SMs), with coalesced loads and one coalesced store; I's scan design
+// for long gaps has no thread walk a line: a block a line, the nearest
+// valid pixels from ballots.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "elas_lr.cuh"
 
 namespace {
 
@@ -68,21 +76,10 @@ __device__ __forceinline__ int64_t gid() {
 
 // ---- H: the L/R consistency check ---------------------------------------
 
-__device__ __forceinline__ float lr_one(const float* a_row, const float* b_row,
-                                        int u, int W, int sign, int smax,
-                                        float thr, int sub) {
-  const float da = a_row[u];
-  const float wd = sub ? __fmul_rn(da, 0.5f) : da;
-  const float uw = __fadd_rn(__int2float_rn(u), sign < 0 ? -wd : wd);
-  if (!(da >= 0.f && uw >= 0.f && uw < __int2float_rn(W))) return -10.f;
-  // in range here, so the truncation is exact (and saturates elsewhere,
-  // as ops/convert.to_int32)
-  const int s = min(max(sign * (__float2int_rz(uw) - u), 0), smax);
-  const int idx = u + sign * s;
-  const float other = (idx >= 0 && idx < W) ? b_row[idx] : -1e9f;
-  return fabsf(__fsub_rn(other, da)) <= thr ? da : -10.f;
-}
-
+// lr_one (elas_lr.cuh) for both views, a thread a pixel. Kernel B runs the
+// same check as its epilogue where one block owns whole rows (dense.py
+// dense_match_pair_lr); this kernel takes the rest: subsampled maps and
+// rows past kernel B's 1024-column strip.
 __global__ void lr_check_kernel(const float* __restrict__ D1,
                                 const float* __restrict__ D2,
                                 float* __restrict__ O1, float* __restrict__ O2,
@@ -517,46 +514,86 @@ __device__ __forceinline__ bool interior(int r, int c, int H, int W) {
   return r >= kWs && r < H - kWs && c >= kWs && c < W - kWs;
 }
 
-// D_temp: the row median where D >= 0, D elsewhere, inside the border; 0
-// on it (calloc)
-__global__ void median_h_kernel(const float* __restrict__ D,
-                                float* __restrict__ T, int64_t n, int H,
-                                int W) {
-  for (int64_t i = gid(); i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % W);
-    const int r = static_cast<int>((i / W) % H);
-    const float x = D[i];
-    float out = 0.f;
-    if (interior(r, c, H, W)) {
-      out = x;
-      if (x >= 0.f) {
-        uint32_t k[7];
-#pragma unroll
-        for (int j = 0; j < 7; ++j) k[j] = fkey(D[i + j - kWs]);
-        out = median7(k);
-      }
-    }
-    T[i] = out;
-  }
+// d >= 0 from d's key: -0.0 (0x7fffffff) up to +inf, no NaN (0xffffffff)
+__device__ __forceinline__ bool key_valid(uint32_t k) {
+  return k >= 0x7fffffffu && k != 0xffffffffu;
 }
 
-__global__ void median_v_kernel(const float* __restrict__ D,
-                                const float* __restrict__ T,
-                                float* __restrict__ O, int64_t n, int H,
-                                int W) {
-  for (int64_t i = gid(); i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % W);
-    const int r = static_cast<int>((i / W) % H);
-    const float x = D[i];
-    float out = x;
-    if (x >= 0.f && interior(r, c, H, W)) {
+// The median of 7 taps, their keys k and their values v[0], v[stride], ...,
+// as torch.median on the card returns it: its radix select hands back the
+// element itself where one tap alone holds the selected key, else the
+// key's value. The bits differ only for NaN: one NaN tap comes back as it
+// is, several as median7's NaN (0x7fffffff).
+__device__ __forceinline__ float median_taps(uint32_t (&k)[7], const float* v,
+                                             int stride) {
+  const float m = median7(k);   // sorts k
+  if (k[6] != 0xffffffffu || k[5] == 0xffffffffu) return m;
+  float nan = m;
+  for (int j = 0; j < 7; ++j)
+    if (v[j * stride] != v[j * stride]) nan = v[j * stride];
+  return nan;
+}
+
+// One launch of the median: a block owns a kTile x kTile output tile of
+// one frame and stages D over it, each value with its key (fkey, once an
+// element), with kWs rows and columns of halo (0 outside the frame, where
+// no interior pixel's taps reach). It computes D_temp and its keys for the
+// tile's columns on its rows and its halo rows in shared memory (a warp a
+// row, a lane a column): the row median where D >= 0, D elsewhere, inside
+// the 3-pixel border; 0 on it and outside the frame (calloc). After a
+// barrier the column median over D_temp where D >= 0 inside the border, D
+// elsewhere; it writes the tile once.
+__global__ void __launch_bounds__(kTileThreads)
+    median_tile_kernel(const float* __restrict__ D, float* __restrict__ O,
+                       int H, int W, int tiles_x, int tiles_y) {
+  constexpr int N = kTile + 2 * kWs;      // staged rows and columns
+  __shared__ float S[N][N + 1];           // D, 0 outside the frame
+  __shared__ uint32_t SK[N][N + 1];       // their keys
+  __shared__ float T[N][kTile + 1];       // D_temp, the tile's columns
+  __shared__ uint32_t TK[N][kTile + 1];   // their keys
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bx = blockIdx.x % tiles_x, rest = blockIdx.x / tiles_x;
+  const int by = rest % tiles_y, b = rest / tiles_y;
+  const int x0 = bx * kTile - kWs, y0 = by * kTile - kWs;   // S[0][0]
+  const float* Df = D + static_cast<int64_t>(b) * H * W;
+  for (int i = tid; i < N * N; i += kTileThreads) {
+    const int r = i / N, c = i - r * N;
+    const int y = y0 + r, x = x0 + c;
+    const float v = (y >= 0 && y < H && x >= 0 && x < W)
+                        ? Df[static_cast<int64_t>(y) * W + x]
+                        : 0.f;
+    S[r][c] = v;
+    SK[r][c] = fkey(v);
+  }
+  __syncthreads();
+  for (int r = warp; r < N; r += kTileThreads / 32) {
+    const int y = y0 + r, x = x0 + kWs + lane;
+    float t = 0.f;
+    if (interior(y, x, H, W)) {
+      t = S[r][lane + kWs];
+      if (key_valid(SK[r][lane + kWs])) {
+        uint32_t k[7];
+#pragma unroll
+        for (int j = 0; j < 7; ++j) k[j] = SK[r][lane + j];
+        t = median_taps(k, &S[r][lane], 1);
+      }
+    }
+    T[r][lane] = t;
+    TK[r][lane] = fkey(t);
+  }
+  __syncthreads();
+  float* Of = O + static_cast<int64_t>(b) * H * W;
+  for (int r = warp; r < kTile; r += kTileThreads / 32) {
+    const int y = y0 + kWs + r, x = x0 + kWs + lane;
+    if (y >= H || x >= W) continue;
+    float out = S[r + kWs][lane + kWs];
+    if (key_valid(SK[r + kWs][lane + kWs]) && interior(y, x, H, W)) {
       uint32_t k[7];
 #pragma unroll
-      for (int j = 0; j < 7; ++j)
-        k[j] = fkey(T[i + static_cast<int64_t>(j - kWs) * W]);
-      out = median7(k);
+      for (int j = 0; j < 7; ++j) k[j] = TK[r + j][lane];
+      out = median_taps(k, &T[r][lane], kTile + 1);
     }
-    O[i] = out;
+    Of[static_cast<int64_t>(y) * W + x] = out;
   }
 }
 
@@ -642,18 +679,16 @@ extern "C" int elas_adaptive_mean(const float* D, float* O, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
-// horizontal pass D -> T (D_temp), vertical pass T -> O
-extern "C" int elas_median(const float* D, float* T, float* O, int B, int H,
-                           int W, int* launched, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n = static_cast<int64_t>(B) * H * W;
-  const int g = grid_for(n, kThreads);
-  median_h_kernel<<<g, kThreads, 0, st>>>(D, T, n, H, W);
-  cudaError_t err = cudaGetLastError();
+// D -> O in one launch
+extern "C" int elas_median(const float* D, float* O, int B, int H, int W,
+                           int* launched, void* stream) {
+  *launched = 0;
+  const int64_t blocks = static_cast<int64_t>(B) * tiles(H) * tiles(W);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  median_tile_kernel<<<static_cast<unsigned>(blocks), kTileThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      D, O, H, W, tiles(W), tiles(H));
   *launched = 1;
-  if (err != cudaSuccess) return static_cast<int>(err);
-  median_v_kernel<<<g, kThreads, 0, st>>>(D, T, O, n, H, W);
-  *launched = 2;
   return static_cast<int>(cudaGetLastError());
 }
 

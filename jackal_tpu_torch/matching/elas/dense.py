@@ -20,7 +20,11 @@ d, -1 (no candidate) or -10 (pixel not matched).
 dense_match_pair() runs the CUDA kernel (csrc/elas_dense_kernel.cu) once
 for both views on CUDA tensors and dense_match_pair_plain() (two
 dense_match_plain() calls) on CPU tensors; dense_match() does one view on
-the same kernel. Under subsampling the function is the same: the caller
+the same kernel. dense_match_pair_lr() is the pair followed by the L/R
+check (post.left_right_consistency_check): on the card one launch of the
+kernel with the check as its row epilogue where one block owns whole rows
+(lr_fused: W <= 1024, no subsampling; every preset), else the pair and
+then kernel H. Under subsampling the function is the same: the caller
 computes every pixel from the half-resolution descriptors and keeps the
 even ones (pipeline.elas_match, as the reference's elas_match does).
 """
@@ -34,6 +38,8 @@ import torch.nn.functional as F
 
 from ...config import ElasParams
 from ...ops import cuda_lib
+from .post import (left_right_consistency_check,
+                   left_right_consistency_check_plain)
 
 _WINDOW = 2          # findMatch window_size (elas.cpp:689)
 _KEY_BIAS = 16       # priors reach -14; keep keys non-negative
@@ -41,8 +47,12 @@ _BIG = 1 << 30
 # the kernel takes P[0..radius] by value up to this radius (its unrolled
 # instantiations), from a table on the card past it
 _UNROLLED_RADIUS = 7
+# the widest row one block owns (csrc/elas_dense_kernel.cu kStripMax): the
+# L/R epilogue needs the whole row of both views on chip
+STRIP_MAX = 1024
 
 launches = 0         # elas_dense kernel launches since the last reset
+lr_launches = 0      # of which with the L/R check as the epilogue
 
 
 def prior_table(params: ElasParams = ElasParams()) -> np.ndarray:
@@ -153,11 +163,14 @@ def _checked_maps(maps, name, shape, grid_shape, dev):
     return out
 
 
-def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
+def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views,
+                      lr_smax=None):
     """Launch the kernel once for the views named by ``views`` (1 left, 2
     right, 3 both); maps_* are the views' prior maps (the unused view's
-    may be None). Returns the views' outputs."""
-    global launches
+    may be None). With lr_smax (views 3, lr_fused shapes only) the kernel
+    runs the L/R check with that sweep bound as its epilogue. Returns the
+    views' outputs."""
+    global launches, lr_launches
     B, H, W, C = desc1.shape
     D = params.disp_num
     gs = params.grid_size
@@ -199,15 +212,18 @@ def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views):
         table_dev = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
     fn = cuda_lib.load("elas_dense_kernel").elas_dense
     fn.argtypes = ([ctypes.c_void_p] * 2 + [_ViewMaps] * 2
-                   + [ctypes.c_int] * 12
+                   + [ctypes.c_int] * 14 + [ctypes.c_float]
                    + [_PriorTable, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lr = lr_smax is not None
     cuda_lib.launch(fn, "elas_dense", desc1, desc1.data_ptr(),
                     desc2.data_ptr(), *structs, views,
                     int(torch.int16 in dts), B, H, W, D, gh, gw, nw, gs,
-                    radius, params.match_texture, P,
+                    radius, params.match_texture, int(lr),
+                    lr_smax if lr else 0, float(params.lr_threshold), P,
                     None if table_dev is None else table_dev.data_ptr())
     launches += 1
+    lr_launches += int(lr)
     return outs
 
 
@@ -247,3 +263,40 @@ def dense_match_pair(desc1, desc2, maps_left, maps_right,
                                        params, 3))
     return dense_match_pair_plain(desc1, desc2, maps_left, maps_right,
                                   params)
+
+
+def lr_fused(W: int, params: ElasParams) -> bool:
+    """Whether the card runs the L/R check as the pair kernel's epilogue at
+    row width W: one block must own the whole row of both views, and the
+    check must see the maps the kernel writes (under subsampling the caller
+    keeps the even pixels first)."""
+    return W <= STRIP_MAX and not params.subsampling
+
+
+def dense_match_pair_lr_plain(desc1, desc2, maps_left, maps_right,
+                              params: ElasParams = ElasParams(),
+                              smax: int = -1):
+    """The fused kernel's function in plain PyTorch: dense_match_pair_plain
+    then left_right_consistency_check_plain (sweep bound smax; < 0 means
+    disp_max)."""
+    D1, D2 = dense_match_pair_plain(desc1, desc2, maps_left, maps_right,
+                                    params)
+    return left_right_consistency_check_plain(D1, D2, params, smax)
+
+
+def dense_match_pair_lr(desc1, desc2, maps_left, maps_right,
+                        params: ElasParams = ElasParams(), smax: int = -1):
+    """Both views' dense disparities after the L/R check (sweep bound smax;
+    < 0 means disp_max), each [B, H, W] float32. On CUDA tensors one launch
+    of the pair kernel with the check as its epilogue where lr_fused holds,
+    else the pair kernel and then kernel H; the plain version on CPU
+    tensors."""
+    if not desc1.is_cuda:
+        return dense_match_pair_lr_plain(desc1, desc2, maps_left, maps_right,
+                                         params, smax)
+    if lr_fused(desc1.shape[2], params):
+        smax = params.disp_max if smax < 0 else min(smax, params.disp_max)
+        return tuple(_dense_match_cuda(desc1, desc2, maps_left, maps_right,
+                                       params, 3, smax))
+    D1, D2 = dense_match_pair(desc1, desc2, maps_left, maps_right, params)
+    return left_right_consistency_check(D1, D2, params, smax)

@@ -7,7 +7,8 @@ Two paths. The per-frame path, elas_match, stage by stage:
   3. pruning, exact Delaunay,       host, C++ (native_prior.py)
      plane fit, raster, grids
   4. dense MAP matching, both views device, CUDA kernel (dense.py)
-  5. L/R check                      device (post.py)
+  5. L/R check                      device: kernel B's epilogue, or
+                                    kernel H under subsampling (post.py)
   6. speckle filter                 host, C++ BFS (native_prior.py)
   7. gap fill, adaptive mean,       device (post.py)
      median
@@ -27,9 +28,10 @@ elas_match_stream, keeps only pruning and triangulation on the host:
   4. one flat int32 wire per chunk      pinned upload on a side stream
   5. plane fit (float64), slopes,       device (device_prior.py,
      candidate grids, raster             device_fit.py; kernel C)
-  6. dense matching, both views         device (kernel B)
-  7. L/R check, speckle filter,         device (post.postprocess_batch)
-     gap fill, adaptive mean, median
+  6. dense matching, both views,        device (kernel B with the L/R
+     and the L/R check                  check as its epilogue)
+  7. speckle filter, gap fill,          device (post.postprocess_after_lr)
+     adaptive mean, median
 
 Frames are reordered by support count into content-homogeneous chunks
 (_content_perm) and the outputs return in arrival order. The stream form
@@ -53,11 +55,12 @@ from ...native import load as load_native
 from ...ops.descriptor import create_descriptor
 from ...ops.transfer import HostCopy, ready, to_device
 from . import device_prior as dp
-from .dense import dense_match_pair, pack_grid
+from .dense import dense_match_pair, dense_match_pair_lr, pack_grid
 from .native_prior import (build_priors_native, collect_support_points_native,
                            remove_small_segments_native,
                            tri_wire_and_bin_native)
-from .post import left_right_consistency_check, post_tail, postprocess_batch
+from .post import (left_right_consistency_check, post_tail,
+                   postprocess_after_lr)
 from .prior import delaunay
 from .support import support_candidates
 
@@ -112,13 +115,15 @@ def elas_match(
         return [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev)
                 for a in host]
 
-    D1, D2 = (x[0] for x in dense_match_pair(
-        desc1, desc2, upload(maps1, grid1), upload(maps2, grid2), params))
+    views = (upload(maps1, grid1), upload(maps2, grid2))
     if params.subsampling:
-        D1, D2 = (x[0::2, 0::2][:H // 2, :W // 2].contiguous()
-                  for x in (D1, D2))
-
-    D1, D2 = left_right_consistency_check(D1, D2, params)
+        # the L/R check runs on the kept even pixels, after the kernel
+        D1, D2 = (x[0, 0::2, 0::2][:H // 2, :W // 2].contiguous()
+                  for x in dense_match_pair(desc1, desc2, *views, params))
+        D1, D2 = left_right_consistency_check(D1, D2, params)
+    else:
+        D1, D2 = (x[0] for x in dense_match_pair_lr(desc1, desc2, *views,
+                                                    params))
     D1 = _speckle(D1, params)
     if not params.postprocess_only_left:
         D2 = _speckle(D2, params)
@@ -342,11 +347,12 @@ def _chunk_tail(flat: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
                 CH: int, Np: int, Tp: int, Ts: int, W: int, H: int,
                 params: ElasParams, lr_smax: int):
     """One chunk's device work: coefficients and grids, the raster of both
-    sides, dense matching of both views and the whole postprocess."""
+    sides, dense matching of both views with the L/R check (sweep bound
+    lr_smax) and the rest of the postprocess."""
     m1, m2 = _chunk_raster(
         _chunk_coeffs(flat, CH, Np, Tp, Ts, W, H, params), Tp, W, H)
-    D1, D2 = dense_match_pair(d1, d2, m1, m2, params)
-    return postprocess_batch(D1, D2, params, lr_smax)
+    D1, D2 = dense_match_pair_lr(d1, d2, m1, m2, params, lr_smax)
+    return postprocess_after_lr(D1, D2, params)
 
 
 def _upload_chunk(prior_futs, c0: int, chunk: int, params: ElasParams,

@@ -15,7 +15,10 @@ each a wrapper: on CUDA tensors it launches its hand-written kernel
 version (the *_plain function), which the kernel equals bit for bit.
 ``launches`` counts the wrapper calls that launched a kernel, by kernel;
 ``device_launches`` the kernel launches those calls made (I: 1 a call up
-to GAP_TILE_MAX without corners, else 2; J: 1; H: 1; K: 2).
+to GAP_TILE_MAX without corners, else 2; J: 1; H: 1; K: 1). Where the
+card's dense kernel owns whole rows (dense.lr_fused: every preset), the
+L/R check runs as its epilogue (dense.dense_match_pair_lr) and H does not
+launch.
 
 Exactness: every float operation of a plain version is a single eager
 PyTorch op, so no multiply is fused into an add, and f32 division is
@@ -385,10 +388,10 @@ def adaptive_mean_plain(D: torch.Tensor) -> torch.Tensor:
 
 
 def median_filter(D: torch.Tensor) -> torch.Tensor:
-    """median_filter_plain's contract: kernel K on CUDA tensors, the plain
-    version on CPU tensors."""
+    """median_filter_plain's contract: kernel K (one launch) on CUDA
+    tensors, the plain version on CPU tensors."""
     if D.is_cuda:
-        return _map_cuda("elas_median", "elas_median", D, (), True)
+        return _map_cuda("elas_median", "elas_median", D, ())
     return median_filter_plain(D)
 
 
@@ -651,15 +654,24 @@ def remove_small_segments_batch(D: torch.Tensor,
     return torch.where(kill, -10.0, D)
 
 
+def postprocess_after_lr(
+    D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The postprocess of [B, H, W] maps after their L/R check, on the
+    device: speckle filter, gap interpolation, adaptive mean, median,
+    honouring postprocess_only_left. The batched path calls it on
+    dense.dense_match_pair_lr's maps."""
+    D1 = remove_small_segments_batch(D1, params)
+    if not params.postprocess_only_left:
+        D2 = remove_small_segments_batch(D2, params)
+    return post_tail(D1, D2, params)
+
+
 def postprocess_batch(
     D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
     lr_smax: int = -1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole postprocess of [B, H, W] dense maps on the device: L/R
-    check (sweep bound lr_smax), speckle filter, gap interpolation,
-    adaptive mean, median, honouring postprocess_only_left."""
+    check (sweep bound lr_smax), then postprocess_after_lr."""
     D1, D2 = left_right_consistency_check(D1, D2, params, lr_smax)
-    D1 = remove_small_segments_batch(D1, params)
-    if not params.postprocess_only_left:
-        D2 = remove_small_segments_batch(D2, params)
-    return post_tail(D1, D2, params)
+    return postprocess_after_lr(D1, D2, params)

@@ -25,6 +25,9 @@ KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
                   "bm_kernel", "elas_post_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# headers under csrc/, hashed into every library's name (elas_lr.cuh: the
+# L/R check of kernel H and of kernel B's epilogue)
+HEADERS = ("elas_lr.cuh",)
 # libraries built from another library's source with extra flags: the BM
 # kernel's per-part timing (G') is the BM source with its diagnostic entry
 VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",))}
@@ -44,7 +47,8 @@ def _nvcc() -> str:
 def library(name: str) -> Library:
     src, extra = VARIANTS.get(name, (name, ()))
     return Library(name=name, compiler=_nvcc(), flags=NVCC_FLAGS + extra,
-                   sources=(os.path.join(CSRC, f"{src}.cu"),))
+                   sources=(os.path.join(CSRC, f"{src}.cu"),),
+                   headers=tuple(os.path.join(CSRC, h) for h in HEADERS))
 
 
 def load(name: str) -> ctypes.CDLL:

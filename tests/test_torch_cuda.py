@@ -198,6 +198,92 @@ def test_dense_kernel_never_runs_the_plain_twin(dev, monkeypatch):
         dm.dense_match_pair(d1, d2, *maps, ElasParams(disp_max=256))
 
 
+def _lr_counts():
+    from jackal_tpu_torch.matching.elas import post
+
+    return dm.launches, dm.lr_launches, post.launches["elas_lr"]
+
+
+def _hold_lr(d1, d2, m1, m2, p, smax, fused):
+    """dense_match_pair_lr on the card == dense_match_pair_plain then
+    left_right_consistency_check_plain (torch.equal and int32 bits), with
+    its launches: one of kernel B with the L/R epilogue and none of H
+    where ``fused``, else one of B alone and one of H."""
+    n0 = _lr_counts()
+    got = dm.dense_match_pair_lr(d1, d2, m1, m2, p, smax)
+    n1 = _lr_counts()
+    want = dm.dense_match_pair_lr_plain(d1, d2, m1, m2, p, smax)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert tuple(b - a for a, b in zip(n0, n1)) == ((1, 1, 0) if fused
+                                                    else (1, 0, 1))
+    return want
+
+
+@pytest.mark.parametrize("smax", [0, 7, -1])
+@pytest.mark.parametrize("B", [1, 8])
+def test_dense_lr_kernel_on_the_golden_pairs(dev, B, smax):
+    """Kernel B with the L/R check as its epilogue (one launch, H none) on
+    the golden 640x480 pairs with their native priors (B = 8: the two
+    pairs alternated, the batched node's shape), at sweep bounds 0, 7 and
+    disp_max."""
+    from chip_smoke import GOLDEN, prior_inputs
+
+    p = ElasParams()
+    per_pair = []
+    for fix in GOLDEN:
+        g = np.load(f"{FIX}/{fix}.npz")
+        desc = create_descriptor(torch.from_numpy(
+            np.stack([g["left"], g["right"]])).to(dev))
+        d1, d2 = desc[0:1], desc[1:2]
+        per_pair.append((d1, d2, prior_inputs(d1, d2, p, dev)))
+    pick = [per_pair[b % 2] for b in range(B)]
+    d1 = torch.cat([x[0] for x in pick]).contiguous()
+    d2 = torch.cat([x[1] for x in pick]).contiguous()
+    m1, m2 = ([torch.cat([x[2][v][i] for x in pick]) for i in range(4)]
+              for v in (0, 1))
+    want = _hold_lr(d1, d2, m1, m2, p, smax, True)
+    assert (want[0] >= 0).float().mean() > 0.1
+
+
+@pytest.mark.parametrize("W,sub,fused", [
+    (640, False, True), (1024, False, True),   # one block a row
+    (1025, False, False),                      # two strips: B, then H
+    (333, True, False)])                       # subsampling: B, then H
+@pytest.mark.parametrize("smax", [0, 7, -1])
+def test_dense_lr_kernel_random_priors(dev, W, sub, fused, smax):
+    """dense_match_pair_lr on random priors, both d_plane widths: fused
+    where one block owns the whole row and the maps are not subsampled,
+    else kernel B alone and then kernel H (the L/R check of the
+    subsampled warp d/2 on these full maps)."""
+    rng = np.random.default_rng(W + smax)
+    p = dataclasses.replace(ElasParams(), subsampling=sub)
+    assert dm.lr_fused(W, p) == fused
+    d1, d2, (m1, m2) = _dense_inputs(rng, 2, 37, W, p, dev)
+    _hold_lr(d1, d2, m1, m2, p, smax, fused)
+    short = [[m[0].to(torch.int16)] + m[1:] for m in (m1, m2)]
+    _hold_lr(d1, d2, *short, p, smax, fused)
+
+
+def test_dense_lr_kernel_never_runs_the_plain_versions(dev, monkeypatch):
+    from jackal_tpu_torch.matching.elas import post
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((dm, "dense_match_plain"),
+                      (dm, "dense_match_pair_plain"),
+                      (dm, "dense_match_pair_lr_plain"),
+                      (post, "left_right_consistency_check_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    p = ElasParams()
+    d1, d2, maps = _dense_inputs(np.random.default_rng(5), 1, 20, 64, p, dev)
+    D1, D2 = dm.dense_match_pair_lr(d1, d2, *maps, p)
+    assert D1.is_cuda and D2.shape == (1, 20, 64)
+    with pytest.raises(ValueError, match="D <= 256"):
+        dm.dense_match_pair_lr(d1, d2, *maps, ElasParams(disp_max=256))
+
+
 @pytest.mark.parametrize("fix", ["s320_flat", "s320_boxes", "s320_mb"])
 def test_elas_on_the_card_equals_libelas(dev, fix):
     from jackal_tpu_torch.matching.elas.pipeline import elas_match
@@ -903,7 +989,7 @@ def test_postprocess_kernels_edges(dev, case):
     tile = post.gap_width_eff(p) <= post.GAP_TILE_MAX and not p.add_corners
     assert {k: post.device_launches[k] - d0[k] for k in d0} == {
         "elas_lr": 2, "elas_gap": 2 * ((1 if tile else 2) + 2),
-        "elas_mean": 4, "elas_median": 4}
+        "elas_mean": 4, "elas_median": 2}
 
 
 @pytest.mark.parametrize("fix", ["elas_golden_s640_boxes", "elas_golden_photo"])
@@ -926,6 +1012,36 @@ def test_postprocess_kernels_on_the_golden_maps(dev, fix):
             for a, b in zip(got, want):
                 assert torch.equal(a.cpu().view(torch.int32),
                                    b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", [*range(18), "elas_golden_s640_boxes",
+                                  "elas_golden_photo", "NaN and signed zeros"])
+def test_median_kernel_is_one_launch(dev, case):
+    """Kernel K, one tiled launch a call, against median_filter_plain
+    (int32 bits) on chip_smoke.POST_EDGE_CASES (maps smaller than its
+    halo, one row, one column, B = 8 at 640x480), both views of the golden
+    640x480 maps and a map with NaN, -0.0 and +0.0 taps."""
+    from chip_smoke import POST_EDGE_CASES, post_edge_case
+    from jackal_tpu_torch.matching.elas import post
+
+    if isinstance(case, int):
+        X = torch.stack(post_edge_case(POST_EDGE_CASES[case], dev)[:2])
+    elif case.startswith("elas_golden"):
+        g = np.load(f"{FIX}/{case}.npz")
+        X = torch.from_numpy(np.stack([g["D1"], g["D2"]])).to(dev)
+    else:
+        rng = np.random.default_rng(7)
+        D = rng.integers(0, 6, (2, 45, 77)).astype(np.float32)
+        for v, share in ((np.nan, 0.02), (-0.0, 0.2), (0.0, 0.2),
+                         (-10.0, 0.1)):
+            D[rng.random(D.shape) < share] = v
+        X = torch.from_numpy(D).to(dev)
+    n0, d0 = post.launches["elas_median"], post.device_launches["elas_median"]
+    got = post.median_filter(X)
+    assert post.launches["elas_median"] == n0 + 1
+    assert post.device_launches["elas_median"] == d0 + 1
+    want = post.median_filter_plain(X)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_postprocess_kernels_never_run_the_plain_twins(dev, monkeypatch):

@@ -1,6 +1,7 @@
 """Time a CUDA kernel of a checkout of jackal_tpu_torch on the card: the ELAS
-support kernel (A), the ELAS dense kernel (B), the SGM census (D), the BM
-kernel (G) or the ELAS gap interpolation and adaptive mean (I, J).
+support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
+and with H as its epilogue), the SGM census (D), the BM kernel (G) or the
+ELAS postprocess kernels (H, I, J, K).
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -9,19 +10,23 @@ DIR is the root of the checkout whose jackal_tpu_torch is imported (its
 csrc/ kernel is built there). Inputs, from this repository's
 tests/fixtures and a seed:
 - support, dense: the golden 640x480 pairs at the default ElasParams
-  (D = 256), at the per-frame node's shape (B = 1) and the batched
-  node's (B = 8: the two pairs alternated). dense times both views: one
-  dense_match_pair call where the checkout has it, else two dense_match
-  calls (a checkout from before the pair call); its priors are the
-  native prior's of each frame (chip_smoke.prior_inputs);
+  (D = 256), at the per-frame node's shape (B = 1; dense: each pair) and
+  the batched node's (B = 8: the two pairs alternated). dense times both
+  views: one dense_match_pair call where the checkout has it, else two
+  dense_match calls (a checkout from before the pair call); then B
+  followed by the L/R check (kernel H, sweep bound disp_max), H alone on
+  B's maps and, where the checkout has dense_match_pair_lr, B with the
+  check as its epilogue; its priors are the native prior's of each frame
+  (chip_smoke.prior_inputs);
 - census: the SGM node's batch (the first golden pair's two images,
   2 x 480 x 640), the node's at batch 2 (both golden pairs, 4 x 480 x
   640) and BASELINE config 3's (8 seeded 960 x 1280 images);
 - bm: the golden 640x480 pairs at the BM node's shape (B = 1, D = 64),
   at D = 256 (B = 1), at BASELINE config 5's (B = 32, D = 64) and at
   bench_bm256's (B = 16, D = 256), the pairs alternated;
-- post: the golden 640x480 D1 maps: I at ROBOTICS (B = 1), I at
-  MIDDLEBURY on both views (B = 2), J with 8 taps and with 4 (B = 1).
+- post: the golden 640x480 maps: H on D1 and D2 (B = 1), I at ROBOTICS
+  (B = 1), I at MIDDLEBURY on both views (B = 2), J with 8 taps and with
+  4 (B = 1), K on D1 (B = 1) and on both views (B = 2).
 Each call is held equal to its plain version on those inputs (post: bit
 for bit, as int32). Run it on
 two checkouts in one call, in the order A, B, B, A, to compare two
@@ -70,13 +75,18 @@ def time_dense(d1, d2, params, reps):
     import torch
     from jackal_tpu_torch.matching.elas import dense as dm
 
+    from jackal_tpu_torch.matching.elas import post
+
     per_frame = [prior_inputs(d1[b:b + 1], d2[b:b + 1], params, d1.device)
                  for b in range(2)]
-    res = {"pair_call": hasattr(dm, "dense_match_pair")}
-    for B in (1, 8):
-        ml, mr = ([torch.cat([per_frame[b % 2][v][i] for b in range(B)])
+    res = {"pair_call": hasattr(dm, "dense_match_pair"),
+           "lr_epilogue": hasattr(dm, "dense_match_pair_lr")}
+    # (label, first frame, frames): each pair at B = 1, the batch of 8
+    for label, b0, B in (("B1", 0, 1), ("B1_pair2", 1, 1), ("B8", 0, 8)):
+        ml, mr = ([torch.cat([per_frame[b % 2][v][i]
+                              for b in range(b0, b0 + B)])
                    for i in range(4)] for v in (0, 1))
-        q1, q2 = d1[:B].contiguous(), d2[:B].contiguous()
+        q1, q2 = d1[b0:b0 + B].contiguous(), d2[b0:b0 + B].contiguous()
         want = (dm.dense_match_plain(q1, q2, *ml, params, False),
                 dm.dense_match_plain(q1, q2, *mr, params, True))
         if res["pair_call"]:
@@ -86,8 +96,22 @@ def time_dense(d1, d2, params, reps):
             def call():
                 return (dm.dense_match(q1, q2, *ml, params, False),
                         dm.dense_match(q1, q2, *mr, params, True))
-        _held(f"dense B = {B}", call(), want)
-        res[f"ms_B{B}"] = events_ms(call, reps)
+        _held(f"dense {label}", call(), want)
+        res[f"ms_{label}"] = events_ms(call, reps)
+        lr_want = post.left_right_consistency_check_plain(*want, params)
+
+        def b_then_h():
+            return post.left_right_consistency_check(*call(), params)
+        _held(f"dense then L/R {label}", b_then_h(), lr_want)
+        res[f"ms_then_lr_{label}"] = events_ms(b_then_h, reps)
+        got = call()
+        res[f"ms_lr_alone_{label}"] = events_ms(
+            lambda: post.left_right_consistency_check(*got, params), reps)
+        if res["lr_epilogue"]:
+            def fused():
+                return dm.dense_match_pair_lr(q1, q2, ml, mr, params)
+            _held(f"dense with the L/R epilogue {label}", fused(), lr_want)
+            res[f"ms_fused_{label}"] = events_ms(fused, reps)
     return res
 
 
@@ -129,17 +153,24 @@ def time_bm(left, right, reps):
     return res
 
 
+def _maps(out):
+    """A call's maps as a tuple (the L/R check returns two)."""
+    return out if isinstance(out, tuple) else (out,)
+
+
 def time_post(maps, reps):
     import torch
     from jackal_tpu_torch.config import ElasParams
     from jackal_tpu_torch.matching.elas import post
 
     dev = torch.device("cuda", 0)
-    D1 = torch.from_numpy(maps[0]).to(dev)
+    D1, D2 = (torch.from_numpy(m).to(dev) for m in maps[:2])
     X2 = torch.from_numpy(np.stack(maps[:2])).to(dev)
     rob, mb = ElasParams(), ElasParams.middlebury()
     res = {}
     for label, call, plain in (
+            ("lr_B1", lambda: post.left_right_consistency_check(D1, D2, rob),
+             lambda: post.left_right_consistency_check_plain(D1, D2, rob)),
             ("gap_robotics_B1", lambda: post.gap_interpolation(D1, rob),
              lambda: post.gap_interpolation_plain(D1, rob)),
             ("gap_middlebury_B2", lambda: post.gap_interpolation(X2, mb),
@@ -147,8 +178,13 @@ def time_post(maps, reps):
             ("mean8_B1", lambda: post.adaptive_mean(D1),
              lambda: post.adaptive_mean_plain(D1)),
             ("mean4_B1", lambda: post.adaptive_mean_sub(D1),
-             lambda: post.adaptive_mean_sub_plain(D1))):
-        _held(label, [call().view(torch.int32)], [plain().view(torch.int32)])
+             lambda: post.adaptive_mean_sub_plain(D1)),
+            ("median_B1", lambda: post.median_filter(D1),
+             lambda: post.median_filter_plain(D1)),
+            ("median_B2", lambda: post.median_filter(X2),
+             lambda: post.median_filter_plain(X2))):
+        _held(label, [x.view(torch.int32) for x in _maps(call())],
+              [x.view(torch.int32) for x in _maps(plain())])
         res[f"ms_{label}"] = events_ms(call, reps)
     return res
 
