@@ -33,16 +33,19 @@ Phases (any failure exits non-zero and prints no success line):
      seeded raw 640x360 pairs of a known scene (pipeline/synthetic.py),
      with the launch counters reset just before and read just after (the
      dense kernel once a frame, both views and the L/R check as its
-     epilogue in one launch; I, J once a frame; H and K never: the check
-     is B's epilogue, ROBOTICS has no median);
+     epilogue in one launch; the speckle filter L, I, J and rectify N
+     once a frame, the BFS hop never; H and K never: the check is B's
+     epilogue, ROBOTICS has no median);
      per-stage medians, fps, the device's busy time under torch.profiler,
-     a per-stage breakdown of one frame (B alone, B with the L/R epilogue,
-     kernel H alone and the tail beside their plain versions on the
-     card), and elas_match_batch_device
+     a per-stage breakdown of one frame (rectify, B alone, B with the L/R
+     epilogue, kernel H alone, the speckle filter, with the BFS hop it
+     replaced, and the tail beside their plain versions on the card), and
+     elas_match_batch_device
      at chunk 1 on one frame beside elas_match;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
-     kernel with its L/R epilogue, I and J once a batch, H and K never);
+     kernel with its L/R epilogue, L, I and J once a batch, H and K
+     never);
      fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
@@ -52,7 +55,8 @@ Phases (any failure exits non-zero and prints no success line):
      median of 7 windows, refused above the card's cap), and cuobjdump
      shows the instructions __vsadu4 became (the dense and census kernels'
      whole opcode mix) and that the raster kernel has no FFMA and the
-     postprocess kernels H-K and the dense kernel no FFMA or DFMA; the
+     postprocess kernels H-K, the dense kernel, the speckle kernel L and
+     the rectify kernel N no FFMA or DFMA; the
      dense kernel's pair call against its plain version at plane radius
      8 and 9 (its instantiation with the radius at run time); the dense
      kernel's pair call against its plain version on the batched node's 8
@@ -84,8 +88,9 @@ Phases (any failure exits non-zero and prints no success line):
      share; process_batch_fused at batch 4 against process_frame;
      StreamingRunner at batch 4 over 48 frames; the SGM stages of one
      frame; (d) BASELINE config 3, process_batch_fused at 1280x960, D = 64,
-     B = 4; each of these four paths with the launch counters of D, E and
-     F set to 0 just before and read just after; (e) each kernel against
+     B = 4; each of these four paths with the launch counters of D, E, F
+     and N (rectify: 9, 1, 12, 1) set to 0 just before and read just
+     after, and rectify beside its plain version; (e) each kernel against
      its plain version (torch.equal), its device time, its plain version's
      and its bound (and E's bound as counted before its 16-bit lanes) at
      the node's shape and at config 3's (D's bound at its byte lanes' 26
@@ -109,9 +114,9 @@ Phases (any failure exits non-zero and prints no success line):
      one frame's cloud (points exact) and scan against the CPU's and G
      against its plain twin on the rectified batch; (d) bench_bm256's
      process_batch_fused at B = 16, D = 256, and G against its plain twin
-     on that rectified batch; each of these paths with G's
-     launch counter set to 0 just before and read just after (9, 1, 6, 1,
-     1); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
+     on that rectified batch; each of these paths with G's and N's
+     launch counters set to 0 just before and read just after (9, 1, 6,
+     1, 1 each), and rectify beside its plain version (7b, 7c); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
      device time, its plain twin's and its bound (and the bound as counted
      before G's packed instructions) at the node's shape, at D = 256, at
      D = 512 (its D > 256 path), at window 255 (its path without shared
@@ -131,7 +136,9 @@ Phases (any failure exits non-zero and prints no success line):
      CLI prints; (c) -m --phi --trans on the replay: scans against
      process_frame's after update_extrinsics, and unlike (a)'s; (d) the
      navigate CLI on (a)'s scans; each CLI call with the launch counters
-     set to 0 just before it and read just after; one JSON line;
+     (A, B, C and N, rectify: once a frame or a batch) set to 0 just
+     before it and read just after, and rectify beside its plain
+     version; one JSON line;
   10. ELAS subsampling and the exact scan (subsampling_phase): kernel A on
      half-resolution descriptors and kernel B under subsampling against
      their plain twins; the card's subsampled elas_match against libelas's
@@ -163,6 +170,15 @@ Phases (any failure exits non-zero and prints no success line):
      beside B alone, B then H and H alone at the node's and the batched
      node's shapes, with B's bound, and the blocks an SM of B's two
      instantiations; one JSON line;
+  13. the speckle filter (kernel L) and rectify (kernel N)
+     (speckle_remap_phase): L against its plain versions, maps and labels
+     bit for bit, on chip_smoke.SPECKLE_EDGE_CASES and the node's and
+     batched node's maps after the L/R check at t = 0, 1 and 12, four
+     kernel launches a call; N against its plain version (torch.equal) on
+     chip_smoke.REMAP_EDGE_CASES, phase 4's raw pairs and config 5's
+     frames, one launch a pair call; their times at the nodes' shapes
+     beside their plain versions', their byte bounds and the BFS hop L
+     replaced; one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -845,6 +861,7 @@ def sgm_phase(dev, hold):
 
     import torch
     from jackal_tpu_torch.config import PipelineParams, SGMParams
+    from jackal_tpu_torch.geometry import remap
     from jackal_tpu_torch.io_bus.bus import TopicBus
     from jackal_tpu_torch.matching import sgm
     from jackal_tpu_torch.ops import sgm_kernel as sk
@@ -937,17 +954,23 @@ def sgm_phase(dev, hold):
         device=dev)
     pairs = [synthetic_raw_pair(pipe, s, 8.0 + 5 * s, 0.03 * (s % 3))
              for s in range(9)]
-    def counted(label, fn):
-        """fn() with the counters of D, E and F set to 0 just before and
-        read just after: (its result, the counts); raises if a kernel was
-        launched no time."""
+    def counted(label, fn, rect):
+        """fn() with the counters of D, E, F and N set to 0 just before and
+        read just after: (its result, the counts of D, E, F); raises if D,
+        E or F was launched no time, or N (rectify, both views in one
+        launch) other than ``rect`` times."""
         for k in sk.launches:
             sk.launches[k] = 0
+        remap.launches["remap"] = 0
         out = fn()
         n = dict(sk.launches)
-        print(f"6c. launches of {label}: {n}")
+        nr = remap.launches["remap"]
+        print(f"6c. launches of {label}: {n}, kernel N (rectify) {nr}")
         if min(n.values()) == 0:
             raise AssertionError(f"{label} bypassed a kernel: {n}")
+        if nr != rect:
+            raise AssertionError(f"{label}: kernel N launched {nr} times, "
+                                 f"not {rect}")
         return out, n
 
     pipe.process_frame(*pairs[0])                       # warm-up
@@ -959,7 +982,7 @@ def sgm_phase(dev, hold):
             results.append(pipe.process_frame(lr, rr, timing=True))
             walls.append(time.perf_counter() - t)
     _, launches = counted(f"the SGM node, process_frame over {len(pairs)} "
-                          f"frames", frames)
+                          f"frames", frames, len(pairs))
     for fr in results:
         sc = fr.scan.scan
         if fr.dmap.shape != (480, 640) or fr.dmap.dtype != np.uint8 \
@@ -987,7 +1010,7 @@ def sgm_phase(dev, hold):
     lb = np.stack([p[0] for p in pairs[:4]])
     rb = np.stack([p[1] for p in pairs[:4]])
     (dm4, sc4), _ = counted("process_batch_fused at batch 4",
-                            lambda: pipe.process_batch_fused(lb, rb))
+                            lambda: pipe.process_batch_fused(lb, rb), 1)
     for b in range(4):
         if not (np.array_equal(dm4[b].cpu().numpy(), results[b].dmap)
                 and torch.equal(sc4.scan[b], results[b].scan.scan)):
@@ -1011,7 +1034,8 @@ def sgm_phase(dev, hold):
         torch.cuda.synchronize()
         return n, time.perf_counter() - t
     (done, stream_s), _ = counted(f"StreamingRunner at batch {batch} over "
-                                  f"{n_frames} frames", timed_stream)
+                                  f"{n_frames} frames", timed_stream,
+                                  n_frames // batch)
     if done != n_frames or len(depth) != n_frames or not all(
             np.array_equal(m.data, results[i % len(pairs)].dmap)
             for i, m in enumerate(depth)):
@@ -1032,9 +1056,12 @@ def sgm_phase(dev, hold):
                                 torch.from_numpy(rb[:1]).to(dev))
     st = {}
     imgs = torch.cat([lt, rt])
-    st["rectify"] = host_ms(lambda: pipe._rectify_crop(
-        torch.from_numpy(lb[:1]).to(dev), torch.from_numpy(rb[:1]).to(dev)),
-        5)
+    l1, r1 = (torch.from_numpy(x[:1]).to(dev) for x in (lb, rb))
+    st["rectify (kernel N, both views, one launch)"] = host_ms(
+        lambda: pipe._rectify_crop(l1, r1), 5)
+    st["rectify, plain version"] = host_ms(
+        lambda: (remap.remap_bilinear_plain(l1, *pipe.lmap),
+                 remap.remap_bilinear_plain(r1, *pipe.rmap)), 5)
     st["census (kernel D)"] = host_ms(lambda: sk.census5x5_batch(imgs), 5)
     codes = sk.census5x5_batch(imgs)
     st["cost volume (plain torch)"] = host_ms(
@@ -1066,7 +1093,7 @@ def sgm_phase(dev, hold):
     l3, r3 = ((torch.from_numpy((rng3.random(CONFIG3) * 255)
                                 .astype(np.uint8)).to(dev)) for _ in range(2))
     counted(f"BASELINE config 3, process_batch_fused at {W3}x{H3}, B={B3}",
-            lambda: big.process_batch_fused(l3, r3))
+            lambda: big.process_batch_fused(l3, r3), 1)
     ms3 = host_ms(lambda: big.process_batch_fused(l3, r3), 5)
     torch.cuda.reset_peak_memory_stats(dev)
     big.process_batch_fused(l3, r3)
@@ -1220,6 +1247,7 @@ def bm_phase(dev, hold):
     against libelas, G's times and G''s parts. Returns G's JSON entry."""
     import torch
     from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.geometry import remap
     from jackal_tpu_torch.io_bus.bus import TopicBus
     from jackal_tpu_torch.matching import bm
     from jackal_tpu_torch.ops import bm_kernel as bk
@@ -1290,15 +1318,19 @@ def bm_phase(dev, hold):
           "hold: 255 at D = 64 on 300x640, 75 at D = 256, 227 at D = 64 "
           "(B = 2), 257 on a 0/255 pair whose costs pass 1 << 24)")
 
-    def counted(label, fn, want):
-        """(fn(), G's launches in it): the counter set to 0 just before and
-        read just after; raises unless G was launched ``want`` times."""
+    def counted(label, fn, want, rect):
+        """(fn(), G's launches in it): G's and N's counters set to 0 just
+        before and read just after; raises unless G was launched ``want``
+        times and N (rectify, both views in one launch) ``rect`` times."""
         bk.launches["bm"] = 0
+        remap.launches["remap"] = 0
         out = fn()
-        n = bk.launches["bm"]
-        print(f"7. launches of G in {label}: {n}")
-        if n != want:
-            raise AssertionError(f"{label}: G launched {n} times, not {want}")
+        n, nr = bk.launches["bm"], remap.launches["remap"]
+        print(f"7. launches of G in {label}: {n}; of kernel N (rectify): "
+              f"{nr}")
+        if n != want or nr != rect:
+            raise AssertionError(f"{label}: G launched {n} times, not {want}"
+                                 f"; N {nr} times, not {rect}")
         return out, n
 
     # (b) the BM node at 640x480, D = 64
@@ -1318,7 +1350,7 @@ def bm_phase(dev, hold):
             walls.append(time.perf_counter() - t)
     _, node_launches = counted(
         f"the BM node, process_frame over {len(pairs)} frames", frames,
-        len(pairs))
+        len(pairs), len(pairs))
     for fr in results:
         sc = fr.scan.scan
         if fr.dmap.shape != (480, 640) or fr.dmap.dtype != np.uint8 \
@@ -1338,6 +1370,12 @@ def bm_phase(dev, hold):
           f"{med['dmap_time']:.3f} ms, scan {med['scan_time']:.3f} ms, frame "
           f"{wall:.3f} ms = {1e3 / wall:.2f} fps; dmap valid {valid:.3f}, "
           f"scan bins filled {filled:.1f}")
+    l1, r1 = (torch.from_numpy(x).to(dev) for x in pairs[0])
+    rect_k = host_ms(lambda: pipe._rectify_crop(l1, r1), 5)
+    rect_p = host_ms(lambda: (remap.remap_bilinear_plain(l1, *pipe.lmap),
+                              remap.remap_bilinear_plain(r1, *pipe.rmap)), 5)
+    print(f"7b. rectify of one pair alone, host clock (median of 5): kernel N"
+          f" {rect_k:.3f} ms, plain version {rect_p:.3f} ms")
     wall_p, busy, *_ = device_busy(
         lambda: [pipe.process_frame(lr, rr) for lr, rr in pairs[:3]])
     print(f"BM node device busy over 3 frames under torch.profiler: "
@@ -1347,7 +1385,7 @@ def bm_phase(dev, hold):
     lb = np.stack([pairs[i % len(pairs)][0] for i in range(batch)])
     rb = np.stack([pairs[i % len(pairs)][1] for i in range(batch)])
     (dm8, sc8), _ = counted(f"process_batch_fused at batch {batch}",
-                            lambda: pipe.process_batch_fused(lb, rb), 1)
+                            lambda: pipe.process_batch_fused(lb, rb), 1, 1)
     for b in range(batch):
         fr = results[b % len(pairs)]
         if not (np.array_equal(dm8[b].cpu().numpy(), fr.dmap)
@@ -1374,7 +1412,7 @@ def bm_phase(dev, hold):
         return n, time.perf_counter() - t
     (done, stream_s), _ = counted(f"StreamingRunner at batch {batch} over "
                                   f"{n_frames} frames", timed_stream,
-                                  n_frames // batch)
+                                  n_frames // batch, n_frames // batch)
     if done != n_frames or len(depth) != n_frames or not all(
             np.array_equal(m.data, results[i % len(pairs)].dmap)
             for i, m in enumerate(depth)):
@@ -1399,7 +1437,7 @@ def bm_phase(dev, hold):
     cfg5.process_batch_fused_pcl(l5, r5)                # warm-up
     (dm5, cloud5, sc5), _ = counted(
         f"BASELINE config 5, process_batch_fused_pcl at B={CONFIG5_B}",
-        lambda: cfg5.process_batch_fused_pcl(l5, r5), 1)
+        lambda: cfg5.process_batch_fused_pcl(l5, r5), 1, 1)
     if not torch.equal(dm5, cfg5.process_batch_fused(l5, r5)[0]):
         raise AssertionError("config 5 maps != process_batch_fused's")
     if cloud5[0].shape != (CONFIG5_B, 480 * 640, 3) \
@@ -1449,8 +1487,11 @@ def bm_phase(dev, hold):
           f"rectified batch (B={CONFIG5_B}, 640x480, D=64)")
     # its stages, each alone
     st = {}
-    st["rectify (both images)"] = host_ms(
+    st["rectify (kernel N, both images, one launch)"] = host_ms(
         lambda: cfg5._rectify_crop(l5, r5), 5)
+    st["rectify, plain version"] = host_ms(
+        lambda: (remap.remap_bilinear_plain(l5, *cfg5.lmap),
+                 remap.remap_bilinear_plain(r5, *cfg5.rmap)), 3)
     st["G (kernel)"] = host_ms(lambda: bk.bm_match_fused(L5, R5, p64), 5)
     dL5 = bk.bm_match_fused(L5, R5, p64)[0]
     st["texture gate + u8"] = host_ms(lambda: cfg5._dmap_u8(
@@ -1481,7 +1522,7 @@ def bm_phase(dev, hold):
     l16, r16 = l5[:BM256_B], r5[:BM256_B]
     big.process_batch_fused(l16, r16)                   # warm-up
     counted(f"bench_bm256, process_batch_fused at B={BM256_B}, D=256",
-            lambda: big.process_batch_fused(l16, r16), 1)
+            lambda: big.process_batch_fused(l16, r16), 1, 1)
     ms256 = host_ms(lambda: big.process_batch_fused(l16, r16), 5)
     L16, R16 = big._rectify_crop(l16, r16)
     hold_bm(f"bench_bm256's rectified batch B={BM256_B} D=256", L16, R16,
@@ -2227,8 +2268,10 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
     mb_fused = dense_mod.lr_launches
     _same("MIDDLEBURY elas_match D1 vs libelas", D1, torch.from_numpy(g["D1"]))
     _same("MIDDLEBURY elas_match D2 vs libelas", D2, torch.from_numpy(g["D2"]))
-    want = {"elas_lr": 0, "elas_gap": 1, "elas_mean": 0, "elas_median": 1}
-    if mb_launches != want or mb_fused != 1 or mb_dev["elas_median"] != 1:
+    want = {"elas_lr": 0, "elas_gap": 1, "elas_mean": 0, "elas_median": 1,
+            "elas_speckle": 1}
+    if mb_launches != want or mb_fused != 1 or mb_dev["elas_median"] != 1 \
+            or mb_dev["elas_speckle"] != 4:
         raise AssertionError(f"MIDDLEBURY elas_match launched {mb_launches}"
                              f" (kernel launches {mb_dev}), B with the L/R "
                              f"epilogue {mb_fused} times")
@@ -2361,6 +2404,375 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
                             "dense_blocks_per_sm": per_sm}}, entries
 
 
+# the speckle kernel's cases (tests/test_torch_cuda.py runs them too)
+SPECKLE_EDGE_CASES = ("smooth field 60 x 80", "random field 60 x 80",
+                      "serpentine spiral 100 x 100", "all valid",
+                      "all invalid (-10, -1, NaN)",
+                      "checkerboard and stripes: more runs a row than the "
+                      "compact slots",
+                      "one row: 1 x 200", "one column: 200 x 1",
+                      "70 x 101, not multiples of the tile",
+                      "t = 0 on quarter-step disparities",
+                      "t = 0.1 on 0.05-step disparities",
+                      "speckle_size 0", "speckle_size 1",
+                      "speckle_size past H * W",
+                      "subsampling's speckle_size_eff", "NaN, -0.0 and +0.0",
+                      "B = 8 at 640x480", "both views of B = 2")
+
+
+def speckle_field(rng, shape, smooth):
+    """Disparities with holes (-10): piecewise-smooth integers (few runs a
+    row) or random integers 0-7 (a run every pixel or two)."""
+    if smooth:
+        D = np.round(rng.random(shape) * 1.5 + np.linspace(5, 40, shape[-1]))
+        D[rng.random(shape) < 0.08] = -10.0
+        D[..., 5:9, :] = -10.0
+    else:
+        D = rng.integers(-1, 8, shape).astype(np.float64)
+        D[D < 0] = -10.0
+    return D.astype(np.float32)
+
+
+def speckle_spiral(n):
+    """A one-pixel serpentine spiral of 7.0 on -10: one component that
+    bends at every ring, across every tile it crosses."""
+    d = np.full((n, n), -10.0, np.float32)
+    x, y, dx, dy = 0, 0, 1, 0
+    for s in [n - 1 - q // 2 for q in range(2 * n)]:
+        if s <= 0:
+            break
+        for _ in range(s):
+            d[y, x] = 7.0
+            x, y = x + dx, y + dy
+        dx, dy = -dy, dx
+    return d
+
+
+def speckle_edge_case(name, dev):
+    """(D, params) of one of SPECKLE_EDGE_CASES on dev, from a seed."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+
+    i = SPECKLE_EDGE_CASES.index(name)
+    rng = np.random.default_rng(130 + i)
+    p = ElasParams()
+    if name.startswith("smooth"):
+        D = speckle_field(rng, (2, 60, 80), True)
+    elif name.startswith("random"):
+        D = speckle_field(rng, (2, 60, 80), False)
+    elif name.startswith("serpentine"):
+        D = np.stack([speckle_spiral(100), speckle_spiral(100).T])
+        D[1, 50, :] = -10.0          # cut into pieces of 4900 and 4901
+        p = dataclasses.replace(p, speckle_size=4901)
+    elif name == "all valid":
+        D = rng.integers(0, 41, (2, 50, 70)).astype(np.float32)
+        D[1] = 12.0                              # one component
+    elif name.startswith("all invalid"):
+        D = rng.choice(np.array([-10.0, -1.0, np.nan], np.float32),
+                       (2, 40, 50))
+    elif name.startswith("checkerboard"):
+        y, x = np.mgrid[0:40, 0:300]
+        D = np.stack([np.where((y + x) % 2 == 0, (x // 2) % 7, -10.0),
+                      np.where(x % 2 == 0, 0.0, 5.0)]).astype(np.float32)
+    elif name.startswith("one row"):
+        D = rng.integers(-2, 4, (3, 1, 200)).astype(np.float32)
+        D[D < 0] = -10.0
+        p = dataclasses.replace(p, speckle_size=5)
+    elif name.startswith("one column"):
+        D = rng.integers(-2, 4, (3, 200, 1)).astype(np.float32)
+        D[D < 0] = -10.0
+        p = dataclasses.replace(p, speckle_size=5)
+    elif name.startswith("70 x 101"):
+        D = speckle_field(rng, (2, 70, 101), True)
+        D[1] = speckle_field(rng, (70, 101), False)
+        p = dataclasses.replace(p, speckle_size=20)
+    elif name.startswith("t = 0 "):
+        D = np.round((rng.random((2, 60, 90)) * 2
+                      + np.linspace(3, 9, 90)) * 4) / 4
+        D[rng.random(D.shape) < 0.1] = -10.0
+        p = dataclasses.replace(p, speckle_sim_threshold=0.0, speckle_size=3)
+    elif name.startswith("t = 0.1"):
+        D = np.round((rng.random((2, 60, 90)) * 0.5
+                      + np.linspace(3, 9, 90)) * 20) / 20
+        D[rng.random(D.shape) < 0.1] = -10.0
+        p = dataclasses.replace(p, speckle_sim_threshold=0.1, speckle_size=6)
+    elif name.startswith("speckle_size 0"):
+        D = speckle_field(rng, (2, 60, 80), False)
+        p = dataclasses.replace(p, speckle_size=0)
+    elif name.startswith("speckle_size 1"):
+        D = speckle_field(rng, (2, 60, 80), False)
+        p = dataclasses.replace(p, speckle_size=1)
+    elif name.startswith("speckle_size past"):
+        D = speckle_field(rng, (2, 30, 40), True)
+        p = dataclasses.replace(p, speckle_size=30 * 40 + 1)
+    elif name.startswith("subsampling"):
+        D = speckle_field(rng, (2, 60, 80), False)
+        D[1] = speckle_field(rng, (60, 80), True)
+        p = dataclasses.replace(p, subsampling=True)
+    elif name.startswith("NaN"):
+        D = rng.integers(0, 3, (2, 60, 80)).astype(np.float32)
+        for v, share in ((np.nan, 0.05), (-0.0, 0.2), (0.0, 0.2),
+                         (-10.0, 0.1)):
+            D[rng.random(D.shape) < share] = v
+        p = dataclasses.replace(p, speckle_size=6)
+    elif name.startswith("B = 8"):
+        D = speckle_field(rng, (8, 480, 640), True)
+        D[::2] = speckle_field(rng, (4, 480, 640), False)
+    else:                                        # both views of B = 2
+        D = speckle_field(rng, (2, 2, 120, 160), True)
+        D[1] = speckle_field(rng, (2, 120, 160), False)
+    return torch.from_numpy(np.ascontiguousarray(D, np.float32)).to(dev), p
+
+
+def speckle_hold(D, params, hold, label):
+    """Kernel L against its plain versions on [..., H, W] maps on the card:
+    remove_small_segments(_batch) and the labels of speckle_labels against
+    remove_small_segments_batch_plain and _connected_component_labels,
+    bit for bit (int32 views: torch.equal takes NaN for unequal and -0.0
+    for +0.0). hold records the largest difference of the maps with their
+    NaNs at 0."""
+    import torch
+    from jackal_tpu_torch.matching.elas import post
+
+    got, lbl = post.speckle_labels(D, params)
+    want = post.remove_small_segments_batch_plain(D, params)
+    want_lbl = post._connected_component_labels(D,
+                                                params.speckle_sim_threshold)
+    hold("elas_speckle", f"speckle {label}", [got.nan_to_num()],
+         [want.nan_to_num()])
+    for name, g, w in (("maps", got, want),
+                       ("maps without labels",
+                        post.remove_small_segments_batch(D, params), want),
+                       ("labels", lbl, want_lbl)):
+        g32, w32 = g.view(torch.int32), w.view(torch.int32)
+        if g.shape != w.shape or not torch.equal(g32, w32):
+            raise AssertionError(f"speckle {label}: {name} differ at "
+                                 f"{int((g32 != w32).sum())} pixels")
+
+
+# the rectify kernel's cases (tests/test_torch_cuda.py runs them too)
+REMAP_EDGE_CASES = ("NaN and out-of-range coordinates: 8 x 10",
+                    "rounding ties of 2^-16", "odd sizes: 37 x 53 frames, "
+                    "41 x 67 maps", "B x colour: 3 x 3 x 120 x 161",
+                    "maps smaller than the frame: 480 x 640 to 120 x 160",
+                    "the views' shapes differ")
+
+
+def remap_edge_case(name, dev):
+    """(left frames, left maps, right frames, right maps) of one of
+    REMAP_EDGE_CASES on dev, from a seed: NaN, +-70000, +-2e9 and +-inf
+    coordinates (XLA's saturating convert, NaN -> 0) among seeded ones
+    over the frame and past its borders; coordinates on the half steps of
+    2^-15 (round half to even); odd frame and map sizes with the maps
+    larger than the frame; a batch of 3 frames of 3 colour channels; maps
+    smaller than the frame; views whose frames differ in shape (two
+    launches of the pair call)."""
+    import torch
+
+    i = REMAP_EDGE_CASES.index(name)
+    rng = np.random.default_rng(150 + i)
+    lead, (H, W), (Ho, Wo) = (
+        ((), (8, 10), (9, 13)), ((2,), (30, 40), (30, 40)),
+        ((2,), (37, 53), (41, 67)), ((3, 3), (120, 161), (120, 161)),
+        ((1,), (480, 640), (120, 160)), ((2,), (50, 70), (30, 40)))[i]
+    special = np.array([np.nan, 70000.0, -70000.0, 2e9, -2e9, np.inf,
+                        -np.inf, 0.5, -0.5, -1.0], np.float32)
+
+    def maps(h, w):
+        mx = (rng.random((Ho, Wo)) * (w + 4) - 2).astype(np.float32)
+        my = (rng.random((Ho, Wo)) * (h + 4) - 2).astype(np.float32)
+        if i == 1:                      # exact ties of 2^-16
+            mx = ((rng.integers(-40, 32768 * w, (Ho, Wo)) * 2 + 1)
+                  / 65536.0).astype(np.float32)
+            my = ((rng.integers(-40, 32768 * h, (Ho, Wo)) * 2 + 1)
+                  / 65536.0).astype(np.float32)
+        for m in (mx, my):
+            hit = rng.random((Ho, Wo)) < (0.3 if i == 0 else 0.05)
+            m[hit] = rng.choice(special, int(hit.sum()))
+        return tuple(torch.from_numpy(m).to(dev) for m in (mx, my))
+
+    left = torch.from_numpy(rng.integers(0, 256, (*lead, H, W)).astype(
+        np.uint8)).to(dev)
+    rH, rW = (H + 3, W - 5) if i == 5 else (H, W)
+    right = torch.from_numpy(rng.integers(0, 256, (*lead, rH, rW)).astype(
+        np.uint8)).to(dev)
+    return left, maps(H, W), right, maps(rH, rW)
+
+
+def remap_hold(left, lmap, right, rmap, hold, label):
+    """Kernel N against its plain version on the card: remap_bilinear on
+    each view and remap_bilinear_pair on both, torch.equal (uint8). The
+    pair call is one launch where the views' shapes agree, else two."""
+    from jackal_tpu_torch.geometry import remap
+
+    n0 = remap.launches["remap"]
+    want = (remap.remap_bilinear_plain(left, *lmap),
+            remap.remap_bilinear_plain(right, *rmap))
+    hold("remap", f"remap {label}", [remap.remap_bilinear(left, *lmap),
+                                     remap.remap_bilinear(right, *rmap)],
+         want)
+    pair = remap.remap_bilinear_pair(left, right, lmap, rmap)
+    hold("remap", f"remap pair {label}", pair, want)
+    one = left.shape == right.shape
+    if remap.launches["remap"] - n0 != 2 + (1 if one else 2):
+        raise AssertionError(f"remap {label}: {remap.launches['remap'] - n0}"
+                             f" launches for 2 calls and a pair call")
+
+
+def remap_work(frames: int, H, W, Ho, Wo, views: int = 2) -> int:
+    """Bytes kernel N must move: each u8 frame read once, both float32
+    maps of each view read once, each u8 output written once."""
+    return views * (frames * H * W + 8 * Ho * Wo + frames * Ho * Wo)
+
+
+def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
+    """Phase 13: kernels L (speckle) and N (rectify). (a) L against its
+    plain versions, maps and labels bit for bit (speckle_hold), on
+    SPECKLE_EDGE_CASES and on the node's and the batched node's maps after
+    their L/R check (phase 4, 4b), ROBOTICS and with t = 0 and 12, both
+    views stacked, with its launches a call (one call, four kernel
+    launches) pinned; (b) N against its plain version (torch.equal) on
+    REMAP_EDGE_CASES, on phase 4's 9 raw pairs with the node's maps and on
+    BASELINE config 5's 32 golden frames with its maps, one launch a pair
+    call; (c) L's and N's device times at the node's shape and the batched
+    ones beside their plain versions', their byte bounds and, for L, the
+    host ms of the BFS hop it replaced on the node. node: (left, right)
+    maps of phase 4's frame after the L/R check; batch: phase 4b's;
+    pipe: phase 4's pipeline; raw: its raw (left, right) pairs [9, H, W];
+    node_launches: L's and N's launches over phase 4's 9 frames. Returns
+    (the phase's JSON line, the kernels line's entries of L and N)."""
+    import torch
+    from jackal_tpu_torch.config import BMParams, ElasParams, PipelineParams
+    from jackal_tpu_torch.geometry import remap
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.matching.elas import post
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    params = ElasParams()
+    l0, d0 = post.launches["elas_speckle"], post.device_launches["elas_speckle"]
+    for name in SPECKLE_EDGE_CASES:
+        D, p = speckle_edge_case(name, dev)
+        speckle_hold(D, p, hold, name)
+    n_edge = len(SPECKLE_EDGE_CASES)
+    (L1, L2), (B1, B2) = node, batch
+    for label, X in (("the node's frame", torch.stack([L1, L2])),
+                     ("the batched node's 8 frames", torch.stack([B1, B2]))):
+        for t in (1.0, 0.0, 12.0):
+            speckle_hold(X, dataclasses.replace(
+                params, speckle_sim_threshold=t), hold, f"{label}, t = {t}")
+    calls = post.launches["elas_speckle"] - l0
+    kern = post.device_launches["elas_speckle"] - d0
+    if calls != 2 * (n_edge + 6) or kern != 4 * calls:
+        raise AssertionError(f"speckle: {calls} calls and {kern} kernel "
+                             f"launches for {2 * (n_edge + 6)} calls")
+    print(f"13a. kernel L == plain (maps and labels, int32 bits): "
+          f"{', '.join(SPECKLE_EDGE_CASES)}; the node's and the batched "
+          f"node's maps after the L/R check, both views, t = 1, 0, 12; "
+          f"{calls} calls, {kern} kernel launches (4 a call)")
+
+    for name in REMAP_EDGE_CASES:
+        remap_hold(*remap_edge_case(name, dev), hold, name)
+    raw_l, raw_r = raw
+    remap_hold(raw_l, pipe.lmap, raw_r, pipe.rmap, hold,
+               "phase 4's 9 raw pairs")
+    size = dict(im_width=640, im_height=480, crop_im_width=640,
+                crop_im_height=480)
+    cfg5 = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
+                         params=PipelineParams(calib_im_size=(640, 360),
+                                               gen_pcl=True, **size),
+                         device=dev)
+    scene = np.arange(CONFIG5_B) % len(GOLDEN)
+    gold = [np.load(f"{FIX}/{f}.npz") for f in GOLDEN]
+    l5 = torch.from_numpy(np.stack([gold[s]["left"] for s in scene])).to(dev)
+    r5 = torch.from_numpy(np.stack([gold[s]["right"] for s in scene])).to(dev)
+    remap_hold(l5, cfg5.lmap, r5, cfg5.rmap, hold,
+               f"config 5's {CONFIG5_B} frames")
+    print(f"13b. kernel N == plain (torch.equal): "
+          f"{', '.join(REMAP_EDGE_CASES)}; phase 4's 9 raw pairs; config 5's"
+          f" {CONFIG5_B} frames; one launch a pair call")
+
+    # (c) times: L on the node's left view (its path) and on the batched
+    # node's 8; N's pair call on the node's raw pair and config 5's batch
+    X8 = B1
+    n0 = post.device_launches["elas_speckle"]
+    post.remove_small_segments(L1, params)
+    per_call = post.device_launches["elas_speckle"] - n0
+    times, entries = {}, []
+    runs = [
+        ("elas_speckle", lambda: post.remove_small_segments(L1, params),
+         lambda: post.remove_small_segments_batch_plain(L1, params),
+         post_work(1, 1, tuple(L1.shape)), "640x480, B = 1"),
+        ("elas_speckle", lambda: post.remove_small_segments_batch(X8, params),
+         lambda: post.remove_small_segments_batch_plain(X8, params),
+         post_work(1, 1, tuple(X8.shape)), "640x480, B = 8"),
+    ]
+    Hr, Wr = raw_l.shape[-2:]
+    Ho, Wo = pipe.lmap[0].shape
+    r1l, r1r = raw_l[:1], raw_r[:1]
+    runs += [
+        ("remap", lambda: remap.remap_bilinear_pair(r1l, r1r, pipe.lmap,
+                                                    pipe.rmap),
+         lambda: (remap.remap_bilinear_plain(r1l, *pipe.lmap),
+                  remap.remap_bilinear_plain(r1r, *pipe.rmap)),
+         remap_work(1, Hr, Wr, Ho, Wo),
+         f"both views, {Wr}x{Hr} to {Wo}x{Ho}, B = 1"),
+        ("remap", lambda: remap.remap_bilinear_pair(l5, r5, cfg5.lmap,
+                                                    cfg5.rmap),
+         lambda: (remap.remap_bilinear_plain(l5, *cfg5.lmap),
+                  remap.remap_bilinear_plain(r5, *cfg5.rmap)),
+         remap_work(CONFIG5_B, *l5.shape[-2:], *cfg5.lmap[0].shape),
+         f"both views, config 5's B = {CONFIG5_B}"),
+    ]
+    for k, kern_fn, plain, nbytes, label in runs:
+        ms = events_ms(kern_fn, 50)
+        pms = events_ms(plain, 3, spin=False)
+        bms, by = bound_ms(nbytes, 0, PEAK_F32_OPS_PER_S)
+        times[f"{k} {label}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                 "bytes": nbytes}
+        print(f"13c. {k} at {label}: {ms:.5f} ms a call (CUDA events behind"
+              f" a spin; plain {pms:.3f}; bound {bms:.6f} by {by}: {nbytes} "
+              f"bytes, {ms / bms:.1f}x)")
+        if ms < bms:
+            raise AssertionError(f"{k} {label}: {ms} ms is below its bound "
+                                 f"{bms} ms")
+        if not entries or entries[-1]["name"] != k:
+            src = {"elas_speckle": "speckle_kernel", "remap": "remap_kernel"}
+            entries.append({
+                "name": k, "route": "cuda",
+                "source": f"jackal_tpu_torch/csrc/{src[k]}.cu",
+                "replaces": {"elas_speckle":
+                             "jackal_tpu/matching/elas/post.py:356",
+                             "remap": "jackal_tpu/geometry/remap.py:57"}[k],
+                "also_replaces": {"elas_speckle": [
+                    "jackal_tpu/matching/elas/post.py:129",
+                    "jackal_tpu/matching/elas/post.py:242"],
+                    "remap": ["jackal_tpu/geometry/remap.py:106"]}[k],
+                "launches": node_launches[k], "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None})
+    hop = host_ms(lambda: ep._speckle(L1, params), 5)
+    print(f"13c. the BFS hop L replaced on the node (D1 to the host, C++ "
+          f"BFS, back), host clock: {hop:.3f} ms; L's kernel launches a "
+          f"call: {per_call}")
+    # L's time split by its four kernels (torch.profiler: the means of
+    # the launches it recorded)
+    parts = {}
+    for label, X in (("B = 1", L1), ("B = 8", X8)):
+        parts[label] = {}
+        for kname in ("tile_union_kernel", "edge_union_kernel",
+                      "flatten_count_kernel", "kill_kernel"):
+            ms_k, seen = launch_ms(
+                lambda: post.remove_small_segments_batch(X, params), 20,
+                kname)
+            parts[label][kname] = ms_k
+        print(f"13c. L's kernels at {label} (device ms a launch, "
+              f"torch.profiler): " + ", ".join(
+                  f"{k} {v:.5f}" for k, v in parts[label].items()))
+    times["elas_speckle parts"] = parts
+    if per_call != 4:
+        raise AssertionError(f"speckle: {per_call} kernel launches a call")
+    return {"speckle_remap": {"times": times, "bfs_hop_ms": hop,
+                              "speckle_launches_a_call": per_call}}, entries
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -2407,6 +2819,7 @@ def shell_phase(dev):
     from jackal_tpu_torch.cli import navigate as nav_cli
     from jackal_tpu_torch.cli import point_cloud as pc_cli
     from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.geometry import remap
     from jackal_tpu_torch.io_bus.camera import open_source
     from jackal_tpu_torch.matching.elas import dense as dense_mod
     from jackal_tpu_torch.matching.elas import device_prior as dp
@@ -2431,12 +2844,14 @@ def shell_phase(dev):
         CLI call; the counters are set to 0 just before it."""
         out = _StampedOut()
         support_mod.launches = dense_mod.launches = dp.launches = 0
+        remap.launches["remap"] = 0
         torch.cuda.synchronize()
         with contextlib.redirect_stdout(out):
             rc = module.main(argv)
         torch.cuda.synchronize()
         counts = {"support": support_mod.launches,
-                  "elas_dense": dense_mod.launches, "raster": dp.launches}
+                  "elas_dense": dense_mod.launches, "raster": dp.launches,
+                  "remap": remap.launches["remap"]}
         if rc != 0:
             raise AssertionError(f"{module.__name__} {argv}: rc {rc}\n"
                                  f"{out.text()}")
@@ -2473,7 +2888,15 @@ def shell_phase(dev):
               f"{float((scans < 1e9 - 1).sum(1).mean()):.1f}")
         return scans
 
-    result = {}
+    l1, r1 = (torch.from_numpy(x).to(dev) for x in pairs[0])
+    result = {"rectify_ms": {
+        "kernel": host_ms(lambda: pipe._rectify_crop(l1, r1), 5),
+        "plain": host_ms(lambda: (remap.remap_bilinear_plain(l1, *pipe.lmap),
+                                  remap.remap_bilinear_plain(r1, *pipe.rmap)),
+                         5)}}
+    print(f"9. the shell's rectify of one pair alone, host clock (median of "
+          f"5): kernel N {result['rectify_ms']['kernel']:.3f} ms, plain "
+          f"version {result['rectify_ms']['plain']:.3f} ms")
     for name, (src, frames) in sources.items():
         base = os.path.join(tmp, name)
         out, counts = run(pc_cli, [
@@ -2481,9 +2904,9 @@ def shell_phase(dev):
             "--frames", "9", "-l", "-d", base + ".d", "-s", base + ".s",
             "--out", base + ".npz"])
         held(base + ".npz", frames, pipe, f"9a per frame, {name}")
-        if counts["support"] != 9:
+        if counts["support"] != 9 or counts["remap"] != 9:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
-                                 f"times over 9 frames")
+                                 f"times, N {counts['remap']} over 9 frames")
         if name == "replay" and counts["elas_dense"] != 9:
             raise AssertionError(f"9a {name}: B launched "
                                  f"{counts['elas_dense']} times over 9 frames")
@@ -2514,7 +2937,7 @@ def shell_phase(dev):
             raise AssertionError(f"9b {frames} frames: {text}")
         batches = frames // 8
         want = {"support": batches, "elas_dense": batches,
-                "raster": 2 * batches}
+                "raster": 2 * batches, "remap": batches}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
                                  f"expected {want}")
@@ -2528,6 +2951,9 @@ def shell_phase(dev):
         "--size", "640x480", "--engine", "elas", "--source", replay,
         "--frames", "9", "-m", "--phi", *map(str, SHELL_PHI),
         "--trans", *map(str, SHELL_TRANS), "--out", base + ".npz"])
+    if counts["remap"] != 9:
+        raise AssertionError(f"9c: N launched {counts['remap']} times over 9 "
+                             f"frames")
     moved = make_pipeline(engine="elas", params=params, device=dev)
     moved.update_extrinsics(SHELL_PHI, SHELL_TRANS)
     scans_c = held(base + ".npz", pairs, moved,
@@ -2609,7 +3035,8 @@ def main() -> int:
     max_err = {"support": 0.0, "elas_dense": 0.0, "raster": 0.0,
                "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0,
                "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
-               "elas_median": 0.0, "elas_dense_lr": 0.0}
+               "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
+               "remap": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -2827,10 +3254,14 @@ def main() -> int:
             raise AssertionError(f"synthetic frame {b}: batch != per-frame")
     print(f"elas_match_batch_device on the card == elas_match on the "
           f"{len(pairs)} synthetic node frames (chunk 3), D1 and D2")
+    from jackal_tpu_torch.geometry import remap as remap_mod
     from jackal_tpu_torch.matching.elas import post as post_mod
     support_mod.launches = dense_mod.launches = dense_mod.lr_launches = 0
     for k in post_mod.launches:
         post_mod.launches[k] = post_mod.device_launches[k] = 0
+    for k in ep.speckle_routes:
+        ep.speckle_routes[k] = 0
+    remap_mod.launches["remap"] = 0
     results, walls = [], []
     for i, (lr, rr) in enumerate(pairs):
         t = time.perf_counter()
@@ -2842,18 +3273,30 @@ def main() -> int:
                 "elas_dense_lr": dense_mod.lr_launches}
     node_post = dict(post_mod.launches)
     node_post_dev = dict(post_mod.device_launches)
+    routes = dict(ep.speckle_routes)
+    launches["remap"] = remap_mod.launches["remap"]
     print(f"node launches over {len(pairs)} frames: {launches}, {node_post}"
-          f" (their kernel launches {node_post_dev})")
+          f" (their kernel launches {node_post_dev}); speckle routes "
+          f"{routes}")
     if min(launches.values()) == 0:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
     n9 = len(pairs)
-    # the L/R check runs as kernel B's epilogue: H does not launch
-    once = {"elas_lr": 0, "elas_gap": n9, "elas_mean": n9, "elas_median": 0}
-    if node_post != once or node_post_dev != once:
+    # the L/R check runs as kernel B's epilogue: H does not launch; the
+    # speckle filter is kernel L (four kernel launches a call), the BFS
+    # hop never runs; rectify is one launch of kernel N a frame
+    once = {"elas_lr": 0, "elas_gap": n9, "elas_mean": n9, "elas_median": 0,
+            "elas_speckle": n9}
+    if node_post != once or node_post_dev != dict(once, elas_speckle=4 * n9):
         raise AssertionError(f"the node called the postprocess kernels "
                              f"{node_post} times ({node_post_dev} kernel "
-                             f"launches) over {n9} frames, not I and J "
-                             f"once a frame, one launch each, H and K never")
+                             f"launches) over {n9} frames, not L, I and J "
+                             f"once a frame (L four launches, I and J one "
+                             f"each), H and K never")
+    if routes != {"elas_speckle": n9, "bfs": 0} or launches["remap"] != n9:
+        raise AssertionError(f"the node's speckle routes {routes} and "
+                             f"rectify launches {launches['remap']} over "
+                             f"{n9} frames: not kernel L and N once a "
+                             f"frame, the BFS never")
     if launches["elas_dense_lr"] != n9:
         raise AssertionError(f"the node launched kernel B with the L/R "
                              f"epilogue {launches['elas_dense_lr']} times "
@@ -2898,6 +3341,12 @@ def main() -> int:
                                 torch.from_numpy(pairs[-1][1]).to(dev))
     H, W = lt.shape
     st = {}
+    rl1, rr1 = (torch.from_numpy(x).to(dev) for x in pairs[-1])
+    st["rectify (kernel N, both views, one launch)"] = host_ms(
+        lambda: pipe._rectify_crop(rl1, rr1), 5)
+    st["rectify, plain version"] = host_ms(
+        lambda: (remap_mod.remap_bilinear_plain(rl1, *pipe.lmap),
+                 remap_mod.remap_bilinear_plain(rr1, *pipe.rmap)), 5)
     desc = create_descriptor(torch.stack([lt, rt]))
     d1, d2 = desc[0:1], desc[1:2]
     st["descriptor"] = host_ms(lambda: create_descriptor(torch.stack([lt, rt])), 5)
@@ -2935,9 +3384,15 @@ def main() -> int:
     st["L/R check, plain version"] = host_ms(
         lambda: post_mod.left_right_consistency_check_plain(Da, Db, params),
         5)
-    st["hop 2: speckle (D1 to host, C++ BFS, back)"] = host_ms(
-        lambda: ep._speckle(L1, params), 5)
-    S1 = ep._speckle(L1, params)
+    st["speckle (kernel L, left view; the node's path)"] = host_ms(
+        lambda: post_mod.remove_small_segments(L1, params), 5)
+    st["speckle, plain version"] = host_ms(
+        lambda: post_mod.remove_small_segments_plain(L1, params), 5)
+    st["speckle hop (D1 to host, C++ BFS, back; the path L replaced)"] = \
+        host_ms(lambda: ep._speckle(L1, params), 5)
+    S1 = post_mod.remove_small_segments(L1, params)
+    _same("kernel L vs the BFS hop on the node's frame", S1,
+          ep._speckle(L1, params))
     st["tail (gap, adaptive mean: kernels I, J)"] = host_ms(
         lambda: post_tail(S1, L2, params), 5)
     st["tail, plain versions"] = host_ms(
@@ -2997,13 +3452,14 @@ def main() -> int:
           f"{batch_post} (their kernel launches {batch_post_dev})")
     nb6 = n_frames // batch
     once = {"elas_lr": 0, "elas_gap": nb6, "elas_mean": nb6,
-            "elas_median": 0}
-    if batch_post != once or batch_post_dev != once:
+            "elas_median": 0, "elas_speckle": nb6}
+    if batch_post != once or batch_post_dev != dict(once,
+                                                    elas_speckle=4 * nb6):
         raise AssertionError(f"the batched node called the postprocess "
                              f"kernels {batch_post} times ({batch_post_dev} "
-                             f"kernel launches) over {nb6} batches, not I "
-                             f"and J once a batch, one launch each, H and K"
-                             f" never")
+                             f"kernel launches) over {nb6} batches, not L, I"
+                             f" and J once a batch (L four launches, I and "
+                             f"J one each), H and K never")
     if launches_b["elas_dense_lr"] != nb6:
         raise AssertionError(f"the batched node launched kernel B with the "
                              f"L/R epilogue {launches_b['elas_dense_lr']} "
@@ -3098,8 +3554,10 @@ def main() -> int:
     sb["  L/R check, plain version"] = host_ms(
         lambda: post_mod.left_right_consistency_check_plain(BD1, BD2, params,
                                                             lad), 5)
-    sb["  of which the speckle filter (left view)"] = host_ms(
+    sb["  of which the speckle filter (kernel L, left view)"] = host_ms(
         lambda: remove_small_segments_batch(BL1, params), 3)
+    sb["  speckle filter, plain version"] = host_ms(
+        lambda: post_mod.remove_small_segments_batch_plain(BL1, params), 3)
     BS1 = remove_small_segments_batch(BL1, params)
     sb["  tail (kernels I, J)"] = host_ms(
         lambda: post_tail(BS1, BL2, params), 5)
@@ -3122,7 +3580,9 @@ def main() -> int:
               f"{sass_opcodes(cuda_lib.library(name).path, top=top)}")
     for name, ops in (("raster_kernel", ("FFMA",)),
                       ("elas_post_kernel", ("FFMA", "DFMA")),
-                      ("elas_dense_kernel", ("FFMA", "DFMA"))):
+                      ("elas_dense_kernel", ("FFMA", "DFMA")),
+                      ("speckle_kernel", ("FFMA", "DFMA")),
+                      ("remap_kernel", ("FFMA", "DFMA"))):
         path = cuda_lib.library(name).path
         fma = ", ".join(x for x in (sass_opcodes(path, top=None, prefix=op)
                                     for op in ops) if x)
@@ -3309,6 +3769,16 @@ def main() -> int:
          f"B = {batch}": (bd1, bd2, m1, m2, lad, b8B, by8B)},
         {"elas_lr": sub_line["subsampling"]["launches"]["elas_lr"],
          "elas_dense_lr": launches["elas_dense_lr"]})
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
+
+    # ---- 13. the speckle filter (L) and rectify (N) -----------------------
+    line, entries = speckle_remap_phase(
+        dev, hold, (L1, L2), (BL1, BL2), pipe, (raw_l, raw_r),
+        {"elas_speckle": node_post["elas_speckle"],
+         "remap": launches["remap"]})
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

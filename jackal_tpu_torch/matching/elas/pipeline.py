@@ -9,14 +9,15 @@ Two paths. The per-frame path, elas_match, stage by stage:
   4. dense MAP matching, both views device, CUDA kernel (dense.py)
   5. L/R check                      device: kernel B's epilogue, or
                                     kernel H under subsampling (post.py)
-  6. speckle filter                 host, C++ BFS (native_prior.py)
+  6. speckle filter                 device, kernel L (post.py), where
+                                    speckle_sim_threshold < 10; else
+                                    host, C++ BFS (_speckle)
   7. gap fill, adaptive mean,       device (post.py)
      median
 
-The frame crosses to the host twice: the int16 candidate grid before
-stage 3, and the int16 left (and, when both views are postprocessed, right)
-disparity before stage 6. Every stage is bit-equal to the reference build,
-so D1/D2 equal libelas's. It alone takes ElasParams.subsampling (half-
+The frame crosses to the host once, the int16 candidate grid before
+stage 3 (and, on the BFS route, the int16 maps before stage 6). Every
+stage is bit-equal to the reference build, so D1/D2 equal libelas's. It alone takes ElasParams.subsampling (half-
 resolution maps); the batched path raises the reference's ValueError.
 
 The batched path, elas_match_batch_device / elas_match_batch /
@@ -60,19 +61,45 @@ from .native_prior import (build_priors_native, collect_support_points_native,
                            remove_small_segments_native,
                            tri_wire_and_bin_native)
 from .post import (left_right_consistency_check, post_tail,
-                   postprocess_after_lr)
+                   postprocess_after_lr, remove_small_segments)
 from .prior import delaunay
 from .support import support_candidates
 
 Image = Union[np.ndarray, torch.Tensor]
 
 
+# per-frame speckle filters by route: kernel L on the card, the C++ BFS
+speckle_routes = {"elas_speckle": 0, "bfs": 0}
+# L equals the BFS below this similarity threshold (_speckle_on_card)
+KERNEL_SPECKLE_BELOW = 10.0
+
+
 def _speckle(D: torch.Tensor, params: ElasParams) -> torch.Tensor:
-    """Native BFS speckle filter; disparities are integers here, so the
-    int16 round trip is exact."""
+    """Native BFS speckle filter, as the reference's per-frame path runs
+    it (jackal_tpu/matching/elas/pipeline.py _postprocess_hybrid);
+    disparities are integers here, so the int16 round trip is exact.
+
+    The BFS and the device function (post.remove_small_segments, kernel
+    L) segment differently: the BFS starts from every pixel, invalid ones
+    included, and from an invalid start takes in a valid neighbour when
+    |D[start] - D[n]| <= speckle_sim_threshold; the device function joins
+    valid pixels only. After the L/R check every invalid pixel is exactly
+    -10 and every valid one >= 0, so the two agree whenever the threshold
+    is below 10 (both presets: 1) and differ at 10 and above
+    (tests/test_torch_speckle_route.py)."""
+    speckle_routes["bfs"] += 1
     Dh = D.to(torch.int16).cpu().numpy().astype(np.float32)
     out = remove_small_segments_native(Dh, params).astype(np.int16)
     return torch.from_numpy(out).to(D.device).to(torch.float32)
+
+
+def _speckle_on_card(dev: torch.device, params: ElasParams) -> bool:
+    """Whether elas_match runs its speckle filter as kernel L: on the card
+    where the threshold is below 10 (_speckle). The choice follows the
+    device and the parameters alone; on the CPU the BFS runs, as the
+    reference's per-frame path runs it."""
+    return dev.type == "cuda" and \
+        params.speckle_sim_threshold < KERNEL_SPECKLE_BELOW
 
 
 def elas_match(
@@ -124,9 +151,16 @@ def elas_match(
     else:
         D1, D2 = (x[0] for x in dense_match_pair_lr(desc1, desc2, *views,
                                                     params))
-    D1 = _speckle(D1, params)
-    if not params.postprocess_only_left:
-        D2 = _speckle(D2, params)
+    if _speckle_on_card(dev, params):
+        speckle_routes["elas_speckle"] += 1
+        if params.postprocess_only_left:
+            D1 = remove_small_segments(D1, params)
+        else:
+            D1, D2 = remove_small_segments(torch.stack([D1, D2]), params)
+    else:
+        D1 = _speckle(D1, params)
+        if not params.postprocess_only_left:
+            D2 = _speckle(D2, params)
     return post_tail(D1, D2, params)
 
 

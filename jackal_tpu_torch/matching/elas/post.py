@@ -2,23 +2,24 @@
 
 Reference: leftRightConsistencyCheck (elas.cpp:909-979), removeSmallSegments
 (981-1099, BFS speckle), gapInterpolation (1101-1284), adaptiveMean
-(1287-1492, SSE approximate bilateral), median (1494-1560). The per-frame
-path runs the speckle filter as the native BFS
-(native_prior.remove_small_segments_native); the batched path runs it on
-the device (remove_small_segments_batch): 4-connected components under
-|d_i - d_j| <= sim_threshold by min-label run scans to a fixed point, then
-a component-size kill, bit-equal to the BFS.
+(1287-1492, SSE approximate bilateral), median (1494-1560). The speckle
+filter's plain versions (remove_small_segments_plain, _batch_plain) find
+4-connected components under |d_i - d_j| <= sim_threshold by min-label
+run scans to a fixed point, then kill small components by size, bit-equal
+to the BFS of the per-frame CPU path
+(native_prior.remove_small_segments_native) wherever every invalid pixel
+is -10 and sim_threshold < 10 (pipeline._speckle says why).
 
-The L/R check, the gap interpolation, the adaptive mean and the median are
-each a wrapper: on CUDA tensors it launches its hand-written kernel
-(csrc/elas_post_kernel.cu: H, I, J, K), on CPU tensors it runs its plain
-version (the *_plain function), which the kernel equals bit for bit.
-``launches`` counts the wrapper calls that launched a kernel, by kernel;
-``device_launches`` the kernel launches those calls made (I: 1 a call up
-to GAP_TILE_MAX without corners, else 2; J: 1; H: 1; K: 1). Where the
-card's dense kernel owns whole rows (dense.lr_fused: every preset), the
-L/R check runs as its epilogue (dense.dense_match_pair_lr) and H does not
-launch.
+The speckle filter, the L/R check, the gap interpolation, the adaptive
+mean and the median are each a wrapper: on CUDA tensors it launches its
+hand-written kernel (csrc/speckle_kernel.cu: L; csrc/elas_post_kernel.cu:
+H, I, J, K), on CPU tensors it runs its plain version (the *_plain
+function), which the kernel equals bit for bit. ``launches`` counts the
+wrapper calls that launched a kernel, by kernel; ``device_launches`` the
+kernel launches those calls made (L: 4; I: 1 a call up to GAP_TILE_MAX
+without corners, else 2; J: 1; H: 1; K: 1). Where the card's dense kernel
+owns whole rows (dense.lr_fused: every preset), the L/R check runs as its
+epilogue (dense.dense_match_pair_lr) and H does not launch.
 
 Exactness: every float operation of a plain version is a single eager
 PyTorch op, so no multiply is fused into an add, and f32 division is
@@ -38,7 +39,8 @@ from ...config import ElasParams
 from ...ops import cuda_lib
 from ...ops.shifts import shifted_row_lookup
 
-launches = {"elas_lr": 0, "elas_gap": 0, "elas_mean": 0, "elas_median": 0}
+launches = {"elas_lr": 0, "elas_gap": 0, "elas_mean": 0, "elas_median": 0,
+            "elas_speckle": 0}
 device_launches = dict(launches)
 # kernel I's one-launch tile design takes gap widths up to this without
 # corners (csrc/elas_post_kernel.cu kGapTileMax); its scan design the rest
@@ -54,12 +56,13 @@ def _frames(D: torch.Tensor, name: str) -> torch.Tensor:
     return D.contiguous().reshape(-1, *D.shape[-2:])
 
 
-def _run(name: str, kernel: str, X: torch.Tensor, ptrs, ints, tail=()):
-    """Launch the C entry point ``name`` of csrc/elas_post_kernel.cu with
-    the pointers ``ptrs`` (None for a null one), the ints ``ints`` and the
-    (ctype, value) pairs of ``tail`` on X's card; count the call and the
-    kernel launches it reports."""
-    fn = getattr(cuda_lib.load("elas_post_kernel"), name)
+def _run(name: str, kernel: str, X: torch.Tensor, ptrs, ints, tail=(),
+         lib: str = "elas_post_kernel"):
+    """Launch the C entry point ``name`` of csrc/<lib>.cu with the pointers
+    ``ptrs`` (None for a null one), the ints ``ints`` and the (ctype,
+    value) pairs of ``tail`` on X's card; count the call and the kernel
+    launches it reports."""
+    fn = getattr(cuda_lib.load(lib), name)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) \
         + [t for t, _ in tail] + [ctypes.POINTER(ctypes.c_int),
                                   ctypes.c_void_p]
@@ -435,7 +438,7 @@ def post_tail(D1: torch.Tensor, D2: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# speckle filter on the device (the batched path)
+# the speckle filter: kernel L's wrappers and their plain versions
 # ---------------------------------------------------------------------------
 
 _RUN_CAP = 128   # run slots per row of the compact size count
@@ -561,8 +564,38 @@ def _segment_sizes(lbl: torch.Tensor, valid: torch.Tensor,
     return out.reshape(lbl.shape)
 
 
+def _speckle_cuda(D: torch.Tensor, params: ElasParams, labels: bool):
+    """Kernel L on every [H, W] frame of a CUDA map (four launches, no host
+    read): (out, int32 labels or None)."""
+    X = _frames(D, "speckle filter")
+    B, H, W = X.shape
+    if X.numel() >= 2 ** 31 - 1:
+        raise ValueError(f"speckle filter: {tuple(D.shape)} holds 2^31 - 1"
+                         f" pixels or more")
+    O = torch.empty_like(X)
+    parent, count = (torch.empty(X.shape, dtype=torch.int32, device=X.device)
+                     for _ in range(2))
+    lbl = torch.empty_like(parent) if labels else None
+    _run("elas_speckle", "elas_speckle", X,
+         (X.data_ptr(), O.data_ptr(), None if lbl is None else lbl.data_ptr(),
+          parent.data_ptr(), count.data_ptr()), (B, H, W),
+         ((ctypes.c_float, float(params.speckle_sim_threshold)),
+          (ctypes.c_int, speckle_size_eff(params))), lib="speckle_kernel")
+    return O.reshape(D.shape), None if lbl is None else lbl.reshape(D.shape)
+
+
 def remove_small_segments(D: torch.Tensor,
                           params: ElasParams = ElasParams()) -> torch.Tensor:
+    """remove_small_segments_plain's contract: kernel L on a CUDA tensor
+    (one call, any leading dimensions), the plain version on a CPU one."""
+    if D.is_cuda:
+        return _speckle_cuda(D, params, False)[0]
+    return remove_small_segments_plain(D, params)
+
+
+def remove_small_segments_plain(D: torch.Tensor,
+                                params: ElasParams = ElasParams()
+                                ) -> torch.Tensor:
     """elas.cpp:981-1099 on one [H, W] frame: components smaller than
     speckle_size become -10."""
     lbl = _connected_component_labels(D, params.speckle_sim_threshold)
@@ -648,10 +681,34 @@ def _small_segment_kill_batch(lbl: torch.Tensor, valid: torch.Tensor,
 
 def remove_small_segments_batch(D: torch.Tensor,
                                 params: ElasParams) -> torch.Tensor:
-    """remove_small_segments on each frame of [B, H, W], bit-equal to it."""
-    lbl = _connected_component_labels(D, params.speckle_sim_threshold)
-    kill = _small_segment_kill_batch(lbl, D >= 0, speckle_size_eff(params))
-    return torch.where(kill, -10.0, D)
+    """remove_small_segments_batch_plain's contract: kernel L on a CUDA
+    tensor (one call for every frame), the plain version on a CPU one."""
+    if D.is_cuda:
+        return _speckle_cuda(D, params, False)[0]
+    return remove_small_segments_batch_plain(D, params)
+
+
+def remove_small_segments_batch_plain(D: torch.Tensor,
+                                      params: ElasParams) -> torch.Tensor:
+    """remove_small_segments_plain on each [H, W] frame of [..., H, W],
+    bit-equal to it."""
+    X = D.reshape(-1, *D.shape[-2:])
+    lbl = _connected_component_labels(X, params.speckle_sim_threshold)
+    kill = _small_segment_kill_batch(lbl, X >= 0, speckle_size_eff(params))
+    return torch.where(kill, -10.0, X).reshape(D.shape)
+
+
+def speckle_labels(D: torch.Tensor, params: ElasParams
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The speckle filter of [..., H, W] maps and each pixel's component
+    label (_connected_component_labels': the component's least flat index
+    in its frame, an invalid pixel's own): on a CUDA tensor one call of
+    kernel L that also writes the labels, on a CPU one the plain
+    versions."""
+    if D.is_cuda:
+        return _speckle_cuda(D, params, True)
+    return (remove_small_segments_batch_plain(D, params),
+            _connected_component_labels(D, params.speckle_sim_threshold))
 
 
 def postprocess_after_lr(
@@ -659,11 +716,14 @@ def postprocess_after_lr(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The postprocess of [B, H, W] maps after their L/R check, on the
     device: speckle filter, gap interpolation, adaptive mean, median,
-    honouring postprocess_only_left. The batched path calls it on
+    honouring postprocess_only_left. Where both views are processed they
+    go through the speckle filter together (one call of kernel L on the
+    card). The batched path calls it on
     dense.dense_match_pair_lr's maps."""
-    D1 = remove_small_segments_batch(D1, params)
-    if not params.postprocess_only_left:
-        D2 = remove_small_segments_batch(D2, params)
+    if params.postprocess_only_left:
+        D1 = remove_small_segments_batch(D1, params)
+    else:
+        D1, D2 = remove_small_segments_batch(torch.stack([D1, D2]), params)
     return post_tail(D1, D2, params)
 
 

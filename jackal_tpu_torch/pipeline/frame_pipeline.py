@@ -39,7 +39,7 @@ from ..config import (BMParams, ElasParams, GroundPlaneParams,
                       PipelineParams, ScanParams, SGMParams)
 from ..device import DeviceLike, resolve_device
 from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
-from ..geometry.remap import remap_bilinear
+from ..geometry.remap import remap_bilinear, remap_bilinear_pair
 from ..geometry.reproject import (compose_rotation_cam_to_robot,
                                   compose_translation_cam_to_robot)
 from ..matching.bm import bm_texture_gate
@@ -131,10 +131,11 @@ class StereoPipeline:
                              compose_translation_cam_to_robot(*trans_xyz))
 
     def _rectify_crop(self, left_raw: torch.Tensor, right_raw: torch.Tensor):
-        """Rectify and crop uint8 [..., H, W] raw frames on the device."""
+        """Rectify and crop uint8 [..., H, W] raw frames on the device (on
+        the card both views in one launch of kernel N)."""
         p = self.p
-        left = remap_bilinear(left_raw, *self.lmap)
-        right = remap_bilinear(right_raw, *self.rmap)
+        left, right = remap_bilinear_pair(left_raw, right_raw, self.lmap,
+                                          self.rmap)
         sl = (Ellipsis,
               slice(p.crop_offset_y, p.crop_offset_y + p.crop_im_height),
               slice(p.crop_offset_x, p.crop_offset_x + p.crop_im_width))

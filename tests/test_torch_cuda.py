@@ -984,12 +984,13 @@ def test_postprocess_kernels_edges(dev, case):
     # per hold: H once, I twice (the case's params, then MIDDLEBURY's), J
     # twice (8 and 4 taps), K once
     assert {k: post.launches[k] - n0[k] for k in n0} == {
-        "elas_lr": 2, "elas_gap": 4, "elas_mean": 4, "elas_median": 2}
+        "elas_lr": 2, "elas_gap": 4, "elas_mean": 4, "elas_median": 2,
+        "elas_speckle": 0}
     # kernel launches: I's tile design once, its scan design twice
     tile = post.gap_width_eff(p) <= post.GAP_TILE_MAX and not p.add_corners
     assert {k: post.device_launches[k] - d0[k] for k in d0} == {
         "elas_lr": 2, "elas_gap": 2 * ((1 if tile else 2) + 2),
-        "elas_mean": 4, "elas_median": 2}
+        "elas_mean": 4, "elas_median": 2, "elas_speckle": 0}
 
 
 @pytest.mark.parametrize("fix", ["elas_golden_s640_boxes", "elas_golden_photo"])
@@ -1052,7 +1053,9 @@ def test_postprocess_kernels_never_run_the_plain_twins(dev, monkeypatch):
 
     for name in ("left_right_consistency_check_plain",
                  "gap_interpolation_plain", "adaptive_mean_plain",
-                 "adaptive_mean_sub_plain", "median_filter_plain"):
+                 "adaptive_mean_sub_plain", "median_filter_plain",
+                 "remove_small_segments_plain",
+                 "remove_small_segments_batch_plain"):
         monkeypatch.setattr(post, name, refuse)
     rng = np.random.default_rng(3)
     D1, D2 = (torch.from_numpy(rng.integers(-1, 40, (2, 30, 50))
@@ -1115,3 +1118,143 @@ def test_weighted_mean_division_equals_ieee_division(dev):
     for d in (2, 6, 32):
         assert torch.equal(div_even(neg, d).view(torch.int32),
                            neg.view(torch.int32)), d
+
+
+@pytest.mark.parametrize("case", range(18))
+def test_speckle_kernel_edges(dev, case):
+    """chip_smoke.SPECKLE_EDGE_CASES: kernel L against its plain versions,
+    maps (int32 bits) and labels (_connected_component_labels), on smooth
+    and random fields, a serpentine spiral across tiles, all valid, all
+    invalid, a checkerboard and stripes (more runs a row than the plain
+    version's compact slots: its sort branch), one row, one column, H and
+    W not multiples of the tile, t = 0 and t = 0.1 on non-integer
+    disparities, speckle_size 0, 1 and past H * W, subsampling's
+    speckle_size_eff, NaN with -0.0 and +0.0, B = 8 at 640x480 and both
+    views stacked; one call and four kernel launches a call."""
+    from chip_smoke import (SPECKLE_EDGE_CASES, speckle_edge_case,
+                            speckle_hold)
+    from jackal_tpu_torch.matching.elas import post
+
+    assert len(SPECKLE_EDGE_CASES) == 18
+    name = SPECKLE_EDGE_CASES[case]
+    D, p = speckle_edge_case(name, dev)
+    n0 = post.launches["elas_speckle"]
+    d0 = post.device_launches["elas_speckle"]
+    speckle_hold(D, p, _hold_equal, name)
+    assert post.launches["elas_speckle"] == n0 + 2
+    assert post.device_launches["elas_speckle"] == d0 + 8
+    if name.startswith("checkerboard"):
+        lbl = post._connected_component_labels(D, p.speckle_sim_threshold)
+        _, _, nruns = post._runs_along_rows(
+            lbl.reshape(-1, D.shape[-1]), (D >= 0).reshape(-1, D.shape[-1]))
+        assert int(nruns) > post._RUN_CAP
+
+
+def test_speckle_kernel_reads_nothing_back(dev):
+    """Kernel L on the batched node's shape under
+    torch.cuda.set_sync_debug_mode("error"): no host read in the call (the
+    plain version reads its fixed-point flag and run count back)."""
+    from chip_smoke import speckle_edge_case
+    from jackal_tpu_torch.matching.elas import post
+
+    D, p = speckle_edge_case("B = 8 at 640x480", dev)
+    post.remove_small_segments_batch(D, p)
+    torch.cuda.synchronize()
+    d0 = post.device_launches["elas_speckle"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = post.remove_small_segments_batch(D, p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert post.device_launches["elas_speckle"] == d0 + 4
+    want = post.remove_small_segments_batch_plain(D, p)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_speckle_kernel_refuses_what_it_does_not_take(dev):
+    from jackal_tpu_torch.matching.elas import post
+
+    with pytest.raises(ValueError, match="float32"):
+        post.remove_small_segments(torch.zeros((4, 5), device=dev).double())
+    with pytest.raises(ValueError, match="float32"):
+        post.remove_small_segments(torch.zeros((0, 5), device=dev))
+
+
+@pytest.mark.parametrize("fix", ["elas_golden_s640_boxes", "elas_golden_photo"])
+def test_elas_match_speckle_route_on_the_card(dev, fix):
+    """The per-frame elas_match on the card equals the CPU's (and libelas
+    at the preset's threshold of 1) on both golden pairs. Below a
+    threshold of 10 it runs kernel L once a frame and never the BFS; at 12
+    it runs the BFS and L not at all (pipeline._speckle)."""
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.matching.elas import post
+
+    g = np.load(f"{FIX}/{fix}.npz")
+    preset = {"ROBOTICS": ElasParams.robotics,
+              "MIDDLEBURY": ElasParams.middlebury}[str(g["preset"]).upper()]
+    for t, route in ((1.0, "elas_speckle"), (12.0, "bfs")):
+        p = dataclasses.replace(preset(), speckle_sim_threshold=t)
+        r0, n0 = dict(ep.speckle_routes), post.launches["elas_speckle"]
+        D1, D2 = ep.elas_match(g["left"], g["right"], p, device=dev)
+        torch.cuda.synchronize()
+        grew = {k: ep.speckle_routes[k] - r0[k] for k in r0}
+        assert grew == {"elas_speckle": int(route == "elas_speckle"),
+                        "bfs": int(route == "bfs")}, (t, grew)
+        assert post.launches["elas_speckle"] - n0 == int(route ==
+                                                         "elas_speckle")
+        C1, C2 = ep.elas_match(g["left"], g["right"], p, device="cpu")
+        assert torch.equal(D1.cpu(), C1) and torch.equal(D2.cpu(), C2), t
+        if t == 1.0:
+            assert torch.equal(D1.cpu(), torch.from_numpy(g["D1"]))
+            assert torch.equal(D2.cpu(), torch.from_numpy(g["D2"]))
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_remap_kernel_equals_plain(dev, case):
+    """chip_smoke.REMAP_EDGE_CASES: kernel N against remap_bilinear_plain
+    (torch.equal) on NaN, +-70000, +-2e9 and +-inf coordinates, rounding
+    ties of 2^-16, odd sizes with maps larger than the frame, B x colour,
+    maps smaller than the frame, and the pair call (one launch; two where
+    the views' shapes differ)."""
+    from chip_smoke import REMAP_EDGE_CASES, remap_edge_case, remap_hold
+
+    assert len(REMAP_EDGE_CASES) == 6
+    name = REMAP_EDGE_CASES[case]
+    remap_hold(*remap_edge_case(name, dev), _hold_equal, name)
+
+
+def test_remap_kernel_saturates_as_xla_converts(dev):
+    """The repair's input on the card: NaN reads coordinate 0, +-70000 and
+    2e9 saturate, as the CPU's plain version and the reference do."""
+    from jackal_tpu_torch.geometry import remap
+
+    img = np.random.default_rng(0).integers(0, 256, (8, 10)).astype(np.uint8)
+    mx = np.array([[0.5, 70000, -70000, np.nan, 3.25, 2e9]], np.float32)
+    my = np.array([[0.5, 1, 1, 1, np.nan, 1]], np.float32)
+    args = [torch.from_numpy(a) for a in (img, mx, my)]
+    got = remap.remap_bilinear(*(a.to(dev) for a in args))
+    want = remap.remap_bilinear_plain(*args)
+    assert torch.equal(got.cpu(), want)
+    assert int(got[0, 3]) == int(img[1, 0])
+
+
+def test_rectify_is_one_launch_and_equals_cpu(dev):
+    """The node's rectify (_rectify_crop): one launch of kernel N for both
+    views, equal to the CPU pipeline's on a raw pair and a batch of 3."""
+    from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.geometry import remap
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    pp = PipelineParams(im_width=640, im_height=480, crop_im_width=640,
+                        crop_im_height=480)
+    card = make_pipeline(params=pp, device=dev)
+    cpu = make_pipeline(params=pp, device="cpu")
+    rng = np.random.default_rng(4)
+    for shape in ((360, 640), (3, 360, 640)):
+        l, r = (torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+                for _ in range(2))
+        n0 = remap.launches["remap"]
+        got = card._rectify_crop(l.to(dev), r.to(dev))
+        assert remap.launches["remap"] == n0 + 1
+        for a, b in zip(got, cpu._rectify_crop(l, r)):
+            assert torch.equal(a.cpu(), b)
