@@ -173,12 +173,16 @@ Phases (any failure exits non-zero and prints no success line):
   13. the speckle filter (kernel L) and rectify (kernel N)
      (speckle_remap_phase): L against its plain versions, maps and labels
      bit for bit, on chip_smoke.SPECKLE_EDGE_CASES and the node's and
-     batched node's maps after the L/R check at t = 0, 1 and 12, four
-     kernel launches a call; N against its plain version (torch.equal) on
-     chip_smoke.REMAP_EDGE_CASES, phase 4's raw pairs and config 5's
-     frames, one launch a pair call; their times at the nodes' shapes
-     beside their plain versions', their byte bounds and the BFS hop L
-     replaced; one JSON line;
+     batched node's maps after the L/R check at t = 0, 1 and 12, one
+     cooperative kernel launch a call, its launch plans (B = 16 spills
+     tiles past its blocks' shared memory); N against its plain version
+     (torch.equal) on chip_smoke.REMAP_EDGE_CASES (its staged and global
+     tiles in one launch among them), phase 4's raw pairs, config 5's
+     frames and config 5's colour call (F = 96), one launch a pair call,
+     its tiles counted by path; their times at the nodes' shapes beside
+     their plain versions', their byte bounds, the colour call, the BFS
+     hop L replaced and L's split by phase (the first block's clock64 at
+     each grid barrier); one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -2271,7 +2275,7 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
     want = {"elas_lr": 0, "elas_gap": 1, "elas_mean": 0, "elas_median": 1,
             "elas_speckle": 1}
     if mb_launches != want or mb_fused != 1 or mb_dev["elas_median"] != 1 \
-            or mb_dev["elas_speckle"] != 4:
+            or mb_dev["elas_speckle"] != SPECKLE_LAUNCHES:
         raise AssertionError(f"MIDDLEBURY elas_match launched {mb_launches}"
                              f" (kernel launches {mb_dev}), B with the L/R "
                              f"epilogue {mb_fused} times")
@@ -2404,6 +2408,9 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
                             "dense_blocks_per_sm": per_sm}}, entries
 
 
+# kernel L's kernel launches a call: one cooperative launch
+# (csrc/speckle_kernel.cu)
+SPECKLE_LAUNCHES = 1
 # the speckle kernel's cases (tests/test_torch_cuda.py runs them too)
 SPECKLE_EDGE_CASES = ("smooth field 60 x 80", "random field 60 x 80",
                       "serpentine spiral 100 x 100", "all valid",
@@ -2417,7 +2424,11 @@ SPECKLE_EDGE_CASES = ("smooth field 60 x 80", "random field 60 x 80",
                       "speckle_size 0", "speckle_size 1",
                       "speckle_size past H * W",
                       "subsampling's speckle_size_eff", "NaN, -0.0 and +0.0",
-                      "B = 8 at 640x480", "both views of B = 2")
+                      "B = 8 at 640x480", "both views of B = 2",
+                      "one component over every tile of 640x480",
+                      "a coiled one-pixel path over 480 x 640",
+                      "B = 16 at 640x480: tiles past the blocks' shared "
+                      "memory", "1 x 4000 frames", "3000 x 1 frames")
 
 
 def speckle_field(rng, shape, smooth):
@@ -2448,6 +2459,25 @@ def speckle_spiral(n):
     return d
 
 
+def speckle_coil(n):
+    """A one-pixel spiral path of 7.0 on -10 whose rings keep a row or
+    column of -10 between them: one component about n^2 / 2 pixels long,
+    a chain that turns back across every tile it crosses."""
+    d = np.full((n, n), -10.0, np.float32)
+    x, y, dx, dy = 0, 0, 1, 0
+    d[0, 0] = 7.0
+    steps = [n - 1, n - 1, n - 1] + [n - 1 - 2 * (q // 2 + 1)
+                                     for q in range(2 * n)]
+    for s in steps:
+        if s <= 0:
+            break
+        for _ in range(s):
+            x, y = x + dx, y + dy
+            d[y, x] = 7.0
+        dx, dy = -dy, dx
+    return d
+
+
 def speckle_edge_case(name, dev):
     """(D, params) of one of SPECKLE_EDGE_CASES on dev, from a seed."""
     import torch
@@ -2456,7 +2486,30 @@ def speckle_edge_case(name, dev):
     i = SPECKLE_EDGE_CASES.index(name)
     rng = np.random.default_rng(130 + i)
     p = ElasParams()
-    if name.startswith("smooth"):
+    if name == SPECKLE_EDGE_CASES[18]:
+        # a ramp whose neighbours differ by at most 1, with lone holes: one
+        # component in every tile; then stripes that wrap from 4 to 0
+        y, x = np.mgrid[0:480, 0:640]
+        D = np.stack([(x + y) // 40, (3 * x + y) // 97 % 5]).astype(np.float32)
+        D[0][rng.random((480, 640)) < 0.02] = -10.0
+    elif name == SPECKLE_EDGE_CASES[19]:
+        # a coil over 15 x 15 tiles; its transpose cut in two, whose
+        # pieces fall below the coil's own size
+        sp = speckle_coil(480)
+        D = np.full((2, 480, 640), -10.0, np.float32)
+        D[0, :, 80:560] = sp
+        D[1, :, :480] = sp.T
+        D[1, 240, :] = -10.0
+        p = dataclasses.replace(p, speckle_size=int((sp >= 0).sum()))
+    elif name == SPECKLE_EDGE_CASES[20]:
+        D = speckle_field(rng, (16, 480, 640), True)
+        D[::2] = speckle_field(rng, (8, 480, 640), False)
+    elif name in SPECKLE_EDGE_CASES[21:23]:
+        D = rng.integers(-2, 4, (3, 1, 4000) if name.startswith("1 x")
+                         else (3, 3000, 1)).astype(np.float32)
+        D[D < 0] = -10.0
+        p = dataclasses.replace(p, speckle_size=5)
+    elif name.startswith("smooth"):
         D = speckle_field(rng, (2, 60, 80), True)
     elif name.startswith("random"):
         D = speckle_field(rng, (2, 60, 80), False)
@@ -2555,7 +2608,20 @@ REMAP_EDGE_CASES = ("NaN and out-of-range coordinates: 8 x 10",
                     "rounding ties of 2^-16", "odd sizes: 37 x 53 frames, "
                     "41 x 67 maps", "B x colour: 3 x 3 x 120 x 161",
                     "maps smaller than the frame: 480 x 640 to 120 x 160",
-                    "the views' shapes differ")
+                    "the views' shapes differ",
+                    "staged and global tiles in one launch: 2 x 480 x 640",
+                    "staged, odd map sizes: 2 x 96 x 128 frames, 37 x 101 "
+                    "maps", "the colour call's F = 96: 96 x 480 x 640")
+
+
+def remap_affine_maps(rng, Ho, Wo, sx, sy, ox, oy):
+    """Smooth maps as a rectification's: column x, row y of the output
+    read about (sx * x + 0.013 * y + ox, sy * y + 0.011 * x + oy) of the
+    frame, with a seeded fraction up to 0.5 on each."""
+    y, x = np.mgrid[0:Ho, 0:Wo].astype(np.float64)
+    mx = sx * x + 0.013 * y + ox + rng.random((Ho, Wo)) * 0.5
+    my = sy * y + 0.011 * x + oy + rng.random((Ho, Wo)) * 0.5
+    return mx.astype(np.float32), my.astype(np.float32)
 
 
 def remap_edge_case(name, dev):
@@ -2566,7 +2632,12 @@ def remap_edge_case(name, dev):
     2^-15 (round half to even); odd frame and map sizes with the maps
     larger than the frame; a batch of 3 frames of 3 colour channels; maps
     smaller than the frame; views whose frames differ in shape (two
-    launches of the pair call)."""
+    launches of the pair call); then smooth maps whose tiles the kernel
+    stages in shared memory: beside tiles of scattered, special and
+    far-away coordinates (its global path) in the same launch, past the
+    frame's top and left borders; at output sizes that are not multiples
+    of its tile or of 4; and over 96 frames, the colour call's F at
+    config 5's B = 32."""
     import torch
 
     i = REMAP_EDGE_CASES.index(name)
@@ -2574,11 +2645,27 @@ def remap_edge_case(name, dev):
     lead, (H, W), (Ho, Wo) = (
         ((), (8, 10), (9, 13)), ((2,), (30, 40), (30, 40)),
         ((2,), (37, 53), (41, 67)), ((3, 3), (120, 161), (120, 161)),
-        ((1,), (480, 640), (120, 160)), ((2,), (50, 70), (30, 40)))[i]
+        ((1,), (480, 640), (120, 160)), ((2,), (50, 70), (30, 40)),
+        ((2,), (480, 640), (480, 640)), ((2,), (96, 128), (37, 101)),
+        ((96,), (480, 640), (480, 640)))[i]
     special = np.array([np.nan, 70000.0, -70000.0, 2e9, -2e9, np.inf,
                         -np.inf, 0.5, -0.5, -1.0], np.float32)
 
     def maps(h, w):
+        if i >= 6:
+            mx, my = remap_affine_maps(
+                rng, Ho, Wo, *((0.9, 0.8, 3.0, -2.0) if i == 7
+                               else (0.97, 0.74, -3.0, -2.5)))
+            if i == 6:
+                # scattered coordinates over two tile rows, special ones in
+                # a tile, a tile wholly past the right border
+                mx[96:128, :256] = rng.random((32, 256)) * (w + 4) - 2
+                my[96:128, :256] = rng.random((32, 256)) * (h + 4) - 2
+                hit = rng.random((16, 64)) < 0.3
+                mx[208:224, 320:384][hit] = rng.choice(special,
+                                                       int(hit.sum()))
+                mx[400:416, 512:576] += w + 100
+            return tuple(torch.from_numpy(m).to(dev) for m in (mx, my))
         mx = (rng.random((Ho, Wo)) * (w + 4) - 2).astype(np.float32)
         my = (rng.random((Ho, Wo)) * (h + 4) - 2).astype(np.float32)
         if i == 1:                      # exact ties of 2^-16
@@ -2602,7 +2689,11 @@ def remap_edge_case(name, dev):
 def remap_hold(left, lmap, right, rmap, hold, label):
     """Kernel N against its plain version on the card: remap_bilinear on
     each view and remap_bilinear_pair on both, torch.equal (uint8). The
-    pair call is one launch where the views' shapes agree, else two."""
+    pair call is one launch where the views' shapes agree, else two;
+    where it is one, the pair call again with its tiles counted by path.
+    Returns {"staged": tiles, "global": tiles} of that call (None where
+    the views' shapes differ)."""
+    import torch
     from jackal_tpu_torch.geometry import remap
 
     n0 = remap.launches["remap"]
@@ -2613,10 +2704,18 @@ def remap_hold(left, lmap, right, rmap, hold, label):
          want)
     pair = remap.remap_bilinear_pair(left, right, lmap, rmap)
     hold("remap", f"remap pair {label}", pair, want)
-    one = left.shape == right.shape
-    if remap.launches["remap"] - n0 != 2 + (1 if one else 2):
+    one = left.shape == right.shape and lmap[0].shape == rmap[0].shape
+    paths = None
+    if one:
+        cnt = torch.zeros(2, dtype=torch.int32, device=left.device)
+        hold("remap", f"remap pair, paths counted, {label}",
+             remap._remap_cuda([(left, *lmap), (right, *rmap)], cnt), want)
+        paths = {"staged": int(cnt[0]), "global": int(cnt[1])}
+    if remap.launches["remap"] - n0 != 4:
         raise AssertionError(f"remap {label}: {remap.launches['remap'] - n0}"
-                             f" launches for 2 calls and a pair call")
+                             f" launches for 2 calls and {1 + one} pair "
+                             f"calls")
+    return paths
 
 
 def remap_work(frames: int, H, W, Ho, Wo, views: int = 2) -> int:
@@ -2625,22 +2724,58 @@ def remap_work(frames: int, H, W, Ho, Wo, views: int = 2) -> int:
     return views * (frames * H * W + 8 * Ho * Wo + frames * Ho * Wo)
 
 
+def speckle_phase_split(D, params, reps: int = 20):
+    """Kernel L's time split by its phases, which the profiler cannot see
+    inside one launch: the medians over reps calls of the launch's first
+    block's clock64 spans (csrc/speckle_kernel.cu elas_speckle's stamps).
+    Each phase (a tile parts, b border unites, c counts, d kill) spans
+    from the end of the barrier before it to the end of the barrier after
+    it (d: to the block's end), with its share of the block's whole span;
+    "work" is the first block's own part of it, the rest its wait at the
+    barrier for the slowest block and the barrier itself."""
+    import torch
+    from jackal_tpu_torch.matching.elas import post
+
+    stamps = torch.zeros(8, dtype=torch.int64, device=D.device)
+    runs = []
+    for _ in range(reps + 2):
+        post._speckle_cuda(D, params, False, stamps)
+        runs.append(stamps.cpu().tolist())
+    runs = runs[2:]
+
+    def med(i, j):
+        return statistics.median(r[j] - r[i] for r in runs)
+
+    total = med(0, 7)
+    out = {}
+    for name, (i, w, j) in zip(("a tile parts", "b border unites",
+                                "c counts", "d kill"),
+                               ((0, 1, 2), (2, 3, 4), (4, 5, 6), (6, 7, 7))):
+        out[name] = {"cycles": med(i, j), "share": med(i, j) / total,
+                     "work_cycles": med(i, w)}
+    return out
+
+
 def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
     """Phase 13: kernels L (speckle) and N (rectify). (a) L against its
     plain versions, maps and labels bit for bit (speckle_hold), on
     SPECKLE_EDGE_CASES and on the node's and the batched node's maps after
     their L/R check (phase 4, 4b), ROBOTICS and with t = 0 and 12, both
-    views stacked, with its launches a call (one call, four kernel
-    launches) pinned; (b) N against its plain version (torch.equal) on
-    REMAP_EDGE_CASES, on phase 4's 9 raw pairs with the node's maps and on
-    BASELINE config 5's 32 golden frames with its maps, one launch a pair
-    call; (c) L's and N's device times at the node's shape and the batched
-    ones beside their plain versions', their byte bounds and, for L, the
-    host ms of the BFS hop it replaced on the node. node: (left, right)
-    maps of phase 4's frame after the L/R check; batch: phase 4b's;
-    pipe: phase 4's pipeline; raw: its raw (left, right) pairs [9, H, W];
-    node_launches: L's and N's launches over phase 4's 9 frames. Returns
-    (the phase's JSON line, the kernels line's entries of L and N)."""
+    views stacked, with its launches a call (one call, one cooperative
+    kernel launch) pinned, and its launch plans (grid, spilled tiles) at
+    640x480 and B = 1, 8, 16; (b) N against its plain version
+    (torch.equal) on REMAP_EDGE_CASES, on phase 4's 9 raw pairs with the
+    node's maps, on BASELINE config 5's 32 golden frames with its maps and
+    on config 5's colour call (32 seeded colour frames, F = 96), one
+    launch a pair call, with its tiles by path (staged, global); (c) L's
+    and N's device times at the node's shape and the batched ones beside
+    their plain versions', their byte bounds and, for L, the host ms of
+    the BFS hop it replaced on the node and its split by phase (in-kernel
+    clocks). node: (left, right) maps of phase 4's frame after the L/R
+    check; batch: phase 4b's; pipe: phase 4's pipeline; raw: its raw
+    (left, right) pairs [9, H, W]; node_launches: L's and N's launches
+    over phase 4's 9 frames. Returns (the phase's JSON line, the kernels
+    line's entries of L and N)."""
     import torch
     from jackal_tpu_torch.config import BMParams, ElasParams, PipelineParams
     from jackal_tpu_torch.geometry import remap
@@ -2662,19 +2797,29 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
                 params, speckle_sim_threshold=t), hold, f"{label}, t = {t}")
     calls = post.launches["elas_speckle"] - l0
     kern = post.device_launches["elas_speckle"] - d0
-    if calls != 2 * (n_edge + 6) or kern != 4 * calls:
+    if calls != 2 * (n_edge + 6) or kern != SPECKLE_LAUNCHES * calls:
         raise AssertionError(f"speckle: {calls} calls and {kern} kernel "
                              f"launches for {2 * (n_edge + 6)} calls")
+    plans = {f"B = {b}": dict(zip(("grid", "spilled_labels"),
+                                  post.speckle_plan(dev, b, 480, 640)))
+             for b in (1, 8, 16)}
+    if plans["B = 16"]["spilled_labels"] == 0:
+        raise AssertionError(f"speckle: B = 16 spilled no tile: {plans}")
     print(f"13a. kernel L == plain (maps and labels, int32 bits): "
           f"{', '.join(SPECKLE_EDGE_CASES)}; the node's and the batched "
           f"node's maps after the L/R check, both views, t = 1, 0, 12; "
-          f"{calls} calls, {kern} kernel launches (4 a call)")
+          f"{calls} calls, {kern} kernel launches ({SPECKLE_LAUNCHES} a "
+          f"call); launch plans at 640x480: {plans}")
 
+    paths = {}
     for name in REMAP_EDGE_CASES:
-        remap_hold(*remap_edge_case(name, dev), hold, name)
+        paths[name] = remap_hold(*remap_edge_case(name, dev), hold, name)
+    mixed = paths[REMAP_EDGE_CASES[6]]
+    if not (mixed["staged"] and mixed["global"]):
+        raise AssertionError(f"remap: {REMAP_EDGE_CASES[6]} took {mixed}")
     raw_l, raw_r = raw
-    remap_hold(raw_l, pipe.lmap, raw_r, pipe.rmap, hold,
-               "phase 4's 9 raw pairs")
+    paths["phase 4's 9 raw pairs"] = remap_hold(
+        raw_l, pipe.lmap, raw_r, pipe.rmap, hold, "phase 4's 9 raw pairs")
     size = dict(im_width=640, im_height=480, crop_im_width=640,
                 crop_im_height=480)
     cfg5 = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
@@ -2685,15 +2830,45 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
     gold = [np.load(f"{FIX}/{f}.npz") for f in GOLDEN]
     l5 = torch.from_numpy(np.stack([gold[s]["left"] for s in scene])).to(dev)
     r5 = torch.from_numpy(np.stack([gold[s]["right"] for s in scene])).to(dev)
-    remap_hold(l5, cfg5.lmap, r5, cfg5.rmap, hold,
-               f"config 5's {CONFIG5_B} frames")
+    paths[f"config 5's {CONFIG5_B} frames"] = remap_hold(
+        l5, cfg5.lmap, r5, cfg5.rmap, hold, f"config 5's {CONFIG5_B} frames")
+    # config 5's colour call: the raw colour frames' channels ride the
+    # batch axis of one launch on the left maps (F = 96)
+    col5 = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (CONFIG5_B, *l5.shape[-2:], 3)).astype(np.uint8)).to(dev)
+    colc = col5.movedim(-1, -3).contiguous()
+    nf = colc.shape[0] * colc.shape[1]            # 32 frames x 3 channels
+    n0 = remap.launches["remap"]
+    got = cfg5._rectify_crop_color(col5)
+    if remap.launches["remap"] - n0 != 1:
+        raise AssertionError(f"the colour call launched N "
+                             f"{remap.launches['remap'] - n0} times")
+    want = remap.remap_bilinear_plain(colc, *cfg5.lmap)
+    pp = cfg5.p
+    hold("remap", "remap, config 5's colour call", [got], [want[
+        ..., pp.crop_offset_y:pp.crop_offset_y + pp.crop_im_height,
+        pp.crop_offset_x:pp.crop_offset_x + pp.crop_im_width].movedim(
+            -3, -1)])
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    hold("remap", "remap, config 5's colour frames, paths counted",
+         remap._remap_cuda([(colc, *cfg5.lmap)], cnt), [want])
+    paths["config 5's colour call"] = {"staged": int(cnt[0]),
+                                       "global": int(cnt[1])}
+    for k in ("phase 4's 9 raw pairs", f"config 5's {CONFIG5_B} frames",
+              "config 5's colour call"):
+        if paths[k]["staged"] == 0:
+            raise AssertionError(f"remap: {k} staged no tile: {paths[k]}")
     print(f"13b. kernel N == plain (torch.equal): "
           f"{', '.join(REMAP_EDGE_CASES)}; phase 4's 9 raw pairs; config 5's"
-          f" {CONFIG5_B} frames; one launch a pair call")
+          f" {CONFIG5_B} frames and its colour call (F = "
+          f"{nf}); one launch a pair call; output tiles by path "
+          f"(staged, global): {paths}")
 
-    # (c) times: L on the node's left view (its path) and on the batched
-    # node's 8; N's pair call on the node's raw pair and config 5's batch
+    # (c) times: L on the node's left view (its path), on the batched
+    # node's 8 and on 16 frames (spilled tiles); N's pair call on the
+    # node's raw pair and config 5's batch, and config 5's colour call
     X8 = B1
+    X16 = speckle_edge_case(SPECKLE_EDGE_CASES[20], dev)[0]
     n0 = post.device_launches["elas_speckle"]
     post.remove_small_segments(L1, params)
     per_call = post.device_launches["elas_speckle"] - n0
@@ -2705,6 +2880,10 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
         ("elas_speckle", lambda: post.remove_small_segments_batch(X8, params),
          lambda: post.remove_small_segments_batch_plain(X8, params),
          post_work(1, 1, tuple(X8.shape)), "640x480, B = 8"),
+        ("elas_speckle",
+         lambda: post.remove_small_segments_batch(X16, params),
+         lambda: post.remove_small_segments_batch_plain(X16, params),
+         post_work(1, 1, tuple(X16.shape)), "640x480, B = 16 (spilled)"),
     ]
     Hr, Wr = raw_l.shape[-2:]
     Ho, Wo = pipe.lmap[0].shape
@@ -2722,6 +2901,10 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
                   remap.remap_bilinear_plain(r5, *cfg5.rmap)),
          remap_work(CONFIG5_B, *l5.shape[-2:], *cfg5.lmap[0].shape),
          f"both views, config 5's B = {CONFIG5_B}"),
+        ("remap", lambda: remap.remap_bilinear(colc, *cfg5.lmap),
+         lambda: remap.remap_bilinear_plain(colc, *cfg5.lmap),
+         remap_work(nf, *l5.shape[-2:], *cfg5.lmap[0].shape, 1),
+         f"config 5's colour frames, F = {nf}, one view"),
     ]
     for k, kern_fn, plain, nbytes, label in runs:
         ms = events_ms(kern_fn, 50)
@@ -2747,31 +2930,43 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
                     "jackal_tpu/matching/elas/post.py:129",
                     "jackal_tpu/matching/elas/post.py:242"],
                     "remap": ["jackal_tpu/geometry/remap.py:106"]}[k],
+                "paths": {"elas_speckle": plans, "remap": paths}[k],
                 "launches": node_launches[k], "ms": ms, "plain_ms": pms,
                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the colour call as the node makes it: the channels' transpose copy
+    # (torch), N, the crop
+    col_ms = events_ms(lambda: cfg5._rectify_crop_color(col5), 50)
+    times["remap config 5's colour call (_rectify_crop_color)"] = {
+        "ms": col_ms}
+    print(f"13c. config 5's colour call _rectify_crop_color ({CONFIG5_B} "
+          f"frames of 3 channels, the transpose copy included): "
+          f"{col_ms:.5f} ms a call (CUDA events behind a spin)")
     hop = host_ms(lambda: ep._speckle(L1, params), 5)
     print(f"13c. the BFS hop L replaced on the node (D1 to the host, C++ "
           f"BFS, back), host clock: {hop:.3f} ms; L's kernel launches a "
           f"call: {per_call}")
-    # L's time split by its four kernels (torch.profiler: the means of
-    # the launches it recorded)
+    # L's split by phase: the profiler sees one launch, so the first
+    # block's clocks give each phase's share of the call's time
     parts = {}
-    for label, X in (("B = 1", L1), ("B = 8", X8)):
-        parts[label] = {}
-        for kname in ("tile_union_kernel", "edge_union_kernel",
-                      "flatten_count_kernel", "kill_kernel"):
-            ms_k, seen = launch_ms(
-                lambda: post.remove_small_segments_batch(X, params), 20,
-                kname)
-            parts[label][kname] = ms_k
-        print(f"13c. L's kernels at {label} (device ms a launch, "
-              f"torch.profiler): " + ", ".join(
-                  f"{k} {v:.5f}" for k, v in parts[label].items()))
-    times["elas_speckle parts"] = parts
-    if per_call != 4:
+    for label, X, run in (("B = 1", L1, "B = 1"), ("B = 8", X8, "B = 8"),
+                          ("B = 16", X16, "B = 16 (spilled)")):
+        parts[label] = speckle_phase_split(X, params)
+        call = times[f"elas_speckle 640x480, {run}"]["ms"]
+        for v in parts[label].values():
+            v["ms"] = v["share"] * call
+        print(f"13c. L's phases at {label} (share of the first block's "
+              f"clock64 span, times the call's {call:.5f} ms; its own work "
+              f"in cycles): " + ", ".join(
+                  f"{k} {v['ms']:.5f} ms ({v['share']:.3f}, "
+                  f"{v['cycles']:.0f} cycles, work {v['work_cycles']:.0f})"
+                  for k, v in parts[label].items()))
+    times["elas_speckle phases"] = parts
+    if per_call != SPECKLE_LAUNCHES:
         raise AssertionError(f"speckle: {per_call} kernel launches a call")
     return {"speckle_remap": {"times": times, "bfs_hop_ms": hop,
-                              "speckle_launches_a_call": per_call}}, entries
+                              "speckle_launches_a_call": per_call,
+                              "speckle_plans": plans,
+                              "remap_paths": paths}}, entries
 
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
@@ -3282,16 +3477,17 @@ def main() -> int:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
     n9 = len(pairs)
     # the L/R check runs as kernel B's epilogue: H does not launch; the
-    # speckle filter is kernel L (four kernel launches a call), the BFS
+    # speckle filter is kernel L (one cooperative launch a call), the BFS
     # hop never runs; rectify is one launch of kernel N a frame
     once = {"elas_lr": 0, "elas_gap": n9, "elas_mean": n9, "elas_median": 0,
             "elas_speckle": n9}
-    if node_post != once or node_post_dev != dict(once, elas_speckle=4 * n9):
+    if node_post != once or node_post_dev != dict(
+            once, elas_speckle=SPECKLE_LAUNCHES * n9):
         raise AssertionError(f"the node called the postprocess kernels "
                              f"{node_post} times ({node_post_dev} kernel "
                              f"launches) over {n9} frames, not L, I and J "
-                             f"once a frame (L four launches, I and J one "
-                             f"each), H and K never")
+                             f"once a frame (one launch each), H and K "
+                             f"never")
     if routes != {"elas_speckle": n9, "bfs": 0} or launches["remap"] != n9:
         raise AssertionError(f"the node's speckle routes {routes} and "
                              f"rectify launches {launches['remap']} over "
@@ -3453,13 +3649,13 @@ def main() -> int:
     nb6 = n_frames // batch
     once = {"elas_lr": 0, "elas_gap": nb6, "elas_mean": nb6,
             "elas_median": 0, "elas_speckle": nb6}
-    if batch_post != once or batch_post_dev != dict(once,
-                                                    elas_speckle=4 * nb6):
+    if batch_post != once or batch_post_dev != dict(
+            once, elas_speckle=SPECKLE_LAUNCHES * nb6):
         raise AssertionError(f"the batched node called the postprocess "
                              f"kernels {batch_post} times ({batch_post_dev} "
                              f"kernel launches) over {nb6} batches, not L, I"
-                             f" and J once a batch (L four launches, I and "
-                             f"J one each), H and K never")
+                             f" and J once a batch (one launch each), H and"
+                             f" K never")
     if launches_b["elas_dense_lr"] != nb6:
         raise AssertionError(f"the batched node launched kernel B with the "
                              f"L/R epilogue {launches_b['elas_dense_lr']} "

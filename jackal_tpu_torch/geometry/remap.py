@@ -16,14 +16,16 @@ far out-of-range map entry samples what the reference samples.
 
 remap_bilinear and remap_bilinear_pair are wrappers: on CUDA tensors they
 launch kernel N (csrc/remap_kernel.cu, one launch a call: the pair call
-warps both views in one launch), on CPU tensors they run the plain
-version, remap_bilinear_plain, which the kernel equals bit for bit.
+warps both views in one launch; a block stages each frame's source window
+of its output tile in shared memory where the window fits, else gathers
+from global memory), on CPU tensors they run the plain version,
+remap_bilinear_plain, which the kernel equals bit for bit.
 ``launches["remap"]`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -84,11 +86,14 @@ def remap_bilinear_plain(img: torch.Tensor, mapx: torch.Tensor,
 
 
 def _remap_cuda(views: Sequence[Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]]) -> list:
+                                      torch.Tensor]],
+                paths: Optional[torch.Tensor] = None) -> list:
     """Kernel N on up to _VIEWS (img, mapx, mapy) triples in one launch.
     Every view has the same leading dimensions, frame shape and map
     shape; each has its own maps. The inputs stay alive in ``keep`` until
-    the launch is queued."""
+    the launch is queued. ``paths``, an int32 [2] tensor on the card, gains
+    the launch's output tiles that took the kernel's staged path and its
+    global one (csrc/remap_kernel.cu)."""
     img0, mx0, _ = views[0]
     dev = img0.device
     lead, (H, W), (Ho, Wo) = img0.shape[:-2], img0.shape[-2:], mx0.shape
@@ -121,11 +126,13 @@ def _remap_cuda(views: Sequence[Tuple[torch.Tensor, torch.Tensor,
     args += [None] * (4 * (_VIEWS - len(views)))
     fn = cuda_lib.load("remap_kernel").remap_bilinear_u8
     fn.argtypes = [ctypes.c_void_p] * (4 * _VIEWS) + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    if paths is not None:
+        cuda_lib.expect(paths, "paths", torch.int32, (2,), dev)
     if F and Ho * Wo:
         cuda_lib.launch(fn, "remap", img0, *args, len(views), F, H, W, Ho,
-                        Wo)
+                        Wo, None if paths is None else paths.data_ptr())
         launches["remap"] += 1
     return outs
 

@@ -16,10 +16,11 @@ hand-written kernel (csrc/speckle_kernel.cu: L; csrc/elas_post_kernel.cu:
 H, I, J, K), on CPU tensors it runs its plain version (the *_plain
 function), which the kernel equals bit for bit. ``launches`` counts the
 wrapper calls that launched a kernel, by kernel; ``device_launches`` the
-kernel launches those calls made (L: 4; I: 1 a call up to GAP_TILE_MAX
-without corners, else 2; J: 1; H: 1; K: 1). Where the card's dense kernel
-owns whole rows (dense.lr_fused: every preset), the L/R check runs as its
-epilogue (dense.dense_match_pair_lr) and H does not launch.
+kernel launches those calls made (L: 1, a cooperative launch; I: 1 a call
+up to GAP_TILE_MAX without corners, else 2; J: 1; H: 1; K: 1). Where the
+card's dense kernel owns whole rows (dense.lr_fused: every preset), the
+L/R check runs as its epilogue (dense.dense_match_pair_lr) and H does not
+launch.
 
 Exactness: every float operation of a plain version is a single eager
 PyTorch op, so no multiply is fused into an add, and f32 division is
@@ -564,21 +565,48 @@ def _segment_sizes(lbl: torch.Tensor, valid: torch.Tensor,
     return out.reshape(lbl.shape)
 
 
-def _speckle_cuda(D: torch.Tensor, params: ElasParams, labels: bool):
-    """Kernel L on every [H, W] frame of a CUDA map (four launches, no host
-    read): (out, int32 labels or None)."""
+def speckle_plan(device: torch.device, B: int, H: int, W: int
+                 ) -> Tuple[int, int]:
+    """(grid, spilled labels) of kernel L's launch for B frames of H x W
+    on this card: the persistent blocks (every one resident) and the tile
+    labels that do not stay in a block's shared memory, those of its
+    tiles past the first 4 (csrc/speckle_kernel.cu elas_speckle_plan)."""
+    fn = cuda_lib.load("speckle_kernel").elas_speckle_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    grid, spill = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(B, H, W, ctypes.byref(grid), ctypes.byref(spill))
+    cuda_lib.check(err, "elas_speckle")
+    return grid.value, spill.value
+
+
+def _speckle_cuda(D: torch.Tensor, params: ElasParams, labels: bool,
+                  stamps: Optional[torch.Tensor] = None):
+    """Kernel L on every [H, W] frame of a CUDA map (one cooperative
+    launch, no host read): (out, int32 labels or None). ``stamps``, an
+    int64 [8] tensor on the card, gets the launch's first block's clock64
+    at its start, at the end of its work in each phase and at the end of
+    each grid barrier (csrc/speckle_kernel.cu elas_speckle)."""
     X = _frames(D, "speckle filter")
     B, H, W = X.shape
     if X.numel() >= 2 ** 31 - 1:
         raise ValueError(f"speckle filter: {tuple(D.shape)} holds 2^31 - 1"
                          f" pixels or more")
+    grid, spill_labels = speckle_plan(X.device, B, H, W)
+    if stamps is not None:
+        cuda_lib.expect(stamps, "stamps", torch.int64, (8,), X.device)
     O = torch.empty_like(X)
     parent, count = (torch.empty(X.shape, dtype=torch.int32, device=X.device)
                      for _ in range(2))
+    spill = torch.empty(spill_labels, dtype=torch.int32,
+                        device=X.device) if spill_labels else None
     lbl = torch.empty_like(parent) if labels else None
     _run("elas_speckle", "elas_speckle", X,
          (X.data_ptr(), O.data_ptr(), None if lbl is None else lbl.data_ptr(),
-          parent.data_ptr(), count.data_ptr()), (B, H, W),
+          parent.data_ptr(), count.data_ptr(),
+          None if spill is None else spill.data_ptr(),
+          None if stamps is None else stamps.data_ptr()), (B, H, W, grid),
          ((ctypes.c_float, float(params.speckle_sim_threshold)),
           (ctypes.c_int, speckle_size_eff(params))), lib="speckle_kernel")
     return O.reshape(D.shape), None if lbl is None else lbl.reshape(D.shape)

@@ -1120,7 +1120,7 @@ def test_weighted_mean_division_equals_ieee_division(dev):
                            neg.view(torch.int32)), d
 
 
-@pytest.mark.parametrize("case", range(18))
+@pytest.mark.parametrize("case", range(23))
 def test_speckle_kernel_edges(dev, case):
     """chip_smoke.SPECKLE_EDGE_CASES: kernel L against its plain versions,
     maps (int32 bits) and labels (_connected_component_labels), on smooth
@@ -1129,20 +1129,27 @@ def test_speckle_kernel_edges(dev, case):
     version's compact slots: its sort branch), one row, one column, H and
     W not multiples of the tile, t = 0 and t = 0.1 on non-integer
     disparities, speckle_size 0, 1 and past H * W, subsampling's
-    speckle_size_eff, NaN with -0.0 and +0.0, B = 8 at 640x480 and both
-    views stacked; one call and four kernel launches a call."""
-    from chip_smoke import (SPECKLE_EDGE_CASES, speckle_edge_case,
-                            speckle_hold)
+    speckle_size_eff, NaN with -0.0 and +0.0, B = 8 at 640x480, both
+    views stacked, one component over every tile of 640x480, the spiral
+    over 15 x 15 tiles, B = 16 at 640x480 (more tiles than the grid's
+    blocks keep in shared memory: their labels spill), 1 x 4000 and
+    3000 x 1 frames; one call and one cooperative kernel launch a
+    call."""
+    from chip_smoke import (SPECKLE_EDGE_CASES, SPECKLE_LAUNCHES,
+                            speckle_edge_case, speckle_hold)
     from jackal_tpu_torch.matching.elas import post
 
-    assert len(SPECKLE_EDGE_CASES) == 18
+    assert len(SPECKLE_EDGE_CASES) == 23 and SPECKLE_LAUNCHES == 1
     name = SPECKLE_EDGE_CASES[case]
     D, p = speckle_edge_case(name, dev)
     n0 = post.launches["elas_speckle"]
     d0 = post.device_launches["elas_speckle"]
     speckle_hold(D, p, _hold_equal, name)
     assert post.launches["elas_speckle"] == n0 + 2
-    assert post.device_launches["elas_speckle"] == d0 + 8
+    assert post.device_launches["elas_speckle"] == d0 + 2
+    if name.startswith("B = 16"):
+        grid, spill = post.speckle_plan(dev, 16, 480, 640)
+        assert 16 * 15 * 20 > grid and spill > 0, (grid, spill)
     if name.startswith("checkerboard"):
         lbl = post._connected_component_labels(D, p.speckle_sim_threshold)
         _, _, nruns = post._runs_along_rows(
@@ -1166,7 +1173,7 @@ def test_speckle_kernel_reads_nothing_back(dev):
         got = post.remove_small_segments_batch(D, p)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert post.device_launches["elas_speckle"] == d0 + 4
+    assert post.device_launches["elas_speckle"] == d0 + 1
     want = post.remove_small_segments_batch_plain(D, p)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -1209,18 +1216,24 @@ def test_elas_match_speckle_route_on_the_card(dev, fix):
             assert torch.equal(D2.cpu(), torch.from_numpy(g["D2"]))
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(9))
 def test_remap_kernel_equals_plain(dev, case):
     """chip_smoke.REMAP_EDGE_CASES: kernel N against remap_bilinear_plain
     (torch.equal) on NaN, +-70000, +-2e9 and +-inf coordinates, rounding
     ties of 2^-16, odd sizes with maps larger than the frame, B x colour,
-    maps smaller than the frame, and the pair call (one launch; two where
-    the views' shapes differ)."""
+    maps smaller than the frame, the pair call (one launch; two where the
+    views' shapes differ), smooth maps whose tiles N stages in shared
+    memory next to tiles it gathers from global memory in the same
+    launch, staged tiles at odd map sizes, and F = 96 frames."""
     from chip_smoke import REMAP_EDGE_CASES, remap_edge_case, remap_hold
 
-    assert len(REMAP_EDGE_CASES) == 6
+    assert len(REMAP_EDGE_CASES) == 9
     name = REMAP_EDGE_CASES[case]
-    remap_hold(*remap_edge_case(name, dev), _hold_equal, name)
+    paths = remap_hold(*remap_edge_case(name, dev), _hold_equal, name)
+    if case == 6:                       # both paths in one launch
+        assert paths["staged"] > 0 and paths["global"] > 0, paths
+    if case >= 7:
+        assert paths["staged"] > 0 and paths["global"] == 0, paths
 
 
 def test_remap_kernel_saturates_as_xla_converts(dev):
@@ -1258,3 +1271,29 @@ def test_rectify_is_one_launch_and_equals_cpu(dev):
         assert remap.launches["remap"] == n0 + 1
         for a, b in zip(got, cpu._rectify_crop(l, r)):
             assert torch.equal(a.cpu(), b)
+
+
+def test_rectify_colour_call_is_one_launch_and_equals_plain(dev):
+    """BASELINE config 5's colour call (_rectify_crop_color): 32 colour
+    frames of 3 channels, F = 96 frames of one launch of kernel N on the
+    left maps, equal to the plain version; every output tile staged."""
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.geometry import remap
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    pp = PipelineParams(calib_im_size=(640, 360), gen_pcl=True,
+                        im_width=640, im_height=480, crop_im_width=640,
+                        crop_im_height=480)
+    cfg5 = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
+                         params=pp, device=dev)
+    col = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (32, 480, 640, 3)).astype(np.uint8)).to(dev)
+    n0 = remap.launches["remap"]
+    got = cfg5._rectify_crop_color(col)
+    assert remap.launches["remap"] == n0 + 1
+    colc = col.movedim(-1, -3).contiguous()
+    want = remap.remap_bilinear_plain(colc, *cfg5.lmap)
+    assert torch.equal(got, want.movedim(-3, -1))
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    assert torch.equal(remap._remap_cuda([(colc, *cfg5.lmap)], cnt)[0], want)
+    assert int(cnt[0]) == 10 * 30 and int(cnt[1]) == 0, cnt

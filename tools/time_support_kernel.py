@@ -1,7 +1,8 @@
 """Time a CUDA kernel of a checkout of jackal_tpu_torch on the card: the ELAS
 support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
-and with H as its epilogue), the SGM census (D), the BM kernel (G) or the
-ELAS postprocess kernels (H, I, J, K).
+and with H as its epilogue), the SGM census (D), the BM kernel (G), the
+ELAS postprocess kernels (H, I, J, K), the speckle filter (L) or rectify
+(N).
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -26,7 +27,14 @@ tests/fixtures and a seed:
   bench_bm256's (B = 16, D = 256), the pairs alternated;
 - post: the golden 640x480 maps: H on D1 and D2 (B = 1), I at ROBOTICS
   (B = 1), I at MIDDLEBURY on both views (B = 2), J with 8 taps and with
-  4 (B = 1), K on D1 (B = 1) and on both views (B = 2).
+  4 (B = 1), K on D1 (B = 1) and on both views (B = 2);
+- speckle: at ROBOTICS (t = 1), the golden D1 (B = 1), the golden maps
+  alternated (B = 8), and chip_smoke's "B = 8 at 640x480" and "B = 16"
+  speckle fields;
+- remap: both views of a seeded 640x360 raw pair to 640x480 with the
+  per-frame node's maps (B = 1, one pair call), BASELINE config 5's 32
+  golden frames with its maps (one pair call) and 32 seeded colour frames
+  of 3 channels on its left maps (F = 96, one view).
 Each call is held equal to its plain version on those inputs (post: bit
 for bit, as int32). Run it on
 two checkouts in one call, in the order A, B, B, A, to compare two
@@ -189,11 +197,75 @@ def time_post(maps, reps):
     return res
 
 
+def time_speckle(maps, reps):
+    import torch
+    from chip_smoke import SPECKLE_EDGE_CASES, speckle_edge_case
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import post
+
+    dev = torch.device("cuda", 0)
+    p = ElasParams()
+    X1 = torch.from_numpy(maps[0]).to(dev)
+    X8 = torch.from_numpy(np.stack([maps[i % 4] for i in range(8)])).to(dev)
+    F8 = speckle_edge_case(SPECKLE_EDGE_CASES[16], dev)[0]
+    F16 = speckle_edge_case(SPECKLE_EDGE_CASES[20], dev)[0]
+    res = {}
+    for label, X in (("golden_B1", X1), ("golden_B8", X8),
+                     ("field_B8", F8), ("field_B16", F16)):
+        _held(f"speckle {label}",
+              [post.remove_small_segments_batch(X, p).view(torch.int32)],
+              [post.remove_small_segments_batch_plain(X, p).view(
+                  torch.int32)])
+        res[f"ms_{label}"] = events_ms(
+            lambda: post.remove_small_segments_batch(X, p), reps)
+    return res
+
+
+def time_remap(left, right, reps):
+    import torch
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.geometry import remap
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    dev = torch.device("cuda", 0)
+    size = dict(im_width=640, im_height=480, crop_im_width=640,
+                crop_im_height=480)
+    node = make_pipeline(engine="elas", params=PipelineParams(**size),
+                         device=dev)
+    cfg5 = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
+                         params=PipelineParams(calib_im_size=(640, 360),
+                                               gen_pcl=True, **size),
+                         device=dev)
+    rng = np.random.default_rng(18)
+    raw_l, raw_r = (torch.from_numpy(rng.integers(
+        0, 256, (1, 360, 640)).astype(np.uint8)).to(dev) for _ in range(2))
+    l5, r5 = (torch.from_numpy(np.stack([x[i % 2] for i in range(32)])).to(
+        dev) for x in (left, right))
+    col = torch.from_numpy(rng.integers(0, 256, (32, 3, 480, 640)).astype(
+        np.uint8)).to(dev)
+    res = {}
+    for label, call, plain in (
+            ("pair_B1", lambda: remap.remap_bilinear_pair(
+                raw_l, raw_r, node.lmap, node.rmap),
+             lambda: (remap.remap_bilinear_plain(raw_l, *node.lmap),
+                      remap.remap_bilinear_plain(raw_r, *node.rmap))),
+            ("config5_B32", lambda: remap.remap_bilinear_pair(
+                l5, r5, cfg5.lmap, cfg5.rmap),
+             lambda: (remap.remap_bilinear_plain(l5, *cfg5.lmap),
+                      remap.remap_bilinear_plain(r5, *cfg5.rmap))),
+            ("colour_F96", lambda: (remap.remap_bilinear(col, *cfg5.lmap),),
+             lambda: (remap.remap_bilinear_plain(col, *cfg5.lmap),))):
+        _held(f"remap {label}", call(), plain())
+        res[f"ms_{label}"] = events_ms(call, reps)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", required=True)
     ap.add_argument("--kernel", default="support",
-                    choices=("support", "dense", "census", "bm", "post"))
+                    choices=("support", "dense", "census", "bm", "post",
+                             "speckle", "remap"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -215,6 +287,11 @@ def main() -> int:
         res.update(time_census(left, right, args.reps))
     elif args.kernel == "bm":
         res.update(time_bm(left, right, args.reps))
+    elif args.kernel == "speckle":
+        res.update(time_speckle([g[k] for g in gold for k in ("D1", "D2")],
+                                args.reps))
+    elif args.kernel == "remap":
+        res.update(time_remap(left, right, args.reps))
     elif args.kernel == "post":
         res.update(time_post([g[k] for g in gold for k in ("D1", "D2")],
                              args.reps))
