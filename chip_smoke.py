@@ -35,7 +35,8 @@ Phases (any failure exits non-zero and prints no success line):
      dense kernel once a frame, both views and the L/R check as its
      epilogue in one launch; the speckle filter L, I, J and rectify N
      once a frame, the BFS hop never; H and K never: the check is B's
-     epilogue, ROBOTICS has no median);
+     epilogue, ROBOTICS has no median; the scan kernel P1 once a frame,
+     P2 and P3 never);
      per-stage medians, fps, the device's busy time under torch.profiler,
      a per-stage breakdown of one frame (rectify, B alone, B with the L/R
      epilogue, kernel H alone, the speckle filter, with the BFS hop it
@@ -44,8 +45,8 @@ Phases (any failure exits non-zero and prints no success line):
      at chunk 1 on one frame beside elas_match;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
-     kernel with its L/R epilogue, L, I and J once a batch, H and K
-     never);
+     kernel with its L/R epilogue, L, I, J and P1 once a batch, H, K,
+     P2 and P3 never);
      fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
@@ -88,9 +89,10 @@ Phases (any failure exits non-zero and prints no success line):
      share; process_batch_fused at batch 4 against process_frame;
      StreamingRunner at batch 4 over 48 frames; the SGM stages of one
      frame; (d) BASELINE config 3, process_batch_fused at 1280x960, D = 64,
-     B = 4; each of these four paths with the launch counters of D, E, F
-     and N (rectify: 9, 1, 12, 1) set to 0 just before and read just
-     after, and rectify beside its plain version; (e) each kernel against
+     B = 4; each of these four paths with the launch counters of D, E, F,
+     N (rectify: 9, 1, 12, 1) and P1-P3 (the scan P1 as N, P2 and P3
+     never) set to 0 just before and read just after, and rectify beside
+     its plain version; (e) each kernel against
      its plain version (torch.equal), its device time, its plain version's
      and its bound (and E's bound as counted before its 16-bit lanes) at
      the node's shape and at config 3's (D's bound at its byte lanes' 26
@@ -114,9 +116,11 @@ Phases (any failure exits non-zero and prints no success line):
      one frame's cloud (points exact) and scan against the CPU's and G
      against its plain twin on the rectified batch; (d) bench_bm256's
      process_batch_fused at B = 16, D = 256, and G against its plain twin
-     on that rectified batch; each of these paths with G's and N's
-     launch counters set to 0 just before and read just after (9, 1, 6,
-     1, 1 each), and rectify beside its plain version (7b, 7c); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
+     on that rectified batch; each of these paths with G's, N's and
+     P1-P3's launch counters set to 0 just before and read just after
+     (G and N 9, 1, 6, 1, 1; the scan P1 9, 1, 6, 0, 1; config 5's cloud
+     P2 and its scan P3 once, never elsewhere), and rectify beside its
+     plain version (7b, 7c); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
      device time, its plain twin's and its bound (and the bound as counted
      before G's packed instructions) at the node's shape, at D = 256, at
      D = 512 (its D > 256 path), at window 255 (its path without shared
@@ -136,9 +140,9 @@ Phases (any failure exits non-zero and prints no success line):
      CLI prints; (c) -m --phi --trans on the replay: scans against
      process_frame's after update_extrinsics, and unlike (a)'s; (d) the
      navigate CLI on (a)'s scans; each CLI call with the launch counters
-     (A, B, C and N, rectify: once a frame or a batch) set to 0 just
-     before it and read just after, and rectify beside its plain
-     version; one JSON line;
+     (A, B, C, N, rectify, and the scan P1: once a frame or a batch; P2
+     and P3 never) set to 0 just before it and read just after, and
+     rectify beside its plain version; one JSON line;
   10. ELAS subsampling and the exact scan (subsampling_phase): kernel A on
      half-resolution descriptors and kernel B under subsampling against
      their plain twins; the card's subsampled elas_match against libelas's
@@ -183,6 +187,24 @@ Phases (any failure exits non-zero and prints no success line):
      their plain versions', their byte bounds, the colour call, the BFS
      hop L replaced and L's split by phase (the first block's clock64 at
      each grid barrier); one JSON line;
+  14. the scan and the cloud (scan_phase): kernels P1 (scan from a u8
+     map), P2 (the cloud) and P3 (scan from points) against their plain
+     versions on the card (NaN masks equal, torch.equal otherwise; rgb
+     bits and valid masks torch.equal; one launch a call) on
+     chip_smoke.SCAN_EDGE_CASES (NaN and +-inf points, points a few ulps
+     about every bin edge at three fields of view, bin 90, the ground
+     threshold, empty and all-ground sets, B = 1, 8 and 32, a width that
+     is no multiple of 32, crop offsets, colour present and absent, a
+     cache that accepts d = 0), on phase 4's 9 maps and on config 5's
+     batch; their FFMA counts against the same source built with
+     -fmad=false (no contraction; the FFMAs are the written __fmaf_rn and
+     the library's own inside atan2f, division and square root); no host
+     read inside a call (torch.cuda.set_sync_debug_mode); their times
+     beside their plain versions' and their bounds (scan_work) at the
+     node's shape (P1 at B = 1 and 8) and config 5's (P2 with and without
+     colour, P3), the scan and cloud stages on the host clock, and probes
+     of the card's scatter_reduce at NaN and of the bin index the plain
+     version computed before (scan_probes); one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -959,14 +981,17 @@ def sgm_phase(dev, hold):
     pairs = [synthetic_raw_pair(pipe, s, 8.0 + 5 * s, 0.03 * (s % 3))
              for s in range(9)]
     def counted(label, fn, rect):
-        """fn() with the counters of D, E, F and N set to 0 just before and
-        read just after: (its result, the counts of D, E, F); raises if D,
-        E or F was launched no time, or N (rectify, both views in one
-        launch) other than ``rect`` times."""
+        """fn() with the counters of D, E, F, N and P1-P3 set to 0 just
+        before and read just after: (its result, the counts of D, E, F);
+        raises if D, E or F was launched no time, or N (rectify, both views
+        in one launch) and P1 (the scan) other than ``rect`` times (once a
+        frame or a batch), P2 or P3 at all."""
         for k in sk.launches:
             sk.launches[k] = 0
         remap.launches["remap"] = 0
+        reset_scan()
         out = fn()
+        pin_scan(f"6c. {label}", scan=rect)
         n = dict(sk.launches)
         nr = remap.launches["remap"]
         print(f"6c. launches of {label}: {n}, kernel N (rectify) {nr}")
@@ -1322,13 +1347,20 @@ def bm_phase(dev, hold):
           "hold: 255 at D = 64 on 300x640, 75 at D = 256, 227 at D = 64 "
           "(B = 2), 257 on a 0/255 pair whose costs pass 1 << 24)")
 
-    def counted(label, fn, want, rect):
-        """(fn(), G's launches in it): G's and N's counters set to 0 just
-        before and read just after; raises unless G was launched ``want``
-        times and N (rectify, both views in one launch) ``rect`` times."""
+    def counted(label, fn, want, rect, pcl=False):
+        """(fn(), G's launches in it): G's, N's and P1-P3's counters set to
+        0 just before and read just after; raises unless G was launched
+        ``want`` times, N (rectify, both views in one launch) ``rect``
+        times and, once a frame or a batch, P1 (the scan) or, where
+        ``pcl``, P2 and P3 (the cloud and its scan)."""
         bk.launches["bm"] = 0
         remap.launches["remap"] = 0
+        reset_scan()
         out = fn()
+        if pcl:
+            pin_scan(f"7c. {label}", cloud=rect, points=rect, key="config 5")
+        else:
+            pin_scan(f"7b. {label}", scan=rect)
         n, nr = bk.launches["bm"], remap.launches["remap"]
         print(f"7. launches of G in {label}: {n}; of kernel N (rectify): "
               f"{nr}")
@@ -1441,7 +1473,7 @@ def bm_phase(dev, hold):
     cfg5.process_batch_fused_pcl(l5, r5)                # warm-up
     (dm5, cloud5, sc5), _ = counted(
         f"BASELINE config 5, process_batch_fused_pcl at B={CONFIG5_B}",
-        lambda: cfg5.process_batch_fused_pcl(l5, r5), 1, 1)
+        lambda: cfg5.process_batch_fused_pcl(l5, r5), 1, 1, pcl=True)
     if not torch.equal(dm5, cfg5.process_batch_fused(l5, r5)[0]):
         raise AssertionError("config 5 maps != process_batch_fused's")
     if cloud5[0].shape != (CONFIG5_B, 480 * 640, 3) \
@@ -2968,6 +3000,501 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
                               "speckle_plans": plans,
                               "remap_paths": paths}}, entries
 
+# ---- kernels P1-P3: the scan and the cloud (phase 14) --------------------
+
+# the three scan kernels' names in the kernels line and in
+# scan/obstacle.launches: P1, P2, P3
+SCAN_KERNELS = ("scan", "cloud", "scan_points")
+# launches of P1-P3 read by pin_scan, by path (phase 14's kernels line)
+SCAN_LAUNCHES = {}
+# f32 operations a point as csrc/scan_kernel.cu writes them, an FFMA as two
+# and each of atan2f, __fdiv_rn and __fsqrt_rn as one (they take more
+# instructions on the card, so the bound stays a lower one). P1: the
+# pixel's coordinates 2, w and the numerators of X, Y, Z 4 x 6, the three
+# divisions 3, Xr and Yr 2 x 6, the range 4 (two products, a sum, the
+# root), atan2 1, the bin 4 (an FFMA, the ratio, floor); P2: 2 + 24 + 3
+# and Xr, Yr, Zr 3 x 6; P3: the ground threshold 3 (a difference, an
+# FFMA), then the range, atan2 and the bin as P1's
+SCAN_OPS = {"scan": 2 + 24 + 3 + 12 + 4 + 1 + 4, "cloud": 2 + 24 + 3 + 18,
+            "scan_points": 3 + 4 + 1 + 4}
+# the calibration the kernels read: Q [4, 4], XR [3, 3], XT [3] float32
+_CALIB_BYTES = (16 + 9 + 3) * 4
+
+
+def scan_work(kernel: str, B: int, H: int, W: int, bins: int = 90,
+              colour: bool = False):
+    """(bytes, f32 operations) of one call of kernel P1 ("scan"), P2
+    ("cloud") or P3 ("scan_points") on B sets of H x W pixels or points:
+    each input byte read once, each output byte written once. P1 reads the
+    u8 maps, the u8 [H, W, 2] cache and the calibration and writes bins + 4
+    floats a set; P2 reads the maps (and the colour frames) and the
+    calibration and writes 12 + 4 + 1 bytes a pixel; P3 reads 12 + 1 bytes
+    a point and writes as P1. Their int32 scratch is not counted."""
+    n = B * H * W
+    out = B * (bins + 4) * 4
+    nbytes = {"scan": n + 2 * H * W + _CALIB_BYTES + out,
+              "cloud": n * (1 + 3 * colour + 12 + 4 + 1) + _CALIB_BYTES,
+              "scan_points": n * 13 + out}[kernel]
+    return nbytes, n * SCAN_OPS[kernel]
+
+
+def pin_scan(label: str, scan: int = 0, cloud: int = 0, points: int = 0,
+             key=None) -> dict:
+    """Raise unless kernels P1, P2 and P3 launched scan, cloud and points
+    times since their counters were set to 0 (reset_scan); records the
+    counts under key in SCAN_LAUNCHES."""
+    from jackal_tpu_torch.scan import obstacle
+
+    got = dict(obstacle.launches)
+    want = dict(zip(SCAN_KERNELS, (scan, cloud, points)))
+    print(f"{label}: launches of P1-P3 {got}")
+    if got != want:
+        raise AssertionError(f"{label}: P1-P3 launched {got}, not {want}")
+    if key is not None:
+        SCAN_LAUNCHES[key] = got
+    return got
+
+
+def reset_scan() -> None:
+    from jackal_tpu_torch.scan import obstacle
+
+    for k in obstacle.launches:
+        obstacle.launches[k] = 0
+
+
+# kernels P1-P3's cases (tests/test_torch_cuda.py runs them too)
+SCAN_EDGE_CASES = (
+    "NaN and +-inf points: 4 sets of 500",
+    "one ulp either side of every bin edge: 90 bins over 90 degrees",
+    "one ulp either side of every bin edge: 90 bins over 60 degrees",
+    "one ulp either side of every bin edge: 45 bins over 70 degrees",
+    "bin 90 exactly: points on y = -x",
+    "on the ground threshold: 2 sets of 4000, a fifth on it",
+    "an empty set and an all-ground set beside a full one",
+    "seeded maps, B = 1 at 480 x 640, no colour",
+    "seeded maps, B = 8 at 480 x 640, colour as the node's planar view",
+    "seeded maps, B = 32 at 96 x 128, contiguous colour",
+    "a width that is no multiple of 32: 2 x 37 x 101",
+    "nonzero crop offsets: 150 x 300 at (8, 20)",
+    "a cache that accepts d = 0: NaN and infinite points")
+
+
+def scan_edge_thetas(sp, ulps: int = 8):
+    """float32 angles within ``ulps`` ulps of every bin edge of sp: where
+    (fov/2 - theta * 180/REF_PI) * ratio is an integer."""
+    from jackal_tpu_torch.scan.obstacle import _bin_constants
+
+    deg, half, ratio = _bin_constants(sp)
+    out = []
+    for m in range(sp.bin_size + 1):
+        t0 = np.float32((half - m / ratio) / deg)
+        for step in (-np.inf, np.inf):
+            t = t0
+            for _ in range(ulps):
+                t = np.nextafter(t, np.float32(step))
+                out.append(t)
+        out.append(t0)
+    return np.array(out, np.float32)
+
+
+def scan_edge_case(name, dev):
+    """One of SCAN_EDGE_CASES on dev, from a seed: {"sp", "gp" and either
+    "points": (points [S, N, 3], valid [S, N]) or "maps": (u8 maps [..., H,
+    W], u8 cache [H, W, 2], crop offset x, y, colour frames [..., H, W, 3]
+    or None)}. Points: NaN and +-inf coordinates, accepted and not, among
+    seeded ones; angles a few ulps either side of every bin edge at the
+    presets' field and at two others; points on y = -x (bin 90, dropped);
+    points on the ground threshold (Zr = the float64 threshold rounded);
+    a set with no valid point and one whose points all lie under the
+    ground beside a full one. Maps: seeded u8 maps with seeded caches at
+    the node's shape, 8 frames with the node's channel-planar colour
+    view, 32 frames, a width that is no multiple of 32, crop offsets, and
+    a cache whose lower bound is 0 (w = 0 there: infinite and NaN
+    points)."""
+    import torch
+    from jackal_tpu_torch.config import GroundPlaneParams, ScanParams
+
+    i = SCAN_EDGE_CASES.index(name)
+    rng = np.random.default_rng(300 + i)
+    sp, gp = ScanParams(), GroundPlaneParams()
+
+    def points(pts, valid, sp=sp):
+        return {"sp": sp, "gp": gp, "points": (
+            torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev),
+            torch.from_numpy(np.asarray(valid, bool)).to(dev))}
+
+    if i == 0:
+        S, N = 4, 500
+        pts = np.stack([rng.uniform(-2, 8, (S, N)), rng.uniform(-8, 8, (S, N)),
+                        rng.uniform(-0.5, 1.0, (S, N))], -1)
+        hit = rng.random((S, N, 3)) < 0.05
+        pts[hit] = rng.choice([np.nan, np.inf, -np.inf], int(hit.sum()))
+        valid = rng.random((S, N)) < 0.8
+        valid[3] = True                          # every NaN point accepted
+        pts[3, 0] = (np.nan, 1.0, 0.5)
+        return points(pts, valid)
+    if i in (1, 2, 3):
+        fov, bins = ((90.0, 90), (60.0, 90), (70.0, 45))[i - 1]
+        spe = ScanParams(fov_deg=fov, bin_size=bins)
+        th = scan_edge_thetas(spe).astype(np.float64)
+        r = rng.uniform(0.5, 5.0, th.size)
+        pts = np.stack([r * np.cos(th), r * np.sin(th), np.ones_like(r)], -1)
+        # one point a set: each edge point fills its own bin
+        return points(pts[:, None], np.ones((th.size, 1), bool), spe)
+    if i == 4:
+        x = rng.uniform(0.1, 6.0, 200)
+        pts = np.stack([x, -x, rng.uniform(0.2, 1.0, 200)], -1)
+        pts[:2] = ((1.0, -1.0, 0.5), (np.inf, -np.inf, 0.5))
+        return points(pts[None], np.ones((1, 200), bool))
+    if i == 5:
+        S, N = 2, 4000
+        Xr = rng.uniform(0.1, 6.0, (S, N))
+        Zr = rng.uniform(-0.3, 0.8, (S, N))
+        on = rng.random((S, N)) < 0.2
+        thresh = np.where(Xr < gp.dist_thresh, gp.height_thresh,
+                          gp.height_thresh + np.tan(gp.angle_thresh)
+                          * (Xr - gp.dist_thresh))
+        pts = np.stack([Xr, rng.uniform(-5, 5, (S, N)),
+                        np.where(on, thresh, Zr)], -1)
+        return points(pts, rng.random((S, N)) < 0.8)
+    if i == 6:
+        N = 1000
+        pts = np.stack([rng.uniform(0.1, 6, (3, N)), rng.uniform(-5, 5, (3, N)),
+                        rng.uniform(0.2, 1.0, (3, N))], -1)
+        pts[1, :, 2] = -5.0                      # all under the ground
+        valid = np.ones((3, N), bool)
+        valid[0] = False                         # no valid point
+        return points(pts, valid)
+    lead, (H, W), ox, oy, colour = (
+        ((1,), (480, 640), 0, 0, None), ((8,), (480, 640), 0, 0, "planar"),
+        ((32,), (96, 128), 0, 0, "contiguous"), ((2,), (37, 101), 0, 0, None),
+        ((2,), (150, 300), 8, 20, "planar"),
+        ((2,), (120, 160), 0, 0, "contiguous"))[i - 7]
+    dm = rng.integers(0, 120, (*lead, H, W)).astype(np.uint8)
+    lo = rng.integers(0, 20, (H, W))
+    if i == 12:
+        lo[:] = 0
+        dm[rng.random(dm.shape) < 0.05] = 0
+    vd = np.stack([lo, np.minimum(lo + rng.integers(20, 200, (H, W)), 255)],
+                  -1).astype(np.uint8)
+    col = None
+    if colour == "planar":
+        col = torch.from_numpy(rng.integers(0, 256, (*lead, 3, H, W)).astype(
+            np.uint8)).to(dev).movedim(-3, -1)
+    elif colour == "contiguous":
+        col = torch.from_numpy(rng.integers(0, 256, (*lead, H, W, 3)).astype(
+            np.uint8)).to(dev)
+    return {"sp": sp, "gp": gp, "maps": (
+        torch.from_numpy(dm).to(dev), torch.from_numpy(vd).to(dev), ox, oy,
+        col)}
+
+
+def scan_same(kernel, name, got, want, hold):
+    """hold() on float tensors that may hold NaN: the NaN masks equal, the
+    rest torch.equal (so +0 equals -0, as the extrema's signed zeros may
+    differ)."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{name}[{i}]: NaN masks differ")
+    hold(kernel, name, [torch.nan_to_num(g, nan=0.0) for g in got],
+         [torch.nan_to_num(w, nan=0.0) for w in want])
+
+
+def scan_hold(case, calib, hold, label):
+    """Kernels P1, P2 and P3 against their plain versions on the card on
+    one case of scan_edge_case (or a dict of its form): P1 on its maps,
+    P2 on its maps with its colour and without, P3 on its points or on
+    P2's cloud of its maps. Scans: NaN masks equal, torch.equal otherwise
+    (scan_same); clouds: points so, rgb bits and valid torch.equal.
+    Raises unless each call launched its kernel once. Returns the
+    ScanResult of P3 (P1's where the case has maps)."""
+    import torch
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    Q, XR, XT = calib
+    sp, gp = case["sp"], case["gp"]
+    fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
+    n0 = dict(obs.launches)
+    calls = {k: 0 for k in SCAN_KERNELS}
+    if "maps" in case:
+        dm, vd, ox, oy, col = case["maps"]
+        got = obs.obstacle_scan_from_disparity(dm, vd, Q, XR, XT, sp, ox, oy)
+        want = obs.obstacle_scan_from_disparity_plain(dm, vd, Q, XR, XT, sp,
+                                                      ox, oy)
+        scan_same("scan", f"P1 {label}", [getattr(got, f) for f in fields],
+                  [getattr(want, f) for f in fields], hold)
+        out = got
+        for c in (col, None) if col is not None else (None,):
+            cloud = obs.point_cloud_from_disparity(dm, c, Q, XR, XT, sp, ox,
+                                                   oy)
+            plain = obs.point_cloud_from_disparity_plain(dm, c, Q, XR, XT, sp,
+                                                         ox, oy)
+            scan_same("cloud", f"P2 {label}, colour {c is not None}",
+                      [cloud[0]], [plain[0]], hold)
+            hold("cloud", f"P2 {label} rgb bits and valid",
+                 [cloud[1].view(torch.int32), cloud[2]],
+                 [plain[1].view(torch.int32), plain[2]])
+            calls["cloud"] += 1
+        calls["scan"] += 1
+        pts, valid = cloud[0], cloud[2]
+    else:
+        pts, valid = case["points"]
+    got = obs.obstacle_scan_from_points(pts, valid, sp, gp)
+    want = obs.obstacle_scan_from_points_plain(pts, valid, sp, gp)
+    scan_same("scan_points", f"P3 {label}", [getattr(got, f) for f in fields],
+              [getattr(want, f) for f in fields], hold)
+    calls["scan_points"] += 1
+    grew = {k: obs.launches[k] - n0[k] for k in SCAN_KERNELS}
+    if grew != calls:
+        raise AssertionError(f"scan {label}: launches {grew} for {calls} "
+                             f"calls")
+    return out if "maps" in case else got
+
+
+def sass_by_function(path: str, prefix: str, names) -> dict:
+    """{name: the count of SASS opcodes starting with prefix} for each of
+    the kernel functions of a built library whose mangled name holds
+    name (cuobjdump)."""
+    import os
+    import re
+
+    from jackal_tpu_torch.ops import cuda_lib
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        for name in names:
+            if name in fn:
+                ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                                 r"([A-Z][A-Z0-9_.]*)", part)
+                out[name] = sum(op.startswith(prefix) for op in ops)
+    return out
+
+
+def scan_probes(dev) -> dict:
+    """What the card's plain torch does at the scan's hazards, beside the
+    CPU's: scatter_reduce("amin") into a bin that takes a NaN range (the
+    plain version marks such bins NaN itself), and the bin index at every
+    bin edge of the presets (scan_edge_thetas) as the plain version
+    computed it before (bin_size * (fov/2 - theta_deg) / fov with fov a
+    Python float, which ATen's CUDA division by a CPU scalar turns into a
+    product with its reciprocal) and as it does now (_bin_index: XLA's
+    folded ratio and its one rounding). Raises if the new index differs
+    between the card and the CPU."""
+    import torch
+    from jackal_tpu_torch.config import REF_PI, ScanParams
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    r = torch.tensor([1.0, float("nan"), 2.0, 3.0])
+    idx = torch.tensor([0, 0, 1, 1])
+    amin = {d: torch.full((2,), 1e9, device=d).scatter_reduce(
+        0, idx.to(d), r.to(d), "amin").cpu().tolist() for d in ("cpu", dev)}
+    sp = ScanParams()
+    th = torch.from_numpy(scan_edge_thetas(sp))
+
+    def before(t):
+        td = t * (180.0 / REF_PI)
+        return torch.floor(sp.bin_size * (sp.fov_deg / 2.0 - td)
+                           / sp.fov_deg).cpu()
+
+    old_cpu, old_card = before(th), before(th.to(dev))
+    new_cpu = obs._bin_index(th, sp)
+    new_card = obs._bin_index(th.to(dev), sp).cpu()
+    out = {"scatter_amin_nan": {str(k): v for k, v in amin.items()},
+           "edge_angles": th.numel(),
+           "before_card_vs_cpu": int((old_card != old_cpu).sum()),
+           "before_cpu_vs_now": int((old_cpu.to(torch.int32)
+                                     != new_cpu).sum()),
+           "now_card_vs_cpu": int((new_card != new_cpu).sum())}
+    print(f"14e. probes: scatter_reduce amin of [1, nan] into bin 0 and "
+          f"[2, 3] into bin 1 (from 1e9): {out['scatter_amin_nan']}; bin "
+          f"index at {th.numel()} angles a few ulps about every edge: the "
+          f"division made before, card vs CPU, {out['before_card_vs_cpu']} "
+          f"differ, CPU before vs now {out['before_cpu_vs_now']}; now, "
+          f"card vs CPU, {out['now_card_vs_cpu']}")
+    if out["now_card_vs_cpu"]:
+        raise AssertionError(f"scan: the bin index differs between the card "
+                             f"and the CPU: {out}")
+    return out
+
+
+def scan_phase(dev, hold, node_maps, node_pipe):
+    """Phase 14: kernels P1 (scan from a map), P2 (the cloud) and P3 (scan
+    from points) of csrc/scan_kernel.cu. (a) Each against its plain
+    version on the card on SCAN_EDGE_CASES (scan_hold: NaN masks equal,
+    torch.equal otherwise; one launch a call), on phase 4's 9 node maps
+    (one call of 9 and each map alone) and on BASELINE config 5's batch
+    of 32 maps with its colour frames and without; (b) the FFMAs of each
+    kernel equal those of the same source built with -fmad=false (the
+    written __fmaf_rn and the library's own: no contraction), and no
+    DFMA; (c) a call reads nothing back to the host
+    (torch.cuda.set_sync_debug_mode); (d) the kernels' times (CUDA events
+    behind a spin, 50 calls) beside their plain versions' and their
+    bounds (scan_work) at the node's shape (P1, B = 1 and 8) and config
+    5's (P2 with and without colour, P3), and the stage times (host clock)
+    of the node's scan and config 5's cloud and scan from the points
+    beside the plain versions'. node_maps: phase 4's u8 maps [9, H, W] on
+    the card; node_pipe: phase 4's pipeline. Returns (the phase's JSON
+    line, the kernels line's entries of P1-P3)."""
+    import torch
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.ops import cuda_lib
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    calib = (node_pipe.Q32, node_pipe.XR32, node_pipe.XT32)
+    for name in SCAN_EDGE_CASES:
+        scan_hold(scan_edge_case(name, dev), calib, hold, name)
+    print(f"14a. kernels P1-P3 == plain (NaN masks equal, torch.equal "
+          f"otherwise; one launch a call): {', '.join(SCAN_EDGE_CASES)}")
+    sp, gp = node_pipe.sp, node_pipe.gp
+    node_case = {"sp": sp, "gp": gp, "maps": (
+        node_maps, node_pipe.valid_disp, node_pipe.p.crop_offset_x,
+        node_pipe.p.crop_offset_y, None)}
+    scan_hold(node_case, calib, hold, "phase 4's 9 node maps")
+    for b in range(node_maps.shape[0]):
+        scan_hold(dict(node_case, maps=(node_maps[b],) + node_case["maps"][1:]),
+                  calib, hold, f"phase 4's node map {b}")
+    size = dict(im_width=640, im_height=480, crop_im_width=640,
+                crop_im_height=480)
+    cfg5 = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
+                         params=PipelineParams(calib_im_size=(640, 360),
+                                               gen_pcl=True, **size),
+                         device=dev)
+    scene = np.arange(CONFIG5_B) % len(GOLDEN)
+    gold = [np.load(f"{FIX}/{f}.npz") for f in GOLDEN]
+    l5 = torch.from_numpy(np.stack([gold[s]["left"] for s in scene])).to(dev)
+    r5 = torch.from_numpy(np.stack([gold[s]["right"] for s in scene])).to(dev)
+    dm5 = cfg5.process_batch_fused(l5, r5)[0]
+    col5 = cfg5._rectify_crop_color(torch.from_numpy(
+        np.random.default_rng(13).integers(
+            0, 256, (CONFIG5_B, *l5.shape[-2:], 3)).astype(np.uint8)).to(dev))
+    calib5 = (cfg5.Q32, cfg5.XR32, cfg5.XT32)
+    scan_hold({"sp": cfg5.sp, "gp": cfg5.gp, "maps": (
+        dm5, cfg5.valid_disp, cfg5.p.crop_offset_x, cfg5.p.crop_offset_y,
+        col5)}, calib5, hold, f"config 5's {CONFIG5_B} maps")
+    print(f"14a. kernels P1-P3 == plain on phase 4's 9 node maps (one call "
+          f"and each alone) and config 5's {CONFIG5_B} maps, colour as the "
+          f"node's planar view and none")
+
+    # (b) no contraction: the FFMAs are those the source writes and the
+    # library functions' own, as in a build with -fmad=false
+    fns = ("scan_from_disparity_kernel", "point_cloud_kernel",
+           "scan_from_points_kernel")
+    ffma = {lib: sass_by_function(cuda_lib.library(lib).path, "FFMA", fns)
+            for lib in ("scan_kernel", "scan_kernel_nofmad")}
+    dfma = sass_by_function(cuda_lib.library("scan_kernel").path, "DFMA", fns)
+    print(f"14b. FFMA instructions a kernel (cuobjdump): {ffma['scan_kernel']}"
+          f"; built with -fmad=false: {ffma['scan_kernel_nofmad']}; DFMA "
+          f"{dfma}")
+    if ffma["scan_kernel"] != ffma["scan_kernel_nofmad"] \
+            or len(ffma["scan_kernel"]) != 3 or any(dfma.values()):
+        raise AssertionError(f"scan kernels: FFMA {ffma}, DFMA {dfma}: "
+                             f"contracted")
+
+    # (c) no host read inside a call
+    pts5, valid5 = obs.point_cloud_from_disparity(
+        dm5, None, *calib5, cfg5.sp)[0::2]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        node_pipe._scan_stage(node_maps[0])
+        cfg5._cloud_scan(dm5, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("14c. the node's scan stage and config 5's cloud and scan from "
+          "the points under torch.cuda.set_sync_debug_mode('error'): no "
+          "host read")
+
+    # (d) times at the main paths' shapes
+    H, W = node_maps.shape[-2:]
+    m1, m8 = node_maps[0], node_maps[:8]
+    vd = node_pipe.valid_disp
+    ox, oy = node_pipe.p.crop_offset_x, node_pipe.p.crop_offset_y
+    H5, W5 = dm5.shape[-2:]
+    runs = [
+        ("scan", lambda: obs.obstacle_scan_from_disparity(
+            m1, vd, *calib, sp, ox, oy),
+         lambda: obs.obstacle_scan_from_disparity_plain(
+             m1, vd, *calib, sp, ox, oy),
+         scan_work("scan", 1, H, W, sp.bin_size), f"{W}x{H}, B = 1"),
+        ("scan", lambda: obs.obstacle_scan_from_disparity(
+            m8, vd, *calib, sp, ox, oy),
+         lambda: obs.obstacle_scan_from_disparity_plain(
+             m8, vd, *calib, sp, ox, oy),
+         scan_work("scan", 8, H, W, sp.bin_size), f"{W}x{H}, B = 8"),
+        ("cloud", lambda: obs.point_cloud_from_disparity(
+            dm5, None, *calib5, cfg5.sp),
+         lambda: obs.point_cloud_from_disparity_plain(
+             dm5, None, *calib5, cfg5.sp),
+         scan_work("cloud", CONFIG5_B, H5, W5),
+         f"config 5, B = {CONFIG5_B}, no colour"),
+        ("cloud", lambda: obs.point_cloud_from_disparity(
+            dm5, col5, *calib5, cfg5.sp),
+         lambda: obs.point_cloud_from_disparity_plain(
+             dm5, col5, *calib5, cfg5.sp),
+         scan_work("cloud", CONFIG5_B, H5, W5, colour=True),
+         f"config 5, B = {CONFIG5_B}, colour (planar view)"),
+        ("scan_points", lambda: obs.obstacle_scan_from_points(
+            pts5, valid5, cfg5.sp, cfg5.gp),
+         lambda: obs.obstacle_scan_from_points_plain(
+             pts5, valid5, cfg5.sp, cfg5.gp),
+         scan_work("scan_points", CONFIG5_B, H5, W5, cfg5.sp.bin_size),
+         f"config 5, B = {CONFIG5_B}"),
+    ]
+    times, entries = {}, []
+    replaces = {"scan": "jackal_tpu/scan/obstacle.py:105",
+                "cloud": "jackal_tpu/scan/obstacle.py:150",
+                "scan_points": "jackal_tpu/scan/obstacle.py:132"}
+    for k, kern_fn, plain, (nbytes, ops), label in runs:
+        ms = events_ms(kern_fn, 50)
+        pms = events_ms(plain, 3, spin=False)
+        bms, by = bound_ms(nbytes, ops, PEAK_F32_OPS_PER_S)
+        times[f"{k} {label}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                 "bound_by": by, "bytes": nbytes, "ops": ops}
+        print(f"14d. {k} at {label}: {ms:.5f} ms a call (CUDA events behind "
+              f"a spin; plain {pms:.3f}; bound {bms:.6f} by {by}: {nbytes} "
+              f"bytes, {ops} f32 operations, {ms / bms:.1f}x)")
+        if ms < bms:
+            raise AssertionError(f"{k} {label}: {ms} ms is below its bound "
+                                 f"{bms} ms")
+        if not any(e["name"] == k for e in entries):
+            entries.append({
+                "name": k, "route": "cuda",
+                "source": "jackal_tpu_torch/csrc/scan_kernel.cu",
+                "replaces": replaces[k],
+                "launches": SCAN_LAUNCHES["node" if k == "scan"
+                                          else "config 5"][k],
+                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "library_ms": None})
+    cloud5 = cfg5._cloud_stage(dm5)
+    stages = {
+        "node scan (P1)": host_ms(lambda: node_pipe._scan_stage(m1), 5),
+        "node scan, plain version": host_ms(
+            lambda: obs.obstacle_scan_from_disparity_plain(
+                m1, vd, *calib, sp, ox, oy), 5),
+        "config 5 cloud (P2)": host_ms(lambda: cfg5._cloud_stage(dm5), 5),
+        "config 5 cloud, plain version": host_ms(
+            lambda: obs.point_cloud_from_disparity_plain(
+                dm5, None, *calib5, cfg5.sp), 5),
+        "config 5 scan from the points (P3)": host_ms(
+            lambda: cfg5._points_scan(cloud5), 5),
+        "config 5 scan from the points, plain version": host_ms(
+            lambda: obs.obstacle_scan_from_points_plain(
+                cloud5[0], cloud5[2], cfg5.sp, cfg5.gp), 5)}
+    for k, v in stages.items():
+        print(f"  14d. stage {k}: {v:.3f} ms (host clock, median of 5)")
+    probes = scan_probes(dev)
+    return {"scan": {"times": times, "stages_ms": stages, "ffma": ffma,
+                     "launches": dict(SCAN_LAUNCHES), "probes": probes}}, \
+        entries
+
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -3021,6 +3548,7 @@ def shell_phase(dev):
     from jackal_tpu_torch.matching.elas import support as support_mod
     from jackal_tpu_torch.pipeline.default import make_pipeline
     from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+    from jackal_tpu_torch.scan import obstacle
 
     params = PipelineParams(logging=True, im_width=640, im_height=480,
                             crop_im_width=640, crop_im_height=480)
@@ -3040,13 +3568,15 @@ def shell_phase(dev):
         out = _StampedOut()
         support_mod.launches = dense_mod.launches = dp.launches = 0
         remap.launches["remap"] = 0
+        reset_scan()
         torch.cuda.synchronize()
         with contextlib.redirect_stdout(out):
             rc = module.main(argv)
         torch.cuda.synchronize()
         counts = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches, "raster": dp.launches,
-                  "remap": remap.launches["remap"]}
+                  "remap": remap.launches["remap"],
+                  **{k: obstacle.launches[k] for k in SCAN_KERNELS}}
         if rc != 0:
             raise AssertionError(f"{module.__name__} {argv}: rc {rc}\n"
                                  f"{out.text()}")
@@ -3099,9 +3629,12 @@ def shell_phase(dev):
             "--frames", "9", "-l", "-d", base + ".d", "-s", base + ".s",
             "--out", base + ".npz"])
         held(base + ".npz", frames, pipe, f"9a per frame, {name}")
-        if counts["support"] != 9 or counts["remap"] != 9:
+        if counts["support"] != 9 or counts["remap"] != 9 \
+                or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0]:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
-                                 f"times, N {counts['remap']} over 9 frames")
+                                 f"times, N {counts['remap']}, P1-P3 "
+                                 f"{[counts[k] for k in SCAN_KERNELS]} over "
+                                 f"9 frames")
         if name == "replay" and counts["elas_dense"] != 9:
             raise AssertionError(f"9a {name}: B launched "
                                  f"{counts['elas_dense']} times over 9 frames")
@@ -3132,7 +3665,8 @@ def shell_phase(dev):
             raise AssertionError(f"9b {frames} frames: {text}")
         batches = frames // 8
         want = {"support": batches, "elas_dense": batches,
-                "raster": 2 * batches, "remap": batches}
+                "raster": 2 * batches, "remap": batches, "scan": batches,
+                "cloud": 0, "scan_points": 0}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
                                  f"expected {want}")
@@ -3146,8 +3680,9 @@ def shell_phase(dev):
         "--size", "640x480", "--engine", "elas", "--source", replay,
         "--frames", "9", "-m", "--phi", *map(str, SHELL_PHI),
         "--trans", *map(str, SHELL_TRANS), "--out", base + ".npz"])
-    if counts["remap"] != 9:
-        raise AssertionError(f"9c: N launched {counts['remap']} times over 9 "
+    if counts["remap"] != 9 or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0]:
+        raise AssertionError(f"9c: N launched {counts['remap']} times, P1-P3"
+                             f" {[counts[k] for k in SCAN_KERNELS]} over 9 "
                              f"frames")
     moved = make_pipeline(engine="elas", params=params, device=dev)
     moved.update_extrinsics(SHELL_PHI, SHELL_TRANS)
@@ -3218,7 +3753,7 @@ def main() -> int:
     t = time.perf_counter()
     buildmod.build([native.LIBRARY] + [
         cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES
-        + ("bm_kernel_diag", "sad_rate")])
+        + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
@@ -3231,7 +3766,7 @@ def main() -> int:
                "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0,
                "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
-               "remap": 0.0}
+               "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -3457,6 +3992,7 @@ def main() -> int:
     for k in ep.speckle_routes:
         ep.speckle_routes[k] = 0
     remap_mod.launches["remap"] = 0
+    reset_scan()
     results, walls = [], []
     for i, (lr, rr) in enumerate(pairs):
         t = time.perf_counter()
@@ -3470,6 +4006,8 @@ def main() -> int:
     node_post_dev = dict(post_mod.device_launches)
     routes = dict(ep.speckle_routes)
     launches["remap"] = remap_mod.launches["remap"]
+    pin_scan(f"4. the node over {len(pairs)} frames (P1 once a frame)",
+             scan=len(pairs), key="node")
     print(f"node launches over {len(pairs)} frames: {launches}, {node_post}"
           f" (their kernel launches {node_post_dev}); speckle routes "
           f"{routes}")
@@ -3633,11 +4171,14 @@ def main() -> int:
     dp.launches = 0
     for k in post_mod.launches:
         post_mod.launches[k] = post_mod.device_launches[k] = 0
+    reset_scan()
     torch.cuda.synchronize()
     t = time.perf_counter()
     done = runner.run(iter(stream))
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t
+    pin_scan(f"4b. the batched node over {n_frames} frames (P1 once a "
+             f"batch)", scan=n_frames // batch, key="batched node")
     launches_b = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches,
                   "elas_dense_lr": dense_mod.lr_launches,
@@ -3975,6 +4516,14 @@ def main() -> int:
         dev, hold, (L1, L2), (BL1, BL2), pipe, (raw_l, raw_r),
         {"elas_speckle": node_post["elas_speckle"],
          "remap": launches["remap"]})
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
+
+    # ---- 14. the scan and the cloud: kernels P1-P3 ------------------------
+    node_maps = torch.from_numpy(np.stack([fr.dmap for fr in results])).to(dev)
+    line, entries = scan_phase(dev, hold, node_maps, pipe)
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

@@ -1297,3 +1297,122 @@ def test_rectify_colour_call_is_one_launch_and_equals_plain(dev):
     cnt = torch.zeros(2, dtype=torch.int32, device=dev)
     assert torch.equal(remap._remap_cuda([(colc, *cfg5.lmap)], cnt)[0], want)
     assert int(cnt[0]) == 10 * 30 and int(cnt[1]) == 0, cnt
+
+
+# ---- kernels P1-P3: the scan and the cloud ---------------------------------
+
+def _scan_calib(dev):
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    pipe = make_pipeline(engine="elas", device=dev)
+    return pipe, (pipe.Q32, pipe.XR32, pipe.XT32)
+
+
+@pytest.mark.parametrize("case", range(13))
+def test_scan_kernels_equal_plain(dev, case):
+    """chip_smoke.SCAN_EDGE_CASES: kernels P1, P2 and P3 against their
+    plain versions (NaN masks equal, torch.equal otherwise; rgb bits and
+    the valid mask torch.equal) on NaN and +-inf points, points a few ulps
+    either side of every bin edge at three fields of view, points on
+    y = -x (bin 90), points on the ground threshold, an empty and an
+    all-ground set, seeded maps at B = 1, 8 and 32 with and without
+    colour, a width that is no multiple of 32, crop offsets and a cache
+    that accepts d = 0; one launch a call."""
+    from chip_smoke import SCAN_EDGE_CASES, scan_edge_case, scan_hold
+
+    assert len(SCAN_EDGE_CASES) == 13
+    _, calib = _scan_calib(dev)
+    name = SCAN_EDGE_CASES[case]
+    out = scan_hold(scan_edge_case(name, dev), calib, _hold_equal, name)
+    if case == 0:
+        assert bool(torch.isnan(out.scan[3, 0]))
+    if case == 6:
+        want = torch.tensor([400.0, -400.0, 1e9, -500.0], device=dev)
+        got = torch.stack([out.angle_min, out.angle_max, out.range_min,
+                           out.range_max], -1)
+        assert torch.equal(got[:2], want.expand(2, 4))
+        assert bool((out.scan[:2] == 1e9).all())
+
+
+def test_scan_kernels_read_nothing_back(dev):
+    """The node's scan stage (P1) and the gen-pcl tail (P2, P3) at the
+    node's shape under torch.cuda.set_sync_debug_mode("error")."""
+    from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    pp = PipelineParams(gen_pcl=True, im_width=640, im_height=480,
+                        crop_im_width=640, crop_im_height=480)
+    pipe = make_pipeline(engine="bm", params=pp, device=dev)
+    dm = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 90, (2, 480, 640)).astype(np.uint8)).to(dev)
+    pipe._scan_stage(dm)
+    pipe._cloud_scan(dm)
+    torch.cuda.synchronize()
+    n0 = dict(obs.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scan = pipe._scan_stage(dm)
+        cloud, pscan = pipe._cloud_scan(dm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {k: obs.launches[k] - n0[k] for k in n0} == {
+        "scan": 1, "cloud": 1, "scan_points": 1}
+    want = obs.obstacle_scan_from_disparity_plain(
+        dm, pipe.valid_disp, pipe.Q32, pipe.XR32, pipe.XT32, pipe.sp)
+    assert torch.equal(scan.scan, want.scan)
+    assert pscan.scan.shape == (2, 90)
+
+
+def test_scan_launches_on_the_nodes(dev):
+    """P1 once a frame or a batch on a node without gen_pcl, never P2 or
+    P3; with gen_pcl P2 and P3 once a frame or a batch, never P1; each
+    node's scan equal to the CPU's within PERF.md's scan tolerance."""
+    from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    for gen_pcl in (False, True):
+        pp = PipelineParams(gen_pcl=gen_pcl)
+        card = make_pipeline(engine="bm", device=dev, params=pp)
+        cpu = make_pipeline(engine="bm", device="cpu", params=pp)
+        pairs = [synthetic_raw_pair(cpu, s, 9.0 + 3 * s, 0.05)
+                 for s in range(2)]
+        lb, rb = (np.stack([p[i] for p in pairs]) for i in range(2))
+        want = (0, 1, 1) if gen_pcl else (1, 0, 0)
+        n0 = dict(obs.launches)
+        fr = card.process_frame(*pairs[0])
+        assert tuple(obs.launches[k] - n0[k] for k in n0) == want
+        n0 = dict(obs.launches)
+        out = card.process_batch_pcl(lb, rb) if gen_pcl \
+            else card.process_batch(lb, rb)
+        assert tuple(obs.launches[k] - n0[k] for k in n0) == want
+        ref = cpu.process_frame(*pairs[0])
+        np.testing.assert_allclose(fr.scan.scan.cpu().numpy(),
+                                   ref.scan.scan.numpy(), rtol=1e-5)
+        assert out[-1].scan.shape == (2, 90)
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(dev):
+    from jackal_tpu_torch.config import ScanParams
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    pipe, calib = _scan_calib(dev)
+    H, W = pipe.valid_disp.shape[:2]
+    dm = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="valid range cache"):
+        obs.obstacle_scan_from_disparity(dm, pipe.valid_disp[:-1], *calib)
+    with pytest.raises(ValueError, match="uint8"):
+        obs.obstacle_scan_from_disparity(dm.float(), pipe.valid_disp,
+                                         *calib)
+    with pytest.raises(ValueError, match="bins"):
+        obs.obstacle_scan_from_disparity(dm, pipe.valid_disp, *calib,
+                                         ScanParams(bin_size=5000))
+    with pytest.raises(ValueError, match="colour"):
+        obs.point_cloud_from_disparity(dm, torch.zeros(
+            (H, W, 4), dtype=torch.uint8, device=dev), *calib)
+    with pytest.raises(ValueError, match="mask"):
+        obs.obstacle_scan_from_points(torch.zeros((5, 3), device=dev),
+                                      torch.ones(4, dtype=torch.bool,
+                                                 device=dev))
