@@ -117,9 +117,10 @@ Phases (any failure exits non-zero and prints no success line):
      against its plain twin on the rectified batch; (d) bench_bm256's
      process_batch_fused at B = 16, D = 256, and G against its plain twin
      on that rectified batch; each of these paths with G's, N's and
-     P1-P3's launch counters set to 0 just before and read just after
-     (G and N 9, 1, 6, 1, 1; the scan P1 9, 1, 6, 0, 1; config 5's cloud
-     P2 and its scan P3 once, never elsewhere), and rectify beside its
+     P1-P3's and cloud_scan's launch counters set to 0 just before and
+     read just after (G and N 9, 1, 6, 1, 1; the scan P1 9, 1, 6, 0, 1;
+     config 5's fused cloud and scan once, never elsewhere; P2 and P3
+     never), and rectify beside its
      plain version (7b, 7c); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
      device time, its plain twin's and its bound (and the bound as counted
      before G's packed instructions) at the node's shape, at D = 256, at
@@ -188,23 +189,30 @@ Phases (any failure exits non-zero and prints no success line):
      hop L replaced and L's split by phase (the first block's clock64 at
      each grid barrier); one JSON line;
   14. the scan and the cloud (scan_phase): kernels P1 (scan from a u8
-     map), P2 (the cloud) and P3 (scan from points) against their plain
-     versions on the card (NaN masks equal, torch.equal otherwise; rgb
-     bits and valid masks torch.equal; one launch a call) on
-     chip_smoke.SCAN_EDGE_CASES (NaN and +-inf points, points a few ulps
-     about every bin edge at three fields of view, bin 90, the ground
-     threshold, empty and all-ground sets, B = 1, 8 and 32, a width that
-     is no multiple of 32, crop offsets, colour present and absent, a
-     cache that accepts d = 0), on phase 4's 9 maps and on config 5's
-     batch; their FFMA counts against the same source built with
-     -fmad=false (no contraction; the FFMAs are the written __fmaf_rn and
-     the library's own inside atan2f, division and square root); no host
-     read inside a call (torch.cuda.set_sync_debug_mode); their times
+     map), P2 (the cloud), P3 (scan from points) and cloud_scan (P2 with
+     P3 as its epilogue, the gen-pcl paths' one launch) against their
+     plain versions on the card (NaN masks equal, torch.equal otherwise;
+     rgb bits and valid masks torch.equal; one launch a call; cloud_scan's
+     scan also against P3 on P2's cloud) on chip_smoke.SCAN_EDGE_CASES
+     (NaN and +-inf points, points a few ulps about every bin edge at
+     three fields of view, bin 90, the ground threshold, empty and
+     all-ground sets, B = 1, 8 and 32, a width that is no multiple of 32,
+     crop offsets, colour present and absent, a cache that accepts d = 0,
+     and the flush cases: every pair of subnormal, zero, tiny and unit
+     operand classes, the ground gate at a zero threshold, maps whose
+     reprojection flushes), on phase 4's 9 maps and on config 5's batch;
+     their FFMA counts against the same source built with -fmad=false (no
+     contraction; the FFMAs are the written __fmaf_rn and those inside
+     division and square root); no host read inside a call
+     (torch.cuda.set_sync_debug_mode), one kernel and no fill a call under
+     torch.profiler, the cached scratch zero after the calls; their times
      beside their plain versions' and their bounds (scan_work) at the
-     node's shape (P1 at B = 1 and 8) and config 5's (P2 with and without
-     colour, P3), the scan and cloud stages on the host clock, and probes
-     of the card's scatter_reduce at NaN and of the bin index the plain
-     version computed before (scan_probes); one JSON line;
+     node's shape (P1 at B = 1 and 8, and on a map whose every pixel is
+     rejected) and config 5's (P2 with and without colour, P3, cloud_scan
+     with and without colour), the scan and cloud stages on the host
+     clock, and probes of the card's scatter_reduce at NaN and of the bin
+     index the plain version computed before (scan_probes); one JSON
+     line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -1352,13 +1360,13 @@ def bm_phase(dev, hold):
         0 just before and read just after; raises unless G was launched
         ``want`` times, N (rectify, both views in one launch) ``rect``
         times and, once a frame or a batch, P1 (the scan) or, where
-        ``pcl``, P2 and P3 (the cloud and its scan)."""
+        ``pcl``, the fused cloud and scan (P2 and P3 never)."""
         bk.launches["bm"] = 0
         remap.launches["remap"] = 0
         reset_scan()
         out = fn()
         if pcl:
-            pin_scan(f"7c. {label}", cloud=rect, points=rect, key="config 5")
+            pin_scan(f"7c. {label}", fused=rect, key="config 5")
         else:
             pin_scan(f"7b. {label}", scan=rect)
         n, nr = bk.launches["bm"], remap.launches["remap"]
@@ -1532,9 +1540,8 @@ def bm_phase(dev, hold):
     dL5 = bk.bm_match_fused(L5, R5, p64)[0]
     st["texture gate + u8"] = host_ms(lambda: cfg5._dmap_u8(
         bm.bm_texture_gate(L5, dL5, p64)), 5)
-    st["cloud"] = host_ms(lambda: cfg5._cloud_stage(dm5), 5)
-    st["scan from the points"] = host_ms(lambda: cfg5._points_scan(cloud5),
-                                         5)
+    st["cloud and its scan (fused kernel)"] = host_ms(
+        lambda: cfg5._cloud_scan(dm5), 5)
     for k, v_ms in st.items():
         print(f"  config 5 stage {k}: {v_ms:.3f} ms")
     print("config 5 stages: " + json.dumps({k: round(x, 4)
@@ -3002,54 +3009,95 @@ def speckle_remap_phase(dev, hold, node, batch, pipe, raw, node_launches):
 
 # ---- kernels P1-P3: the scan and the cloud (phase 14) --------------------
 
-# the three scan kernels' names in the kernels line and in
-# scan/obstacle.launches: P1, P2, P3
-SCAN_KERNELS = ("scan", "cloud", "scan_points")
+# the scan kernels' names in the kernels line and in scan/obstacle.launches
+# (P1, P2, P3) and launches_fused (the fused cloud and scan)
+SCAN_KERNELS = ("scan", "cloud", "scan_points", "cloud_scan")
 # launches of P1-P3 read by pin_scan, by path (phase 14's kernels line)
 SCAN_LAUNCHES = {}
 # f32 operations a point as csrc/scan_kernel.cu writes them, an FFMA as two
-# and each of atan2f, __fdiv_rn and __fsqrt_rn as one (they take more
-# instructions on the card, so the bound stays a lower one). P1: the
-# pixel's coordinates 2, w and the numerators of X, Y, Z 4 x 6, the three
-# divisions 3, Xr and Yr 2 x 6, the range 4 (two products, a sum, the
-# root), atan2 1, the bin 4 (an FFMA, the ratio, floor); P2: 2 + 24 + 3
-# and Xr, Yr, Zr 3 x 6; P3: the ground threshold 3 (a difference, an
-# FFMA), then the range, atan2 and the bin as P1's
-SCAN_OPS = {"scan": 2 + 24 + 3 + 12 + 4 + 1 + 4, "cloud": 2 + 24 + 3 + 18,
-            "scan_points": 3 + 4 + 1 + 4}
+# and each __fdiv_rn and __fsqrt_rn as one (they take more instructions on
+# the card; flushes, selects and comparisons are not counted, so the bound
+# stays a lower one). Every point: P1 the pixel's coordinates 2, w and the
+# numerators of X, Y, Z 4 x 6, the three divisions 3, Xr and Yr 2 x 6; P2
+# 2 + 24 + 3 and Xr, Yr, Zr 3 x 6; P3 the ground threshold 3 (a
+# difference, an FFMA); cloud_scan P2's and P3's. An accepted point only
+# (SCAN_ACCEPTED_OPS; a rejected one skips them): the range 4 (a product,
+# an FFMA, the root), the angle 26 (glibc's atan2f on its shortest path:
+# the quotient 1, z and w 2, the two polynomials 11 + 9, t * (s1 + s2) 2,
+# t - p 1), the bin 4 (an FFMA, the ratio, floor)
+_ANGLE_OPS = 1 + 2 + 11 + 9 + 2 + 1
+SCAN_ACCEPTED_OPS = 4 + _ANGLE_OPS + 4
+SCAN_OPS = {"scan": 2 + 24 + 3 + 12, "cloud": 2 + 24 + 3 + 18,
+            "scan_points": 3}
+SCAN_OPS["cloud_scan"] = SCAN_OPS["cloud"] + SCAN_OPS["scan_points"]
 # the calibration the kernels read: Q [4, 4], XR [3, 3], XT [3] float32
 _CALIB_BYTES = (16 + 9 + 3) * 4
 
 
 def scan_work(kernel: str, B: int, H: int, W: int, bins: int = 90,
-              colour: bool = False):
+              colour: bool = False, accepted=None):
     """(bytes, f32 operations) of one call of kernel P1 ("scan"), P2
-    ("cloud") or P3 ("scan_points") on B sets of H x W pixels or points:
-    each input byte read once, each output byte written once. P1 reads the
-    u8 maps, the u8 [H, W, 2] cache and the calibration and writes bins + 4
-    floats a set; P2 reads the maps (and the colour frames) and the
-    calibration and writes 12 + 4 + 1 bytes a pixel; P3 reads 12 + 1 bytes
-    a point and writes as P1. Their int32 scratch is not counted."""
+    ("cloud"), P3 ("scan_points") or the fused cloud and scan
+    ("cloud_scan") on B sets of H x W pixels or points: each input byte
+    read once, each output byte written once. P1 reads the u8 maps, the u8
+    [H, W, 2] cache and the calibration and writes bins + 4 floats a set;
+    P2 reads the maps (and the colour frames) and the calibration and
+    writes 12 + 4 + 1 bytes a pixel; P3 reads 12 + 1 bytes a point and
+    writes as P1; cloud_scan moves P2's bytes and writes P1's outputs. The
+    int32 scratch is not counted. accepted: the points of these inputs that
+    the scan accepts (scan_accepted), which alone take the range, the angle
+    and the bin; None counts every point of a scan kernel as accepted (the
+    most the shape can need)."""
     n = B * H * W
     out = B * (bins + 4) * 4
-    nbytes = {"scan": n + 2 * H * W + _CALIB_BYTES + out,
-              "cloud": n * (1 + 3 * colour + 12 + 4 + 1) + _CALIB_BYTES,
-              "scan_points": n * 13 + out}[kernel]
-    return nbytes, n * SCAN_OPS[kernel]
+    cloud = n * (1 + 3 * colour + 12 + 4 + 1) + _CALIB_BYTES
+    nbytes = {"scan": n + 2 * H * W + _CALIB_BYTES + out, "cloud": cloud,
+              "scan_points": n * 13 + out, "cloud_scan": cloud + out}[kernel]
+    if kernel == "cloud":
+        accepted = 0
+    elif accepted is None:
+        accepted = n
+    return nbytes, n * SCAN_OPS[kernel] + accepted * SCAN_ACCEPTED_OPS
+
+
+def scan_accepted(valid_disp=None, dmaps=None, gp=None, pts=None,
+                  valid=None) -> int:
+    """The points a scan accepts, counted on the card by the plain
+    version's rules: P1's u8 dmaps within the valid-range cache
+    valid_disp, or (P3, cloud_scan) the points pts under their mask valid
+    that the ground gate gp keeps. Only these take the range, the angle
+    and the bin (scan_work's accepted)."""
+    import torch
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    if dmaps is not None:
+        d = dmaps.to(torch.int32)
+        ok = (d >= valid_disp[..., 0].to(torch.int32)) \
+            & (d <= valid_disp[..., 1].to(torch.int32))
+    else:
+        ok = valid & ~obs._ground_mask(pts[..., 0], pts[..., 2], gp)
+    return int(ok.sum())
+
+
+def scan_counts() -> dict:
+    """The launch counters of P1-P3 and the fused cloud and scan."""
+    from jackal_tpu_torch.scan import obstacle
+
+    return {**obstacle.launches, **obstacle.launches_fused}
 
 
 def pin_scan(label: str, scan: int = 0, cloud: int = 0, points: int = 0,
-             key=None) -> dict:
-    """Raise unless kernels P1, P2 and P3 launched scan, cloud and points
-    times since their counters were set to 0 (reset_scan); records the
-    counts under key in SCAN_LAUNCHES."""
-    from jackal_tpu_torch.scan import obstacle
-
-    got = dict(obstacle.launches)
-    want = dict(zip(SCAN_KERNELS, (scan, cloud, points)))
-    print(f"{label}: launches of P1-P3 {got}")
+             fused: int = 0, key=None) -> dict:
+    """Raise unless kernels P1, P2, P3 and the fused cloud and scan
+    launched scan, cloud, points and fused times since their counters were
+    set to 0 (reset_scan); records the counts under key in
+    SCAN_LAUNCHES."""
+    got = scan_counts()
+    want = dict(zip(SCAN_KERNELS, (scan, cloud, points, fused)))
+    print(f"{label}: launches of P1-P3 and cloud_scan {got}")
     if got != want:
-        raise AssertionError(f"{label}: P1-P3 launched {got}, not {want}")
+        raise AssertionError(f"{label}: P1-P3 and cloud_scan launched {got},"
+                             f" not {want}")
     if key is not None:
         SCAN_LAUNCHES[key] = got
     return got
@@ -3058,8 +3106,9 @@ def pin_scan(label: str, scan: int = 0, cloud: int = 0, points: int = 0,
 def reset_scan() -> None:
     from jackal_tpu_torch.scan import obstacle
 
-    for k in obstacle.launches:
-        obstacle.launches[k] = 0
+    for counts in (obstacle.launches, obstacle.launches_fused):
+        for k in counts:
+            counts[k] = 0
 
 
 # kernels P1-P3's cases (tests/test_torch_cuda.py runs them too)
@@ -3076,7 +3125,37 @@ SCAN_EDGE_CASES = (
     "seeded maps, B = 32 at 96 x 128, contiguous colour",
     "a width that is no multiple of 32: 2 x 37 x 101",
     "nonzero crop offsets: 150 x 300 at (8, 20)",
-    "a cache that accepts d = 0: NaN and infinite points")
+    "a cache that accepts d = 0: NaN and infinite points",
+    "flushed operands: [2, 0.1, 0.5] beside every pair of operand classes",
+    "flushed ground gate: zero height and distance, x and z of the classes",
+    "flushed reprojection: 4 x 12 x 16 maps whose Xr and Yr are tiny")
+
+
+def scan_classes():
+    """The operand classes of the scan's flush cases (as
+    tests/test_torch_scan_flush.py): +-0, the least subnormal, 1e-40,
+    1.17e-38, the largest subnormal, the least normal, 1e-20 and 1e-30
+    (whose squares underflow), +-1, +-2, +-inf, four seeded subnormals
+    and NaN."""
+    f32 = np.float32
+    mags = [f32(0.0), f32(1.4e-45), f32(1e-40), f32(1.17e-38),
+            np.array([0x007FFFFF], np.uint32).view(np.float32)[0],
+            f32(1.1754944e-38), f32(1e-20), f32(1e-30), f32(1.0), f32(2.0),
+            f32(np.inf)]
+    mags += list(np.random.default_rng(21).integers(1, 1 << 23, 4)
+                 .astype(np.uint32).view(np.float32))
+    return np.array([s * m for m in mags for s in (f32(1), f32(-1))]
+                    + [f32(np.nan)], np.float32)
+
+
+def tiny_calibration(sx: float, sy: float):
+    """Q, XR, XT (float32 numpy) whose products and sums are exact: w = d/2,
+    X = (u - 6) / w, Y = (v - 4) / w, Z = 8 / w; Xr = sx * Z, Yr = -sy * X,
+    Zr = -Y."""
+    Q = np.array([[1, 0, 0, -6], [0, 1, 0, -4], [0, 0, 0, 8],
+                  [0, 0, 0.5, 0]], np.float32)
+    XR = np.array([[0, 0, sx], [-sy, 0, 0], [0, -1, 0]], np.float32)
+    return Q, XR, np.zeros(3, np.float32)
 
 
 def scan_edge_thetas(sp, ulps: int = 8):
@@ -3106,11 +3185,14 @@ def scan_edge_case(name, dev):
     presets' field and at two others; points on y = -x (bin 90, dropped);
     points on the ground threshold (Zr = the float64 threshold rounded);
     a set with no valid point and one whose points all lie under the
-    ground beside a full one. Maps: seeded u8 maps with seeded caches at
-    the node's shape, 8 frames with the node's channel-planar colour
-    view, 32 frames, a width that is no multiple of 32, crop offsets, and
-    a cache whose lower bound is 0 (w = 0 there: infinite and NaN
-    points)."""
+    ground beside a full one; the flush cases: a set a pair of operand
+    classes (scan_classes) beside [2, 0.1, 0.5], and the ground gate at a
+    zero threshold with x and z of the classes. Maps: seeded u8 maps with
+    seeded caches at the node's shape, 8 frames with the node's
+    channel-planar colour view, 32 frames, a width that is no multiple of
+    32, crop offsets, a cache whose lower bound is 0 (w = 0 there:
+    infinite and NaN points), and maps with their own calibration
+    ("calib": tiny_calibration) whose reprojection flushes."""
     import torch
     from jackal_tpu_torch.config import GroundPlaneParams, ScanParams
 
@@ -3165,6 +3247,30 @@ def scan_edge_case(name, dev):
         valid = np.ones((3, N), bool)
         valid[0] = False                         # no valid point
         return points(pts, valid)
+    if i in (13, 14):
+        c = scan_classes()
+        if i == 13:
+            y, x = (a.ravel() for a in np.meshgrid(c, c, indexing="ij"))
+            z = np.full_like(x, 0.5)
+        else:
+            gp = GroundPlaneParams(height_thresh=0.0, dist_thresh=0.0)
+            z, x = (a.ravel() for a in np.meshgrid(c[np.isfinite(c)], c,
+                                                   indexing="ij"))
+            y = np.full_like(x, 0.25)
+        pts = np.stack([np.broadcast_to(np.float32([2.0, 0.1, 0.5]),
+                                        (x.size, 3)),
+                        np.stack([x, y, z], -1)], 1)
+        return points(pts, np.ones((x.size, 2), bool))
+    if i == 15:
+        dm = rng.integers(0, 60, (4, 12, 16)).astype(np.uint8)
+        lo = rng.integers(0, 4, (12, 16))
+        vd = np.stack([lo, np.full_like(lo, 255)], -1).astype(np.uint8)
+        col = rng.integers(0, 256, (4, 12, 16, 3)).astype(np.uint8)
+        return {"sp": sp, "gp": gp, "maps": tuple(
+            torch.from_numpy(a).to(dev) for a in (dm, vd)) + (0, 0, (
+                torch.from_numpy(col).to(dev))), "calib": tuple(
+            torch.from_numpy(a).to(dev)
+            for a in tiny_calibration(2.0 ** -66, 2.0 ** -130))}
     lead, (H, W), ox, oy, colour = (
         ((1,), (480, 640), 0, 0, None), ((8,), (480, 640), 0, 0, "planar"),
         ((32,), (96, 128), 0, 0, "contiguous"), ((2,), (37, 101), 0, 0, None),
@@ -3203,9 +3309,11 @@ def scan_same(kernel, name, got, want, hold):
 
 
 def scan_hold(case, calib, hold, label):
-    """Kernels P1, P2 and P3 against their plain versions on the card on
-    one case of scan_edge_case (or a dict of its form): P1 on its maps,
-    P2 on its maps with its colour and without, P3 on its points or on
+    """Kernels P1, P2, P3 and the fused cloud and scan against their plain
+    versions on the card on one case of scan_edge_case (or a dict of its
+    form; its own "calib" in place of calib where it has one): P1 on its
+    maps; P2 and the fused kernel on its maps with its colour and without,
+    the fused scan also against P3 on P2's cloud; P3 on its points or on
     P2's cloud of its maps. Scans: NaN masks equal, torch.equal otherwise
     (scan_same); clouds: points so, rgb bits and valid torch.equal.
     Raises unless each call launched its kernel once. Returns the
@@ -3213,11 +3321,18 @@ def scan_hold(case, calib, hold, label):
     import torch
     from jackal_tpu_torch.scan import obstacle as obs
 
-    Q, XR, XT = calib
+    Q, XR, XT = case.get("calib", calib)
     sp, gp = case["sp"], case["gp"]
     fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
-    n0 = dict(obs.launches)
+    n0 = scan_counts()
     calls = {k: 0 for k in SCAN_KERNELS}
+
+    def cloud_same(kernel, name, got, want):
+        scan_same(kernel, f"{name} points", [got[0]], [want[0]], hold)
+        hold(kernel, f"{name} rgb bits and valid",
+             [got[1].view(torch.int32), got[2]],
+             [want[1].view(torch.int32), want[2]])
+
     if "maps" in case:
         dm, vd, ox, oy, col = case["maps"]
         got = obs.obstacle_scan_from_disparity(dm, vd, Q, XR, XT, sp, ox, oy)
@@ -3225,19 +3340,30 @@ def scan_hold(case, calib, hold, label):
                                                       ox, oy)
         scan_same("scan", f"P1 {label}", [getattr(got, f) for f in fields],
                   [getattr(want, f) for f in fields], hold)
+        calls["scan"] += 1
         out = got
         for c in (col, None) if col is not None else (None,):
+            tag = f"{label}, colour {c is not None}"
             cloud = obs.point_cloud_from_disparity(dm, c, Q, XR, XT, sp, ox,
                                                    oy)
-            plain = obs.point_cloud_from_disparity_plain(dm, c, Q, XR, XT, sp,
-                                                         ox, oy)
-            scan_same("cloud", f"P2 {label}, colour {c is not None}",
-                      [cloud[0]], [plain[0]], hold)
-            hold("cloud", f"P2 {label} rgb bits and valid",
-                 [cloud[1].view(torch.int32), cloud[2]],
-                 [plain[1].view(torch.int32), plain[2]])
+            cloud_same("cloud", f"P2 {tag}", cloud,
+                       obs.point_cloud_from_disparity_plain(
+                           dm, c, Q, XR, XT, sp, ox, oy))
+            fc, fs = obs.cloud_and_scan_from_disparity(dm, c, Q, XR, XT, sp,
+                                                       gp, ox, oy)
+            pc, ps = obs.cloud_and_scan_from_disparity_plain(
+                dm, c, Q, XR, XT, sp, gp, ox, oy)
+            cloud_same("cloud_scan", f"cloud_scan {tag}", fc, pc)
+            scan_same("cloud_scan", f"cloud_scan {tag} scan",
+                      [getattr(fs, f) for f in fields],
+                      [getattr(ps, f) for f in fields], hold)
+            p3 = obs.obstacle_scan_from_points(cloud[0], cloud[2], sp, gp)
+            scan_same("cloud_scan", f"cloud_scan {tag} scan against P2 then "
+                      f"P3", [getattr(fs, f) for f in fields],
+                      [getattr(p3, f) for f in fields], hold)
             calls["cloud"] += 1
-        calls["scan"] += 1
+            calls["cloud_scan"] += 1
+            calls["scan_points"] += 1
         pts, valid = cloud[0], cloud[2]
     else:
         pts, valid = case["points"]
@@ -3246,11 +3372,51 @@ def scan_hold(case, calib, hold, label):
     scan_same("scan_points", f"P3 {label}", [getattr(got, f) for f in fields],
               [getattr(want, f) for f in fields], hold)
     calls["scan_points"] += 1
-    grew = {k: obs.launches[k] - n0[k] for k in SCAN_KERNELS}
+    grew = {k: v - n0[k] for k, v in scan_counts().items()}
     if grew != calls:
         raise AssertionError(f"scan {label}: launches {grew} for {calls} "
                              f"calls")
     return out if "maps" in case else got
+
+
+def scratch_zero() -> int:
+    """The entries of the scan kernels' cached scratch (scan/obstacle
+    _scratch); raises unless every one is 0 (each launch's last blocks set
+    it back)."""
+    import torch
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    torch.cuda.synchronize()
+    bad = {k: int(t.count_nonzero()) for k, t in obs._scratch.items()
+           if bool(t.any())}
+    if bad:
+        raise AssertionError(f"scan scratch not set back to 0: {bad}")
+    return sum(t.numel() for t in obs._scratch.values())
+
+
+def aten_ops_of_a_call(fn) -> list:
+    """(name, launches no kernel on the card) of each ATen op that fn()
+    dispatches: an op whose outputs lie on the host, a view or an
+    allocation launches none; a kernel launched through ctypes is no ATen
+    op."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    ops = []
+
+    class _Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            on_card = any(isinstance(t, torch.Tensor) and t.is_cuda
+                          for t in tree_leaves(out))
+            ops.append((str(func), not on_card or func.is_view
+                        or str(func).startswith("aten.empty")))
+            return out
+
+    with _Log():
+        fn()
+    return ops
 
 
 def sass_by_function(path: str, prefix: str, names) -> dict:
@@ -3324,23 +3490,28 @@ def scan_probes(dev) -> dict:
 
 
 def scan_phase(dev, hold, node_maps, node_pipe):
-    """Phase 14: kernels P1 (scan from a map), P2 (the cloud) and P3 (scan
-    from points) of csrc/scan_kernel.cu. (a) Each against its plain
-    version on the card on SCAN_EDGE_CASES (scan_hold: NaN masks equal,
-    torch.equal otherwise; one launch a call), on phase 4's 9 node maps
-    (one call of 9 and each map alone) and on BASELINE config 5's batch
-    of 32 maps with its colour frames and without; (b) the FFMAs of each
-    kernel equal those of the same source built with -fmad=false (the
-    written __fmaf_rn and the library's own: no contraction), and no
-    DFMA; (c) a call reads nothing back to the host
-    (torch.cuda.set_sync_debug_mode); (d) the kernels' times (CUDA events
-    behind a spin, 50 calls) beside their plain versions' and their
-    bounds (scan_work) at the node's shape (P1, B = 1 and 8) and config
-    5's (P2 with and without colour, P3), and the stage times (host clock)
-    of the node's scan and config 5's cloud and scan from the points
-    beside the plain versions'. node_maps: phase 4's u8 maps [9, H, W] on
-    the card; node_pipe: phase 4's pipeline. Returns (the phase's JSON
-    line, the kernels line's entries of P1-P3)."""
+    """Phase 14: kernels P1 (scan from a map), P2 (the cloud), P3 (scan
+    from points) and the fused cloud and scan (P2 with P3 as its epilogue)
+    of csrc/scan_kernel.cu. (a) Each against its plain version on the card
+    on SCAN_EDGE_CASES (scan_hold: NaN masks equal, torch.equal otherwise;
+    one launch a call; the fused scan also against P3 on P2's cloud), on
+    phase 4's 9 node maps (one call of 9 and each map alone) and on
+    BASELINE config 5's batch of 32 maps with its colour frames and
+    without; (b) the FFMAs of each kernel equal those of the same source
+    built with -fmad=false (the written __fmaf_rn and the library's own:
+    no contraction), and no DFMA; (c) a call reads nothing back to the
+    host (torch.cuda.set_sync_debug_mode), is one kernel and no fill under
+    torch.profiler, and leaves the cached scratch zero; (d) the kernels'
+    times (CUDA events behind a spin, 50 calls) beside their plain
+    versions' and their bounds (scan_work) at the node's shape (P1, B = 1
+    and 8, and on a map whose every pixel is rejected: no angle, range or
+    bin atomics) and
+    config 5's (P2 with and without colour, P3, the fused kernel with and
+    without colour), and the stage times (host clock) of the node's scan
+    and config 5's fused cloud and scan beside the plain versions' and the
+    standalone P2 and P3. node_maps: phase 4's u8 maps [9, H, W] on the
+    card; node_pipe: phase 4's pipeline. Returns (the phase's JSON line,
+    the kernels line's entries of P1-P3 and the fused kernel)."""
     import torch
     from jackal_tpu_torch.config import BMParams, PipelineParams
     from jackal_tpu_torch.ops import cuda_lib
@@ -3350,8 +3521,9 @@ def scan_phase(dev, hold, node_maps, node_pipe):
     calib = (node_pipe.Q32, node_pipe.XR32, node_pipe.XT32)
     for name in SCAN_EDGE_CASES:
         scan_hold(scan_edge_case(name, dev), calib, hold, name)
-    print(f"14a. kernels P1-P3 == plain (NaN masks equal, torch.equal "
-          f"otherwise; one launch a call): {', '.join(SCAN_EDGE_CASES)}")
+    print(f"14a. kernels P1-P3 and cloud_scan == plain (NaN masks equal, "
+          f"torch.equal otherwise; one launch a call): "
+          f"{', '.join(SCAN_EDGE_CASES)}")
     sp, gp = node_pipe.sp, node_pipe.gp
     node_case = {"sp": sp, "gp": gp, "maps": (
         node_maps, node_pipe.valid_disp, node_pipe.p.crop_offset_x,
@@ -3378,14 +3550,15 @@ def scan_phase(dev, hold, node_maps, node_pipe):
     scan_hold({"sp": cfg5.sp, "gp": cfg5.gp, "maps": (
         dm5, cfg5.valid_disp, cfg5.p.crop_offset_x, cfg5.p.crop_offset_y,
         col5)}, calib5, hold, f"config 5's {CONFIG5_B} maps")
-    print(f"14a. kernels P1-P3 == plain on phase 4's 9 node maps (one call "
-          f"and each alone) and config 5's {CONFIG5_B} maps, colour as the "
-          f"node's planar view and none")
+    print(f"14a. kernels P1-P3 and cloud_scan == plain on phase 4's 9 node "
+          f"maps (one call and each alone) and config 5's {CONFIG5_B} maps, "
+          f"colour as the node's planar view and none; cloud_scan's scan == "
+          f"P3 on P2's cloud")
 
     # (b) no contraction: the FFMAs are those the source writes and the
     # library functions' own, as in a build with -fmad=false
     fns = ("scan_from_disparity_kernel", "point_cloud_kernel",
-           "scan_from_points_kernel")
+           "scan_from_points_kernel", "cloud_scan_kernel")
     ffma = {lib: sass_by_function(cuda_lib.library(lib).path, "FFMA", fns)
             for lib in ("scan_kernel", "scan_kernel_nofmad")}
     dfma = sass_by_function(cuda_lib.library("scan_kernel").path, "DFMA", fns)
@@ -3393,7 +3566,7 @@ def scan_phase(dev, hold, node_maps, node_pipe):
           f"; built with -fmad=false: {ffma['scan_kernel_nofmad']}; DFMA "
           f"{dfma}")
     if ffma["scan_kernel"] != ffma["scan_kernel_nofmad"] \
-            or len(ffma["scan_kernel"]) != 3 or any(dfma.values()):
+            or len(ffma["scan_kernel"]) != 4 or any(dfma.values()):
         raise AssertionError(f"scan kernels: FFMA {ffma}, DFMA {dfma}: "
                              f"contracted")
 
@@ -3405,29 +3578,61 @@ def scan_phase(dev, hold, node_maps, node_pipe):
     try:
         node_pipe._scan_stage(node_maps[0])
         cfg5._cloud_scan(dm5, None)
+        obs.obstacle_scan_from_points(pts5, valid5, cfg5.sp, cfg5.gp)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    print("14c. the node's scan stage and config 5's cloud and scan from "
-          "the points under torch.cuda.set_sync_debug_mode('error'): no "
-          "host read")
+    print("14c. the node's scan stage, config 5's fused cloud and scan and "
+          "P3 under torch.cuda.set_sync_debug_mode('error'): no host read")
+    one_call = {}
+    for k, fn in (("scan", lambda: node_pipe._scan_stage(node_maps[0])),
+                  ("scan_points", lambda: obs.obstacle_scan_from_points(
+                      pts5, valid5, cfg5.sp, cfg5.gp)),
+                  ("cloud_scan", lambda: cfg5._cloud_scan(dm5))):
+        n0 = scan_counts()
+        ops = aten_ops_of_a_call(fn)
+        grew = {c: v - n0[c] for c, v in scan_counts().items() if v != n0[c]}
+        if grew != {k: 1} or not all(ok for _, ok in ops):
+            raise AssertionError(f"{k}: a call launched {grew} and ran the "
+                                 f"ATen ops {ops}: not one kernel alone")
+        one_call[k] = sorted({name for name, _ in ops})
+    print(f"14c. one call each: its kernel once, and no ATen op on the card "
+          f"but views and allocations (no fill, no copy): {one_call}")
+    cells = scratch_zero()
+    print(f"14c. the scan kernels' cached scratch ({len(obs._scratch)} "
+          f"buffers, {cells} entries) is all zero after the phase's calls")
 
     # (d) times at the main paths' shapes
     H, W = node_maps.shape[-2:]
     m1, m8 = node_maps[0], node_maps[:8]
     vd = node_pipe.valid_disp
     ox, oy = node_pipe.p.crop_offset_x, node_pipe.p.crop_offset_y
+    # d = 2 lies below every cache entry's lower bound (d >= 3 there), and
+    # its w is no 0 (d = 0 would send every division down its slow path)
+    rejected1 = torch.full_like(m1, 2)
+    if bool((obs.obstacle_scan_from_disparity_plain(
+            rejected1, vd, *calib, sp, ox, oy).scan < obs.INF).any()):
+        raise AssertionError("scan: the all-rejected map filled a bin")
     H5, W5 = dm5.shape[-2:]
+    # the points each run's scan accepts: they alone take the range, the
+    # angle and the bin (scan_work)
+    acc1, acc8, acc0 = (scan_accepted(vd, m) for m in (m1, m8, rejected1))
+    acc5 = scan_accepted(gp=cfg5.gp, pts=pts5, valid=valid5)
+    print(f"14d. points accepted: {acc1} of {H * W} at B = 1, {acc8} of "
+          f"{8 * H * W} at B = 8, {acc0} on the all-rejected map, {acc5} of "
+          f"{CONFIG5_B * H5 * W5} at config 5")
     runs = [
         ("scan", lambda: obs.obstacle_scan_from_disparity(
             m1, vd, *calib, sp, ox, oy),
          lambda: obs.obstacle_scan_from_disparity_plain(
              m1, vd, *calib, sp, ox, oy),
-         scan_work("scan", 1, H, W, sp.bin_size), f"{W}x{H}, B = 1"),
+         scan_work("scan", 1, H, W, sp.bin_size, accepted=acc1),
+         f"{W}x{H}, B = 1"),
         ("scan", lambda: obs.obstacle_scan_from_disparity(
             m8, vd, *calib, sp, ox, oy),
          lambda: obs.obstacle_scan_from_disparity_plain(
              m8, vd, *calib, sp, ox, oy),
-         scan_work("scan", 8, H, W, sp.bin_size), f"{W}x{H}, B = 8"),
+         scan_work("scan", 8, H, W, sp.bin_size, accepted=acc8),
+         f"{W}x{H}, B = 8"),
         ("cloud", lambda: obs.point_cloud_from_disparity(
             dm5, None, *calib5, cfg5.sp),
          lambda: obs.point_cloud_from_disparity_plain(
@@ -3444,13 +3649,38 @@ def scan_phase(dev, hold, node_maps, node_pipe):
             pts5, valid5, cfg5.sp, cfg5.gp),
          lambda: obs.obstacle_scan_from_points_plain(
              pts5, valid5, cfg5.sp, cfg5.gp),
-         scan_work("scan_points", CONFIG5_B, H5, W5, cfg5.sp.bin_size),
+         scan_work("scan_points", CONFIG5_B, H5, W5, cfg5.sp.bin_size,
+                   accepted=acc5),
          f"config 5, B = {CONFIG5_B}"),
+        ("cloud_scan", lambda: obs.cloud_and_scan_from_disparity(
+            dm5, None, *calib5, cfg5.sp, cfg5.gp),
+         lambda: obs.cloud_and_scan_from_disparity_plain(
+             dm5, None, *calib5, cfg5.sp, cfg5.gp),
+         scan_work("cloud_scan", CONFIG5_B, H5, W5, cfg5.sp.bin_size,
+                   accepted=acc5),
+         f"config 5, B = {CONFIG5_B}, no colour"),
+        ("cloud_scan", lambda: obs.cloud_and_scan_from_disparity(
+            dm5, col5, *calib5, cfg5.sp, cfg5.gp),
+         lambda: obs.cloud_and_scan_from_disparity_plain(
+             dm5, col5, *calib5, cfg5.sp, cfg5.gp),
+         scan_work("cloud_scan", CONFIG5_B, H5, W5, cfg5.sp.bin_size,
+                   colour=True, accepted=acc5),
+         f"config 5, B = {CONFIG5_B}, colour (planar view)"),
+        # P1 with every pixel rejected: the reprojection and the blocks'
+        # reduction alone (no angle, no range, no bin added to a set's
+        # keys; the extrema's 4 still)
+        ("scan", lambda: obs.obstacle_scan_from_disparity(
+            rejected1, vd, *calib, sp, ox, oy),
+         lambda: obs.obstacle_scan_from_disparity_plain(
+             rejected1, vd, *calib, sp, ox, oy),
+         scan_work("scan", 1, H, W, sp.bin_size, accepted=acc0),
+         f"{W}x{H}, B = 1, every pixel rejected"),
     ]
     times, entries = {}, []
     replaces = {"scan": "jackal_tpu/scan/obstacle.py:105",
                 "cloud": "jackal_tpu/scan/obstacle.py:150",
-                "scan_points": "jackal_tpu/scan/obstacle.py:132"}
+                "scan_points": "jackal_tpu/scan/obstacle.py:132",
+                "cloud_scan": "jackal_tpu/scan/obstacle.py:150"}
     for k, kern_fn, plain, (nbytes, ops), label in runs:
         ms = events_ms(kern_fn, 50)
         pms = events_ms(plain, 3, spin=False)
@@ -3472,27 +3702,28 @@ def scan_phase(dev, hold, node_maps, node_pipe):
                                           else "config 5"][k],
                 "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "library_ms": None})
-    cloud5 = cfg5._cloud_stage(dm5)
     stages = {
         "node scan (P1)": host_ms(lambda: node_pipe._scan_stage(m1), 5),
         "node scan, plain version": host_ms(
             lambda: obs.obstacle_scan_from_disparity_plain(
                 m1, vd, *calib, sp, ox, oy), 5),
-        "config 5 cloud (P2)": host_ms(lambda: cfg5._cloud_stage(dm5), 5),
-        "config 5 cloud, plain version": host_ms(
-            lambda: obs.point_cloud_from_disparity_plain(
+        "config 5 cloud and scan (fused kernel)": host_ms(
+            lambda: cfg5._cloud_scan(dm5), 5),
+        "config 5 cloud and scan, plain version": host_ms(
+            lambda: obs.cloud_and_scan_from_disparity_plain(
+                dm5, None, *calib5, cfg5.sp, cfg5.gp), 5),
+        "config 5 cloud (P2 alone)": host_ms(
+            lambda: obs.point_cloud_from_disparity(
                 dm5, None, *calib5, cfg5.sp), 5),
-        "config 5 scan from the points (P3)": host_ms(
-            lambda: cfg5._points_scan(cloud5), 5),
-        "config 5 scan from the points, plain version": host_ms(
-            lambda: obs.obstacle_scan_from_points_plain(
-                cloud5[0], cloud5[2], cfg5.sp, cfg5.gp), 5)}
+        "config 5 scan from the points (P3 alone)": host_ms(
+            lambda: obs.obstacle_scan_from_points(
+                pts5, valid5, cfg5.sp, cfg5.gp), 5)}
     for k, v in stages.items():
         print(f"  14d. stage {k}: {v:.3f} ms (host clock, median of 5)")
     probes = scan_probes(dev)
     return {"scan": {"times": times, "stages_ms": stages, "ffma": ffma,
-                     "launches": dict(SCAN_LAUNCHES), "probes": probes}}, \
-        entries
+                     "launches": dict(SCAN_LAUNCHES), "one_call": one_call,
+                     "probes": probes}}, entries
 
 
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
@@ -3576,7 +3807,7 @@ def shell_phase(dev):
         counts = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches, "raster": dp.launches,
                   "remap": remap.launches["remap"],
-                  **{k: obstacle.launches[k] for k in SCAN_KERNELS}}
+                  **scan_counts()}
         if rc != 0:
             raise AssertionError(f"{module.__name__} {argv}: rc {rc}\n"
                                  f"{out.text()}")
@@ -3630,7 +3861,7 @@ def shell_phase(dev):
             "--out", base + ".npz"])
         held(base + ".npz", frames, pipe, f"9a per frame, {name}")
         if counts["support"] != 9 or counts["remap"] != 9 \
-                or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0]:
+                or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0]:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
                                  f"times, N {counts['remap']}, P1-P3 "
                                  f"{[counts[k] for k in SCAN_KERNELS]} over "
@@ -3666,7 +3897,7 @@ def shell_phase(dev):
         batches = frames // 8
         want = {"support": batches, "elas_dense": batches,
                 "raster": 2 * batches, "remap": batches, "scan": batches,
-                "cloud": 0, "scan_points": 0}
+                "cloud": 0, "scan_points": 0, "cloud_scan": 0}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
                                  f"expected {want}")
@@ -3680,7 +3911,8 @@ def shell_phase(dev):
         "--size", "640x480", "--engine", "elas", "--source", replay,
         "--frames", "9", "-m", "--phi", *map(str, SHELL_PHI),
         "--trans", *map(str, SHELL_TRANS), "--out", base + ".npz"])
-    if counts["remap"] != 9 or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0]:
+    if counts["remap"] != 9 \
+            or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0]:
         raise AssertionError(f"9c: N launched {counts['remap']} times, P1-P3"
                              f" {[counts[k] for k in SCAN_KERNELS]} over 9 "
                              f"frames")
@@ -3766,7 +3998,8 @@ def main() -> int:
                "census": 0.0, "sgm_paths": 0.0, "sgm_wta": 0.0, "bm": 0.0,
                "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
-               "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0}
+               "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0,
+               "cloud_scan": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);

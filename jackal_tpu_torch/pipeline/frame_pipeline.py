@@ -19,7 +19,8 @@ With PipelineParams(gen_pcl=True) the node exports the point cloud (every
 pixel with d >= 2 as a robot-frame point with its packed colour) and builds
 the scan from its points with ground rejection: process_frame with a
 colour frame, process_batch_fused_pcl (BM, SGM) and process_batch_pcl
-(every engine).
+(every engine), the cloud and its scan one launch of the fused kernel on
+the card (scan/obstacle.cloud_and_scan_from_disparity).
 
 Per-stage wall-clock times mirror the -l/-d/-s hooks (point_cloud.cpp:
 446-462); with ``timing=True`` each stage ends in a device synchronize.
@@ -46,9 +47,8 @@ from ..matching.bm import bm_texture_gate
 from ..matching.elas.pipeline import elas_match, elas_match_batch_device
 from ..matching.sgm import sgm_match_batch
 from ..ops.bm_kernel import bm_match_fused
-from ..scan.obstacle import (ScanResult, obstacle_scan_from_disparity,
-                             obstacle_scan_from_points,
-                             point_cloud_from_disparity)
+from ..scan.obstacle import (ScanResult, cloud_and_scan_from_disparity,
+                             obstacle_scan_from_disparity)
 from ..scan.valid_disp import cache_disparity_values
 
 
@@ -162,23 +162,16 @@ class StereoPipeline:
             dmap_u8, self.valid_disp, self.Q32, self.XR32, self.XT32,
             self.sp, self.p.crop_offset_x, self.p.crop_offset_y)
 
-    def _cloud_stage(self, dmaps: torch.Tensor, color=None):
-        """(points, rgb, valid) of u8 maps [..., h, w]; color: raw uint8
-        [..., H, W, 3] frames (host or device), or None."""
+    def _cloud_scan(self, dmaps: torch.Tensor, color=None):
+        """The gen-pcl tail of u8 maps [..., h, w]: (cloud (points, rgb,
+        valid), scan from its points), one launch of the fused cloud and
+        scan on the card. color: raw uint8 [..., H, W, 3] frames (host or
+        device), or None."""
         col = None if color is None else self._rectify_crop_color(
             torch.as_tensor(color).to(self.device))
-        return point_cloud_from_disparity(
-            dmaps, col, self.Q32, self.XR32, self.XT32, self.sp,
+        return cloud_and_scan_from_disparity(
+            dmaps, col, self.Q32, self.XR32, self.XT32, self.sp, self.gp,
             self.p.crop_offset_x, self.p.crop_offset_y)
-
-    def _points_scan(self, cloud) -> ScanResult:
-        pts, _, valid = cloud
-        return obstacle_scan_from_points(pts, valid, self.sp, self.gp)
-
-    def _cloud_scan(self, dmaps: torch.Tensor, color=None):
-        """The gen-pcl tail of u8 maps: (cloud, scan from its points)."""
-        cloud = self._cloud_stage(dmaps, color)
-        return cloud, self._points_scan(cloud)
 
     def _sync(self, timing: bool) -> float:
         if timing and self.device.type == "cuda":
@@ -191,7 +184,8 @@ class StereoPipeline:
     ) -> FrameResult:
         """One raw uint8 stereo pair [H, W] -> u8 disparity map + scan; with
         gen_pcl also the cloud (colours from color_bgr [H, W, 3], or zero)
-        and a scan built from its points."""
+        and a scan built from its points, in one fused launch that
+        pcl_time carries (scan_time is what remains after it)."""
         dev = self.device
         tr = self._sync(timing)
         left, right = self._rectify_crop(torch.as_tensor(left_raw).to(dev),
@@ -206,9 +200,8 @@ class StereoPipeline:
         t1 = tc = time.perf_counter()
         cloud = None
         if self.p.gen_pcl:
-            cloud = self._cloud_stage(dmap_t, color_bgr)
+            cloud, scan = self._cloud_scan(dmap_t, color_bgr)
             tc = self._sync(timing)
-            scan = self._points_scan(cloud)
         else:
             scan = self._scan_stage(dmap_t)
         t2 = self._sync(timing)
@@ -286,13 +279,14 @@ class StereoPipeline:
         on BM: raw uint8 [B, H, W] stereo batches (and colour frames [B, H,
         W, 3] or None) -> (u8 maps, cloud (points [B, h*w, 3], rgb [B,
         h*w], valid [B, h*w]), ScanResult from the points), device
-        tensors. With ``timing``, each stage ends in a device synchronize
-        and a fourth item follows: (dmap_time, pcl_time, scan_time) per
-        frame, in seconds."""
+        tensors; the cloud and its scan are one fused launch on the card.
+        With ``timing``, each stage ends in a device synchronize and a
+        fourth item follows: (dmap_time, pcl_time, scan_time) per frame, in
+        seconds, pcl_time carrying the fused launch and scan_time what
+        remains after it."""
         dmaps, t0, t1 = self._fused_maps(left_raw_b, right_raw_b, timing)
-        cloud = self._cloud_stage(dmaps, color_bgr_b)
+        cloud, scans = self._cloud_scan(dmaps, color_bgr_b)
         t2 = self._sync(timing)
-        scans = self._points_scan(cloud)
         if not timing:
             return dmaps, cloud, scans
         n = dmaps.shape[0]

@@ -21,7 +21,9 @@ synchronizes, per frame. ELAS: dmap = the batch interval up to its
 disparity maps (what a consumer of the depth topic sees in the stream),
 pcl = the cloud stage, scan = the scan stage. SGM and BM: the sampled batch
 runs process_batch_fused(_pcl) with timing, dmap = rectified pair to u8
-maps, pcl = the cloud, scan = the scan stage. Other batches log nothing.
+maps, pcl = the cloud, scan = the scan stage. With gen_pcl the cloud and
+its scan are one fused launch: pcl carries it, scan is what remains after
+it. Other batches log nothing.
 """
 from __future__ import annotations
 
@@ -149,12 +151,12 @@ class StreamingRunner:
                 dmaps = pipe._dmap_u8(D1)
                 stage_times = cloud = None
                 t1 = pipe._sync(sampled)
-                if pipe.p.gen_pcl:
-                    cloud = pipe._cloud_stage(
+                if pipe.p.gen_pcl:          # the fused cloud and scan
+                    cloud, scans = pipe._cloud_scan(
                         dmaps, None if cb is None else to_device(cb, dev)[0])
                 t2 = pipe._sync(sampled)
-                scans = pipe._points_scan(cloud) if pipe.p.gen_pcl \
-                    else pipe._scan_stage(dmaps)
+                if not pipe.p.gen_pcl:
+                    scans = pipe._scan_stage(dmaps)
                 if sampled:
                     stage_times = ((t1 - t_last) / B,
                                    (t2 - t1) / B if pipe.p.gen_pcl else 0.0,

@@ -1308,19 +1308,22 @@ def _scan_calib(dev):
     return pipe, (pipe.Q32, pipe.XR32, pipe.XT32)
 
 
-@pytest.mark.parametrize("case", range(13))
+@pytest.mark.parametrize("case", range(16))
 def test_scan_kernels_equal_plain(dev, case):
-    """chip_smoke.SCAN_EDGE_CASES: kernels P1, P2 and P3 against their
-    plain versions (NaN masks equal, torch.equal otherwise; rgb bits and
-    the valid mask torch.equal) on NaN and +-inf points, points a few ulps
-    either side of every bin edge at three fields of view, points on
+    """chip_smoke.SCAN_EDGE_CASES: kernels P1, P2, P3 and the fused cloud
+    and scan against their plain versions (NaN masks equal, torch.equal
+    otherwise; rgb bits and the valid mask torch.equal; the fused scan
+    also against P3 on P2's cloud) on NaN and +-inf points, points a few
+    ulps either side of every bin edge at three fields of view, points on
     y = -x (bin 90), points on the ground threshold, an empty and an
     all-ground set, seeded maps at B = 1, 8 and 32 with and without
-    colour, a width that is no multiple of 32, crop offsets and a cache
-    that accepts d = 0; one launch a call."""
+    colour, a width that is no multiple of 32, crop offsets, a cache that
+    accepts d = 0, and the flush cases (every pair of operand classes, the
+    ground gate at a zero threshold, maps whose reprojection flushes); one
+    launch a call."""
     from chip_smoke import SCAN_EDGE_CASES, scan_edge_case, scan_hold
 
-    assert len(SCAN_EDGE_CASES) == 13
+    assert len(SCAN_EDGE_CASES) == 16
     _, calib = _scan_calib(dev)
     name = SCAN_EDGE_CASES[case]
     out = scan_hold(scan_edge_case(name, dev), calib, _hold_equal, name)
@@ -1335,8 +1338,10 @@ def test_scan_kernels_equal_plain(dev, case):
 
 
 def test_scan_kernels_read_nothing_back(dev):
-    """The node's scan stage (P1) and the gen-pcl tail (P2, P3) at the
-    node's shape under torch.cuda.set_sync_debug_mode("error")."""
+    """The node's scan stage (P1) and the gen-pcl tail (the fused cloud and
+    scan) at the node's shape under torch.cuda.set_sync_debug_mode
+    ("error")."""
+    from chip_smoke import scan_counts
     from jackal_tpu_torch.config import PipelineParams
     from jackal_tpu_torch.pipeline.default import make_pipeline
     from jackal_tpu_torch.scan import obstacle as obs
@@ -1349,15 +1354,15 @@ def test_scan_kernels_read_nothing_back(dev):
     pipe._scan_stage(dm)
     pipe._cloud_scan(dm)
     torch.cuda.synchronize()
-    n0 = dict(obs.launches)
+    n0 = scan_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         scan = pipe._scan_stage(dm)
         cloud, pscan = pipe._cloud_scan(dm)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert {k: obs.launches[k] - n0[k] for k in n0} == {
-        "scan": 1, "cloud": 1, "scan_points": 1}
+    assert {k: v - n0[k] for k, v in scan_counts().items()} == {
+        "scan": 1, "cloud": 0, "scan_points": 0, "cloud_scan": 1}
     want = obs.obstacle_scan_from_disparity_plain(
         dm, pipe.valid_disp, pipe.Q32, pipe.XR32, pipe.XT32, pipe.sp)
     assert torch.equal(scan.scan, want.scan)
@@ -1365,9 +1370,11 @@ def test_scan_kernels_read_nothing_back(dev):
 
 
 def test_scan_launches_on_the_nodes(dev):
-    """P1 once a frame or a batch on a node without gen_pcl, never P2 or
-    P3; with gen_pcl P2 and P3 once a frame or a batch, never P1; each
-    node's scan equal to the CPU's within PERF.md's scan tolerance."""
+    """P1 once a frame or a batch on a node without gen_pcl, never P2, P3
+    or the fused cloud and scan; with gen_pcl the fused kernel once a frame
+    or a batch, never P1, P2 or P3; each node's scan equal to the CPU's
+    within PERF.md's scan tolerance."""
+    from chip_smoke import scan_counts
     from jackal_tpu_torch.config import PipelineParams
     from jackal_tpu_torch.pipeline.default import make_pipeline
     from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
@@ -1380,14 +1387,14 @@ def test_scan_launches_on_the_nodes(dev):
         pairs = [synthetic_raw_pair(cpu, s, 9.0 + 3 * s, 0.05)
                  for s in range(2)]
         lb, rb = (np.stack([p[i] for p in pairs]) for i in range(2))
-        want = (0, 1, 1) if gen_pcl else (1, 0, 0)
-        n0 = dict(obs.launches)
+        want = (0, 0, 0, 1) if gen_pcl else (1, 0, 0, 0)
+        n0 = scan_counts()
         fr = card.process_frame(*pairs[0])
-        assert tuple(obs.launches[k] - n0[k] for k in n0) == want
-        n0 = dict(obs.launches)
+        assert tuple(v - n0[k] for k, v in scan_counts().items()) == want
+        n0 = scan_counts()
         out = card.process_batch_pcl(lb, rb) if gen_pcl \
             else card.process_batch(lb, rb)
-        assert tuple(obs.launches[k] - n0[k] for k in n0) == want
+        assert tuple(v - n0[k] for k, v in scan_counts().items()) == want
         ref = cpu.process_frame(*pairs[0])
         np.testing.assert_allclose(fr.scan.scan.cpu().numpy(),
                                    ref.scan.scan.numpy(), rtol=1e-5)
@@ -1416,3 +1423,173 @@ def test_scan_kernels_refuse_what_they_do_not_take(dev):
         obs.obstacle_scan_from_points(torch.zeros((5, 3), device=dev),
                                       torch.ones(4, dtype=torch.bool,
                                                  device=dev))
+
+
+def test_scan_scratch_stays_zero(dev):
+    """The scan kernels' cached scratch (one a device, stream, set count
+    and bin count) is zero after every call: P1, P3 and the fused kernel in
+    turn at B = 1, 3 and 8, at 90, 45 and 4096 bins, on the current stream
+    and on a side stream; after a call refused before its launch; and after
+    a launch that fails, whose scratch the wrapper drops."""
+    from chip_smoke import scratch_zero
+    from jackal_tpu_torch.config import GroundPlaneParams, ScanParams
+    from jackal_tpu_torch.ops import cuda_lib
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    pipe, calib = _scan_calib(dev)
+    H, W = pipe.valid_disp.shape[:2]
+    rng = np.random.default_rng(31)
+    maps = torch.from_numpy(rng.integers(0, 90, (8, H, W)).astype(
+        np.uint8)).to(dev)
+    gp = GroundPlaneParams()
+    side = torch.cuda.Stream(dev)
+    for stream in (torch.cuda.current_stream(dev), side):
+        with torch.cuda.stream(stream):
+            for B in (1, 3, 8):
+                for bins in (90, 45, 4096):
+                    sp = ScanParams(bin_size=bins)
+                    m = maps[:B]
+                    got = obs.obstacle_scan_from_disparity(
+                        m, pipe.valid_disp, *calib, sp)
+                    want = obs.obstacle_scan_from_disparity_plain(
+                        m, pipe.valid_disp, *calib, sp)
+                    assert torch.equal(got.scan, want.scan)
+                    cloud, fs = obs.cloud_and_scan_from_disparity(
+                        m, None, *calib, sp, gp)
+                    p3 = obs.obstacle_scan_from_points(cloud[0], cloud[2],
+                                                       sp, gp)
+                    assert torch.equal(fs.scan, p3.scan)
+        stream.synchronize()
+        scratch_zero()
+    keys = {k[1] for k in obs._scratch}
+    assert len(keys) == 2
+    with pytest.raises(ValueError, match="bins"):
+        obs.obstacle_scan_from_disparity(maps, pipe.valid_disp, *calib,
+                                         ScanParams(bin_size=5000))
+    scratch_zero()
+
+    real = cuda_lib.launch
+
+    def fails(fn, kernel, t, *args):
+        real(fn, kernel, t, *args)
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch")
+
+    key = (0, torch.cuda.current_stream(dev).cuda_stream, 1, 90)
+    assert key in obs._scratch
+    cuda_lib.launch = fails
+    try:
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            obs.obstacle_scan_from_disparity(maps[:1], pipe.valid_disp,
+                                             *calib)
+    finally:
+        cuda_lib.launch = real
+    assert key not in obs._scratch
+    got = obs.obstacle_scan_from_disparity(maps[:1], pipe.valid_disp, *calib)
+    want = obs.obstacle_scan_from_disparity_plain(maps[:1], pipe.valid_disp,
+                                                  *calib)
+    assert torch.equal(got.scan, want.scan)
+    scratch_zero()
+
+
+def _one_kernel_a_call(label: str, fn, kernel: str, calls: int = 5) -> list:
+    """The names of the device activities (kernels, copies, fills) that
+    torch.profiler records over ``calls`` calls of fn(), traced again up to
+    3 windows where it records none. Raises unless every one is the kernel
+    named ``kernel`` (no fill, memset or copy beside it), at most one a
+    call (the profiler may leave a launch unrecorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+        print(f"WARNING: torch.profiler recorded no device activity in "
+              f"window {window + 1} of 3 ({label}); traced again")
+    else:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    if len(names) > calls or any(kernel not in n for n in names):
+        raise AssertionError(f"{label}: {calls} calls ran {names}, not one "
+                             f"{kernel} each")
+    return names
+
+
+def test_scan_kernels_are_one_kernel_a_call(dev):
+    """Under torch.profiler a call of P1, of P3 and of the fused cloud and
+    scan is one kernel, with no fill or memset (the scratch is kept and set
+    back to zero by the kernel)."""
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    pipe, calib = _scan_calib(dev)
+    H, W = pipe.valid_disp.shape[:2]
+    dm = torch.from_numpy(np.random.default_rng(32).integers(
+        0, 90, (2, H, W)).astype(np.uint8)).to(dev)
+    cloud = obs.point_cloud_from_disparity(dm, None, *calib)
+    calls = {
+        "scan_from_disparity_kernel": lambda: obs.obstacle_scan_from_disparity(
+            dm, pipe.valid_disp, *calib),
+        "scan_from_points_kernel": lambda: obs.obstacle_scan_from_points(
+            cloud[0], cloud[2]),
+        "cloud_scan_kernel": lambda: obs.cloud_and_scan_from_disparity(
+            dm, None, *calib)}
+    for name, fn in calls.items():
+        fn()
+        assert _one_kernel_a_call(name, fn, name)
+
+
+def test_gen_pcl_paths_launch_the_fused_kernel_once(dev):
+    """Every gen-pcl path launches the fused cloud and scan once a frame or
+    a batch and P1, P2 and P3 never: process_frame, process_batch_fused_pcl
+    (BM), process_batch_pcl (ELAS, batched) and StreamingRunner's ELAS
+    loop; the fused scan equals P2 then P3 on the same maps."""
+    from chip_smoke import scan_counts, scan_same
+    from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.io_bus.bus import TopicBus
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.runner import StreamingRunner
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
+    pp = PipelineParams(gen_pcl=True)
+    for engine in ("bm", "elas"):
+        card = make_pipeline(engine=engine, device=dev, params=pp)
+        cpu = make_pipeline(engine=engine, device="cpu", params=pp)
+        pairs = [synthetic_raw_pair(cpu, s, 9.0 + 3 * s, 0.05)
+                 for s in range(2)]
+        lb, rb = (np.stack([p[i] for p in pairs]) for i in range(2))
+        runs = {"process_frame": lambda: card.process_frame(*pairs[0]),
+                "process_batch_pcl": lambda: card.process_batch_pcl(lb, rb)}
+        if engine == "bm":
+            runs["process_batch_fused_pcl"] = \
+                lambda: card.process_batch_fused_pcl(lb, rb)
+        else:
+            runs["StreamingRunner"] = lambda: StreamingRunner(
+                card, TopicBus(), batch_size=2).run(iter(pairs * 2))
+        for name, fn in runs.items():
+            n0 = scan_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            grew = {k: v - n0[k] for k, v in scan_counts().items()}
+            want = 2 if name == "StreamingRunner" else 1
+            assert grew == {"scan": 0, "cloud": 0, "scan_points": 0,
+                            "cloud_scan": want}, (engine, name, grew)
+            if name == "process_batch_pcl":
+                dmaps, cloud, scans = out
+                p2 = obs.point_cloud_from_disparity(
+                    dmaps, None, card.Q32, card.XR32, card.XT32, card.sp,
+                    card.p.crop_offset_x, card.p.crop_offset_y)
+                p3 = obs.obstacle_scan_from_points(p2[0], p2[2], card.sp,
+                                                   card.gp)
+                scan_same("cloud_scan", f"{engine} {name}",
+                          [cloud[0]] + [getattr(scans, f) for f in fields],
+                          [p2[0]] + [getattr(p3, f) for f in fields],
+                          _hold_equal)

@@ -1,8 +1,8 @@
 """Time a CUDA kernel of a checkout of jackal_tpu_torch on the card: the ELAS
 support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
 and with H as its epilogue), the SGM census (D), the BM kernel (G), the
-ELAS postprocess kernels (H, I, J, K), the speckle filter (L) or rectify
-(N).
+ELAS postprocess kernels (H, I, J, K), the speckle filter (L), rectify
+(N) or the scan and the cloud (P1, P2, P3 and the fused cloud and scan).
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -34,7 +34,19 @@ tests/fixtures and a seed:
 - remap: both views of a seeded 640x360 raw pair to 640x480 with the
   per-frame node's maps (B = 1, one pair call), BASELINE config 5's 32
   golden frames with its maps (one pair call) and 32 seeded colour frames
-  of 3 channels on its left maps (F = 96, one view).
+  of 3 channels on its left maps (F = 96, one view);
+- scan: BASELINE config 5's 32 golden u8 maps (BM, D = 64): P1 on the
+  first (B = 1, the per-frame node's shape) and on the first 8; P2, P3 on
+  P2's cloud and the gen-pcl tail (the pipeline's _cloud_scan: the fused
+  kernel where the checkout has it, else P2 then P3) on all 32. Also, on
+  the host clock, the per-frame ELAS node's scan stage (_scan_stage on
+  the first map, a synchronize after each call, median of 201) and its
+  host cost a call (1000 calls queued without a synchronize), and the
+  gen-pcl tail's stage (median of 51). Where the checkout has the fused
+  kernel, tools/scan_store_variants.cu is built against its csrc/ and P2
+  and the fused kernel with their points staged in shared memory and
+  written with 16-byte stores (a block's, a warp's) are held equal to the
+  kernels bit for bit and timed beside them.
 Each call is held equal to its plain version on those inputs (post: bit
 for bit, as int32). Run it on
 two checkouts in one call, in the order A, B, B, A, to compare two
@@ -52,7 +64,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 from chip_smoke import (CONFIG3, FIX, GOLDEN, card_line,  # noqa: E402
-                        events_ms, prior_inputs)
+                        events_ms, host_ms, prior_inputs)
 
 
 def _held(name, got, want):
@@ -260,12 +272,148 @@ def time_remap(left, right, reps):
     return res
 
 
+def _same_bits(name, got, want):
+    """float tensors equal bit for bit (NaN payloads included)."""
+    import torch
+
+    for g, w in zip(got, want):
+        if not torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32)):
+            raise AssertionError(f"{name}: kernel != reference")
+
+
+def _same_scan(name, got, want):
+    """Two ScanResults: NaN masks equal, the rest torch.equal (as
+    chip_smoke.scan_same holds them)."""
+    import torch
+
+    for f in _FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if not (torch.equal(torch.isnan(g), torch.isnan(w))
+                and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))):
+            raise AssertionError(f"{name}: {f} differs")
+
+
+def _staged_variants(obs, dm, sp, gp, ox, oy, calib, reps):
+    """P2 and the fused cloud and scan with their points staged in shared
+    memory (tools/scan_store_variants.cu, modes 1: a block's, 2: a
+    warp's), each held equal to the kernel's own outputs; device ms a
+    call."""
+    import ctypes
+
+    import torch
+    from jackal_tpu_torch.build import Library, build
+    from jackal_tpu_torch.ops import cuda_lib
+
+    csrc = cuda_lib.CSRC
+    lib = Library(name="scan_store_variants", compiler=cuda_lib._nvcc(),
+                  flags=cuda_lib.NVCC_FLAGS + ("-I", csrc),
+                  sources=(os.path.join(HERE, "tools",
+                                        "scan_store_variants.cu"),),
+                  headers=(os.path.join(csrc, "scan_kernel.cu"),))
+    fn = ctypes.CDLL(build([lib])[0]).cloud_staged
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    fn.argtypes = [I, I] + [P] * 10 + [L] * 4 + [I] * 7 + [F] * 6 + [P]
+    fn.restype = ctypes.c_int
+    want_cloud, want_scan = obs.cloud_and_scan_from_disparity(
+        dm, None, *calib, sp, gp, ox, oy)
+    res = {}
+    for mode, how in ((1, "block"), (2, "warp")):
+        for scan in (0, 1):
+            def call():
+                _, B, H, W, d, cloud, ptrs, strides = obs._cloud_args(
+                    "staged", dm, None, *calib)
+                out, scratch, key = obs._scan_outputs(sp, B, d.device)
+                cuda_lib.launch(
+                    fn, "staged", d, mode, scan, *ptrs, scratch.data_ptr(),
+                    out.data_ptr(), *strides, B, H, W, ox, oy,
+                    sp.min_pcl_disp, sp.bin_size, *obs._bin_constants(sp),
+                    *obs._ground_constants(gp))
+                return cloud, obs._scan_result(out, dm.shape[:-2], sp, B)
+
+            cloud, got = call()
+            label = f"{'cloud_scan' if scan else 'cloud'}_{how}_staged"
+            _same_bits(label, [cloud[0], cloud[1]],
+                       [want_cloud[0], want_cloud[1]])
+            if not torch.equal(cloud[2], want_cloud[2]):
+                raise AssertionError(f"{label}: valid != kernel's")
+            if scan:
+                _same_scan(label, got, want_scan)
+            res[f"ms_{label}_config5_B32"] = events_ms(call, reps)
+    return res
+
+
+_FIELDS = ("scan", "angle_min", "angle_max", "range_min", "range_max")
+
+
+def time_scan(left, right, reps):
+    import time
+
+    import torch
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.scan import obstacle as obs
+
+    dev = torch.device("cuda", 0)
+    size = dict(im_width=640, im_height=480, crop_im_width=640,
+                crop_im_height=480)
+    node = make_pipeline(engine="elas", params=PipelineParams(**size),
+                         device=dev)
+    cfg5 = make_pipeline(engine="bm", bm_params=BMParams(disp_num=64),
+                         params=PipelineParams(calib_im_size=(640, 360),
+                                               gen_pcl=True, **size),
+                         device=dev)
+    l5, r5 = (torch.from_numpy(np.stack([x[i % 2] for i in range(32)])).to(
+        dev) for x in (left, right))
+    dm5 = cfg5.process_batch_fused(l5, r5)[0]
+    calib = (node.Q32, node.XR32, node.XT32)
+    calib5 = (cfg5.Q32, cfg5.XR32, cfg5.XT32)
+    ox, oy = node.p.crop_offset_x, node.p.crop_offset_y
+    ox5, oy5 = cfg5.p.crop_offset_x, cfg5.p.crop_offset_y
+    res = {}
+    for B in (1, 8):
+        m = dm5[:B] if B > 1 else dm5[0]
+
+        def p1():
+            return obs.obstacle_scan_from_disparity(
+                m, node.valid_disp, *calib, node.sp, ox, oy)
+
+        want = obs.obstacle_scan_from_disparity_plain(
+            m, node.valid_disp, *calib, node.sp, ox, oy)
+        _same_scan(f"P1 B = {B}", p1(), want)
+        res[f"ms_P1_B{B}"] = events_ms(p1, reps)
+    pts, _, valid = obs.point_cloud_from_disparity(
+        dm5, None, *calib5, cfg5.sp, ox5, oy5)
+    res["ms_P2_config5_B32"] = events_ms(
+        lambda: obs.point_cloud_from_disparity(
+            dm5, None, *calib5, cfg5.sp, ox5, oy5), reps)
+    res["ms_P3_config5_B32"] = events_ms(
+        lambda: obs.obstacle_scan_from_points(pts, valid, cfg5.sp, cfg5.gp),
+        reps)
+    res["ms_tail_config5_B32"] = events_ms(lambda: cfg5._cloud_scan(dm5),
+                                           reps)
+    m1 = dm5[0]
+    res["stage_ms_node_scan"] = host_ms(lambda: node._scan_stage(m1), 201)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(1000):
+        node._scan_stage(m1)
+    res["host_us_node_scan_a_call"] = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    res["stage_ms_config5_tail"] = host_ms(lambda: cfg5._cloud_scan(dm5), 51)
+    if hasattr(obs, "cloud_and_scan_from_disparity"):
+        res.update(_staged_variants(obs, dm5, cfg5.sp, cfg5.gp, ox5, oy5,
+                                    calib5, reps))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", required=True)
     ap.add_argument("--kernel", default="support",
                     choices=("support", "dense", "census", "bm", "post",
-                             "speckle", "remap"))
+                             "speckle", "remap", "scan"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -292,6 +440,8 @@ def main() -> int:
                                 args.reps))
     elif args.kernel == "remap":
         res.update(time_remap(left, right, args.reps))
+    elif args.kernel == "scan":
+        res.update(time_scan(left, right, args.reps))
     elif args.kernel == "post":
         res.update(time_post([g[k] for g in gold for k in ("D1", "D2")],
                              args.reps))
