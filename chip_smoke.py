@@ -36,7 +36,8 @@ Phases (any failure exits non-zero and prints no success line):
      epilogue in one launch; the speckle filter L, I, J and rectify N
      once a frame, the BFS hop never; H and K never: the check is B's
      epilogue, ROBOTICS has no median; the scan kernel P1 once a frame,
-     P2 and P3 never);
+     P2 and P3 never; the descriptor R and the support epilogue Q once a
+     frame);
      per-stage medians, fps, the device's busy time under torch.profiler,
      a per-stage breakdown of one frame (rectify, B alone, B with the L/R
      epilogue, kernel H alone, the speckle filter, with the BFS hop it
@@ -45,8 +46,8 @@ Phases (any failure exits non-zero and prints no success line):
      at chunk 1 on one frame beside elas_match;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
-     kernel with its L/R epilogue, L, I, J and P1 once a batch, H, K,
-     P2 and P3 never);
+     kernel with its L/R epilogue, L, I, J, P1, R and Q once a batch, H,
+     K, P2 and P3 never);
      fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
@@ -64,8 +65,9 @@ Phases (any failure exits non-zero and prints no success line):
      frames, its time there and at the node's shape, its bound for both
      views (the bound a view at a time, summed, beside it) and the
      candidates a pixel and warp steps of each view (dense_work); the
-     support kernel against its plain version on the batched
-     node's 8 frames, its time there and at the node's shape, its bound
+     support kernel (from the descriptors' rows, as the nodes run it)
+     against its plain version on the batched node's 8 frames, its time
+     there and at the node's shape, its bound
      restated in instructions (support_work; the old byte-SAD bound
      beside it); a time of the support or the dense kernel below its
      bound fails; (e) the raster kernel against its plain version on the
@@ -141,22 +143,25 @@ Phases (any failure exits non-zero and prints no success line):
      CLI prints; (c) -m --phi --trans on the replay: scans against
      process_frame's after update_extrinsics, and unlike (a)'s; (d) the
      navigate CLI on (a)'s scans; each CLI call with the launch counters
-     (A, B, C, N, rectify, and the scan P1: once a frame or a batch; P2
-     and P3 never) set to 0 just before it and read just after, and
+     (A, B, C, N, rectify, the scan P1, R and Q: once a frame or a batch;
+     P2 and P3 never) set to 0 just before it and read just after, and
      rectify beside its plain version; one JSON line;
   10. ELAS subsampling and the exact scan (subsampling_phase): kernel A on
      half-resolution descriptors and kernel B under subsampling against
      their plain twins; the card's subsampled elas_match against libelas's
-     final_D1 and against the CPU's, with A's, B's and H's launch counters
-     set to 0 just before and read just after (H once a call: under
-     subsampling the check runs on the kept even pixels, after B); the
+     final_D1 and against the CPU's, with A's, B's, H's, R's and Q's
+     launch counters set to 0 just before and read just after (H once a
+     call: under subsampling the check runs on the kept even pixels,
+     after B; R on half-resolution descriptors and Q at the even step
+     once a call); the
      card's exact float64 scan
      against the CPU's on phase 4's 9 maps at 640x480; one JSON line;
   11. the multi-device paths on meshes of this one card repeated
      (multidevice_phase): DP SGM and DP BM against process_batch_fused,
      TP BM at D = 64 and 256 against bm_match, the ELAS replicas against
      the single-device batched path and libelas, each with the launches of
-     its kernels pinned, entry.dryrun_multichip(8); the filters, linalg,
+     its kernels pinned (R and Q once a replica), entry.dryrun_multichip(8);
+     the filters, linalg,
      the experiments and the coefficient-wire raster against the CPU; host
      times beside the single-device calls (no scaling: one card); one
      JSON line;
@@ -213,6 +218,16 @@ Phases (any failure exits non-zero and prints no success line):
      clock, and probes of the card's scatter_reduce at NaN and of the bin
      index the plain version computed before (scan_probes); one JSON
      line;
+  15. the ELAS front (front_phase): kernels R (the descriptor), A from
+     the descriptors' rows (support.grid_row_keys) and Q (the support
+     epilogue) against their plain versions (torch.equal) on the golden
+     pairs, phase 4's 9 frames, the batched node's 48, every
+     SUPPORT_EDGE_CASES shape, chip_smoke.FRONT_EDGE_CASES and the
+     subsampled frames; no FFMA or DFMA in either library; the ATen ops
+     of one create_descriptor and one support_candidates call on the card
+     (allocations only); R's and Q's times beside their plain versions'
+     and byte bounds (epilogue_work) at the per-frame and batched nodes'
+     shapes, a time below its bound failing; one JSON line;
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -486,10 +501,11 @@ def random_prior(rng, B, H, W, params, dev):
     return [torch.from_numpy(a).to(dev) for a in arrs]
 
 
-def support_work(Q, disp_min, D):
+def support_work(B, nv, W, disp_min, D):
     """(bytes, instructions, the old count in byte SADs) of the support
-    function on Q's shape. Bytes: the inputs read once, the four key maps
-    written once. Instructions, the least the function needs: 8 __vsadu4
+    function at B frames of nv grid rows of W columns. Bytes: the inputs
+    (the two descriptor rows of each grid row, both views) read once, the
+    four key maps written once. Instructions, the least the function needs: 8 __vsadu4
     for each S(x, d) that some live key reads (its taps enumerated d by d:
     x = c-2 and c+2 of the left view's live columns, c+d-2 and c+d+2 of
     the right view's) and 3 for each live (c, d, view): the best-two
@@ -497,7 +513,6 @@ def support_work(Q, disp_min, D):
     __viaddmin_s32, then a min (csrc/support_kernel.cu). The old count: the
     64 byte SADs of every live (c, d, view), at the measured byte SAD
     rate."""
-    B, nv, W, _ = Q.shape
     c = np.arange(W)
     reads = live = 0
     for d in range(disp_min, D):
@@ -509,7 +524,7 @@ def support_work(Q, disp_min, D):
         reads += int(taps.sum())
         live += len(lc) + len(rc)
     rows = B * nv
-    nbytes = 2 * Q.numel() + 4 * 4 * rows * W
+    nbytes = 2 * rows * W * 32 + 4 * 4 * rows * W
     return nbytes, rows * (8 * reads + 3 * live), rows * live * 64
 
 
@@ -781,35 +796,93 @@ SUPPORT_EDGE_CASES = ("node, 640x480, D = 256", "B = 8 at 640x480",
                       "constant descriptors, 640 wide")
 
 
-def support_edge_case(name, dev):
-    """(Q, T, disp_min, D) of one of SUPPORT_EDGE_CASES on dev, from a
-    seed: the grid-row blocks of a random frame and of the same frame
-    shifted by 9 columns (a true disparity of 9) at the node's shape, the
-    batched node's B = 8, wide frames at D = 512 (at W = 4096 the kernel's
-    shared table holds fewer d a chunk), W < D (the right view's top d are
-    dead), disp_min near D, an odd width; and constant descriptors, where
-    every cost ties."""
-    import torch
-    from jackal_tpu_torch.config import ElasParams
-    from jackal_tpu_torch.matching.elas import support as sm
-    from jackal_tpu_torch.ops.descriptor import create_descriptor
-
+def support_edge_images(name):
+    """(left, right, disp_min, D) of one of SUPPORT_EDGE_CASES, u8 [B, H, W]
+    from a seed: a random frame and the same frame shifted by 9 columns (a
+    true disparity of 9) at the node's shape, the batched node's B = 8,
+    wide frames at D = 512 (at W = 4096 the kernel's shared table holds
+    fewer d a chunk), W < D (the right view's top d are dead), disp_min
+    near D, an odd width; and, for the constant descriptors, constant
+    frames."""
     i = SUPPORT_EDGE_CASES.index(name)
     B, H, W, disp_min, D = ((1, 480, 640, 0, 256), (8, 480, 640, 0, 256),
                             (1, 40, 2112, 0, 512), (1, 30, 4096, 0, 512),
                             (1, 60, 200, 0, 256), (1, 60, 640, 250, 256),
                             (2, 60, 333, 4, 131), (1, 480, 640, 0, 256))[i]
-    step = sm.effective_stepsize(ElasParams())
-    ncv = -(-H // step)
     if name.startswith("constant"):
-        Q = torch.full((B, ncv - 1, W, 32), 7, dtype=torch.uint8, device=dev)
-        return Q, Q.clone(), disp_min, D
+        left = np.full((B, H, W), 7, np.uint8)
+        return left, left.copy(), disp_min, D
     rng = np.random.default_rng(60 + i)
     left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
-    d1 = create_descriptor(torch.from_numpy(left).to(dev))
-    d2 = create_descriptor(torch.from_numpy(np.roll(left, -9, 2)).to(dev))
-    return (sm.grid_row_blocks(d1, step, ncv),
-            sm.grid_row_blocks(d2, step, ncv), disp_min, D)
+    return left, np.roll(left, -9, 2), disp_min, D
+
+
+def support_edge_case(name, dev):
+    """(desc1, desc2, disp_min, D) of one of SUPPORT_EDGE_CASES on dev: the
+    descriptors of support_edge_images' frames; for the constant case
+    descriptors of 7 everywhere, where every cost ties."""
+    import torch
+    from jackal_tpu_torch.ops.descriptor import create_descriptor
+
+    left, right, disp_min, D = support_edge_images(name)
+    if name.startswith("constant"):
+        d = torch.full(left.shape + (16,), 7, dtype=torch.uint8, device=dev)
+        return d, d.clone(), disp_min, D
+    return (create_descriptor(torch.from_numpy(left).to(dev)),
+            create_descriptor(torch.from_numpy(right).to(dev)), disp_min, D)
+
+
+def support_keys_held(hold, label, d1, d2, step, disp_min, D):
+    """Kernel A from the descriptors' rows (grid_row_keys) against its
+    plain version, grid_row_blocks then support_keys_plain; returns the
+    kernel's keys."""
+    from jackal_tpu_torch.matching.elas import support as sm
+
+    ncv = -(-d1.shape[1] // step)
+    keys = sm.grid_row_keys(d1, d2, step, disp_min, D)
+    hold("support", label, tuple(keys),
+         sm.support_keys_plain(sm.grid_row_blocks(d1, step, ncv),
+                               sm.grid_row_blocks(d2, step, ncv), disp_min,
+                               D))
+    return keys
+
+
+# the ELAS front's edges, kernels R (descriptor) and Q (support epilogue):
+# tests/test_torch_front_kernels.py holds the plain versions against the
+# JAX package on them, tests/test_torch_cuda.py and phase 15 the kernels
+# against the plain versions. name: (B, H, W, ElasParams fields)
+FRONT_EDGE_CASES = {
+    "odd W": (1, 40, 101, dict(disp_max=30)),
+    # (ncv - 1) * step + 3 > H: the last grid row's vs + 2 is past the image
+    "H where the grid rows pad": (1, 42, 80, dict(disp_max=30)),
+    "half resolution, even H": (1, 44, 90, dict(disp_max=30,
+                                                subsampling=True)),
+    "half resolution, odd H": (1, 45, 90, dict(disp_max=30,
+                                               subsampling=True)),
+    "disp_min > 0": (1, 40, 120, dict(disp_max=40, disp_min=7)),
+    "W < D": (1, 35, 60, dict(disp_max=80)),
+    "B = 3, frames that differ": (3, 30, 70, dict(disp_max=24)),
+    "constant images": (2, 30, 64, dict(disp_max=20)),
+    # the grid rows' vs - 2 is above the image at step 1
+    "candidate step 1": (1, 24, 50, dict(disp_max=20, candidate_stepsize=1)),
+}
+
+
+def front_edge_images(name):
+    """(left, right, ElasParams fields) of one of FRONT_EDGE_CASES: u8
+    [B, H, W] noise from a seed and the same noise shifted by 4 + 3b
+    columns in frame b (a true disparity), or constant frames (77 and
+    200)."""
+    B, H, W, kw = FRONT_EDGE_CASES[name]
+    rng = np.random.default_rng(sorted(FRONT_EDGE_CASES).index(name) + 70)
+    if name == "constant images":
+        left = np.full((B, H, W), 77, np.uint8)
+        left[1] = 200
+        return left, left.copy(), kw
+    left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    right = np.stack([np.roll(left[b], -(4 + 3 * b), axis=1)
+                      for b in range(B)])
+    return left, right, kw
 
 
 # the raster's edges (tests/test_torch_cuda.py runs them too)
@@ -1701,12 +1774,8 @@ def subsampling_phase(dev, hold, pipe, dmaps):
         desc = create_descriptor(torch.from_numpy(np.stack([left, right]))
                                  .to(dev), True)
         d1, d2 = desc[0:1], desc[1:2]
-        ncv = -(-H // step)
-        Q = support_mod.grid_row_blocks(d1, step, ncv)
-        T = support_mod.grid_row_blocks(d2, step, ncv)
-        hold("support", f"support, half-resolution descriptors, {name}",
-             support_mod.support_keys(Q, T, 0, D),
-             support_mod.support_keys_plain(Q, T, 0, D))
+        support_keys_held(hold, f"support, half-resolution descriptors, "
+                          f"{name}", d1, d2, step, 0, D)
         views = prior_inputs(d1, d2, sub, dev)
         got = dense_mod.dense_match_pair(d1, d2, *views, sub)
         want = dense_mod.dense_match_pair_plain(d1, d2, *views, sub)
@@ -1723,6 +1792,7 @@ def subsampling_phase(dev, hold, pipe, dmaps):
     # (b) the card's subsampled elas_match against libelas and the CPU
     support_mod.launches = dense_mod.launches = dense_mod.lr_launches = 0
     post.launches["elas_lr"] = post.device_launches["elas_lr"] = 0
+    reset_front()
     D1, _ = elas_match(st["left"], st["right"], sub, tri_left=st["tri1"],
                        tri_right=st["tri2"], device=dev)
     outs = [(name, elas_match(left, right, sub, device=dev))
@@ -1734,8 +1804,12 @@ def subsampling_phase(dev, hold, pipe, dmaps):
     print(f"10b. launches over {1 + len(cases)} subsampled elas_match calls"
           f" on the card: {launches}")
     n = 1 + len(cases)
+    launches.update(pin_front(f"10b. {n} subsampled elas_match calls (R on "
+                              f"half-resolution descriptors, Q at the even "
+                              f"step, once a call)", n))
     if launches != {"support": n, "elas_dense": n, "elas_dense_lr": 0,
-                    "elas_lr": n} or post.launches["elas_lr"] != n:
+                    "elas_lr": n, "descriptor": n, "support_epilogue": n} \
+            or post.launches["elas_lr"] != n:
         raise AssertionError(f"subsampled elas_match did not launch A, B "
                              f"(without its L/R epilogue) and H once a "
                              f"call: {launches}")
@@ -1915,11 +1989,14 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
     for n in (2, 4):
         for chunk in (1, 2):
             read = _counted(keys)
+            reset_front()
             D1, D2 = elas_match_batch_multichip(el, er, params, chunk=chunk,
                                                 devices=[dev] * n)
-            counts = dict(zip(("support", "elas_dense", "raster"), read()))
+            counts = dict(zip(("support", "elas_dense", "raster"), read()),
+                          **front_counts())
             want = {"support": n, "elas_dense": 8 // chunk,
-                    "raster": 2 * 8 // chunk}
+                    "raster": 2 * 8 // chunk, "descriptor": n,
+                    "support_epilogue": n}
             if counts != want:
                 raise AssertionError(f"ELAS replicas {n} chunk {chunk}: "
                                      f"launches {counts}, expected {want}")
@@ -3726,6 +3803,253 @@ def scan_phase(dev, hold, node_maps, node_pipe):
                      "probes": probes}}, entries
 
 
+# ---- kernels R and Q: the ELAS front (phase 15) ----------------------------
+
+# kernels R and Q by their names in the kernels line
+FRONT_KERNELS = ("descriptor", "support_epilogue")
+
+
+def front_counts() -> dict:
+    """The launch counters of kernels R (the descriptor) and Q (the support
+    epilogue)."""
+    from jackal_tpu_torch.matching.elas import support
+    from jackal_tpu_torch.ops import descriptor
+
+    return {"descriptor": descriptor.launches,
+            "support_epilogue": support.epilogue_launches}
+
+
+def reset_front() -> None:
+    from jackal_tpu_torch.matching.elas import support
+    from jackal_tpu_torch.ops import descriptor
+
+    descriptor.launches = support.epilogue_launches = 0
+
+
+def pin_front(label: str, n: int) -> dict:
+    """Raise unless kernels R and Q each launched n times since their
+    counters were set to 0 (reset_front)."""
+    got = front_counts()
+    print(f"{label}: launches of R and Q {got}")
+    if got != {"descriptor": n, "support_epilogue": n}:
+        raise AssertionError(f"{label}: R and Q launched {got}, not {n} "
+                             f"times each")
+    return got
+
+
+def epilogue_work(keys, desc1, desc2, params) -> int:
+    """Bytes that one call of kernel Q on these key maps and descriptors
+    must move, counted from this run's data: the grid [B, ncv, ncu]
+    written once (2 bytes a point), and each view's test at a column that
+    passes its static gates (5 <= vs <= H-6, 5 <= x <= W-6, min(x - 5,
+    disp_max) - disp_min >= 10 left, min(W - x - 5, disp_max) - disp_min
+    >= 10 right). Such a test needs the column's two keys (8 bytes) for
+    the ratio test and its descriptor (16) for the texture test, but only
+    one of them where that one rejects: the lesser of 8 + 16 where the
+    ratio test passes and 16 + 8 where the texture test passes. The left
+    view is tested at every grid point, the right view at u - dL wherever
+    the left view accepts, whatever the check then decides."""
+    import torch
+    from jackal_tpu_torch.matching.elas import support as sm
+
+    B, H, W, _ = desc1.shape
+    step = sm.effective_stepsize(params)
+    ncv, ncu = -(-H // step), -(-W // step)
+    dev = desc1.device
+    vs = torch.arange(1, ncv, device=dev) * step
+    us = torch.arange(1, ncu, device=dev) * step
+    thr = torch.full((), params.support_threshold, dtype=torch.float32,
+                     device=dev)
+    live = ((vs >= 5) & (vs <= H - 6))[None, :, None]
+
+    def view(k1, k2, desc, x, dmax):
+        """(bytes, accepted, k1) at columns x [B, nv, nu] of the grid
+        rows: the bytes each point's test needs, 0 where a static gate
+        fails."""
+        gate = live & (x >= 5) & (x <= W - 6) & (dmax - params.disp_min
+                                                 >= 10)
+        a, b = torch.gather(k1, 2, x), torch.gather(k2, 2, x)
+        ratio = (a < (1 << 24)) & ((a >> 9).to(torch.float32)
+                                   < thr * (b >> 9).to(torch.float32))
+        tex = (desc[:, vs].to(torch.int32) - 128).abs().sum(-1)
+        tex_ok = torch.gather(tex, 2, x) >= params.support_texture
+        need = torch.minimum(8 + 16 * ratio.long(), 16 + 8 * tex_ok.long())
+        return torch.where(gate, need, 0), gate & ratio & tex_ok, a
+
+    u = us.expand(B, ncv - 1, ncu - 1).contiguous()
+    left, acc, k1 = view(keys[0], keys[1], desc1, u,
+                         torch.clamp(u - 5, max=params.disp_max))
+    back = torch.clamp(u - (k1 & 511), 0, W - 1)
+    right, _, _ = view(keys[2], keys[3], desc2, back,
+                       torch.clamp(W - back - 5, max=params.disp_max))
+    return (2 * B * ncv * ncu + int(left.sum())
+            + int(torch.where(acc, right, 0).sum()))
+
+
+def front_phase(dev, hold, node, batches, launches):
+    """Phase 15: kernels R (the descriptor, csrc/descriptor_kernel.cu) and
+    Q (the support epilogue, csrc/support_kernel.cu). (a) R, kernel A's
+    entry that reads the descriptors' rows (grid_row_keys) and Q against
+    their plain versions (torch.equal) on the two 640x480 golden
+    fixtures, phase 4's 9 node frames (each as the per-frame node calls
+    them, both views in one R call, and all 9 in one call), the batched
+    node's 48 frames (its 6 batches of 8), every SUPPORT_EDGE_CASES shape,
+    FRONT_EDGE_CASES and the subsampled frames (half-resolution
+    descriptors, the even step) of elas_stages_sub320 and the golden
+    pairs; (b) no FFMA or DFMA in either library's SASS; (c) the ATen ops
+    of one create_descriptor and one support_candidates call on the card,
+    beside the kernels' launches: views and allocations only; (d) R's and
+    Q's device times beside their plain versions' and their byte bounds at
+    the per-frame node's shape and the batched node's, a time below its
+    bound failing. node: phase 4's rectified (left, right) [9, H, W];
+    batches: the batched node's rectified batches [(left, right) [8, H,
+    W]]; launches: R's and Q's launches on the per-frame node (phase 4).
+    Returns (the phase's JSON line, the kernels line's entries)."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import support as sm
+    from jackal_tpu_torch.ops import cuda_lib
+    from jackal_tpu_torch.ops import descriptor as dm
+
+    def held(label, left, right, p):
+        """R on both views in one call, A from its rows and Q, each against
+        its plain version; returns the descriptors, the keys and the
+        grid."""
+        B = left.shape[0]
+        half = p.subsampling
+        imgs = torch.cat([left, right])
+        desc = dm.create_descriptor(imgs, half)
+        hold("descriptor", f"descriptor {label}", [desc],
+             [dm.create_descriptor_plain(imgs, half)])
+        d1, d2 = desc[:B], desc[B:]
+        keys = support_keys_held(
+            hold, f"support from the descriptors' rows {label}", d1, d2,
+            sm.effective_stepsize(p), p.disp_min, p.disp_num)
+        grid = sm.support_epilogue(keys, d1, d2, p)
+        hold("support_epilogue", f"support epilogue {label}", [grid],
+             [sm.support_epilogue_plain(keys, d1, d2, p)])
+        return d1, d2, keys, grid
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    params, sub = ElasParams(), ElasParams(subsampling=True)
+    seen = []
+    gold = {f: np.load(f"{FIX}/{f}.npz") for f in GOLDEN}
+    for f, g in gold.items():
+        held(f, on(g["left"][None]), on(g["right"][None]), params)
+    seen.append("the golden pairs")
+    L9, R9 = node
+    for b in range(len(L9)):
+        held(f"node frame {b}", L9[b:b + 1], R9[b:b + 1], params)
+    held(f"node frames, {len(L9)} in one call", L9, R9, params)
+    seen.append(f"phase 4's {len(L9)} node frames (each, and in one call)")
+    for i, (lb, rb) in enumerate(batches):
+        held(f"batched node batch {i}", lb, rb, params)
+    seen.append(f"the batched node's {len(batches)} batches of "
+                f"{len(batches[0][0])}")
+    for name in SUPPORT_EDGE_CASES:
+        left, right, lo, hi = support_edge_images(name)
+        held(name, on(left), on(right),
+             ElasParams(disp_min=lo, disp_max=hi - 1))
+    seen.append(f"{len(SUPPORT_EDGE_CASES)} SUPPORT_EDGE_CASES")
+    for name in FRONT_EDGE_CASES:
+        left, right, kw = front_edge_images(name)
+        held(name, on(left), on(right), ElasParams(**kw))
+    seen.append(f"{len(FRONT_EDGE_CASES)} FRONT_EDGE_CASES")
+    st = np.load(f"{FIX}/elas_stages_sub320.npz")
+    for name, g in [("elas_stages_sub320", st)] + list(gold.items()):
+        held(f"subsampled {name}", on(g["left"][None]), on(g["right"][None]),
+             sub)
+    seen.append("the subsampled frames of elas_stages_sub320 and the golden "
+                "pairs")
+    torch.cuda.synchronize()
+    print(f"15a. kernels R, A (from the descriptors' rows) and Q == plain "
+          f"(torch.equal): {'; '.join(seen)}")
+
+    # (b) neither library contracts into an FMA
+    ffma = {}
+    for name in ("descriptor_kernel", "support_kernel"):
+        path = cuda_lib.library(name).path
+        fma = ", ".join(x for x in (sass_opcodes(path, top=None, prefix=op)
+                                    for op in ("FFMA", "DFMA")) if x)
+        ffma[name] = fma or "none"
+        print(f"15b. sass {name}: {sass_opcodes(path, top=12)}; FFMA and "
+              f"DFMA instructions: {fma or 'none'}")
+        if fma:
+            raise AssertionError(f"{name} contracts into an FMA: {fma}")
+
+    # (c) one call each, as the per-frame node makes them: the kernels and
+    # allocations, no eager op on the card
+    imgs = torch.cat([L9[:1], R9[:1]])
+    desc = dm.create_descriptor(imgs)
+    d1, d2 = desc[0:1], desc[1:2]
+    reset_front()
+    a0 = sm.launches
+    ops_r = aten_ops_of_a_call(lambda: dm.create_descriptor(imgs))
+    ops_s = aten_ops_of_a_call(
+        lambda: sm.support_candidates(d1, d2, params))
+    calls = dict(front_counts(), support=sm.launches - a0)
+    H, W = imgs.shape[1:]
+    step = sm.effective_stepsize(params)
+    plan = sm.plan(dev.index, 1, -(-H // step) - 1, W, params.disp_min,
+                   params.disp_num)
+    bad = [n for n, ok in ops_r + ops_s if not ok]
+    print(f"15c. ATen ops of one create_descriptor call {ops_r} and one "
+          f"support_candidates call {ops_s}; the kernels' calls {calls} "
+          f"(A's plan (R, DC) {plan}: "
+          f"{'keys and merge, 2 launches' if plan[0] > 1 else '1 launch'})")
+    if bad or calls != {"descriptor": 1, "support_epilogue": 1,
+                        "support": 1}:
+        raise AssertionError(f"15c. a front call ran eager ops on the card "
+                             f"{bad} or made the kernel calls {calls}")
+
+    # (d) times at the nodes' shapes beside the plain versions and bounds
+    times, entries = {}, []
+    where = {"descriptor": ("descriptor_kernel.cu",
+                            "jackal_tpu/ops/descriptor.py:74"),
+             "support_epilogue": ("support_kernel.cu",
+                                  "jackal_tpu/matching/elas/support.py:76")}
+    lb, rb = batches[0]
+    for label, (left, right) in (("node, B = 1", (L9[:1], R9[:1])),
+                                 (f"batched node, B = {len(lb)}",
+                                  (lb, rb))):
+        B, H, W = left.shape
+        x = torch.cat([left, right])
+        d1, d2, keys, grid = held(label, left, right, params)
+        runs = (("descriptor", lambda: dm.create_descriptor(x),
+                 lambda: dm.create_descriptor_plain(x), x.numel() * 17),
+                ("support_epilogue",
+                 lambda: sm.support_epilogue(keys, d1, d2, params),
+                 lambda: sm.support_epilogue_plain(keys, d1, d2, params),
+                 epilogue_work(keys, d1, d2, params)))
+        for k, kern, plain, nbytes in runs:
+            ms = events_ms(kern, 50)
+            pms = events_ms(plain, 3, spin=False)
+            bms, by = bound_ms(nbytes, 0, 1.0)
+            times[f"{k} {label}"] = {"ms": ms, "plain_ms": pms,
+                                     "bound_ms": bms, "bound_by": by,
+                                     "bytes": nbytes}
+            print(f"15d. {k} at {label}, {W}x{H}, both views: {ms:.5f} ms "
+                  f"a call (CUDA events behind a spin; plain {pms:.3f}; "
+                  f"bound {bms:.6f} by {by}: {nbytes} bytes, "
+                  f"{ms / bms:.1f}x)")
+            if ms < bms:
+                raise AssertionError(f"{k} {label}: {ms} ms is below its "
+                                     f"bound {bms} ms")
+            if not any(e["name"] == k for e in entries):
+                source, replaces = where[k]
+                entries.append({
+                    "name": k, "route": "cuda",
+                    "source": f"jackal_tpu_torch/csrc/{source}",
+                    "replaces": replaces, "launches": launches[k], "ms": ms,
+                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None})
+    return {"front": {"times": times, "ffma": ffma, "launches": launches,
+                      "aten_ops": {"create_descriptor": ops_r,
+                                   "support_candidates": ops_s}}}, entries
+
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -3800,6 +4124,7 @@ def shell_phase(dev):
         support_mod.launches = dense_mod.launches = dp.launches = 0
         remap.launches["remap"] = 0
         reset_scan()
+        reset_front()
         torch.cuda.synchronize()
         with contextlib.redirect_stdout(out):
             rc = module.main(argv)
@@ -3807,7 +4132,7 @@ def shell_phase(dev):
         counts = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches, "raster": dp.launches,
                   "remap": remap.launches["remap"],
-                  **scan_counts()}
+                  **scan_counts(), **front_counts()}
         if rc != 0:
             raise AssertionError(f"{module.__name__} {argv}: rc {rc}\n"
                                  f"{out.text()}")
@@ -3861,11 +4186,13 @@ def shell_phase(dev):
             "--out", base + ".npz"])
         held(base + ".npz", frames, pipe, f"9a per frame, {name}")
         if counts["support"] != 9 or counts["remap"] != 9 \
-                or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0]:
+                or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0] \
+                or [counts[k] for k in FRONT_KERNELS] != [9, 9]:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
                                  f"times, N {counts['remap']}, P1-P3 "
-                                 f"{[counts[k] for k in SCAN_KERNELS]} over "
-                                 f"9 frames")
+                                 f"{[counts[k] for k in SCAN_KERNELS]}, R "
+                                 f"and Q {[counts[k] for k in FRONT_KERNELS]}"
+                                 f" over 9 frames")
         if name == "replay" and counts["elas_dense"] != 9:
             raise AssertionError(f"9a {name}: B launched "
                                  f"{counts['elas_dense']} times over 9 frames")
@@ -3897,7 +4224,8 @@ def shell_phase(dev):
         batches = frames // 8
         want = {"support": batches, "elas_dense": batches,
                 "raster": 2 * batches, "remap": batches, "scan": batches,
-                "cloud": 0, "scan_points": 0, "cloud_scan": 0}
+                "cloud": 0, "scan_points": 0, "cloud_scan": 0,
+                "descriptor": batches, "support_epilogue": batches}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
                                  f"expected {want}")
@@ -3912,9 +4240,11 @@ def shell_phase(dev):
         "--frames", "9", "-m", "--phi", *map(str, SHELL_PHI),
         "--trans", *map(str, SHELL_TRANS), "--out", base + ".npz"])
     if counts["remap"] != 9 \
-            or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0]:
+            or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0] \
+            or [counts[k] for k in FRONT_KERNELS] != [9, 9]:
         raise AssertionError(f"9c: N launched {counts['remap']} times, P1-P3"
-                             f" {[counts[k] for k in SCAN_KERNELS]} over 9 "
+                             f" {[counts[k] for k in SCAN_KERNELS]}, R and Q"
+                             f" {[counts[k] for k in FRONT_KERNELS]} over 9 "
                              f"frames")
     moved = make_pipeline(engine="elas", params=params, device=dev)
     moved.update_extrinsics(SHELL_PHI, SHELL_TRANS)
@@ -3999,7 +4329,7 @@ def main() -> int:
                "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
                "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0,
-               "cloud_scan": 0.0}
+               "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -4031,11 +4361,7 @@ def main() -> int:
     step = support_mod.effective_stepsize(params)
     for name, d1, d2 in cases:
         H, W = d1.shape[1:3]
-        ncv = -(-H // step)
-        Q = support_mod.grid_row_blocks(d1, step, ncv)
-        T = support_mod.grid_row_blocks(d2, step, ncv)
-        hold("support", f"support {name}", support_mod.support_keys(Q, T, 0, D),
-             support_mod.support_keys_plain(Q, T, 0, D))
+        support_keys_held(hold, f"support {name}", d1, d2, step, 0, D)
         if name in frames:
             views = prior_inputs(d1, d2, params, dev)
         else:
@@ -4067,9 +4393,8 @@ def main() -> int:
     print("dense kernel == plain (torch.equal, both views in one launch): "
           "D = 32 with cells of 20, D = 8 with cells of 1")
     for name in SUPPORT_EDGE_CASES:
-        Qe, Te, lo, hi = support_edge_case(name, dev)
-        hold("support", f"support {name}", support_mod.support_keys(
-            Qe, Te, lo, hi), support_mod.support_keys_plain(Qe, Te, lo, hi))
+        d1e, d2e, lo, hi = support_edge_case(name, dev)
+        support_keys_held(hold, f"support {name}", d1e, d2e, step, lo, hi)
     print(f"support kernel == plain (torch.equal, both views): "
           f"{', '.join(SUPPORT_EDGE_CASES)}")
     torch.cuda.synchronize()
@@ -4226,6 +4551,7 @@ def main() -> int:
         ep.speckle_routes[k] = 0
     remap_mod.launches["remap"] = 0
     reset_scan()
+    reset_front()
     results, walls = [], []
     for i, (lr, rr) in enumerate(pairs):
         t = time.perf_counter()
@@ -4241,6 +4567,8 @@ def main() -> int:
     launches["remap"] = remap_mod.launches["remap"]
     pin_scan(f"4. the node over {len(pairs)} frames (P1 once a frame)",
              scan=len(pairs), key="node")
+    launches.update(pin_front(f"4. the node over {len(pairs)} frames (R and"
+                              f" Q once a frame)", len(pairs)))
     print(f"node launches over {len(pairs)} frames: {launches}, {node_post}"
           f" (their kernel launches {node_post_dev}); speckle routes "
           f"{routes}")
@@ -4405,6 +4733,7 @@ def main() -> int:
     for k in post_mod.launches:
         post_mod.launches[k] = post_mod.device_launches[k] = 0
     reset_scan()
+    reset_front()
     torch.cuda.synchronize()
     t = time.perf_counter()
     done = runner.run(iter(stream))
@@ -4412,6 +4741,8 @@ def main() -> int:
     stream_s = time.perf_counter() - t
     pin_scan(f"4b. the batched node over {n_frames} frames (P1 once a "
              f"batch)", scan=n_frames // batch, key="batched node")
+    pin_front(f"4b. the batched node over {n_frames} frames (R and Q once a "
+              f"batch)", n_frames // batch)
     launches_b = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches,
                   "elas_dense_lr": dense_mod.lr_launches,
@@ -4563,14 +4894,12 @@ def main() -> int:
 
     # kernel timing at the node's shapes, beside the plain versions
     ncv = -(-H // step)
-    Q = support_mod.grid_row_blocks(d1, step, ncv)
-    T = support_mod.grid_row_blocks(d2, step, ncv)
-    nb, opsA, sads = support_work(Q, params.disp_min, D)
+    nb, opsA, sads = support_work(1, ncv - 1, W, params.disp_min, D)
     bA, byA = bound_ms(nb, opsA, int_ops_rate(dev))
     obA, obyA = bound_ms(nb, sads, rate)
 
     def sup():
-        return support_mod.support_keys(Q, T, 0, D)
+        return support_mod.grid_row_keys(d1, d2, step, 0, D)
 
     def den():
         return dense_mod.dense_match_pair(d1, d2, v1, v2, params)
@@ -4600,27 +4929,25 @@ def main() -> int:
           f"{batch}")
 
     # A at the batched node's shape: its B = 8 descriptors (phase 4b)
-    Q8 = support_mod.grid_row_blocks(bd1, step, ncv)
-    T8 = support_mod.grid_row_blocks(bd2, step, ncv)
-    hold("support", f"support, the batched node's {batch} frames",
-         support_mod.support_keys(Q8, T8, 0, D),
-         support_mod.support_keys_plain(Q8, T8, 0, D))
-    nb8, ops8, sads8 = support_work(Q8, params.disp_min, D)
+    support_keys_held(hold, f"support, the batched node's {batch} frames",
+                      bd1, bd2, step, 0, D)
+    nb8, ops8, sads8 = support_work(batch, ncv - 1, W, params.disp_min, D)
     b8, by8 = bound_ms(nb8, ops8, int_ops_rate(dev))
 
     def sup8():
-        return support_mod.support_keys(Q8, T8, 0, D)
+        return support_mod.grid_row_keys(bd1, bd2, step, 0, D)
 
     kA, kB, kA8 = events_ms(sup, 50), events_ms(den, 50), events_ms(sup8, 20)
     kB8 = events_ms(den8, 20)
-    plans = {n: support_mod.plan(dev.index, *q.shape[:3], 0, D)
-             for n, q in ((1, Q), (batch, Q8))}
+    plans = {n: support_mod.plan(dev.index, n, ncv - 1, W, 0, D)
+             for n in (1, batch)}
     lA, seenA = launch_ms(sup, 50, "support_keys_kernel")
     lM, seenM = (launch_ms(sup, 50, "support_merge_kernel")
                  if plans[1][0] > 1 else (0.0, 0))
     lB, seenB = launch_ms(den, 50, "elas_dense_kernel")
-    pA = events_ms(lambda: support_mod.support_keys_plain(Q, T, 0, D), 3,
-                   spin=False)
+    pA = events_ms(lambda: support_mod.support_keys_plain(
+        support_mod.grid_row_blocks(d1, step, ncv),
+        support_mod.grid_row_blocks(d2, step, ncv), 0, D), 3, spin=False)
     nbB, sadsB, viewsB = dense_pair_work(d1, d2, v1, v2, params)
     bB, byB = bound_ms(nbB, sadsB, rate)
     # the bound as counted before the pair call: each view alone, summed
@@ -4757,6 +5084,15 @@ def main() -> int:
     # ---- 14. the scan and the cloud: kernels P1-P3 ------------------------
     node_maps = torch.from_numpy(np.stack([fr.dmap for fr in results])).to(dev)
     line, entries = scan_phase(dev, hold, node_maps, pipe)
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
+
+    # ---- 15. the ELAS front: kernels R and Q -----------------------------
+    line, entries = front_phase(
+        dev, hold, (L9, R9), [pipe._rectify_crop(lb, rb) for lb, rb in raw_b],
+        {k: launches[k] for k in ("descriptor", "support_epilogue")})
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

@@ -3,17 +3,23 @@
 // Replaces the TPU kernel jackal_tpu/ops/pallas/support_kernel.py
 // (_support_kernel l.61, pallas_call l.183, wrapper
 // support_candidates_pallas l.148). The plain PyTorch version of the same
-// function is support_keys_plain in matching/elas/support.py; the wrapper
-// there (support_keys) holds the acceptance tests (texture, ratio, bounds,
-// fwd-bwd) in support_candidates.
+// function is support_keys_plain in matching/elas/support.py; the
+// acceptance tests (texture, ratio, bounds, fwd-bwd) are kernel Q below.
 //
-// What it computes. Q and T are [B, nv, W, 32] uint8: per support-grid row
-// and column, the 16-byte descriptors of rows v-2 and v+2 side by side.
-// With S(x, d) = sum over 32 bytes |Q(x) - T(x-d)|:
+// What it computes. desc1 and desc2 are the descriptors [B, H, W, 16]
+// uint8; grid row k (k < nv) is image row vs = (k + 1) * step, and its
+// 32-byte tap Q(x) (T(x) of desc2) is the descriptors of rows vs - 2 and
+// vs + 2 at column x side by side, the bias value 128 for a row outside
+// the image (grid_row_blocks in matching/elas/support.py builds these
+// blocks for the plain version). With S(x, d) = sum over 32 bytes
+// |Q(x) - T(x-d)|:
 //   left  key(c, d) = (S(c-2, d) + S(c+2, d)) * 512 + d,  live d+5 <= c <= W-6
 //   right key(c, d) = (S(c+d-2, d) + S(c+d+2, d)) * 512 + d, live 5 <= c <= W-5-d
 // for d in [disp_min, D), D <= 512. Per view the two smallest keys survive;
 // dead keys are KBIG. The out array is int32 [4, B, nv, W]: l1, l2, r1, r2.
+// A block reads its grid row's taps from the descriptors' rows itself, so
+// no blocks are built on the card. Kernel Q, the acceptance tests after
+// the keys, is at the end of this file.
 // Every live key's taps lie in [d+3, W-3], so no padding is needed.
 //
 // What bounds it on an H100: integer instructions. Each S(x, d) that a
@@ -78,6 +84,7 @@ constexpr int kDCMax = 16;             // d a chunk
 constexpr int kPlane = kSlab + kDCMax + 4;  // a plane's words, 4 mod 8
 constexpr int kPlaneBytes = 2 * 8 * kPlane * 4;  // Q's and T's planes
 constexpr int kRMax = 8;
+constexpr uint32_t k128 = 0x80808080u;  // four bias bytes
 
 static_assert(kPlane % 8 == 4, "the staging's two halves on other banks");
 
@@ -85,15 +92,32 @@ struct Tap {
   uint32_t w[8];  // 32 bytes
 };
 
+// The half of a grid row's taps that a thread stages: half k =
+// threadIdx.x & 1 (0: row vs-2, 1: row vs+2; the staging loop steps by
+// kThreads, an even number, so a thread always stages the same half) of
+// tap y is the 16-byte word at p + stride * y: a row of the descriptors at
+// stride 1, or for a row outside the image kBiasTap, the bias value 128,
+// at stride 0.
+struct Half {
+  const uint4* p;
+  int stride;
+};
+
+static_assert(kThreads % 2 == 0, "a thread stages one half of every tap");
+
+__device__ const uint4 kBiasTap = {k128, k128, k128, k128};
+
 // Taps [y0, y0 + n) of a row, y clamped to [0, W-1], into word planes:
 // word w of tap y at P[w * kPlane + y - y0]. Lanes read 16 consecutive
-// bytes each (coalesced); the two halves of a tap land 16 banks apart.
-__device__ __forceinline__ void stage(uint32_t* P, const uint4* row, int y0,
-                                      int n, int W) {
+// bytes each (coalesced: even lanes one half's row, odd lanes the
+// other's); the two halves of a tap land 16 banks apart.
+__device__ __forceinline__ void stage(uint32_t* P, Half h, int y0, int n,
+                                      int W) {
+  uint32_t* base = P + (threadIdx.x & 1) * 4 * kPlane;
   for (int i = threadIdx.x; i < 2 * n; i += kThreads) {
     const int y = min(max(y0 + (i >> 1), 0), W - 1);
-    const uint4 v = __ldg(row + 2 * y + (i & 1));
-    uint32_t* p = P + (i & 1) * 4 * kPlane + (i >> 1);
+    const uint4 v = __ldg(h.p + h.stride * y);
+    uint32_t* p = base + (i >> 1);
     p[0] = v.x;
     p[kPlane] = v.y;
     p[2 * kPlane] = v.z;
@@ -125,8 +149,8 @@ __host__ __device__ __forceinline__ int padded(int W) { return (W + 3) & ~3; }
 __device__ __forceinline__ void fill_table(int* __restrict__ U,
                                            uint32_t* __restrict__ Qp,
                                            uint32_t* __restrict__ Tp,
-                                           const uint4* q, const uint4* t,
-                                           int W, int Wp, int da, int db) {
+                                           Half q, Half t, int W, int Wp,
+                                           int da, int db) {
   const int xb = da + 3;
   for (int xs = xb; xs <= W - 3; xs += kSlab) {
     const int yb = xs - db + 1;  // T taps [yb, xs + kSlab - da)
@@ -163,11 +187,22 @@ __device__ __forceinline__ void best_two(const int* p, int& k1, int& k2) {
   k1 = __viaddmin_s32(p[0], p[4], k1);
 }
 
+// This thread's half (Half) of a view's grid row `row` of frame b, src
+// [B, H, W, 16]: the grid row is image row vs = (row + 1) * step, its
+// halves rows vs - 2 and vs + 2.
+__device__ __forceinline__ Half grid_half(const uint8_t* src, int b, int row,
+                                          int H, int W, int step) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  const int y = (row + 1) * step + ((threadIdx.x & 1) ? 2 : -2);
+  if (y < 0 || y >= H) return Half{&kBiasTap, 0};
+  return Half{s + (static_cast<size_t>(b) * H + y) * W, 1};
+}
+
 __global__ void __launch_bounds__(kThreads)
 support_keys_kernel(const uint8_t* __restrict__ Q,
                     const uint8_t* __restrict__ T, int32_t* __restrict__ dst,
                     int nv, int W, int disp_min, int D, int chunk,
-                    int ranges) {
+                    int ranges, int H, int step) {
   extern __shared__ int4 smem[];
   int* U = reinterpret_cast<int*>(smem);
   const int Wp = padded(W);
@@ -177,8 +212,8 @@ support_keys_kernel(const uint8_t* __restrict__ Q,
   const size_t row = static_cast<size_t>(blockIdx.z) * nv + blockIdx.y;
   const size_t N = static_cast<size_t>(gridDim.z) * nv * W;
   const size_t base = row * W;
-  const uint4* q = reinterpret_cast<const uint4*>(Q + base * 32);
-  const uint4* t = reinterpret_cast<const uint4*>(T + base * 32);
+  const Half q = grid_half(Q, blockIdx.z, blockIdx.y, H, W, step);
+  const Half t = grid_half(T, blockIdx.z, blockIdx.y, H, W, step);
   // with R = 1 dst is the out array, else this block's partial
   int32_t* out = dst + (ranges > 1 ? r * 4 * N : 0) + base;
   const int nchunks = (D - disp_min + chunk - 1) / chunk;
@@ -270,14 +305,17 @@ extern "C" int support_keys_plan(int B, int nv, int W, int disp_min, int D,
   return 0;
 }
 
-// out: int32 [4, B, nv, W]; part: int32 [R, 4, B, nv, W] when R > 1
+// desc1, desc2: u8 [B, H, W, 16] descriptors; the kernel reads grid row
+// k's taps from image rows (k + 1) * step -+ 2 itself (128 past the
+// image). out: int32 [4, B, nv, W]; part: int32 [R, 4, B, nv, W] when R > 1
 // (unused at R = 1). One launch at R = 1, two (keys, merge) above.
-extern "C" int support_keys(const uint8_t* Q, const uint8_t* T, int32_t* out,
-                            int32_t* part, int B, int nv, int W, int disp_min,
-                            int D, int ranges, int chunk, void* stream) {
-  if (ranges < 1 || ranges > kRMax || chunk < 1 || chunk > kDCMax ||
-      disp_min < 0 ||
-      disp_min >= D || D > 512 ||
+extern "C" int support_keys(const uint8_t* desc1, const uint8_t* desc2,
+                            int32_t* out, int32_t* part, int B, int nv, int W,
+                            int H, int step, int disp_min, int D, int ranges,
+                            int chunk, void* stream) {
+  if (step < 1 || H < 1 || static_cast<long long>(nv) * step >= H ||
+      ranges < 1 || ranges > kRMax || chunk < 1 || chunk > kDCMax ||
+      disp_min < 0 || disp_min >= D || D > 512 ||
       ranges > (D - disp_min + chunk - 1) / chunk)  // a range of no chunk
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -292,12 +330,125 @@ extern "C" int support_keys(const uint8_t* Q, const uint8_t* T, int32_t* out,
   }
   const dim3 grid(ranges, nv, B);
   support_keys_kernel<<<grid, kThreads, smem, s>>>(
-      Q, T, ranges > 1 ? part : out, nv, W, disp_min, D, chunk, ranges);
+      desc1, desc2, ranges > 1 ? part : out, nv, W, disp_min, D, chunk,
+      ranges, H, step);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || ranges == 1) return static_cast<int>(err);
   const size_t N = static_cast<size_t>(B) * nv * W;
   const int threads = 256;
   support_merge_kernel<<<static_cast<unsigned>((N + threads - 1) / threads),
                          threads, 0, s>>>(part, out, N, ranges);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- kernel Q: the support epilogue ---------------------------------------
+//
+// Replaces no Pallas kernel: the reference runs it inside one jitted
+// program, jackal_tpu/matching/elas/support.py:76 support_candidates, after
+// its cost scan (l.121-173): the texture sums, the acceptance test of both
+// views (accL, accR), the forward-backward check on the grid columns and
+// the calloc border. The plain PyTorch version is support_epilogue_plain in
+// matching/elas/support.py.
+//
+// What it computes. keys: int32 [4, B, nv, W] (l1, l2, r1, r2 of the keys
+// kernel above); desc1, desc2: u8 [B, H, W, 16]; grid: int16 [B, ncv, ncu],
+// written whole. Grid row 0 and column 0 are 0. At grid row j >= 1
+// (vs = j * step, key row j - 1) and column i >= 1 (u = i * step) a view's
+// disparity at column x is k1 & 511 where it accepts, else -1:
+//   5 <= x <= W-6, dmax - disp_min >= 10 (dmax = min(x - 5, disp_max)
+//   left, min(W - x - 5, disp_max) right), 5 <= vs <= H-6,
+//   tex(x) = sum over 16 bytes |desc(vs, x) - 128| >= support_texture,
+//   k1 < KBIG and f32(k1 >> 9) < f32(thr) * f32(k2 >> 9), the product
+//   rounded to f32 (__fmul_rn: no contraction);
+// the entry is dL = the left view's at u where it accepts, the right
+// view's dR at u - dL accepts and |dL - dR| <= lr_threshold, else -1.
+//
+// What bounds it on an H100: bytes, and a launch. A view's test at a
+// column that passes its static gates needs its two keys (8 bytes) and
+// its descriptor (16), less where one test already rejects: the left view
+// at every grid point of a live row, the right view at u - dL where the
+// left accepts; the grid is 2 bytes a point. At 640x480, step 5 that is
+// at most 0.59 MB, some 0.00018 ms; the launch itself takes longer.
+//
+// The design. A block of 128 threads owns one (frame, grid row) and a
+// thread one grid column at a time: the right view is accepted only at the
+// one column the check reads (u - dL), so no row of dR is built. Loads are
+// a thread's own: two key words and a 16-byte descriptor a view.
+namespace {
+
+constexpr int kEpThreads = 128;
+
+struct Epilogue {
+  int B, H, W, nv, ncv, ncu, step, disp_min, disp_max, texture, lr;
+  float thr;
+};
+
+// a view's disparity at column x of a live grid row, or -1
+__device__ __forceinline__ int accept(const int32_t* k1p, const int32_t* k2p,
+                                      const uint4* desc, int x, int dmax,
+                                      const Epilogue& e) {
+  if (x < kGap || x > e.W - kGap - 1 || dmax - e.disp_min < 10 ||
+      max(dmax - e.disp_min + 1, 0) < 2)
+    return -1;
+  const int k1 = k1p[x];
+  if (k1 >= (kKBig2 >> 1)) return -1;
+  const uint4 d = __ldg(desc + x);
+  const unsigned tex = __vsadu4(d.x, k128) + __vsadu4(d.y, k128) +
+                       __vsadu4(d.z, k128) + __vsadu4(d.w, k128);
+  if (static_cast<int>(tex) < e.texture) return -1;
+  const float a = __int2float_rn(k1 >> 9);
+  const float b = __fmul_rn(e.thr, __int2float_rn(k2p[x] >> 9));
+  return a < b ? (k1 & 511) : -1;
+}
+
+__global__ void __launch_bounds__(kEpThreads)
+support_epilogue_kernel(const int32_t* __restrict__ keys,
+                        const uint4* __restrict__ desc1,
+                        const uint4* __restrict__ desc2,
+                        int16_t* __restrict__ grid, Epilogue e) {
+  const int j = blockIdx.x, b = blockIdx.y;
+  int16_t* g = grid + (static_cast<size_t>(b) * e.ncv + j) * e.ncu;
+  const int vs = j * e.step;
+  const bool live = j > 0 && vs >= kGap && vs <= e.H - kGap - 1;
+  const size_t N = static_cast<size_t>(e.B) * e.nv * e.W;
+  const size_t row = (static_cast<size_t>(b) * e.nv + j - 1) * e.W;
+  const size_t pix = (static_cast<size_t>(b) * e.H + vs) * e.W;
+  for (int i = threadIdx.x; i < e.ncu; i += kEpThreads) {
+    int out = (j > 0 && i > 0) ? -1 : 0;
+    if (live && i > 0) {
+      const int u = i * e.step;
+      const int dl = accept(keys + row, keys + N + row, desc1 + pix, u,
+                            min(u - kGap, e.disp_max), e);
+      if (dl >= 0) {
+        const int back = min(max(u - dl, 0), e.W - 1);
+        const int dr = accept(keys + 2 * N + row, keys + 3 * N + row,
+                              desc2 + pix, back,
+                              min(e.W - back - kGap, e.disp_max), e);
+        if (dr >= 0 && abs(dl - dr) <= e.lr) out = dl;
+      }
+    }
+    g[i] = static_cast<int16_t>(out);
+  }
+}
+
+}  // namespace
+
+// keys: int32 [4, B, nv, W], nv = ncv - 1 (unread when nv = 0); desc1,
+// desc2: u8 [B, H, W, 16] (16-byte aligned); grid: int16 [B, ncv, ncu].
+// One launch.
+extern "C" int support_epilogue(const int32_t* keys, const uint8_t* desc1,
+                                const uint8_t* desc2, int16_t* grid, int B,
+                                int H, int W, int step, int disp_min,
+                                int disp_max, int texture, int lr, float thr,
+                                void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || step < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ncv = (H + step - 1) / step, ncu = (W + step - 1) / step;
+  const Epilogue e{B, H, W, ncv - 1, ncv, ncu, step, disp_min, disp_max,
+                   texture, lr, thr};
+  support_epilogue_kernel<<<dim3(ncv, B), kEpThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      keys, reinterpret_cast<const uint4*>(desc1),
+      reinterpret_cast<const uint4*>(desc2), grid, e);
   return static_cast<int>(cudaGetLastError());
 }

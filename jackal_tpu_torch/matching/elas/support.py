@@ -17,10 +17,14 @@ where its taps lie inside the image:
 
     left:  d+5 <= c <= W-6        right:  5 <= c <= W-5-d
 
-and is _KBIG elsewhere. support_keys() computes the four key maps with the
-CUDA kernel (csrc/support_kernel.cu) for a CUDA tensor and with
-support_keys_plain() for a CPU tensor; support_candidates() applies the
-texture / ratio / bounds / forward-backward tests to either.
+and is _KBIG elsewhere. grid_row_keys() computes the four key maps from
+the descriptors: kernel A (csrc/support_kernel.cu), which reads the grid
+rows itself, for a CUDA tensor; grid_row_blocks() then
+support_keys_plain() for a CPU tensor. support_epilogue() applies the
+texture / ratio / bounds / forward-backward tests: kernel Q (the same
+library) on the card, support_epilogue_plain() on the CPU.
+support_candidates() is the two, the main path's front after the
+descriptor.
 """
 from __future__ import annotations
 
@@ -38,7 +42,9 @@ from ...ops import cuda_lib
 _KBIG = 1 << 24   # > max key (32*255*2*512 + 255)
 _GAP = 5          # window(3) + u_step(2): min margin to the image edge
 
-launches = 0      # support_keys calls (one or two launches) since the last reset
+launches = 0      # A: grid_row_keys calls that launched it
+                  # (one or two launches) since the last reset
+epilogue_launches = 0   # Q: support_epilogue calls that launched it
 
 
 def effective_stepsize(params: ElasParams) -> int:
@@ -52,16 +58,11 @@ def effective_stepsize(params: ElasParams) -> int:
 
 def grid_row_blocks(desc: torch.Tensor, step: int, ncv: int) -> torch.Tensor:
     """[B, H, W, 16] -> [B, nv, W, 32] uint8: the descriptors of rows
-    vs-2 and vs+2 side by side, vs = (1..ncv-1)*step. Rows past the image
-    read the bias value 128."""
-    B, H, W, C = desc.shape
-    nv = ncv - 1
-    need = (ncv - 1) * step + 2 + 1
-    if need > H:
-        desc = F.pad(desc, (0, 0, 0, 0, 0, need - H), value=128)
-    rm = desc[:, step - 2::step][:, :nv]
-    rp = desc[:, step + 2::step][:, :nv]
-    return torch.cat([rm, rp], dim=-1).contiguous()
+    vs-2 and vs+2 side by side, vs = (1..ncv-1)*step. Rows outside the
+    image (past it, or above it at step 1) read the bias value 128."""
+    rows = torch.arange(1, ncv, device=desc.device) * step
+    pad = F.pad(desc, (0, 0, 0, 0, 2, 2), value=128)    # row y at y + 2
+    return torch.cat([pad[:, rows], pad[:, rows + 4]], dim=-1).contiguous()
 
 
 def support_keys_plain(Q: torch.Tensor, T: torch.Tensor, disp_min: int,
@@ -112,58 +113,66 @@ def plan(device_index: int, B: int, nv: int, W: int, disp_min: int,
     return ranges.value, chunk.value
 
 
-def _support_keys_cuda(Q: torch.Tensor, T: torch.Tensor, disp_min: int,
-                       D: int) -> Tuple[torch.Tensor, ...]:
+def _keys_cuda(desc1: torch.Tensor, desc2: torch.Tensor, H: int,
+               step: int, disp_min: int, D: int) -> torch.Tensor:
+    """Kernel A's launch on descriptors [B, H, W, 16]: int32 [4, B, nv,
+    W], nv = ceil(H / step) - 1."""
     global launches
-    B, nv, W, _ = Q.shape
-    for name, x in (("Q", Q), ("T", T)):
-        cuda_lib.expect(x, name, torch.uint8, (B, nv, W, 32), Q.device)
+    B, _, W, _ = desc1.shape
+    nv = -(-H // step) - 1
     if not 0 <= disp_min < D <= 512:
         raise ValueError(f"need 0 <= disp_min < D <= 512, got {disp_min}, {D}")
-    out = torch.empty((4, B, nv, W), dtype=torch.int32, device=Q.device)
+    out = torch.empty((4, B, nv, W), dtype=torch.int32, device=desc1.device)
     if out.numel() == 0:        # nv = 0: no grid row, nothing to launch
-        return tuple(out)
-    ranges, chunk = plan(Q.device.index, B, nv, W, disp_min, D)
+        return out
+    ranges, chunk = plan(desc1.device.index, B, nv, W, disp_min, D)
     part = (torch.empty((ranges, 4, B, nv, W), dtype=torch.int32,
-                        device=Q.device) if ranges > 1 else out)
+                        device=desc1.device) if ranges > 1 else out)
     fn = cuda_lib.load("support_kernel").support_keys
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    cuda_lib.launch(fn, "support_keys", Q, Q.data_ptr(), T.data_ptr(),
-                    out.data_ptr(), part.data_ptr(), B, nv, W, disp_min, D,
-                    ranges, chunk)
+    cuda_lib.launch(fn, "support_keys", desc1, desc1.data_ptr(),
+                    desc2.data_ptr(), out.data_ptr(), part.data_ptr(), B, nv,
+                    W, H, step, disp_min, D, ranges, chunk)
     launches += 1
-    return tuple(out)
+    return out
 
 
-def support_keys(Q: torch.Tensor, T: torch.Tensor, disp_min: int, D: int
-                 ) -> Tuple[torch.Tensor, ...]:
-    """Best-two key maps of both views; the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
-    if Q.is_cuda:
-        return _support_keys_cuda(Q, T, disp_min, D)
-    return support_keys_plain(Q, T, disp_min, D)
+def grid_row_keys(desc1: torch.Tensor, desc2: torch.Tensor, step: int,
+                  disp_min: int, D: int) -> torch.Tensor:
+    """The best-two key maps of both views at grid step ``step`` from two
+    descriptors [B, H, W, 16], as one int32 [4, B, ncv - 1, W] tensor (l1,
+    l2, r1, r2; ncv = ceil(H / step)). On a CUDA tensor kernel A reads the
+    rows vs -+ 2 of the descriptors itself (128 outside the image); on a
+    CPU tensor grid_row_blocks builds the blocks for support_keys_plain."""
+    B, H, W, _ = desc1.shape
+    if step < 1:
+        raise ValueError(f"grid step must be at least 1, got {step}")
+    ncv = -(-H // step)
+    if not desc1.is_cuda:
+        return torch.stack(support_keys_plain(
+            grid_row_blocks(desc1, step, ncv),
+            grid_row_blocks(desc2, step, ncv), disp_min, D))
+    for name, x in (("desc1", desc1), ("desc2", desc2)):
+        cuda_lib.expect(x, name, torch.uint8, (B, H, W, 16), desc1.device)
+    return _keys_cuda(desc1, desc2, H, step, disp_min, D)
 
 
-def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
-                       params: ElasParams = ElasParams()) -> torch.Tensor:
-    """Candidate grid [B, ncv, ncu] int16 from descriptors [B, H, W, 16]
-    (calloc-0 border row/col 0). Entry (v_can, u_can) for u_can, v_can >= 1
-    is the L/R-consistent support disparity at (u_can*step, v_can*step),
-    or -1. Under subsampling the descriptors are the half-resolution ones
-    (create_descriptor(..., half_resolution=True)) and the step is even,
-    so the grid rows read only the rows those keep."""
+def support_epilogue_plain(keys: torch.Tensor, desc1: torch.Tensor,
+                           desc2: torch.Tensor,
+                           params: ElasParams = ElasParams()) -> torch.Tensor:
+    """Kernel Q's function in plain PyTorch: the candidate grid [B, ncv,
+    ncu] int16 from the key maps keys [4, B, ncv - 1, W] (grid_row_keys)
+    and the descriptors [B, H, W, 16]: each view's texture, ratio and
+    bounds tests, then the forward-backward check on the grid columns;
+    border row and column 0 are 0."""
     B, H, W, _ = desc1.shape
     step = effective_stepsize(params)
     ncu = -(-W // step)
     ncv = -(-H // step)
-    D = params.disp_max + 1
     dev = desc1.device
-
-    l1, l2, r1, r2 = support_keys(grid_row_blocks(desc1, step, ncv),
-                                  grid_row_blocks(desc2, step, ncv),
-                                  params.disp_min, D)
+    l1, l2, r1, r2 = keys
 
     vs = torch.arange(1, ncv, device=dev) * step
     us = torch.arange(1, ncu, device=dev) * step
@@ -205,6 +214,59 @@ def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
     out = torch.zeros((B, ncv, ncu), dtype=torch.int16, device=dev)
     out[:, 1:, 1:] = torch.where(ok, dg, -1).to(torch.int16)
     return out
+
+
+def _epilogue_cuda(keys: torch.Tensor, desc1: torch.Tensor,
+                   desc2: torch.Tensor, params: ElasParams) -> torch.Tensor:
+    global epilogue_launches
+    B, H, W, _ = desc1.shape
+    step = effective_stepsize(params)
+    ncu, ncv = -(-W // step), -(-H // step)
+    for name, x in (("desc1", desc1), ("desc2", desc2)):
+        cuda_lib.expect(x, name, torch.uint8, (B, H, W, 16), desc1.device)
+    cuda_lib.expect(keys, "keys", torch.int32, (4, B, ncv - 1, W),
+                    desc1.device)
+    if B > 65535:
+        raise ValueError(f"support_epilogue takes up to 65535 frames, got {B}")
+    out = torch.empty((B, ncv, ncu), dtype=torch.int16, device=desc1.device)
+    if out.numel() == 0:
+        return out
+    fn = cuda_lib.load("support_kernel").support_epilogue
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "support_epilogue", desc1, keys.data_ptr(),
+                    desc1.data_ptr(), desc2.data_ptr(), out.data_ptr(), B, H,
+                    W, step, params.disp_min, params.disp_max,
+                    params.support_texture, params.lr_threshold,
+                    params.support_threshold)
+    epilogue_launches += 1
+    return out
+
+
+def support_epilogue(keys: torch.Tensor, desc1: torch.Tensor,
+                     desc2: torch.Tensor,
+                     params: ElasParams = ElasParams()) -> torch.Tensor:
+    """The candidate grid from the key maps (support_epilogue_plain's
+    function): kernel Q, one launch, on a CUDA tensor; the plain version
+    on a CPU tensor."""
+    if desc1.is_cuda:
+        return _epilogue_cuda(keys, desc1, desc2, params)
+    return support_epilogue_plain(keys, desc1, desc2, params)
+
+
+def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
+                       params: ElasParams = ElasParams()) -> torch.Tensor:
+    """Candidate grid [B, ncv, ncu] int16 from descriptors [B, H, W, 16]
+    (calloc-0 border row/col 0). Entry (v_can, u_can) for u_can, v_can >= 1
+    is the L/R-consistent support disparity at (u_can*step, v_can*step),
+    or -1. Under subsampling the descriptors are the half-resolution ones
+    (create_descriptor(..., half_resolution=True)) and the step is even,
+    so the grid rows read only the rows those keep. On the card: kernel A
+    (one or two launches) and kernel Q (one)."""
+    keys = grid_row_keys(desc1, desc2, effective_stepsize(params),
+                         params.disp_min, params.disp_max + 1)
+    return support_epilogue(keys, desc1, desc2, params)
 
 
 def add_corner_support_points(

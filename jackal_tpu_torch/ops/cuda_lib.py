@@ -23,7 +23,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
                   "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel",
                   "bm_kernel", "elas_post_kernel", "speckle_kernel",
-                  "remap_kernel", "scan_kernel")
+                  "remap_kernel", "scan_kernel", "descriptor_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # headers under csrc/, hashed into every library's name (elas_lr.cuh: the

@@ -12,13 +12,24 @@ uninitialized; they are defined deterministically):
 
 Valid region: u in [3, W-4], v in [3, H-4] (descriptor.cpp:84,92); outside
 is 0, the reference's fresh-page contents.
+
+create_descriptor is a wrapper: on a CUDA tensor it launches kernel R
+(csrc/descriptor_kernel.cu, one launch for all frames), on a CPU tensor it
+runs the plain version, create_descriptor_plain, which the kernel equals
+bit for bit (integer arithmetic only). ``launches`` counts the calls that
+launched the kernel.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import cuda_lib
+
+launches = 0
 
 # (dy, dx, use_dv) sample offsets, in reference channel order
 # (descriptor.cpp:94-109)
@@ -62,9 +73,10 @@ def sobel3x3(img_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return du, dv
 
 
-def create_descriptor(img_u8: torch.Tensor,
-                      half_resolution: bool = False) -> torch.Tensor:
-    """16-channel uint8 descriptor [..., H, W, 16] of u8 images [..., H, W].
+def create_descriptor_plain(img_u8: torch.Tensor,
+                            half_resolution: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the 16-channel uint8
+    descriptor [..., H, W, 16] of u8 images [..., H, W].
 
     half_resolution=True (the ELAS subsampling path, descriptor.cpp:48-78)
     keeps only even rows 4 <= v <= H-4 and columns 3 <= u <= W-4; every
@@ -82,3 +94,40 @@ def create_descriptor(img_u8: torch.Tensor,
     else:
         out[..., 3:H - 3, 3:W - 3, :] = desc[..., 3:H - 3, 3:W - 3, :]
     return out
+
+
+def _descriptor_cuda(img_u8: torch.Tensor, half_resolution: bool
+                     ) -> torch.Tensor:
+    global launches
+    if img_u8.dtype != torch.uint8 or img_u8.dim() < 2 \
+            or not img_u8.is_contiguous():
+        raise ValueError(f"create_descriptor: expected a contiguous uint8 "
+                         f"[..., H, W] tensor, got {img_u8.dtype} "
+                         f"{tuple(img_u8.shape)} (contiguous="
+                         f"{img_u8.is_contiguous()})")
+    H, W = img_u8.shape[-2:]
+    N = img_u8.numel() // max(H * W, 1)
+    out = torch.empty(tuple(img_u8.shape) + (16,), dtype=torch.uint8,
+                      device=img_u8.device)
+    if out.numel() == 0:
+        return out
+    if N > 65535 or -(-H // 8) > 65535:
+        raise ValueError(f"create_descriptor: the kernel takes up to 65535 "
+                         f"frames of up to 524280 rows, got {N} of {H}")
+    fn = cuda_lib.load("descriptor_kernel").elas_descriptor
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "elas_descriptor", img_u8, img_u8.data_ptr(),
+                    out.data_ptr(), N, H, W, int(half_resolution))
+    launches += 1
+    return out
+
+
+def create_descriptor(img_u8: torch.Tensor,
+                      half_resolution: bool = False) -> torch.Tensor:
+    """16-channel uint8 descriptor [..., H, W, 16] of u8 images [..., H, W]
+    (create_descriptor_plain's function): kernel R, one launch for every
+    frame, on a CUDA tensor; the plain version on a CPU tensor."""
+    if img_u8.is_cuda:
+        return _descriptor_cuda(img_u8, half_resolution)
+    return create_descriptor_plain(img_u8, half_resolution)

@@ -42,10 +42,11 @@ def test_support_kernel_equals_plain(dev, B, H, W, disp_max, disp_min):
     d2 = create_descriptor(torch.from_numpy(r).to(dev))
     step = sm.effective_stepsize(ElasParams())
     ncv = -(-H // step)
-    Q, T = sm.grid_row_blocks(d1, step, ncv), sm.grid_row_blocks(d2, step, ncv)
     n0 = sm.launches
-    got = sm.support_keys(Q, T, disp_min, disp_max + 1)
-    want = sm.support_keys_plain(Q, T, disp_min, disp_max + 1)
+    got = sm.grid_row_keys(d1, d2, step, disp_min, disp_max + 1)
+    want = sm.support_keys_plain(sm.grid_row_blocks(d1, step, ncv),
+                                 sm.grid_row_blocks(d2, step, ncv),
+                                 disp_min, disp_max + 1)
     assert sm.launches == n0 + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -64,11 +65,15 @@ def test_support_kernel_edges(dev, case):
 
     assert len(SUPPORT_EDGE_CASES) == 8
     name = SUPPORT_EDGE_CASES[case]
-    Q, T, disp_min, D = support_edge_case(name, dev)
+    d1, d2, disp_min, D = support_edge_case(name, dev)
+    step = sm.effective_stepsize(ElasParams())
+    ncv = -(-d1.shape[1] // step)
     n0 = sm.launches
-    got = sm.support_keys(Q, T, disp_min, D)
+    got = sm.grid_row_keys(d1, d2, step, disp_min, D)
     assert sm.launches == n0 + 1
-    want = sm.support_keys_plain(Q, T, disp_min, D)
+    want = sm.support_keys_plain(sm.grid_row_blocks(d1, step, ncv),
+                                 sm.grid_row_blocks(d2, step, ncv),
+                                 disp_min, D)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     if name.startswith("constant"):     # all ties: the lowest two d win
@@ -81,24 +86,219 @@ def test_support_kernel_never_runs_the_plain_twin(dev, monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain twin")
 
     monkeypatch.setattr(sm, "support_keys_plain", refuse)
-    Q = torch.full((1, 3, 40, 32), 9, dtype=torch.uint8, device=dev)
-    keys = sm.support_keys(Q, Q.clone(), 0, 20)
-    assert all(k.is_cuda and k.shape == (1, 3, 40) for k in keys)
+    monkeypatch.setattr(sm, "grid_row_blocks", refuse)
+    d = torch.full((1, 20, 40, 16), 9, dtype=torch.uint8, device=dev)
+    keys = sm.grid_row_keys(d, d.clone(), 5, 0, 20)
+    assert keys.is_cuda and keys.shape == (4, 1, 3, 40)
     assert int(keys[0][0, 0, 20]) == 0 and int(keys[1][0, 0, 20]) == 1
 
 
 def test_support_kernel_refuses_what_it_does_not_take(dev):
-    Q = torch.zeros((1, 3, 40, 32), dtype=torch.uint8, device=dev)
+    d = torch.zeros((1, 20, 40, 16), dtype=torch.uint8, device=dev)
     for lo, hi in ((0, 513), (20, 20), (30, 20), (-1, 10)):
         with pytest.raises(ValueError, match="disp_min"):
-            sm.support_keys(Q, Q, lo, hi)
-    with pytest.raises(ValueError, match="^T:"):
-        sm.support_keys(Q, Q.to(torch.int32), 0, 20)
-    with pytest.raises(ValueError, match="^Q:"):
-        sm.support_keys(Q[..., :16].contiguous(), Q, 0, 20)
-    wide = torch.zeros((1, 1, 60000, 32), dtype=torch.uint8, device=dev)
+            sm.grid_row_keys(d, d, 5, lo, hi)
+    with pytest.raises(ValueError, match="^desc2:"):
+        sm.grid_row_keys(d, d.to(torch.int32), 5, 0, 20)
+    with pytest.raises(ValueError, match="^desc1:"):
+        sm.grid_row_keys(d[..., :8].contiguous(), d, 5, 0, 20)
+    wide = torch.zeros((1, 10, 60000, 16), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="W = 60000"):
-        sm.support_keys(wide, wide, 0, 20)
+        sm.grid_row_keys(wide, wide, 5, 0, 20)
+
+
+def _front_held(left, right, p, dev):
+    """Kernel R on both views in one call, kernel A from the descriptors'
+    rows and kernel Q against their plain versions (torch.equal), with one
+    launch of R and Q each; returns the card's grid."""
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    B, H = left.shape[:2]
+    imgs = torch.from_numpy(np.concatenate([left, right])).to(dev)
+    r0, q0, a0 = dmod.launches, sm.epilogue_launches, sm.launches
+    desc = dmod.create_descriptor(imgs, p.subsampling)
+    assert torch.equal(desc, dmod.create_descriptor_plain(imgs,
+                                                          p.subsampling))
+    d1, d2 = desc[:B], desc[B:]
+    step = sm.effective_stepsize(p)
+    ncv = -(-H // step)
+    keys = sm.grid_row_keys(d1, d2, step, p.disp_min, p.disp_num)
+    want = sm.support_keys_plain(sm.grid_row_blocks(d1, step, ncv),
+                                 sm.grid_row_blocks(d2, step, ncv),
+                                 p.disp_min, p.disp_num)
+    for g, w in zip(keys, want):
+        assert torch.equal(g, w)
+    grid = sm.support_epilogue(keys, d1, d2, p)
+    assert torch.equal(grid, sm.support_epilogue_plain(keys, d1, d2, p))
+    assert (dmod.launches, sm.epilogue_launches) == (r0 + 1, q0 + 1)
+    assert sm.launches == a0 + (ncv > 1)
+    assert torch.equal(sm.support_candidates(d1, d2, p), grid)
+    return grid
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_front_kernels_equal_plain(dev, case):
+    """chip_smoke.FRONT_EDGE_CASES (tests/test_torch_front_kernels.py holds
+    the plain versions against the JAX package on them): odd W, grid rows
+    past the image, half resolution at even and odd H, disp_min > 0,
+    W < D, B = 3, constant frames, candidate step 1."""
+    from chip_smoke import FRONT_EDGE_CASES, front_edge_images
+
+    assert len(FRONT_EDGE_CASES) == 9
+    left, right, kw = front_edge_images(list(FRONT_EDGE_CASES)[case])
+    p = ElasParams(**kw)
+    grid = _front_held(left, right, p, dev)
+    want = sm.support_candidates(
+        create_descriptor(torch.from_numpy(left), p.subsampling),
+        create_descriptor(torch.from_numpy(right), p.subsampling), p)
+    assert torch.equal(grid.cpu(), want)
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_front_kernels_on_the_support_edge_shapes(dev, case):
+    """chip_smoke.SUPPORT_EDGE_CASES' frames: the nodes' shapes, D = 512
+    at W = 2112 and 4096, W < D, disp_min near D, an odd width, constant
+    frames."""
+    from chip_smoke import SUPPORT_EDGE_CASES, support_edge_images
+
+    left, right, lo, hi = support_edge_images(SUPPORT_EDGE_CASES[case])
+    _front_held(left, right, ElasParams(disp_min=lo, disp_max=hi - 1), dev)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("shape", [(2, 37, 61), (1, 8, 9), (1, 6, 40),
+                                   (1, 17, 70)])
+def test_descriptor_kernel_at_tile_edges(dev, shape, half):
+    """Kernel R on frames too small for a valid pixel (H < 7) and on 8 x 32
+    tiles cut by the image's edge."""
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    img = torch.from_numpy(np.random.default_rng(sum(shape)).integers(
+        0, 256, shape).astype(np.uint8))
+    n0 = dmod.launches
+    got = dmod.create_descriptor(img.to(dev), half)
+    assert dmod.launches == n0 + 1
+    assert torch.equal(got.cpu(), dmod.create_descriptor_plain(img, half))
+
+
+@pytest.mark.parametrize("thr", [0.85, 0.95, 0.1])
+def test_support_epilogue_at_the_ratio_edge(dev, thr):
+    """Kernel Q on seeded keys whose second cost sits where f32(k1 >> 9)
+    and f32(thr) * f32(k2 >> 9) meet (the f32 product rounded once), dead
+    keys, dL pointing at any column and low textures; thr at both presets
+    and far from them."""
+    rng = np.random.default_rng(int(thr * 100))
+    B, H, W = 2, 61, 101
+    p = ElasParams(disp_max=40, support_threshold=thr, lr_threshold=10)
+    nv = -(-H // 5) - 1
+    c1 = rng.integers(0, 3000, (2, B, nv, W))   # c1 / thr < 32768
+    c2 = np.rint(c1 / np.float32(thr)).astype(np.int64) + rng.integers(
+        -1, 3, c1.shape)
+    d = rng.integers(0, 41, (2, B, nv, W))
+    k1 = c1 * 512 + d
+    k2 = np.clip(c2, 0, 32767) * 512 + (d + 1) % 41
+    k1[rng.random(k1.shape) < 0.1] = 1 << 24
+    keys = torch.from_numpy(
+        np.stack([k1[0], k2[0], k1[1], k2[1]]).astype(np.int32))
+    desc = torch.from_numpy(
+        rng.integers(120, 137, (2, B, H, W, 16)).astype(np.uint8))
+    want = sm.support_epilogue_plain(keys, desc[0], desc[1], p)
+    n0 = sm.epilogue_launches
+    got = sm.support_epilogue(keys.to(dev), desc[0].to(dev),
+                              desc[1].to(dev), p)
+    assert sm.epilogue_launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    assert (want > 0).sum() > 10 and (want[:, 1:, 1:] == -1).sum() > 10
+
+
+def test_front_kernels_never_run_the_plain_versions(dev, monkeypatch):
+    """On the card create_descriptor, support_candidates and the
+    per-frame elas_match reach no plain version of R, A or Q."""
+    from jackal_tpu_torch.matching.elas.pipeline import elas_match
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((dmod, "create_descriptor_plain"),
+                      (sm, "support_keys_plain"), (sm, "grid_row_blocks"),
+                      (sm, "support_epilogue_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    z = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
+    r0, q0 = dmod.launches, sm.epilogue_launches
+    D1, D2 = elas_match(z["left"], z["right"], ElasParams(), device=dev)
+    assert torch.equal(D1.cpu(), torch.from_numpy(z["D1"]))
+    assert torch.equal(D2.cpu(), torch.from_numpy(z["D2"]))
+    assert (dmod.launches, sm.epilogue_launches) == (r0 + 1, q0 + 1)
+
+
+def test_front_kernels_refuse_what_they_do_not_take(dev):
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    img = torch.zeros((2, 30, 40), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="uint8"):
+        dmod.create_descriptor(img.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        dmod.create_descriptor(img.transpose(1, 2))
+    with pytest.raises(ValueError, match="uint8"):
+        dmod.create_descriptor(img[0, 0])       # one row: no [H, W]
+    p = ElasParams(disp_max=20)
+    d = dmod.create_descriptor(img)
+    d1, d2 = d[:1], d[1:]
+    keys = sm.grid_row_keys(d1, d2, 5, 0, 21)
+    assert keys.shape == (4, 1, 5, 40)
+    with pytest.raises(ValueError, match="^desc2:"):
+        sm.grid_row_keys(d1, d2.to(torch.int32), 5, 0, 21)
+    with pytest.raises(ValueError, match="grid step"):
+        sm.grid_row_keys(d1, d2, 0, 0, 21)
+    with pytest.raises(ValueError, match="disp_min"):
+        sm.grid_row_keys(d1, d2, 5, 0, 513)
+    with pytest.raises(ValueError, match="^keys:"):
+        sm.support_epilogue(keys[:, :, :4].contiguous(), d1, d2, p)
+    with pytest.raises(ValueError, match="^keys:"):
+        sm.support_epilogue(keys.to(torch.int64), d1, d2, p)
+    with pytest.raises(ValueError, match="^desc1:"):
+        sm.support_epilogue(keys, d1[..., :8].contiguous(), d2, p)
+    with pytest.raises(ValueError, match="^desc2:"):
+        sm.support_epilogue(keys, d1, d2.cpu(), p)
+
+
+def test_front_kernels_raise_on_a_failed_launch(dev, monkeypatch):
+    """A launch that returns an error raises RuntimeError; nothing falls
+    back to a plain version."""
+    from jackal_tpu_torch.ops import cuda_lib
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    img = torch.zeros((2, 30, 40), dtype=torch.uint8, device=dev)
+    d = dmod.create_descriptor(img)
+    d1, d2 = d[:1], d[1:]
+    p = ElasParams(disp_max=20)
+    keys = sm.grid_row_keys(d1, d2, 5, 0, 21)   # caches A's plan
+
+    class Refused:
+        argtypes = restype = None
+
+        def __call__(self, *args):
+            return 1                               # cudaErrorInvalidValue
+
+    monkeypatch.setattr(cuda_lib, "load", lambda name: type(
+        "Lib", (), {"__getattr__": lambda self, n: Refused()})())
+
+    def refuse(*a, **k):
+        raise AssertionError("a failed launch fell back to a plain version")
+
+    for mod, name in ((dmod, "create_descriptor_plain"),
+                      (sm, "support_keys_plain"),
+                      (sm, "support_epilogue_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    r0, a0, q0 = dmod.launches, sm.launches, sm.epilogue_launches
+    with pytest.raises(RuntimeError, match="elas_descriptor"):
+        dmod.create_descriptor(img)
+    with pytest.raises(RuntimeError, match="support_keys"):
+        sm.grid_row_keys(d1, d2, 5, 0, 21)
+    with pytest.raises(RuntimeError, match="support_epilogue"):
+        sm.support_epilogue(keys, d1, d2, p)
+    assert (dmod.launches, sm.launches, sm.epilogue_launches) == (r0, a0, q0)
 
 
 def _dense_inputs(rng, B, H, W, p, dev, covered=0.9):

@@ -74,7 +74,7 @@ def test_key_maps_follow_the_sequential_best_two_rule():
     B, nv, W, D = 2, 3, 40, 24
     Q = torch.from_numpy(rng.integers(0, 256, (B, nv, W, 32)).astype(np.uint8))
     T = torch.from_numpy(rng.integers(0, 256, (B, nv, W, 32)).astype(np.uint8))
-    l1, l2, r1, r2 = sm.support_keys(Q, T, 2, D)
+    l1, l2, r1, r2 = sm.support_keys_plain(Q, T, 2, D)
     q, t = Q.numpy().astype(np.int64), T.numpy().astype(np.int64)
 
     def S(x, y):

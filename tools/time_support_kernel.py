@@ -2,7 +2,8 @@
 support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
 and with H as its epilogue), the SGM census (D), the BM kernel (G), the
 ELAS postprocess kernels (H, I, J, K), the speckle filter (L), rectify
-(N) or the scan and the cloud (P1, P2, P3 and the fused cloud and scan).
+(N), the scan and the cloud (P1, P2, P3 and the fused cloud and scan) or
+the ELAS front (the descriptor R, A and the support epilogue Q).
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -12,7 +13,10 @@ csrc/ kernel is built there). Inputs, from this repository's
 tests/fixtures and a seed:
 - support, dense: the golden 640x480 pairs at the default ElasParams
   (D = 256), at the per-frame node's shape (B = 1; dense: each pair) and
-  the batched node's (B = 8: the two pairs alternated). dense times both
+  the batched node's (B = 8: the two pairs alternated). support times A
+  as the checkout's main path calls it: from the descriptors' rows
+  (grid_row_keys), or on grid-row blocks built before the timing in a
+  checkout from before that entry. dense times both
   views: one dense_match_pair call where the checkout has it, else two
   dense_match calls (a checkout from before the pair call); then B
   followed by the L/R check (kernel H, sweep bound disp_max), H alone on
@@ -35,6 +39,14 @@ tests/fixtures and a seed:
   per-frame node's maps (B = 1, one pair call), BASELINE config 5's 32
   golden frames with its maps (one pair call) and 32 seeded colour frames
   of 3 channels on its left maps (F = 96, one view);
+- front: the golden 640x480 pairs at the default ElasParams, B = 1 and 8
+  (the pairs alternated): on the host clock (a synchronize after each
+  call, median of 21) the descriptor stage (create_descriptor of both
+  views in one call) and the support stage (support_candidates), and the
+  batched node's front (pipeline._front, B = 8); on CUDA events A as the
+  main path runs it: from the descriptors' rows (grid_row_keys) where the
+  checkout has them, else grid_row_blocks then A, and there A alone on
+  the blocks too; where the checkout has them, kernels R and Q alone;
 - scan: BASELINE config 5's 32 golden u8 maps (BM, D = 64): P1 on the
   first (B = 1, the per-frame node's shape) and on the first 8; P2, P3 on
   P2's cloud and the gen-pcl tail (the pipeline's _cloud_scan: the fused
@@ -74,20 +86,90 @@ def _held(name, got, want):
         raise AssertionError(f"{name}: kernel != plain")
 
 
+def _a_call(sm, d1, d2, step, disp_min, D):
+    """Kernel A as the checkout's main path calls it: from the
+    descriptors' rows where the checkout has grid_row_keys, else on the
+    grid-row blocks (a checkout from before the rows entry), built once
+    here and not timed."""
+    if hasattr(sm, "grid_row_keys"):
+        return lambda: tuple(sm.grid_row_keys(d1, d2, step, disp_min, D))
+    ncv = -(-d1.shape[1] // step)
+    Q = sm.grid_row_blocks(d1, step, ncv)
+    T = sm.grid_row_blocks(d2, step, ncv)
+    return lambda: sm.support_keys(Q, T, disp_min, D)
+
+
 def time_support(d1, d2, params, reps):
     from jackal_tpu_torch.matching.elas import support as sm
 
     D = params.disp_num
     step = sm.effective_stepsize(params)
     ncv = -(-d1.shape[1] // step)
-    res = {}
+    res = {"rows_entry": hasattr(sm, "grid_row_keys")}
     for B in (1, 8):
-        Q = sm.grid_row_blocks(d1[:B], step, ncv)
-        T = sm.grid_row_blocks(d2[:B], step, ncv)
-        _held(f"support B = {B}", sm.support_keys(Q, T, params.disp_min, D),
-              sm.support_keys_plain(Q, T, params.disp_min, D))
-        res[f"ms_B{B}"] = events_ms(
-            lambda: sm.support_keys(Q, T, params.disp_min, D), reps)
+        q1, q2 = d1[:B].contiguous(), d2[:B].contiguous()
+        call = _a_call(sm, q1, q2, step, params.disp_min, D)
+        _held(f"support B = {B}", call(), sm.support_keys_plain(
+            sm.grid_row_blocks(q1, step, ncv),
+            sm.grid_row_blocks(q2, step, ncv), params.disp_min, D))
+        res[f"ms_B{B}"] = events_ms(call, reps)
+    return res
+
+
+def time_front(left, right, params, reps):
+    import torch
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.matching.elas import support as sm
+    from jackal_tpu_torch.ops import descriptor as dm
+
+    dev = torch.device("cuda", 0)
+    D = params.disp_num
+    step = sm.effective_stepsize(params)
+    rows = hasattr(sm, "grid_row_keys")
+    blocks = hasattr(sm, "support_keys")
+    res = {"rows_entry": rows, "blocks_entry": blocks,
+           "kernels_r_q": hasattr(sm, "support_epilogue")}
+    for B in (1, 8):
+        lt = torch.from_numpy(left[:B]).to(dev)
+        rt = torch.from_numpy(right[:B]).to(dev)
+        imgs = torch.cat([lt, rt])
+        desc = dm.create_descriptor(imgs)
+        d1, d2 = desc[:B], desc[B:]
+        ncv = -(-d1.shape[1] // step)
+        Q = sm.grid_row_blocks(d1, step, ncv)
+        T = sm.grid_row_blocks(d2, step, ncv)
+        want = sm.support_keys_plain(Q, T, params.disp_min, D)
+        if rows:
+            def a_path():
+                return tuple(sm.grid_row_keys(d1, d2, step,
+                                              params.disp_min, D))
+        else:
+            def a_path():
+                return sm.support_keys(sm.grid_row_blocks(d1, step, ncv),
+                                       sm.grid_row_blocks(d2, step, ncv),
+                                       params.disp_min, D)
+        _held(f"A on the main path B = {B}", a_path(), want)
+        if blocks:
+            res[f"a_blocks_ms_B{B}"] = events_ms(
+                lambda: sm.support_keys(Q, T, params.disp_min, D), reps)
+        res[f"a_path_ms_B{B}"] = events_ms(a_path, reps)
+        if res["kernels_r_q"]:
+            keys = torch.stack(want)
+            _held(f"R B = {B}", [dm.create_descriptor(imgs)],
+                  [dm.create_descriptor_plain(imgs)])
+            _held(f"Q B = {B}", [sm.support_epilogue(keys, d1, d2, params)],
+                  [sm.support_epilogue_plain(keys, d1, d2, params)])
+            res[f"r_ms_B{B}"] = events_ms(
+                lambda: dm.create_descriptor(imgs), reps)
+            res[f"q_ms_B{B}"] = events_ms(
+                lambda: sm.support_epilogue(keys, d1, d2, params), reps)
+        res[f"descriptor_stage_ms_B{B}"] = host_ms(
+            lambda: dm.create_descriptor(imgs), 21)
+        res[f"support_stage_ms_B{B}"] = host_ms(
+            lambda: sm.support_candidates(d1, d2, params), 21)
+        if B == 8:
+            res["front_ms_B8"] = host_ms(lambda: ep._front(lt, rt, params),
+                                         21)
     return res
 
 
@@ -413,7 +495,7 @@ def main() -> int:
     ap.add_argument("--repo", required=True)
     ap.add_argument("--kernel", default="support",
                     choices=("support", "dense", "census", "bm", "post",
-                             "speckle", "remap", "scan"))
+                             "speckle", "remap", "scan", "front"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -442,6 +524,8 @@ def main() -> int:
         res.update(time_remap(left, right, args.reps))
     elif args.kernel == "scan":
         res.update(time_scan(left, right, args.reps))
+    elif args.kernel == "front":
+        res.update(time_front(left, right, params, args.reps))
     elif args.kernel == "post":
         res.update(time_post([g[k] for g in gold for k in ("D1", "D2")],
                              args.reps))
