@@ -46,8 +46,8 @@ Phases (any failure exits non-zero and prints no success line):
      at chunk 1 on one frame beside elas_match;
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
-     kernel with its L/R epilogue, L, I, J, P1, R and Q once a batch, H,
-     K, P2 and P3 never);
+     kernel with its L/R epilogue, L, I, J, P1, R and Q once a batch, M1
+     and M2 once a chunk of 8, H, K, P2 and P3 never);
      fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
@@ -228,6 +228,18 @@ Phases (any failure exits non-zero and prints no success line):
      (allocations only); R's and Q's times beside their plain versions'
      and byte bounds (epilogue_work) at the per-frame and batched nodes'
      shapes, a time below its bound failing; one JSON line;
+  16. the batched prior's coefficient table and candidate grids
+     (prior_phase): kernels M1 (the table and the tile lists) and M2 (the
+     grid words) against their plain versions (torch.equal) on phase 2b's
+     chunks of the golden pair, phase 4b's batched node's chunks and
+     chip_smoke.PRIOR_EDGE_CASES (degenerate and tied triangles, d > u,
+     pad rows, D = 100, grids of 3 x 2 cells and of 2 rows, 2112 cells a
+     row, the batched node's chunk size); the ATen ops of one
+     _chunk_coeffs call (allocations and views only, one launch each);
+     their FFMA and DFMA counts against a -fmad=false build; their times
+     beside their plain versions' and their bounds (prior_work), a time
+     below its bound failing, and the stage on the host clock; one JSON
+     line (phases 2b, 4b, 9 and 11 pin M1 and M2 once a chunk);
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -1990,13 +2002,15 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
         for chunk in (1, 2):
             read = _counted(keys)
             reset_front()
+            reset_prior()
             D1, D2 = elas_match_batch_multichip(el, er, params, chunk=chunk,
                                                 devices=[dev] * n)
             counts = dict(zip(("support", "elas_dense", "raster"), read()),
-                          **front_counts())
+                          **front_counts(), **prior_counts())
             want = {"support": n, "elas_dense": 8 // chunk,
                     "raster": 2 * 8 // chunk, "descriptor": n,
-                    "support_epilogue": n}
+                    "support_epilogue": n, "coeff_table": 8 // chunk,
+                    "grid_words": 8 // chunk}
             if counts != want:
                 raise AssertionError(f"ELAS replicas {n} chunk {chunk}: "
                                      f"launches {counts}, expected {want}")
@@ -4050,6 +4064,316 @@ def front_phase(dev, hold, node, batches, launches):
                                    "support_candidates": ops_s}}}, entries
 
 
+# ---- kernels M1 and M2: the batched prior's table and grids (phase 16) ----
+
+# kernels M1 and M2 by their names in the kernels line and in
+# device_prior.prior_launches
+PRIOR_KERNELS = ("coeff_table", "grid_words")
+# float64 operations (a DMUL, DSUB or DDIV as one; an FMA would count
+# twice) at the H100's float64 rate outside the tensor cores
+PEAK_F64_OPS_PER_S = 33.5e12
+# M1's float64 operations a solve that passes its three pivots, as
+# csrc/prior_kernel.cu writes them: at step k, 3 - k quotients for row k
+# and, for each of the two other rows, 3 - k products and differences
+SOLVE_OPS = sum(5 * (3 - k) for k in range(3))
+
+# collinear, repeated and tied corners (tests/test_device_fit.py's cases)
+PRIOR_DEG_SUPPORT = np.array([
+    [100, 100, 10], [200, 100, 10], [300, 100, 10], [100, 200, 20],
+    [100, 300, 30], [200, 200, 15], [200, 300, 15], [640, 480, 255],
+    [0, 0, 0], [5, 7, 3]], np.int32)
+PRIOR_DEG_TRI = np.array([
+    [0, 1, 2], [0, 3, 4], [0, 1, 3], [1, 5, 6], [0, 5, 7], [8, 9, 7],
+    [0, 3, 5], [3, 4, 0], [0, 0, 1]], np.int32)
+# top-row triangles, d > u (negative right-image u), u <= 1
+PRIOR_ADV_SUPPORT = np.array([[0, 0, 5], [1, 0, 1], [5, 9, 30],
+                              [630, 3, 200], [639, 479, 2], [2, 478, 1],
+                              [320, 240, 128]], np.int32)
+# M1's and M2's edges (tests/test_torch_cuda.py runs them too; the CPU's
+# tests/test_torch_prior_kernels.py holds the first five to the JAX
+# package)
+PRIOR_EDGE_CASES = ("degenerate and tied triangles", "d > u",
+                    "seeded, pad rows", "D = 100, d up to 129",
+                    "3 x 2 grid cells", "2 rows of grid cells",
+                    "2112 grid cells a row (grid_size 1)",
+                    "the batched node's chunk: CH 8, Np 1536, Tp 3072")
+
+
+def prior_points(rng, n, W, H, dmax):
+    """n support points at distinct (u, v) of a W x H image, d < dmax."""
+    cells = rng.choice(W * H, n, replace=False)
+    return np.stack([cells % W, cells // W, rng.integers(0, dmax, n)],
+                    -1).astype(np.int32)
+
+
+def prior_wire(support, W, H, tris=None):
+    """One frame's wire tuple (pipeline._prior_tri_job's layout): the
+    support, per side the sorted triangles and their paints, per side the
+    tile lists; tris: (left, right) triangles, Delaunay's by default."""
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas.native_prior import (
+        tri_wire_and_bin_native)
+    from jackal_tpu_torch.matching.elas.prior import delaunay
+
+    if tris is None:
+        rp = np.stack([support[:, 0] - support[:, 2], support[:, 1]], -1)
+        tris = (delaunay(support[:, :2].astype(np.float32)),
+                delaunay(rp.astype(np.float32)))
+    sp16 = support.astype(np.int16)
+    a, b = (tri_wire_and_bin_native(sp16, t, W, H, dp._RASTER_SLAB,
+                                    dp._RASTER_CTILE, right=r)
+            for t, r in zip(tris, (False, True)))
+    return (sp16, a[0], a[1], b[0], b[1], a[2], b[2])
+
+
+def prior_edge_case(name):
+    """(the frames' wire tuples, their supports, W, H, ElasParams) of one
+    of PRIOR_EDGE_CASES."""
+    from jackal_tpu_torch.config import ElasParams
+
+    p = ElasParams()
+    rng = np.random.default_rng(23 + PRIOR_EDGE_CASES.index(name))
+    if name == "degenerate and tied triangles":
+        return ([prior_wire(PRIOR_DEG_SUPPORT, 640, 480,
+                            (PRIOR_DEG_TRI, PRIOR_DEG_TRI))],
+                [PRIOR_DEG_SUPPORT], 640, 480, p)
+    W, H = 640, 480
+    if name == "d > u":
+        sps = [PRIOR_ADV_SUPPORT]
+    elif name == "seeded, pad rows":
+        W, H = 200, 150
+        sps = [prior_points(rng, 40, W, H, 60), prior_points(rng, 9, W, H,
+                                                            60)]
+    elif name == "D = 100, d up to 129":
+        W, H, p = 320, 240, ElasParams(disp_max=99)
+        sps = [prior_points(rng, 80, W, H, 130),
+               prior_points(rng, 50, W, H, 130)]
+    elif name == "3 x 2 grid cells":
+        W, H = 40, 60
+        sps = [prior_points(rng, 8, W, H, 20)]
+    elif name == "2 rows of grid cells":
+        W, H, p = 160, 40, ElasParams(disp_max=63)
+        sps = [prior_points(rng, 12, W, H, 40)]
+    elif name == "2112 grid cells a row (grid_size 1)":
+        W, H, p = 2112, 24, ElasParams(grid_size=1)
+        sps = [prior_points(rng, 300, W, H, 256)]
+    elif name == "the batched node's chunk: CH 8, Np 1536, Tp 3072":
+        sps = [prior_points(rng, 1530 - 7 * b, W, H, 256) for b in range(8)]
+    else:
+        raise KeyError(name)
+    return [prior_wire(s, W, H) for s in sps], sps, W, H, p
+
+
+def prior_chunk(wires, W, H):
+    """(flat int32 wire on the host, CH, Np, Tp, Ts, SC) of a chunk of
+    frames' wire tuples, as the batched path pads and flattens it."""
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+
+    Np, Tp, Ts = ep._chunk_pads(wires)
+    SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
+    return (ep._flatten_chunk_wire(wires, Np, Tp, Ts), len(wires), Np, Tp,
+            Ts, SC)
+
+
+def prior_counts() -> dict:
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    return dict(dp.prior_launches)
+
+
+def reset_prior() -> None:
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    for k in dp.prior_launches:
+        dp.prior_launches[k] = 0
+
+
+def pin_prior(label: str, n: int) -> dict:
+    """Raise unless kernels M1 and M2 each launched n times since their
+    counters were set to 0 (reset_prior)."""
+    got = prior_counts()
+    print(f"{label}: launches of M1 and M2 {got}")
+    if got != dict.fromkeys(PRIOR_KERNELS, n):
+        raise AssertionError(f"{label}: M1 and M2 launched {got}, not {n} "
+                             f"times each")
+    return got
+
+
+def prior_held(hold, label, flat, CH, Np, Tp, Ts, W, H, params):
+    """M1 and M2 on the card against their plain versions on the card
+    (torch.equal) for one chunk wire (a CUDA tensor); returns the kernels'
+    (table, sels, words)."""
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
+    gs = params.grid_size
+    grid = (gs, -(-H // gs), -(-W // gs), params.disp_num)
+    table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
+    ptable, psels = dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
+    hold("coeff_table", f"coeff_table {label}", [table, *sels],
+         [ptable, *psels])
+    words = dp.grid_words(flat, CH, Np, *grid)
+    hold("grid_words", f"grid_words {label}", [words],
+         [dp.grid_words_plain(flat, CH, Np, *grid)])
+    return table, sels, words
+
+
+def prior_work(flat, table, CH, Np, Tp, SC, Ts, gh, gw, D):
+    """(M1's (bytes, float64 operations, float32 operations), M2's bytes)
+    of one call on this chunk wire (a CUDA tensor) and M1's table from it.
+    M1 reads the wire once (2 bytes an entry), writes 64 bytes a table row
+    and widens the tile lists (4 bytes an entry out); its float64
+    operations are SOLVE_OPS for each of a row's two solves that passes
+    its pivots (a singular solve counted at none: a lower bound), its
+    float32 ones a division for each edge slope whose du is not 0. M2
+    reads the support triples once and writes the grid words."""
+    import torch
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas.device_fit import _gj_solve3
+
+    K = CH * Tp
+    nsel = 2 * CH * SC * Ts
+    x = flat.view(torch.int16)
+    sp = x[:CH * Np * 3].reshape(CH * Np, 3).to(torch.float64)
+    at, tris = CH * Np * 3, []
+    offs = torch.arange(CH, device=flat.device)[:, None, None] * Np
+    for _ in range(2):
+        tris.append((x[at:at + 3 * K].reshape(CH, Tp, 3).long() + offs)
+                    .reshape(K, 3))
+        at += 4 * K
+    tri = torch.cat(tris)
+    u, v, d = (sp[:, i][tri] for i in range(3))
+    ok = 0
+    for uu in (u, u - d):
+        A = torch.stack([uu, v, torch.ones_like(u)], -1)
+        ok += int(_gj_solve3(A, d)[1].sum())
+    cu = table[:, 0:3]
+    divs = int(((cu[:, 0] != cu[:, 2]).sum() + (cu[:, 0] != cu[:, 1]).sum()
+                + (cu[:, 1] != cu[:, 2]).sum()))
+    m1 = (2 * dp.wire_len16(CH, Np, Tp, SC, Ts) + 64 * 2 * K + 4 * nsel,
+          SOLVE_OPS * ok, divs)
+    m2 = 2 * CH * Np * 3 + 4 * 2 * CH * gh * gw * -(-D // 32)
+    return m1, m2
+
+
+def prior_bound_ms(nbytes, f64_ops=0, f32_ops=0):
+    """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
+    rate and the float64 operations at PEAK_F64_OPS_PER_S plus the
+    float32 ones at PEAK_F32_OPS_PER_S (both counted as one an
+    instruction; the f32 rate counts an FFMA as two, so a division as one
+    is a lower bound)."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = (f64_ops / PEAK_F64_OPS_PER_S + f32_ops / PEAK_F32_OPS_PER_S) * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def prior_phase(dev, hold, chunks, launches):
+    """Phase 16: kernels M1 (the coefficient table and tile lists) and M2
+    (the candidate grids), csrc/prior_kernel.cu. (a) both against their
+    plain versions on the card (torch.equal) on phase 2b's chunks of the
+    golden pair (chunks of 1 and 2), phase 4b's batched node's chunks and
+    PRIOR_EDGE_CASES; (b) the ATen ops of one _chunk_coeffs call on the
+    card (allocations and views only) and its kernel launches (one each);
+    (c) the FFMA and DFMA counts of each kernel against the same source
+    built with -fmad=false (no contraction: the FMAs left are those
+    inside the divisions); (d) their times at the batched node's chunk
+    beside their plain versions' and their bounds (prior_work), a time
+    below its bound failing. chunks: [(label, flat on the card, CH, Np,
+    Tp, Ts, W, H, params)], the batched node's first; launches: M1's and
+    M2's launches on the batched node (phase 4b). Returns (the phase's
+    JSON line, the kernels line's entries)."""
+    import torch
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.ops import cuda_lib
+
+    for c in chunks:
+        prior_held(hold, *c)
+    seen = [f"{len(chunks)} chunks of phases 2b and 4b"]
+    for name in PRIOR_EDGE_CASES:
+        wires, _, W, H, p = prior_edge_case(name)
+        flat, CH, Np, Tp, Ts, _ = prior_chunk(wires, W, H)
+        prior_held(hold, name, torch.from_numpy(flat).to(dev), CH, Np, Tp,
+                   Ts, W, H, p)
+    seen.append(f"{len(PRIOR_EDGE_CASES)} PRIOR_EDGE_CASES")
+    torch.cuda.synchronize()
+    print(f"16a. kernels M1 (table and tile lists) and M2 (grid words) == "
+          f"plain (torch.equal): {'; '.join(seen)}")
+
+    # (b) one call as the batched node makes it: two kernels, no eager op
+    label, flat, CH, Np, Tp, Ts, W, H, params = chunks[0]
+    reset_prior()
+    ops = aten_ops_of_a_call(lambda: ep._chunk_coeffs(flat, CH, Np, Tp, Ts,
+                                                      W, H, params))
+    calls = prior_counts()
+    bad = [n for n, ok in ops if not ok]
+    print(f"16b. ATen ops of one _chunk_coeffs call ({label}): {ops}; the "
+          f"kernels' launches {calls}")
+    if bad or calls != dict.fromkeys(PRIOR_KERNELS, 1):
+        raise AssertionError(f"16b. _chunk_coeffs ran eager ops on the card "
+                             f"{bad} or launched {calls}")
+
+    # (c) no contraction beyond the divisions' own FMAs
+    names = ("coeff_table_kernel", "grid_words_kernel")
+    fmas = {}
+    for op in ("FFMA", "DFMA"):
+        got, ref = (sass_by_function(cuda_lib.library(lib).path, op, names)
+                    for lib in ("prior_kernel", "prior_kernel_nofmad"))
+        fmas[op] = {"built": got, "fmad_false": ref}
+        print(f"16c. {op} by kernel: {got}; the -fmad=false build {ref}")
+        if got != ref or set(got) != set(names):
+            raise AssertionError(f"16c. prior_kernel contracts into {op}: "
+                                 f"{got} against {ref} at -fmad=false")
+
+    # (d) times at the batched node's chunk
+    gs = params.grid_size
+    gh, gw = -(-H // gs), -(-W // gs)
+    SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
+    grid = (gs, gh, gw, params.disp_num)
+    table = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)[0]
+    (b1, f64, f32), b2 = prior_work(flat, table, CH, Np, Tp, SC, Ts, gh, gw,
+                                    params.disp_num)
+    runs = (("coeff_table",
+             lambda: dp.coeff_table(flat, CH, Np, Tp, SC, Ts),
+             lambda: dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts),
+             prior_bound_ms(b1, f64, f32),
+             f"{b1} bytes, {f64} float64 and {f32} float32 operations"),
+            ("grid_words", lambda: dp.grid_words(flat, CH, Np, *grid),
+             lambda: dp.grid_words_plain(flat, CH, Np, *grid),
+             prior_bound_ms(b2), f"{b2} bytes"))
+    where = {"coeff_table": "jackal_tpu/matching/elas/device_prior.py:522, "
+                            "jackal_tpu/matching/elas/device_fit.py:126",
+             "grid_words": "jackal_tpu/matching/elas/device_prior.py:579"}
+    times, entries = {}, []
+    for k, kern, plain, (bms, by), work in runs:
+        ms = events_ms(kern, 50)
+        pms = events_ms(plain, 3, spin=False)
+        times[k] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "work": work}
+        print(f"16d. {k} at {label} (Np {Np}, Tp {Tp}, Ts {Ts}): {ms:.5f} "
+              f"ms a call (CUDA events behind a spin; plain {pms:.3f}; bound"
+              f" {bms:.6f} by {by}: {work}; {ms / bms:.1f}x)")
+        if ms < bms:
+            raise AssertionError(f"{k}: {ms} ms is below its bound {bms} ms")
+        entries.append({
+            "name": k, "route": "cuda",
+            "source": "jackal_tpu_torch/csrc/prior_kernel.cu",
+            "replaces": where[k], "launches": launches[k], "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
+    stage = {"kernels": host_ms(lambda: ep._chunk_coeffs(
+        flat, CH, Np, Tp, Ts, W, H, params), 21),
+             "plain": host_ms(lambda: (
+                 dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts),
+                 dp.grid_words_plain(flat, CH, Np, *grid)), 5)}
+    print(f"16d. the stage coefficients + grids (both sides) at {label}, "
+          f"host clock: kernels M1 and M2 {stage['kernels']:.4f} ms (median "
+          f"of 21), plain versions {stage['plain']:.3f} ms (median of 5)")
+    return {"prior": {"times": times, "stage_ms": stage, "fma": fmas,
+                      "launches": launches, "aten_ops": ops}}, entries
+
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -4125,6 +4449,7 @@ def shell_phase(dev):
         remap.launches["remap"] = 0
         reset_scan()
         reset_front()
+        reset_prior()
         torch.cuda.synchronize()
         with contextlib.redirect_stdout(out):
             rc = module.main(argv)
@@ -4132,7 +4457,7 @@ def shell_phase(dev):
         counts = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches, "raster": dp.launches,
                   "remap": remap.launches["remap"],
-                  **scan_counts(), **front_counts()}
+                  **scan_counts(), **front_counts(), **prior_counts()}
         if rc != 0:
             raise AssertionError(f"{module.__name__} {argv}: rc {rc}\n"
                                  f"{out.text()}")
@@ -4187,11 +4512,14 @@ def shell_phase(dev):
         held(base + ".npz", frames, pipe, f"9a per frame, {name}")
         if counts["support"] != 9 or counts["remap"] != 9 \
                 or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0] \
-                or [counts[k] for k in FRONT_KERNELS] != [9, 9]:
+                or [counts[k] for k in FRONT_KERNELS] != [9, 9] \
+                or [counts[k] for k in PRIOR_KERNELS] != [0, 0]:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
                                  f"times, N {counts['remap']}, P1-P3 "
                                  f"{[counts[k] for k in SCAN_KERNELS]}, R "
                                  f"and Q {[counts[k] for k in FRONT_KERNELS]}"
+                                 f", M1 and M2 "
+                                 f"{[counts[k] for k in PRIOR_KERNELS]}"
                                  f" over 9 frames")
         if name == "replay" and counts["elas_dense"] != 9:
             raise AssertionError(f"9a {name}: B launched "
@@ -4225,7 +4553,8 @@ def shell_phase(dev):
         want = {"support": batches, "elas_dense": batches,
                 "raster": 2 * batches, "remap": batches, "scan": batches,
                 "cloud": 0, "scan_points": 0, "cloud_scan": 0,
-                "descriptor": batches, "support_epilogue": batches}
+                "descriptor": batches, "support_epilogue": batches,
+                "coeff_table": batches, "grid_words": batches}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
                                  f"expected {want}")
@@ -4315,7 +4644,8 @@ def main() -> int:
     t = time.perf_counter()
     buildmod.build([native.LIBRARY] + [
         cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES
-        + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad")])
+        + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad",
+           "prior_kernel_nofmad")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
@@ -4329,7 +4659,8 @@ def main() -> int:
                "elas_lr": 0.0, "elas_gap": 0.0, "elas_mean": 0.0,
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
                "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0,
-               "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0}
+               "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0,
+               "coeff_table": 0.0, "grid_words": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -4406,11 +4737,16 @@ def main() -> int:
     gold_l = np.stack([frames[f][0]["left"] for f in GOLDEN])
     gold_r = np.stack([frames[f][0]["right"] for f in GOLDEN])
     dp.launches = 0
+    reset_prior()
     n_chunks = 0
+    golden_chunks = []
     for chunk in (1, 2):
         for flat, Np, Tp, Ts, fr in batch_chunks(params, gold_l, gold_r,
                                                  chunk, dev):
             CH = len(fr)
+            golden_chunks.append((f"golden pair, chunk {chunk}, #{n_chunks}",
+                                  flat.to(dev), CH, Np, Tp, Ts, W, H,
+                                  params))
             coeffs = ep._chunk_coeffs(flat.to(dev), CH, Np, Tp, Ts, W, H,
                                       params)
             coeffs_cpu = ep._chunk_coeffs(flat, CH, Np, Tp, Ts, W, H, params)
@@ -4449,6 +4785,7 @@ def main() -> int:
     print(f"raster kernel == plain (torch.equal) and device prior == C++ "
           f"host prior, planes == fit_planes_native, card coefficients == "
           f"CPU's: {n_chunks} chunks of the golden pair, both sides")
+    pin_prior(f"2b. {n_chunks} card calls of _chunk_coeffs", n_chunks)
     rng_w = np.random.default_rng(11)
     sp = np.stack([rng_w.choice(np.arange(8, W - 8), 14, replace=False),
                    rng_w.choice(np.arange(8, H - 8), 14, replace=False),
@@ -4734,11 +5071,15 @@ def main() -> int:
         post_mod.launches[k] = post_mod.device_launches[k] = 0
     reset_scan()
     reset_front()
+    reset_prior()
     torch.cuda.synchronize()
     t = time.perf_counter()
     done = runner.run(iter(stream))
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t
+    launches_prior = pin_prior(
+        f"4b. the batched node over {n_frames} frames (M1 and M2 once a "
+        f"chunk of {batch})", n_frames // batch)
     pin_scan(f"4b. the batched node over {n_frames} frames (P1 once a "
              f"batch)", scan=n_frames // batch, key="batched node")
     pin_front(f"4b. the batched node over {n_frames} frames (R and Q once a "
@@ -5093,6 +5434,24 @@ def main() -> int:
     line, entries = front_phase(
         dev, hold, (L9, R9), [pipe._rectify_crop(lb, rb) for lb, rb in raw_b],
         {k: launches[k] for k in ("descriptor", "support_epilogue")})
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
+
+    # ---- 16. the batched prior's table and grids: kernels M1 and M2 -------
+    node_chunks = []
+    for i, (lb, rb) in enumerate(raw_b):
+        Lb, Rb = pipe._rectify_crop(lb, rb)
+        dcb = HostCopy(ep._front(Lb, Rb, params)[2]).numpy()
+        flb, CHb, Npb, Tpb, Tsb, _ = prior_chunk(
+            [ep._prior_tri_job(dcb[b], params, W, H) for b in range(batch)],
+            W, H)
+        node_chunks.append((f"batched node batch {i}, CH {CHb}",
+                            torch.from_numpy(flb).to(dev), CHb, Npb, Tpb,
+                            Tsb, W, H, params))
+    line, entries = prior_phase(dev, hold, node_chunks + golden_chunks,
+                                launches_prior)
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

@@ -11,6 +11,13 @@ prior (native/prior_engine.cpp) and to the reference's elas.cpp:
                     fit in float64 (device_fit.py) and the plane-valid flag;
   _grid_impl        createGrid (elas.cpp:579-659): candidate marking, the
                     d+/-1 marks and the flat 3x3 OR diffusion;
+  coeff_table       kernel M1 (csrc/prior_kernel.cu) on a chunk wire:
+                    _tri_coeffs_impl of both sides' triangles packed as
+                    pack_table rows, and the tile lists widened to int32;
+                    coeff_table_plain on CPU tensors;
+  grid_words        kernel M2 on a chunk wire: _grid_impl of both sides
+                    packed as pack_grid_device words; grid_words_plain on
+                    CPU tensors;
   raster            the scanline rasterization of computeDisparity
                     (elas.cpp:813-904) as a slab raster: per 16-row x
                     128-column tile, the maximum over the tile's triangles
@@ -56,6 +63,9 @@ _TABLE_COLS = 16        # pack_table row: A_u B_u C_u A_v B_v, slope bits x3,
 #                         plane bits x3, pvalid, paint, 3 zero words
 
 launches = 0            # raster kernel launches since the last reset
+# launches of kernels M1 (coeff_table) and M2 (grid_words) since the last
+# reset
+prior_launches = {"coeff_table": 0, "grid_words": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +237,123 @@ def pack_grid_device(grid: torch.Tensor) -> torch.Tensor:
     words = (g << bits).sum(-1)                       # [0, 2^32)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words) \
         .to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# device: one chunk's coefficient table and grids from its wire (kernels M1
+# and M2, csrc/prior_kernel.cu, and their plain versions)
+# ---------------------------------------------------------------------------
+
+def wire_len16(CH: int, Np: int, Tp: int, SC: int, Ts: int) -> int:
+    """int16 entries of a chunk wire (pipeline._flatten_chunk_wire):
+    support [CH, Np, 3], per side triangles [CH, Tp, 3] and paints
+    [CH, Tp], per side tile lists [CH, SC, Ts]."""
+    return CH * Np * 3 + 2 * CH * Tp * 4 + 2 * CH * SC * Ts
+
+
+def _wire16(flat: torch.Tensor, n16: int, what: str) -> torch.Tensor:
+    """The wire's first n16 int16 entries; raises unless the int32 wire
+    holds them."""
+    if flat.dtype != torch.int32 or flat.dim() != 1 \
+            or not flat.is_contiguous() or 2 * flat.numel() < n16:
+        raise ValueError(f"{what}: expected a contiguous int32 wire of at "
+                         f"least {n16} int16 entries, got {flat.dtype} "
+                         f"{tuple(flat.shape)} (contiguous="
+                         f"{flat.is_contiguous()})")
+    return flat.view(torch.int16)[:n16]
+
+
+def coeff_table_plain(flat: torch.Tensor, CH: int, Np: int, Tp: int,
+                      SC: int, Ts: int):
+    """Kernel M1's function in plain PyTorch: (table [2*CH*Tp, 16] int32,
+    the pack_table rows of both sides' triangles, the left side's CH*Tp
+    rows first; (sel_left, sel_right), the tile lists [CH, SC, Ts] int32)
+    of the chunk wire ``flat``."""
+    x = _wire16(flat, wire_len16(CH, Np, Tp, SC, Ts), "coeff_table")
+    K = CH * Tp
+    sp = x[:CH * Np * 3].reshape(CH * Np, 3).to(torch.int32)
+    at = CH * Np * 3
+    tris, paints = [], []
+    offs = torch.arange(CH, dtype=torch.int32, device=flat.device) * Np
+    for _ in range(2):
+        tri = x[at:at + 3 * K].reshape(CH, Tp, 3).to(torch.int32)
+        tris.append((tri + offs[:, None, None]).reshape(K, 3))
+        paints.append(x[at + 3 * K:at + 4 * K])
+        at += 4 * K
+    n = CH * SC * Ts
+    sels = tuple(x[at + i * n:at + (i + 1) * n].reshape(CH, SC, Ts)
+                 .to(torch.int32) for i in range(2))
+    rflags = torch.arange(2 * K, device=flat.device) >= K
+    cu, cv, sb, pb, pv = _tri_coeffs_impl(sp, torch.cat(tris), rflags)
+    return pack_table(cu, cv, sb, pb, pv, torch.cat(paints)), sels
+
+
+def grid_words_plain(flat: torch.Tensor, CH: int, Np: int, gs: int, gh: int,
+                     gw: int, D: int) -> torch.Tensor:
+    """Kernel M2's function in plain PyTorch: both sides' candidate grids
+    [2*CH, gh, gw, ceil(D/32)] int32 (pack_grid_device of _grid_impl, the
+    left grids first) of the chunk wire's support points."""
+    x = _wire16(flat, CH * Np * 3, "grid_words")
+    sp = x.reshape(CH, Np, 3).to(torch.int32)
+    grids = _grid_impl(torch.cat([sp, sp]),
+                       torch.arange(2 * CH, device=flat.device) >= CH,
+                       gs=gs, gh=gh, gw=gw, disp_max=D - 1)
+    return pack_grid_device(grids)
+
+
+def _coeff_table_cuda(flat, CH, Np, Tp, SC, Ts):
+    _wire16(flat, wire_len16(CH, Np, Tp, SC, Ts), "coeff_table")
+    dev = flat.device
+    table = torch.empty((2 * CH * Tp, _TABLE_COLS), dtype=torch.int32,
+                        device=dev)
+    sels = tuple(torch.empty((CH, SC, Ts), dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    fn = cuda_lib.load("prior_kernel").prior_coeff_table
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "coeff_table", flat, flat.data_ptr(),
+                    table.data_ptr(), sels[0].data_ptr(), sels[1].data_ptr(),
+                    CH, Np, Tp, CH * SC * Ts)
+    prior_launches["coeff_table"] += 1
+    return table, sels
+
+
+def _grid_words_cuda(flat, CH, Np, gs, gh, gw, D):
+    _wire16(flat, CH * Np * 3, "grid_words")
+    if gs < 1 or D < 1:
+        raise ValueError(f"grid_words: grid_size {gs} and D {D} must be "
+                         f"positive")
+    out = torch.empty((2 * CH, gh, gw, -(-D // 32)), dtype=torch.int32,
+                      device=flat.device)
+    fn = cuda_lib.load("prior_kernel").prior_grid_words
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "grid_words", flat, flat.data_ptr(), out.data_ptr(),
+                    CH, Np, gs, gh, gw, D)
+    prior_launches["grid_words"] += 1
+    return out
+
+
+def coeff_table(flat: torch.Tensor, CH: int, Np: int, Tp: int, SC: int,
+                Ts: int):
+    """(table, (sel_left, sel_right)) of a chunk wire (coeff_table_plain's
+    contract): kernel M1, one launch, on a CUDA wire; the plain version on
+    a CPU wire."""
+    if flat.is_cuda:
+        return _coeff_table_cuda(flat, CH, Np, Tp, SC, Ts)
+    return coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
+
+
+def grid_words(flat: torch.Tensor, CH: int, Np: int, gs: int, gh: int,
+               gw: int, D: int) -> torch.Tensor:
+    """Both sides' candidate grid words [2*CH, gh, gw, ceil(D/32)] of a
+    chunk wire (grid_words_plain's contract): kernel M2, one launch, on a
+    CUDA wire; the plain version on a CPU wire."""
+    if flat.is_cuda:
+        return _grid_words_cuda(flat, CH, Np, gs, gh, gw, D)
+    return grid_words_plain(flat, CH, Np, gs, gh, gw, D)
 
 
 # ---------------------------------------------------------------------------

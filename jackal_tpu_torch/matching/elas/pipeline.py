@@ -27,8 +27,8 @@ elas_match_stream, keeps only pruning and triangulation on the host:
   2. candidate grids to the host        one copy into pinned memory
   3. pruning, Delaunay, triangle wire   host, C++, on worker threads
   4. one flat int32 wire per chunk      pinned upload on a side stream
-  5. plane fit (float64), slopes,       device (device_prior.py,
-     candidate grids, raster             device_fit.py; kernel C)
+  5. plane fit (float64), slopes,       device, kernels M1 and M2 and
+     candidate grids, raster             C (device_prior.py)
   6. dense matching, both views,        device (kernel B with the L/R
      and the L/R check                  check as its epilogue)
   7. speckle filter, gap fill,          device (post.postprocess_after_lr)
@@ -317,56 +317,20 @@ def _front(left: torch.Tensor, right: torch.Tensor, params: ElasParams):
     return d1, d2, support_candidates(d1, d2, params)
 
 
-def _unflatten(flat: torch.Tensor, CH: int, Np: int, Tp: int, Ts: int,
-               SC: int):
-    """The chunk wire on the device -> (support [CH, Np, 3] int32, per side
-    [tri [CH, Tp, 3] int32, paint [CH, Tp] int16, sel [CH, SC, Ts] int32])."""
-    x = flat.view(torch.int16)
-    pos = 0
-
-    def take(*shape):
-        nonlocal pos
-        n = int(np.prod(shape))
-        out = x[pos:pos + n].reshape(shape)
-        pos += n
-        return out
-
-    sp = take(CH, Np, 3).to(torch.int32)
-    sides = [[take(CH, Tp, 3).to(torch.int32), take(CH, Tp)]
-             for _ in range(2)]
-    for side in sides:
-        side.append(take(CH, SC, Ts).to(torch.int32))
-    return sp, sides
-
-
 def _chunk_coeffs(flat: torch.Tensor, CH: int, Np: int, Tp: int, Ts: int,
                   W: int, H: int, params: ElasParams):
     """Per side (coefficient table [CH*Tp, 16], tile lists [CH, S*C, Ts],
-    candidate grid words [CH, gh, gw, ceil(D/32)]): both sides' triangles
-    in one coefficient call, both sides' grids in one grid call."""
+    candidate grid words [CH, gh, gw, ceil(D/32)]) of the chunk wire: both
+    sides' tables and tile lists in one call of kernel M1, both sides'
+    grids in one call of kernel M2 (their plain versions on a CPU wire)."""
     gs = params.grid_size
     SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
-    sp, sides = _unflatten(flat, CH, Np, Tp, Ts, SC)
-    dev = flat.device
+    table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
+    words = dp.grid_words(flat, CH, Np, gs, -(-H // gs), -(-W // gs),
+                          params.disp_num)
     K = CH * Tp
-    offs = (torch.arange(CH, dtype=torch.int32, device=dev) * Np)[:, None]
-    tri_cat = torch.cat([(sides[0][0] + offs[..., None]).reshape(K, 3),
-                         (sides[1][0] + offs[..., None]).reshape(K, 3)])
-    rflags = torch.arange(2 * K, device=dev) >= K
-    cu, cv, sb, pb, pv = dp._tri_coeffs_impl(sp.reshape(CH * Np, 3),
-                                             tri_cat, rflags)
-    grids = dp._grid_impl(torch.cat([sp, sp]),
-                          torch.arange(2 * CH, device=dev) >= CH,
-                          gs=gs, gh=-(-H // gs), gw=-(-W // gs),
-                          disp_max=params.disp_max)
-    words = dp.pack_grid_device(grids)
-    out = []
-    for i, (_, paint, sel) in enumerate(sides):
-        sl = slice(i * K, (i + 1) * K)
-        table = dp.pack_table(cu[sl], cv[sl], sb[sl], pb[sl], pv[sl],
-                              paint.reshape(K))
-        out.append((table, sel, words[i * CH:(i + 1) * CH]))
-    return out
+    return [(table[i * K:(i + 1) * K], sels[i], words[i * CH:(i + 1) * CH])
+            for i in range(2)]
 
 
 def _chunk_raster(coeffs, Tp: int, W: int, H: int):

@@ -23,7 +23,8 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
                   "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel",
                   "bm_kernel", "elas_post_kernel", "speckle_kernel",
-                  "remap_kernel", "scan_kernel", "descriptor_kernel")
+                  "remap_kernel", "scan_kernel", "descriptor_kernel",
+                  "prior_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # headers under csrc/, hashed into every library's name (elas_lr.cuh: the
@@ -31,10 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HEADERS = ("elas_lr.cuh",)
 # libraries built from another library's source with extra flags: the BM
 # kernel's per-part timing (G') is the BM source with its diagnostic entry;
-# the scan kernels built without contraction (-fmad=false), whose FFMA
-# count chip_smoke.py holds against the library's own
+# the scan kernels and the prior kernels M1, M2 built without contraction
+# (-fmad=false), whose FFMA and DFMA counts chip_smoke.py holds against the
+# library's own
 VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",)),
-            "scan_kernel_nofmad": ("scan_kernel", ("-fmad=false",))}
+            "scan_kernel_nofmad": ("scan_kernel", ("-fmad=false",)),
+            "prior_kernel_nofmad": ("prior_kernel", ("-fmad=false",))}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1793,3 +1793,102 @@ def test_gen_pcl_paths_launch_the_fused_kernel_once(dev):
                           [cloud[0]] + [getattr(scans, f) for f in fields],
                           [p2[0]] + [getattr(p3, f) for f in fields],
                           _hold_equal)
+
+
+# ---- kernels M1 and M2: the batched prior's table and grids --------------
+
+def _prior_on_card(dev, wires, W, H, p):
+    """M1 and M2 on a chunk wire on the card, each one launch, against
+    their plain versions on the card and _chunk_coeffs on the CPU."""
+    from chip_smoke import prior_chunk
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+
+    flat, CH, Np, Tp, Ts, SC = prior_chunk(wires, W, H)
+    card = torch.from_numpy(flat).to(dev)
+    gs = p.grid_size
+    grid = (gs, -(-H // gs), -(-W // gs), p.disp_num)
+    n0 = dict(dp.prior_launches)
+    table, sels = dp.coeff_table(card, CH, Np, Tp, SC, Ts)
+    words = dp.grid_words(card, CH, Np, *grid)
+    assert dp.prior_launches == {k: v + 1 for k, v in n0.items()}
+    ptable, psels = dp.coeff_table_plain(card, CH, Np, Tp, SC, Ts)
+    assert torch.equal(table, ptable)
+    assert all(torch.equal(a, b) for a, b in zip(sels, psels))
+    assert torch.equal(words, dp.grid_words_plain(card, CH, Np, *grid))
+    cpu = ep._chunk_coeffs(torch.from_numpy(flat), CH, Np, Tp, Ts, W, H, p)
+    got = ep._chunk_coeffs(card, CH, Np, Tp, Ts, W, H, p)
+    for g, c in zip(got, cpu):
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(g, c))
+    return table, words
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_prior_kernels_edges(dev, case):
+    """chip_smoke.PRIOR_EDGE_CASES: degenerate and tied triangles, d > u,
+    pad rows, D = 100, grids of 3 x 2 cells and of 2 rows (no interior
+    cell), 2112 cells a grid row at grid_size 1, the batched node's chunk
+    size (CH 8, Np 1536, Tp 3072)."""
+    from chip_smoke import PRIOR_EDGE_CASES, prior_edge_case
+
+    assert len(PRIOR_EDGE_CASES) == 8
+    name = PRIOR_EDGE_CASES[case]
+    wires, _, W, H, p = prior_edge_case(name)
+    table, words = _prior_on_card(dev, wires, W, H, p)
+    assert bool(words.any()) == (name not in ("3 x 2 grid cells",
+                                              "2 rows of grid cells"))
+    if name.startswith("the batched node"):
+        assert table.shape == (2 * 8 * 3072, 16)
+        assert bool((words < 0).any())          # bit 31 of a word
+
+
+@pytest.mark.parametrize("chunk,disp_max", [(1, 255), (2, 255), (2, 99)])
+def test_prior_kernels_on_the_st320_chunk(dev, chunk, disp_max):
+    from chip_smoke import prior_wire
+
+    z = np.load(f"{FIX}/elas_stages_st320.npz")
+    sp = z["support"].astype(np.int32)
+    H, W = z["left"].shape
+    wires = [prior_wire(s, W, H) for s in (sp, sp[::2])[:chunk]]
+    _prior_on_card(dev, wires, W, H, ElasParams(disp_max=disp_max))
+
+
+def test_chunk_coeffs_is_two_kernels(dev, monkeypatch):
+    """One _chunk_coeffs call on a CUDA wire: M1 and M2 once each, and no
+    ATen op on the card but allocations and views; the plain versions are
+    never reached."""
+    from chip_smoke import aten_ops_of_a_call, prior_chunk, prior_edge_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA wire reached a plain twin")
+
+    for name in ("coeff_table_plain", "grid_words_plain"):
+        monkeypatch.setattr(dp, name, refuse)
+    wires, _, W, H, p = prior_edge_case("seeded, pad rows")
+    flat, CH, Np, Tp, Ts, _ = prior_chunk(wires, W, H)
+    card = torch.from_numpy(flat).to(dev)
+    n0 = dict(dp.prior_launches)
+    ops = aten_ops_of_a_call(
+        lambda: ep._chunk_coeffs(card, CH, Np, Tp, Ts, W, H, p))
+    torch.cuda.synchronize()
+    assert dp.prior_launches == {k: v + 1 for k, v in n0.items()}
+    assert [n for n, ok in ops if not ok] == []
+
+
+def test_prior_kernels_refuse_what_they_do_not_take(dev):
+    from chip_smoke import prior_chunk, prior_edge_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    wires, _, W, H, p = prior_edge_case("d > u")
+    flat, CH, Np, Tp, Ts, SC = prior_chunk(wires, W, H)
+    card = torch.from_numpy(flat).to(dev)
+    with pytest.raises(ValueError, match="coeff_table"):
+        dp.coeff_table(card[:-8], CH, Np, Tp, SC, Ts)
+    with pytest.raises(ValueError, match="coeff_table"):
+        dp.coeff_table(card.long(), CH, Np, Tp, SC, Ts)
+    with pytest.raises(ValueError, match="grid_words"):
+        dp.grid_words(card[:10], CH, Np, 20, 24, 32, 256)
+    with pytest.raises(ValueError, match="grid_words"):
+        dp.grid_words(card, CH, Np, 0, 24, 32, 256)

@@ -2,8 +2,10 @@
 support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
 and with H as its epilogue), the SGM census (D), the BM kernel (G), the
 ELAS postprocess kernels (H, I, J, K), the speckle filter (L), rectify
-(N), the scan and the cloud (P1, P2, P3 and the fused cloud and scan) or
-the ELAS front (the descriptor R, A and the support epilogue Q).
+(N), the scan and the cloud (P1, P2, P3 and the fused cloud and scan),
+the ELAS front (the descriptor R, A and the support epilogue Q) or the
+batched ELAS prior's coefficients and grids (M1, M2); or the per-frame
+ELAS node routed per frame and through the batched path at B = 1.
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -47,6 +49,22 @@ tests/fixtures and a seed:
   main path runs it: from the descriptors' rows (grid_row_keys) where the
   checkout has them, else grid_row_blocks then A, and there A alone on
   the blocks too; where the checkout has them, kernels R and Q alone;
+- coeffs: the chunk wire of the golden pairs at the default ElasParams
+  (B = 8, the pairs alternated, and the first frame alone), built as the
+  batched path builds it (pipeline._front, _prior_tri_job, _chunk_pads,
+  _flatten_chunk_wire), and chip_smoke's seeded chunk at the batched
+  node's size (CH 8, Np 1536, Tp 3072): on the host clock (a synchronize
+  after each call, median of 21) the stage pipeline._chunk_coeffs, as the
+  checkout's batched path runs it (eager torch in a checkout from before
+  kernels M1 and M2); where the checkout has them, M1 (coeff_table) and M2
+  (grid_words) alone on CUDA events, each held equal to its plain version;
+- route: the per-frame ELAS node's 9 frames (chip_smoke phase 4's seeded
+  raw pairs, make_pipeline(engine="elas") at 640x480), host clock a frame
+  (a synchronize after each call; 3 rounds after a warm-up round, the
+  median and range of the 27): process_frame; its ELAS stage alone,
+  elas_match on the rectified pair; and the batched device path on the
+  same pair, elas_match_batch_device at B = 1, chunk 1 (held equal to
+  elas_match);
 - scan: BASELINE config 5's 32 golden u8 maps (BM, D = 64): P1 on the
   first (B = 1, the per-frame node's shape) and on the first 8; P2, P3 on
   P2's cloud and the gen-pcl tail (the pipeline's _cloud_scan: the fused
@@ -170,6 +188,96 @@ def time_front(left, right, params, reps):
         if B == 8:
             res["front_ms_B8"] = host_ms(lambda: ep._front(lt, rt, params),
                                          21)
+    return res
+
+
+def time_coeffs(left, right, params, reps):
+    import torch
+    from chip_smoke import prior_chunk, prior_edge_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.ops.transfer import to_device
+
+    dev = torch.device("cuda", 0)
+    _, H, W = left.shape
+    kernels = hasattr(dp, "coeff_table")
+    res = {"kernels_m1_m2": kernels}
+    _, _, dc = ep._front(torch.from_numpy(left).to(dev),
+                         torch.from_numpy(right).to(dev), params)
+    dcan = dc.cpu().numpy()
+    wires = [ep._prior_tri_job(dcan[b], params, W, H)
+             for b in range(len(left))]
+    node = prior_edge_case("the batched node's chunk: CH 8, Np 1536, "
+                           "Tp 3072")
+    cases = (("golden_B8", wires, W, H, params),
+             ("golden_B1", wires[:1], W, H, params),
+             ("seeded_node_chunk", node[0], node[2], node[3], node[4]))
+    for label, ws, Wc, Hc, p in cases:
+        Np, Tp, Ts = ep._chunk_pads(ws)
+        flat = to_device(ep._flatten_chunk_wire(ws, Np, Tp, Ts), dev)[0]
+        CH = len(ws)
+        res[f"{label}_pads"] = [Np, Tp, Ts]
+        res[f"{label}_stage_ms"] = host_ms(
+            lambda: ep._chunk_coeffs(flat, CH, Np, Tp, Ts, Wc, Hc, p), 21)
+        if kernels:
+            SC = prior_chunk(ws, Wc, Hc)[5]
+            gs = p.grid_size
+            grid = (gs, -(-Hc // gs), -(-Wc // gs), p.disp_num)
+            table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
+            want = dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
+            _held(f"M1 {label}", [table, *sels], [want[0], *want[1]])
+            _held(f"M2 {label}", [dp.grid_words(flat, CH, Np, *grid)],
+                  [dp.grid_words_plain(flat, CH, Np, *grid)])
+            res[f"{label}_m1_ms"] = events_ms(
+                lambda: dp.coeff_table(flat, CH, Np, Tp, SC, Ts), reps)
+            res[f"{label}_m2_ms"] = events_ms(
+                lambda: dp.grid_words(flat, CH, Np, *grid), reps)
+    return res
+
+
+def time_route():
+    import statistics
+
+    import torch
+    from jackal_tpu_torch.config import ElasParams, PipelineParams
+    from jackal_tpu_torch.matching.elas.pipeline import (
+        elas_match, elas_match_batch_device)
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    dev = torch.device("cuda", 0)
+    params = ElasParams()
+    pipe = make_pipeline(engine="elas", params=PipelineParams(
+        im_width=640, im_height=480, crop_im_width=640, crop_im_height=480),
+        device=dev)
+    pairs = [synthetic_raw_pair(pipe, seed, 8.0 + 6 * seed, 0.03 * (seed % 3))
+             for seed in range(9)]
+    rect = [pipe._rectify_crop(torch.from_numpy(lr).to(dev),
+                               torch.from_numpy(rr).to(dev))
+            for lr, rr in pairs]
+    for L, R in rect:
+        D1, D2 = elas_match(L, R, params, device=dev)
+        B1, B2 = elas_match_batch_device(L[None], R[None], params, chunk=1,
+                                         device=dev)
+        _held("batched path at B = 1 against elas_match", [B1[0], B2[0]],
+              [D1, D2])
+    runs = {"process_frame": [lambda lr=lr, rr=rr: pipe.process_frame(lr, rr)
+                              for lr, rr in pairs],
+            "elas_match": [lambda L=L, R=R: elas_match(L, R, params,
+                                                       device=dev)
+                           for L, R in rect],
+            "elas_match_batch_device_B1_chunk1": [
+                lambda L=L, R=R: elas_match_batch_device(
+                    L[None], R[None], params, chunk=1, device=dev)
+                for L, R in rect]}
+    res = {}
+    for name, calls in runs.items():
+        for fn in calls:                                    # warm-up round
+            host_ms(fn, 1)
+        times = [host_ms(fn, 1) for _ in range(3) for fn in calls]
+        res[name] = {"median_ms": statistics.median(times),
+                     "min_ms": min(times), "max_ms": max(times),
+                     "n": len(times)}
     return res
 
 
@@ -495,7 +603,8 @@ def main() -> int:
     ap.add_argument("--repo", required=True)
     ap.add_argument("--kernel", default="support",
                     choices=("support", "dense", "census", "bm", "post",
-                             "speckle", "remap", "scan", "front"))
+                             "speckle", "remap", "scan", "front",
+                             "coeffs", "route"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -526,6 +635,10 @@ def main() -> int:
         res.update(time_scan(left, right, args.reps))
     elif args.kernel == "front":
         res.update(time_front(left, right, params, args.reps))
+    elif args.kernel == "coeffs":
+        res.update(time_coeffs(left, right, params, args.reps))
+    elif args.kernel == "route":
+        res.update(time_route())
     elif args.kernel == "post":
         res.update(time_post([g[k] for g in gold for k in ("D1", "D2")],
                              args.reps))
