@@ -91,7 +91,9 @@ Phases (any failure exits non-zero and prints no success line):
      share; process_batch_fused at batch 4 against process_frame;
      StreamingRunner at batch 4 over 48 frames; the SGM stages of one
      frame; (d) BASELINE config 3, process_batch_fused at 1280x960, D = 64,
-     B = 4; each of these four paths with the launch counters of D, E, F,
+     B = 4, and its stages each alone (rectify, D, O1, E, F, O2, the scan;
+     O1's and O2's plain versions beside them); each of these four paths
+     with the launch counters of D, E, F, O1, O2 (once a frame or a batch),
      N (rectify: 9, 1, 12, 1) and P1-P3 (the scan P1 as N, P2 and P3
      never) set to 0 just before and read just after, and rectify beside
      its plain version; (e) each kernel against
@@ -114,13 +116,14 @@ Phases (any failure exits non-zero and prints no success line):
      process_batch_fused at batch 8 against process_frame, StreamingRunner
      at batch 8 over 48 frames; (c) BASELINE config 5, the headline:
      process_batch_fused_pcl at B = 32 on the golden scenes interleaved
-     (fps, peak memory, its stages), its maps against process_batch_fused's,
+     (fps, peak memory, its device time on CUDA events and idle share, its
+     stages), its maps against process_batch_fused's,
      one frame's cloud (points exact) and scan against the CPU's and G
      against its plain twin on the rectified batch; (d) bench_bm256's
      process_batch_fused at B = 16, D = 256, and G against its plain twin
-     on that rectified batch; each of these paths with G's, N's and
+     on that rectified batch; each of these paths with G's, S's, N's and
      P1-P3's and cloud_scan's launch counters set to 0 just before and
-     read just after (G and N 9, 1, 6, 1, 1; the scan P1 9, 1, 6, 0, 1;
+     read just after (G, S and N 9, 1, 6, 1, 1; the scan P1 9, 1, 6, 0, 1;
      config 5's fused cloud and scan once, never elsewhere; P2 and P3
      never), and rectify beside its
      plain version (7b, 7c); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
@@ -160,7 +163,8 @@ Phases (any failure exits non-zero and prints no success line):
      (multidevice_phase): DP SGM and DP BM against process_batch_fused,
      TP BM at D = 64 and 256 against bm_match, the ELAS replicas against
      the single-device batched path and libelas, each with the launches of
-     its kernels pinned (R and Q once a replica), entry.dryrun_multichip(8);
+     its kernels pinned (D, O1, E, F, O2 or G, S once a shard, S once a
+     row of TP BM, R and Q once a replica), entry.dryrun_multichip(8);
      the filters, linalg,
      the experiments and the coefficient-wire raster against the CPU; host
      times beside the single-device calls (no scaling: one card); one
@@ -240,6 +244,20 @@ Phases (any failure exits non-zero and prints no success line):
      beside their plain versions' and their bounds (prior_work), a time
      below its bound failing, and the stage on the host clock; one JSON
      line (phases 2b, 4b, 9 and 11 pin M1 and M2 once a chunk);
+  17. the SGM and BM tails (tail_phase): kernels O1 (the census cost
+     volume, both views from one launch), O2 (the SGM epilogue: uniqueness,
+     sub-pixel, L/R, u8) and S (the BM texture gate and u8 map) against
+     their plain versions (torch.equal) on phase 6's golden pair (D = 64
+     and 128, with and without true_right), node frames and config 3's
+     batch, phase 7's golden pair, node frames, config 5's and
+     bench_bm256's batches, and chip_smoke.TAIL_EDGE_CASES; kernel D's
+     pair entry against its batch entry; the ATen ops of one
+     sgm_match_batch call and one BM _match_batch call on the card
+     (allocations and views only, each kernel once); O1's and O2's FFMA
+     counts against a -fmad=false build; their times beside their plain
+     versions' and their bounds (tail_work) at the node's shape and config
+     3's (O1, O2) or config 5's and bench_bm256's (S), a time below its
+     bound failing; one JSON line (phases 6c, 6d, 7b, 7c and 11 pin them);
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -973,10 +991,48 @@ SGM_PATHS_OPS_32 = 11
 CENSUS_OPS_UNPACKED = 48
 
 
+def sgm_stages(pipe, left, right) -> dict:
+    """Host-clock times (median of 5) of the SGM engine's stages, each
+    alone, on rectified uint8 [B, H, W] batches, the scan on the map: the
+    kernels D, O1, E, F, O2 and P1, and O1's and O2's plain versions beside
+    them."""
+    import torch
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    p = pipe.sgm_params
+    D, B = p.disp_num, left.shape[0]
+    st = {"census (kernel D, both views, one launch)": host_ms(
+        lambda: sk.census5x5_pair(left, right), 5)}
+    codes = sk.census5x5_pair(left, right)
+    cl, cr = codes[:B], codes[B:]
+    st["cost volume (kernel O1)"] = host_ms(
+        lambda: sk.sgm_cost_volume(cl, cr, D), 5)
+    st["cost volume, plain version"] = host_ms(
+        lambda: sk.sgm_cost_volume_plain(cl, cr, D), 3)
+    cost = sk.sgm_cost_volume(cl, cr, D)
+    st["aggregation (kernel E)"] = host_ms(
+        lambda: sk.aggregate_paths_bhdw(cost, p), 5)
+    S = sk.aggregate_paths_bhdw(cost, p)
+    del cost
+    st["WTA maps (kernel F)"] = host_ms(lambda: sk.sgm_wta_maps(S), 5)
+    m = sk.sgm_wta_maps(S)
+    del S
+    st["epilogue (kernel O2: uniqueness, sub-pixel, L/R, u8)"] = host_ms(
+        lambda: sk.sgm_epilogue(m, None, D, p, u8=True), 5)
+    st["epilogue, plain version"] = host_ms(
+        lambda: sk.sgm_epilogue_plain(m, None, D, p, u8=True), 5)
+    dm = sk.sgm_epilogue(m, None, D, p, u8=True)[2]
+    torch.cuda.synchronize()
+    st["scan (kernel P1)"] = host_ms(lambda: pipe._scan_stage(dm), 5)
+    return st
+
+
 def sgm_phase(dev, hold):
     """Phase 6: kernels D, E, F against their plain versions, the card's
     SGM against the CPU's on the golden scenes, the SGM node, BASELINE
-    config 3 and the kernels' times. Returns the kernels' JSON entries."""
+    config 3 and the kernels' times. Returns (the kernels' JSON entries,
+    the inputs phase 17 holds O1 and O2 on: rectified node frames, config
+    3's batch, the golden pair, O1's and O2's launches on the node)."""
 
     import torch
     from jackal_tpu_torch.config import PipelineParams, SGMParams
@@ -1074,11 +1130,11 @@ def sgm_phase(dev, hold):
     pairs = [synthetic_raw_pair(pipe, s, 8.0 + 5 * s, 0.03 * (s % 3))
              for s in range(9)]
     def counted(label, fn, rect):
-        """fn() with the counters of D, E, F, N and P1-P3 set to 0 just
-        before and read just after: (its result, the counts of D, E, F);
-        raises if D, E or F was launched no time, or N (rectify, both views
-        in one launch) and P1 (the scan) other than ``rect`` times (once a
-        frame or a batch), P2 or P3 at all."""
+        """fn() with the counters of D, O1, E, F, O2, N and P1-P3 set to 0
+        just before and read just after: (its result, the counts of D, O1,
+        E, F, O2); raises if D, E or F was launched no time, or O1, O2, N
+        (rectify, both views in one launch) and P1 (the scan) other than
+        ``rect`` times (once a frame or a batch), P2 or P3 at all."""
         for k in sk.launches:
             sk.launches[k] = 0
         remap.launches["remap"] = 0
@@ -1090,9 +1146,10 @@ def sgm_phase(dev, hold):
         print(f"6c. launches of {label}: {n}, kernel N (rectify) {nr}")
         if min(n.values()) == 0:
             raise AssertionError(f"{label} bypassed a kernel: {n}")
-        if nr != rect:
-            raise AssertionError(f"{label}: kernel N launched {nr} times, "
-                                 f"not {rect}")
+        if nr != rect or n["sgm_cost"] != rect or n["sgm_epilogue"] != rect:
+            raise AssertionError(f"{label}: kernels N, O1, O2 launched "
+                                 f"{nr}, {n['sgm_cost']}, "
+                                 f"{n['sgm_epilogue']} times, not {rect}")
         return out, n
 
     pipe.process_frame(*pairs[0])                       # warm-up
@@ -1177,31 +1234,13 @@ def sgm_phase(dev, hold):
     lt, rt = pipe._rectify_crop(torch.from_numpy(lb[:1]).to(dev),
                                 torch.from_numpy(rb[:1]).to(dev))
     st = {}
-    imgs = torch.cat([lt, rt])
     l1, r1 = (torch.from_numpy(x[:1]).to(dev) for x in (lb, rb))
     st["rectify (kernel N, both views, one launch)"] = host_ms(
         lambda: pipe._rectify_crop(l1, r1), 5)
     st["rectify, plain version"] = host_ms(
         lambda: (remap.remap_bilinear_plain(l1, *pipe.lmap),
                  remap.remap_bilinear_plain(r1, *pipe.rmap)), 5)
-    st["census (kernel D)"] = host_ms(lambda: sk.census5x5_batch(imgs), 5)
-    codes = sk.census5x5_batch(imgs)
-    st["cost volume (plain torch)"] = host_ms(
-        lambda: sgm.census_cost_volume_hdw(codes[:1], codes[1:], D), 5)
-    cost = sgm.census_cost_volume_hdw(codes[:1], codes[1:], D)
-    st["aggregation (kernel E)"] = host_ms(
-        lambda: sk.aggregate_paths_bhdw(cost, p), 5)
-    S = sk.aggregate_paths_bhdw(cost, p)
-    st["WTA maps (kernel F)"] = host_ms(lambda: sk.sgm_wta_maps(S), 5)
-    m = sk.sgm_wta_maps(S).to(torch.int32)
-
-    def epilogue():
-        dL = sgm._wta_from_maps(*m[:, :, 0:5].unbind(2), D, p)
-        dR = sgm._wta_from_maps(*m[:, :, 5:10].unbind(2), D, p)
-        return pipe._dmap_u8(sgm._lr_tail(dL, dR, D, p)[0])
-    st["epilogue (uniqueness, sub-pixel, L/R, u8)"] = host_ms(epilogue, 5)
-    dm = epilogue()
-    st["scan"] = host_ms(lambda: pipe._scan_stage(dm), 5)
+    st.update(sgm_stages(pipe, lt, rt))
     for k, v in st.items():
         print(f"  SGM stage {k}: {v:.3f} ms")
     print("SGM stages: " + json.dumps({k: round(v, 4) for k, v in st.items()}))
@@ -1223,6 +1262,15 @@ def sgm_phase(dev, hold):
     print(f"6d. BASELINE config 3 (process_batch_fused {W3}x{H3}, D={D}, "
           f"B={B3}): {ms3:.3f} ms a batch = {B3 * 1e3 / ms3:.2f} fps; peak "
           f"device memory {peak:.2f} GiB")
+    # its stages, each alone
+    L3, R3 = big._rectify_crop(l3, r3)
+    st3 = {"rectify (kernel N, both views, one launch)": host_ms(
+        lambda: big._rectify_crop(l3, r3), 5)}
+    st3.update(sgm_stages(big, L3, R3))
+    for k, v in st3.items():
+        print(f"  config 3 stage {k}: {v:.3f} ms")
+    print("config 3 stages: " + json.dumps({k: round(v, 4)
+                                            for k, v in st3.items()}))
 
     # (e) each kernel against its plain version, its device time, the plain
     # version's and its bound, at the node's shape and at config 3's
@@ -1321,6 +1369,10 @@ def sgm_phase(dev, hold):
                                  f"its bound {b_ms} ms")
     del cw, Sw
     print(json.dumps({"d_past_256": wide}))
+    tail = {"node": (lt, rt), "node batch": pipe._rectify_crop(
+        torch.from_numpy(lb).to(dev), torch.from_numpy(rb).to(dev)),
+            "config 3": (L3, R3), "golden": (gl, gr),
+            "node launches": launches}
     srcs = {"census": ("census_kernel", 327), "sgm_paths":
             ("sgm_paths_kernel", 64), "sgm_wta": ("sgm_wta_kernel", 415)}
     return [{"name": k, "route": "cuda",
@@ -1328,7 +1380,8 @@ def sgm_phase(dev, hold):
              "replaces": f"jackal_tpu/ops/pallas/sgm_kernel.py:{srcs[k][1]}",
              "launches": launches[k], "ms": out[k][0], "plain_ms": out[k][1],
              "bound_ms": out[k][2], "bound_by": out[k][3],
-             "library_ms": None} for k in ("census", "sgm_paths", "sgm_wta")]
+             "library_ms": None} for k in ("census", "sgm_paths", "sgm_wta")
+            ], tail
 
 
 def bm_work(B, H, W, D):
@@ -1366,7 +1419,10 @@ def binary_pair(seed=0, H=270, W=290, density=0.002):
 def bm_phase(dev, hold):
     """Phase 7: kernel G against its plain twin, the BM node, BASELINE
     config 5 (BM + gen_pcl) and bench_bm256's configuration, BM's accuracy
-    against libelas, G's times and G''s parts. Returns G's JSON entry."""
+    against libelas, G's times and G''s parts. Returns (G's JSON entry, the
+    inputs phase 17 holds S on: rectified node frames, the golden pair,
+    config 5's and bench_bm256's rectified batches, S's launches on the
+    node, pinned equal to G's)."""
     import torch
     from jackal_tpu_torch.config import BMParams, PipelineParams
     from jackal_tpu_torch.geometry import remap
@@ -1441,12 +1497,13 @@ def bm_phase(dev, hold):
           "(B = 2), 257 on a 0/255 pair whose costs pass 1 << 24)")
 
     def counted(label, fn, want, rect, pcl=False):
-        """(fn(), G's launches in it): G's, N's and P1-P3's counters set to
-        0 just before and read just after; raises unless G was launched
-        ``want`` times, N (rectify, both views in one launch) ``rect``
-        times and, once a frame or a batch, P1 (the scan) or, where
-        ``pcl``, the fused cloud and scan (P2 and P3 never)."""
-        bk.launches["bm"] = 0
+        """(fn(), G's launches in it): G's, S's, N's and P1-P3's counters
+        set to 0 just before and read just after; raises unless G and S
+        (the texture gate and u8 map) were launched ``want`` times, N
+        (rectify, both views in one launch) ``rect`` times and, once a
+        frame or a batch, P1 (the scan) or, where ``pcl``, the fused cloud
+        and scan (P2 and P3 never)."""
+        bk.launches["bm"] = bm.launches["bm_gate"] = 0
         remap.launches["remap"] = 0
         reset_scan()
         out = fn()
@@ -1455,11 +1512,12 @@ def bm_phase(dev, hold):
         else:
             pin_scan(f"7b. {label}", scan=rect)
         n, nr = bk.launches["bm"], remap.launches["remap"]
-        print(f"7. launches of G in {label}: {n}; of kernel N (rectify): "
-              f"{nr}")
-        if n != want or nr != rect:
-            raise AssertionError(f"{label}: G launched {n} times, not {want}"
-                                 f"; N {nr} times, not {rect}")
+        ns = bm.launches["bm_gate"]
+        print(f"7. launches of G in {label}: {n}; of kernel S (texture gate "
+              f"+ u8): {ns}; of kernel N (rectify): {nr}")
+        if n != want or ns != want or nr != rect:
+            raise AssertionError(f"{label}: G launched {n} times and S {ns}"
+                                 f", not {want}; N {nr} times, not {rect}")
         return out, n
 
     # (b) the BM node at 640x480, D = 64
@@ -1576,14 +1634,19 @@ def bm_phase(dev, hold):
     torch.cuda.reset_peak_memory_stats(dev)
     cfg5.process_batch_fused_pcl(l5, r5)
     peak5 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    wall5, busy5, *_ = device_busy(
-        lambda: cfg5.process_batch_fused_pcl(l5, r5))
+    # the call launches only the port's kernels (ctypes) and no ATen kernel;
+    # torch.profiler records such windows unreliably in this long process
+    # (none at all in three windows running, in two runs of this script;
+    # tools/probe_profiler_window.py records every launch in a fresh
+    # process), so its device time is CUDA events around calls queued
+    # behind a spin: one stream, its kernels back to back
+    busy5 = events_ms(lambda: cfg5.process_batch_fused_pcl(l5, r5), 5)
     print(f"7c. BASELINE config 5 (BM D=64 + gen_pcl, process_batch_fused_pcl"
           f" 640x480, B={CONFIG5_B}): {ms5:.3f} ms a batch = "
           f"{CONFIG5_B * 1e3 / ms5:.2f} fps (median of 5); peak device "
-          f"memory {peak5:.2f} GiB; device busy {busy5:.3f} ms of "
-          f"{wall5:.3f} ms wall, idle share {1 - busy5 / wall5:.3f}; maps "
-          f"== process_batch_fused's")
+          f"memory {peak5:.2f} GiB; device busy {busy5:.3f} ms a call (CUDA "
+          f"events behind a spin) of {ms5:.3f} ms wall, idle share "
+          f"{1 - busy5 / ms5:.3f}; maps == process_batch_fused's")
     # one frame with a seeded colour frame: the card's cloud and scan
     # against the CPU's plain path
     cpu5 = make_pipeline(engine="bm", bm_params=p64, params=pp5, device="cpu")
@@ -1623,8 +1686,10 @@ def bm_phase(dev, hold):
                  remap.remap_bilinear_plain(r5, *cfg5.rmap)), 3)
     st["G (kernel)"] = host_ms(lambda: bk.bm_match_fused(L5, R5, p64), 5)
     dL5 = bk.bm_match_fused(L5, R5, p64)[0]
-    st["texture gate + u8"] = host_ms(lambda: cfg5._dmap_u8(
-        bm.bm_texture_gate(L5, dL5, p64)), 5)
+    st["texture gate + u8 (kernel S)"] = host_ms(
+        lambda: bm.bm_gate_u8(L5, dL5, p64), 5)
+    st["texture gate + u8, plain version"] = host_ms(
+        lambda: bm.bm_gate_u8_plain(L5, dL5, p64), 5)
     st["cloud and its scan (fused kernel)"] = host_ms(
         lambda: cfg5._cloud_scan(dm5), 5)
     for k, v_ms in st.items():
@@ -1742,11 +1807,15 @@ def bm_phase(dev, hold):
         raise AssertionError("G' full != G")
     print("7f. G' (per-part timing of G, B=1, 640x480, D=64, device ms a "
           "call): " + ", ".join(f"{m} {t:.4f}" for m, t in parts.items()))
+    tail = {"node": (lt, rt), "node batch": pipe._rectify_crop(
+        torch.from_numpy(lb).to(dev), torch.from_numpy(rb).to(dev)),
+            "golden": (gl, gr), "config 5": (L5, R5), "bm256": (L16, R16),
+            "node gates": node_launches}
     return {"name": "bm", "route": "cuda",
             "source": "jackal_tpu_torch/csrc/bm_kernel.cu",
             "replaces": "jackal_tpu/ops/pallas/bm_kernel.py:107",
             "launches": node_launches, "ms": out[0], "plain_ms": out[1],
-            "bound_ms": out[2], "bound_by": out[3], "library_ms": None}
+            "bound_ms": out[2], "bound_by": out[3], "library_ms": None}, tail
 
 
 def subsampling_phase(dev, hold, pipe, dmaps):
@@ -1910,6 +1979,7 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
     from jackal_tpu_torch import entry as entry_mod
     from jackal_tpu_torch.config import BMParams, ElasParams, PipelineParams
     from jackal_tpu_torch.experiments import confidence, feature_matching
+    from jackal_tpu_torch.matching import bm as bm_mod
     from jackal_tpu_torch.matching.bm import bm_match
     from jackal_tpu_torch.matching.elas import dense as dense_mod
     from jackal_tpu_torch.matching.elas import device_prior as dp
@@ -1934,9 +2004,10 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
     lb = np.stack([p[0] for p in raw_pairs[:8]])
     rb = np.stack([p[1] for p in raw_pairs[:8]])
     fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
-    for engine, keys in (("sgm", [(sk, "census"), (sk, "sgm_paths"),
-                                  (sk, "sgm_wta")]),
-                         ("bm", [(bk, "bm")])):
+    for engine, keys in (("sgm", [(sk, "census"), (sk, "sgm_cost"),
+                                  (sk, "sgm_paths"), (sk, "sgm_wta"),
+                                  (sk, "sgm_epilogue")]),
+                         ("bm", [(bk, "bm"), (bm_mod, "bm_gate")])):
         pipe = make_pipeline(engine=engine, params=size, device=dev)
         wd, ws = pipe.process_batch_fused(lb, rb)
         single = host_ms(lambda: pipe.process_batch_fused(lb, rb), 5)
@@ -1975,7 +2046,13 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
         p = BMParams(disp_num=D)
         mesh = make_mesh(n, disp_parallel=disp, devices=[dev] * n)
         tp = bm_match_tp(mesh, p)
+        read = _counted([(bm_mod, "bm_gate")])
         dl, dr = (gather(x) for x in tp(rect_l[:B], rect_r[:B]))
+        gates = read()[0]
+        if gates != mesh.shape["data"]:
+            raise AssertionError(f"TP BM D = {D} on {mesh.shape}: kernel S "
+                                 f"launched {gates} times, not once a row "
+                                 f"of 'data'")
         for b in range(B):
             sl, sr = bm_match(rect_l[b], rect_r[b], p)
             _same(f"TP BM D = {D} {mesh.shape} frame {b} left", dl[b], sl)
@@ -1987,7 +2064,8 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
                                       "single_ms": single}
         print(f"11b. TP BM 640x480 D = {D} on {shape} (data x disp) of "
               f"{dev}, {B} frames: both maps == bm_match frame by frame "
-              f"(torch.equal); host ms a call {ms:.3f} (bm_match on the "
+              f"(torch.equal); kernel S (the texture gate) {gates} launches, "
+              f"once a row; host ms a call {ms:.3f} (bm_match on the "
               f"batch {single:.3f})")
 
     # (c) the ELAS replicas on 8 distinct pairs
@@ -4374,6 +4452,380 @@ def prior_phase(dev, hold, chunks, launches):
                       "launches": launches, "aten_ops": ops}}, entries
 
 
+# ---- kernels O1, O2 and S: the SGM and BM tails (phase 17) -----------------
+
+# kernels O1, O2 and S by their names in the kernels line and in their
+# modules' launches (ops/sgm_kernel.launches, matching/bm.launches)
+TAIL_KERNELS = ("sgm_cost", "sgm_epilogue", "bm_gate")
+# O1's, O2's and S's edges (tests/test_torch_cuda.py runs them too; the
+# CPU's tests/test_torch_sgm_bm_tail.py holds the plain versions to the JAX
+# package on them)
+TAIL_EDGE_CASES = (
+    "cost D = 2, 5 x 64",
+    "cost D = 3, W = 61, no multiple of 8",
+    "cost D = 64, B = 2, 7 x 200, bit 23 set",
+    "cost D = 257, 3 x 300",
+    "cost D > W: D = 40, 6 x 24",
+    "epilogue halves at even and odd best_d",
+    "epilogue best_d at 0 and D - 1, den <= 0",
+    "epilogue D = 3: second, cm, cp at 30000",
+    "epilogue dL = -1, lookups past the row's ends, D > W",
+    "epilogue true_right maps",
+    "epilogue uniqueness 0.95 at the ratio's edge",
+    "epilogue uniqueness 0.6 at the ratio's edge",
+    "gate window 1, B = 3, odd W",
+    "gate window 9, threshold 0",
+    "gate window 255 on 300 x 640",
+    "gate window 257",
+    "gate window 2901, wider and taller than the frame",
+    "gate flat frame",
+)
+
+
+def tail_codes(rng, B, H, W, bit23=False):
+    """Seeded 24-bit census codes, int32 [B, H, W]; with bit23 that bit is
+    set in about half of them."""
+    c = rng.integers(0, 1 << 24, (B, H, W)).astype(np.int32)
+    if bit23:
+        c |= (rng.random((B, H, W)) < 0.5).astype(np.int32) << 23
+    return c
+
+
+def tail_maps(rng, B, H, W, D, d0, halves=0.0, edges=0.0, big=0.0,
+              unique=0.7):
+    """Seeded int16 WTA maps [B, H, 10, W] as kernel F lays them out, both
+    views about disparity d0 (best_d = d0 -+ 1): best 0..59, second above
+    it where ``unique`` (else at or below it), cm and cp near best (den <= 0
+    possible); ``halves`` of the pixels with cp == best and cm above it
+    (offs exactly 0.5), ``edges`` with best_d at 0 or D - 1, ``big`` with
+    second, cm or cp at 30000 (_WTA_BIG)."""
+    shape = (B, H, 2, W)
+    best = rng.integers(0, 60, shape)
+    bd = np.clip(d0 + rng.integers(-1, 2, shape), 0, D - 1)
+    e = rng.random(shape) < edges
+    bd = np.where(e, np.where(rng.random(shape) < 0.5, 0, D - 1), bd)
+    second = np.where(rng.random(shape) < unique,
+                      best + rng.integers(1, 40, shape),
+                      best - rng.integers(0, 3, shape))
+    cm = best + rng.integers(-3, 9, shape)
+    cp = best + rng.integers(-3, 9, shape)
+    h = rng.random(shape) < halves
+    cp = np.where(h, best, cp)
+    cm = np.where(h, best + rng.integers(1, 9, shape), cm)
+    for a in (second, cm, cp):
+        a[rng.random(shape) < big] = 30000
+    m = np.stack([best, bd, second, cm, cp], 3)        # [B, H, 2, 5, W]
+    return m.reshape(B, H, 10, W).astype(np.int16)
+
+
+def tail_ratio_maps(D):
+    """Maps whose left view sweeps best 0..100 down the rows and second
+    0..110 along the columns (best_d 1, cm and cp at 30000): every pair
+    about a uniqueness factor's edge, the right view unique at best_d 1."""
+    H, W = 101, 111
+    m = np.zeros((1, H, 10, W), np.int16)
+    m[0, :, 0] = np.arange(H)[:, None]
+    m[0, :, 2] = np.arange(W)[None, :]
+    m[0, :, 1] = m[0, :, 6] = 1
+    m[0, :, 3] = m[0, :, 4] = m[0, :, 8] = m[0, :, 9] = 30000
+    m[0, :, 5], m[0, :, 7] = 3, 300
+    return m
+
+
+def tail_edge_case(name):
+    """The numpy inputs of a TAIL_EDGE_CASES case: ("cost", codes_l,
+    codes_r, D), ("epilogue", maps, maps_right or None, D, SGMParams
+    fields) or ("gate", left, dL, BMParams fields)."""
+    rng = np.random.default_rng(TAIL_EDGE_CASES.index(name) + 1700)
+    if name.startswith("cost"):
+        B, H, W, D = {"cost D = 2, 5 x 64": (1, 5, 64, 2),
+                      "cost D = 3, W = 61, no multiple of 8": (2, 4, 61, 3),
+                      "cost D = 64, B = 2, 7 x 200, bit 23 set":
+                          (2, 7, 200, 64),
+                      "cost D = 257, 3 x 300": (1, 3, 300, 257),
+                      "cost D > W: D = 40, 6 x 24": (1, 6, 24, 40)}[name]
+        bit23 = "bit 23" in name
+        return ("cost", tail_codes(rng, B, H, W, bit23),
+                tail_codes(rng, B, H, W, bit23), D)
+    if name.startswith("epilogue"):
+        kw = {"uniqueness": 0.95, "lr_threshold": 1}
+        right = None
+        if name == "epilogue halves at even and odd best_d":
+            D, m = 64, tail_maps(rng, 2, 9, 96, 64, 20, halves=0.5)
+            kw["lr_threshold"] = 1000
+        elif name == "epilogue best_d at 0 and D - 1, den <= 0":
+            D, m = 32, tail_maps(rng, 1, 12, 80, 32, 10, edges=0.4)
+        elif name == "epilogue D = 3: second, cm, cp at 30000":
+            D, m = 3, tail_maps(rng, 1, 10, 64, 3, 1, big=0.3)
+        elif name == "epilogue dL = -1, lookups past the row's ends, D > W":
+            D, m = 64, tail_maps(rng, 1, 8, 40, 64, 30, edges=0.2,
+                                 unique=0.4)
+            kw["lr_threshold"] = 3
+        elif name == "epilogue true_right maps":
+            D, m = 48, tail_maps(rng, 2, 6, 72, 48, 12, halves=0.2)
+            right = tail_maps(rng, 2, 6, 72, 48, 12, halves=0.2)
+        else:
+            D, m = 8, tail_ratio_maps(8)
+            kw["uniqueness"] = 0.95 if "0.95" in name else 0.6
+            kw["lr_threshold"] = 1000
+        return "epilogue", m, right, D, dict(kw, disp_num=D)
+    B, H, W, window, thr = {
+        "gate window 1, B = 3, odd W": (3, 11, 53, 1, 10),
+        "gate window 9, threshold 0": (1, 30, 80, 9, 0),
+        "gate window 255 on 300 x 640": (1, 300, 640, 255, 8300),
+        "gate window 257": (1, 40, 300, 257, 1427),
+        "gate window 2901, wider and taller than the frame":
+            (2, 12, 50, 2901, 4),
+        "gate flat frame": (1, 20, 70, 9, 10)}[name]
+    # thresholds about the median texture: the gate keeps some, drops some
+    if name == "gate flat frame":
+        left = np.full((B, H, W), 77, np.uint8)
+    else:
+        # texture in patches: smooth rows, noisy rows, and steps
+        left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+        left[:, ::3] = (np.arange(W) // 7 * 9 % 256).astype(np.uint8)
+        left[:, 1::5] = 128
+        if W < window:
+            # every box is the whole frame: a smooth second frame fails
+            left[1] = left[1] // 16 + 100
+    dL = rng.integers(-1, 70, (B, H, W)).astype(np.float32)
+    frac = rng.choice(np.float32([0.0, 0.5, 0.25, -0.5]), (B, H, W))
+    dL = np.where(dL >= 0, dL + frac, np.float32(-1)).astype(np.float32)
+    dL.reshape(-1)[::17] = 255.5
+    dL.reshape(-1)[::29] = 300.25
+    return "gate", left, dL, {"disp_num": 64, "window": window,
+                              "texture_threshold": thr}
+
+
+def tail_work(kernel: str, B: int, H: int, W: int, D: int = 0, r: int = 0):
+    """(bytes, operations) kernel O1, O2 or S must do on [B, H, W] frames,
+    each input read once and each output written once. O1 (sgm_cost, the
+    left view as the default path launches it): both views' int32 codes in,
+    the int16 volume out, 8 + 2 D bytes a pixel; an xor, a popc and a
+    select a cell, 32-bit integer operations (popc counted at the integer
+    rate, though the card issues it at a quarter of it: a lower bound). O2
+    (sgm_epilogue, with the u8 map): the ten int16 maps in, dL, dR and the
+    u8 map out, 29 bytes a pixel; float32 operations as written, 14 a
+    pixel (a product, a product, a quotient and a sum for each of the
+    three disparities a pixel computes, its own two and the lookup's; the
+    two differences of the L/R check). S (bm_gate, the u8 map): the u8
+    frame and dL in, the u8 map out, 6 bytes a pixel; 32-bit integer
+    operations, at the least the horizontal box's 2r + 1 adds (clipped to
+    the frame) and the vertical slide's 4 (two gradients in, two sums) a
+    pixel."""
+    px = B * H * W
+    if kernel == "sgm_cost":
+        return px * (8 + 2 * D), 3 * px * D
+    if kernel == "sgm_epilogue":
+        return 29 * px, 14 * px
+    return 6 * px, px * (min(2 * r + 1, W) + 4)
+
+
+def tail_phase(dev, hold, sgm_in, bm_in):
+    """Phase 17: kernels O1 (the SGM cost volume), O2 (the SGM epilogue
+    and u8 map) and S (the BM texture gate and u8 map). (a) each against
+    its plain version on the card (torch.equal): O1 both views and the
+    left alone, O2 with and without the u8 map (and on true_right's own
+    right maps on the golden pair), D's pair entry against its batch
+    entry, on phase 6's golden pair (D = 64 and 128), node frames and
+    config 3's batch, S (the gated float map and the u8 map) on phase 7's
+    golden pair, node frames, config 5's and bench_bm256's batches with
+    kernel G's maps, and all on TAIL_EDGE_CASES; (b) the ATen ops of one
+    sgm_match_batch call and one BM _match_batch call on the card
+    (allocations and views only) with the kernels' launches (one each);
+    (c) O1's and O2's FFMA counts against the -fmad=false build (O2's are
+    those inside IEEE division); (d) their times beside their plain
+    versions' and their bounds (tail_work) at the node's shape and at
+    config 3's (O1, O2) or config 5's and bench_bm256's (S), a time below
+    its bound failing. sgm_in, bm_in: what phases 6 and 7 return. Returns
+    (the phase's JSON line, the kernels line's entries)."""
+    import torch
+    from jackal_tpu_torch.config import BMParams, PipelineParams, SGMParams
+    from jackal_tpu_torch.matching import bm, sgm
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.ops import cuda_lib
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    def sgm_held(label, left, right, p):
+        B, D = left.shape[0], p.disp_num
+        codes = sk.census5x5_pair(left, right)
+        hold("census", f"census pair {label}", [codes],
+             [sk.census5x5_batch(torch.cat([left, right]))])
+        cl, cr = codes[:B], codes[B:]
+        costs = sk.sgm_cost_volume(cl, cr, D, True)
+        hold("sgm_cost", f"sgm_cost both views {label}", costs,
+             sk.sgm_cost_volume_plain(cl, cr, D, True))
+        hold("sgm_cost", f"sgm_cost {label}",
+             [sk.sgm_cost_volume(cl, cr, D)], [costs[0]])
+        maps = [sk.sgm_wta_maps(sk.aggregate_paths_bhdw(c, p))
+                for c in costs[:2 if p.true_right else 1]]
+        del costs
+        mr = maps[1] if p.true_right else None
+        for u8 in (False, True):
+            hold("sgm_epilogue", f"sgm_epilogue {label} u8={u8}",
+                 sk.sgm_epilogue(maps[0], mr, D, p, u8),
+                 sk.sgm_epilogue_plain(maps[0], mr, D, p, u8))
+
+    def gate_held(label, left, dL, p):
+        hold("bm_gate", f"bm_gate {label}",
+             [bm.bm_texture_gate(left, dL, p), bm.bm_gate_u8(left, dL, p)],
+             [bm.bm_texture_gate_plain(left, dL, p),
+              bm.bm_gate_u8_plain(left, dL, p)])
+
+    # (a) against the plain versions
+    gl, gr = sgm_in["golden"]
+    seen = []
+    for D in (64, 128):
+        for tr in (False, True):
+            sgm_held(f"golden 640x480 D={D} true_right={tr}", gl, gr,
+                     SGMParams(disp_num=D, true_right=tr))
+    for key in ("node", "node batch", "config 3"):
+        L, R = sgm_in[key]
+        sgm_held(f"{key} B={L.shape[0]} {L.shape[1]}x{L.shape[2]}", L, R,
+                 SGMParams())
+        torch.cuda.empty_cache()
+    seen.append("O1, O2 on the golden pair (D = 64, 128, true_right), the "
+                "node's frames and config 3's batch")
+    p64, p256 = BMParams(disp_num=64), BMParams(disp_num=256)
+    for key, p in (("golden", p64), ("node", p64), ("node batch", p64),
+                   ("config 5", p64), ("bm256", p256)):
+        L, R = bm_in[key]
+        gate_held(f"{key} B={L.shape[0]} D={p.disp_num}", L,
+                  bk.bm_match_fused(L, R, p)[0], p)
+    seen.append("S on the golden pair, the node's frames, config 5's and "
+                "bench_bm256's batches")
+    for name in TAIL_EDGE_CASES:
+        kind, *args = tail_edge_case(name)
+        if kind == "cost":
+            cl, cr = (torch.from_numpy(a).to(dev) for a in args[:2])
+            D = args[2]
+            for right in (False, True):
+                hold("sgm_cost", f"sgm_cost {name} right={right}",
+                     list(sk.sgm_cost_volume(cl, cr, D, right)) if right
+                     else [sk.sgm_cost_volume(cl, cr, D)],
+                     list(sk.sgm_cost_volume_plain(cl, cr, D, right))
+                     if right else [sk.sgm_cost_volume_plain(cl, cr, D)])
+        elif kind == "epilogue":
+            m, mr, D, kw = args
+            m = torch.from_numpy(m).to(dev)
+            mr = None if mr is None else torch.from_numpy(mr).to(dev)
+            p = SGMParams(**kw)
+            for u8 in (False, True):
+                hold("sgm_epilogue", f"sgm_epilogue {name} u8={u8}",
+                     sk.sgm_epilogue(m, mr, D, p, u8),
+                     sk.sgm_epilogue_plain(m, mr, D, p, u8))
+        else:
+            left, dL, kw = args
+            gate_held(name, torch.from_numpy(left).to(dev),
+                      torch.from_numpy(dL).to(dev), BMParams(**kw))
+    seen.append(f"{len(TAIL_EDGE_CASES)} TAIL_EDGE_CASES")
+    torch.cuda.synchronize()
+    print(f"17a. kernels O1 (cost volume), O2 (epilogue) and S (texture "
+          f"gate) == plain (torch.equal): {'; '.join(seen)}")
+
+    # (b) one call of each engine: its kernels, no eager op
+    lt, rt = sgm_in["node"]
+    calls = {}
+    for k in sk.launches:
+        sk.launches[k] = 0
+    ops_sgm = aten_ops_of_a_call(lambda: sgm.sgm_match_batch(
+        lt, rt, SGMParams(), device=dev, u8=True))
+    calls["sgm_match_batch"] = dict(sk.launches)
+    size = PipelineParams(im_width=640, im_height=480, crop_im_width=640,
+                          crop_im_height=480)
+    bmp = make_pipeline(engine="bm", bm_params=p64, params=size, device=dev)
+    bl, br = bm_in["node"]
+    bk.launches["bm"] = bm.launches["bm_gate"] = 0
+    ops_bm = aten_ops_of_a_call(lambda: bmp._match_batch(bl, br))
+    calls["bm _match_batch"] = {"bm": bk.launches["bm"],
+                                "bm_gate": bm.launches["bm_gate"]}
+    print(f"17b. ATen ops of one sgm_match_batch call on the node's frame: "
+          f"{ops_sgm}; of one BM _match_batch call: {ops_bm}; launches "
+          f"{calls}")
+    bad = [n for n, ok in ops_sgm + ops_bm if not ok]
+    if bad or any(v != 1 for c in calls.values() for v in c.values()):
+        raise AssertionError(f"17b. the engines ran eager ops on the card "
+                             f"{bad} or launched {calls}")
+
+    # (c) no contraction in O1 and O2 beyond the division's own FMAs
+    names = ("sgm_cost_volume_kernel", "sgm_epilogue_kernel")
+    got, ref = (sass_by_function(cuda_lib.library(lib).path, "FFMA", names)
+                for lib in ("sgm_tail_kernel", "sgm_tail_kernel_nofmad"))
+    fma = {"built": got, "fmad_false": ref}
+    print(f"17c. FFMA by kernel: {got}; the -fmad=false build {ref}")
+    if got != ref or set(got) != set(names):
+        raise AssertionError(f"17c. sgm_tail_kernel contracts into FFMA: "
+                             f"{got} against {ref} at -fmad=false")
+
+    # (d) times beside the plain versions' and the bounds
+    ops_rate = int_ops_rate(dev)
+    times, out = {}, {}
+
+    def timed(kname, label, fn, plain, work, rate, plain_reps):
+        ms = events_ms(fn, 20)
+        pms = events_ms(plain, plain_reps, spin=False)
+        bms, by = bound_ms(*work, rate)
+        times[f"{kname} {label}"] = {"ms": ms, "plain_ms": pms,
+                                     "bound_ms": bms, "bound_by": by,
+                                     "bytes": work[0], "ops": work[1]}
+        print(f"17d. {kname} at {label}: {ms:.5f} ms a call (CUDA events "
+              f"behind a spin; plain {pms:.3f}; bound {bms:.6f} by {by}: "
+              f"{work[0]} bytes, {work[1]:.6g} operations; "
+              f"{ms / bms:.1f}x)")
+        if ms < bms:
+            raise AssertionError(f"{kname} at {label}: {ms} ms is below its "
+                                 f"bound {bms} ms")
+        if label.startswith("node"):
+            out[kname] = (ms, pms, bms, by)
+
+    p = SGMParams()
+    D = p.disp_num
+    for key in ("node", "config 3"):
+        L, R = sgm_in[key]
+        B, H, W = L.shape
+        label = f"{key} (B={B}, {W}x{H}, D={D})"
+        codes = sk.census5x5_pair(L, R)
+        cl, cr = codes[:B], codes[B:]
+        reps = 3 if key == "node" else 1
+        timed("sgm_cost", label, lambda: sk.sgm_cost_volume(cl, cr, D),
+              lambda: sk.sgm_cost_volume_plain(cl, cr, D),
+              tail_work("sgm_cost", B, H, W, D), ops_rate, reps)
+        maps = sk.sgm_wta_maps(sk.aggregate_paths_bhdw(
+            sk.sgm_cost_volume(cl, cr, D), p))
+        timed("sgm_epilogue", label,
+              lambda: sk.sgm_epilogue(maps, None, D, p, True),
+              lambda: sk.sgm_epilogue_plain(maps, None, D, p, True),
+              tail_work("sgm_epilogue", B, H, W), PEAK_F32_OPS_PER_S, 3)
+        torch.cuda.empty_cache()
+    for key, pb in (("node", p64), ("config 5", p64), ("bm256", p256)):
+        L, R = bm_in[key]
+        dL = bk.bm_match_fused(L, R, pb)[0]
+        B, H, W = L.shape
+        label = f"{key} (B={B}, {W}x{H}, D={pb.disp_num})"
+        timed("bm_gate", label, lambda: bm.bm_gate_u8(L, dL, pb),
+              lambda: bm.bm_gate_u8_plain(L, dL, pb),
+              tail_work("bm_gate", B, H, W, r=pb.window // 2), ops_rate, 3)
+    where = {"sgm_cost": ("jackal_tpu_torch/csrc/sgm_tail_kernel.cu",
+                          "jackal_tpu/matching/sgm.py:98"),
+             "sgm_epilogue": ("jackal_tpu_torch/csrc/sgm_tail_kernel.cu",
+                              "jackal_tpu/matching/sgm.py:183"),
+             "bm_gate": ("jackal_tpu_torch/csrc/bm_gate_kernel.cu",
+                         "jackal_tpu/matching/bm.py:113")}
+    launches = {"sgm_cost": sgm_in["node launches"]["sgm_cost"],
+                "sgm_epilogue": sgm_in["node launches"]["sgm_epilogue"],
+                "bm_gate": bm_in["node gates"]}
+    entries = [{"name": k, "route": "cuda", "source": where[k][0],
+                "replaces": where[k][1], "launches": launches[k],
+                "ms": out[k][0], "plain_ms": out[k][1],
+                "bound_ms": out[k][2], "bound_by": out[k][3],
+                "library_ms": None} for k in TAIL_KERNELS]
+    return {"tail": {"times": times, "fma": fma, "launches": launches,
+                     "calls": calls,
+                     "aten_ops": {"sgm_match_batch": ops_sgm,
+                                  "bm _match_batch": ops_bm}}}, entries
+
+
 # the node shell's live extrinsics in phase 9 (c): a tilt of the -m
 # sliders that keeps the calibrated scene's scan filled and moves it
 SHELL_PHI, SHELL_TRANS = (1.35, -3.1, 1.6), (0.05, 0.0, 0.3)
@@ -4645,7 +5097,7 @@ def main() -> int:
     buildmod.build([native.LIBRARY] + [
         cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES
         + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad",
-           "prior_kernel_nofmad")])
+           "prior_kernel_nofmad", "sgm_tail_kernel_nofmad")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
@@ -4660,7 +5112,8 @@ def main() -> int:
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
                "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0,
                "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0,
-               "coeff_table": 0.0, "grid_words": 0.0}
+               "coeff_table": 0.0, "grid_words": 0.0, "sgm_cost": 0.0,
+               "sgm_epilogue": 0.0, "bm_gate": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -5381,12 +5834,13 @@ def main() -> int:
     ]
 
     # ---- 6. SGM: kernels D, E, F, the engine, the node, config 3 ---------
-    for entry in sgm_phase(dev, hold):
+    entries, sgm_tail = sgm_phase(dev, hold)
+    for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]
         kernels.append(entry)
 
     # ---- 7. BM and gen_pcl: kernel G, the BM node, configs 5 and bm256 ----
-    entry = bm_phase(dev, hold)
+    entry, bm_tail = bm_phase(dev, hold)
     entry["max_abs_err"] = max_err["bm"]
     kernels.append(entry)
 
@@ -5452,6 +5906,13 @@ def main() -> int:
                             Tsb, W, H, params))
     line, entries = prior_phase(dev, hold, node_chunks + golden_chunks,
                                 launches_prior)
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
+
+    # ---- 17. the SGM and BM tails: kernels O1, O2 and S --------------------
+    line, entries = tail_phase(dev, hold, sgm_tail, bm_tail)
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

@@ -11,7 +11,9 @@
 // du (-2..2 each, the centre skipped), is darker than the centre.
 // Coordinates are clamped into the image, which is the reference's
 // edge-mode padding. The node launches it once for the left and right
-// batches together (N = 2B).
+// batches together (N = 2B): census5x5_pair reads the two batches where
+// they lie (frames n < B from the left, the rest from the right), so no
+// copy joins them first.
 //
 // What bounds it on an H100. Each pixel needs one byte read and four bytes
 // written, 3.1 MB for a 640x480 pair (0.9 us at 3.35 TB/s), and 24
@@ -136,11 +138,15 @@ __device__ __forceinline__ uint4 codes4(const RowWords* R) {
 template <bool kAligned, int kRows>
 __global__ void __launch_bounds__(kGroupsX* kTilesY)
     census5x5_kernel(const uint8_t* __restrict__ img,
+                     const uint8_t* __restrict__ img2, int n1,
                      int32_t* __restrict__ out, int H, int W) {
   const int u = 4 * (blockIdx.x * kGroupsX + threadIdx.x);
   const int v0 = (blockIdx.y * kTilesY + threadIdx.y) * kRows;
   if (u >= W || v0 >= H) return;
-  const uint8_t* p = img + static_cast<size_t>(blockIdx.z) * H * W;
+  // frames n1.. lie in img2
+  const int z = blockIdx.z;
+  const uint8_t* p = z < n1 ? img + static_cast<size_t>(z) * H * W
+                            : img2 + static_cast<size_t>(z - n1) * H * W;
   int32_t* o = out + static_cast<size_t>(blockIdx.z) * H * W;
   RowWords R[kRows + 4];
 #pragma unroll
@@ -165,16 +171,16 @@ __global__ void __launch_bounds__(kGroupsX* kTilesY)
 }
 
 template <bool kAligned, int kRows>
-int launch(const uint8_t* img, int32_t* out, int N, int H, int W,
-           cudaStream_t stream) {
+int launch(const uint8_t* img, const uint8_t* img2, int n1, int32_t* out,
+           int N, int H, int W, cudaStream_t stream) {
   const int rows_a_block = kRows * kTilesY;
   if ((H + rows_a_block - 1) / rows_a_block > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kGroupsX, kTilesY);
   const dim3 grid((W + 4 * kGroupsX - 1) / (4 * kGroupsX),
                   (H + rows_a_block - 1) / rows_a_block, N);
-  census5x5_kernel<kAligned, kRows><<<grid, block, 0, stream>>>(img, out, H,
-                                                               W);
+  census5x5_kernel<kAligned, kRows><<<grid, block, 0, stream>>>(
+      img, img2, n1, out, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,13 +197,30 @@ static long long warps_at(int N, int H, int W, int rows) {
 // the H100: 2 rows at the SGM node's 2 x 640x480, 4 at its batch 2
 // (4 x 640x480; 2 rows there take 10 % longer), 8 at config 3's
 // 8 x 1280x960.
-extern "C" int census5x5(const uint8_t* img, int32_t* out, int N, int H,
-                         int W, void* stream) {
+static int census_frames(const uint8_t* img, const uint8_t* img2, int n1,
+                         int32_t* out, int N, int H, int W, void* stream) {
   if (N < 1 || H < 1 || W < 1 || N > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W % 4 != 0 || W < 8) return launch<false, 2>(img, out, N, H, W, s);
-  if (warps_at(N, H, W, 8) >= 2048) return launch<true, 8>(img, out, N, H, W, s);
-  if (warps_at(N, H, W, 4) >= 2048) return launch<true, 4>(img, out, N, H, W, s);
-  return launch<true, 2>(img, out, N, H, W, s);
+  if (W % 4 != 0 || W < 8)
+    return launch<false, 2>(img, img2, n1, out, N, H, W, s);
+  if (warps_at(N, H, W, 8) >= 2048)
+    return launch<true, 8>(img, img2, n1, out, N, H, W, s);
+  if (warps_at(N, H, W, 4) >= 2048)
+    return launch<true, 4>(img, img2, n1, out, N, H, W, s);
+  return launch<true, 2>(img, img2, n1, out, N, H, W, s);
+}
+
+extern "C" int census5x5(const uint8_t* img, int32_t* out, int N, int H,
+                         int W, void* stream) {
+  return census_frames(img, img, N, out, N, H, W, stream);
+}
+
+// The codes of B left frames, then of B right frames, into out [2B, H, W]:
+// one launch, each batch read where it lies.
+extern "C" int census5x5_pair(const uint8_t* left, const uint8_t* right,
+                              int32_t* out, int B, int H, int W,
+                              void* stream) {
+  if (B < 1 || B > 65535 / 2) return static_cast<int>(cudaErrorInvalidValue);
+  return census_frames(left, right, B, out, 2 * B, H, W, stream);
 }

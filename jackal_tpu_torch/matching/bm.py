@@ -12,10 +12,15 @@ parabola where best_d +- 1 is invalid.
 
 This is the plain engine, on [..., H, W] tensors: the reference of kernel
 G (ops/bm_kernel.py), whose plain twin is built from bm_views and the L/R
-check. bm_match equals the reference package's bm_match bit for bit.
+check. bm_match equals the reference package's bm_match bit for bit. The
+texture gate is kernel S (csrc/bm_gate_kernel.cu) on the card:
+bm_texture_gate gives the gated float map, bm_gate_u8 its u8 map, each
+one launch; bm_texture_gate_plain and bm_gate_u8_plain are the CPU's.
+``launches`` counts the calls that launched S.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple, Union
 
 import numpy as np
@@ -23,9 +28,16 @@ import torch
 import torch.nn.functional as F
 
 from ..config import BMParams
+from ..ops import cuda_lib
+from ..ops.convert import dmap_u8
 from .sgm import _lr_tail
 
 _BIG = 1 << 24        # invalid-cost sentinel, as the reference's bm_match
+# the widest window kernels G and S take, r = 1450: the reference's int32
+# box sums, at most (2r + 1)^2 * 255, wrap past it
+WINDOW_MAX = 2901
+
+launches = {"bm_gate": 0}
 
 Image = Union[np.ndarray, torch.Tensor]
 
@@ -98,10 +110,8 @@ def bm_views(left: Image, right: Image, params: BMParams = BMParams()
             _wta(torch.stack(costs_r, -3), params))
 
 
-def bm_texture_gate(left: Image, dL: torch.Tensor, params: BMParams
-                    ) -> torch.Tensor:
-    """Invalidate low-texture pixels: the box sum of the edge-padded
-    Sobel-x magnitude |L(x+1) - L(x-1)| below texture_threshold * window."""
+def bm_texture_gate_plain(left: Image, dL: torch.Tensor, params: BMParams
+                          ) -> torch.Tensor:
     L = torch.as_tensor(left).to(torch.int32)
     W = L.shape[-1]
     cols = torch.clamp(torch.arange(-1, W + 1, device=L.device), 0, W - 1)
@@ -109,6 +119,72 @@ def bm_texture_gate(left: Image, dL: torch.Tensor, params: BMParams
     tex = _box_filter((Lp[..., 2:] - Lp[..., :-2]).abs(), params.window // 2)
     return torch.where(tex >= params.texture_threshold * params.window, dL,
                        torch.full((), -1.0, device=dL.device))
+
+
+def bm_gate_u8_plain(left: Image, dL: torch.Tensor, params: BMParams
+                     ) -> torch.Tensor:
+    return dmap_u8(bm_texture_gate_plain(left, dL, params))
+
+
+def bm_texture_gate(left: Image, dL: torch.Tensor, params: BMParams
+                    ) -> torch.Tensor:
+    """Invalidate low-texture pixels: the box sum of the edge-padded
+    Sobel-x magnitude |L(x+1) - L(x-1)| below texture_threshold * window.
+    uint8 left frames and float32 dL [..., H, W]; kernel S where dL lies on
+    the card, the plain version where it lies on the CPU."""
+    if not dL.is_cuda:
+        return bm_texture_gate_plain(left, dL, params)
+    return _gate_cuda(left, dL, params, u8=False)
+
+
+def bm_gate_u8(left: Image, dL: torch.Tensor, params: BMParams
+               ) -> torch.Tensor:
+    """The texture gate's u8 map, ops/convert.dmap_u8 of bm_texture_gate:
+    the BM node's published map, one launch of kernel S on the card."""
+    if not dL.is_cuda:
+        return bm_gate_u8_plain(left, dL, params)
+    return _gate_cuda(left, dL, params, u8=True)
+
+
+def _gate_cuda(left, dL: torch.Tensor, params: BMParams, u8: bool
+               ) -> torch.Tensor:
+    """Kernel S on [..., H, W] frames as [N, H, W]: the gated float32 map,
+    or its u8 map. A left batch that is not contiguous (a cropped view) is
+    copied first."""
+    if not isinstance(left, torch.Tensor) or left.device != dL.device \
+            or left.dtype != torch.uint8 or left.shape != dL.shape \
+            or dL.dtype != torch.float32 or dL.dim() < 2:
+        raise ValueError(
+            f"kernel S takes uint8 left frames and float32 dL [..., H, W] "
+            f"of one shape on one card, got {type(left).__name__} "
+            f"{getattr(left, 'dtype', None)} "
+            f"{tuple(getattr(left, 'shape', ()))} on "
+            f"{getattr(left, 'device', None)} and {dL.dtype} "
+            f"{tuple(dL.shape)} on {dL.device}")
+    win = params.window
+    thr = params.texture_threshold * win
+    if not 1 <= win <= WINDOW_MAX or not -2 ** 31 <= thr < 2 ** 31:
+        raise ValueError(f"kernel S takes windows of 1 to {WINDOW_MAX}"
+                         f" and an int32 texture_threshold * window, got "
+                         f"{win} and {thr}")
+    H, W = dL.shape[-2:]
+    N = dL.numel() // max(H * W, 1)
+    img = left.contiguous().view(N, H, W)
+    d = dL.contiguous().view(N, H, W)
+    dev = dL.device
+    cuda_lib.expect(img, "left", torch.uint8, (N, H, W), dev, 1)
+    cuda_lib.expect(d, "dL", torch.float32, (N, H, W), dev, 4)
+    out = torch.empty((N, H, W), dtype=torch.uint8 if u8 else torch.float32,
+                      device=dev)
+    fn = getattr(cuda_lib.load("bm_gate_kernel"), "bm_gate")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "bm_gate", d, img.data_ptr(), d.data_ptr(),
+                    None if u8 else out.data_ptr(),
+                    out.data_ptr() if u8 else None, N, H, W, win // 2, thr)
+    launches["bm_gate"] += 1
+    return out.view(dL.shape)
 
 
 def bm_finalize(left: Image, dL: torch.Tensor, dR: torch.Tensor,

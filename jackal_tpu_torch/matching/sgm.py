@@ -20,9 +20,10 @@ Two forms, as in the reference package:
     census5x5, census_cost_volume(_hdw), aggregate_paths, _finalize. The
     kernels' plain twins (ops/sgm_kernel.py) are built from it;
   - sgm_match_batch, the engine of the node: census (CUDA kernel D) ->
-    cost volume ([B, H, D, W], plain torch) -> aggregation (kernel E) ->
-    WTA maps (kernel F) -> the float epilogue (_wta_from_maps, _lr_tail,
-    plain torch). sgm_match is it on a batch of one.
+    cost volume ([B, H, D, W], kernel O1) -> aggregation (kernel E) ->
+    WTA maps (kernel F) -> the float epilogue (_wta_from_maps, _lr_tail
+    and the u8 map, kernel O2); on the card no eager op runs between
+    them. sgm_match is it on a batch of one.
 
 The integer volumes never wrap: costs are <= 24 or the 12000 sentinel,
 carries and sums are clamped to _CARRY_BIG before they are stored as
@@ -248,13 +249,14 @@ def _finalize(S: torch.Tensor, params: SGMParams, S_right=None
 
 def sgm_match_batch(left_b: Image, right_b: Image,
                     params: SGMParams = SGMParams(),
-                    device: DeviceLike = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    device: DeviceLike = None, u8: bool = False):
     """Batched SGM: uint8 [B, H, W] pairs -> (D_left, D_right) float32
-    [B, H, W], -1 for invalid, on ``device`` (the card unless "cpu").
-    On the card it runs kernels D, E and F; on the CPU their plain
-    versions. Equal, frame by frame, to the reference's sgm_match."""
-    from ..ops.sgm_kernel import (aggregate_paths_bhdw, census5x5_batch,
+    [B, H, W], -1 for invalid, on ``device`` (the card unless "cpu"); with
+    ``u8`` also D_left's u8 map. On the card it runs kernels D, O1, E, F
+    and O2; on the CPU their plain versions. Equal, frame by frame, to the
+    reference's sgm_match."""
+    from ..ops.sgm_kernel import (aggregate_paths_bhdw, census5x5_pair,
+                                  sgm_cost_volume, sgm_epilogue,
                                   sgm_wta_maps)
 
     dev = resolve_device(device)
@@ -267,19 +269,15 @@ def sgm_match_batch(left_b: Image, right_b: Image,
                          f"{right.dtype} {tuple(right.shape)}")
     B = left.shape[0]
     D = params.disp_num
-    codes = census5x5_batch(torch.cat([left, right]))
-    cost = census_cost_volume_hdw(codes[:B], codes[B:], D)   # [B, H, D, W]
-    m = sgm_wta_maps(aggregate_paths_bhdw(cost, params)).to(torch.int32)
-    dL = _wta_from_maps(*m[:, :, 0:5].unbind(2), D, params)
-    if params.true_right:
-        # the right view's own aggregation; its direct WTA maps are rows
-        # 0-4 of the maps kernel
-        mr = sgm_wta_maps(aggregate_paths_bhdw(shift_by_d(cost, -2),
-                                               params)).to(torch.int32)
-        dR = _wta_from_maps(*mr[:, :, 0:5].unbind(2), D, params)
-    else:
-        dR = _wta_from_maps(*m[:, :, 5:10].unbind(2), D, params)
-    return _lr_tail(dL, dR, D, params)
+    codes = census5x5_pair(left, right)
+    # true_right: the right view's own aggregation of its cost volume (from
+    # the same launch); its direct WTA maps are rows 0-4 of the maps kernel
+    costs = sgm_cost_volume(codes[:B], codes[B:], D, params.true_right)
+    if not params.true_right:
+        costs = (costs,)
+    maps = [sgm_wta_maps(aggregate_paths_bhdw(c, params)) for c in costs]
+    return sgm_epilogue(maps[0], maps[1] if params.true_right else None, D,
+                        params, u8)
 
 
 def sgm_match(left_u8: Image, right_u8: Image,

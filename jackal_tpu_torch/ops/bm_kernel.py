@@ -7,8 +7,8 @@
 bm_match_fused launches G for CUDA tensors (or raises) and runs its plain
 twin, bm_match_fused_plain, for CPU tensors. Both return what the
 reference package's bm_match_pallas returns: both views' disparities, the
-left one after the L/R check and before the texture gate
-(matching/bm.bm_texture_gate, which the pipeline applies next).
+left one after the L/R check and before the texture gate (kernel S,
+matching/bm.bm_gate_u8, which the pipeline applies next).
 bm_match_diag and strip_width serve chip_smoke.py and the card's tests
 alone. ``launches``
 counts the calls that launched a kernel, by kernel name.
@@ -21,16 +21,13 @@ from typing import Tuple
 import torch
 
 from ..config import BMParams
-from ..matching.bm import bm_views
+from ..matching.bm import WINDOW_MAX, bm_views
 from ..matching.sgm import _lr_tail
 from . import cuda_lib
 
 launches = {"bm": 0, "bm_diag": 0}
 
 D_MIN = 2                # the least disparity count the kernel takes
-# the widest window, r = 1450: the reference's int32 box sums, at most
-# (2r + 1)^2 * 255, wrap past it
-WINDOW_MAX = 2901
 DIAG_MODES = ("full", "onewta", "boxonly", "nobox", "full32")
 
 

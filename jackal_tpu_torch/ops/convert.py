@@ -16,6 +16,10 @@ that would be subnormal is one. PyTorch keeps IEEE subnormals on both
 devices; ``ftz`` applies XLA's rule where the port must compute what the
 jitted reference computes (the scan, scan/obstacle.py; the scan kernels do
 the same in their own ``ftz``).
+
+The node publishes its disparity as u8, ``clip(round(d), 0, 255)`` with
+half to even (``jnp.round`` and ``torch.round`` both): ``dmap_u8``, which
+kernels O2 and S compute with ``rintf``.
 """
 from __future__ import annotations
 
@@ -37,3 +41,9 @@ def ftz(x: torch.Tensor) -> torch.Tensor:
     """float32 ``x`` with each subnormal made a zero of its sign (NaN and
     infinities kept)."""
     return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
+def dmap_u8(d: torch.Tensor) -> torch.Tensor:
+    """The published mono8 disparity of float32 ``d``: round half to even,
+    clip to [0, 255]."""
+    return torch.clamp(torch.round(d), 0, 255).to(torch.uint8)

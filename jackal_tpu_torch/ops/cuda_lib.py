@@ -24,7 +24,7 @@ KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
                   "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel",
                   "bm_kernel", "elas_post_kernel", "speckle_kernel",
                   "remap_kernel", "scan_kernel", "descriptor_kernel",
-                  "prior_kernel")
+                  "prior_kernel", "sgm_tail_kernel", "bm_gate_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # headers under csrc/, hashed into every library's name (elas_lr.cuh: the
@@ -32,12 +32,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HEADERS = ("elas_lr.cuh",)
 # libraries built from another library's source with extra flags: the BM
 # kernel's per-part timing (G') is the BM source with its diagnostic entry;
-# the scan kernels and the prior kernels M1, M2 built without contraction
-# (-fmad=false), whose FFMA and DFMA counts chip_smoke.py holds against the
-# library's own
+# the scan kernels, the prior kernels M1, M2 and the SGM tail O1, O2 built
+# without contraction (-fmad=false), whose FFMA and DFMA counts
+# chip_smoke.py holds against the library's own
 VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",)),
             "scan_kernel_nofmad": ("scan_kernel", ("-fmad=false",)),
-            "prior_kernel_nofmad": ("prior_kernel", ("-fmad=false",))}
+            "prior_kernel_nofmad": ("prior_kernel", ("-fmad=false",)),
+            "sgm_tail_kernel_nofmad": ("sgm_tail_kernel", ("-fmad=false",))}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -83,11 +84,13 @@ def check(err: int, kernel: str) -> None:
                            f"cudaError {err}")
 
 
-def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
-    """Raise unless t is a contiguous, 16-byte aligned tensor of this dtype
-    and shape on this CUDA device (the kernels load 16 bytes at a time)."""
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device,
+           align: int = 16):
+    """Raise unless t is a contiguous, ``align``-byte aligned tensor of this
+    dtype and shape on this CUDA device (most kernels load 16 bytes at a
+    time)."""
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous() or t.data_ptr() % 16:
+            or not t.is_contiguous() or t.data_ptr() % align:
         raise ValueError(
             f"{name}: expected contiguous {dtype} {tuple(shape)} on {device},"
             f" got {t.dtype} {tuple(t.shape)} on {t.device}"

@@ -1,8 +1,11 @@
-"""SGM's three CUDA kernels, their wrappers and their plain versions.
+"""SGM's five CUDA kernels, their wrappers and their plain versions.
 
-  census5x5_batch       kernel D  csrc/census_kernel.cu
-  aggregate_paths_bhdw  kernel E  csrc/sgm_paths_kernel.cu
-  sgm_wta_maps          kernel F  csrc/sgm_wta_kernel.cu
+  census5x5_batch       kernel D   csrc/census_kernel.cu
+  census5x5_pair        kernel D   the same, left and right where they lie
+  sgm_cost_volume       kernel O1  csrc/sgm_tail_kernel.cu
+  aggregate_paths_bhdw  kernel E   csrc/sgm_paths_kernel.cu
+  sgm_wta_maps          kernel F   csrc/sgm_wta_kernel.cu
+  sgm_epilogue          kernel O2  csrc/sgm_tail_kernel.cu
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
 its plain twin, ``<name>_plain``, for a CPU tensor. The plain twins are
@@ -14,25 +17,32 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..config import SGMParams
-from ..matching.sgm import (_CARRY_BIG, aggregate_paths, census5x5,
-                            right_view_volume, wta_maps)
+from ..matching.sgm import (_CARRY_BIG, _lr_tail, _wta_from_maps,
+                            aggregate_paths, census5x5,
+                            census_cost_volume_hdw, right_view_volume,
+                            shift_by_d, wta_maps)
 from . import cuda_lib
+from .convert import dmap_u8
 
-launches = {"census": 0, "sgm_paths": 0, "sgm_wta": 0}
+launches = {"census": 0, "sgm_paths": 0, "sgm_wta": 0, "sgm_cost": 0,
+            "sgm_epilogue": 0}
 
-# the least disparity count the kernels E and F take; past D = 256 each
-# takes its second path (csrc/sgm_paths_kernel.cu, csrc/sgm_wta_kernel.cu)
+# the least disparity count the kernels E, F, O1 and O2 take; past D = 256
+# E and F take their second paths (csrc/sgm_paths_kernel.cu,
+# csrc/sgm_wta_kernel.cu)
 D_MIN = 2
 _P_MAX = (1 << 31) - 1 - _CARRY_BIG     # penalties the path kernel takes
 
 
-def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int):
+def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int,
+        n_float: int = 0):
     fn = getattr(cuda_lib.load(lib_name), fn_name)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_void_p]
+        ctypes.c_float] * n_float + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,6 +69,68 @@ def census5x5_batch(img_u8_b: torch.Tensor) -> torch.Tensor:
                     img_u8_b, img_u8_b.data_ptr(), out.data_ptr(), N, H, W)
     launches["census"] += 1
     return out
+
+
+def census5x5_pair(left_b: torch.Tensor, right_b: torch.Tensor
+                   ) -> torch.Tensor:
+    """uint8 [B, H, W] left and right batches -> int32 [2B, H, W] codes,
+    the left frames' then the right ones': census5x5_batch of their
+    concatenation, which kernel D reads where the two batches lie (one
+    launch, no copy). A batch that is not contiguous (a cropped view) is
+    copied first."""
+    if not left_b.is_cuda:
+        return census5x5_batch_plain(torch.cat([left_b, right_b]))
+    if left_b.dim() != 3 or right_b.shape != left_b.shape:
+        raise ValueError(f"need two uint8 [B, H, W] batches of one shape, "
+                         f"got {tuple(left_b.shape)} and "
+                         f"{tuple(right_b.shape)}")
+    B, H, W = left_b.shape
+    left_b, right_b = left_b.contiguous(), right_b.contiguous()
+    for name, t in (("left", left_b), ("right", right_b)):
+        cuda_lib.expect(t, name, torch.uint8, (B, H, W), left_b.device)
+    out = torch.empty((2 * B, H, W), dtype=torch.int32, device=left_b.device)
+    cuda_lib.launch(_fn("census_kernel", "census5x5_pair", 3, 3),
+                    "census5x5_pair", left_b, left_b.data_ptr(),
+                    right_b.data_ptr(), out.data_ptr(), B, H, W)
+    launches["census"] += 1
+    return out
+
+
+# ---- O1: the cost volume ----------------------------------------------------
+
+def sgm_cost_volume_plain(codes_l: torch.Tensor, codes_r: torch.Tensor,
+                          D: int, right: bool = False):
+    cost = census_cost_volume_hdw(codes_l, codes_r, D)
+    return (cost, shift_by_d(cost, -2)) if right else cost
+
+
+def sgm_cost_volume(codes_l: torch.Tensor, codes_r: torch.Tensor, D: int,
+                    right: bool = False):
+    """int32 census codes [B, H, W] of the left and right frames -> the
+    int16 Hamming cost volume [B, H, D, W] (matching/sgm.
+    census_cost_volume_hdw): popcount(cl[u] ^ cr[u - d]), _INVALID where
+    u < d. With ``right`` also the right view's volume, shift_by_d(cost,
+    -2), from the same launch: (cost, cost_right). Any D >= 2."""
+    if not codes_l.is_cuda:
+        return sgm_cost_volume_plain(codes_l, codes_r, D, right)
+    _check_d(D)
+    if codes_l.dim() != 3:
+        raise ValueError(f"need int32 [B, H, W] codes, got "
+                         f"{tuple(codes_l.shape)}")
+    B, H, W = codes_l.shape
+    # 16-byte loads of the codes where W % 8 == 0, scalar ones otherwise
+    align = 16 if W % 8 == 0 else 4
+    for name, t in (("codes_l", codes_l), ("codes_r", codes_r)):
+        cuda_lib.expect(t, name, torch.int32, (B, H, W), codes_l.device,
+                        align)
+    cost = torch.empty((B, H, D, W), dtype=torch.int16, device=codes_l.device)
+    cost_r = torch.empty_like(cost) if right else None
+    cuda_lib.launch(_fn("sgm_tail_kernel", "sgm_cost_volume", 4, 4),
+                    "sgm_cost_volume", codes_l, codes_l.data_ptr(),
+                    codes_r.data_ptr(), cost.data_ptr(),
+                    None if cost_r is None else cost_r.data_ptr(), B, H, W, D)
+    launches["sgm_cost"] += 1
+    return (cost, cost_r) if right else cost
 
 
 # ---- E: path aggregation ----------------------------------------------------
@@ -132,3 +204,54 @@ def sgm_wta_maps(S_bhdw: torch.Tensor) -> torch.Tensor:
                     B, H, D, W)
     launches["sgm_wta"] += 1
     return out
+
+
+# ---- O2: the epilogue -------------------------------------------------------
+
+def sgm_epilogue_plain(maps: torch.Tensor, maps_right, D: int,
+                       params: SGMParams, u8: bool = False):
+    m = maps.to(torch.int32)
+    dL = _wta_from_maps(*m[:, :, 0:5].unbind(2), D, params)
+    mr = m[:, :, 5:10] if maps_right is None \
+        else maps_right.to(torch.int32)[:, :, 0:5]
+    dR = _wta_from_maps(*mr.unbind(2), D, params)
+    dL, dR = _lr_tail(dL, dR, D, params)
+    return (dL, dR, dmap_u8(dL)) if u8 else (dL, dR)
+
+
+def sgm_epilogue(maps: torch.Tensor, maps_right, D: int, params: SGMParams,
+                 u8: bool = False):
+    """The float epilogue of F's int16 maps [B, H, 10, W]: each view's
+    uniqueness and parabolic sub-pixel (matching/sgm._wta_from_maps), the
+    right view from rows 5-9 of ``maps`` or, where ``maps_right`` (F's
+    maps of the separately aggregated right volume, true_right) is given,
+    from its rows 0-4; then the L/R check (_lr_tail). Returns (dL, dR)
+    float32 [B, H, W], -1 for invalid, and with ``u8`` also dL's u8 map
+    (ops/convert.dmap_u8)."""
+    if not maps.is_cuda:
+        return sgm_epilogue_plain(maps, maps_right, D, params, u8)
+    _check_d(D)
+    if maps.dim() != 4 or maps.shape[2] != 10:
+        raise ValueError(f"need int16 maps [B, H, 10, W], got "
+                         f"{tuple(maps.shape)}")
+    B, H, _, W = maps.shape
+    dev = maps.device
+    cuda_lib.expect(maps, "maps", torch.int16, (B, H, 10, W), dev, 2)
+    if maps_right is not None:
+        cuda_lib.expect(maps_right, "maps_right", torch.int16, (B, H, 10, W),
+                        dev, 2)
+    dl = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    dr = torch.empty_like(dl)
+    out = torch.empty((B, H, W), dtype=torch.uint8, device=dev) if u8 \
+        else None
+    # the factors as float32, as the plain version's tensors round them
+    cuda_lib.launch(
+        _fn("sgm_tail_kernel", "sgm_epilogue", 5, 4, 2), "sgm_epilogue",
+        maps, maps.data_ptr(),
+        None if maps_right is None else maps_right.data_ptr(), dl.data_ptr(),
+        dr.data_ptr(), None if out is None else out.data_ptr(), B, H, W, D,
+        float(np.float32(params.uniqueness)),
+        float(np.float32(params.lr_threshold)))
+    launches["sgm_epilogue"] += 1
+    return (dl, dr, out) if u8 else (dl, dr)
+

@@ -10,10 +10,11 @@ and a per-frame function, process_frame. Three engines:
     (matching/elas/pipeline.elas_match_batch_device), which keeps only
     pruning and triangulation on the host;
   - "sgm": every stage on the device (matching/sgm.sgm_match_batch,
-    kernels D, E, F); process_frame runs it on a batch of one, and
+    kernels D, O1, E, F, O2); process_frame runs it on a batch of one, and
     process_batch is process_batch_fused, rectify -> SGM -> scan on the
     whole batch;
-  - "bm": the same on block matching (kernel G, then the texture gate).
+  - "bm": the same on block matching (kernel G, then kernel S, the
+    texture gate and the u8 map).
 
 With PipelineParams(gen_pcl=True) the node exports the point cloud (every
 pixel with d >= 2 as a robot-frame point with its packed colour) and builds
@@ -43,10 +44,11 @@ from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
 from ..geometry.remap import remap_bilinear, remap_bilinear_pair
 from ..geometry.reproject import (compose_rotation_cam_to_robot,
                                   compose_translation_cam_to_robot)
-from ..matching.bm import bm_texture_gate
+from ..matching.bm import bm_gate_u8
 from ..matching.elas.pipeline import elas_match, elas_match_batch_device
 from ..matching.sgm import sgm_match_batch
 from ..ops.bm_kernel import bm_match_fused
+from ..ops.convert import dmap_u8
 from ..scan.obstacle import (ScanResult, cloud_and_scan_from_disparity,
                              obstacle_scan_from_disparity)
 from ..scan.valid_disp import cache_disparity_values
@@ -154,8 +156,9 @@ class StereoPipeline:
 
     @staticmethod
     def _dmap_u8(D1: torch.Tensor) -> torch.Tensor:
-        """The published mono8 disparity: round, clip to [0, 255]."""
-        return torch.clamp(torch.round(D1), 0, 255).to(torch.uint8)
+        """The published mono8 disparity: round, clip to [0, 255] (ELAS's
+        maps; SGM's and BM's come from kernels O2 and S on the card)."""
+        return dmap_u8(D1)
 
     def _scan_stage(self, dmap_u8: torch.Tensor) -> ScanResult:
         return obstacle_scan_from_disparity(
@@ -263,15 +266,14 @@ class StereoPipeline:
     def _match_batch(self, left_b: torch.Tensor, right_b: torch.Tensor
                      ) -> torch.Tensor:
         """Disparity of rectified uint8 [B, h, w] batches as u8 maps: SGM
-        (kernels D, E and F on the card) or BM (kernel G, whose left map
-        has had its L/R check, then the texture gate)."""
+        (on the card kernels D, O1, E, F and O2, whose u8 map this is) or
+        BM (kernel G, whose left map has had its L/R check, then kernel S:
+        the texture gate and the u8 map)."""
         if self.engine == "bm":
             dL, _ = bm_match_fused(left_b, right_b, self.bm_params)
-            dL = bm_texture_gate(left_b, dL, self.bm_params)
-        else:
-            dL, _ = sgm_match_batch(left_b, right_b, self.sgm_params,
-                                    device=self.device)
-        return self._dmap_u8(dL)
+            return bm_gate_u8(left_b, dL, self.bm_params)
+        return sgm_match_batch(left_b, right_b, self.sgm_params,
+                               device=self.device, u8=True)[2]
 
     def process_batch_fused_pcl(self, left_raw_b, right_raw_b,
                                 color_bgr_b=None, timing: bool = False):

@@ -1892,3 +1892,212 @@ def test_prior_kernels_refuse_what_they_do_not_take(dev):
         dp.grid_words(card[:10], CH, Np, 20, 24, 32, 256)
     with pytest.raises(ValueError, match="grid_words"):
         dp.grid_words(card, CH, Np, 0, 24, 32, 256)
+
+
+# ---- kernels O1, O2 and S: the SGM and BM tails ---------------------------
+
+def _tail_held(dev, name):
+    """O1, O2 or S on a TAIL_EDGE_CASES case on the card against its plain
+    version on the card (torch.equal), one launch a call; returns the
+    kernel's outputs."""
+    from chip_smoke import tail_edge_case
+    from jackal_tpu_torch.config import BMParams, SGMParams
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    kind, *args = tail_edge_case(name)
+    if kind == "cost":
+        cl, cr = (torch.from_numpy(a).to(dev) for a in args[:2])
+        D = args[2]
+        n0 = sk.launches["sgm_cost"]
+        got = sk.sgm_cost_volume(cl, cr, D, True)
+        assert torch.equal(sk.sgm_cost_volume(cl, cr, D), got[0])
+        assert sk.launches["sgm_cost"] == n0 + 2
+        want = sk.sgm_cost_volume_plain(cl, cr, D, True)
+    elif kind == "epilogue":
+        m, mr, D, kw = args
+        m = torch.from_numpy(m).to(dev)
+        mr = None if mr is None else torch.from_numpy(mr).to(dev)
+        p = SGMParams(**kw)
+        n0 = sk.launches["sgm_epilogue"]
+        got = sk.sgm_epilogue(m, mr, D, p, u8=True)
+        assert all(torch.equal(a, b) for a, b in zip(
+            sk.sgm_epilogue(m, mr, D, p), got[:2]))
+        assert sk.launches["sgm_epilogue"] == n0 + 2
+        want = sk.sgm_epilogue_plain(m, mr, D, p, u8=True)
+    else:
+        left, dL, kw = (torch.from_numpy(args[0]).to(dev),
+                        torch.from_numpy(args[1]).to(dev), args[2])
+        p = BMParams(**kw)
+        n0 = bm.launches["bm_gate"]
+        got = (bm.bm_texture_gate(left, dL, p), bm.bm_gate_u8(left, dL, p))
+        assert bm.launches["bm_gate"] == n0 + 2
+        want = (bm.bm_texture_gate_plain(left, dL, p),
+                bm.bm_gate_u8_plain(left, dL, p))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("case", range(18))
+def test_tail_kernels_edges(dev, case):
+    """chip_smoke.TAIL_EDGE_CASES: O1 at D = 2, 3, 64, 257 and D > W, W no
+    multiple of 8, codes with bit 23 set; O2 on crafted maps (halves at even
+    and odd best_d, best_d at 0 and D - 1, den <= 0, the 30000 sentinels,
+    dL = -1, true_right maps, uniqueness factors that are no float32); S at
+    windows 1, 9, 255 (rows from device memory), 257 and 2901, threshold 0,
+    a flat frame, B = 3 at an odd width."""
+    from chip_smoke import TAIL_EDGE_CASES
+
+    assert len(TAIL_EDGE_CASES) == 18
+    _tail_held(dev, TAIL_EDGE_CASES[case])
+
+
+@pytest.mark.parametrize("D,true_right", [(64, False), (64, True),
+                                          (128, False)])
+def test_tail_kernels_on_the_golden_pair(dev, D, true_right):
+    """O1 and O2 (both views, with and without true_right) and census
+    kernel D's pair entry against their plain versions on the 640x480
+    golden pair; S on BM's maps of the same pair."""
+    from jackal_tpu_torch.config import BMParams, SGMParams
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    g = [np.load(f"{FIX}/elas_golden_{f}.npz") for f in ("s640_boxes",
+                                                         "photo")]
+    left = torch.from_numpy(np.stack([x["left"] for x in g])).to(dev)
+    right = torch.from_numpy(np.stack([x["right"] for x in g])).to(dev)
+    codes = sk.census5x5_pair(left, right)
+    assert torch.equal(codes, sk.census5x5_batch(torch.cat([left, right])))
+    p = SGMParams(disp_num=D, true_right=true_right)
+    costs = sk.sgm_cost_volume(codes[:2], codes[2:], D, True)
+    want = sk.sgm_cost_volume_plain(codes[:2], codes[2:], D, True)
+    assert all(torch.equal(a, b) for a, b in zip(costs, want))
+    maps = [sk.sgm_wta_maps(sk.aggregate_paths_bhdw(c, p)) for c in costs]
+    mr = maps[1] if true_right else None
+    got = sk.sgm_epilogue(maps[0], mr, D, p, u8=True)
+    want = sk.sgm_epilogue_plain(maps[0], mr, D, p, u8=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    bp = BMParams(disp_num=D)
+    dL = bk.bm_match_fused(left, right, bp)[0]
+    assert torch.equal(bm.bm_gate_u8(left, dL, bp),
+                       bm.bm_gate_u8_plain(left, dL, bp))
+    assert torch.equal(bm.bm_texture_gate(left, dL, bp),
+                       bm.bm_texture_gate_plain(left, dL, bp))
+
+
+def test_tail_kernels_never_run_the_plain_versions(dev, monkeypatch):
+    from jackal_tpu_torch.config import BMParams, SGMParams
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, names in ((sk, ("sgm_cost_volume_plain",
+                             "census_cost_volume_hdw", "shift_by_d",
+                             "sgm_epilogue_plain", "_wta_from_maps",
+                             "_lr_tail", "dmap_u8", "census5x5_batch_plain")),
+                       (bm, ("bm_texture_gate_plain", "bm_gate_u8_plain",
+                             "_box_filter", "dmap_u8"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    img = torch.full((1, 20, 40), 9, dtype=torch.uint8, device=dev)
+    codes = sk.census5x5_pair(img, img)
+    cost, cost_r = sk.sgm_cost_volume(codes[:1], codes[1:], 16, True)
+    assert int(cost[0, 0, 3, 3]) == 0 and int(cost[0, 0, 3, 2]) == 12000
+    assert int(cost_r[0, 0, 3, 36]) == 0 and int(cost_r[0, 0, 3, 37]) == 12000
+    maps = torch.zeros((1, 20, 10, 40), dtype=torch.int16, device=dev)
+    maps[:, :, 2] = maps[:, :, 7] = 100
+    dl, dr, u8 = sk.sgm_epilogue(maps, None, 16, SGMParams(disp_num=16), True)
+    assert bool((dl == 0).all()) and bool((u8 == 0).all())
+    p = BMParams(texture_threshold=0)
+    dL = torch.full((1, 20, 40), 3.5, device=dev)
+    assert bool((bm.bm_gate_u8(img, dL, p) == 4).all())
+    assert bool((bm.bm_texture_gate(img, dL, p) == 3.5).all())
+
+
+def test_tail_kernels_refuse_what_they_do_not_take(dev):
+    from jackal_tpu_torch.config import BMParams, SGMParams
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    codes = torch.zeros((1, 8, 24), dtype=torch.int32, device=dev)
+    for bad in (codes.to(torch.int16), codes[:, :4], codes.cpu()):
+        with pytest.raises(ValueError, match="codes_r"):
+            sk.sgm_cost_volume(codes, bad, 8)
+    with pytest.raises(ValueError, match="D = "):
+        sk.sgm_cost_volume(codes, codes, 1)
+    maps = torch.zeros((1, 8, 10, 24), dtype=torch.int16, device=dev)
+    p = SGMParams(disp_num=8)
+    with pytest.raises(ValueError, match="maps"):
+        sk.sgm_epilogue(maps[:, :, :9], None, 8, p)
+    with pytest.raises(ValueError, match="maps"):
+        sk.sgm_epilogue(maps.to(torch.int32), None, 8, p)
+    with pytest.raises(ValueError, match="maps_right"):
+        sk.sgm_epilogue(maps, maps.cpu(), 8, p)
+    img = torch.zeros((1, 8, 24), dtype=torch.uint8, device=dev)
+    dL = torch.zeros((1, 8, 24), device=dev)
+    for left, d in ((img.float(), dL), (img[:, :4], dL), (img.cpu(), dL),
+                    (img, dL.double()), (img.numpy(force=True), dL)):
+        with pytest.raises(ValueError, match="kernel S"):
+            bm.bm_gate_u8(left, d, BMParams())
+    with pytest.raises(ValueError, match="window"):
+        bm.bm_texture_gate(img, dL, BMParams(window=2903))
+
+
+@pytest.mark.parametrize("engine", ["sgm", "bm"])
+def test_tail_nodes_on_the_card_equal_cpu(dev, engine):
+    """The SGM and BM nodes' batched step on the card equals the CPU's,
+    with O1 and O2, or S, launched once a batch, and one call of the
+    engine dispatching no eager op on the card."""
+    from chip_smoke import aten_ops_of_a_call
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    gpu = make_pipeline(engine=engine, device=dev)
+    cpu = make_pipeline(engine=engine, device="cpu")
+    pairs = [synthetic_raw_pair(cpu, s, 8.0 + 5 * s, 0.03 * s)
+             for s in range(3)]
+    lb = np.stack([p[0] for p in pairs])
+    rb = np.stack([p[1] for p in pairs])
+    n0, g0 = dict(sk.launches), bm.launches["bm_gate"]
+    got, _ = gpu.process_batch_fused(lb, rb)
+    want, _ = cpu.process_batch_fused(lb, rb)
+    assert torch.equal(got.cpu(), want)
+    if engine == "sgm":
+        assert sk.launches["sgm_cost"] == n0["sgm_cost"] + 1
+        assert sk.launches["sgm_epilogue"] == n0["sgm_epilogue"] + 1
+    else:
+        assert bm.launches["bm_gate"] == g0 + 1
+    L, R = gpu._rectify_crop(torch.from_numpy(lb).to(dev),
+                             torch.from_numpy(rb).to(dev))
+    ops = aten_ops_of_a_call(lambda: gpu._match_batch(L, R))
+    assert [n for n, ok in ops if not ok] == []
+
+
+@pytest.mark.parametrize("W", [640, 642])
+def test_gate_kernel_on_a_frame_at_an_odd_address(dev, W):
+    """S stages the frame in 4-byte words only where W % 4 == 0 and the
+    frame's address allows it; a frame one byte into its buffer takes the
+    byte loads, with the same result."""
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.matching import bm
+
+    rng = np.random.default_rng(W)
+    buf = torch.from_numpy(rng.integers(0, 256, 2 * 40 * W + 1).astype(
+        np.uint8)).to(dev)
+    left = buf[1:].view(2, 40, W)
+    assert left.data_ptr() % 4 == 1
+    dL = torch.from_numpy(rng.integers(-1, 60, (2, 40, W)).astype(
+        np.float32) + 0.5).to(dev)
+    p = BMParams(texture_threshold=40)
+    for aligned in (left, left.clone()):
+        assert torch.equal(bm.bm_gate_u8(aligned, dL, p),
+                           bm.bm_gate_u8_plain(aligned, dL, p))
+        assert torch.equal(bm.bm_texture_gate(aligned, dL, p),
+                           bm.bm_texture_gate_plain(aligned, dL, p))

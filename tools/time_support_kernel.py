@@ -3,9 +3,11 @@ support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
 and with H as its epilogue), the SGM census (D), the BM kernel (G), the
 ELAS postprocess kernels (H, I, J, K), the speckle filter (L), rectify
 (N), the scan and the cloud (P1, P2, P3 and the fused cloud and scan),
-the ELAS front (the descriptor R, A and the support epilogue Q) or the
-batched ELAS prior's coefficients and grids (M1, M2); or the per-frame
-ELAS node routed per frame and through the batched path at B = 1.
+the ELAS front (the descriptor R, A and the support epilogue Q), the
+batched ELAS prior's coefficients and grids (M1, M2) or the SGM and BM
+tails (the cost volume O1, the epilogue O2, the texture gate S); or the
+per-frame ELAS node routed per frame and through the batched path at
+B = 1.
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -76,7 +78,18 @@ tests/fixtures and a seed:
   kernel, tools/scan_store_variants.cu is built against its csrc/ and P2
   and the fused kernel with their points staged in shared memory and
   written with 16-byte stores (a block's, a warp's) are held equal to the
-  kernels bit for bit and timed beside them.
+  kernels bit for bit and timed beside them;
+- tail: the first golden pair at the SGM node's shape (B = 1, D = 64) and
+  BASELINE config 3's seeded batch (B = 4, 1280x960), census codes from
+  kernel D: on the host clock (a synchronize after each call, median of
+  21) the cost-volume stage and the epilogue stage with the u8 map as the
+  checkout's sgm_match_batch runs them (eager torch in a checkout from
+  before kernels O1 and O2); the golden pairs alternated at the BM node's
+  shape (B = 1), config 5's (B = 32) and bench_bm256's (B = 16, D = 256)
+  with kernel G's maps: the texture gate + u8 stage as the checkout's
+  _match_batch runs it (eager torch before kernel S); where the checkout
+  has them, O1, O2 and S alone on CUDA events, each held equal to its
+  plain version.
 Each call is held equal to its plain version on those inputs (post: bit
 for bit, as int32). Run it on
 two checkouts in one call, in the order A, B, B, A, to compare two
@@ -363,6 +376,78 @@ def time_bm(left, right, reps):
     return res
 
 
+def time_tail(left, right, reps):
+    import torch
+    from jackal_tpu_torch.config import BMParams, SGMParams
+    from jackal_tpu_torch.matching import bm, sgm
+    from jackal_tpu_torch.ops import bm_kernel as bk
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    dev = torch.device("cuda", 0)
+    res = {}
+    p = SGMParams()
+    D = p.disp_num
+    rng = np.random.default_rng(0)
+    cfg3 = [torch.from_numpy(rng.integers(0, 256, CONFIG3).astype(
+        np.uint8)).to(dev) for _ in range(2)]
+    node = [torch.from_numpy(x[:1]).to(dev) for x in (left, right)]
+    kernels = hasattr(sk, "sgm_epilogue")
+    for label, (lt, rt) in (("node", node), ("config3", cfg3)):
+        B = lt.shape[0]
+        codes = sk.census5x5_batch(torch.cat([lt, rt]))
+        cl, cr = codes[:B], codes[B:]
+        cost = sgm.census_cost_volume_hdw(cl, cr, D)
+        m = sk.sgm_wta_maps(sk.aggregate_paths_bhdw(cost, p))
+        if kernels:
+            def cost_stage():
+                return sk.sgm_cost_volume(cl, cr, D)
+
+            def epi_stage():
+                return sk.sgm_epilogue(m, None, D, p, True)
+
+            _held(f"O1 {label}", [cost_stage()], [cost])
+            _held(f"O2 {label}", epi_stage(),
+                  sk.sgm_epilogue_plain(m, None, D, p, True))
+            res[f"O1_ms_{label}"] = events_ms(cost_stage, reps)
+            res[f"O2_ms_{label}"] = events_ms(epi_stage, reps)
+        else:
+            def cost_stage():
+                return sgm.census_cost_volume_hdw(cl, cr, D)
+
+            def epi_stage():
+                mi = m.to(torch.int32)
+                dL = sgm._wta_from_maps(*mi[:, :, 0:5].unbind(2), D, p)
+                dR = sgm._wta_from_maps(*mi[:, :, 5:10].unbind(2), D, p)
+                return torch.clamp(torch.round(sgm._lr_tail(dL, dR, D, p)[0]),
+                                   0, 255).to(torch.uint8)
+        res[f"cost_stage_ms_{label}"] = host_ms(cost_stage, 21)
+        res[f"epilogue_stage_ms_{label}"] = host_ms(epi_stage, 21)
+        del cost, m
+        torch.cuda.empty_cache()
+    lt, rt = (torch.from_numpy(np.stack([x[i % 2] for i in range(32)])).to(dev)
+              for x in (left, right))
+    gate = hasattr(bm, "bm_gate_u8")
+    for label, B, Dg in (("node", 1, 64), ("config5", 32, 64),
+                         ("bm256", 16, 256)):
+        pb = BMParams(disp_num=Dg)
+        li, ri = lt[:B].contiguous(), rt[:B].contiguous()
+        dL = bk.bm_match_fused(li, ri, pb)[0]
+        if gate:
+            def stage():
+                return bm.bm_gate_u8(li, dL, pb)
+
+            _held(f"S {label}", [stage(), bm.bm_texture_gate(li, dL, pb)],
+                  [bm.bm_gate_u8_plain(li, dL, pb),
+                   bm.bm_texture_gate_plain(li, dL, pb)])
+            res[f"S_ms_{label}"] = events_ms(stage, reps)
+        else:
+            def stage():
+                return torch.clamp(torch.round(bm.bm_texture_gate(
+                    li, dL, pb)), 0, 255).to(torch.uint8)
+        res[f"gate_stage_ms_{label}"] = host_ms(stage, 21)
+    return res
+
+
 def _maps(out):
     """A call's maps as a tuple (the L/R check returns two)."""
     return out if isinstance(out, tuple) else (out,)
@@ -604,7 +689,7 @@ def main() -> int:
     ap.add_argument("--kernel", default="support",
                     choices=("support", "dense", "census", "bm", "post",
                              "speckle", "remap", "scan", "front",
-                             "coeffs", "route"))
+                             "coeffs", "route", "tail"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -639,6 +724,8 @@ def main() -> int:
         res.update(time_coeffs(left, right, params, args.reps))
     elif args.kernel == "route":
         res.update(time_route())
+    elif args.kernel == "tail":
+        res.update(time_tail(left, right, args.reps))
     elif args.kernel == "post":
         res.update(time_post([g[k] for g in gold for k in ("D1", "D2")],
                              args.reps))
