@@ -36,8 +36,9 @@ Phases (any failure exits non-zero and prints no success line):
      epilogue in one launch; the speckle filter L, I, J and rectify N
      once a frame, the BFS hop never; H and K never: the check is B's
      epilogue, ROBOTICS has no median; the scan kernel P1 once a frame,
-     P2 and P3 never; the descriptor R and the support epilogue Q once a
-     frame);
+     P2 and P3 never; the descriptor R (both views, its pair entry) and
+     the support kernel A with Q's tests as its epilogue once a frame, Q
+     alone never);
      per-stage medians, fps, the device's busy time under torch.profiler,
      a per-stage breakdown of one frame (rectify, B alone, B with the L/R
      epilogue, kernel H alone, the speckle filter, with the BFS hop it
@@ -146,8 +147,9 @@ Phases (any failure exits non-zero and prints no success line):
      CLI prints; (c) -m --phi --trans on the replay: scans against
      process_frame's after update_extrinsics, and unlike (a)'s; (d) the
      navigate CLI on (a)'s scans; each CLI call with the launch counters
-     (A, B, C, N, rectify, the scan P1, R and Q: once a frame or a batch;
-     P2 and P3 never) set to 0 just before it and read just after, and
+     (A, B, C, N, rectify, the scan P1, R and A with Q's epilogue: once a
+     frame or a batch; P2, P3 and Q alone never) set to 0 just before it
+     and read just after, and
      rectify beside its plain version; one JSON line;
   10. ELAS subsampling and the exact scan (subsampling_phase): kernel A on
      half-resolution descriptors and kernel B under subsampling against
@@ -155,8 +157,8 @@ Phases (any failure exits non-zero and prints no success line):
      final_D1 and against the CPU's, with A's, B's, H's, R's and Q's
      launch counters set to 0 just before and read just after (H once a
      call: under subsampling the check runs on the kept even pixels,
-     after B; R on half-resolution descriptors and Q at the even step
-     once a call); the
+     after B; R on half-resolution descriptors and A with Q's epilogue at
+     the even step once a call, Q alone never); the
      card's exact float64 scan
      against the CPU's on phase 4's 9 maps at 640x480; one JSON line;
   11. the multi-device paths on meshes of this one card repeated
@@ -222,15 +224,19 @@ Phases (any failure exits non-zero and prints no success line):
      clock, and probes of the card's scatter_reduce at NaN and of the bin
      index the plain version computed before (scan_probes); one JSON
      line;
-  15. the ELAS front (front_phase): kernels R (the descriptor), A from
-     the descriptors' rows (support.grid_row_keys) and Q (the support
-     epilogue) against their plain versions (torch.equal) on the golden
-     pairs, phase 4's 9 frames, the batched node's 48, every
-     SUPPORT_EDGE_CASES shape, chip_smoke.FRONT_EDGE_CASES and the
-     subsampled frames; no FFMA or DFMA in either library; the ATen ops
-     of one create_descriptor and one support_candidates call on the card
-     (allocations only); R's and Q's times beside their plain versions'
-     and byte bounds (epilogue_work) at the per-frame and batched nodes'
+  15. the ELAS front (front_phase): kernel R (the descriptor, through
+     its pair entry), A's keys (support.grid_row_keys), A with Q's tests
+     as its epilogue (support.support_candidates) and Q alone against
+     their plain versions (torch.equal) on the golden pairs, phase 4's 9
+     frames, the batched node's 48, every SUPPORT_EDGE_CASES shape,
+     chip_smoke.FRONT_EDGE_CASES, R alone on DESCRIPTOR_EDGE_SHAPES and
+     the subsampled frames, at A's plans R = 1 and R > 1; each library's
+     FFMA count equal to its -fmad=false build's; the ATen ops of one
+     create_descriptor_pair and one support_candidates call on the card
+     (allocations and views only); the times of R and of A with its
+     epilogue (A alone, A then Q and Q alone beside them) with their plain
+     versions' and bounds (R by bytes; A with its epilogue A's operations
+     plus Q's bytes, epilogue_work) at the per-frame and batched nodes'
      shapes, a time below its bound failing; one JSON line;
   16. the batched prior's coefficient table and candidate grids
      (prior_phase): kernels M1 (the table and the tile lists) and M2 (the
@@ -895,7 +901,45 @@ FRONT_EDGE_CASES = {
     "constant images": (2, 30, 64, dict(disp_max=20)),
     # the grid rows' vs - 2 is above the image at step 1
     "candidate step 1": (1, 24, 50, dict(disp_max=20, candidate_stepsize=1)),
+    # kernel R's warp strips (26 columns) and row bands (8 rows) cut
+    # mid-way: W % 16 of 1, 3 and 15, H ending mid-band, frames whose rows
+    # start off 16-byte boundaries (H * W odd, B > 1), with half_resolution
+    # off and on (W < 16 and smaller frames, which hold no support point:
+    # DESCRIPTOR_EDGE_SHAPES)
+    "W % 16 = 1": (1, 40, 97, dict(disp_max=30)),
+    "W % 16 = 3, half resolution": (1, 40, 99, dict(disp_max=30,
+                                                    subsampling=True)),
+    "W % 16 = 15, frames off 16-byte rows": (2, 37, 79, dict(disp_max=24)),
+    "W % 16 = 15, half resolution": (1, 41, 47, dict(disp_max=20,
+                                                     subsampling=True)),
+    "H ends mid-band": (1, 14, 64, dict(disp_max=20)),
+    "H ends mid-band, half resolution": (2, 13, 50, dict(disp_max=20,
+                                                         subsampling=True)),
+    # the grid row 0 / key row 0 pairing and the last key row: at step 2
+    # the last grid row's vs + 2 is past the image ((ncv - 1) * 2 + 2 >= H),
+    # at step 1 both the first row's vs - 2 and the last's vs + 2
+    "step 2, the last grid row past the image": (
+        1, 21, 60, dict(disp_max=20, candidate_stepsize=2)),
+    "step 1, B = 3 frames off 16-byte rows": (
+        3, 13, 45, dict(disp_max=20, candidate_stepsize=1)),
+    "step 2, half resolution": (1, 26, 70, dict(
+        disp_max=24, subsampling=True, candidate_stepsize=2)),
+    # A's epilogue at R = 1 (one chunk of d) on a row whose four key maps
+    # do not fit the staging planes (W > 1616): it reads the keys back
+    # from the out array
+    "R = 1 past the staging planes: W = 2000, D = 16": (
+        1, 30, 2000, dict(disp_max=15)),
 }
+
+
+# kernel R alone at the edges of its warp strips and row bands, where no
+# support point can be (W < 16, a few rows): (N, H, W), each with
+# half_resolution off and on (tests/test_torch_front_redesign.py holds the
+# plain version against the JAX package on them,
+# tests/test_torch_cuda.py and phase 15 the kernel)
+DESCRIPTOR_EDGE_SHAPES = ((1, 20, 13), (1, 21, 11), (3, 33, 15), (2, 15, 17),
+                          (1, 50, 19), (2, 9, 64), (1, 3, 5), (1, 1, 1),
+                          (2, 31, 27), (1, 70, 131))
 
 
 def front_edge_images(name):
@@ -1886,10 +1930,11 @@ def subsampling_phase(dev, hold, pipe, dmaps):
           f" on the card: {launches}")
     n = 1 + len(cases)
     launches.update(pin_front(f"10b. {n} subsampled elas_match calls (R on "
-                              f"half-resolution descriptors, Q at the even "
-                              f"step, once a call)", n))
+                              f"half-resolution descriptors, A with Q's "
+                              f"epilogue at the even step, once a call)", n))
     if launches != {"support": n, "elas_dense": n, "elas_dense_lr": 0,
-                    "elas_lr": n, "descriptor": n, "support_epilogue": n} \
+                    "elas_lr": n, "descriptor": n, "support_fused": n,
+                    "support_epilogue": 0} \
             or post.launches["elas_lr"] != n:
         raise AssertionError(f"subsampled elas_match did not launch A, B "
                              f"(without its L/R epilogue) and H once a "
@@ -2087,7 +2132,8 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
                           **front_counts(), **prior_counts())
             want = {"support": n, "elas_dense": 8 // chunk,
                     "raster": 2 * 8 // chunk, "descriptor": n,
-                    "support_epilogue": n, "coeff_table": 8 // chunk,
+                    "support_fused": n, "support_epilogue": 0,
+                    "coeff_table": 8 // chunk,
                     "grid_words": 8 // chunk}
             if counts != want:
                 raise AssertionError(f"ELAS replicas {n} chunk {chunk}: "
@@ -3897,17 +3943,21 @@ def scan_phase(dev, hold, node_maps, node_pipe):
 
 # ---- kernels R and Q: the ELAS front (phase 15) ----------------------------
 
-# kernels R and Q by their names in the kernels line
-FRONT_KERNELS = ("descriptor", "support_epilogue")
+# kernel R, kernel A's calls that wrote the candidate grid as their
+# epilogue (Q's function) and Q's standalone launches, by their names in
+# the kernels line
+FRONT_KERNELS = ("descriptor", "support_fused", "support_epilogue")
 
 
 def front_counts() -> dict:
-    """The launch counters of kernels R (the descriptor) and Q (the support
-    epilogue)."""
+    """The launch counters of kernel R (the descriptor), of kernel A's
+    calls with Q's tests as the epilogue of their last launch, and of
+    kernel Q alone (on no path)."""
     from jackal_tpu_torch.matching.elas import support
     from jackal_tpu_torch.ops import descriptor
 
     return {"descriptor": descriptor.launches,
+            "support_fused": support.fused_launches,
             "support_epilogue": support.epilogue_launches}
 
 
@@ -3915,17 +3965,19 @@ def reset_front() -> None:
     from jackal_tpu_torch.matching.elas import support
     from jackal_tpu_torch.ops import descriptor
 
-    descriptor.launches = support.epilogue_launches = 0
+    descriptor.launches = support.fused_launches = 0
+    support.epilogue_launches = 0
 
 
 def pin_front(label: str, n: int) -> dict:
-    """Raise unless kernels R and Q each launched n times since their
-    counters were set to 0 (reset_front)."""
+    """Raise unless kernel R and kernel A with its epilogue each launched n
+    times since their counters were set to 0 (reset_front), and Q alone
+    never."""
     got = front_counts()
-    print(f"{label}: launches of R and Q {got}")
-    if got != {"descriptor": n, "support_epilogue": n}:
-        raise AssertionError(f"{label}: R and Q launched {got}, not {n} "
-                             f"times each")
+    print(f"{label}: launches of R, A with Q's epilogue and Q alone {got}")
+    if got != {"descriptor": n, "support_fused": n, "support_epilogue": 0}:
+        raise AssertionError(f"{label}: R, A with its epilogue and Q alone "
+                             f"launched {got}, not {n}, {n} and 0 times")
     return got
 
 
@@ -3979,47 +4031,66 @@ def epilogue_work(keys, desc1, desc2, params) -> int:
 
 
 def front_phase(dev, hold, node, batches, launches):
-    """Phase 15: kernels R (the descriptor, csrc/descriptor_kernel.cu) and
-    Q (the support epilogue, csrc/support_kernel.cu). (a) R, kernel A's
-    entry that reads the descriptors' rows (grid_row_keys) and Q against
-    their plain versions (torch.equal) on the two 640x480 golden
-    fixtures, phase 4's 9 node frames (each as the per-frame node calls
-    them, both views in one R call, and all 9 in one call), the batched
-    node's 48 frames (its 6 batches of 8), every SUPPORT_EDGE_CASES shape,
-    FRONT_EDGE_CASES and the subsampled frames (half-resolution
-    descriptors, the even step) of elas_stages_sub320 and the golden
-    pairs; (b) no FFMA or DFMA in either library's SASS; (c) the ATen ops
-    of one create_descriptor and one support_candidates call on the card,
-    beside the kernels' launches: views and allocations only; (d) R's and
-    Q's device times beside their plain versions' and their byte bounds at
-    the per-frame node's shape and the batched node's, a time below its
-    bound failing. node: phase 4's rectified (left, right) [9, H, W];
-    batches: the batched node's rectified batches [(left, right) [8, H,
-    W]]; launches: R's and Q's launches on the per-frame node (phase 4).
-    Returns (the phase's JSON line, the kernels line's entries)."""
+    """Phase 15: the ELAS front as the nodes run it, kernel R (the
+    descriptor, csrc/descriptor_kernel.cu, both views through its pair
+    entry) and kernel A with Q's tests as the epilogue of its last launch
+    (support.support_candidates, csrc/support_kernel.cu). (a) R, A's keys
+    (grid_row_keys), A's grid and Q alone on A's keys against their plain
+    versions (torch.equal) on the two 640x480 golden fixtures, phase 4's 9
+    node frames (each as the per-frame node calls them, and all 9 in one
+    call), the batched node's 48 frames (its 6 batches of 8), every
+    SUPPORT_EDGE_CASES shape, FRONT_EDGE_CASES, R alone on
+    DESCRIPTOR_EDGE_SHAPES (half resolution off and on), and the subsampled
+    frames (half-resolution descriptors, the even step) of
+    elas_stages_sub320 and the golden pairs, one at a time (A's plan R >
+    1) and the golden pairs as a batch of 8 (R = 1); (b) each library's
+    FFMA count a kernel equal to its -fmad=false build's, no DFMA; (c) the
+    ATen ops of one create_descriptor_pair and one support_candidates call
+    on the card, beside the kernels' calls: views and allocations only;
+    (d) the device times of R's pair call, A with its epilogue, A alone, A
+    then Q and Q alone beside their plain versions and bounds at the
+    per-frame node's shape and the batched node's, a time of R or of A
+    with its epilogue below its bound failing. node: phase 4's rectified
+    (left, right) [9, H, W]; batches: the batched node's rectified batches
+    [(left, right) [8, H, W]]; launches: R's, A-with-epilogue's and Q's
+    launches on the per-frame node (phase 4). Returns (the phase's JSON
+    line, the kernels line's entries)."""
     import torch
     from jackal_tpu_torch.config import ElasParams
     from jackal_tpu_torch.matching.elas import support as sm
     from jackal_tpu_torch.ops import cuda_lib
     from jackal_tpu_torch.ops import descriptor as dm
 
+    plans = set()
+
     def held(label, left, right, p):
-        """R on both views in one call, A from its rows and Q, each against
-        its plain version; returns the descriptors, the keys and the
-        grid."""
-        B = left.shape[0]
+        """R's pair entry, A's keys, A's grid and Q alone on A's keys, each
+        against its plain version; returns the descriptors, the keys and
+        the grid."""
         half = p.subsampling
-        imgs = torch.cat([left, right])
-        desc = dm.create_descriptor(imgs, half)
-        hold("descriptor", f"descriptor {label}", [desc],
-             [dm.create_descriptor_plain(imgs, half)])
-        d1, d2 = desc[:B], desc[B:]
+        desc = dm.create_descriptor_pair(left, right, half)
+        hold("descriptor", f"descriptor pair {label}", [desc],
+             [dm.create_descriptor_plain(torch.stack([left, right]), half)])
+        d1, d2 = desc[0], desc[1]
+        step = sm.effective_stepsize(p)
         keys = support_keys_held(
             hold, f"support from the descriptors' rows {label}", d1, d2,
-            sm.effective_stepsize(p), p.disp_min, p.disp_num)
-        grid = sm.support_epilogue(keys, d1, d2, p)
-        hold("support_epilogue", f"support epilogue {label}", [grid],
-             [sm.support_epilogue_plain(keys, d1, d2, p)])
+            step, p.disp_min, p.disp_num)
+        want = sm.support_epilogue_plain(keys, d1, d2, p)
+        f0 = sm.fused_launches
+        grid = sm.support_candidates(d1, d2, p)
+        hold("support_fused", f"support with its epilogue {label}", [grid],
+             [want])
+        hold("support_epilogue", f"support epilogue alone {label}",
+             [sm.support_epilogue(keys, d1, d2, p)], [want])
+        B, H, W = left.shape
+        nv = -(-H // step) - 1
+        if nv > 0:
+            plans.add((half, sm.plan(dev.index, B, nv, W, p.disp_min,
+                                     p.disp_num)[0] > 1))
+        if sm.fused_launches != f0 + (nv > 0):
+            raise AssertionError(f"15a. {label}: support_candidates did "
+                                 f"not launch A with its epilogue once")
         return d1, d2, keys, grid
 
     def on(x):
@@ -4049,76 +4120,121 @@ def front_phase(dev, hold, node, batches, launches):
         left, right, kw = front_edge_images(name)
         held(name, on(left), on(right), ElasParams(**kw))
     seen.append(f"{len(FRONT_EDGE_CASES)} FRONT_EDGE_CASES")
+    for shape in DESCRIPTOR_EDGE_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        left, right = (on(rng.integers(0, 256, shape).astype(np.uint8))
+                       for _ in range(2))
+        for half in (False, True):
+            hold("descriptor", f"descriptor pair {shape}, half {half}",
+                 [dm.create_descriptor_pair(left, right, half)],
+                 [dm.create_descriptor_plain(torch.stack([left, right]),
+                                             half)])
+    seen.append(f"R on {len(DESCRIPTOR_EDGE_SHAPES)} DESCRIPTOR_EDGE_SHAPES,"
+                f" half resolution off and on")
     st = np.load(f"{FIX}/elas_stages_sub320.npz")
     for name, g in [("elas_stages_sub320", st)] + list(gold.items()):
         held(f"subsampled {name}", on(g["left"][None]), on(g["right"][None]),
              sub)
+    gl = np.stack([gold[GOLDEN[i % 2]]["left"] for i in range(8)])
+    gr = np.stack([gold[GOLDEN[i % 2]]["right"] for i in range(8)])
+    held("subsampled golden pairs, a batch of 8", on(gl), on(gr), sub)
     seen.append("the subsampled frames of elas_stages_sub320 and the golden "
-                "pairs")
+                "pairs, one at a time and as a batch of 8")
     torch.cuda.synchronize()
-    print(f"15a. kernels R, A (from the descriptors' rows) and Q == plain "
-          f"(torch.equal): {'; '.join(seen)}")
+    if not {(True, False), (True, True), (False, False),
+            (False, True)} <= plans:
+        raise AssertionError(f"15a. A's plans met (half resolution, R > 1):"
+                             f" {sorted(plans)}; want R = 1 and R > 1 with "
+                             f"and without subsampling")
+    print(f"15a. kernel R (pair entry), A's keys, A with Q's epilogue and Q "
+          f"alone == plain (torch.equal): {'; '.join(seen)}; A's plans met "
+          f"(half resolution, R > 1): {sorted(plans)}")
 
-    # (b) neither library contracts into an FMA
+    # (b) no contraction beyond what the source writes: the FFMA count a
+    # kernel equals the -fmad=false build's, and no DFMA
     ffma = {}
-    for name in ("descriptor_kernel", "support_kernel"):
-        path = cuda_lib.library(name).path
-        fma = ", ".join(x for x in (sass_opcodes(path, top=None, prefix=op)
-                                    for op in ("FFMA", "DFMA")) if x)
-        ffma[name] = fma or "none"
-        print(f"15b. sass {name}: {sass_opcodes(path, top=12)}; FFMA and "
-              f"DFMA instructions: {fma or 'none'}")
-        if fma:
-            raise AssertionError(f"{name} contracts into an FMA: {fma}")
+    for lib, names in (("descriptor_kernel", ("descriptor_kernel",)),
+                       ("support_kernel", ("support_keys_kernel",
+                                           "support_merge_kernel",
+                                           "support_epilogue_kernel"))):
+        got, ref = (sass_by_function(cuda_lib.library(n).path, "FFMA", names)
+                    for n in (lib, lib + "_nofmad"))
+        dfma = sass_by_function(cuda_lib.library(lib).path, "DFMA", names)
+        ffma[lib] = {"built": got, "fmad_false": ref, "dfma": dfma}
+        print(f"15b. {lib}: FFMA by kernel {got}; the -fmad=false build "
+              f"{ref}; DFMA {dfma}; sass "
+              f"{sass_opcodes(cuda_lib.library(lib).path, top=12)}")
+        if got != ref or set(got) != set(names) or any(dfma.values()):
+            raise AssertionError(f"15b. {lib} contracts: FFMA {got} against "
+                                 f"{ref} at -fmad=false, DFMA {dfma}")
 
-    # (c) one call each, as the per-frame node makes them: the kernels and
+    # (c) one call each, as the nodes make them: the kernels and
     # allocations, no eager op on the card
-    imgs = torch.cat([L9[:1], R9[:1]])
-    desc = dm.create_descriptor(imgs)
-    d1, d2 = desc[0:1], desc[1:2]
+    lt, rt = L9[:1], R9[:1]
+    desc = dm.create_descriptor_pair(lt, rt)
+    d1, d2 = desc[0], desc[1]
     reset_front()
     a0 = sm.launches
-    ops_r = aten_ops_of_a_call(lambda: dm.create_descriptor(imgs))
+    ops_r = aten_ops_of_a_call(lambda: dm.create_descriptor_pair(lt, rt))
     ops_s = aten_ops_of_a_call(
         lambda: sm.support_candidates(d1, d2, params))
     calls = dict(front_counts(), support=sm.launches - a0)
-    H, W = imgs.shape[1:]
+    H, W = lt.shape[1:]
     step = sm.effective_stepsize(params)
     plan = sm.plan(dev.index, 1, -(-H // step) - 1, W, params.disp_min,
                    params.disp_num)
     bad = [n for n, ok in ops_r + ops_s if not ok]
-    print(f"15c. ATen ops of one create_descriptor call {ops_r} and one "
+    print(f"15c. ATen ops of one create_descriptor_pair call {ops_r} and one "
           f"support_candidates call {ops_s}; the kernels' calls {calls} "
           f"(A's plan (R, DC) {plan}: "
-          f"{'keys and merge, 2 launches' if plan[0] > 1 else '1 launch'})")
-    if bad or calls != {"descriptor": 1, "support_epilogue": 1,
-                        "support": 1}:
+          f"{'keys, then merge with the epilogue: 2 launches' if plan[0] > 1 else 'keys with the epilogue: 1 launch'})")
+    if bad or calls != {"descriptor": 1, "support_fused": 1,
+                        "support_epilogue": 0, "support": 1}:
         raise AssertionError(f"15c. a front call ran eager ops on the card "
                              f"{bad} or made the kernel calls {calls}")
 
     # (d) times at the nodes' shapes beside the plain versions and bounds
     times, entries = {}, []
-    where = {"descriptor": ("descriptor_kernel.cu",
-                            "jackal_tpu/ops/descriptor.py:74"),
-             "support_epilogue": ("support_kernel.cu",
-                                  "jackal_tpu/matching/elas/support.py:76")}
+    ops_rate = int_ops_rate(dev)
     lb, rb = batches[0]
     for label, (left, right) in (("node, B = 1", (L9[:1], R9[:1])),
                                  (f"batched node, B = {len(lb)}",
                                   (lb, rb))):
         B, H, W = left.shape
-        x = torch.cat([left, right])
         d1, d2, keys, grid = held(label, left, right, params)
-        runs = (("descriptor", lambda: dm.create_descriptor(x),
-                 lambda: dm.create_descriptor_plain(x), x.numel() * 17),
+        ncv = -(-H // step)
+        nbA, opsA, _ = support_work(B, ncv - 1, W, params.disp_min,
+                                    params.disp_num)
+        nbQ = epilogue_work(keys, d1, d2, params)
+        bA = bound_ms(nbA, opsA, ops_rate)
+        bQ = bound_ms(nbQ, 0, 1.0)
+        # A's operation bound plus Q's bytes: the tests of a grid row wait
+        # for its final keys
+        fused_bound = (bA[0] + bQ[0], bA[1])
+        x = torch.stack([left, right])
+
+        def plain_front():
+            ncv_ = -(-H // step)
+            k = torch.stack(sm.support_keys_plain(
+                sm.grid_row_blocks(d1, step, ncv_),
+                sm.grid_row_blocks(d2, step, ncv_), params.disp_min,
+                params.disp_num))
+            return sm.support_epilogue_plain(k, d1, d2, params)
+
+        runs = (("descriptor", lambda: dm.create_descriptor_pair(left, right),
+                 lambda: dm.create_descriptor_plain(x),
+                 bound_ms(x.numel() * 17, 0, 1.0), x.numel() * 17, True),
+                ("support_fused",
+                 lambda: sm.support_candidates(d1, d2, params), plain_front,
+                 fused_bound, nbA + nbQ, True),
                 ("support_epilogue",
                  lambda: sm.support_epilogue(keys, d1, d2, params),
                  lambda: sm.support_epilogue_plain(keys, d1, d2, params),
-                 epilogue_work(keys, d1, d2, params)))
-        for k, kern, plain, nbytes in runs:
+                 bQ, nbQ, False))
+        for k, kern, plain, (bms, by), nbytes, gate in runs:
             ms = events_ms(kern, 50)
-            pms = events_ms(plain, 3, spin=False)
-            bms, by = bound_ms(nbytes, 0, 1.0)
+            pms = events_ms(plain, 3 if k != "support_fused" or B == 1
+                            else 1, spin=False)
             times[f"{k} {label}"] = {"ms": ms, "plain_ms": pms,
                                      "bound_ms": bms, "bound_by": by,
                                      "bytes": nbytes}
@@ -4126,19 +4242,42 @@ def front_phase(dev, hold, node, batches, launches):
                   f"a call (CUDA events behind a spin; plain {pms:.3f}; "
                   f"bound {bms:.6f} by {by}: {nbytes} bytes, "
                   f"{ms / bms:.1f}x)")
-            if ms < bms:
+            if gate and ms < bms:
                 raise AssertionError(f"{k} {label}: {ms} ms is below its "
                                      f"bound {bms} ms")
-            if not any(e["name"] == k for e in entries):
-                source, replaces = where[k]
-                entries.append({
-                    "name": k, "route": "cuda",
-                    "source": f"jackal_tpu_torch/csrc/{source}",
-                    "replaces": replaces, "launches": launches[k], "ms": ms,
-                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": None})
+        # the parent's path in the same call: A alone, then Q
+        t = times[f"support_fused {label}"]
+        t["a_alone_ms"] = events_ms(lambda: sm.grid_row_keys(
+            d1, d2, step, params.disp_min, params.disp_num), 50)
+        t["a_then_q_ms"] = events_ms(lambda: sm.support_epilogue(
+            sm.grid_row_keys(d1, d2, step, params.disp_min,
+                             params.disp_num), d1, d2, params), 50)
+        t["descriptor_stack_ms"] = events_ms(
+            lambda: dm.create_descriptor(torch.stack([left, right])), 50)
+        print(f"15d. at {label}: A alone {t['a_alone_ms']:.5f} ms, A then Q "
+              f"{t['a_then_q_ms']:.5f}, A with Q's epilogue {t['ms']:.5f}; "
+              f"R after torch.stack {t['descriptor_stack_ms']:.5f}, R's "
+              f"pair entry {times[f'descriptor {label}']['ms']:.5f}")
+    node_t = {k: times[f"{k} node, B = 1"] for k in FRONT_KERNELS}
+    for k, source, replaces, extra in (
+            ("descriptor", "descriptor_kernel.cu",
+             "jackal_tpu/ops/descriptor.py:74", {}),
+            ("support_fused", "support_kernel.cu",
+             "jackal_tpu/ops/pallas/support_kernel.py:61",
+             {"fuses": "jackal_tpu/matching/elas/support.py:76"}),
+            ("support_epilogue", "support_kernel.cu",
+             "jackal_tpu/matching/elas/support.py:76",
+             {"fused_into": "support_fused"})):
+        entries.append({
+            "name": k, "route": "cuda",
+            "source": f"jackal_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[k],
+            "ms": node_t[k]["ms"], "plain_ms": node_t[k]["plain_ms"],
+            "bound_ms": node_t[k]["bound_ms"],
+            "bound_by": node_t[k]["bound_by"], "library_ms": None, **extra})
     return {"front": {"times": times, "ffma": ffma, "launches": launches,
-                      "aten_ops": {"create_descriptor": ops_r,
+                      "plans_met": sorted(plans),
+                      "aten_ops": {"create_descriptor_pair": ops_r,
                                    "support_candidates": ops_s}}}, entries
 
 
@@ -4964,12 +5103,13 @@ def shell_phase(dev):
         held(base + ".npz", frames, pipe, f"9a per frame, {name}")
         if counts["support"] != 9 or counts["remap"] != 9 \
                 or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0] \
-                or [counts[k] for k in FRONT_KERNELS] != [9, 9] \
+                or [counts[k] for k in FRONT_KERNELS] != [9, 9, 0] \
                 or [counts[k] for k in PRIOR_KERNELS] != [0, 0]:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
                                  f"times, N {counts['remap']}, P1-P3 "
-                                 f"{[counts[k] for k in SCAN_KERNELS]}, R "
-                                 f"and Q {[counts[k] for k in FRONT_KERNELS]}"
+                                 f"{[counts[k] for k in SCAN_KERNELS]}, R, "
+                                 f"A with Q's epilogue and Q alone "
+                                 f"{[counts[k] for k in FRONT_KERNELS]}"
                                  f", M1 and M2 "
                                  f"{[counts[k] for k in PRIOR_KERNELS]}"
                                  f" over 9 frames")
@@ -5005,7 +5145,8 @@ def shell_phase(dev):
         want = {"support": batches, "elas_dense": batches,
                 "raster": 2 * batches, "remap": batches, "scan": batches,
                 "cloud": 0, "scan_points": 0, "cloud_scan": 0,
-                "descriptor": batches, "support_epilogue": batches,
+                "descriptor": batches, "support_fused": batches,
+                "support_epilogue": 0,
                 "coeff_table": batches, "grid_words": batches}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
@@ -5022,9 +5163,10 @@ def shell_phase(dev):
         "--trans", *map(str, SHELL_TRANS), "--out", base + ".npz"])
     if counts["remap"] != 9 \
             or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0] \
-            or [counts[k] for k in FRONT_KERNELS] != [9, 9]:
+            or [counts[k] for k in FRONT_KERNELS] != [9, 9, 0]:
         raise AssertionError(f"9c: N launched {counts['remap']} times, P1-P3"
-                             f" {[counts[k] for k in SCAN_KERNELS]}, R and Q"
+                             f" {[counts[k] for k in SCAN_KERNELS]}, R, A "
+                             f"with Q's epilogue and Q alone"
                              f" {[counts[k] for k in FRONT_KERNELS]} over 9 "
                              f"frames")
     moved = make_pipeline(engine="elas", params=params, device=dev)
@@ -5079,7 +5221,8 @@ def main() -> int:
     from jackal_tpu_torch.matching.elas.pipeline import (
         elas_match, elas_match_batch_device)
     from jackal_tpu_torch.ops import cuda_lib
-    from jackal_tpu_torch.ops.descriptor import create_descriptor
+    from jackal_tpu_torch.ops.descriptor import (create_descriptor,
+                                                 create_descriptor_pair)
     from jackal_tpu_torch.pipeline.default import make_pipeline
     from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
 
@@ -5097,7 +5240,8 @@ def main() -> int:
     buildmod.build([native.LIBRARY] + [
         cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES
         + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad",
-           "prior_kernel_nofmad", "sgm_tail_kernel_nofmad")])
+           "prior_kernel_nofmad", "sgm_tail_kernel_nofmad",
+           "descriptor_kernel_nofmad", "support_kernel_nofmad")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
@@ -5112,6 +5256,7 @@ def main() -> int:
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
                "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0,
                "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0,
+               "support_fused": 0.0,
                "coeff_table": 0.0, "grid_words": 0.0, "sgm_cost": 0.0,
                "sgm_epilogue": 0.0, "bm_gate": 0.0}
 
@@ -5358,11 +5503,12 @@ def main() -> int:
     pin_scan(f"4. the node over {len(pairs)} frames (P1 once a frame)",
              scan=len(pairs), key="node")
     launches.update(pin_front(f"4. the node over {len(pairs)} frames (R and"
-                              f" Q once a frame)", len(pairs)))
+                              f" A with Q's epilogue once a frame)",
+                              len(pairs)))
     print(f"node launches over {len(pairs)} frames: {launches}, {node_post}"
           f" (their kernel launches {node_post_dev}); speckle routes "
           f"{routes}")
-    if min(launches.values()) == 0:
+    if min(v for k, v in launches.items() if k != "support_epilogue") == 0:
         raise AssertionError(f"the node bypassed a kernel: {launches}")
     n9 = len(pairs)
     # the L/R check runs as kernel B's epilogue: H does not launch; the
@@ -5432,11 +5578,11 @@ def main() -> int:
     st["rectify, plain version"] = host_ms(
         lambda: (remap_mod.remap_bilinear_plain(rl1, *pipe.lmap),
                  remap_mod.remap_bilinear_plain(rr1, *pipe.rmap)), 5)
-    desc = create_descriptor(torch.stack([lt, rt]))
+    desc = create_descriptor_pair(lt, rt)
     d1, d2 = desc[0:1], desc[1:2]
-    st["descriptor"] = host_ms(lambda: create_descriptor(torch.stack([lt, rt])), 5)
+    st["descriptor"] = host_ms(lambda: create_descriptor_pair(lt, rt), 5)
     dc = support_mod.support_candidates(d1, d2, params)
-    st["support (kernel + epilogue)"] = host_ms(
+    st["support (kernel A with Q's epilogue)"] = host_ms(
         lambda: support_mod.support_candidates(d1, d2, params), 5)
     st["hop 1: candidate grid to host"] = host_ms(lambda: dc.cpu(), 5)
     dcan = dc[0].cpu().numpy()
@@ -5535,8 +5681,8 @@ def main() -> int:
         f"chunk of {batch})", n_frames // batch)
     pin_scan(f"4b. the batched node over {n_frames} frames (P1 once a "
              f"batch)", scan=n_frames // batch, key="batched node")
-    pin_front(f"4b. the batched node over {n_frames} frames (R and Q once a "
-              f"batch)", n_frames // batch)
+    pin_front(f"4b. the batched node over {n_frames} frames (R and A with "
+              f"Q's epilogue once a batch)", n_frames // batch)
     launches_b = {"support": support_mod.launches,
                   "elas_dense": dense_mod.launches,
                   "elas_dense_lr": dense_mod.lr_launches,
@@ -5887,7 +6033,7 @@ def main() -> int:
     # ---- 15. the ELAS front: kernels R and Q -----------------------------
     line, entries = front_phase(
         dev, hold, (L9, R9), [pipe._rectify_crop(lb, rb) for lb, rb in raw_b],
-        {k: launches[k] for k in ("descriptor", "support_epilogue")})
+        {k: launches[k] for k in FRONT_KERNELS})
     print(json.dumps(line))
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]

@@ -3,8 +3,10 @@
 // Replaces the TPU kernel jackal_tpu/ops/pallas/support_kernel.py
 // (_support_kernel l.61, pallas_call l.183, wrapper
 // support_candidates_pallas l.148). The plain PyTorch version of the same
-// function is support_keys_plain in matching/elas/support.py; the
-// acceptance tests (texture, ratio, bounds, fwd-bwd) are kernel Q below.
+// function is support_keys_plain in matching/elas/support.py. The
+// acceptance tests after the keys (texture, ratio, bounds, fwd-bwd: kernel
+// Q's function, support_epilogue_plain) run as the epilogue of A's last
+// launch when it is given a grid (see "Epilogue" below).
 //
 // What it computes. desc1 and desc2 are the descriptors [B, H, W, 16]
 // uint8; grid row k (k < nv) is image row vs = (k + 1) * step, and its
@@ -18,8 +20,7 @@
 // for d in [disp_min, D), D <= 512. Per view the two smallest keys survive;
 // dead keys are KBIG. The out array is int32 [4, B, nv, W]: l1, l2, r1, r2.
 // A block reads its grid row's taps from the descriptors' rows itself, so
-// no blocks are built on the card. Kernel Q, the acceptance tests after
-// the keys, is at the end of this file.
+// no blocks are built on the card.
 // Every live key's taps lie in [d+3, W-3], so no padding is needed.
 //
 // What bounds it on an H100: integer instructions. Each S(x, d) that a
@@ -68,7 +69,22 @@
 // two smallest of a union are the smaller first and the smaller of the
 // other first and both seconds; a dead key is KBIG in every partial. It
 // halves the doubled keys. With R = 1 the block writes the halved keys
-// itself and there is no second launch.
+// itself and there is no second launch. A merge block owns one (frame,
+// key row) and every column of it.
+// Epilogue. Given a grid (int16 [B, nv + 1, ncu]), A's last launch also
+// writes the candidate grid, kernel Q's function: the block that holds a
+// key row's final keys (the keys block at R = 1, after its last chunk; the
+// merge block at R > 1) writes grid row k + 1 from them after a barrier,
+// the right view's key at u - dL being another column of the same row; the
+// row-0 blocks also write grid row 0 (zeros). The keys come from shared
+// memory where the row's four maps fit (the staging planes at R = 1, W <=
+// 1616; 16 W bytes of the merge block's at R > 1, W <= 3072), else from
+// the out array the block has just written. One test of a grid column is
+// support_epilogue_row's, which kernel Q's standalone entry at the end of
+// this file runs too: it saves the launch that was Q's whole time (0.00345
+// ms against a 0.000141 ms byte bound at 640x480 on an H100 SXM at 700 W).
+// The bound with the epilogue is A's operations plus Q's bytes
+// (chip_smoke.epilogue_work): a grid row's tests wait for its final keys.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -198,11 +214,71 @@ __device__ __forceinline__ Half grid_half(const uint8_t* src, int b, int row,
   return Half{s + (static_cast<size_t>(b) * H + y) * W, 1};
 }
 
+// ---- the epilogue: kernel Q's function on one grid row ---------------------
+
+struct Epilogue {
+  int16_t* grid;  // int16 [B, nv + 1, ncu], written whole; null: keys alone
+  int ncu, disp_min, disp_max, texture, lr;
+  float thr;
+};
+
+// a view's disparity at column x of a live grid row, or -1: k1p, k2p its
+// best and second keys of the row (shared or global memory), desc the
+// row's descriptors
+__device__ __forceinline__ int accept(const int32_t* k1p, const int32_t* k2p,
+                                      const uint4* desc, int x, int dmax,
+                                      int W, const Epilogue& e) {
+  if (x < kGap || x > W - kGap - 1 || dmax - e.disp_min < 10 ||
+      max(dmax - e.disp_min + 1, 0) < 2)
+    return -1;
+  const int k1 = k1p[x];
+  if (k1 >= (kKBig2 >> 1)) return -1;
+  const uint4 d = __ldg(desc + x);
+  const unsigned tex = __vsadu4(d.x, k128) + __vsadu4(d.y, k128) +
+                       __vsadu4(d.z, k128) + __vsadu4(d.w, k128);
+  if (static_cast<int>(tex) < e.texture) return -1;
+  const float a = __int2float_rn(k1 >> 9);
+  const float b = __fmul_rn(e.thr, __int2float_rn(k2p[x] >> 9));
+  return a < b ? (k1 & 511) : -1;
+}
+
+// Grid row j (image row vs = j * step) of frame b, its columns shared by
+// the block's threads: keys is key row j - 1's l1 map, l2, r1, r2 at
+// 1, 2, 3 strides from it (unread at j = 0); desc1, desc2 the descriptors
+// [B, H, W] (16 bytes a pixel). Row 0 and column 0 are 0; elsewhere the
+// left view's disparity dL at u = i * step where it accepts, the right
+// view's dR at u - dL accepts and |dL - dR| <= lr, else -1.
+__device__ __forceinline__ void support_epilogue_row(
+    const Epilogue& e, const int32_t* keys, size_t stride,
+    const uint4* desc1, const uint4* desc2, int b, int j, int nrows, int H,
+    int W, int step) {
+  int16_t* g = e.grid + (static_cast<size_t>(b) * nrows + j) * e.ncu;
+  const int vs = j * step;
+  const bool live = j > 0 && vs >= kGap && vs <= H - kGap - 1;
+  const size_t pix = (static_cast<size_t>(b) * H + vs) * W;
+  for (int i = threadIdx.x; i < e.ncu; i += blockDim.x) {
+    int out = (j > 0 && i > 0) ? -1 : 0;
+    if (live && i > 0) {
+      const int u = i * step;
+      const int dl = accept(keys, keys + stride, desc1 + pix, u,
+                            min(u - kGap, e.disp_max), W, e);
+      if (dl >= 0) {
+        const int back = min(max(u - dl, 0), W - 1);
+        const int dr = accept(keys + 2 * stride, keys + 3 * stride,
+                              desc2 + pix, back,
+                              min(W - back - kGap, e.disp_max), W, e);
+        if (dr >= 0 && abs(dl - dr) <= e.lr) out = dl;
+      }
+    }
+    g[i] = static_cast<int16_t>(out);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 support_keys_kernel(const uint8_t* __restrict__ Q,
                     const uint8_t* __restrict__ T, int32_t* __restrict__ dst,
                     int nv, int W, int disp_min, int D, int chunk,
-                    int ranges, int H, int step) {
+                    int ranges, int H, int step, Epilogue ep) {
   extern __shared__ int4 smem[];
   int* U = reinterpret_cast<int*>(smem);
   const int Wp = padded(W);
@@ -218,6 +294,11 @@ support_keys_kernel(const uint8_t* __restrict__ Q,
   int32_t* out = dst + (ranges > 1 ? r * 4 * N : 0) + base;
   const int nchunks = (D - disp_min + chunk - 1) / chunk;
   const int k0 = r * nchunks / ranges, k1 = (r + 1) * nchunks / ranges;
+  // at R = 1 with a grid: the final keys also go to the staging planes
+  // (free during the walk) where the row's four maps fit there
+  const bool epilogue = ep.grid != nullptr && ranges == 1;
+  const bool in_smem = epilogue && 16 * W <= kPlaneBytes;
+  int* ks = reinterpret_cast<int*>(Qp);
   for (int k = k0; k < k1; ++k) {
     const int da = disp_min + k * chunk, db = min(da + chunk, D);
     if (k > k0) __syncthreads();  // the last chunk's walk is done
@@ -250,27 +331,75 @@ support_keys_kernel(const uint8_t* __restrict__ Q,
       out[N + c] = a2 >> shift;
       out[2 * N + c] = b1 >> shift;
       out[3 * N + c] = b2 >> shift;
+      if (in_smem && k == k1 - 1) {
+        ks[c] = a1 >> 1;
+        ks[W + c] = a2 >> 1;
+        ks[2 * W + c] = b1 >> 1;
+        ks[3 * W + c] = b2 >> 1;
+      }
     }
   }
+  if (!epilogue) return;
+  __syncthreads();  // the row's final keys are all written
+  const uint4* d1 = reinterpret_cast<const uint4*>(Q);
+  const uint4* d2 = reinterpret_cast<const uint4*>(T);
+  support_epilogue_row(ep, in_smem ? ks : out, in_smem ? W : N, d1, d2,
+                       blockIdx.z, blockIdx.y + 1, nv + 1, H, W, step);
+  if (blockIdx.y == 0)
+    support_epilogue_row(ep, nullptr, 0, d1, d2, blockIdx.z, 0, nv + 1, H,
+                         W, step);
 }
 
-__global__ void support_merge_kernel(const int32_t* __restrict__ part,
-                                     int32_t* __restrict__ out, size_t N,
-                                     int ranges) {
-  const size_t n = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+constexpr int kMergeThreads = 1024;
+constexpr int kMergeSmem = 48 * 1024;  // the row's four maps, 16 W bytes
+
+// A block a (frame b, key row k): every column's R partial pairs of both
+// views folded into out (halved), and, given a grid, grid row k + 1 (and
+// row 0 from the k = 0 blocks) from them. smem_keys: the maps also go to
+// shared memory (16 W bytes of it), read by the epilogue.
+__global__ void __launch_bounds__(kMergeThreads)
+support_merge_kernel(const int32_t* __restrict__ part,
+                     int32_t* __restrict__ out, const uint8_t* __restrict__ Q,
+                     const uint8_t* __restrict__ T, int nv, int W, int H,
+                     int step, int ranges, int smem_keys, Epilogue ep) {
+  extern __shared__ int32_t ks[];
+  const int b = blockIdx.y;
+  const size_t N = static_cast<size_t>(gridDim.y) * nv * W;
+  const size_t base = (static_cast<size_t>(b) * nv + blockIdx.x) * W;
+  for (int c = threadIdx.x; c < W; c += blockDim.x) {
+    const size_t n = base + c;
 #pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    int k1 = part[2 * v * N + n], k2 = part[(2 * v + 1) * N + n];
-    for (int r = 1; r < ranges; ++r) {
-      const int b1 = part[(4 * r + 2 * v) * N + n];
-      const int b2 = part[(4 * r + 2 * v + 1) * N + n];
-      k2 = min(max(k1, b1), min(k2, b2));
-      k1 = min(k1, b1);
+    for (int v = 0; v < 2; ++v) {
+      int p1[kRMax], p2[kRMax];  // all R pairs in flight before the fold
+#pragma unroll
+      for (int r = 0; r < kRMax; ++r)
+        if (r < ranges) {
+          p1[r] = part[(4 * r + 2 * v) * N + n];
+          p2[r] = part[(4 * r + 2 * v + 1) * N + n];
+        }
+      int k1 = p1[0], k2 = p2[0];
+#pragma unroll
+      for (int r = 1; r < kRMax; ++r)
+        if (r < ranges) {
+          k2 = min(max(k1, p1[r]), min(k2, p2[r]));
+          k1 = min(k1, p1[r]);
+        }
+      out[2 * v * N + n] = k1 >> 1;
+      out[(2 * v + 1) * N + n] = k2 >> 1;
+      if (smem_keys) {
+        ks[2 * v * W + c] = k1 >> 1;
+        ks[(2 * v + 1) * W + c] = k2 >> 1;
+      }
     }
-    out[2 * v * N + n] = k1 >> 1;
-    out[(2 * v + 1) * N + n] = k2 >> 1;
   }
+  if (ep.grid == nullptr) return;
+  __syncthreads();  // the row's final keys are all written
+  const uint4* d1 = reinterpret_cast<const uint4*>(Q);
+  const uint4* d2 = reinterpret_cast<const uint4*>(T);
+  support_epilogue_row(ep, smem_keys ? ks : out + base, smem_keys ? W : N,
+                       d1, d2, b, blockIdx.x + 1, nv + 1, H, W, step);
+  if (blockIdx.x == 0)
+    support_epilogue_row(ep, nullptr, 0, d1, d2, b, 0, nv + 1, H, W, step);
 }
 
 }  // namespace
@@ -308,16 +437,25 @@ extern "C" int support_keys_plan(int B, int nv, int W, int disp_min, int D,
 // desc1, desc2: u8 [B, H, W, 16] descriptors; the kernel reads grid row
 // k's taps from image rows (k + 1) * step -+ 2 itself (128 past the
 // image). out: int32 [4, B, nv, W]; part: int32 [R, 4, B, nv, W] when R > 1
-// (unused at R = 1). One launch at R = 1, two (keys, merge) above.
+// (unused at R = 1). grid: int16 [B, nv + 1, ceil(W / step)], the
+// candidate grid, written whole by the last launch's epilogue (then nv + 1
+// must be ceil(H / step)), or null for the keys alone; texture, lr, thr:
+// support_texture, lr_threshold, support_threshold (disp_max is D - 1).
+// One launch at R = 1, two (keys, merge) above.
 extern "C" int support_keys(const uint8_t* desc1, const uint8_t* desc2,
-                            int32_t* out, int32_t* part, int B, int nv, int W,
-                            int H, int step, int disp_min, int D, int ranges,
-                            int chunk, void* stream) {
-  if (step < 1 || H < 1 || static_cast<long long>(nv) * step >= H ||
+                            int32_t* out, int32_t* part, int16_t* grid,
+                            int B, int nv, int W, int H, int step,
+                            int disp_min, int D, int ranges, int chunk,
+                            int texture, int lr, float thr, void* stream) {
+  if (B < 1 || B > 65535 || nv < 1 || W < 1 || step < 1 || H < 1 ||
+      static_cast<long long>(nv) * step >= H ||
+      (grid != nullptr && static_cast<long long>(nv + 1) * step < H) ||
       ranges < 1 || ranges > kRMax || chunk < 1 || chunk > kDCMax ||
       disp_min < 0 || disp_min >= D || D > 512 ||
       ranges > (D - disp_min + chunk - 1) / chunk)  // a range of no chunk
     return static_cast<int>(cudaErrorInvalidValue);
+  const Epilogue ep{grid, (W + step - 1) / step, disp_min, D - 1, texture,
+                    lr, thr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(chunk) * padded(W) * 4 + kPlaneBytes;
   // set on every launch: the attribute is the current card's, and a
@@ -328,27 +466,30 @@ extern "C" int support_keys(const uint8_t* desc1, const uint8_t* desc2,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(ranges, nv, B);
-  support_keys_kernel<<<grid, kThreads, smem, s>>>(
+  const dim3 grid_k(ranges, nv, B);
+  support_keys_kernel<<<grid_k, kThreads, smem, s>>>(
       desc1, desc2, ranges > 1 ? part : out, nv, W, disp_min, D, chunk,
-      ranges, H, step);
+      ranges, H, step, ep);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || ranges == 1) return static_cast<int>(err);
-  const size_t N = static_cast<size_t>(B) * nv * W;
-  const int threads = 256;
-  support_merge_kernel<<<static_cast<unsigned>((N + threads - 1) / threads),
-                         threads, 0, s>>>(part, out, N, ranges);
+  const int threads = std::min(kMergeThreads, (W + 31) / 32 * 32);
+  const int keys_smem = 16LL * W <= kMergeSmem ? 16 * W : 0;
+  support_merge_kernel<<<dim3(nv, B), threads, keys_smem, s>>>(
+      part, out, desc1, desc2, nv, W, H, step, ranges, keys_smem > 0, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- kernel Q: the support epilogue ---------------------------------------
+// ---- kernel Q: the support epilogue alone ----------------------------------
 //
 // Replaces no Pallas kernel: the reference runs it inside one jitted
 // program, jackal_tpu/matching/elas/support.py:76 support_candidates, after
 // its cost scan (l.121-173): the texture sums, the acceptance test of both
 // views (accL, accR), the forward-backward check on the grid columns and
 // the calloc border. The plain PyTorch version is support_epilogue_plain in
-// matching/elas/support.py.
+// matching/elas/support.py. On every path it runs as kernel A's epilogue
+// (above); this standalone entry takes key maps from anywhere (the card
+// tests feed it keys built at the ratio test's edge), and runs the same
+// support_epilogue_row.
 //
 // What it computes. keys: int32 [4, B, nv, W] (l1, l2, r1, r2 of the keys
 // kernel above); desc1, desc2: u8 [B, H, W, 16]; grid: int16 [B, ncv, ncu],
@@ -378,57 +519,16 @@ namespace {
 
 constexpr int kEpThreads = 128;
 
-struct Epilogue {
-  int B, H, W, nv, ncv, ncu, step, disp_min, disp_max, texture, lr;
-  float thr;
-};
-
-// a view's disparity at column x of a live grid row, or -1
-__device__ __forceinline__ int accept(const int32_t* k1p, const int32_t* k2p,
-                                      const uint4* desc, int x, int dmax,
-                                      const Epilogue& e) {
-  if (x < kGap || x > e.W - kGap - 1 || dmax - e.disp_min < 10 ||
-      max(dmax - e.disp_min + 1, 0) < 2)
-    return -1;
-  const int k1 = k1p[x];
-  if (k1 >= (kKBig2 >> 1)) return -1;
-  const uint4 d = __ldg(desc + x);
-  const unsigned tex = __vsadu4(d.x, k128) + __vsadu4(d.y, k128) +
-                       __vsadu4(d.z, k128) + __vsadu4(d.w, k128);
-  if (static_cast<int>(tex) < e.texture) return -1;
-  const float a = __int2float_rn(k1 >> 9);
-  const float b = __fmul_rn(e.thr, __int2float_rn(k2p[x] >> 9));
-  return a < b ? (k1 & 511) : -1;
-}
-
 __global__ void __launch_bounds__(kEpThreads)
 support_epilogue_kernel(const int32_t* __restrict__ keys,
                         const uint4* __restrict__ desc1,
-                        const uint4* __restrict__ desc2,
-                        int16_t* __restrict__ grid, Epilogue e) {
+                        const uint4* __restrict__ desc2, Epilogue e, int H,
+                        int W, int step, int nv) {
   const int j = blockIdx.x, b = blockIdx.y;
-  int16_t* g = grid + (static_cast<size_t>(b) * e.ncv + j) * e.ncu;
-  const int vs = j * e.step;
-  const bool live = j > 0 && vs >= kGap && vs <= e.H - kGap - 1;
-  const size_t N = static_cast<size_t>(e.B) * e.nv * e.W;
-  const size_t row = (static_cast<size_t>(b) * e.nv + j - 1) * e.W;
-  const size_t pix = (static_cast<size_t>(b) * e.H + vs) * e.W;
-  for (int i = threadIdx.x; i < e.ncu; i += kEpThreads) {
-    int out = (j > 0 && i > 0) ? -1 : 0;
-    if (live && i > 0) {
-      const int u = i * e.step;
-      const int dl = accept(keys + row, keys + N + row, desc1 + pix, u,
-                            min(u - kGap, e.disp_max), e);
-      if (dl >= 0) {
-        const int back = min(max(u - dl, 0), e.W - 1);
-        const int dr = accept(keys + 2 * N + row, keys + 3 * N + row,
-                              desc2 + pix, back,
-                              min(e.W - back - kGap, e.disp_max), e);
-        if (dr >= 0 && abs(dl - dr) <= e.lr) out = dl;
-      }
-    }
-    g[i] = static_cast<int16_t>(out);
-  }
+  const size_t N = static_cast<size_t>(gridDim.y) * nv * W;
+  const int32_t* row =
+      j > 0 ? keys + (static_cast<size_t>(b) * nv + j - 1) * W : nullptr;
+  support_epilogue_row(e, row, N, desc1, desc2, b, j, nv + 1, H, W, step);
 }
 
 }  // namespace
@@ -444,11 +544,10 @@ extern "C" int support_epilogue(const int32_t* keys, const uint8_t* desc1,
   if (B < 1 || B > 65535 || H < 1 || W < 1 || step < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int ncv = (H + step - 1) / step, ncu = (W + step - 1) / step;
-  const Epilogue e{B, H, W, ncv - 1, ncv, ncu, step, disp_min, disp_max,
-                   texture, lr, thr};
+  const Epilogue e{grid, ncu, disp_min, disp_max, texture, lr, thr};
   support_epilogue_kernel<<<dim3(ncv, B), kEpThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       keys, reinterpret_cast<const uint4*>(desc1),
-      reinterpret_cast<const uint4*>(desc2), grid, e);
+      reinterpret_cast<const uint4*>(desc2), e, H, W, step, ncv - 1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,7 +53,7 @@ import torch
 from ...config import ElasParams
 from ...device import DeviceLike, device_list, resolve_device
 from ...native import load as load_native
-from ...ops.descriptor import create_descriptor
+from ...ops.descriptor import create_descriptor_pair
 from ...ops.transfer import HostCopy, ready, to_device
 from . import device_prior as dp
 from .dense import dense_match_pair, dense_match_pair_lr, pack_grid
@@ -125,8 +125,9 @@ def elas_match(
             f"left/right shape mismatch: {left_u8.shape} vs {right_u8.shape}")
     dev = resolve_device(device)
     H, W = left_u8.shape
-    imgs = torch.stack([torch.as_tensor(left_u8), torch.as_tensor(right_u8)])
-    desc = create_descriptor(imgs.to(dev), params.subsampling)  # [2,H,W,16]
+    desc = create_descriptor_pair(torch.as_tensor(left_u8).to(dev),
+                                  torch.as_tensor(right_u8).to(dev),
+                                  params.subsampling)          # [2,H,W,16]
     desc1, desc2 = desc[0:1], desc[1:2]
 
     dcan = support_candidates(desc1, desc2, params)[0].cpu().numpy()
@@ -310,10 +311,11 @@ def _flatten_chunk_wire_np(wires, Np: int, Tp: int, Ts: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _front(left: torch.Tensor, right: torch.Tensor, params: ElasParams):
-    """Descriptors and the support candidate grid of a whole batch."""
-    B = left.shape[0]
-    desc = create_descriptor(torch.cat([left, right]))
-    d1, d2 = desc[:B], desc[B:]
+    """Descriptors and the support candidate grid of a whole batch: on the
+    card one launch of kernel R for both views and one call of kernel A,
+    which writes the grid as its epilogue."""
+    desc = create_descriptor_pair(left, right)
+    d1, d2 = desc[0], desc[1]
     return d1, d2, support_candidates(d1, d2, params)
 
 

@@ -20,17 +20,21 @@ where its taps lie inside the image:
 and is _KBIG elsewhere. grid_row_keys() computes the four key maps from
 the descriptors: kernel A (csrc/support_kernel.cu), which reads the grid
 rows itself, for a CUDA tensor; grid_row_blocks() then
-support_keys_plain() for a CPU tensor. support_epilogue() applies the
-texture / ratio / bounds / forward-backward tests: kernel Q (the same
-library) on the card, support_epilogue_plain() on the CPU.
-support_candidates() is the two, the main path's front after the
-descriptor.
+support_keys_plain() for a CPU tensor. support_epilogue_plain() applies
+the texture / ratio / bounds / forward-backward tests to the keys.
+support_candidates() is the main path's front after the descriptor: on
+the card one call of kernel A that writes the candidate grid as the
+epilogue of its last launch (the tests are kernel Q's function, run by
+the block that holds a grid row's final keys); on the CPU the plain
+versions of both. support_epilogue() runs the tests alone on given keys:
+kernel Q's standalone launch on the card (on no path; the card tests feed
+it keys built at the ratio test's edge).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +46,11 @@ from ...ops import cuda_lib
 _KBIG = 1 << 24   # > max key (32*255*2*512 + 255)
 _GAP = 5          # window(3) + u_step(2): min margin to the image edge
 
-launches = 0      # A: grid_row_keys calls that launched it
-                  # (one or two launches) since the last reset
-epilogue_launches = 0   # Q: support_epilogue calls that launched it
+launches = 0      # A: grid_row_keys and support_candidates calls that
+                  # launched it (one or two launches) since the last reset
+fused_launches = 0      # of those, the calls whose last launch wrote the
+                        # candidate grid (support_candidates)
+epilogue_launches = 0   # Q alone: support_epilogue calls that launched it
 
 
 def effective_stepsize(params: ElasParams) -> int:
@@ -114,29 +120,43 @@ def plan(device_index: int, B: int, nv: int, W: int, disp_min: int,
 
 
 def _keys_cuda(desc1: torch.Tensor, desc2: torch.Tensor, H: int,
-               step: int, disp_min: int, D: int) -> torch.Tensor:
-    """Kernel A's launch on descriptors [B, H, W, 16]: int32 [4, B, nv,
-    W], nv = ceil(H / step) - 1."""
-    global launches
+               step: int, disp_min: int, D: int,
+               params: Optional[ElasParams] = None):
+    """Kernel A's call on descriptors [B, H, W, 16]: (int32 [4, B, nv, W]
+    keys, nv = ceil(H / step) - 1, and, given params, the int16 [B, nv + 1,
+    ceil(W / step)] candidate grid its last launch writes as its epilogue;
+    else None)."""
+    global launches, fused_launches
     B, _, W, _ = desc1.shape
     nv = -(-H // step) - 1
     if not 0 <= disp_min < D <= 512:
         raise ValueError(f"need 0 <= disp_min < D <= 512, got {disp_min}, {D}")
-    out = torch.empty((4, B, nv, W), dtype=torch.int32, device=desc1.device)
+    if B > 65535:
+        raise ValueError(f"support_keys takes up to 65535 frames, got {B}")
+    dev = desc1.device
+    out = torch.empty((4, B, nv, W), dtype=torch.int32, device=dev)
+    grid = None if params is None else torch.empty(
+        (B, nv + 1, -(-W // step)), dtype=torch.int16, device=dev)
     if out.numel() == 0:        # nv = 0: no grid row, nothing to launch
-        return out
-    ranges, chunk = plan(desc1.device.index, B, nv, W, disp_min, D)
+        if grid is not None:
+            grid.zero_()        # the border row alone
+        return out, grid
+    ranges, chunk = plan(dev.index, B, nv, W, disp_min, D)
     part = (torch.empty((ranges, 4, B, nv, W), dtype=torch.int32,
-                        device=desc1.device) if ranges > 1 else out)
+                        device=dev) if ranges > 1 else out)
     fn = cuda_lib.load("support_kernel").support_keys
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
+        ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    p = params if params is not None else ElasParams()
     cuda_lib.launch(fn, "support_keys", desc1, desc1.data_ptr(),
-                    desc2.data_ptr(), out.data_ptr(), part.data_ptr(), B, nv,
-                    W, H, step, disp_min, D, ranges, chunk)
+                    desc2.data_ptr(), out.data_ptr(), part.data_ptr(),
+                    0 if grid is None else grid.data_ptr(), B, nv, W, H,
+                    step, disp_min, D, ranges, chunk, p.support_texture,
+                    p.lr_threshold, p.support_threshold)
     launches += 1
-    return out
+    fused_launches += grid is not None
+    return out, grid
 
 
 def grid_row_keys(desc1: torch.Tensor, desc2: torch.Tensor, step: int,
@@ -156,7 +176,7 @@ def grid_row_keys(desc1: torch.Tensor, desc2: torch.Tensor, step: int,
             grid_row_blocks(desc2, step, ncv), disp_min, D))
     for name, x in (("desc1", desc1), ("desc2", desc2)):
         cuda_lib.expect(x, name, torch.uint8, (B, H, W, 16), desc1.device)
-    return _keys_cuda(desc1, desc2, H, step, disp_min, D)
+    return _keys_cuda(desc1, desc2, H, step, disp_min, D)[0]
 
 
 def support_epilogue_plain(keys: torch.Tensor, desc1: torch.Tensor,
@@ -262,11 +282,19 @@ def support_candidates(desc1: torch.Tensor, desc2: torch.Tensor,
     is the L/R-consistent support disparity at (u_can*step, v_can*step),
     or -1. Under subsampling the descriptors are the half-resolution ones
     (create_descriptor(..., half_resolution=True)) and the step is even,
-    so the grid rows read only the rows those keep. On the card: kernel A
-    (one or two launches) and kernel Q (one)."""
-    keys = grid_row_keys(desc1, desc2, effective_stepsize(params),
-                         params.disp_min, params.disp_max + 1)
-    return support_epilogue(keys, desc1, desc2, params)
+    so the grid rows read only the rows those keep. On the card one call
+    of kernel A (one or two launches), whose last launch writes the grid
+    as its epilogue; on the CPU grid_row_keys then support_epilogue_plain
+    (what the kernel equals bit for bit)."""
+    step = effective_stepsize(params)
+    D = params.disp_max + 1
+    if not desc1.is_cuda:
+        keys = grid_row_keys(desc1, desc2, step, params.disp_min, D)
+        return support_epilogue_plain(keys, desc1, desc2, params)
+    B, H, W, _ = desc1.shape
+    for name, x in (("desc1", desc1), ("desc2", desc2)):
+        cuda_lib.expect(x, name, torch.uint8, (B, H, W, 16), desc1.device)
+    return _keys_cuda(desc1, desc2, H, step, params.disp_min, D, params)[1]
 
 
 def add_corner_support_points(

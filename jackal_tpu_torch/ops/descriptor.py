@@ -16,8 +16,9 @@ is 0, the reference's fresh-page contents.
 create_descriptor is a wrapper: on a CUDA tensor it launches kernel R
 (csrc/descriptor_kernel.cu, one launch for all frames), on a CPU tensor it
 runs the plain version, create_descriptor_plain, which the kernel equals
-bit for bit (integer arithmetic only). ``launches`` counts the calls that
-launched the kernel.
+bit for bit (integer arithmetic only). create_descriptor_pair does both
+views in one launch, each read where it lies (the nodes' entry).
+``launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -96,29 +97,42 @@ def create_descriptor_plain(img_u8: torch.Tensor,
     return out
 
 
-def _descriptor_cuda(img_u8: torch.Tensor, half_resolution: bool
-                     ) -> torch.Tensor:
-    global launches
+def _fn():
+    fn = cuda_lib.load("descriptor_kernel").elas_descriptor_pair
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(img_u8: torch.Tensor, name: str) -> None:
     if img_u8.dtype != torch.uint8 or img_u8.dim() < 2 \
             or not img_u8.is_contiguous():
-        raise ValueError(f"create_descriptor: expected a contiguous uint8 "
+        raise ValueError(f"{name}: expected a contiguous uint8 "
                          f"[..., H, W] tensor, got {img_u8.dtype} "
                          f"{tuple(img_u8.shape)} (contiguous="
                          f"{img_u8.is_contiguous()})")
-    H, W = img_u8.shape[-2:]
-    N = img_u8.numel() // max(H * W, 1)
-    out = torch.empty(tuple(img_u8.shape) + (16,), dtype=torch.uint8,
-                      device=img_u8.device)
+
+
+def _descriptor_cuda(left: torch.Tensor, right: torch.Tensor, pair: bool,
+                     half_resolution: bool) -> torch.Tensor:
+    """Kernel R, one launch: u8 [..., H, W, 16] of the frames of left, or
+    with pair u8 [2, ..., H, W, 16] of the frames of left, then those of
+    right (right may be left: the kernel only reads them)."""
+    global launches
+    H, W = left.shape[-2:]
+    n1 = left.numel() // max(H * W, 1)
+    N = 2 * n1 if pair else n1
+    out_shape = (2,) * pair + tuple(left.shape) + (16,)
+    out = torch.empty(out_shape, dtype=torch.uint8, device=left.device)
     if out.numel() == 0:
         return out
-    if N > 65535 or -(-H // 8) > 65535:
+    if N > 65535 or -(-H // 8) > 65535:          # a block a frame and 8 rows
         raise ValueError(f"create_descriptor: the kernel takes up to 65535 "
                          f"frames of up to 524280 rows, got {N} of {H}")
-    fn = cuda_lib.load("descriptor_kernel").elas_descriptor
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cuda_lib.launch(fn, "elas_descriptor", img_u8, img_u8.data_ptr(),
-                    out.data_ptr(), N, H, W, int(half_resolution))
+    cuda_lib.launch(_fn(), "elas_descriptor", left, left.data_ptr(),
+                    right.data_ptr(), out.data_ptr(), n1, N, H, W,
+                    int(half_resolution))
     launches += 1
     return out
 
@@ -128,6 +142,30 @@ def create_descriptor(img_u8: torch.Tensor,
     """16-channel uint8 descriptor [..., H, W, 16] of u8 images [..., H, W]
     (create_descriptor_plain's function): kernel R, one launch for every
     frame, on a CUDA tensor; the plain version on a CPU tensor."""
-    if img_u8.is_cuda:
-        return _descriptor_cuda(img_u8, half_resolution)
-    return create_descriptor_plain(img_u8, half_resolution)
+    if not img_u8.is_cuda:
+        return create_descriptor_plain(img_u8, half_resolution)
+    _check(img_u8, "create_descriptor")
+    return _descriptor_cuda(img_u8, img_u8, False, half_resolution)
+
+
+def create_descriptor_pair(left_u8: torch.Tensor, right_u8: torch.Tensor,
+                           half_resolution: bool = False) -> torch.Tensor:
+    """The descriptors of both views, u8 [2, ..., H, W, 16] from two u8
+    images (or batches) [..., H, W] of one shape: [0] the left's, [1] the
+    right's, as create_descriptor of their stack. On CUDA tensors kernel R
+    reads both where they lie (one launch, no copy; a view that is not
+    contiguous is copied first); on CPU tensors the plain version."""
+    if left_u8.shape != right_u8.shape:
+        raise ValueError(f"create_descriptor_pair: the views differ in "
+                         f"shape, {tuple(left_u8.shape)} and "
+                         f"{tuple(right_u8.shape)}")
+    if not left_u8.is_cuda:
+        return create_descriptor_plain(torch.stack([left_u8, right_u8]),
+                                       half_resolution)
+    left_u8, right_u8 = left_u8.contiguous(), right_u8.contiguous()
+    _check(left_u8, "create_descriptor_pair: left")
+    _check(right_u8, "create_descriptor_pair: right")
+    if right_u8.device != left_u8.device:
+        raise ValueError(f"create_descriptor_pair: right is on "
+                         f"{right_u8.device}, left on {left_u8.device}")
+    return _descriptor_cuda(left_u8, right_u8, True, half_resolution)

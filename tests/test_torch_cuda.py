@@ -108,43 +108,52 @@ def test_support_kernel_refuses_what_it_does_not_take(dev):
 
 
 def _front_held(left, right, p, dev):
-    """Kernel R on both views in one call, kernel A from the descriptors'
-    rows and kernel Q against their plain versions (torch.equal), with one
-    launch of R and Q each; returns the card's grid."""
+    """Kernel R's pair entry, kernel A from the descriptors' rows, A with
+    Q's tests as its epilogue (support_candidates) and Q alone against
+    their plain versions (torch.equal), with one launch of R, one call of
+    A with its epilogue and none of Q on the nodes' route; returns the
+    card's grid."""
     from jackal_tpu_torch.ops import descriptor as dmod
 
-    B, H = left.shape[:2]
-    imgs = torch.from_numpy(np.concatenate([left, right])).to(dev)
-    r0, q0, a0 = dmod.launches, sm.epilogue_launches, sm.launches
-    desc = dmod.create_descriptor(imgs, p.subsampling)
-    assert torch.equal(desc, dmod.create_descriptor_plain(imgs,
-                                                          p.subsampling))
-    d1, d2 = desc[:B], desc[B:]
+    lt, rt = (torch.from_numpy(x).to(dev) for x in (left, right))
+    H = left.shape[1]
+    r0, q0, f0 = dmod.launches, sm.epilogue_launches, sm.fused_launches
+    desc = dmod.create_descriptor_pair(lt, rt, p.subsampling)
+    assert torch.equal(desc, dmod.create_descriptor_plain(
+        torch.stack([lt, rt]), p.subsampling))
+    d1, d2 = desc[0], desc[1]
     step = sm.effective_stepsize(p)
     ncv = -(-H // step)
+    a0 = sm.launches
+    grid = sm.support_candidates(d1, d2, p)
+    assert (dmod.launches, sm.fused_launches, sm.epilogue_launches) == (
+        r0 + 1, f0 + (ncv > 1), q0)
+    assert sm.launches == a0 + (ncv > 1)
     keys = sm.grid_row_keys(d1, d2, step, p.disp_min, p.disp_num)
     want = sm.support_keys_plain(sm.grid_row_blocks(d1, step, ncv),
                                  sm.grid_row_blocks(d2, step, ncv),
                                  p.disp_min, p.disp_num)
     for g, w in zip(keys, want):
         assert torch.equal(g, w)
-    grid = sm.support_epilogue(keys, d1, d2, p)
-    assert torch.equal(grid, sm.support_epilogue_plain(keys, d1, d2, p))
-    assert (dmod.launches, sm.epilogue_launches) == (r0 + 1, q0 + 1)
-    assert sm.launches == a0 + (ncv > 1)
-    assert torch.equal(sm.support_candidates(d1, d2, p), grid)
+    plain = sm.support_epilogue_plain(keys, d1, d2, p)
+    assert torch.equal(grid, plain)
+    assert torch.equal(sm.support_epilogue(keys, d1, d2, p), plain)
+    assert sm.epilogue_launches == q0 + 1
     return grid
 
 
-@pytest.mark.parametrize("case", range(9))
+@pytest.mark.parametrize("case", range(19))
 def test_front_kernels_equal_plain(dev, case):
     """chip_smoke.FRONT_EDGE_CASES (tests/test_torch_front_kernels.py holds
     the plain versions against the JAX package on them): odd W, grid rows
     past the image, half resolution at even and odd H, disp_min > 0,
-    W < D, B = 3, constant frames, candidate step 1."""
+    W < D, B = 3, constant frames, candidate step 1; R's strip and band
+    edges (W % 16 of 1, 3, 15, H ending mid-band, frames off 16-byte rows,
+    half resolution off and on), the last key row at step 1 and 2, and
+    A's epilogue at R = 1 reading its keys back from the out array."""
     from chip_smoke import FRONT_EDGE_CASES, front_edge_images
 
-    assert len(FRONT_EDGE_CASES) == 9
+    assert len(FRONT_EDGE_CASES) == 19
     left, right, kw = front_edge_images(list(FRONT_EDGE_CASES)[case])
     p = ElasParams(**kw)
     grid = _front_held(left, right, p, dev)
@@ -163,6 +172,76 @@ def test_front_kernels_on_the_support_edge_shapes(dev, case):
 
     left, right, lo, hi = support_edge_images(SUPPORT_EDGE_CASES[case])
     _front_held(left, right, ElasParams(disp_min=lo, disp_max=hi - 1), dev)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("case", range(10))
+def test_descriptor_pair_at_strip_and_band_edges(dev, case, half):
+    """Kernel R's pair entry on chip_smoke.DESCRIPTOR_EDGE_SHAPES (W < 16,
+    W % 16 of 1, 3, 15, H under a band, frames too small for a valid
+    pixel), each view a tensor of its own; and through create_descriptor
+    on their concatenation."""
+    from chip_smoke import DESCRIPTOR_EDGE_SHAPES
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    assert len(DESCRIPTOR_EDGE_SHAPES) == 10
+    shape = DESCRIPTOR_EDGE_SHAPES[case]
+    rng = np.random.default_rng(sum(shape))
+    left, right = (torch.from_numpy(rng.integers(0, 256, shape).astype(
+        np.uint8)) for _ in range(2))
+    n0 = dmod.launches
+    got = dmod.create_descriptor_pair(left.to(dev), right.to(dev), half)
+    assert dmod.launches == n0 + 1
+    want = dmod.create_descriptor_plain(torch.stack([left, right]), half)
+    assert torch.equal(got.cpu(), want)
+    both = dmod.create_descriptor(torch.cat([left, right]).to(dev), half)
+    assert torch.equal(both.cpu(), want.reshape(both.shape))
+
+
+@pytest.mark.parametrize("frames", [1, 8, 16])
+def test_descriptor_pair_at_the_nodes_sizes(dev, frames):
+    """At 640x480, 1, 8 and 16 pairs, as the nodes call it; views that are
+    not contiguous are copied first."""
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    rng = np.random.default_rng(frames)
+    left, right = (torch.from_numpy(rng.integers(
+        0, 256, (frames, 480, 640)).astype(np.uint8)).to(dev)
+        for _ in range(2))
+    want = dmod.create_descriptor_plain(torch.stack([left, right]))
+    assert torch.equal(dmod.create_descriptor_pair(left, right), want)
+    wide = torch.cat([left, right], dim=2)            # [F, 480, 1280]
+    got = dmod.create_descriptor_pair(wide[..., :640], wide[..., 640:])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("shape", [(480, 640), (3, 37, 79)])
+def test_descriptor_pair_of_one_tensor(dev, shape, half):
+    """Both views one tensor (elas_match(t, t) on a CUDA tensor passes the
+    same one twice): both halves of the output are its descriptor, none
+    left unwritten."""
+    from jackal_tpu_torch.ops import descriptor as dmod
+
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).integers(
+        0, 256, shape).astype(np.uint8)).to(dev)
+    n0 = dmod.launches
+    got = dmod.create_descriptor_pair(x, x, half)
+    assert dmod.launches == n0 + 1
+    want = dmod.create_descriptor_plain(torch.stack([x, x]), half)
+    assert torch.equal(got, want)
+
+
+def test_elas_match_of_one_tensor_for_both_views(dev):
+    """elas_match(t, t) with t on the card, whose two views reach kernel R
+    as one tensor, equals the CPU's elas_match of the same frame twice."""
+    from jackal_tpu_torch.matching.elas.pipeline import elas_match
+
+    g = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
+    t = torch.from_numpy(g["left"]).to(dev)
+    D1, D2 = elas_match(t, t, ElasParams(), device=dev)
+    C1, C2 = elas_match(g["left"], g["left"], ElasParams(), device="cpu")
+    assert torch.equal(D1.cpu(), C1) and torch.equal(D2.cpu(), C2)
 
 
 @pytest.mark.parametrize("half", [False, True])
@@ -225,11 +304,12 @@ def test_front_kernels_never_run_the_plain_versions(dev, monkeypatch):
                       (sm, "support_epilogue_plain")):
         monkeypatch.setattr(mod, name, refuse)
     z = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
-    r0, q0 = dmod.launches, sm.epilogue_launches
+    r0, q0, f0 = dmod.launches, sm.epilogue_launches, sm.fused_launches
     D1, D2 = elas_match(z["left"], z["right"], ElasParams(), device=dev)
     assert torch.equal(D1.cpu(), torch.from_numpy(z["D1"]))
     assert torch.equal(D2.cpu(), torch.from_numpy(z["D2"]))
-    assert (dmod.launches, sm.epilogue_launches) == (r0 + 1, q0 + 1)
+    assert (dmod.launches, sm.fused_launches, sm.epilogue_launches) == (
+        r0 + 1, f0 + 1, q0)
 
 
 def test_front_kernels_refuse_what_they_do_not_take(dev):
@@ -242,6 +322,13 @@ def test_front_kernels_refuse_what_they_do_not_take(dev):
         dmod.create_descriptor(img.transpose(1, 2))
     with pytest.raises(ValueError, match="uint8"):
         dmod.create_descriptor(img[0, 0])       # one row: no [H, W]
+    with pytest.raises(ValueError, match="differ in shape"):
+        dmod.create_descriptor_pair(img[:1], img)
+    with pytest.raises(ValueError, match="right: expected a contiguous "
+                                         "uint8"):
+        dmod.create_descriptor_pair(img, img.to(torch.int32))
+    with pytest.raises(ValueError, match="right is on cpu"):
+        dmod.create_descriptor_pair(img, img.cpu())
     p = ElasParams(disp_max=20)
     d = dmod.create_descriptor(img)
     d1, d2 = d[:1], d[1:]
@@ -292,13 +379,19 @@ def test_front_kernels_raise_on_a_failed_launch(dev, monkeypatch):
                       (sm, "support_epilogue_plain")):
         monkeypatch.setattr(mod, name, refuse)
     r0, a0, q0 = dmod.launches, sm.launches, sm.epilogue_launches
+    f0 = sm.fused_launches
     with pytest.raises(RuntimeError, match="elas_descriptor"):
         dmod.create_descriptor(img)
+    with pytest.raises(RuntimeError, match="elas_descriptor"):
+        dmod.create_descriptor_pair(img, img)
     with pytest.raises(RuntimeError, match="support_keys"):
         sm.grid_row_keys(d1, d2, 5, 0, 21)
+    with pytest.raises(RuntimeError, match="support_keys"):
+        sm.support_candidates(d1, d2, p)
     with pytest.raises(RuntimeError, match="support_epilogue"):
         sm.support_epilogue(keys, d1, d2, p)
-    assert (dmod.launches, sm.launches, sm.epilogue_launches) == (r0, a0, q0)
+    assert (dmod.launches, sm.launches, sm.epilogue_launches,
+            sm.fused_launches) == (r0, a0, q0, f0)
 
 
 def _dense_inputs(rng, B, H, W, p, dev, covered=0.9):

@@ -3,7 +3,8 @@ support kernel (A), the ELAS dense kernel (B, alone, then the L/R check H,
 and with H as its epilogue), the SGM census (D), the BM kernel (G), the
 ELAS postprocess kernels (H, I, J, K), the speckle filter (L), rectify
 (N), the scan and the cloud (P1, P2, P3 and the fused cloud and scan),
-the ELAS front (the descriptor R, A and the support epilogue Q), the
+the ELAS front (the descriptor R, then A with the support epilogue Q,
+fused or after it), the
 batched ELAS prior's coefficients and grids (M1, M2) or the SGM and BM
 tails (the cost volume O1, the epilogue O2, the texture gate S); or the
 per-frame ELAS node routed per frame and through the batched path at
@@ -44,13 +45,19 @@ tests/fixtures and a seed:
   golden frames with its maps (one pair call) and 32 seeded colour frames
   of 3 channels on its left maps (F = 96, one view);
 - front: the golden 640x480 pairs at the default ElasParams, B = 1 and 8
-  (the pairs alternated): on the host clock (a synchronize after each
-  call, median of 21) the descriptor stage (create_descriptor of both
-  views in one call) and the support stage (support_candidates), and the
-  batched node's front (pipeline._front, B = 8); on CUDA events A as the
-  main path runs it: from the descriptors' rows (grid_row_keys) where the
-  checkout has them, else grid_row_blocks then A, and there A alone on
-  the blocks too; where the checkout has them, kernels R and Q alone;
+  (the pairs alternated), the front as the checkout's nodes run it: the
+  descriptors of both views (R's pair entry where the checkout has it,
+  else create_descriptor after torch.stack), then support_candidates (A
+  with Q's tests as its epilogue where the checkout has them fused, else
+  A then Q). On CUDA events: R as the path calls it, R alone on the
+  stacked views (create_descriptor) and, where the checkout builds them
+  (ops/cuda_lib.VARIANTS), R's variants at bands of 4, 16 and 32 rows
+  (the path's R slides down 8) on both views, support_candidates,
+  the two together, A alone as the path launches it (grid_row_keys) and,
+  where the checkout has it, Q alone on the plain keys; on the host clock
+  (a synchronize after each call, median of 21) the descriptor stage, the
+  support stage and the two together. Each held equal to its plain
+  version;
 - coeffs: the chunk wire of the golden pairs at the default ElasParams
   (B = 8, the pairs alternated, and the first frame alone), built as the
   batched path builds it (pipeline._front, _prior_tri_job, _chunk_pads,
@@ -98,6 +105,7 @@ the kernel and the device ms a call at each shape (chip_smoke.events_ms:
 CUDA events around calls queued behind a spin).
 """
 import argparse
+import ctypes
 import json
 import os
 import sys
@@ -149,58 +157,77 @@ def time_support(d1, d2, params, reps):
 
 def time_front(left, right, params, reps):
     import torch
-    from jackal_tpu_torch.matching.elas import pipeline as ep
     from jackal_tpu_torch.matching.elas import support as sm
+    from jackal_tpu_torch.ops import cuda_lib
     from jackal_tpu_torch.ops import descriptor as dm
 
     dev = torch.device("cuda", 0)
     D = params.disp_num
     step = sm.effective_stepsize(params)
-    rows = hasattr(sm, "grid_row_keys")
-    blocks = hasattr(sm, "support_keys")
-    res = {"rows_entry": rows, "blocks_entry": blocks,
-           "kernels_r_q": hasattr(sm, "support_epilogue")}
+    pair = hasattr(dm, "create_descriptor_pair")
+    res = {"pair_entry": pair, "fused_epilogue": hasattr(sm,
+                                                         "fused_launches")}
     for B in (1, 8):
         lt = torch.from_numpy(left[:B]).to(dev)
         rt = torch.from_numpy(right[:B]).to(dev)
-        imgs = torch.cat([lt, rt])
-        desc = dm.create_descriptor(imgs)
-        d1, d2 = desc[:B], desc[B:]
-        ncv = -(-d1.shape[1] // step)
-        Q = sm.grid_row_blocks(d1, step, ncv)
-        T = sm.grid_row_blocks(d2, step, ncv)
-        want = sm.support_keys_plain(Q, T, params.disp_min, D)
-        if rows:
-            def a_path():
-                return tuple(sm.grid_row_keys(d1, d2, step,
-                                              params.disp_min, D))
+        if pair:
+            def r_path():
+                return dm.create_descriptor_pair(lt, rt)
         else:
-            def a_path():
-                return sm.support_keys(sm.grid_row_blocks(d1, step, ncv),
-                                       sm.grid_row_blocks(d2, step, ncv),
-                                       params.disp_min, D)
-        _held(f"A on the main path B = {B}", a_path(), want)
-        if blocks:
-            res[f"a_blocks_ms_B{B}"] = events_ms(
-                lambda: sm.support_keys(Q, T, params.disp_min, D), reps)
-        res[f"a_path_ms_B{B}"] = events_ms(a_path, reps)
-        if res["kernels_r_q"]:
-            keys = torch.stack(want)
-            _held(f"R B = {B}", [dm.create_descriptor(imgs)],
-                  [dm.create_descriptor_plain(imgs)])
+            def r_path():
+                return dm.create_descriptor(torch.stack([lt, rt]))
+        desc = r_path()
+        d1, d2 = desc[0], desc[1]
+        _held(f"R B = {B}", [desc],
+              [dm.create_descriptor_plain(torch.stack([lt, rt]))])
+        ncv = -(-d1.shape[1] // step)
+        keys = torch.stack(sm.support_keys_plain(
+            sm.grid_row_blocks(d1, step, ncv),
+            sm.grid_row_blocks(d2, step, ncv), params.disp_min, D))
+        _held(f"A B = {B}", _a_call(sm, d1, d2, step, params.disp_min, D)(),
+              tuple(keys))
+        grid = sm.support_epilogue_plain(keys, d1, d2, params)
+        _held(f"support_candidates B = {B}",
+              [sm.support_candidates(d1, d2, params)], [grid])
+
+        def front():
+            x = r_path()
+            return sm.support_candidates(x[0], x[1], params)
+
+        res[f"r_ms_B{B}"] = events_ms(r_path, reps)
+        imgs = torch.stack([lt, rt])
+        res[f"r_kernel_ms_B{B}"] = events_ms(
+            lambda: dm.create_descriptor(imgs), reps)
+        for band in (4, 16, 32):      # R's band variants, where it has them
+            lib = f"descriptor_kernel_band{band}"
+            if lib not in cuda_lib.VARIANTS:
+                continue
+            fn = cuda_lib.load(lib).elas_descriptor_pair
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+            def r_band():
+                out = torch.empty_like(desc)
+                cuda_lib.launch(fn, lib, lt, lt.data_ptr(), rt.data_ptr(),
+                                out.data_ptr(), B, 2 * B, *lt.shape[1:], 0)
+                return out
+            _held(f"R band {band} B = {B}", [r_band()], [desc])
+            res[f"r_band{band}_ms_B{B}"] = events_ms(r_band, reps)
+        res[f"support_ms_B{B}"] = events_ms(
+            lambda: sm.support_candidates(d1, d2, params), reps)
+        res[f"front_ms_B{B}"] = events_ms(front, reps)
+        res[f"a_path_ms_B{B}"] = events_ms(
+            _a_call(sm, d1, d2, step, params.disp_min, D), reps)
+        if hasattr(sm, "support_epilogue"):
             _held(f"Q B = {B}", [sm.support_epilogue(keys, d1, d2, params)],
-                  [sm.support_epilogue_plain(keys, d1, d2, params)])
-            res[f"r_ms_B{B}"] = events_ms(
-                lambda: dm.create_descriptor(imgs), reps)
+                  [grid])
             res[f"q_ms_B{B}"] = events_ms(
                 lambda: sm.support_epilogue(keys, d1, d2, params), reps)
-        res[f"descriptor_stage_ms_B{B}"] = host_ms(
-            lambda: dm.create_descriptor(imgs), 21)
+        res[f"descriptor_stage_ms_B{B}"] = host_ms(r_path, 21)
         res[f"support_stage_ms_B{B}"] = host_ms(
             lambda: sm.support_candidates(d1, d2, params), 21)
-        if B == 8:
-            res["front_ms_B8"] = host_ms(lambda: ep._front(lt, rt, params),
-                                         21)
+        res[f"front_stage_ms_B{B}"] = host_ms(front, 21)
     return res
 
 
