@@ -124,7 +124,9 @@ Phases (any failure exits non-zero and prints no success line):
      process_batch_fused at B = 16, D = 256, and G against its plain twin
      on that rectified batch; each of these paths with G's, S's, N's and
      P1-P3's and cloud_scan's launch counters set to 0 just before and
-     read just after (G, S and N 9, 1, 6, 1, 1; the scan P1 9, 1, 6, 0, 1;
+     read just after (G and N 9, 1, 6, 1, 1; S 0 on every one: G's strip
+     applies the texture gate and writes the u8 map; the scan P1 9, 1, 6,
+     0, 1;
      config 5's fused cloud and scan once, never elsewhere; P2 and P3
      never), and rectify beside its
      plain version (7b, 7c); (e) BM-64's RMSE and mask agreement against libelas D1; (f) G's
@@ -134,6 +136,7 @@ Phases (any failure exits non-zero and prints no success line):
      memory), at config 5's and at bench_bm256's, a
      time below its bound failing, at the last two beside G' "full32"
      (32-column strips), and G' (the per-part timing) in its five modes;
+     (G with S's gate folded in is timed in phase 17);
   9. the node shell, the CLIs a user runs (cli/point_cloud.main in this
      process at 640x480 on ELAS): (a) per frame over 9 frames of the
      synthetic stream (synthetic:9) and of an NPZ replay of phase 4's
@@ -165,8 +168,10 @@ Phases (any failure exits non-zero and prints no success line):
      (multidevice_phase): DP SGM and DP BM against process_batch_fused,
      TP BM at D = 64 and 256 against bm_match, the ELAS replicas against
      the single-device batched path and libelas, each with the launches of
-     its kernels pinned (D, O1, E, F, O2 or G, S once a shard, S once a
-     row of TP BM, R and Q once a replica), entry.dryrun_multichip(8);
+     its kernels pinned (D, O1, E, F, O2 or G once a shard, S never
+     there, S once a row of TP BM, R and A with Q's epilogue once a
+     replica, M1 and M2's one launch once a chunk),
+     entry.dryrun_multichip(8);
      the filters, linalg,
      the experiments and the coefficient-wire raster against the CPU; host
      times beside the single-device calls (no scaling: one card); one
@@ -240,30 +245,36 @@ Phases (any failure exits non-zero and prints no success line):
      shapes, a time below its bound failing; one JSON line;
   16. the batched prior's coefficient table and candidate grids
      (prior_phase): kernels M1 (the table and the tile lists) and M2 (the
-     grid words) against their plain versions (torch.equal) on phase 2b's
-     chunks of the golden pair, phase 4b's batched node's chunks and
+     grid words) in their one launch (device_prior.coeff_grid) against
+     their plain versions (torch.equal) on phase 2b's chunks of the golden
+     pair, phase 4b's batched node's chunks and
      chip_smoke.PRIOR_EDGE_CASES (degenerate and tied triangles, d > u,
      pad rows, D = 100, grids of 3 x 2 cells and of 2 rows, 2112 cells a
      row, the batched node's chunk size); the ATen ops of one
-     _chunk_coeffs call (allocations and views only, one launch each);
-     their FFMA and DFMA counts against a -fmad=false build; their times
-     beside their plain versions' and their bounds (prior_work), a time
-     below its bound failing, and the stage on the host clock; one JSON
-     line (phases 2b, 4b, 9 and 11 pin M1 and M2 once a chunk);
+     _chunk_coeffs call (allocations and views only, one launch); the
+     launch's FFMA and DFMA counts against a -fmad=false build; its time
+     beside the plain versions' and against the bounds (prior_work), a
+     time below its bound failing, and the stage on the host clock; one
+     JSON line (phases 2b, 4b, 9 and 11 pin the launch once a chunk);
   17. the SGM and BM tails (tail_phase): kernels O1 (the census cost
      volume, both views from one launch), O2 (the SGM epilogue: uniqueness,
-     sub-pixel, L/R, u8) and S (the BM texture gate and u8 map) against
-     their plain versions (torch.equal) on phase 6's golden pair (D = 64
-     and 128, with and without true_right), node frames and config 3's
-     batch, phase 7's golden pair, node frames, config 5's and
-     bench_bm256's batches, and chip_smoke.TAIL_EDGE_CASES; kernel D's
-     pair entry against its batch entry; the ATen ops of one
-     sgm_match_batch call and one BM _match_batch call on the card
-     (allocations and views only, each kernel once); O1's and O2's FFMA
-     counts against a -fmad=false build; their times beside their plain
-     versions' and their bounds (tail_work) at the node's shape and config
-     3's (O1, O2) or config 5's and bench_bm256's (S), a time below its
-     bound failing; one JSON line (phases 6c, 6d, 7b, 7c and 11 pin them);
+     sub-pixel, L/R, u8), S (the BM texture gate and u8 map) and G with
+     S's work folded in (ops/bm_kernel.bm_match_gated: the gated map, dR
+     and the u8 map) against their plain versions (torch.equal) on phase
+     6's golden pair (D = 64 and 128, with and without true_right), node
+     frames and config 3's batch, phase 7's golden pair, node frames,
+     config 5's and bench_bm256's batches, chip_smoke.TAIL_EDGE_CASES and
+     (G with the gate, its launches of G and S pinned a call)
+     chip_smoke.GATE_FOLD_CASES and a 640x480 frame at D = 320 (past G's
+     strip: G then S); kernel D's pair entry against its batch entry; the
+     ATen ops of one sgm_match_batch call and one BM _match_batch call on
+     the card (allocations and views only; O1, O2, G once, S never); O1's,
+     O2's and G's FFMA counts against a -fmad=false build; their times
+     beside their plain versions' and their bounds (tail_work, gated_work)
+     at the node's shape and config 3's (O1, O2) or config 5's and
+     bench_bm256's (G with the gate, beside G alone and G then S in the
+     same run; S alone, and at D = 320), a time below its bound failing;
+     one JSON line (phases 6c, 6d, 7b, 7c and 11 pin them);
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -1463,10 +1474,11 @@ def binary_pair(seed=0, H=270, W=290, density=0.002):
 def bm_phase(dev, hold):
     """Phase 7: kernel G against its plain twin, the BM node, BASELINE
     config 5 (BM + gen_pcl) and bench_bm256's configuration, BM's accuracy
-    against libelas, G's times and G''s parts. Returns (G's JSON entry, the
-    inputs phase 17 holds S on: rectified node frames, the golden pair,
-    config 5's and bench_bm256's rectified batches, S's launches on the
-    node, pinned equal to G's)."""
+    against libelas, G's times and G''s parts. Returns what phase 17 holds
+    G with the gate and S on: rectified node frames, the golden pair,
+    config 5's and bench_bm256's rectified batches, G's launches on the
+    node ("node launches"; S's are pinned at 0) and G's kernels-line
+    entry, which phase 17 completes with the node's times."""
     import torch
     from jackal_tpu_torch.config import BMParams, PipelineParams
     from jackal_tpu_torch.geometry import remap
@@ -1542,11 +1554,11 @@ def bm_phase(dev, hold):
 
     def counted(label, fn, want, rect, pcl=False):
         """(fn(), G's launches in it): G's, S's, N's and P1-P3's counters
-        set to 0 just before and read just after; raises unless G and S
-        (the texture gate and u8 map) were launched ``want`` times, N
-        (rectify, both views in one launch) ``rect`` times and, once a
-        frame or a batch, P1 (the scan) or, where ``pcl``, the fused cloud
-        and scan (P2 and P3 never)."""
+        set to 0 just before and read just after; raises unless G (with
+        the texture gate and u8 map folded in) was launched ``want`` times,
+        S never, N (rectify, both views in one launch) ``rect`` times and,
+        once a frame or a batch, P1 (the scan) or, where ``pcl``, the fused
+        cloud and scan (P2 and P3 never)."""
         bk.launches["bm"] = bm.launches["bm_gate"] = 0
         remap.launches["remap"] = 0
         reset_scan()
@@ -1557,11 +1569,13 @@ def bm_phase(dev, hold):
             pin_scan(f"7b. {label}", scan=rect)
         n, nr = bk.launches["bm"], remap.launches["remap"]
         ns = bm.launches["bm_gate"]
-        print(f"7. launches of G in {label}: {n}; of kernel S (texture gate "
-              f"+ u8): {ns}; of kernel N (rectify): {nr}")
-        if n != want or ns != want or nr != rect:
-            raise AssertionError(f"{label}: G launched {n} times and S {ns}"
-                                 f", not {want}; N {nr} times, not {rect}")
+        print(f"7. launches of G (with the texture gate and u8 map) in "
+              f"{label}: {n}; of kernel S alone: {ns}; of kernel N "
+              f"(rectify): {nr}")
+        if n != want or ns != 0 or nr != rect:
+            raise AssertionError(f"{label}: G launched {n} times, not "
+                                 f"{want}; S {ns}, not 0; N {nr} times, "
+                                 f"not {rect}")
         return out, n
 
     # (b) the BM node at 640x480, D = 64
@@ -1728,9 +1742,11 @@ def bm_phase(dev, hold):
     st["rectify, plain version"] = host_ms(
         lambda: (remap.remap_bilinear_plain(l5, *cfg5.lmap),
                  remap.remap_bilinear_plain(r5, *cfg5.rmap)), 3)
-    st["G (kernel)"] = host_ms(lambda: bk.bm_match_fused(L5, R5, p64), 5)
+    st["G with the texture gate and u8 map (kernel G)"] = host_ms(
+        lambda: bk.bm_match_gated(L5, R5, p64), 5)
+    st["G alone"] = host_ms(lambda: bk.bm_match_fused(L5, R5, p64), 5)
     dL5 = bk.bm_match_fused(L5, R5, p64)[0]
-    st["texture gate + u8 (kernel S)"] = host_ms(
+    st["texture gate + u8 alone (kernel S)"] = host_ms(
         lambda: bm.bm_gate_u8(L5, dL5, p64), 5)
     st["texture gate + u8, plain version"] = host_ms(
         lambda: bm.bm_gate_u8_plain(L5, dL5, p64), 5)
@@ -1771,7 +1787,7 @@ def bm_phase(dev, hold):
           f"plain (torch.equal, both views) on its rectified batch")
 
     # (e) BM-64 against libelas D1, pooled over both scenes
-    dl = bm.bm_texture_gate(gl, bk.bm_match_fused(gl, gr, p64)[0], p64)
+    dl = bk.bm_match_gated(gl, gr, p64)[0]
     se, n, agree, tot = 0.0, 0, 0.0, 0
     for b, g in enumerate(gold):
         Dl, ref = dl[b].cpu().numpy(), g["D1"]
@@ -1780,7 +1796,7 @@ def bm_phase(dev, hold):
         n += int(both.sum())
         agree += float(((Dl >= 0) == (ref >= 0)).sum())
         tot += ref.size
-    print(f"7e. BM D=64 (G + texture gate) against libelas D1 on "
+    print(f"7e. BM D=64 (G with the texture gate) against libelas D1 on "
           f"{', '.join(GOLDEN)}, pooled: RMSE {np.sqrt(se / max(n, 1)):.6f} "
           f"px, mask agreement {agree / tot:.6f}")
 
@@ -1854,12 +1870,14 @@ def bm_phase(dev, hold):
     tail = {"node": (lt, rt), "node batch": pipe._rectify_crop(
         torch.from_numpy(lb).to(dev), torch.from_numpy(rb).to(dev)),
             "golden": (gl, gr), "config 5": (L5, R5), "bm256": (L16, R16),
-            "node gates": node_launches}
-    return {"name": "bm", "route": "cuda",
-            "source": "jackal_tpu_torch/csrc/bm_kernel.cu",
-            "replaces": "jackal_tpu/ops/pallas/bm_kernel.py:107",
-            "launches": node_launches, "ms": out[0], "plain_ms": out[1],
-            "bound_ms": out[2], "bound_by": out[3], "library_ms": None}, tail
+            "node launches": node_launches,
+            "entry": {"name": "bm", "route": "cuda",
+                      "source": "jackal_tpu_torch/csrc/bm_kernel.cu",
+                      "replaces": "jackal_tpu/ops/pallas/bm_kernel.py:107",
+                      "launches": node_launches, "ungated_ms": out[0],
+                      "ungated_plain_ms": out[1], "ungated_bound_ms": out[2],
+                      "library_ms": None}}
+    return tail
 
 
 def subsampling_phase(dev, hold, pipe, dmaps):
@@ -2062,9 +2080,10 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
             dmaps, scans, closest = step(lb, rb)
             torch.cuda.synchronize()
             counts = dict(zip((k for _, k in keys), read()))
-            if any(c != n for c in counts.values()):
+            # S never on BM's shards: G's strip applies the gate
+            if counts != {k: 0 if k == "bm_gate" else n for _, k in keys}:
                 raise AssertionError(f"DP {engine} on {n} ranks launched "
-                                     f"{counts}, not once a shard")
+                                     f"{counts}, not once a shard (S never)")
             _same(f"DP {engine} {n} dmaps", gather(dmaps), wd)
             got = gather(scans)
             for f in fields:
@@ -2133,8 +2152,7 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
             want = {"support": n, "elas_dense": 8 // chunk,
                     "raster": 2 * 8 // chunk, "descriptor": n,
                     "support_fused": n, "support_epilogue": 0,
-                    "coeff_table": 8 // chunk,
-                    "grid_words": 8 // chunk}
+                    "coeff_grid": 8 // chunk}
             if counts != want:
                 raise AssertionError(f"ELAS replicas {n} chunk {chunk}: "
                                      f"launches {counts}, expected {want}")
@@ -4283,9 +4301,10 @@ def front_phase(dev, hold, node, batches, launches):
 
 # ---- kernels M1 and M2: the batched prior's table and grids (phase 16) ----
 
-# kernels M1 and M2 by their names in the kernels line and in
-# device_prior.prior_launches
-PRIOR_KERNELS = ("coeff_table", "grid_words")
+# M1 and M2's one launch by its counter in device_prior.prior_launches (in
+# the kernels line, M1's entry "coeff_table" is that launch, M2's
+# "grid_words" its blocks alone)
+PRIOR_LAUNCH = "coeff_grid"
 # float64 operations (a DMUL, DSUB or DDIV as one; an FMA would count
 # twice) at the H100's float64 rate outside the tensor cores
 PEAK_F64_OPS_PER_S = 33.5e12
@@ -4407,44 +4426,44 @@ def reset_prior() -> None:
 
 
 def pin_prior(label: str, n: int) -> dict:
-    """Raise unless kernels M1 and M2 each launched n times since their
-    counters were set to 0 (reset_prior)."""
+    """Raise unless M1 and M2's one launch ran n times since its counter
+    was set to 0 (reset_prior)."""
     got = prior_counts()
-    print(f"{label}: launches of M1 and M2 {got}")
-    if got != dict.fromkeys(PRIOR_KERNELS, n):
+    print(f"{label}: launches of M1 and M2 (one launch) {got}")
+    if got != {PRIOR_LAUNCH: n}:
         raise AssertionError(f"{label}: M1 and M2 launched {got}, not {n} "
-                             f"times each")
+                             f"times")
     return got
 
 
 def prior_held(hold, label, flat, CH, Np, Tp, Ts, W, H, params):
-    """M1 and M2 on the card against their plain versions on the card
-    (torch.equal) for one chunk wire (a CUDA tensor); returns the kernels'
-    (table, sels, words)."""
+    """M1 and M2's one launch on the card against their plain versions on
+    the card (torch.equal) for one chunk wire (a CUDA tensor); returns the
+    launch's (table, sels, words)."""
     from jackal_tpu_torch.matching.elas import device_prior as dp
 
     SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
     gs = params.grid_size
     grid = (gs, -(-H // gs), -(-W // gs), params.disp_num)
-    table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
+    table, sels, words = dp.coeff_grid(flat, CH, Np, Tp, SC, Ts, *grid)
     ptable, psels = dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
-    hold("coeff_table", f"coeff_table {label}", [table, *sels],
-         [ptable, *psels])
-    words = dp.grid_words(flat, CH, Np, *grid)
-    hold("grid_words", f"grid_words {label}", [words],
+    hold("coeff_table", f"coeff_grid's table and tile lists {label}",
+         [table, *sels], [ptable, *psels])
+    hold("grid_words", f"coeff_grid's words {label}", [words],
          [dp.grid_words_plain(flat, CH, Np, *grid)])
     return table, sels, words
 
 
 def prior_work(flat, table, CH, Np, Tp, SC, Ts, gh, gw, D):
-    """(M1's (bytes, float64 operations, float32 operations), M2's bytes)
-    of one call on this chunk wire (a CUDA tensor) and M1's table from it.
-    M1 reads the wire once (2 bytes an entry), writes 64 bytes a table row
-    and widens the tile lists (4 bytes an entry out); its float64
-    operations are SOLVE_OPS for each of a row's two solves that passes
-    its pivots (a singular solve counted at none: a lower bound), its
-    float32 ones a division for each edge slope whose du is not 0. M2
-    reads the support triples once and writes the grid words."""
+    """(M1's (bytes, float64 operations, float32 operations), M2's bytes,
+    the grid words' bytes) of one call on this chunk wire (a CUDA tensor)
+    and M1's table from it. M1 reads the wire once (2 bytes an entry),
+    writes 64 bytes a table row and widens the tile lists (4 bytes an entry
+    out); its float64 operations are SOLVE_OPS for each of a row's two
+    solves that passes its pivots (a singular solve counted at none: a
+    lower bound), its float32 ones a division for each edge slope whose du
+    is not 0. M2 reads the support triples once and writes the grid words.
+    Their one launch reads the wire once: M1's bytes and the words'."""
     import torch
     from jackal_tpu_torch.matching.elas import device_prior as dp
     from jackal_tpu_torch.matching.elas.device_fit import _gj_solve3
@@ -4470,8 +4489,8 @@ def prior_work(flat, table, CH, Np, Tp, SC, Ts, gh, gw, D):
                 + (cu[:, 1] != cu[:, 2]).sum()))
     m1 = (2 * dp.wire_len16(CH, Np, Tp, SC, Ts) + 64 * 2 * K + 4 * nsel,
           SOLVE_OPS * ok, divs)
-    m2 = 2 * CH * Np * 3 + 4 * 2 * CH * gh * gw * -(-D // 32)
-    return m1, m2
+    words = 4 * 2 * CH * gh * gw * -(-D // 32)
+    return m1, 2 * CH * Np * 3 + words, words
 
 
 def prior_bound_ms(nbytes, f64_ops=0, f32_ops=0):
@@ -4487,18 +4506,20 @@ def prior_bound_ms(nbytes, f64_ops=0, f32_ops=0):
 
 def prior_phase(dev, hold, chunks, launches):
     """Phase 16: kernels M1 (the coefficient table and tile lists) and M2
-    (the candidate grids), csrc/prior_kernel.cu. (a) both against their
-    plain versions on the card (torch.equal) on phase 2b's chunks of the
-    golden pair (chunks of 1 and 2), phase 4b's batched node's chunks and
-    PRIOR_EDGE_CASES; (b) the ATen ops of one _chunk_coeffs call on the
-    card (allocations and views only) and its kernel launches (one each);
-    (c) the FFMA and DFMA counts of each kernel against the same source
-    built with -fmad=false (no contraction: the FMAs left are those
-    inside the divisions); (d) their times at the batched node's chunk
-    beside their plain versions' and their bounds (prior_work), a time
-    below its bound failing. chunks: [(label, flat on the card, CH, Np,
-    Tp, Ts, W, H, params)], the batched node's first; launches: M1's and
-    M2's launches on the batched node (phase 4b). Returns (the phase's
+    (the candidate grids) in their one launch, csrc/prior_kernel.cu
+    coeff_grid_kernel. (a) against their plain versions on the card
+    (torch.equal) on phase 2b's chunks of the golden pair (chunks of 1 and
+    2), phase 4b's batched node's chunks and PRIOR_EDGE_CASES; (b) the ATen
+    ops of one _chunk_coeffs call on the card (allocations and views only)
+    and its one launch; (c) the launch's FFMA and DFMA counts against the
+    same source built with -fmad=false (no contraction: the FMAs left are
+    those inside the divisions); (d) at the batched node's chunk its time
+    against its bound and against M2's part of the work alone
+    (prior_work), beside the plain versions' times, a time below a bound
+    failing; the kernels line's grid_words entry carries the launch's
+    time (ms_of). chunks: [(label, flat on the card, CH,
+    Np, Tp, Ts, W, H, params)], the batched node's first; launches: the
+    launch's count on the batched node (phase 4b). Returns (the phase's
     JSON line, the kernels line's entries)."""
     import torch
     from jackal_tpu_torch.matching.elas import device_prior as dp
@@ -4515,10 +4536,10 @@ def prior_phase(dev, hold, chunks, launches):
                    Ts, W, H, p)
     seen.append(f"{len(PRIOR_EDGE_CASES)} PRIOR_EDGE_CASES")
     torch.cuda.synchronize()
-    print(f"16a. kernels M1 (table and tile lists) and M2 (grid words) == "
-          f"plain (torch.equal): {'; '.join(seen)}")
+    print(f"16a. kernels M1 (table and tile lists) and M2 (grid words) in "
+          f"one launch == plain (torch.equal): {'; '.join(seen)}")
 
-    # (b) one call as the batched node makes it: two kernels, no eager op
+    # (b) one call as the batched node makes it: one launch, no eager op
     label, flat, CH, Np, Tp, Ts, W, H, params = chunks[0]
     reset_prior()
     ops = aten_ops_of_a_call(lambda: ep._chunk_coeffs(flat, CH, Np, Tp, Ts,
@@ -4526,13 +4547,13 @@ def prior_phase(dev, hold, chunks, launches):
     calls = prior_counts()
     bad = [n for n, ok in ops if not ok]
     print(f"16b. ATen ops of one _chunk_coeffs call ({label}): {ops}; the "
-          f"kernels' launches {calls}")
-    if bad or calls != dict.fromkeys(PRIOR_KERNELS, 1):
+          f"launches {calls}")
+    if bad or calls != {PRIOR_LAUNCH: 1}:
         raise AssertionError(f"16b. _chunk_coeffs ran eager ops on the card "
                              f"{bad} or launched {calls}")
 
     # (c) no contraction beyond the divisions' own FMAs
-    names = ("coeff_table_kernel", "grid_words_kernel")
+    names = ("coeff_grid_kernel",)
     fmas = {}
     for op in ("FFMA", "DFMA"):
         got, ref = (sass_by_function(cuda_lib.library(lib).path, op, names)
@@ -4543,50 +4564,58 @@ def prior_phase(dev, hold, chunks, launches):
             raise AssertionError(f"16c. prior_kernel contracts into {op}: "
                                  f"{got} against {ref} at -fmad=false")
 
-    # (d) times at the batched node's chunk
+    # (d) times at the batched node's chunk: the one launch, beside the
+    # plain versions of its two halves
     gs = params.grid_size
     gh, gw = -(-H // gs), -(-W // gs)
     SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
     grid = (gs, gh, gw, params.disp_num)
-    table = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)[0]
-    (b1, f64, f32), b2 = prior_work(flat, table, CH, Np, Tp, SC, Ts, gh, gw,
-                                    params.disp_num)
-    runs = (("coeff_table",
-             lambda: dp.coeff_table(flat, CH, Np, Tp, SC, Ts),
-             lambda: dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts),
-             prior_bound_ms(b1, f64, f32),
-             f"{b1} bytes, {f64} float64 and {f32} float32 operations"),
-            ("grid_words", lambda: dp.grid_words(flat, CH, Np, *grid),
-             lambda: dp.grid_words_plain(flat, CH, Np, *grid),
+    args = (flat, CH, Np, Tp, SC, Ts, *grid)
+    (b1, f64, f32), b2, bw = prior_work(flat, dp.coeff_grid(*args)[0], CH,
+                                        Np, Tp, SC, Ts, gh, gw,
+                                        params.disp_num)
+    ms = events_ms(lambda: dp.coeff_grid(*args), 50)
+    runs = (("coeff_table", lambda: dp.coeff_grid_plain(*args),
+             prior_bound_ms(b1 + bw, f64, f32),
+             f"{b1 + bw} bytes, {f64} float64 and {f32} float32 "
+             f"operations"),
+            ("grid_words", lambda: dp.grid_words_plain(flat, CH, Np, *grid),
              prior_bound_ms(b2), f"{b2} bytes"))
-    where = {"coeff_table": "jackal_tpu/matching/elas/device_prior.py:522, "
-                            "jackal_tpu/matching/elas/device_fit.py:126",
-             "grid_words": "jackal_tpu/matching/elas/device_prior.py:579"}
-    times, entries = {}, []
-    for k, kern, plain, (bms, by), work in runs:
-        ms = events_ms(kern, 50)
+    times = {}
+    for k, plain, (bms, by), work in runs:
         pms = events_ms(plain, 3, spin=False)
         times[k] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                     "bound_by": by, "work": work}
-        print(f"16d. {k} at {label} (Np {Np}, Tp {Tp}, Ts {Ts}): {ms:.5f} "
-              f"ms a call (CUDA events behind a spin; plain {pms:.3f}; bound"
-              f" {bms:.6f} by {by}: {work}; {ms / bms:.1f}x)")
+        print(f"16d. {k} at {label} (Np {Np}, Tp {Tp}, Ts {Ts}): the one "
+              f"launch {ms:.5f} ms a call (CUDA events behind a spin; plain"
+              f" {pms:.3f}; bound {bms:.6f} by {by}: {work}; "
+              f"{ms / bms:.1f}x)")
         if ms < bms:
             raise AssertionError(f"{k}: {ms} ms is below its bound {bms} ms")
+    where = "jackal_tpu/matching/elas/device_prior.py"
+    entries = []
+    for k, replaces, extra in (
+            ("coeff_table", f"{where}:522, jackal_tpu/matching/elas/"
+                            f"device_fit.py:126", {"fuses": f"{where}:579"}),
+            ("grid_words", f"{where}:579",
+             {"fused_into": "coeff_table",
+              "ms_of": "coeff_table's one launch"})):
+        t = times[k]
         entries.append({
             "name": k, "route": "cuda",
             "source": "jackal_tpu_torch/csrc/prior_kernel.cu",
-            "replaces": where[k], "launches": launches[k], "ms": ms,
-            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None})
+            "replaces": replaces,
+            "launches": launches[PRIOR_LAUNCH] if k == "coeff_table" else 0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, **extra})
     stage = {"kernels": host_ms(lambda: ep._chunk_coeffs(
         flat, CH, Np, Tp, Ts, W, H, params), 21),
-             "plain": host_ms(lambda: (
-                 dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts),
-                 dp.grid_words_plain(flat, CH, Np, *grid)), 5)}
+             "plain": host_ms(lambda: dp.coeff_grid_plain(*args), 5)}
     print(f"16d. the stage coefficients + grids (both sides) at {label}, "
-          f"host clock: kernels M1 and M2 {stage['kernels']:.4f} ms (median "
-          f"of 21), plain versions {stage['plain']:.3f} ms (median of 5)")
+          f"host clock: kernels M1 and M2 (one launch) "
+          f"{stage['kernels']:.4f} ms (median of 21), plain versions "
+          f"{stage['plain']:.3f} ms (median of 5)")
     return {"prior": {"times": times, "stage_ms": stage, "fma": fmas,
                       "launches": launches, "aten_ops": ops}}, entries
 
@@ -4736,6 +4765,63 @@ def tail_edge_case(name):
                               "texture_threshold": thr}
 
 
+# kernel G with S's gate folded in (ops/bm_kernel.bm_match_gated): its
+# edges (tests/test_torch_cuda.py runs them too; the CPU's
+# tests/test_torch_bm_gate_fold.py holds the plain twin to the JAX package's
+# bm_match and u8 map on them). Pairs named "(G then S)" lie past G's strip
+# and take G's path without shared memory, then S.
+GATE_FOLD_CASES = (
+    "window 1, D = 16, W = 65: a strip's tail",
+    "window 3, D = 16, W = 97",
+    "window 9, D = 64, a ramp: texture at the threshold",
+    "window 15, D = 64, W = 100: flat areas",
+    "constant frame, D = 16: texture 0 at threshold 0",
+    "window 9, D = 256 (the strip)",
+    "window 9, D = 257 (G then S)",
+    "window 225, D = 64 (the strip)",
+    "window 227, D = 64 (G then S)",
+)
+
+
+def gate_fold_case(name):
+    """(left, right, BMParams fields) of a GATE_FOLD_CASES case: seeded
+    uint8 [B, H, W] pairs, the right view the left shifted by a few
+    columns."""
+    rng = np.random.default_rng(GATE_FOLD_CASES.index(name) + 1900)
+    B, H, W, D, window, tex = {
+        GATE_FOLD_CASES[0]: (2, 17, 65, 16, 1, 10),
+        GATE_FOLD_CASES[1]: (1, 23, 97, 16, 3, 210),
+        GATE_FOLD_CASES[2]: (1, 30, 150, 64, 9, 36),
+        GATE_FOLD_CASES[3]: (2, 40, 100, 64, 15, 10),
+        GATE_FOLD_CASES[4]: (1, 12, 40, 16, 9, 0),
+        GATE_FOLD_CASES[5]: (1, 20, 300, 256, 9, 700),
+        GATE_FOLD_CASES[6]: (1, 20, 300, 257, 9, 700),
+        GATE_FOLD_CASES[7]: (1, 30, 260, 64, 225, 2000),
+        GATE_FOLD_CASES[8]: (1, 30, 260, 64, 227, 2000)}[name]
+    # thresholds about the noisy frames' median texture: the gate keeps
+    # some matched pixels and drops others
+    shift = 5
+    wide = W + 16 + shift
+    if "ramp" in name:
+        # g = 4 inside each run of the ramp: the texture of an inner pixel
+        # is 4 * 81 = 324 = texture_threshold * window exactly; smaller by
+        # the frame's edges, larger by the ramp's wrap
+        frame = np.tile((2 * np.arange(wide) % 256).astype(np.uint8),
+                        (B, H, 1))
+    elif "constant" in name:
+        frame = np.full((B, H, wide), 93, np.uint8)
+    else:
+        frame = rng.integers(0, 256, (B, H, wide)).astype(np.uint8)
+        if "flat" in name:
+            # flat rectangles whose boxes see no gradient, others in part
+            frame[:, 5:25, 10:60] = 140
+            frame[:, 28:, 70:] = 31
+    # left(x) = right(x - shift): disparity shift
+    return (np.ascontiguousarray(frame[:, :, 16:16 + W]),
+            np.ascontiguousarray(frame[:, :, 16 + shift:16 + shift + W]),
+            {"disp_num": D, "window": window, "texture_threshold": tex})
+
+
 def tail_work(kernel: str, B: int, H: int, W: int, D: int = 0, r: int = 0):
     """(bytes, operations) kernel O1, O2 or S must do on [B, H, W] frames,
     each input read once and each output written once. O1 (sgm_cost, the
@@ -4760,6 +4846,18 @@ def tail_work(kernel: str, B: int, H: int, W: int, D: int = 0, r: int = 0):
     return 6 * px, px * (min(2 * r + 1, W) + 4)
 
 
+def gated_work(B: int, H: int, W: int, D: int):
+    """(bytes, 32-bit integer instructions) kernel G with S's texture gate
+    and u8 map folded in must do on [B, H, W] pairs: G's (bm_work) plus
+    the u8 map's byte a pixel out, and the texture's box, 4 operations a
+    pixel counted as instructions (the gradient's absolute difference fused
+    with the vertical add, the vertical subtract, the horizontal add and
+    subtract), once a pixel and not a d."""
+    nb, ops = bm_work(B, H, W, D)
+    px = B * H * W
+    return nb + px, ops + 4 * px
+
+
 def tail_phase(dev, hold, sgm_in, bm_in):
     """Phase 17: kernels O1 (the SGM cost volume), O2 (the SGM epilogue
     and u8 map) and S (the BM texture gate and u8 map). (a) each against
@@ -4769,15 +4867,22 @@ def tail_phase(dev, hold, sgm_in, bm_in):
     entry, on phase 6's golden pair (D = 64 and 128), node frames and
     config 3's batch, S (the gated float map and the u8 map) on phase 7's
     golden pair, node frames, config 5's and bench_bm256's batches with
-    kernel G's maps, and all on TAIL_EDGE_CASES; (b) the ATen ops of one
-    sgm_match_batch call and one BM _match_batch call on the card
-    (allocations and views only) with the kernels' launches (one each);
-    (c) O1's and O2's FFMA counts against the -fmad=false build (O2's are
-    those inside IEEE division); (d) their times beside their plain
-    versions' and their bounds (tail_work) at the node's shape and at
-    config 3's (O1, O2) or config 5's and bench_bm256's (S), a time below
-    its bound failing. sgm_in, bm_in: what phases 6 and 7 return. Returns
-    (the phase's JSON line, the kernels line's entries)."""
+    kernel G's maps, and all on TAIL_EDGE_CASES; G with S's work folded in
+    (bm_match_gated: the gated map, dR and the u8 map) against its plain
+    twin on phase 7's golden pair, node frames, config 5's and
+    bench_bm256's batches, GATE_FOLD_CASES and a 640x480 frame at D = 320,
+    its launches of G (one) and S (none on G's strip, one past it) pinned
+    a call; (b) the ATen ops of one sgm_match_batch call and one BM
+    _match_batch call on the card (allocations and views only) with the
+    kernels' launches (one each, S none); (c) O1's, O2's and G's FFMA
+    counts against the -fmad=false builds (those inside IEEE division);
+    (d) their times beside their plain versions' and their bounds
+    (tail_work, gated_work) at the node's shape and at config 3's (O1, O2)
+    or config 5's and bench_bm256's (G with the gate, beside G alone and
+    G then S in the same run; S alone, also at D = 320), a time below its
+    bound failing. sgm_in, bm_in: what phases 6 and 7 return. Returns (the
+    phase's JSON line, the kernels line's entries: O1, O2, S and G as the
+    node runs it, with the gate)."""
     import torch
     from jackal_tpu_torch.config import BMParams, PipelineParams, SGMParams
     from jackal_tpu_torch.matching import bm, sgm
@@ -4834,6 +4939,39 @@ def tail_phase(dev, hold, sgm_in, bm_in):
                   bk.bm_match_fused(L, R, p)[0], p)
     seen.append("S on the golden pair, the node's frames, config 5's and "
                 "bench_bm256's batches")
+
+    def gated_held(label, left, right, p, wide):
+        """G with S's work folded in against its plain twin; one launch of
+        G a call and of S none (G's strip) or one (past it, ``wide``)."""
+        if (bk.strip_width(tuple(left.shape), p) == 0) != wide:
+            raise AssertionError(f"bm_gated {label}: G's strip "
+                                 f"{'takes' if wide else 'refuses'} it")
+        n0, s0 = bk.launches["bm"], bm.launches["bm_gate"]
+        got = bk.bm_match_gated(left, right, p)
+        ng, ns = bk.launches["bm"] - n0, bm.launches["bm_gate"] - s0
+        if ng != 1 or ns != int(wide):
+            raise AssertionError(f"bm_gated {label}: G launched {ng} times "
+                                 f"and S {ns}, not 1 and {int(wide)}")
+        hold("bm", f"bm_gated {label}", got,
+             bk.bm_match_gated_plain(left, right, p))
+
+    for key, p in (("golden", p64), ("node", p64), ("node batch", p64),
+                   ("config 5", p64), ("bm256", p256)):
+        L, R = bm_in[key]
+        gated_held(f"{key} B={L.shape[0]} D={p.disp_num}", L, R, p, False)
+        torch.cuda.empty_cache()
+    for name in GATE_FOLD_CASES:
+        left, right, kw = gate_fold_case(name)
+        gated_held(name, torch.from_numpy(left).to(dev),
+                   torch.from_numpy(right).to(dev), BMParams(**kw),
+                   "G then S" in name)
+    p320 = BMParams(disp_num=320)
+    gated_held("a node frame at D = 320 (G then S)", *bm_in["node"], p320,
+               True)
+    seen.append(f"G with the gate and u8 map on the golden pair, the node's "
+                f"frames, config 5's and bench_bm256's batches, "
+                f"{len(GATE_FOLD_CASES)} GATE_FOLD_CASES and a node frame at "
+                f"D = 320 (G then S), its launches of G and S pinned")
     for name in TAIL_EDGE_CASES:
         kind, *args = tail_edge_case(name)
         if kind == "cost":
@@ -4883,19 +5021,26 @@ def tail_phase(dev, hold, sgm_in, bm_in):
           f"{ops_sgm}; of one BM _match_batch call: {ops_bm}; launches "
           f"{calls}")
     bad = [n for n, ok in ops_sgm + ops_bm if not ok]
-    if bad or any(v != 1 for c in calls.values() for v in c.values()):
+    if bad or any(v != 1 for v in calls["sgm_match_batch"].values()) \
+            or calls["bm _match_batch"] != {"bm": 1, "bm_gate": 0}:
         raise AssertionError(f"17b. the engines ran eager ops on the card "
                              f"{bad} or launched {calls}")
 
-    # (c) no contraction in O1 and O2 beyond the division's own FMAs
-    names = ("sgm_cost_volume_kernel", "sgm_epilogue_kernel")
-    got, ref = (sass_by_function(cuda_lib.library(lib).path, "FFMA", names)
-                for lib in ("sgm_tail_kernel", "sgm_tail_kernel_nofmad"))
-    fma = {"built": got, "fmad_false": ref}
-    print(f"17c. FFMA by kernel: {got}; the -fmad=false build {ref}")
-    if got != ref or set(got) != set(names):
-        raise AssertionError(f"17c. sgm_tail_kernel contracts into FFMA: "
-                             f"{got} against {ref} at -fmad=false")
+    # (c) no contraction in O1, O2 and G beyond the division's own FMAs
+    fma = {}
+    for lib, names in (("sgm_tail_kernel", ("sgm_cost_volume_kernel",
+                                            "sgm_epilogue_kernel")),
+                       ("bm_kernel", ("bm_strip_kernel", "lr_check_kernel",
+                                      "bm_wta_wide_kernel"))):
+        got, ref = (sass_by_function(cuda_lib.library(lb).path, "FFMA",
+                                     names)
+                    for lb in (lib, f"{lib}_nofmad"))
+        fma[lib] = {"built": got, "fmad_false": ref}
+        print(f"17c. FFMA by kernel of {lib}: {got}; the -fmad=false build "
+              f"{ref}")
+        if got != ref or set(got) != set(names):
+            raise AssertionError(f"17c. {lib} contracts into FFMA: {got} "
+                                 f"against {ref} at -fmad=false")
 
     # (d) times beside the plain versions' and the bounds
     ops_rate = int_ops_rate(dev)
@@ -4937,30 +5082,59 @@ def tail_phase(dev, hold, sgm_in, bm_in):
               lambda: sk.sgm_epilogue_plain(maps, None, D, p, True),
               tail_work("sgm_epilogue", B, H, W), PEAK_F32_OPS_PER_S, 3)
         torch.cuda.empty_cache()
+    parent_path = {}
     for key, pb in (("node", p64), ("config 5", p64), ("bm256", p256)):
         L, R = bm_in[key]
         dL = bk.bm_match_fused(L, R, pb)[0]
         B, H, W = L.shape
         label = f"{key} (B={B}, {W}x{H}, D={pb.disp_num})"
+        timed("bm", label, lambda: bk.bm_match_gated(L, R, pb),
+              lambda: bk.bm_match_gated_plain(L, R, pb),
+              gated_work(B, H, W, pb.disp_num), ops_rate,
+              3 if B == 1 else 1)
+        # the path before the fold, in the same run: G, then S
+        t = times[f"bm {label}"]
+        t["g_alone_ms"] = events_ms(lambda: bk.bm_match_fused(L, R, pb), 20)
+        t["g_then_s_ms"] = events_ms(lambda: bm.bm_gate_u8(
+            L, bk.bm_match_fused(L, R, pb)[0], pb), 20)
+        parent_path[key] = t["g_then_s_ms"]
+        print(f"17d. at {label}: G with the gate and u8 map {t['ms']:.5f} "
+              f"ms, G alone {t['g_alone_ms']:.5f}, G then S "
+              f"{t['g_then_s_ms']:.5f}")
         timed("bm_gate", label, lambda: bm.bm_gate_u8(L, dL, pb),
               lambda: bm.bm_gate_u8_plain(L, dL, pb),
               tail_work("bm_gate", B, H, W, r=pb.window // 2), ops_rate, 3)
+        torch.cuda.empty_cache()
+    # S alone where it stays on the path: past G's strip
+    L, R = bm_in["node"]
+    dL = bk.bm_match_fused(L, R, p320)[0]
+    timed("bm_gate", "D = 320 at the node's shape (G then S)",
+          lambda: bm.bm_gate_u8(L, dL, p320),
+          lambda: bm.bm_gate_u8_plain(L, dL, p320),
+          tail_work("bm_gate", *L.shape, r=p320.window // 2), ops_rate, 3)
     where = {"sgm_cost": ("jackal_tpu_torch/csrc/sgm_tail_kernel.cu",
                           "jackal_tpu/matching/sgm.py:98"),
              "sgm_epilogue": ("jackal_tpu_torch/csrc/sgm_tail_kernel.cu",
                               "jackal_tpu/matching/sgm.py:183"),
              "bm_gate": ("jackal_tpu_torch/csrc/bm_gate_kernel.cu",
                          "jackal_tpu/matching/bm.py:113")}
+    # S on the BM node: none (phase 7b pins it); G's launches there
     launches = {"sgm_cost": sgm_in["node launches"]["sgm_cost"],
                 "sgm_epilogue": sgm_in["node launches"]["sgm_epilogue"],
-                "bm_gate": bm_in["node gates"]}
+                "bm_gate": 0, "bm": bm_in["node launches"]}
+    extra = {"bm_gate": {"fused_into": "bm"}}
     entries = [{"name": k, "route": "cuda", "source": where[k][0],
                 "replaces": where[k][1], "launches": launches[k],
                 "ms": out[k][0], "plain_ms": out[k][1],
                 "bound_ms": out[k][2], "bound_by": out[k][3],
-                "library_ms": None} for k in TAIL_KERNELS]
+                "library_ms": None, **extra.get(k, {})}
+               for k in TAIL_KERNELS]
+    entries.append(dict(bm_in["entry"], ms=out["bm"][0],
+                        plain_ms=out["bm"][1], bound_ms=out["bm"][2],
+                        bound_by=out["bm"][3],
+                        fuses="jackal_tpu/matching/bm.py:113"))
     return {"tail": {"times": times, "fma": fma, "launches": launches,
-                     "calls": calls,
+                     "calls": calls, "g_then_s_ms": parent_path,
                      "aten_ops": {"sgm_match_batch": ops_sgm,
                                   "bm _match_batch": ops_bm}}}, entries
 
@@ -5104,14 +5278,14 @@ def shell_phase(dev):
         if counts["support"] != 9 or counts["remap"] != 9 \
                 or [counts[k] for k in SCAN_KERNELS] != [9, 0, 0, 0] \
                 or [counts[k] for k in FRONT_KERNELS] != [9, 9, 0] \
-                or [counts[k] for k in PRIOR_KERNELS] != [0, 0]:
+                or counts[PRIOR_LAUNCH] != 0:
             raise AssertionError(f"9a {name}: A called {counts['support']} "
                                  f"times, N {counts['remap']}, P1-P3 "
                                  f"{[counts[k] for k in SCAN_KERNELS]}, R, "
                                  f"A with Q's epilogue and Q alone "
                                  f"{[counts[k] for k in FRONT_KERNELS]}"
                                  f", M1 and M2 "
-                                 f"{[counts[k] for k in PRIOR_KERNELS]}"
+                                 f"{counts[PRIOR_LAUNCH]}"
                                  f" over 9 frames")
         if name == "replay" and counts["elas_dense"] != 9:
             raise AssertionError(f"9a {name}: B launched "
@@ -5146,8 +5320,7 @@ def shell_phase(dev):
                 "raster": 2 * batches, "remap": batches, "scan": batches,
                 "cloud": 0, "scan_points": 0, "cloud_scan": 0,
                 "descriptor": batches, "support_fused": batches,
-                "support_epilogue": 0,
-                "coeff_table": batches, "grid_words": batches}
+                "support_epilogue": 0, "coeff_grid": batches}
         if counts != want:
             raise AssertionError(f"9b {frames} frames: launches {counts}, "
                                  f"expected {want}")
@@ -5241,7 +5414,8 @@ def main() -> int:
         cuda_lib.library(n) for n in cuda_lib.KERNEL_SOURCES
         + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad",
            "prior_kernel_nofmad", "sgm_tail_kernel_nofmad",
-           "descriptor_kernel_nofmad", "support_kernel_nofmad")])
+           "descriptor_kernel_nofmad", "support_kernel_nofmad",
+           "bm_kernel_nofmad")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
@@ -5677,8 +5851,8 @@ def main() -> int:
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t
     launches_prior = pin_prior(
-        f"4b. the batched node over {n_frames} frames (M1 and M2 once a "
-        f"chunk of {batch})", n_frames // batch)
+        f"4b. the batched node over {n_frames} frames (M1 and M2 in one "
+        f"launch a chunk of {batch})", n_frames // batch)
     pin_scan(f"4b. the batched node over {n_frames} frames (P1 once a "
              f"batch)", scan=n_frames // batch, key="batched node")
     pin_front(f"4b. the batched node over {n_frames} frames (R and A with "
@@ -5986,9 +6160,9 @@ def main() -> int:
         kernels.append(entry)
 
     # ---- 7. BM and gen_pcl: kernel G, the BM node, configs 5 and bm256 ----
-    entry, bm_tail = bm_phase(dev, hold)
-    entry["max_abs_err"] = max_err["bm"]
-    kernels.append(entry)
+    # (G's entry in the kernels line comes from phase 17, with the times
+    # of G as the node runs it: the texture gate and u8 map folded in)
+    bm_tail = bm_phase(dev, hold)
 
     # ---- 9. the node shell: the point_cloud and navigate CLIs ------------
     print(json.dumps(shell_phase(dev)))

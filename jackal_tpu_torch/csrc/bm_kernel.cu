@@ -9,7 +9,13 @@
 // matching/bm.bm_match computes before its texture gate, bit for bit, at
 // every D and every odd window up to 2901: the invalid cost is 1 << 24 (the
 // Pallas kernel lowers it at D > 64 to keep its int32 keys, and so differs
-// from bm_match there).
+// from bm_match there). Where the strip takes the shape, its entry
+// bm_match_gated (wrapper ops/bm_kernel.bm_match_gated, plain version
+// bm_match_gated_plain) also applies the texture gate and writes the
+// node's u8 map: the work of kernel S (csrc/bm_gate_kernel.cu, the
+// reference's jackal_tpu/matching/bm.py:113 bm_texture_gate and the u8 map
+// of jackal_tpu/pipeline/frame_pipeline.py:170), which runs in the same
+// jitted program as the Pallas BM there.
 //
 // What it computes. L, R are uint8 [B, H, W]. For each d < D the cost is
 // the (2r+1)^2 box sum of AD(v, x) = |L(v, x) - R(v, x - d)|, where rows
@@ -24,7 +30,14 @@
 // are invalid); disparity best_d + offs, -1 where not unique. Then the L/R
 // check of the left view: uw = clip(trunc(f32(u) - dL), 0, W - 1), s =
 // clip(u - uw, 0, D), keep dL where dL >= 0, dR(u - s) >= 0 and
-// |dR(u - s) - dL| <= lr_threshold. dl, dr are float32 [B, H, W].
+// |dR(u - s) - dL| <= lr_threshold. dl, dr are float32 [B, H, W]. The
+// texture gate (bm_match_gated): the texture of a pixel is the (2r+1)^2 box
+// sum, zero outside the frame, of g(y, x) = |L(y, x+1) - L(y, x-1)| on the
+// edge-replicated frame; dl is -1 where it is below thr (texture_threshold
+// * window, int32), and the u8 map is clamp(rint(dl), 0, 255), rint half to
+// even. The gate and the L/R check only write -1 and the check does not
+// read dl's neighbours, so gating before the check equals the reference's
+// order (gate, then check).
 //
 // What bounds it on an H100. Per (pixel, disparity) no design can do less
 // than the cost's two running box sums (the absolute difference fused with
@@ -35,7 +48,10 @@
 // best_d +- 1: 2 instructions): 5.75 instructions, 1.13e8 for a 640x480
 // frame at D = 64, 0.0068 ms at the card's 64 instructions a clock an SM
 // (chip_smoke.bm_work); its bytes (two u8 images in, two f32 maps out, 10
-// a pixel) take 0.0009 ms. So the integer operations bound it.
+// a pixel) take 0.0009 ms. So the integer operations bound it. The gated
+// entry adds the texture's box, 4 operations a pixel counted as
+// instructions (as the cost's, once a pixel and not a d), and the u8 map's
+// byte a pixel.
 //
 // The design: a block owns a strip of kSW output columns of one frame (64,
 // or 32 where a batch is too small to fill the card with 64) and a chunk
@@ -54,6 +70,20 @@
 //  - Horizontal box: the same thread (one a segment and d) runs along its
 //    segment's columns right after each V update, one add and one
 //    subtract a column, and writes the row's cost C[segment][u][d].
+//  - Texture: segment 1 at d = 0 would repeat segment 0 at d = 0
+//    (cost_R(u, 0) = cost_L(u, 0)), so that thread runs the same loop over
+//    g instead, four columns by one __vabsdiffu4 of the ring's L at x + 1
+//    and x - 1 (the ring's L starts a column left of the window for x - 1
+//    and holds L(0) at x = -1 and L(W - 1) at x = W, the frame's edges
+//    replicated, where the costs' mask drops them), and writes the texture
+//    into C's pad column; after the walk, segment 0's first warp copies
+//    its d = 0 costs into segment 1's row for the right view's WTA. A
+//    vertical texture sum is at most 255 * (2r + 1), in 16 bits at
+//    r <= 127. Both entries run it: the ungated one passes thr = INT_MIN,
+//    which gates nothing. The lane adds no thread and leaves the walk's
+//    loop and the WTA as they were: on an H100, designs that corrected the
+//    edge columns' sums before each walk, or had the WTA read d = 0 from
+//    segment 0, made G slower (PERF.md, Findings).
 //  - WTA: after a barrier every d of the row is at hand, so each pixel
 //    finishes within its row: Q threads a (pixel, view) take every Q-th
 //    valid d (and the first four invalid ones: the others cannot be among
@@ -61,7 +91,8 @@
 //    them by shuffles, read cm, cp from C and finish as before. No WTA
 //    state outlives a row; two barriers a row, none a disparity.
 // A second kernel, lr_check_kernel, applies the L/R check: it reads
-// dR(u - s), up to D columns left of the strip. Costs computed a row: 2
+// dR(u - s), up to D columns left of the strip, and writes the u8 map
+// where the caller asks for it. Costs computed a row: 2
 // (kSW + 2r) per d against the W that a full-width row would need (the
 // right view's shifted segment is the price of the strip).
 //
@@ -84,12 +115,16 @@
 // it, cm and cp are min(cost, 1 << 24) and the parabola's denominator
 // wraps in int32 as bm_match's does. It takes r <= 1450, the largest r at
 // which bm_match's own int32 box sums, at most (2r + 1)^2 * 255, do not
-// wrap. Shapes the strip takes launch the strip kernel as before.
+// wrap. Shapes the strip takes launch the strip kernel as before. That
+// path has no texture gate: bm_match_gated refuses its shapes, and the
+// wrapper routes them, by shape and before any launch, to bm_match then
+// kernel S.
 //
 // Built with -DBM_KERNEL_DIAG, the library also exports bm_match_diag, a
 // per-part timing of this kernel (the port of tools/diag_bm_kernel.py
 // diag_kernel, pallas_call l.105): the same kernel with a compile-time mode
-// that gates its parts (see bm_match_diag). The production library
+// that gates its parts (see bm_match_diag); the texture runs wherever the
+// box runs (every mode but "nobox"), ungated. The production library
 // compiles only the full mode.
 #include <climits>
 #include <cstdint>
@@ -207,7 +242,8 @@ template <int kSW, int MODE>
 __global__ void __launch_bounds__(512)
     bm_strip_kernel(const uint8_t* __restrict__ L, const uint8_t* __restrict__ R,
                     float* __restrict__ dl_out, float* __restrict__ dr_out,
-                    int H, int W, int D, int r, int RH, float uniq) {
+                    int H, int W, int D, int r, int RH, float uniq,
+                    int thr) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Plan p = plan(D, r, kSW);
   const int tid = threadIdx.x;
@@ -218,26 +254,35 @@ __global__ void __launch_bounds__(512)
   int* C = reinterpret_cast<int*>(smem);                       // [2][kSW][cp]
   uint16_t* V = reinterpret_cast<uint16_t*>(C + 2 * kSW * p.cp);  // [2][dpad][vp]
   uint8_t* ring = reinterpret_cast<uint8_t*>(V + 2 * p.dpad * p.vp);
-  // ring[slot][0] holds L at x = u0 - r + k, ring[slot][1] R at
-  // x = u0 - r - (D - 1) + k, k < nw
-  const int loL = u0 - r, loR = u0 - r - (D - 1);
+  // ring[slot][0] holds L at x = u0 - r - 1 + k, ring[slot][1] R at
+  // x = u0 - r - (D - 1) + k, k < nw (0 outside the frame, but L at x = -1
+  // and W the frame's edge columns, for the texture's g)
+  const int loL = u0 - r - 1, loR = u0 - r - (D - 1);
   auto fetch = [&](int y, int k) -> uint8_t {
     const int side = k >= p.nw;
-    const int x = (side ? loR : loL) + k - side * p.nw;
+    int x = (side ? loR : loL) + k - side * p.nw;
+    if (!side) x = x == -1 ? 0 : x == W ? W - 1 : x;
     if (y < 0 || y >= H || x < 0 || x >= W) return 0;
     return (side ? R : L)[frame + static_cast<size_t>(y) * W + x];
   };
 
-  // this thread's (segment, d) in the box phase
+  // this thread's (segment, d) in the box phase; segment 1's d = 0 sums
+  // the texture (its costs are segment 0's at d = 0)
   const int seg = tid / p.dpad, d = tid % p.dpad;
-  const bool boxer = seg < 2 && d < D && (MODE != kOneWta || seg == 0);
+  const bool texer = seg == 1 && d == 0 && MODE != kNoBox;
+  const bool boxer =
+      seg < 2 && d < D && (MODE != kOneWta || seg == 0 || texer);
   uint16_t* Vs = V + (seg * p.dpad + d) * p.vp;
   uint32_t* Vw = reinterpret_cast<uint32_t*>(Vs);  // pairs of columns
-  int* Cs = C + seg * kSW * p.cp + d;
+  // the texture of output column i goes to C[1][i][dpad], the pad column
+  int* Cs = C + seg * kSW * p.cp + (texer ? p.dpad : d);
   const int ncol = kSW + 2 * r;
-  // per column j: seg 0 reads L[j], R[j - d + D - 1] and x = u0 - r + j;
-  // seg 1 reads L[d + j], R[j + D - 1] and x = u0 + d - r + j
-  const int lofs = seg == 0 ? 0 : d, rofs = p.nw + (seg == 0 ? D - 1 - d : D - 1);
+  // per column j: seg 0 reads L[1 + j], R[j - d + D - 1] and
+  // x = u0 - r + j; seg 1 reads L[1 + d + j], R[j + D - 1] and
+  // x = u0 + d - r + j; the texture L[j + 2] and L[j] (x + 1 and x - 1) at
+  // x = u0 - r + j
+  const int lofs = texer ? 2 : 1 + (seg == 0 ? 0 : d);
+  const int rofs = texer ? 0 : p.nw + (seg == 0 ? D - 1 - d : D - 1);
   const int xofs = u0 - r + (seg == 0 ? 0 : d);
 
   const int rows = min(RH, H - v0);
@@ -319,6 +364,11 @@ __global__ void __launch_bounds__(512)
         }
       }
     }
+    // the right view's d = 0: segment 0's (seg 1's d = 0 summed the texture)
+    if (MODE != kNoBox && tid < 32 && emit) {
+      __syncwarp();
+      for (int i = tid; i < kSW; i += 32) C[(kSW + i) * p.cp] = C[i * p.cp];
+    }
     // the next row into its slot, read from the next step on
 #pragma unroll
     for (int n = 0; n < kPre; ++n) {
@@ -368,7 +418,10 @@ __global__ void __launch_bounds__(512)
     const int bd = static_cast<int>(t.k0 & 255u);
     const int cm = bd > 0 ? cost(bd - 1) : kBig;
     const int cp = bd < D - 1 ? cost(bd + 1) : kBig;
-    const float disp = finish(t, cm, cp, D, uniq);
+    float disp = finish(t, cm, cp, D, uniq);
+    // the texture gate of the left view
+    if (wseg == 0 && MODE != kNoBox && C[(kSW + wi) * p.cp + p.dpad] < thr)
+      disp = -1.0f;
     const size_t o = frame + static_cast<size_t>(v) * W + wu;
     if (wseg == 0) {
       dl_out[o] = disp;
@@ -463,9 +516,11 @@ __global__ void __launch_bounds__(256)
   (view == 0 ? dl : dr)[px] = disp;
 }
 
-// The L/R check of the left view, in place: dl holds the left view's WTA.
+// The L/R check of the left view, in place: dl holds the left view's WTA;
+// u8 (where not null) gets the checked map's clamp(rint(d), 0, 255).
 __global__ void lr_check_kernel(float* __restrict__ dl,
-                                const float* __restrict__ dr, int H, int W,
+                                const float* __restrict__ dr,
+                                uint8_t* __restrict__ u8, int H, int W,
                                 int D, float lr_threshold, long long n) {
   const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
@@ -480,7 +535,11 @@ __global__ void lr_check_kernel(float* __restrict__ dl,
   const float other = (idx >= 0 && idx < W) ? dr[row + idx] : -1e9f;
   const bool ok =
       d >= 0.0f && other >= 0.0f && fabsf(__fsub_rn(other, d)) <= lr_threshold;
-  dl[e] = ok ? d : -1.0f;
+  const float out = ok ? d : -1.0f;
+  dl[e] = out;
+  if (u8 != nullptr)
+    u8[e] = static_cast<uint8_t>(
+        static_cast<int>(fminf(fmaxf(rintf(out), 0.0f), 255.0f)));
 }
 
 int sm_count() {
@@ -498,13 +557,14 @@ int sm_count() {
 template <int kSW, int MODE>
 cudaError_t launch_sw(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
                       int B, int H, int W, int D, int r, int RH, float uniq,
-                      const Plan& p, cudaStream_t s) {
+                      int thr, const Plan& p, cudaStream_t s) {
   auto kern = bm_strip_kernel<kSW, MODE>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((W + kSW - 1) / kSW, (H + RH - 1) / RH, B);
-  kern<<<grid, p.threads, p.smem, s>>>(L, R, dl, dr, H, W, D, r, RH, uniq);
+  kern<<<grid, p.threads, p.smem, s>>>(L, R, dl, dr, H, W, D, r, RH, uniq,
+                                       thr);
   return cudaGetLastError();
 }
 
@@ -573,12 +633,14 @@ cudaError_t launch_wide(const uint8_t* L, const uint8_t* R, float* dl,
 }
 
 // Where the strip does not take the shape, box_path = true launches the
-// path without shared memory (bm_match); G' (box_path = false) refuses it.
+// path without shared memory (bm_match); G' and the gated entry
+// (box_path = false) refuse it. The strip keeps dl where the texture is at
+// least thr (INT_MIN: everywhere); u8 (where not null) gets the u8 map.
 template <int MODE>
 cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
-                   int* scratch, int B, int H, int W, int D, int r,
-                   float lr_threshold, float uniq, bool narrow_only,
-                   bool box_path, void* stream) {
+                   uint8_t* u8, int* scratch, int B, int H, int W, int D,
+                   int r, float lr_threshold, float uniq, int thr,
+                   bool narrow_only, bool box_path, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const Choice c = choose(B, H, W, D, r, narrow_only);
   cudaError_t e;
@@ -587,15 +649,15 @@ cudaError_t launch(const uint8_t* L, const uint8_t* R, float* dl, float* dr,
     e = launch_wide(L, R, dl, dr, scratch, B, H, W, D, r, uniq, s);
   } else {
     e = c.sw == kWide
-            ? launch_sw<kWide, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH, uniq,
-                                     plan(D, r, kWide), s)
+            ? launch_sw<kWide, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH,
+                                     uniq, thr, plan(D, r, kWide), s)
             : launch_sw<kNarrow, MODE>(L, R, dl, dr, B, H, W, D, r, c.RH,
-                                       uniq, plan(D, r, kNarrow), s);
+                                       uniq, thr, plan(D, r, kNarrow), s);
   }
   if (e != cudaSuccess || MODE != kFullMode) return e;
   const long long n = static_cast<long long>(B) * H * W;
   lr_check_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      dl, dr, H, W, D, lr_threshold, n);
+      dl, dr, u8, H, W, D, lr_threshold, n);
   return cudaGetLastError();
 }
 
@@ -624,17 +686,34 @@ extern "C" long long bm_scratch_bytes(int B, int H, int W, int D, int r) {
 }
 
 // scratch: bm_scratch_bytes(B, H, W, D, r) bytes (null where that is 0).
+// The strip is the gated entry's, with thr = INT_MIN: it gates nothing.
 extern "C" int bm_match(const uint8_t* L, const uint8_t* R, float* dl,
                         float* dr, int B, int H, int W, int D, int r,
                         float lr_threshold, float uniq, int* scratch,
                         void* stream) {
-  return static_cast<int>(launch<kFullMode>(L, R, dl, dr, scratch, B, H, W,
-                                            D, r, lr_threshold, uniq, false,
-                                            true, stream));
+  return static_cast<int>(launch<kFullMode>(
+      L, R, dl, dr, nullptr, scratch, B, H, W, D, r, lr_threshold, uniq,
+      INT_MIN, false, true, stream));
+}
+
+// bm_match with kernel S's work folded in, two launches: dl gated by the
+// texture (kept where it is at least thr = texture_threshold * window) and
+// checked, dr, and u8 the u8 map of dl. Only the strip's shapes
+// (bm_strip_width > 0); others return cudaErrorInvalidValue unlaunched.
+extern "C" int bm_match_gated(const uint8_t* L, const uint8_t* R, float* dl,
+                              float* dr, uint8_t* u8, int B, int H, int W,
+                              int D, int r, float lr_threshold, float uniq,
+                              int thr, void* stream) {
+  if (u8 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<kFullMode>(
+      L, R, dl, dr, u8, nullptr, B, H, W, D, r, lr_threshold, uniq, thr,
+      false, false, stream));
 }
 
 #ifdef BM_KERNEL_DIAG
-// mode: 0 full (the production kernel), 1 the left view alone (its box
+// G' runs the strip with its texture lane wherever the box runs (thr
+// INT_MIN gates nothing). mode: 0 full (the production kernel),
+// 1 the left view alone (its box
 // and WTA; dr = dl, no L/R check), 2 the boxes alone (both outputs the
 // view's cost summed over d, no WTA), 3 both WTAs on the centre row's AD
 // without the box, no L/R check, 4 full with strips of 32 columns at every
@@ -647,20 +726,21 @@ extern "C" int bm_match_diag(const uint8_t* L, const uint8_t* R, float* dl,
   switch (mode) {
     case kFullMode:
     case 4:
-      e = launch<kFullMode>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                            lr_threshold, uniq, mode == 4, false, stream);
+      e = launch<kFullMode>(L, R, dl, dr, nullptr, nullptr, B, H, W, D, r,
+                            lr_threshold, uniq, INT_MIN, mode == 4, false,
+                            stream);
       break;
     case kOneWta:
-      e = launch<kOneWta>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                          lr_threshold, uniq, false, false, stream);
+      e = launch<kOneWta>(L, R, dl, dr, nullptr, nullptr, B, H, W, D, r,
+                          lr_threshold, uniq, INT_MIN, false, false, stream);
       break;
     case kBoxOnly:
-      e = launch<kBoxOnly>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                           lr_threshold, uniq, false, false, stream);
+      e = launch<kBoxOnly>(L, R, dl, dr, nullptr, nullptr, B, H, W, D, r,
+                           lr_threshold, uniq, INT_MIN, false, false, stream);
       break;
     case kNoBox:
-      e = launch<kNoBox>(L, R, dl, dr, nullptr, B, H, W, D, r,
-                         lr_threshold, uniq, false, false, stream);
+      e = launch<kNoBox>(L, R, dl, dr, nullptr, nullptr, B, H, W, D, r,
+                         lr_threshold, uniq, INT_MIN, false, false, stream);
       break;
   }
   return static_cast<int>(e);

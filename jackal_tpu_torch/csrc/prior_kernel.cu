@@ -15,8 +15,9 @@
 //                   _grid_impl (createGrid, elas.cpp:579-659), packed as
 //                   the port's device_prior.pack_grid_device.
 // Their plain versions are coeff_table_plain and grid_words_plain in
-// matching/elas/device_prior.py; the wrappers there (coeff_table,
-// grid_words) launch these kernels on CUDA tensors.
+// matching/elas/device_prior.py; its wrapper coeff_grid launches both in
+// one kernel, coeff_grid_kernel, on a CUDA wire (M2's blocks first, then
+// M1's: M2's output does not depend on M1's, and both read the same wire).
 //
 // The wire (int16, pipeline._flatten_chunk_wire): support [CH, Np, 3]
 // (u, v, d; pad rows (0, 0, -1)); per side the triangles [CH, Tp, 3]
@@ -56,7 +57,9 @@
 // What bounds them: M1 its float64 operations (60 a row, a DMUL, DSUB or
 // DDIV counted as one); its bytes are the wire once and 64 a row out. M2
 // its bytes: the support triples in, the grid words out
-// (chip_smoke.prior_work).
+// (chip_smoke.prior_work). Alone, each is one launch's latency at the
+// batched node's chunk (M2 96 blocks at 59 times its bound), so they share
+// one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,16 +147,17 @@ __device__ __forceinline__ float slope(int dv, int du) {
   return du != 0 ? __fdiv_rn(__int2float_rn(dv), __int2float_rn(du)) : 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads)
-coeff_table_kernel(const int16_t* __restrict__ wire, int4* __restrict__ table,
-                   int32_t* __restrict__ sel0, int32_t* __restrict__ sel1,
-                   int CH, int Np, int Tp, int nsel, int row_blocks) {
+// M1's block b: a table row a thread, or past row_blocks the tile lists
+__device__ __forceinline__ void coeff_table_block(
+    const int16_t* __restrict__ wire, int4* __restrict__ table,
+    int32_t* __restrict__ sel0, int32_t* __restrict__ sel1, int CH, int Np,
+    int Tp, int nsel, int row_blocks, int b) {
   const long long K = static_cast<long long>(CH) * Tp;
   const long long tri_at = static_cast<long long>(CH) * Np * 3;
-  if (static_cast<int>(blockIdx.x) >= row_blocks) {
+  if (b >= row_blocks) {
     // the tile lists: int16 [2, CH, S*C, Ts] after the triangles -> int32
     const int16_t* sel = wire + tri_at + 8 * K;
-    const long long i0 = (static_cast<long long>(blockIdx.x - row_blocks) *
+    const long long i0 = (static_cast<long long>(b - row_blocks) *
                               kThreads + threadIdx.x) * kSelItems;
 #pragma unroll
     for (int k = 0; k < kSelItems; ++k) {
@@ -163,8 +167,7 @@ coeff_table_kernel(const int16_t* __restrict__ wire, int4* __restrict__ table,
     }
     return;
   }
-  const long long r = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
+  const long long r = static_cast<long long>(b) * kThreads + threadIdx.x;
   if (r >= 2 * K) return;
   const bool right = r >= K;
   const long long rr = right ? r - K : r;
@@ -235,22 +238,21 @@ coeff_table_kernel(const int16_t* __restrict__ wire, int4* __restrict__ table,
   row[3] = make_int4(paint, 0, 0, 0);
 }
 
-__global__ void __launch_bounds__(kThreads)
-grid_words_kernel(const int16_t* __restrict__ wire, uint32_t* __restrict__ out,
-                  int CH, int Np, int gs, int gh, int gw, int D, int nw,
-                  int tile) {
-  extern __shared__ uint32_t words[];                   // [tile][nw]
-  const int fs = blockIdx.y;                            // frame and side
+// M2's block of frame and side fs, cell tile ct; words: [tile][nw] shared
+__device__ __forceinline__ void grid_words_block(
+    const int16_t* __restrict__ wire, uint32_t* __restrict__ out,
+    uint32_t* words, int CH, int Np, int gs, int gh, int gw, int D, int nw,
+    int tile, int fs, int ct) {
   const bool right = fs >= CH;
   const int f = right ? fs - CH : fs;
   const int G = gh * gw;
-  const int c0 = blockIdx.x * tile;
+  const int c0 = ct * tile;
   const int n = min(tile, G - c0);
+  const int16_t* sp = wire + 3LL * f * Np;
   for (int i = threadIdx.x; i < n * nw; i += kThreads) words[i] = 0u;
   __syncthreads();
   const int lo = max(c0, gw + 1), hi = min(c0 + n, G - gw - 1);
   if (lo < hi) {
-    const int16_t* sp = wire + 3LL * f * Np;
     const int offs[9] = {-gw - 1, -gw, -gw + 1, -1, 0, 1,
                          gw - 1, gw, gw + 1};
     for (int p = threadIdx.x; p < Np; p += kThreads) {
@@ -285,44 +287,60 @@ grid_words_kernel(const int16_t* __restrict__ wire, uint32_t* __restrict__ out,
   for (int i = threadIdx.x; i < n * nw; i += kThreads) o[i] = words[i];
 }
 
+// M1 and M2 in one launch: blocks [0, grid_blocks) are M2's, a (frame
+// and side, cell tile) each, cell tile fastest; the rest M1's (table rows,
+// then tile lists). M2's blocks come first: each scans a frame-side's
+// points, the longest walk of the launch.
+__global__ void __launch_bounds__(kThreads)
+coeff_grid_kernel(const int16_t* __restrict__ wire, int4* __restrict__ table,
+                  int32_t* __restrict__ sel0, int32_t* __restrict__ sel1,
+                  uint32_t* __restrict__ out, int CH, int Np, int Tp,
+                  int nsel, int row_blocks, int gs, int gh, int gw, int D,
+                  int nw, int tile, int tiles, int grid_blocks) {
+  extern __shared__ uint32_t words[];                   // [tile][nw]
+  const int b = static_cast<int>(blockIdx.x);
+  if (b < grid_blocks)
+    grid_words_block(wire, out, words, CH, Np, gs, gh, gw, D, nw, tile,
+                     b / tiles, b % tiles);
+  else
+    coeff_table_block(wire, table, sel0, sel1, CH, Np, Tp, nsel, row_blocks,
+                      b - grid_blocks);
+}
+
 }  // namespace
 
-// table: int32 [2*CH*Tp, 16] (16-byte aligned; the left side's rows, then
-// the right side's); sel0, sel1: int32 [CH, S*C, Ts] each, nsel =
-// CH*S*C*Ts entries; wire: the chunk's int16 wire. One launch.
-extern "C" int prior_coeff_table(const int16_t* wire, int32_t* table,
-                                 int32_t* sel0, int32_t* sel1, int CH, int Np,
-                                 int Tp, long long nsel, void* stream) {
+// One launch of M1 and M2 on a chunk's wire. table: int32 [2*CH*Tp, 16]
+// (16-byte aligned; the left side's rows, then the right side's); sel0,
+// sel1: int32 [CH, S*C, Ts] each, nsel = CH*S*C*Ts entries; out: int32
+// [2*CH, gh, gw, nw], nw = ceil(D / 32): frames 0..CH-1 the left grids,
+// CH..2CH-1 the right ones.
+extern "C" int prior_coeff_grid(const int16_t* wire, int32_t* table,
+                                int32_t* sel0, int32_t* sel1, int32_t* out,
+                                int CH, int Np, int Tp, long long nsel,
+                                int gs, int gh, int gw, int D,
+                                void* stream) {
+  const int nw = (D + 31) / 32;
   const long long rows = 2LL * CH * Tp;
   const long long row_blocks = (rows + kThreads - 1) / kThreads;
   const long long sel_blocks =
       (2 * nsel + kThreads * kSelItems - 1) / (kThreads * kSelItems);
-  if (CH < 1 || Np < 1 || Tp < 1 || nsel < 0 ||
-      row_blocks + sel_blocks > 0x7fffffffLL || nsel > 0x3fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  coeff_table_kernel<<<static_cast<unsigned>(row_blocks + sel_blocks),
-                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      wire, reinterpret_cast<int4*>(table), sel0, sel1, CH, Np, Tp,
-      static_cast<int>(nsel), static_cast<int>(row_blocks));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out: int32 [2*CH, gh, gw, nw], nw = ceil(D / 32): frames 0..CH-1 the left
-// grids, CH..2CH-1 the right ones. One launch.
-extern "C" int prior_grid_words(const int16_t* wire, int32_t* out, int CH,
-                                int Np, int gs, int gh, int gw, int D,
-                                void* stream) {
-  const int nw = (D + 31) / 32;
-  if (CH < 1 || CH > 32767 || Np < 0 || gs < 1 || gh < 1 || gw < 1 ||
-      D < 1 || nw > kTileWords ||
-      static_cast<long long>(gh) * gw > 0x3fffffffLL)
+  if (CH < 1 || CH > 32767 || Np < 1 || Tp < 1 || nsel < 0 ||
+      nsel > 0x3fffffffLL || gs < 1 || gh < 1 || gw < 1 || D < 1 ||
+      nw > kTileWords || static_cast<long long>(gh) * gw > 0x3fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = gh * gw;
   const int tile = kTileWords / nw;
-  const dim3 grid((G + tile - 1) / tile, 2 * CH);
-  grid_words_kernel<<<grid, kThreads, tile * nw * sizeof(uint32_t),
+  const long long tiles = (G + tile - 1) / tile;
+  const long long m1 = row_blocks + sel_blocks;
+  const long long m2 = 2LL * CH * tiles;
+  if (m1 + m2 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tile * nw * sizeof(uint32_t);
+  coeff_grid_kernel<<<static_cast<unsigned>(m1 + m2), kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      wire, reinterpret_cast<uint32_t*>(out), CH, Np, gs, gh, gw, D, nw,
-      tile);
+      wire, reinterpret_cast<int4*>(table), sel0, sel1,
+      reinterpret_cast<uint32_t*>(out), CH, Np, Tp, static_cast<int>(nsel),
+      static_cast<int>(row_blocks), gs, gh, gw, D, nw, tile,
+      static_cast<int>(tiles), static_cast<int>(m2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,8 @@ check. bm_match equals the reference package's bm_match bit for bit. The
 texture gate is kernel S (csrc/bm_gate_kernel.cu) on the card:
 bm_texture_gate gives the gated float map, bm_gate_u8 its u8 map, each
 one launch; bm_texture_gate_plain and bm_gate_u8_plain are the CPU's.
+The nodes take the gate and the u8 map from kernel G itself where its
+strip takes the shape (ops/bm_kernel.bm_match_gated), and S only past it.
 ``launches`` counts the calls that launched S.
 """
 from __future__ import annotations
@@ -134,23 +136,25 @@ def bm_texture_gate(left: Image, dL: torch.Tensor, params: BMParams
     the card, the plain version where it lies on the CPU."""
     if not dL.is_cuda:
         return bm_texture_gate_plain(left, dL, params)
-    return _gate_cuda(left, dL, params, u8=False)
+    return _gate_cuda(left, dL, params, gated=True, u8=False)[0]
 
 
 def bm_gate_u8(left: Image, dL: torch.Tensor, params: BMParams
                ) -> torch.Tensor:
     """The texture gate's u8 map, ops/convert.dmap_u8 of bm_texture_gate:
-    the BM node's published map, one launch of kernel S on the card."""
+    the BM node's published map as kernel S alone computes it, one launch
+    on the card (the node takes it from ops/bm_kernel.bm_match_gated)."""
     if not dL.is_cuda:
         return bm_gate_u8_plain(left, dL, params)
-    return _gate_cuda(left, dL, params, u8=True)
+    return _gate_cuda(left, dL, params, gated=False, u8=True)[1]
 
 
-def _gate_cuda(left, dL: torch.Tensor, params: BMParams, u8: bool
-               ) -> torch.Tensor:
-    """Kernel S on [..., H, W] frames as [N, H, W]: the gated float32 map,
-    or its u8 map. A left batch that is not contiguous (a cropped view) is
-    copied first."""
+def _gate_cuda(left, dL: torch.Tensor, params: BMParams, gated: bool,
+               u8: bool):
+    """Kernel S on [..., H, W] frames as [N, H, W], one launch: (the gated
+    float32 map if ``gated``, its u8 map if ``u8``), None for what was not
+    asked. A left batch that is not contiguous (a cropped view) is copied
+    first."""
     if not isinstance(left, torch.Tensor) or left.device != dL.device \
             or left.dtype != torch.uint8 or left.shape != dL.shape \
             or dL.dtype != torch.float32 or dL.dim() < 2:
@@ -174,17 +178,21 @@ def _gate_cuda(left, dL: torch.Tensor, params: BMParams, u8: bool
     dev = dL.device
     cuda_lib.expect(img, "left", torch.uint8, (N, H, W), dev, 1)
     cuda_lib.expect(d, "dL", torch.float32, (N, H, W), dev, 4)
-    out = torch.empty((N, H, W), dtype=torch.uint8 if u8 else torch.float32,
-                      device=dev)
+    out_f = (torch.empty((N, H, W), dtype=torch.float32, device=dev)
+             if gated else None)
+    out_u8 = (torch.empty((N, H, W), dtype=torch.uint8, device=dev)
+              if u8 else None)
     fn = getattr(cuda_lib.load("bm_gate_kernel"), "bm_gate")
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     cuda_lib.launch(fn, "bm_gate", d, img.data_ptr(), d.data_ptr(),
-                    None if u8 else out.data_ptr(),
-                    out.data_ptr() if u8 else None, N, H, W, win // 2, thr)
+                    None if out_f is None else out_f.data_ptr(),
+                    None if out_u8 is None else out_u8.data_ptr(), N, H, W,
+                    win // 2, thr)
     launches["bm_gate"] += 1
-    return out.view(dL.shape)
+    return tuple(None if o is None else o.view(dL.shape)
+                 for o in (out_f, out_u8))
 
 
 def bm_finalize(left: Image, dL: torch.Tensor, dR: torch.Tensor,

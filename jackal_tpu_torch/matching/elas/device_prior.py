@@ -11,13 +11,13 @@ prior (native/prior_engine.cpp) and to the reference's elas.cpp:
                     fit in float64 (device_fit.py) and the plane-valid flag;
   _grid_impl        createGrid (elas.cpp:579-659): candidate marking, the
                     d+/-1 marks and the flat 3x3 OR diffusion;
-  coeff_table       kernel M1 (csrc/prior_kernel.cu) on a chunk wire:
-                    _tri_coeffs_impl of both sides' triangles packed as
-                    pack_table rows, and the tile lists widened to int32;
-                    coeff_table_plain on CPU tensors;
-  grid_words        kernel M2 on a chunk wire: _grid_impl of both sides
-                    packed as pack_grid_device words; grid_words_plain on
-                    CPU tensors;
+  coeff_grid        kernels M1 and M2 (csrc/prior_kernel.cu) in one
+                    launch on a chunk wire: M1's _tri_coeffs_impl of both
+                    sides' triangles packed as pack_table rows and the tile
+                    lists widened to int32 (coeff_table_plain), M2's
+                    _grid_impl of both sides packed as pack_grid_device
+                    words (grid_words_plain); coeff_grid_plain, the two
+                    plain versions, on CPU tensors;
   raster            the scanline rasterization of computeDisparity
                     (elas.cpp:813-904) as a slab raster: per 16-row x
                     128-column tile, the maximum over the tile's triangles
@@ -63,9 +63,9 @@ _TABLE_COLS = 16        # pack_table row: A_u B_u C_u A_v B_v, slope bits x3,
 #                         plane bits x3, pvalid, paint, 3 zero words
 
 launches = 0            # raster kernel launches since the last reset
-# launches of kernels M1 (coeff_table) and M2 (grid_words) since the last
+# launches of kernels M1 and M2's one launch (coeff_grid) since the last
 # reset
-prior_launches = {"coeff_table": 0, "grid_words": 0}
+prior_launches = {"coeff_grid": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -301,59 +301,48 @@ def grid_words_plain(flat: torch.Tensor, CH: int, Np: int, gs: int, gh: int,
     return pack_grid_device(grids)
 
 
-def _coeff_table_cuda(flat, CH, Np, Tp, SC, Ts):
-    _wire16(flat, wire_len16(CH, Np, Tp, SC, Ts), "coeff_table")
+def coeff_grid_plain(flat: torch.Tensor, CH: int, Np: int, Tp: int,
+                     SC: int, Ts: int, gs: int, gh: int, gw: int, D: int):
+    """The one launch of kernels M1 and M2 in plain PyTorch: (table,
+    (sel_left, sel_right), words) = coeff_table_plain and
+    grid_words_plain of the chunk wire."""
+    table, sels = coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
+    return table, sels, grid_words_plain(flat, CH, Np, gs, gh, gw, D)
+
+
+def _coeff_grid_cuda(flat, CH, Np, Tp, SC, Ts, gs, gh, gw, D):
+    """One launch of coeff_grid_kernel: (table, sels, words)."""
+    _wire16(flat, wire_len16(CH, Np, Tp, SC, Ts), "coeff_grid")
+    if gs < 1 or D < 1:
+        raise ValueError(f"coeff_grid: grid_size {gs} and D {D} must be "
+                         f"positive")
     dev = flat.device
     table = torch.empty((2 * CH * Tp, _TABLE_COLS), dtype=torch.int32,
                         device=dev)
     sels = tuple(torch.empty((CH, SC, Ts), dtype=torch.int32, device=dev)
                  for _ in range(2))
-    fn = cuda_lib.load("prior_kernel").prior_coeff_table
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_longlong, ctypes.c_void_p]
+    words = torch.empty((2 * CH, gh, gw, -(-D // 32)), dtype=torch.int32,
+                        device=dev)
+    fn = cuda_lib.load("prior_kernel").prior_coeff_grid
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    cuda_lib.launch(fn, "coeff_table", flat, flat.data_ptr(),
+    cuda_lib.launch(fn, "coeff_grid", flat, flat.data_ptr(),
                     table.data_ptr(), sels[0].data_ptr(), sels[1].data_ptr(),
-                    CH, Np, Tp, CH * SC * Ts)
-    prior_launches["coeff_table"] += 1
-    return table, sels
+                    words.data_ptr(), CH, Np, Tp, CH * SC * Ts, gs, gh, gw,
+                    D)
+    prior_launches["coeff_grid"] += 1
+    return table, sels, words
 
 
-def _grid_words_cuda(flat, CH, Np, gs, gh, gw, D):
-    _wire16(flat, CH * Np * 3, "grid_words")
-    if gs < 1 or D < 1:
-        raise ValueError(f"grid_words: grid_size {gs} and D {D} must be "
-                         f"positive")
-    out = torch.empty((2 * CH, gh, gw, -(-D // 32)), dtype=torch.int32,
-                      device=flat.device)
-    fn = cuda_lib.load("prior_kernel").prior_grid_words
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cuda_lib.launch(fn, "grid_words", flat, flat.data_ptr(), out.data_ptr(),
-                    CH, Np, gs, gh, gw, D)
-    prior_launches["grid_words"] += 1
-    return out
-
-
-def coeff_table(flat: torch.Tensor, CH: int, Np: int, Tp: int, SC: int,
-                Ts: int):
-    """(table, (sel_left, sel_right)) of a chunk wire (coeff_table_plain's
-    contract): kernel M1, one launch, on a CUDA wire; the plain version on
-    a CPU wire."""
+def coeff_grid(flat: torch.Tensor, CH: int, Np: int, Tp: int, SC: int,
+               Ts: int, gs: int, gh: int, gw: int, D: int):
+    """(table, (sel_left, sel_right), words) of a chunk wire
+    (coeff_grid_plain's contract): kernels M1 and M2 in one launch on a
+    CUDA wire; the plain versions on a CPU wire."""
     if flat.is_cuda:
-        return _coeff_table_cuda(flat, CH, Np, Tp, SC, Ts)
-    return coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
-
-
-def grid_words(flat: torch.Tensor, CH: int, Np: int, gs: int, gh: int,
-               gw: int, D: int) -> torch.Tensor:
-    """Both sides' candidate grid words [2*CH, gh, gw, ceil(D/32)] of a
-    chunk wire (grid_words_plain's contract): kernel M2, one launch, on a
-    CUDA wire; the plain version on a CPU wire."""
-    if flat.is_cuda:
-        return _grid_words_cuda(flat, CH, Np, gs, gh, gw, D)
-    return grid_words_plain(flat, CH, Np, gs, gh, gw, D)
+        return _coeff_grid_cuda(flat, CH, Np, Tp, SC, Ts, gs, gh, gw, D)
+    return coeff_grid_plain(flat, CH, Np, Tp, SC, Ts, gs, gh, gw, D)
 
 
 # ---------------------------------------------------------------------------

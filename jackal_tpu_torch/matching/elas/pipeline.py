@@ -27,8 +27,8 @@ elas_match_stream, keeps only pruning and triangulation on the host:
   2. candidate grids to the host        one copy into pinned memory
   3. pruning, Delaunay, triangle wire   host, C++, on worker threads
   4. one flat int32 wire per chunk      pinned upload on a side stream
-  5. plane fit (float64), slopes,       device, kernels M1 and M2 and
-     candidate grids, raster             C (device_prior.py)
+  5. plane fit (float64), slopes,       device, kernels M1 and M2 (one
+     candidate grids, raster             launch) and C (device_prior.py)
   6. dense matching, both views,        device (kernel B with the L/R
      and the L/R check                  check as its epilogue)
   7. speckle filter, gap fill,          device (post.postprocess_after_lr)
@@ -323,13 +323,13 @@ def _chunk_coeffs(flat: torch.Tensor, CH: int, Np: int, Tp: int, Ts: int,
                   W: int, H: int, params: ElasParams):
     """Per side (coefficient table [CH*Tp, 16], tile lists [CH, S*C, Ts],
     candidate grid words [CH, gh, gw, ceil(D/32)]) of the chunk wire: both
-    sides' tables and tile lists in one call of kernel M1, both sides'
-    grids in one call of kernel M2 (their plain versions on a CPU wire)."""
+    sides' tables, tile lists and grids in one launch of kernels M1 and M2
+    (their plain versions on a CPU wire)."""
     gs = params.grid_size
     SC = -(-H // dp._RASTER_SLAB) * -(-W // dp._RASTER_CTILE)
-    table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
-    words = dp.grid_words(flat, CH, Np, gs, -(-H // gs), -(-W // gs),
-                          params.disp_num)
+    table, sels, words = dp.coeff_grid(flat, CH, Np, Tp, SC, Ts, gs,
+                                       -(-H // gs), -(-W // gs),
+                                       params.disp_num)
     K = CH * Tp
     return [(table[i * K:(i + 1) * K], sels[i], words[i * CH:(i + 1) * CH])
             for i in range(2)]

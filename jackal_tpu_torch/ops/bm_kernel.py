@@ -1,17 +1,22 @@
-"""BM's CUDA kernel G, its wrapper and its plain version.
+"""BM's CUDA kernel G, its wrappers and their plain versions.
 
   bm_match_fused   kernel G   csrc/bm_kernel.cu
+  bm_match_gated   kernel G with kernel S's texture gate and u8 map
+                              folded in (the nodes' BM step)
   bm_match_diag    G'         the same source built with its diagnostic
                               entry: a per-part timing of G
 
 bm_match_fused launches G for CUDA tensors (or raises) and runs its plain
 twin, bm_match_fused_plain, for CPU tensors. Both return what the
 reference package's bm_match_pallas returns: both views' disparities, the
-left one after the L/R check and before the texture gate (kernel S,
-matching/bm.bm_gate_u8, which the pipeline applies next).
-bm_match_diag and strip_width serve chip_smoke.py and the card's tests
-alone. ``launches``
-counts the calls that launched a kernel, by kernel name.
+left one after the L/R check and before the texture gate. bm_match_gated
+(plain twin bm_match_gated_plain) adds the gate and the u8 map: on the
+card inside G's two launches where G's strip takes the shape, else G's
+path without shared memory, then kernel S (matching/bm.bm_gate_u8's
+kernel), chosen by shape before any launch. bm_match_diag and
+strip_width serve chip_smoke.py and the card's tests alone. ``launches``
+counts the calls that launched a kernel, by kernel name ("bm": G, by
+either entry).
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ from typing import Tuple
 import torch
 
 from ..config import BMParams
-from ..matching.bm import WINDOW_MAX, bm_views
+from ..matching.bm import (WINDOW_MAX, _gate_cuda, bm_texture_gate_plain,
+                           bm_views)
 from ..matching.sgm import _lr_tail
 from . import cuda_lib
+from .convert import dmap_u8
 
 launches = {"bm": 0, "bm_diag": 0}
 
@@ -31,10 +38,10 @@ D_MIN = 2                # the least disparity count the kernel takes
 DIAG_MODES = ("full", "onewta", "boxonly", "nobox", "full32")
 
 
-def _fn(lib_name: str, fn_name: str, extra_types):
+def _fn(lib_name: str, fn_name: str, extra_types, u8: bool = False):
     fn = getattr(cuda_lib.load(lib_name), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float] * 2 + list(extra_types) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (5 if u8 else 4) + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] * 2 + list(extra_types) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -82,16 +89,20 @@ def _checked(left_b: torch.Tensor, right_b: torch.Tensor, params: BMParams,
 
 
 def _launch(lib_name, fn_name, left_b, right_b, params, extra,
-            extra_types):
+            extra_types, u8=None):
+    """Launch fn_name(L, R, dl, dr[, u8], B, H, W, D, r, lr_threshold,
+    uniqueness, *extra, stream); returns (dl, dr)."""
     left_b, right_b = _checked(left_b, right_b, params, lib_name)
     B, H, W = left_b.shape
     dl = torch.empty((B, H, W), dtype=torch.float32, device=left_b.device)
     dr = torch.empty_like(dl)
-    cuda_lib.launch(_fn(lib_name, fn_name, extra_types), fn_name, left_b,
-                    left_b.data_ptr(), right_b.data_ptr(), dl.data_ptr(),
-                    dr.data_ptr(), B, H, W, params.disp_num,
-                    params.window // 2, float(params.lr_threshold),
-                    float(params.uniqueness), *extra)
+    maps = (dl.data_ptr(), dr.data_ptr()) + (
+        () if u8 is None else (u8.data_ptr(),))
+    cuda_lib.launch(_fn(lib_name, fn_name, extra_types, u8 is not None),
+                    fn_name, left_b, left_b.data_ptr(), right_b.data_ptr(),
+                    *maps, B, H, W, params.disp_num, params.window // 2,
+                    float(params.lr_threshold), float(params.uniqueness),
+                    *extra)
     return dl, dr
 
 
@@ -119,6 +130,43 @@ def bm_match_fused(left_b: torch.Tensor, right_b: torch.Tensor,
                   (ctypes.c_void_p,))
     launches["bm"] += 1
     return out
+
+
+def bm_match_gated_plain(left_b: torch.Tensor, right_b: torch.Tensor,
+                         params: BMParams = BMParams()
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    dL, dR = bm_match_fused_plain(left_b, right_b, params)
+    dL = bm_texture_gate_plain(left_b, dL, params)
+    return dL, dR, dmap_u8(dL)
+
+
+def bm_match_gated(left_b: torch.Tensor, right_b: torch.Tensor,
+                   params: BMParams = BMParams()
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """uint8 [B, H, W] pairs -> (D_left after the texture gate and the L/R
+    check, D_right, D_left's u8 map): the BM node's step, bm_match_fused
+    followed by the texture gate (matching/bm.bm_texture_gate) and the u8
+    map. On the card G's two launches where its strip takes the shape
+    (strip_width > 0: the texture summed by the strip, the u8 map written
+    by its L/R check); elsewhere G then kernel S, one launch each."""
+    if not left_b.is_cuda:
+        return bm_match_gated_plain(left_b, right_b, params)
+    win = params.window
+    thr = params.texture_threshold * win
+    if not -2 ** 31 <= thr < 2 ** 31:
+        raise ValueError(f"the BM kernel takes an int32 texture_threshold *"
+                         f" window, got {thr}")
+    left_b, right_b = _checked(left_b, right_b, params, "bm_kernel")
+    if strip_width(tuple(left_b.shape), params) == 0:
+        dL, dR = bm_match_fused(left_b, right_b, params)
+        gated, u8 = _gate_cuda(left_b, dL, params, gated=True, u8=True)
+        return gated, dR, u8
+    u8 = torch.empty(left_b.shape, dtype=torch.uint8, device=left_b.device)
+    dl, dr = _launch("bm_kernel", "bm_match_gated", left_b, right_b, params,
+                     (thr,), (ctypes.c_int,), u8)
+    launches["bm"] += 1
+    return dl, dr, u8
 
 
 def strip_width(shape: Tuple[int, int, int], params: BMParams,

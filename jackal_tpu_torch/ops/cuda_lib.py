@@ -32,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HEADERS = ("elas_lr.cuh",)
 # libraries built from another library's source with extra flags: the BM
 # kernel's per-part timing (G') is the BM source with its diagnostic entry;
-# the scan kernels, the prior kernels M1, M2, the SGM tail O1, O2 and the
-# ELAS front (R; A with Q) built without contraction (-fmad=false), whose
+# the scan kernels, the prior kernels M1, M2, the SGM tail O1, O2, the
+# ELAS front (R; A with Q) and the BM kernel G (with S's gate) built
+# without contraction (-fmad=false), whose
 # FFMA and DFMA counts chip_smoke.py holds against the library's own; and
 # kernel R at the band heights that it does not run (tools/
 # time_support_kernel.py --kernel front times them beside its 8 rows)
@@ -44,6 +45,7 @@ VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",)),
             "descriptor_kernel_nofmad": ("descriptor_kernel",
                                          ("-fmad=false",)),
             "support_kernel_nofmad": ("support_kernel", ("-fmad=false",)),
+            "bm_kernel_nofmad": ("bm_kernel", ("-fmad=false",)),
             **{f"descriptor_kernel_band{b}": (
                 "descriptor_kernel", (f"-DDESCRIPTOR_BAND={b}",))
                for b in (4, 16, 32)}}

@@ -13,8 +13,8 @@ and a per-frame function, process_frame. Three engines:
     kernels D, O1, E, F, O2); process_frame runs it on a batch of one, and
     process_batch is process_batch_fused, rectify -> SGM -> scan on the
     whole batch;
-  - "bm": the same on block matching (kernel G, then kernel S, the
-    texture gate and the u8 map).
+  - "bm": the same on block matching (kernel G with the texture gate and
+    the u8 map folded in; past G's strip, G then kernel S).
 
 With PipelineParams(gen_pcl=True) the node exports the point cloud (every
 pixel with d >= 2 as a robot-frame point with its packed colour) and builds
@@ -44,10 +44,9 @@ from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
 from ..geometry.remap import remap_bilinear, remap_bilinear_pair
 from ..geometry.reproject import (compose_rotation_cam_to_robot,
                                   compose_translation_cam_to_robot)
-from ..matching.bm import bm_gate_u8
 from ..matching.elas.pipeline import elas_match, elas_match_batch_device
 from ..matching.sgm import sgm_match_batch
-from ..ops.bm_kernel import bm_match_fused
+from ..ops.bm_kernel import bm_match_gated
 from ..ops.convert import dmap_u8
 from ..scan.obstacle import (ScanResult, cloud_and_scan_from_disparity,
                              obstacle_scan_from_disparity)
@@ -267,11 +266,10 @@ class StereoPipeline:
                      ) -> torch.Tensor:
         """Disparity of rectified uint8 [B, h, w] batches as u8 maps: SGM
         (on the card kernels D, O1, E, F and O2, whose u8 map this is) or
-        BM (kernel G, whose left map has had its L/R check, then kernel S:
-        the texture gate and the u8 map)."""
+        BM (kernel G, whose two launches also apply the texture gate and
+        write the u8 map; past G's strip, G then kernel S)."""
         if self.engine == "bm":
-            dL, _ = bm_match_fused(left_b, right_b, self.bm_params)
-            return bm_gate_u8(left_b, dL, self.bm_params)
+            return bm_match_gated(left_b, right_b, self.bm_params)[2]
         return sgm_match_batch(left_b, right_b, self.sgm_params,
                                device=self.device, u8=True)[2]
 

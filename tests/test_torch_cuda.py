@@ -1891,7 +1891,7 @@ def test_gen_pcl_paths_launch_the_fused_kernel_once(dev):
 # ---- kernels M1 and M2: the batched prior's table and grids --------------
 
 def _prior_on_card(dev, wires, W, H, p):
-    """M1 and M2 on a chunk wire on the card, each one launch, against
+    """M1 and M2 on a chunk wire on the card, one launch for both, against
     their plain versions on the card and _chunk_coeffs on the CPU."""
     from chip_smoke import prior_chunk
     from jackal_tpu_torch.matching.elas import device_prior as dp
@@ -1902,13 +1902,13 @@ def _prior_on_card(dev, wires, W, H, p):
     gs = p.grid_size
     grid = (gs, -(-H // gs), -(-W // gs), p.disp_num)
     n0 = dict(dp.prior_launches)
-    table, sels = dp.coeff_table(card, CH, Np, Tp, SC, Ts)
-    words = dp.grid_words(card, CH, Np, *grid)
-    assert dp.prior_launches == {k: v + 1 for k, v in n0.items()}
+    table, sels, words = dp.coeff_grid(card, CH, Np, Tp, SC, Ts, *grid)
+    assert dp.prior_launches == {"coeff_grid": n0["coeff_grid"] + 1}
     ptable, psels = dp.coeff_table_plain(card, CH, Np, Tp, SC, Ts)
+    pwords = dp.grid_words_plain(card, CH, Np, *grid)
     assert torch.equal(table, ptable)
     assert all(torch.equal(a, b) for a, b in zip(sels, psels))
-    assert torch.equal(words, dp.grid_words_plain(card, CH, Np, *grid))
+    assert torch.equal(words, pwords)
     cpu = ep._chunk_coeffs(torch.from_numpy(flat), CH, Np, Tp, Ts, W, H, p)
     got = ep._chunk_coeffs(card, CH, Np, Tp, Ts, W, H, p)
     for g, c in zip(got, cpu):
@@ -1947,9 +1947,9 @@ def test_prior_kernels_on_the_st320_chunk(dev, chunk, disp_max):
 
 
 def test_chunk_coeffs_is_two_kernels(dev, monkeypatch):
-    """One _chunk_coeffs call on a CUDA wire: M1 and M2 once each, and no
-    ATen op on the card but allocations and views; the plain versions are
-    never reached."""
+    """One _chunk_coeffs call on a CUDA wire: M1 and M2 in one launch, and
+    no ATen op on the card but allocations and views; the plain versions
+    are never reached."""
     from chip_smoke import aten_ops_of_a_call, prior_chunk, prior_edge_case
     from jackal_tpu_torch.matching.elas import device_prior as dp
     from jackal_tpu_torch.matching.elas import pipeline as ep
@@ -1966,7 +1966,7 @@ def test_chunk_coeffs_is_two_kernels(dev, monkeypatch):
     ops = aten_ops_of_a_call(
         lambda: ep._chunk_coeffs(card, CH, Np, Tp, Ts, W, H, p))
     torch.cuda.synchronize()
-    assert dp.prior_launches == {k: v + 1 for k, v in n0.items()}
+    assert dp.prior_launches == {"coeff_grid": n0["coeff_grid"] + 1}
     assert [n for n, ok in ops if not ok] == []
 
 
@@ -1977,14 +1977,15 @@ def test_prior_kernels_refuse_what_they_do_not_take(dev):
     wires, _, W, H, p = prior_edge_case("d > u")
     flat, CH, Np, Tp, Ts, SC = prior_chunk(wires, W, H)
     card = torch.from_numpy(flat).to(dev)
-    with pytest.raises(ValueError, match="coeff_table"):
-        dp.coeff_table(card[:-8], CH, Np, Tp, SC, Ts)
-    with pytest.raises(ValueError, match="coeff_table"):
-        dp.coeff_table(card.long(), CH, Np, Tp, SC, Ts)
-    with pytest.raises(ValueError, match="grid_words"):
-        dp.grid_words(card[:10], CH, Np, 20, 24, 32, 256)
-    with pytest.raises(ValueError, match="grid_words"):
-        dp.grid_words(card, CH, Np, 0, 24, 32, 256)
+    grid = (20, 24, 32, 256)
+    with pytest.raises(ValueError, match="coeff_grid"):
+        dp.coeff_grid(card[:-8], CH, Np, Tp, SC, Ts, *grid)
+    with pytest.raises(ValueError, match="coeff_grid"):
+        dp.coeff_grid(card.long(), CH, Np, Tp, SC, Ts, *grid)
+    with pytest.raises(ValueError, match="coeff_grid"):
+        dp.coeff_grid(card[:10], CH, Np, Tp, SC, Ts, *grid)
+    with pytest.raises(ValueError, match="coeff_grid"):
+        dp.coeff_grid(card, CH, Np, Tp, SC, Ts, 0, 24, 32, 256)
 
 
 # ---- kernels O1, O2 and S: the SGM and BM tails ---------------------------
@@ -2144,10 +2145,12 @@ def test_tail_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.parametrize("engine", ["sgm", "bm"])
 def test_tail_nodes_on_the_card_equal_cpu(dev, engine):
     """The SGM and BM nodes' batched step on the card equals the CPU's,
-    with O1 and O2, or S, launched once a batch, and one call of the
-    engine dispatching no eager op on the card."""
+    with O1 and O2, or G with S's gate folded in (S never), launched once a
+    batch, and one call of the engine dispatching no eager op on the
+    card."""
     from chip_smoke import aten_ops_of_a_call
     from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import bm_kernel as bk
     from jackal_tpu_torch.ops import sgm_kernel as sk
     from jackal_tpu_torch.pipeline.default import make_pipeline
     from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
@@ -2158,7 +2161,7 @@ def test_tail_nodes_on_the_card_equal_cpu(dev, engine):
              for s in range(3)]
     lb = np.stack([p[0] for p in pairs])
     rb = np.stack([p[1] for p in pairs])
-    n0, g0 = dict(sk.launches), bm.launches["bm_gate"]
+    n0, g0, b0 = dict(sk.launches), bm.launches["bm_gate"], bk.launches["bm"]
     got, _ = gpu.process_batch_fused(lb, rb)
     want, _ = cpu.process_batch_fused(lb, rb)
     assert torch.equal(got.cpu(), want)
@@ -2166,7 +2169,9 @@ def test_tail_nodes_on_the_card_equal_cpu(dev, engine):
         assert sk.launches["sgm_cost"] == n0["sgm_cost"] + 1
         assert sk.launches["sgm_epilogue"] == n0["sgm_epilogue"] + 1
     else:
-        assert bm.launches["bm_gate"] == g0 + 1
+        # G applies the texture gate and writes the u8 map: S never runs
+        assert bm.launches["bm_gate"] == g0
+        assert bk.launches["bm"] == b0 + 1
     L, R = gpu._rectify_crop(torch.from_numpy(lb).to(dev),
                              torch.from_numpy(rb).to(dev))
     ops = aten_ops_of_a_call(lambda: gpu._match_batch(L, R))
@@ -2194,3 +2199,97 @@ def test_gate_kernel_on_a_frame_at_an_odd_address(dev, W):
                            bm.bm_gate_u8_plain(aligned, dL, p))
         assert torch.equal(bm.bm_texture_gate(aligned, dL, p),
                            bm.bm_texture_gate_plain(aligned, dL, p))
+
+
+# ---- kernel G with S's texture gate and u8 map folded in ------------------
+
+def _gated_held(left, right, p):
+    """G with the gate (ops/bm_kernel.bm_match_gated) against its plain
+    twin on the card, torch.equal on the gated map, dR and the u8 map; one
+    launch of G, and of S none where G's strip takes the shape, one past
+    it."""
+    from jackal_tpu_torch.matching import bm
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    wide = bk.strip_width(tuple(left.shape), p) == 0
+    n0, s0 = bk.launches["bm"], bm.launches["bm_gate"]
+    got = bk.bm_match_gated(left, right, p)
+    assert bk.launches["bm"] == n0 + 1
+    assert bm.launches["bm_gate"] == s0 + int(wide)
+    want = bk.bm_match_gated_plain(left, right, p)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)
+    return got, wide
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_gated_bm_edges(dev, case):
+    """chip_smoke.GATE_FOLD_CASES: window 1 at W = 65 (a 64-column strip's
+    tail), texture equal to the threshold (a ramp; a constant frame at
+    threshold 0), flat areas, D = 256 (the strip) against D = 257 (G's
+    path without shared memory, then S), windows 225 (the strip) and 227
+    (past its shared memory, then S) at D = 64."""
+    from chip_smoke import GATE_FOLD_CASES, gate_fold_case
+    from jackal_tpu_torch.config import BMParams
+
+    assert len(GATE_FOLD_CASES) == 9
+    name = GATE_FOLD_CASES[case]
+    left, right, kw = gate_fold_case(name)
+    (dl, _, u8), wide = _gated_held(torch.from_numpy(left).to(dev),
+                                    torch.from_numpy(right).to(dev),
+                                    BMParams(**kw))
+    assert wide == ("G then S" in name)
+    if "constant" not in name:
+        assert bool((u8 > 0).any()) and bool((dl == -1).any())
+
+
+@pytest.mark.parametrize("preset", ["node", "config 5", "bench_bm256"])
+def test_gated_bm_at_the_presets(dev, preset):
+    """G with the gate at the BM node's shape (B = 1), BASELINE config 5's
+    (B = 32, D = 64) and bench_bm256's (B = 16, D = 256) on the golden
+    frames, alternated; each on G's strip (S never)."""
+    from jackal_tpu_torch.config import BMParams
+
+    B, D = {"node": (1, 64), "config 5": (32, 64),
+            "bench_bm256": (16, 256)}[preset]
+    g = [np.load(f"{FIX}/elas_golden_{f}.npz") for f in ("s640_boxes",
+                                                         "photo")]
+    left, right = (torch.from_numpy(np.stack([g[i % 2][k] for i in range(B)]))
+                   .to(dev) for k in ("left", "right"))
+    (dl, _, u8), wide = _gated_held(left, right, BMParams(disp_num=D))
+    assert not wide and u8.shape == (B, 480, 640)
+    assert 0.3 < float((u8 > 0).float().mean()) < 1.0
+    torch.cuda.empty_cache()
+
+
+def test_gated_bm_on_cropped_views_and_an_odd_address(dev):
+    """A batch that is a cropped view of a larger one (not contiguous) and
+    frames one byte into their buffer: the wrapper copies or reads them as
+    they lie, with the same maps as the plain twin."""
+    from jackal_tpu_torch.config import BMParams
+
+    rng = np.random.default_rng(77)
+    big = rng.integers(0, 256, (2, 50, 210)).astype(np.uint8)
+    left = torch.from_numpy(big).to(dev)[:, 5:45, 3:203]
+    right = torch.from_numpy(np.roll(big, -4, axis=2)).to(dev)[:, 5:45,
+                                                             3:203]
+    assert not left.is_contiguous()
+    p = BMParams(disp_num=32, texture_threshold=60)
+    _gated_held(left, right, p)
+    buf = torch.from_numpy(rng.integers(0, 256, 2 * 40 * 200 + 1).astype(
+        np.uint8)).to(dev)
+    _gated_held(buf[1:].view(2, 40, 200), left.contiguous(), p)
+
+
+def test_gated_bm_refuses_what_it_does_not_take(dev):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_kernel as bk
+
+    img = torch.zeros((1, 8, 24), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="texture_threshold"):
+        bk.bm_match_gated(img, img, BMParams(texture_threshold=2 ** 28))
+    with pytest.raises(ValueError, match="window"):
+        bk.bm_match_gated(img, img, BMParams(window=8))
+    with pytest.raises(ValueError, match="uint8"):
+        bk.bm_match_gated(img.float(), img, BMParams())

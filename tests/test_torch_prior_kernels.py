@@ -1,5 +1,6 @@
-"""Kernels M1 and M2 of the batched ELAS prior (csrc/prior_kernel.cu): their
-plain versions, device_prior.coeff_table_plain and grid_words_plain, and
+"""Kernels M1 and M2 of the batched ELAS prior (csrc/prior_kernel.cu, one
+launch): their plain versions, device_prior.coeff_table_plain and
+grid_words_plain (together coeff_grid on a CPU wire), and
 the chunk tail's _chunk_coeffs on a CPU wire == the reference's coeffs
 program (jackal_tpu/matching/elas/pipeline.py _raster_chunk, its jitted
 coeffs under x64) bit for bit: the coefficient table after the port's
@@ -100,8 +101,8 @@ def test_plain_kernels_and_chunk_coeffs_equal_jax(name):
     gs = p.grid_size
     gh, gw = -(-H // gs), -(-W // gs)
     n0 = dict(dp.prior_launches)
-    table, sels = dp.coeff_table(ft, CH, Np, Tp, SC, Ts)
-    words = dp.grid_words(ft, CH, Np, gs, gh, gw, p.disp_num)
+    table, sels, words = dp.coeff_grid(ft, CH, Np, Tp, SC, Ts, gs, gh, gw,
+                                       p.disp_num)
     assert dp.prior_launches == n0          # CPU tensors: the plain versions
     assert table.dtype == torch.int32 and table.shape == (2 * CH * Tp, 16)
     assert words.shape == (2 * CH, gh, gw, -(-p.disp_num // 32))
@@ -130,8 +131,8 @@ def test_two_row_grid_is_empty_where_the_reference_raises():
     flat, CH, Np, Tp, Ts, SC = prior_chunk(wires, W, H)
     gs = p.grid_size
     assert (-(-H // gs), -(-W // gs)) == (2, 8)
-    words = dp.grid_words(torch.from_numpy(flat), CH, Np, gs, 2, 8,
-                          p.disp_num)
+    words = dp.coeff_grid(torch.from_numpy(flat), CH, Np, Tp, SC, Ts, gs,
+                          2, 8, p.disp_num)[2]
     assert words.shape == (2, 2, 8, 2) and not bool(words.any())
     for right in (False, True):
         assert not build_grid_native(sps[0], W, H, right, p).any()

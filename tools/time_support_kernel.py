@@ -8,7 +8,7 @@ fused or after it), the
 batched ELAS prior's coefficients and grids (M1, M2) or the SGM and BM
 tails (the cost volume O1, the epilogue O2, the texture gate S); or the
 per-frame ELAS node routed per frame and through the batched path at
-B = 1.
+B = 1; or the BM and SGM nodes' streams (--kernel stream).
 
     python3 tools/time_support_kernel.py --repo DIR [--kernel support]
                                          [--reps 50]
@@ -65,8 +65,10 @@ tests/fixtures and a seed:
   node's size (CH 8, Np 1536, Tp 3072): on the host clock (a synchronize
   after each call, median of 21) the stage pipeline._chunk_coeffs, as the
   checkout's batched path runs it (eager torch in a checkout from before
-  kernels M1 and M2); where the checkout has them, M1 (coeff_table) and M2
-  (grid_words) alone on CUDA events, each held equal to its plain version;
+  kernels M1 and M2); on CUDA events, where the checkout has them as two
+  launches, M1 (coeff_table) and M2 (grid_words) alone and one after the
+  other, and where it has their one launch (coeff_grid), that launch,
+  each held equal to its plain version;
 - route: the per-frame ELAS node's 9 frames (chip_smoke phase 4's seeded
   raw pairs, make_pipeline(engine="elas") at 640x480), host clock a frame
   (a synchronize after each call; 3 rounds after a warm-up round, the
@@ -86,6 +88,15 @@ tests/fixtures and a seed:
   and the fused kernel with their points staged in shared memory and
   written with 16-byte stores (a block's, a warp's) are held equal to the
   kernels bit for bit and timed beside them;
+- stream: the BM node (D = 64) and the SGM node at 640x480 on chip_smoke
+  phase 7b's and 6c's nine seeded raw pairs, on the host clock (a
+  synchronize around each run): StreamingRunner over 48 frames, at batch
+  8 (BM) and 4 (SGM), --reps runs after a warm-up, each run's depth maps
+  held equal to process_frame's; process_frame over the nine pairs thrice
+  (median) and process_batch_fused at the stream's batch (median of 21);
+  on the rectified batch, the node's match step (_match_batch) on CUDA
+  events and the host ms a call takes to queue it (behind a spin, median
+  of 5 rounds of 20 calls);
 - tail: the first golden pair at the SGM node's shape (B = 1, D = 64) and
   BASELINE config 3's seeded batch (B = 4, 1280x960), census codes from
   kernel D: on the host clock (a synchronize after each call, median of
@@ -96,7 +107,9 @@ tests/fixtures and a seed:
   with kernel G's maps: the texture gate + u8 stage as the checkout's
   _match_batch runs it (eager torch before kernel S); where the checkout
   has them, O1, O2 and S alone on CUDA events, each held equal to its
-  plain version.
+  plain version; G then S on CUDA events (G's maps, then the gate's u8
+  map) and, where the checkout has it, G with S's work folded in
+  (bm_match_gated), held equal to its plain twin.
 Each call is held equal to its plain version on those inputs (post: bit
 for bit, as int32). Run it on
 two checkouts in one call, in the order A, B, B, A, to compare two
@@ -240,8 +253,9 @@ def time_coeffs(left, right, params, reps):
 
     dev = torch.device("cuda", 0)
     _, H, W = left.shape
-    kernels = hasattr(dp, "coeff_table")
-    res = {"kernels_m1_m2": kernels}
+    fused = hasattr(dp, "coeff_grid")
+    kernels = fused or hasattr(dp, "coeff_table")
+    res = {"kernels_m1_m2": kernels, "one_launch": fused}
     _, _, dc = ep._front(torch.from_numpy(left).to(dev),
                          torch.from_numpy(right).to(dev), params)
     dcan = dc.cpu().numpy()
@@ -259,19 +273,33 @@ def time_coeffs(left, right, params, reps):
         res[f"{label}_pads"] = [Np, Tp, Ts]
         res[f"{label}_stage_ms"] = host_ms(
             lambda: ep._chunk_coeffs(flat, CH, Np, Tp, Ts, Wc, Hc, p), 21)
-        if kernels:
-            SC = prior_chunk(ws, Wc, Hc)[5]
-            gs = p.grid_size
-            grid = (gs, -(-Hc // gs), -(-Wc // gs), p.disp_num)
-            table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
-            want = dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
-            _held(f"M1 {label}", [table, *sels], [want[0], *want[1]])
-            _held(f"M2 {label}", [dp.grid_words(flat, CH, Np, *grid)],
-                  [dp.grid_words_plain(flat, CH, Np, *grid)])
-            res[f"{label}_m1_ms"] = events_ms(
-                lambda: dp.coeff_table(flat, CH, Np, Tp, SC, Ts), reps)
-            res[f"{label}_m2_ms"] = events_ms(
-                lambda: dp.grid_words(flat, CH, Np, *grid), reps)
+        if not kernels:
+            continue
+        SC = prior_chunk(ws, Wc, Hc)[5]
+        gs = p.grid_size
+        grid = (gs, -(-Hc // gs), -(-Wc // gs), p.disp_num)
+        want = dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
+        want = [want[0], *want[1], dp.grid_words_plain(flat, CH, Np, *grid)]
+        if fused:
+            args = (flat, CH, Np, Tp, SC, Ts, *grid)
+            table, sels, words = dp.coeff_grid(*args)
+            _held(f"M1 and M2 {label}", [table, *sels, words], want)
+            res[f"{label}_m1m2_ms"] = events_ms(lambda: dp.coeff_grid(*args),
+                                                reps)
+            continue
+        table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
+        words = dp.grid_words(flat, CH, Np, *grid)
+
+        def m1():
+            return dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
+
+        def m2():
+            return dp.grid_words(flat, CH, Np, *grid)
+
+        _held(f"M1 and M2 {label}", [table, *sels, words], want)
+        res[f"{label}_m1_ms"] = events_ms(m1, reps)
+        res[f"{label}_m2_ms"] = events_ms(m2, reps)
+        res[f"{label}_m1_then_m2_ms"] = events_ms(lambda: (m1(), m2()), reps)
     return res
 
 
@@ -318,6 +346,92 @@ def time_route():
         res[name] = {"median_ms": statistics.median(times),
                      "min_ms": min(times), "max_ms": max(times),
                      "n": len(times)}
+    return res
+
+
+def _queue_ms(fn, reps):
+    """Host ms a call of fn() takes to queue its work: reps calls queued
+    behind a spin kernel of about 50 ms, so that no call waits on the
+    card."""
+    import time
+
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_stream(rounds):
+    import statistics
+    import time
+
+    import torch
+    from jackal_tpu_torch.config import BMParams, PipelineParams
+    from jackal_tpu_torch.io_bus.bus import TopicBus
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+    from jackal_tpu_torch.pipeline.runner import TOPIC_DEPTH, StreamingRunner
+    from jackal_tpu_torch.pipeline.synthetic import synthetic_raw_pair
+
+    dev = torch.device("cuda", 0)
+    size = dict(im_width=640, im_height=480, crop_im_width=640,
+                crop_im_height=480)
+    res = {}
+    n_frames = 48
+    for engine, batch, every in (("bm", 8, 3), ("sgm", 4, 4)):
+        kw = {"bm_params": BMParams(disp_num=64)} if engine == "bm" else {}
+        pipe = make_pipeline(engine=engine, params=PipelineParams(**size),
+                             device=dev, **kw)
+        pairs = [synthetic_raw_pair(pipe, s, 8.0 + 5 * s, 0.03 * (s % 3))
+                 for s in range(9)]
+        pipe.process_frame(*pairs[0])                   # warm-up
+        want = [pipe.process_frame(lr, rr).dmap for lr, rr in pairs]
+        stream = [pairs[i % len(pairs)] for i in range(n_frames)]
+        bus = TopicBus()
+        depth = []
+        bus.subscribe(TOPIC_DEPTH, depth.append)
+        runner = StreamingRunner(pipe, bus, batch_size=batch,
+                                 stage_sample_every=every)
+        runner.run(iter(stream[:2 * batch]))            # warm-up
+        fps = []
+        for _ in range(rounds):
+            depth.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = runner.run(iter(stream))
+            torch.cuda.synchronize()
+            fps.append(n / (time.perf_counter() - t))
+            if n != n_frames or len(depth) != n_frames or not all(
+                    np.array_equal(m.data, want[i % len(pairs)])
+                    for i, m in enumerate(depth)):
+                raise AssertionError(f"{engine} stream != process_frame")
+        lb = np.stack([pairs[i % len(pairs)][0] for i in range(batch)])
+        rb = np.stack([pairs[i % len(pairs)][1] for i in range(batch)])
+        frame = [host_ms(lambda lr=lr, rr=rr: pipe.process_frame(lr, rr), 1)
+                 for _ in range(3) for lr, rr in pairs]
+        lt, rt = pipe._rectify_crop(torch.from_numpy(lb).to(dev),
+                                    torch.from_numpy(rb).to(dev))
+
+        def match():
+            return pipe._match_batch(lt, rt)
+        res[engine] = {
+            "batch": batch, "frames": n_frames, "stream_fps": fps,
+            "stream_fps_median": statistics.median(fps),
+            "frame_ms_median": statistics.median(frame),
+            "batch_ms_median": host_ms(
+                lambda: pipe.process_batch_fused(lb, rb), 21),
+            "match_device_ms": events_ms(match, 20),
+            "match_queue_ms": statistics.median(
+                _queue_ms(match, 20) for _ in range(5))}
+        del pipe, runner
+        torch.cuda.empty_cache()
     return res
 
 
@@ -467,11 +581,19 @@ def time_tail(left, right, reps):
                   [bm.bm_gate_u8_plain(li, dL, pb),
                    bm.bm_texture_gate_plain(li, dL, pb)])
             res[f"S_ms_{label}"] = events_ms(stage, reps)
+            res[f"G_then_S_ms_{label}"] = events_ms(lambda: bm.bm_gate_u8(
+                li, bk.bm_match_fused(li, ri, pb)[0], pb), reps)
         else:
             def stage():
                 return torch.clamp(torch.round(bm.bm_texture_gate(
                     li, dL, pb)), 0, 255).to(torch.uint8)
         res[f"gate_stage_ms_{label}"] = host_ms(stage, 21)
+        if hasattr(bk, "bm_match_gated"):
+            _held(f"G with the gate {label}", bk.bm_match_gated(li, ri, pb),
+                  bk.bm_match_gated_plain(li, ri, pb))
+            res[f"G_gated_ms_{label}"] = events_ms(
+                lambda: bk.bm_match_gated(li, ri, pb), reps)
+        torch.cuda.empty_cache()
     return res
 
 
@@ -716,7 +838,7 @@ def main() -> int:
     ap.add_argument("--kernel", default="support",
                     choices=("support", "dense", "census", "bm", "post",
                              "speckle", "remap", "scan", "front",
-                             "coeffs", "route", "tail"))
+                             "coeffs", "route", "tail", "stream"))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -751,6 +873,8 @@ def main() -> int:
         res.update(time_coeffs(left, right, params, args.reps))
     elif args.kernel == "route":
         res.update(time_route())
+    elif args.kernel == "stream":
+        res.update(time_stream(args.reps))
     elif args.kernel == "tail":
         res.update(time_tail(left, right, args.reps))
     elif args.kernel == "post":
