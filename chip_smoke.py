@@ -1049,8 +1049,8 @@ CENSUS_OPS_UNPACKED = 48
 def sgm_stages(pipe, left, right) -> dict:
     """Host-clock times (median of 5) of the SGM engine's stages, each
     alone, on rectified uint8 [B, H, W] batches, the scan on the map: the
-    kernels D, O1, E, F, O2 and P1, and O1's and O2's plain versions beside
-    them."""
+    kernels D, O1, E, F with O2 folded in (the path's) and P1, F and O2
+    alone, and O1's and O2's plain versions beside them."""
     import torch
     from jackal_tpu_torch.ops import sgm_kernel as sk
 
@@ -1069,10 +1069,12 @@ def sgm_stages(pipe, left, right) -> dict:
         lambda: sk.aggregate_paths_bhdw(cost, p), 5)
     S = sk.aggregate_paths_bhdw(cost, p)
     del cost
-    st["WTA maps (kernel F)"] = host_ms(lambda: sk.sgm_wta_maps(S), 5)
+    st["WTA maps + epilogue + u8 (F with O2 folded in, one launch; the "
+       "path's)"] = host_ms(lambda: sk.sgm_wta_epilogue(S, p, u8=True), 5)
+    st["WTA maps (kernel F alone)"] = host_ms(lambda: sk.sgm_wta_maps(S), 5)
     m = sk.sgm_wta_maps(S)
     del S
-    st["epilogue (kernel O2: uniqueness, sub-pixel, L/R, u8)"] = host_ms(
+    st["epilogue (kernel O2 alone: uniqueness, sub-pixel, L/R, u8)"] = host_ms(
         lambda: sk.sgm_epilogue(m, None, D, p, u8=True), 5)
     st["epilogue, plain version"] = host_ms(
         lambda: sk.sgm_epilogue_plain(m, None, D, p, u8=True), 5)
@@ -1187,9 +1189,10 @@ def sgm_phase(dev, hold):
     def counted(label, fn, rect):
         """fn() with the counters of D, O1, E, F, O2, N and P1-P3 set to 0
         just before and read just after: (its result, the counts of D, O1,
-        E, F, O2); raises if D, E or F was launched no time, or O1, O2, N
-        (rectify, both views in one launch) and P1 (the scan) other than
-        ``rect`` times (once a frame or a batch), P2 or P3 at all."""
+        E, F, O2); raises if D or E was launched no time, or O1, F (with
+        O2 folded in), N (rectify, both views in one launch) and P1 (the
+        scan) other than ``rect`` times (once a frame or a batch), O2, P2
+        or P3 at all."""
         for k in sk.launches:
             sk.launches[k] = 0
         remap.launches["remap"] = 0
@@ -1199,12 +1202,13 @@ def sgm_phase(dev, hold):
         n = dict(sk.launches)
         nr = remap.launches["remap"]
         print(f"6c. launches of {label}: {n}, kernel N (rectify) {nr}")
-        if min(n.values()) == 0:
+        if min(v for k, v in n.items() if k != "sgm_epilogue") == 0:
             raise AssertionError(f"{label} bypassed a kernel: {n}")
-        if nr != rect or n["sgm_cost"] != rect or n["sgm_epilogue"] != rect:
-            raise AssertionError(f"{label}: kernels N, O1, O2 launched "
-                                 f"{nr}, {n['sgm_cost']}, "
-                                 f"{n['sgm_epilogue']} times, not {rect}")
+        if nr != rect or any(n[k] != rect for k in ("sgm_cost", "sgm_wta")) \
+                or n["sgm_epilogue"] != 0:
+            raise AssertionError(f"{label}: kernels N, O1, F (with O2 "
+                                 f"folded in), O2 launched {nr}, {n}, not "
+                                 f"{rect}, {rect}, {rect}, 0")
         return out, n
 
     pipe.process_frame(*pairs[0])                       # warm-up
@@ -1427,16 +1431,25 @@ def sgm_phase(dev, hold):
     tail = {"node": (lt, rt), "node batch": pipe._rectify_crop(
         torch.from_numpy(lb).to(dev), torch.from_numpy(rb).to(dev)),
             "config 3": (L3, R3), "golden": (gl, gr),
-            "node launches": launches}
+            "node launches": launches,
+            # F's entry: its times come from phase 17, F as the node runs
+            # it, with O2 folded in
+            "entry": {"name": "sgm_wta", "route": "cuda",
+                      "source": "jackal_tpu_torch/csrc/sgm_wta_kernel.cu",
+                      "replaces": "jackal_tpu/ops/pallas/sgm_kernel.py:415",
+                      "launches": launches["sgm_wta"],
+                      "alone_ms": out["sgm_wta"][0],
+                      "alone_plain_ms": out["sgm_wta"][1],
+                      "alone_bound_ms": out["sgm_wta"][2],
+                      "library_ms": None}}
     srcs = {"census": ("census_kernel", 327), "sgm_paths":
-            ("sgm_paths_kernel", 64), "sgm_wta": ("sgm_wta_kernel", 415)}
+            ("sgm_paths_kernel", 64)}
     return [{"name": k, "route": "cuda",
              "source": f"jackal_tpu_torch/csrc/{srcs[k][0]}.cu",
              "replaces": f"jackal_tpu/ops/pallas/sgm_kernel.py:{srcs[k][1]}",
              "launches": launches[k], "ms": out[k][0], "plain_ms": out[k][1],
              "bound_ms": out[k][2], "bound_by": out[k][3],
-             "library_ms": None} for k in ("census", "sgm_paths", "sgm_wta")
-            ], tail
+             "library_ms": None} for k in ("census", "sgm_paths")], tail
 
 
 def bm_work(B, H, W, D):
@@ -2080,10 +2093,13 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
             dmaps, scans, closest = step(lb, rb)
             torch.cuda.synchronize()
             counts = dict(zip((k for _, k in keys), read()))
-            # S never on BM's shards: G's strip applies the gate
-            if counts != {k: 0 if k == "bm_gate" else n for _, k in keys}:
+            # S never on BM's shards: G's strip applies the gate; O2 never
+            # on SGM's: F's launch carries its epilogue
+            if counts != {k: 0 if k in ("bm_gate", "sgm_epilogue") else n
+                          for _, k in keys}:
                 raise AssertionError(f"DP {engine} on {n} ranks launched "
-                                     f"{counts}, not once a shard (S never)")
+                                     f"{counts}, not once a shard (S and O2 "
+                                     f"never)")
             _same(f"DP {engine} {n} dmaps", gather(dmaps), wd)
             got = gather(scans)
             for f in fields:
@@ -4454,6 +4470,35 @@ def prior_held(hold, label, flat, CH, Np, Tp, Ts, W, H, params):
     return table, sels, words
 
 
+def prior_parts_call(flat, CH, Np, Tp, SC, Ts, gs, gh, gw, D, parts):
+    """M1's blocks (parts 1), M2's (2) or both (3) of coeff_grid's one
+    launch through the build variant prior_kernel_parts (to time them
+    apart; no path runs it, no counter counts it): (table, sels, words),
+    the outputs of a part not launched left as allocated."""
+    import ctypes
+
+    import torch
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.ops import cuda_lib
+
+    dev = flat.device
+    table = torch.empty((2 * CH * Tp, dp._TABLE_COLS), dtype=torch.int32,
+                        device=dev)
+    sels = tuple(torch.empty((CH, SC, Ts), dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    words = torch.empty((2 * CH, gh, gw, -(-D // 32)), dtype=torch.int32,
+                        device=dev)
+    fn = cuda_lib.load("prior_kernel_parts").prior_coeff_grid_parts
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "prior_coeff_grid_parts", flat, flat.data_ptr(),
+                    table.data_ptr(), sels[0].data_ptr(), sels[1].data_ptr(),
+                    words.data_ptr(), CH, Np, Tp, CH * SC * Ts, gs, gh, gw, D,
+                    parts)
+    return table, sels, words
+
+
 def prior_work(flat, table, CH, Np, Tp, SC, Ts, gh, gw, D):
     """(M1's (bytes, float64 operations, float32 operations), M2's bytes,
     the grid words' bytes) of one call on this chunk wire (a CUDA tensor)
@@ -4515,9 +4560,12 @@ def prior_phase(dev, hold, chunks, launches):
     same source built with -fmad=false (no contraction: the FMAs left are
     those inside the divisions); (d) at the batched node's chunk its time
     against its bound and against M2's part of the work alone
-    (prior_work), beside the plain versions' times, a time below a bound
-    failing; the kernels line's grid_words entry carries the launch's
-    time (ms_of). chunks: [(label, flat on the card, CH,
+    (prior_work), beside the plain versions' times, and M1's blocks (two
+    lanes a table row) and M2's each launched alone through the
+    build variant prior_kernel_parts (prior_parts_call, held to the plain
+    versions first) against their bounds, a time below a bound failing;
+    the kernels line's grid_words entry carries the launch's time
+    (ms_of). chunks: [(label, flat on the card, CH,
     Np, Tp, Ts, W, H, params)], the batched node's first; launches: the
     launch's count on the batched node (phase 4b). Returns (the phase's
     JSON line, the kernels line's entries)."""
@@ -4575,6 +4623,25 @@ def prior_phase(dev, hold, chunks, launches):
                                         Np, Tp, SC, Ts, gh, gw,
                                         params.disp_num)
     ms = events_ms(lambda: dp.coeff_grid(*args), 50)
+    # each part's blocks alone (the build variant), held first
+    ptable, psels = dp.coeff_table_plain(flat, CH, Np, Tp, SC, Ts)
+    t1, s1, _ = prior_parts_call(*args, 1)
+    hold("coeff_table", f"M1's blocks alone {label}", [t1, *s1],
+         [ptable, *psels])
+    hold("grid_words", f"M2's blocks alone {label}",
+         [prior_parts_call(*args, 2)[2]],
+         [dp.grid_words_plain(flat, CH, Np, *grid)])
+    parts = {k: events_ms(lambda: prior_parts_call(*args, n), 50)
+             for k, n in (("m1_blocks_ms", 1), ("m2_blocks_ms", 2))}
+    m1_bound = prior_bound_ms(b1, f64, f32)
+    print(f"16d. at {label}: M1's blocks alone {parts['m1_blocks_ms']:.5f} "
+          f"ms (bound {m1_bound[0]:.6f} by {m1_bound[1]}: {b1} bytes; "
+          f"{parts['m1_blocks_ms'] / m1_bound[0]:.1f}x), M2's blocks alone "
+          f"{parts['m2_blocks_ms']:.5f} (bound {prior_bound_ms(b2)[0]:.6f});"
+          f" the launch {ms:.5f}")
+    if parts["m1_blocks_ms"] < m1_bound[0] \
+            or parts["m2_blocks_ms"] < prior_bound_ms(b2)[0]:
+        raise AssertionError(f"16d. a part below its bound: {parts}")
     runs = (("coeff_table", lambda: dp.coeff_grid_plain(*args),
              prior_bound_ms(b1 + bw, f64, f32),
              f"{b1 + bw} bytes, {f64} float64 and {f32} float32 "
@@ -4586,6 +4653,11 @@ def prior_phase(dev, hold, chunks, launches):
         pms = events_ms(plain, 3, spin=False)
         times[k] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                     "bound_by": by, "work": work}
+        if k == "coeff_table":
+            times[k].update(m1_blocks_ms=parts["m1_blocks_ms"],
+                            m1_bound_ms=m1_bound[0])
+        else:
+            times[k]["m2_blocks_ms"] = parts["m2_blocks_ms"]
         print(f"16d. {k} at {label} (Np {Np}, Tp {Tp}, Ts {Ts}): the one "
               f"launch {ms:.5f} ms a call (CUDA events behind a spin; plain"
               f" {pms:.3f}; bound {bms:.6f} by {by}: {work}; "
@@ -4608,7 +4680,8 @@ def prior_phase(dev, hold, chunks, launches):
             "launches": launches[PRIOR_LAUNCH] if k == "coeff_table" else 0,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, **extra})
+            "library_ms": None, **extra,
+            **{m: t[m] for m in ("m1_blocks_ms", "m2_blocks_ms") if m in t}})
     stage = {"kernels": host_ms(lambda: ep._chunk_coeffs(
         flat, CH, Np, Tp, Ts, W, H, params), 21),
              "plain": host_ms(lambda: dp.coeff_grid_plain(*args), 5)}
@@ -4858,6 +4931,113 @@ def gated_work(B: int, H: int, W: int, D: int):
     return nb + px, ops + 4 * px
 
 
+# F with O2 folded in (ops/sgm_kernel.sgm_wta_epilogue): its shapes
+# (tests/test_torch_cuda.py runs them too; the CPU's
+# tests/test_torch_sgm_fold.py holds the plain twin to the JAX package's
+# sgm_match on them). (kind, B, H, W, D): "frames", a seeded pair whose
+# volume kernels D, O1 and E make (their plain versions on the CPU), or
+# "volume", a seeded volume of values 0..7 with ties (a disparity planted a
+# row, its neighbour at best_d + 1 equal to it in half the columns: offsets
+# of exactly 0.5). The "(F then O2)" shapes lie past the fold
+# (sgm_tail_route).
+FOLD_CASES = {
+    "W = 300, D = 64: lookups across the tiles' edges":
+        ("frames", 1, 6, 300, 64),
+    "W = 301, D = 48: W % 8 != 0": ("frames", 2, 5, 301, 48),
+    "W = 40 < D = 64": ("frames", 1, 7, 40, 64),
+    "D = 2": ("frames", 2, 6, 50, 2),
+    "ties and half-way offsets: values 0..7, D = 24":
+        ("volume", 2, 5, 140, 24),
+    "D = 96 (F then O2: the fold slower)": ("frames", 1, 4, 300, 96),
+    "D = 200 (F then O2: the fold slower)": ("frames", 1, 4, 300, 200),
+    "D = 256 (F then O2: the fold slower)": ("frames", 1, 4, 300, 256),
+    "D = 320 (F then O2: F's second path)": ("frames", 1, 3, 300, 320),
+}
+
+
+def fold_inputs(name):
+    """(kind, a, b, D) of a FOLD_CASES case: a seeded uint8 [B, H, W] pair
+    (the right frame the left one shifted by D / 3 columns, its texture
+    rows noisy and flat), or ("volume", S int16 [B, H, D, W], None, D)."""
+    kind, B, H, W, D = FOLD_CASES[name]
+    rng = np.random.default_rng(2700 + list(FOLD_CASES).index(name))
+    if kind == "volume":
+        # values 0..7, and a row's disparity planted at 0..2 in 80 % of
+        # the columns, its neighbour at d + 1 equal to it in half of those
+        S = rng.integers(3, 8, (B, H, D, W))
+        d0 = rng.integers(1, D - 2, (B, H))
+        bi, hi = np.meshgrid(np.arange(B), np.arange(H), indexing="ij")
+        best = rng.integers(0, 3, (B, H, W))
+        plant = rng.random((B, H, W)) < 0.8
+        tie = plant & (rng.random((B, H, W)) < 0.5)
+        for d, keep in ((d0, plant), (d0 + 1, tie)):
+            cur = S[bi, hi, d]
+            S[bi, hi, d] = np.where(keep, best, cur)
+        return kind, S.astype(np.int16), None, D
+    shift = max(D // 3, 1)
+    frame = rng.integers(0, 256, (B, H, W + shift)).astype(np.uint8)
+    frame[:, ::3] = (np.arange(W + shift) // 5 * 37 % 256).astype(np.uint8)
+    return (kind, np.ascontiguousarray(frame[:, :, shift:]),
+            np.ascontiguousarray(frame[:, :, :W]), D)
+
+
+def fold_volume(left, right, p, true_right=False):
+    """The aggregated volume S [B, H, D, W] (and, with true_right, the
+    right view's) of uint8 [B, H, W] tensors on their device, as
+    sgm_match_batch makes them: kernels D, O1, E (the plain versions on
+    the CPU)."""
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    B, D = left.shape[0], p.disp_num
+    codes = sk.census5x5_pair(left, right)
+    costs = sk.sgm_cost_volume(codes[:B], codes[B:], D, true_right)
+    if not true_right:
+        return sk.aggregate_paths_bhdw(costs, p)
+    return tuple(sk.aggregate_paths_bhdw(c, p) for c in costs)
+
+
+def fold_held(hold, label, S, p, S_right=None):
+    """sgm_wta_epilogue on the card against its plain twin on the card
+    (torch.equal: dL, dR and the u8 map), with and without the u8 map; its
+    launches pinned to the route sgm_tail_route names: F with O2 folded in
+    once a call (O2 never), or F (twice a call for true_right) then O2.
+    Returns the route."""
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    route = sk.sgm_tail_route(tuple(S.shape), S_right is not None)
+    keys = ("sgm_wta", "sgm_epilogue")
+    n0 = {k: sk.launches[k] for k in keys}
+    for u8 in (False, True):
+        hold("sgm_wta", f"sgm_wta_epilogue {label} u8={u8}",
+             sk.sgm_wta_epilogue(S, p, u8, S_right),
+             sk.sgm_wta_epilogue_plain(S, p, u8, S_right))
+    got = {k: sk.launches[k] - n0[k] for k in keys}
+    nF = 2 if S_right is None else 4
+    want = ({"sgm_wta": 2, "sgm_epilogue": 0} if route == "fold" else
+            {"sgm_wta": nF, "sgm_epilogue": 2})
+    if got != want:
+        raise AssertionError(f"sgm_wta_epilogue {label} ({route}): "
+                             f"launches {got}, not {want}")
+    return route
+
+
+def fold_bound(B: int, H: int, W: int, D: int, int_rate: float):
+    """(ms, "bytes" or "operations", bytes, integer and float32
+    operations) of the least time F with O2 folded in can take on [B, H,
+    W] frames: the volume read once, dL, dR and the u8 map written once,
+    2 D + 9 bytes a pixel, over the HBM rate; or F's integer work
+    (sgm_work) at the integer rate plus O2's 14 float32 operations a pixel
+    (tail_work) at the float32 rate."""
+    px = B * H * W
+    nb, int_ops = sgm_work("sgm_wta", B, H, W, D)
+    nb += (9 - 20) * px
+    f32_ops = tail_work("sgm_epilogue", B, H, W)[1]
+    tb = nb / PEAK_BYTES_PER_S * 1e3
+    to = (int_ops / int_rate + f32_ops / PEAK_F32_OPS_PER_S) * 1e3
+    return (max(tb, to), "bytes" if tb >= to else "operations", nb,
+            int_ops, f32_ops)
+
+
 def tail_phase(dev, hold, sgm_in, bm_in):
     """Phase 17: kernels O1 (the SGM cost volume), O2 (the SGM epilogue
     and u8 map) and S (the BM texture gate and u8 map). (a) each against
@@ -4880,9 +5060,17 @@ def tail_phase(dev, hold, sgm_in, bm_in):
     (tail_work, gated_work) at the node's shape and at config 3's (O1, O2)
     or config 5's and bench_bm256's (G with the gate, beside G alone and
     G then S in the same run; S alone, also at D = 320), a time below its
-    bound failing. sgm_in, bm_in: what phases 6 and 7 return. Returns (the
-    phase's JSON line, the kernels line's entries: O1, O2, S and G as the
-    node runs it, with the gate)."""
+    bound failing. F with O2 folded in (sgm_wta_epilogue, the SGM engine's
+    tail on the card): (a) against its plain twin with its
+    launches pinned (fold_held) on phase 6's golden pair (D = 64 and 128,
+    true_right: F then O2), node frames, config 3's batch and FOLD_CASES;
+    (b) one launch of F and none of O2 in the sgm_match_batch call; (c) its
+    FFMA count against the sgm_wta_kernel_nofmad build; (d) its time at the
+    node's shape and config 3's against its bound (fold_bound) beside F
+    then O2 and F alone in the same run. sgm_in, bm_in: what phases
+    6 and 7 return. Returns (the phase's JSON line, the kernels line's
+    entries: O1, O2, S, and F and G as the node runs them, F with O2
+    folded in and G with the gate)."""
     import torch
     from jackal_tpu_torch.config import BMParams, PipelineParams, SGMParams
     from jackal_tpu_torch.matching import bm, sgm
@@ -4902,14 +5090,23 @@ def tail_phase(dev, hold, sgm_in, bm_in):
              sk.sgm_cost_volume_plain(cl, cr, D, True))
         hold("sgm_cost", f"sgm_cost {label}",
              [sk.sgm_cost_volume(cl, cr, D)], [costs[0]])
-        maps = [sk.sgm_wta_maps(sk.aggregate_paths_bhdw(c, p))
-                for c in costs[:2 if p.true_right else 1]]
+        Ss = [sk.aggregate_paths_bhdw(c, p)
+              for c in costs[:2 if p.true_right else 1]]
         del costs
+        maps = [sk.sgm_wta_maps(S) for S in Ss]
         mr = maps[1] if p.true_right else None
         for u8 in (False, True):
             hold("sgm_epilogue", f"sgm_epilogue {label} u8={u8}",
                  sk.sgm_epilogue(maps[0], mr, D, p, u8),
                  sk.sgm_epilogue_plain(maps[0], mr, D, p, u8))
+        del maps
+        routes[label] = fold_held(hold, label, Ss[0], p,
+                                  Ss[1] if p.true_right else None)
+        # the fold up to FOLD_MAX_D, where it was measured faster
+        if routes[label] != ("F then O2" if p.true_right
+                             or D > sk.FOLD_MAX_D else "fold"):
+            raise AssertionError(f"17a. sgm_tail_route {label}: "
+                                 f"{routes[label]}")
 
     def gate_held(label, left, dL, p):
         hold("bm_gate", f"bm_gate {label}",
@@ -4919,7 +5116,7 @@ def tail_phase(dev, hold, sgm_in, bm_in):
 
     # (a) against the plain versions
     gl, gr = sgm_in["golden"]
-    seen = []
+    seen, routes = [], {}
     for D in (64, 128):
         for tr in (False, True):
             sgm_held(f"golden 640x480 D={D} true_right={tr}", gl, gr,
@@ -4929,8 +5126,23 @@ def tail_phase(dev, hold, sgm_in, bm_in):
         sgm_held(f"{key} B={L.shape[0]} {L.shape[1]}x{L.shape[2]}", L, R,
                  SGMParams())
         torch.cuda.empty_cache()
-    seen.append("O1, O2 on the golden pair (D = 64, 128, true_right), the "
-                "node's frames and config 3's batch")
+    seen.append("O1, O2, F with O2 folded in on the golden pair (D = 64, "
+                "128, true_right), the node's frames and config 3's batch")
+    for name, (kind, *_) in FOLD_CASES.items():
+        _, a, b, D = fold_inputs(name)
+        p = SGMParams(disp_num=D)
+        if kind == "volume":
+            S = torch.from_numpy(a).to(dev)
+        else:
+            S = fold_volume(torch.from_numpy(a).to(dev),
+                            torch.from_numpy(b).to(dev), p)
+        routes[name] = fold_held(hold, name, S, p)
+        if (routes[name] == "F then O2") != ("(F then O2" in name):
+            raise AssertionError(f"17a. sgm_tail_route {name}: "
+                                 f"{routes[name]}")
+    del S
+    seen.append(f"F with O2 folded in on {len(FOLD_CASES)} FOLD_CASES, "
+                f"routes {routes}")
     p64, p256 = BMParams(disp_num=64), BMParams(disp_num=256)
     for key, p in (("golden", p64), ("node", p64), ("node batch", p64),
                    ("config 5", p64), ("bm256", p256)):
@@ -5009,6 +5221,7 @@ def tail_phase(dev, hold, sgm_in, bm_in):
     ops_sgm = aten_ops_of_a_call(lambda: sgm.sgm_match_batch(
         lt, rt, SGMParams(), device=dev, u8=True))
     calls["sgm_match_batch"] = dict(sk.launches)
+    one_call = {k: 0 if k == "sgm_epilogue" else 1 for k in sk.launches}
     size = PipelineParams(im_width=640, im_height=480, crop_im_width=640,
                           crop_im_height=480)
     bmp = make_pipeline(engine="bm", bm_params=p64, params=size, device=dev)
@@ -5021,15 +5234,17 @@ def tail_phase(dev, hold, sgm_in, bm_in):
           f"{ops_sgm}; of one BM _match_batch call: {ops_bm}; launches "
           f"{calls}")
     bad = [n for n, ok in ops_sgm + ops_bm if not ok]
-    if bad or any(v != 1 for v in calls["sgm_match_batch"].values()) \
+    if bad or calls["sgm_match_batch"] != one_call \
             or calls["bm _match_batch"] != {"bm": 1, "bm_gate": 0}:
         raise AssertionError(f"17b. the engines ran eager ops on the card "
                              f"{bad} or launched {calls}")
 
-    # (c) no contraction in O1, O2 and G beyond the division's own FMAs
+    # (c) no contraction in O1, O2, F with O2 and G beyond the division's
+    # own FMAs
     fma = {}
     for lib, names in (("sgm_tail_kernel", ("sgm_cost_volume_kernel",
                                             "sgm_epilogue_kernel")),
+                       ("sgm_wta_kernel", ("sgm_wta_epilogue_kernel",)),
                        ("bm_kernel", ("bm_strip_kernel", "lr_check_kernel",
                                       "bm_wta_wide_kernel"))):
         got, ref = (sass_by_function(cuda_lib.library(lb).path, "FFMA",
@@ -5044,7 +5259,31 @@ def tail_phase(dev, hold, sgm_in, bm_in):
 
     # (d) times beside the plain versions' and the bounds
     ops_rate = int_ops_rate(dev)
-    times, out = {}, {}
+    times, out, fold = {}, {}, {}
+
+    def fold_timed(S, p, B, H, W, D, plain_reps):
+        """F with O2 folded in: its time against its bound, beside F then
+        O2 and F alone, each on CUDA events in this run."""
+        t = {"ms": events_ms(lambda: sk.sgm_wta_epilogue(S, p, True), 20),
+             "f_then_o2_ms": events_ms(lambda: sk.sgm_epilogue(
+                 sk.sgm_wta_maps(S), None, D, p, True), 20),
+             "f_alone_ms": events_ms(lambda: sk.sgm_wta_maps(S), 20),
+             "plain_ms": events_ms(lambda: sk.sgm_wta_epilogue_plain(
+                 S, p, True), plain_reps, spin=False)}
+        bms, by, nb, iops, fops = fold_bound(B, H, W, D, ops_rate)
+        t.update(bound_ms=bms, bound_by=by, bytes=nb, int_ops=iops,
+                 f32_ops=fops)
+        print(f"17d. F with O2 folded in at B={B}, {W}x{H}, D={D}: "
+              f"{t['ms']:.5f} ms a call (CUDA events behind a spin; F then "
+              f"O2 {t['f_then_o2_ms']:.5f}, F alone {t['f_alone_ms']:.5f}; plain"
+              f" {t['plain_ms']:.3f}; bound {bms:.6f} by {by}: {nb} bytes, "
+              f"{iops:.6g} integer and {fops:.6g} float32 operations; "
+              f"{t['ms'] / bms:.1f}x)")
+        if t["ms"] < bms:
+            raise AssertionError(f"sgm_wta at {W}x{H} B={B}: {t['ms']} ms "
+                                 f"is below its bound {bms} ms")
+        t["out"] = (t["ms"], t["plain_ms"], bms, by)
+        return t
 
     def timed(kname, label, fn, plain, work, rate, plain_reps):
         ms = events_ms(fn, 20)
@@ -5081,6 +5320,12 @@ def tail_phase(dev, hold, sgm_in, bm_in):
               lambda: sk.sgm_epilogue(maps, None, D, p, True),
               lambda: sk.sgm_epilogue_plain(maps, None, D, p, True),
               tail_work("sgm_epilogue", B, H, W), PEAK_F32_OPS_PER_S, 3)
+        del maps
+        S = sk.aggregate_paths_bhdw(sk.sgm_cost_volume(cl, cr, D), p)
+        fold[label] = fold_timed(S, p, B, H, W, D, reps)
+        if key == "node":
+            out["sgm_wta"] = fold[label]["out"]
+        del S
         torch.cuda.empty_cache()
     parent_path = {}
     for key, pb in (("node", p64), ("config 5", p64), ("bm256", p256)):
@@ -5122,19 +5367,28 @@ def tail_phase(dev, hold, sgm_in, bm_in):
     launches = {"sgm_cost": sgm_in["node launches"]["sgm_cost"],
                 "sgm_epilogue": sgm_in["node launches"]["sgm_epilogue"],
                 "bm_gate": 0, "bm": bm_in["node launches"]}
-    extra = {"bm_gate": {"fused_into": "bm"}}
+    extra = {"bm_gate": {"fused_into": "bm"},
+             "sgm_epilogue": {"fused_into": "sgm_wta"}}
     entries = [{"name": k, "route": "cuda", "source": where[k][0],
                 "replaces": where[k][1], "launches": launches[k],
                 "ms": out[k][0], "plain_ms": out[k][1],
                 "bound_ms": out[k][2], "bound_by": out[k][3],
                 "library_ms": None, **extra.get(k, {})}
                for k in TAIL_KERNELS]
+    entries.append(dict(sgm_in["entry"], ms=out["sgm_wta"][0],
+                        plain_ms=out["sgm_wta"][1],
+                        bound_ms=out["sgm_wta"][2],
+                        bound_by=out["sgm_wta"][3],
+                        fuses="jackal_tpu/matching/sgm.py:183, :216"))
     entries.append(dict(bm_in["entry"], ms=out["bm"][0],
                         plain_ms=out["bm"][1], bound_ms=out["bm"][2],
                         bound_by=out["bm"][3],
                         fuses="jackal_tpu/matching/bm.py:113"))
+    for t in fold.values():
+        del t["out"]
     return {"tail": {"times": times, "fma": fma, "launches": launches,
                      "calls": calls, "g_then_s_ms": parent_path,
+                     "fold": fold, "routes": routes,
                      "aten_ops": {"sgm_match_batch": ops_sgm,
                                   "bm _match_batch": ops_bm}}}, entries
 
@@ -5415,7 +5669,8 @@ def main() -> int:
         + ("bm_kernel_diag", "sad_rate", "scan_kernel_nofmad",
            "prior_kernel_nofmad", "sgm_tail_kernel_nofmad",
            "descriptor_kernel_nofmad", "support_kernel_nofmad",
-           "bm_kernel_nofmad")])
+           "bm_kernel_nofmad", "sgm_wta_kernel_nofmad",
+           "prior_kernel_parts")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):

@@ -36,27 +36,15 @@
 // second, cost at best_d - 1 and at best_d + 1 in rows 0-4, the right
 // view's in rows 5-9); with true_right the right view's five rows are rows
 // 0-4 of F's maps of the right volume (rmaps, roff 0) instead. For each
-// pixel, as the plain version computes it in float32:
-//  - a view's disparity: unique = best < ratio * second (ratio the
-//    uniqueness factor rounded to float32 on the host; 30000 where no
-//    second exists); offs = (cm - cp) / (2 den), den = cm + cp - 2 best,
-//    where 0 < best_d < D - 1 and den > 0, else 0; d = best_d + offs where
-//    unique, else -1. Each product, sum and quotient is an __f*_rn, so
-//    nothing is contracted; the quotient is IEEE division. No quotient is
-//    subnormal: its least nonzero magnitude is 1 / (2 den) >= 2^-18, so no
-//    flush rule (XLA:CPU's) can tell the two apart;
-//  - the L/R check exactly as _lr_tail writes it: uw = clamp((int)(u -
-//    dL), 0, W - 1) with u - dL a float32 difference truncated toward zero,
-//    s = clamp(u - uw, 0, D), other = dR[u - s] (-1e9 where u - s leaves
-//    the row); dL survives where dL >= 0, other >= 0 and |other - dL| <=
-//    lr_threshold. Not dR[uw]: at dL = -1, uw = min(u + 1, W - 1) while
-//    s = 0;
-//  - the u8 map: clamp(rint(dL), 0, 255), rint rounding half to even as
-//    torch.round and jnp.round do (a half occurs: with ties best_d is the
-//    first minimum, so cp can equal best and offs be exactly 0.5).
-// dR at the lookup column is computed again from that column's maps rather
-// than read back, so a thread needs no other thread's result and the
-// kernel has no barrier and no width limit.
+// pixel each view's disparity (uniqueness, sub-pixel), the L/R check and
+// the u8 map as csrc/sgm_epilogue.cuh computes them (the plain version's
+// float32 arithmetic, nothing contracted, IEEE division). dR at the lookup
+// column is computed again from that column's maps rather than read back,
+// so a thread needs no other thread's result and the kernel has no barrier
+// and no width limit. Kernel F takes O2's work into its own launch up to
+// D = 64 (sgm_wta_kernel.cu, sgm_wta_epilogue); O2 stays for true_right
+// and past D = 64, where the fold is slower (ops/sgm_kernel.
+// sgm_tail_route).
 //
 // What bounds O2 on an H100: the ten int16 maps read and dL, dR and the u8
 // map written once, 29 bytes a pixel (8.9 MB at the node, 0.0027 ms); a
@@ -64,6 +52,8 @@
 // columns at most D to the left of its own, from L1.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "sgm_epilogue.cuh"
 
 namespace {
 
@@ -167,16 +157,8 @@ __global__ void __launch_bounds__(kCostThreads)
 // a view's disparity at column u from its five map rows m (row pitch W)
 __device__ __forceinline__ float wta_disp(const int16_t* __restrict__ m,
                                           int W, int u, int D, float ratio) {
-  const int best = m[u], bd = m[W + u], second = m[2 * W + u];
-  const int cm = m[3 * W + u], cp = m[4 * W + u];
-  const bool unique =
-      __int2float_rn(best) < __fmul_rn(ratio, __int2float_rn(second));
-  const int den = cm + cp - 2 * best;
-  float offs = 0.0f;
-  if (bd > 0 && bd < D - 1 && den > 0)
-    offs = __fdiv_rn(__int2float_rn(cm - cp),
-                     __fmul_rn(2.0f, __int2float_rn(den)));
-  return unique ? __fadd_rn(__int2float_rn(bd), offs) : -1.0f;
+  return sgm_wta_disp(m[u], m[W + u], m[2 * W + u], m[3 * W + u],
+                      m[4 * W + u], D, ratio);
 }
 
 __global__ void __launch_bounds__(kEpiThreads)
@@ -194,18 +176,12 @@ __global__ void __launch_bounds__(kEpiThreads)
   const int16_t* mr = rmaps + (row * kMapRows + roff) * W;
   const float dL = wta_disp(ml, W, u, D, ratio);
   dr[i] = wta_disp(mr, W, u, D, ratio);
-  const int uw = min(max(__float2int_rz(__fsub_rn(__int2float_rn(u), dL)), 0),
-                     W - 1);
-  const int j = u - min(max(u - uw, 0), D);
+  const int j = sgm_lr_column(u, dL, W, D);
   const float other =
       (j >= 0 && j < W) ? wta_disp(mr, W, j, D, ratio) : -1e9f;
-  const bool ok = dL >= 0.0f && other >= 0.0f &&
-                  fabsf(__fsub_rn(other, dL)) <= lr;
-  const float out = ok ? dL : -1.0f;
+  const float out = sgm_lr_keep(dL, other, lr);
   dl[i] = out;
-  if (u8 != nullptr)
-    u8[i] = static_cast<uint8_t>(
-        static_cast<int>(fminf(fmaxf(rintf(out), 0.0f), 255.0f)));
+  if (u8 != nullptr) u8[i] = sgm_u8(out);
 }
 
 }  // namespace

@@ -59,8 +59,33 @@
 // value << 16 | d (values <= 30000 < 2^15, d < 2^16), then the least value
 // outside best_d +- 1 (D <= 32767, best_d's int16). It reads S four
 // times, mostly from L2. D <= 256 keeps the slab kernel above.
+//
+// F with O2 folded in (sgm_wta_epilogue_kernel, entry sgm_wta_epilogue):
+// the same walks, then the SGM epilogue (csrc/sgm_epilogue.cuh, kernel
+// O2's functions) in the same launch, so the ten maps never reach device
+// memory: S in, dL, dR and the u8 map out, 2 D + 9 bytes a pixel (42.1 MB
+// at 640x480, D = 64, 0.0126 ms at 3.35 TB/s). The left view's L/R check
+// at column u reads dR at u - s, s in [0, D], up to D columns left of the
+// tile, so a block's slab starts a halo of D columns (rounded up to 8)
+// left of its kFoldTile columns, and the right view walks the halo and the
+// tile: each of its pairs sets, walks and restores its own slots (no other
+// right column reads them; the slab stays as it was for the left view),
+// computes its two disparities from the statistics in registers and puts
+// them in a float row of shared memory, and writes dR for the tile's
+// columns. After a barrier the left view walks the tile, computes dL,
+// looks dR up in that row, applies the check and writes dL and the u8 map.
+// A block has a thread a right-view pair (rounded up to a warp). Where the
+// slab and the row pass the card's 227 KB of shared memory a block (D past
+// 183 at the 256-column tile) the launcher refuses. The wrapper takes the
+// fold up to D = 64, where it was measured faster than F then O2 (past it
+// the slab cuts the blocks an SM holds), and F then O2 elsewhere and for
+// true_right (ops/sgm_kernel.sgm_tail_route). kFoldTile is 256 columns
+// (at D = 64 the halo adds a quarter to the right view's walks; a
+// 128-column tile was slower than F then O2).
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "sgm_epilogue.cuh"
 
 namespace {
 
@@ -287,6 +312,124 @@ sgm_wta_maps_wide_kernel(const uint16_t* __restrict__ S,
   }
 }
 
+constexpr int kFoldTile = 256;             // columns a block of the fold
+// a thread a right-view pair at the largest D
+constexpr int kFoldMaxThreads = (kSlabMaxD + kFoldTile) / 2;
+constexpr int kSmemMax = 227 * 1024;        // shared memory a block, H100
+
+// the fold's left halo: the L/R check at column u reads dR at u - s, s <= D
+__host__ __device__ constexpr int fold_halo(int D) { return (D + 7) / 8 * 8; }
+// a slab row of the fold: the halo, the tile and the right view's reach
+__host__ __device__ constexpr int fold_row_len(int D) {
+  return fold_halo(D) + kFoldTile + (D + 8) / 8 * 8;
+}
+// the slab and the right view's float row
+constexpr long long fold_smem(int D) {
+  return 2LL * D * fold_row_len(D) + 4LL * (fold_halo(D) + kFoldTile);
+}
+
+// a view's disparity at column h of a pair from its statistics
+__device__ __forceinline__ float disp_of(const Stats& st, uint32_t m, int h,
+                                         int D, float ratio) {
+  const uint32_t second = half(m, h);
+  return sgm_wta_disp(static_cast<int>(st.key[h] >> 8),
+                      static_cast<int>(st.key[h] & 255u),
+                      static_cast<int>(second == kOut ? kWtaBig : second),
+                      static_cast<int>(st.cm[h]), static_cast<int>(st.cp[h]),
+                      D, ratio);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* row, int u, int W, T a, T b) {
+  if (u >= W) return;
+  row[u] = a;
+  if (u + 1 < W) row[u + 1] = b;
+}
+
+__global__ void __launch_bounds__(kFoldMaxThreads)
+sgm_wta_epilogue_kernel(const uint16_t* __restrict__ S,
+                        float* __restrict__ dl, float* __restrict__ dr,
+                        uint8_t* __restrict__ u8, int H, int D, int W,
+                        float ratio, float lr) {
+  extern __shared__ uint4 smem[];
+  uint16_t* x = reinterpret_cast<uint16_t*>(smem);
+  const int halo = fold_halo(D), L = fold_row_len(D);
+  float* rdisp = reinterpret_cast<float*>(x + D * L);   // [halo + tile]
+  const int T = blockDim.x;
+  const int u0 = blockIdx.x * kFoldTile;
+  const int x0 = u0 - halo;               // the slab's first column
+  const size_t row = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
+  const uint16_t* s = S + row * D * W;
+
+  // stage [D, L] columns x0 .. x0 + L - 1 of the row, 12000 outside [0, W)
+  if (W % 8 == 0) {
+    const int chunks = L / 8;
+    for (int i = threadIdx.x; i < D * chunks; i += T) {
+      const int d = i / chunks, k = 8 * (i - d * chunks);
+      uint16_t* dst = x + d * L + k;
+      const int col = x0 + k;             // a multiple of 8, as W is
+      if (col >= 0 && col < W) {
+        cp_async16(dst, s + static_cast<size_t>(d) * W + col);
+      } else {
+        const uint32_t inv = kInvalid | (static_cast<uint32_t>(kInvalid) << 16);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(inv, inv, inv, inv);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < D * L; i += T) {
+      const int d = i / L, col = x0 + (i - d * L);
+      x[i] = col >= 0 && col < W
+                 ? __ldg(s + static_cast<size_t>(d) * W + col)
+                 : kInvalid;
+    }
+  }
+  __syncthreads();
+
+  // the right view over the halo and the tile; pairs wholly outside [0, W)
+  // are read by no lookup
+  float* dr_row = dr + row * W;
+  for (int p = threadIdx.x; p < (halo + kFoldTile) / 2; p += T) {
+    const int c = 2 * p, u = x0 + c;
+    if (u + 1 < 0 || u >= W) continue;
+    const View<true> v{x, L, c};
+    const Stats st = best_of(v, D);
+    mark(v, st, D, false);
+    const uint32_t m = second_of(v, D);
+    mark(v, st, D, true);
+    const float a = disp_of(st, m, 0, D, ratio);
+    const float b = disp_of(st, m, 1, D, ratio);
+    rdisp[c] = a;
+    rdisp[c + 1] = b;
+    if (u >= u0) store2(dr_row, u, W, a, b);
+  }
+  __syncthreads();              // the slab restored, the right row written
+
+  // the left view over the tile, its L/R check and u8 map
+  float* dl_row = dl + row * W;
+  uint8_t* u8_row = u8 != nullptr ? u8 + row * W : nullptr;
+  for (int p = threadIdx.x; p < kFoldTile / 2; p += T) {
+    const int u = u0 + 2 * p;
+    if (u >= W) break;
+    const View<false> v{x, L, halo + 2 * p};
+    const Stats st = best_of(v, D);
+    mark(v, st, D, false);
+    const uint32_t m = second_of(v, D);
+    float out[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float dL = disp_of(st, m, h, D, ratio);
+      const int j = sgm_lr_column(u + h, dL, W, D);
+      const float other = j >= 0 && j < W ? rdisp[j - x0] : -1e9f;
+      out[h] = sgm_lr_keep(dL, other, lr);
+    }
+    store2(dl_row, u, W, out[0], out[1]);
+    if (u8_row != nullptr)
+      store2(u8_row, u, W, sgm_u8(out[0]), sgm_u8(out[1]));
+  }
+}
+
 }  // namespace
 
 extern "C" int sgm_wta_maps(const int16_t* S, int16_t* out, int B, int H,
@@ -312,5 +455,30 @@ extern "C" int sgm_wta_maps(const int16_t* S, int16_t* out, int B, int H,
   sgm_wta_maps_kernel<<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const uint16_t*>(S), out, H, D, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F with O2 folded in: dl, dr float32 [B, H, W] and, where u8 is not null,
+// the u8 map of dl, from S int16 [B, H, D, W] in one launch. Refuses D past
+// 256 and a slab past the card's shared memory (fold_smem, D past 183);
+// the wrapper routes such shapes to F then O2 before it launches.
+extern "C" int sgm_wta_epilogue(const int16_t* S, float* dl, float* dr,
+                                uint8_t* u8, int B, int H, int D, int W,
+                                float ratio, float lr, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || D < 2 || D > kSlabMaxD || H > 65535 ||
+      B > 65535 || fold_smem(D) > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(fold_smem(D));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sgm_wta_epilogue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int threads = ((fold_halo(D) + kFoldTile) / 2 + 31) / 32 * 32;
+  const dim3 grid((W + kFoldTile - 1) / kFoldTile, H, B);
+  sgm_wta_epilogue_kernel<<<grid, threads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint16_t*>(S), dl, dr, u8, H, D, W, ratio, lr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,9 +21,11 @@ Two forms, as in the reference package:
     kernels' plain twins (ops/sgm_kernel.py) are built from it;
   - sgm_match_batch, the engine of the node: census (CUDA kernel D) ->
     cost volume ([B, H, D, W], kernel O1) -> aggregation (kernel E) ->
-    WTA maps (kernel F) -> the float epilogue (_wta_from_maps, _lr_tail
-    and the u8 map, kernel O2); on the card no eager op runs between
-    them. sgm_match is it on a batch of one.
+    WTA maps (kernel F) and the float epilogue (_wta_from_maps, _lr_tail
+    and the u8 map, kernel O2) in one launch of F, or F then O2 for
+    true_right and past D = 64 (ops/sgm_kernel.sgm_tail_route); on the
+    card no eager op runs between them. sgm_match is it on a batch of
+    one.
 
 The integer volumes never wrap: costs are <= 24 or the 12000 sentinel,
 carries and sums are clamped to _CARRY_BIG before they are stored as
@@ -252,12 +254,12 @@ def sgm_match_batch(left_b: Image, right_b: Image,
                     device: DeviceLike = None, u8: bool = False):
     """Batched SGM: uint8 [B, H, W] pairs -> (D_left, D_right) float32
     [B, H, W], -1 for invalid, on ``device`` (the card unless "cpu"); with
-    ``u8`` also D_left's u8 map. On the card it runs kernels D, O1, E, F
-    and O2; on the CPU their plain versions. Equal, frame by frame, to the
-    reference's sgm_match."""
+    ``u8`` also D_left's u8 map. On the card it runs kernels D, O1, E and
+    F with O2 folded in (F then O2 for true_right and past D = 64); on the
+    CPU their plain versions. Equal, frame by frame, to the reference's
+    sgm_match."""
     from ..ops.sgm_kernel import (aggregate_paths_bhdw, census5x5_pair,
-                                  sgm_cost_volume, sgm_epilogue,
-                                  sgm_wta_maps)
+                                  sgm_cost_volume, sgm_wta_epilogue)
 
     dev = resolve_device(device)
     left = torch.as_tensor(left_b).to(dev)
@@ -272,12 +274,15 @@ def sgm_match_batch(left_b: Image, right_b: Image,
     codes = census5x5_pair(left, right)
     # true_right: the right view's own aggregation of its cost volume (from
     # the same launch); its direct WTA maps are rows 0-4 of the maps kernel
-    costs = sgm_cost_volume(codes[:B], codes[B:], D, params.true_right)
-    if not params.true_right:
-        costs = (costs,)
-    maps = [sgm_wta_maps(aggregate_paths_bhdw(c, params)) for c in costs]
-    return sgm_epilogue(maps[0], maps[1] if params.true_right else None, D,
-                        params, u8)
+    if params.true_right:
+        cost, cost_r = sgm_cost_volume(codes[:B], codes[B:], D, True)
+        S_right = aggregate_paths_bhdw(cost_r, params)
+        del cost_r
+    else:
+        cost = sgm_cost_volume(codes[:B], codes[B:], D)
+        S_right = None
+    return sgm_wta_epilogue(aggregate_paths_bhdw(cost, params), params, u8,
+                            S_right)
 
 
 def sgm_match(left_u8: Image, right_u8: Image,

@@ -28,16 +28,19 @@ KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # headers under csrc/, hashed into every library's name (elas_lr.cuh: the
-# L/R check of kernel H and of kernel B's epilogue)
-HEADERS = ("elas_lr.cuh",)
+# L/R check of kernel H and of kernel B's epilogue; sgm_epilogue.cuh: the
+# SGM epilogue of kernel O2 and of F with O2 folded in)
+HEADERS = ("elas_lr.cuh", "sgm_epilogue.cuh")
 # libraries built from another library's source with extra flags: the BM
 # kernel's per-part timing (G') is the BM source with its diagnostic entry;
-# the scan kernels, the prior kernels M1, M2, the SGM tail O1, O2, the
-# ELAS front (R; A with Q) and the BM kernel G (with S's gate) built
-# without contraction (-fmad=false), whose
-# FFMA and DFMA counts chip_smoke.py holds against the library's own; and
+# the scan kernels, the prior kernels M1, M2, the SGM tail O1, O2, F with
+# O2 folded in, the ELAS front (R; A with Q) and the BM kernel G (with S's
+# gate) built without contraction (-fmad=false), whose
+# FFMA and DFMA counts chip_smoke.py holds against the library's own;
 # kernel R at the band heights that it does not run (tools/
-# time_support_kernel.py --kernel front times them beside its 8 rows)
+# time_support_kernel.py --kernel front times them beside its 8 rows);
+# and M1's and M2's one launch with an entry that launches either part's
+# blocks alone (chip_smoke.py and the tool time them apart)
 VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",)),
             "scan_kernel_nofmad": ("scan_kernel", ("-fmad=false",)),
             "prior_kernel_nofmad": ("prior_kernel", ("-fmad=false",)),
@@ -46,6 +49,8 @@ VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",)),
                                          ("-fmad=false",)),
             "support_kernel_nofmad": ("support_kernel", ("-fmad=false",)),
             "bm_kernel_nofmad": ("bm_kernel", ("-fmad=false",)),
+            "sgm_wta_kernel_nofmad": ("sgm_wta_kernel", ("-fmad=false",)),
+            "prior_kernel_parts": ("prior_kernel", ("-DPRIOR_KERNEL_PARTS",)),
             **{f"descriptor_kernel_band{b}": (
                 "descriptor_kernel", (f"-DDESCRIPTOR_BAND={b}",))
                for b in (4, 16, 32)}}

@@ -6,12 +6,17 @@
   aggregate_paths_bhdw  kernel E   csrc/sgm_paths_kernel.cu
   sgm_wta_maps          kernel F   csrc/sgm_wta_kernel.cu
   sgm_epilogue          kernel O2  csrc/sgm_tail_kernel.cu
+  sgm_wta_epilogue      F with O2 folded in (csrc/sgm_wta_kernel.cu, one
+                        launch) or, for true_right and past D = 64, F then
+                        O2 (sgm_tail_route)
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
 its plain twin, ``<name>_plain``, for a CPU tensor. The plain twins are
 the reference engine of matching/sgm.py in the kernels' layouts. The
 volumes keep the reference kernels' [B, H, D, W] layout at the wrappers.
-``launches`` counts the calls that launched a kernel, by kernel name.
+``launches`` counts the calls that launched a kernel, by kernel name;
+F's three kernels (its maps, the path past D = 256, and F with O2 folded
+in) count as "sgm_wta".
 """
 from __future__ import annotations
 
@@ -36,6 +41,11 @@ launches = {"census": 0, "sgm_paths": 0, "sgm_wta": 0, "sgm_cost": 0,
 # csrc/sgm_wta_kernel.cu)
 D_MIN = 2
 _P_MAX = (1 << 31) - 1 - _CARRY_BIG     # penalties the path kernel takes
+# the largest D at which F with O2 folded in (csrc/sgm_wta_kernel.cu) was
+# measured faster than F then O2 on the H100 (the slab with its halo cuts
+# the blocks an SM holds as D grows: at D = 96 the fold took 0.0729 ms
+# against 0.0576, at D = 64 0.0367 against 0.0374; PERF.md section 6)
+FOLD_MAX_D = 64
 
 
 def _fn(lib_name: str, fn_name: str, n_ptr: int, n_int: int,
@@ -255,3 +265,66 @@ def sgm_epilogue(maps: torch.Tensor, maps_right, D: int, params: SGMParams,
     launches["sgm_epilogue"] += 1
     return (dl, dr, out) if u8 else (dl, dr)
 
+
+# ---- F with O2 folded in ----------------------------------------------------
+
+def sgm_tail_route(shape, true_right: bool) -> str:
+    """The route of sgm_wta_epilogue on the card for an aggregated volume
+    of this [B, H, D, W] shape, decided before any launch: "fold" (F with
+    O2 in one launch) up to FOLD_MAX_D, else "F then O2" (true_right, whose
+    right maps come from a second F; past FOLD_MAX_D, where the fold is
+    slower). The fold's kernel itself takes any D whose slab fits a block's
+    shared memory (D <= 183; its launcher refuses past it)."""
+    D = shape[2]
+    if true_right or D > FOLD_MAX_D:
+        return "F then O2"
+    return "fold"
+
+
+def sgm_wta_epilogue_plain(S_bhdw: torch.Tensor, params: SGMParams,
+                           u8: bool = False, S_right=None):
+    maps_right = None if S_right is None else sgm_wta_maps_plain(S_right)
+    return sgm_epilogue_plain(sgm_wta_maps_plain(S_bhdw), maps_right,
+                              S_bhdw.shape[2], params, u8)
+
+
+def _fold_cuda(S_bhdw: torch.Tensor, params: SGMParams, u8: bool):
+    """One launch of F with O2 folded in."""
+    B, H, D, W = S_bhdw.shape
+    dev = S_bhdw.device
+    cuda_lib.expect(S_bhdw, "S", torch.int16, (B, H, D, W), dev)
+    dl = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    dr = torch.empty_like(dl)
+    out = torch.empty((B, H, W), dtype=torch.uint8, device=dev) if u8 \
+        else None
+    # the factors as float32, as the plain version's tensors round them
+    cuda_lib.launch(
+        _fn("sgm_wta_kernel", "sgm_wta_epilogue", 4, 4, 2), "sgm_wta_epilogue", S_bhdw,
+        S_bhdw.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+        None if out is None else out.data_ptr(), B, H, D, W,
+        float(np.float32(params.uniqueness)),
+        float(np.float32(params.lr_threshold)))
+    launches["sgm_wta"] += 1
+    return (dl, dr, out) if u8 else (dl, dr)
+
+
+def sgm_wta_epilogue(S_bhdw: torch.Tensor, params: SGMParams,
+                     u8: bool = False, S_right=None):
+    """The SGM engine's tail on an aggregated int16 volume S [B, H, D, W]:
+    both views' WTA maps (F), their uniqueness and sub-pixel, the L/R check
+    and, with ``u8``, dL's u8 map (O2). Returns (dL, dR[, u8]) as
+    sgm_epilogue does, equal to sgm_wta_epilogue_plain. ``S_right``, the
+    separately aggregated right volume (true_right), gives the right view's
+    maps. On the card one launch of F with O2 folded in, or F then O2 where
+    sgm_tail_route says so."""
+    if not S_bhdw.is_cuda:
+        return sgm_wta_epilogue_plain(S_bhdw, params, u8, S_right)
+    if S_bhdw.dim() != 4:
+        raise ValueError(f"need an int16 volume [B, H, D, W], got "
+                         f"{tuple(S_bhdw.shape)}")
+    D = S_bhdw.shape[2]
+    _check_d(D)
+    if sgm_tail_route(tuple(S_bhdw.shape), S_right is not None) == "fold":
+        return _fold_cuda(S_bhdw, params, u8)
+    maps_right = None if S_right is None else sgm_wta_maps(S_right)
+    return sgm_epilogue(sgm_wta_maps(S_bhdw), maps_right, D, params, u8)

@@ -2145,9 +2145,9 @@ def test_tail_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.parametrize("engine", ["sgm", "bm"])
 def test_tail_nodes_on_the_card_equal_cpu(dev, engine):
     """The SGM and BM nodes' batched step on the card equals the CPU's,
-    with O1 and O2, or G with S's gate folded in (S never), launched once a
-    batch, and one call of the engine dispatching no eager op on the
-    card."""
+    with O1 and F with O2 folded in (O2 never), or G with S's gate folded
+    in (S never), launched once a batch, and one call of the engine
+    dispatching no eager op on the card."""
     from chip_smoke import aten_ops_of_a_call
     from jackal_tpu_torch.matching import bm
     from jackal_tpu_torch.ops import bm_kernel as bk
@@ -2166,8 +2166,10 @@ def test_tail_nodes_on_the_card_equal_cpu(dev, engine):
     want, _ = cpu.process_batch_fused(lb, rb)
     assert torch.equal(got.cpu(), want)
     if engine == "sgm":
+        # F's launch carries O2's epilogue: O2 never runs
         assert sk.launches["sgm_cost"] == n0["sgm_cost"] + 1
-        assert sk.launches["sgm_epilogue"] == n0["sgm_epilogue"] + 1
+        assert sk.launches["sgm_wta"] == n0["sgm_wta"] + 1
+        assert sk.launches["sgm_epilogue"] == n0["sgm_epilogue"]
     else:
         # G applies the texture gate and writes the u8 map: S never runs
         assert bm.launches["bm_gate"] == g0
@@ -2293,3 +2295,179 @@ def test_gated_bm_refuses_what_it_does_not_take(dev):
         bk.bm_match_gated(img, img, BMParams(window=8))
     with pytest.raises(ValueError, match="uint8"):
         bk.bm_match_gated(img.float(), img, BMParams())
+
+
+# ---- kernel F with O2 folded in, and M1 two lanes a row -------------------
+
+def _hold_equal(kernel, name, got, want):
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", ["node", "config 3", "node, true_right",
+                                  *range(9)])
+def test_fold_kernel_equals_its_twin(dev, case):
+    """F with O2 folded in (sgm_wta_epilogue) against its plain twin at the
+    SGM node's shape (the golden pair, B = 1, D = 64), config 3's (B = 4,
+    1280x960, seeded) and chip_smoke.FOLD_CASES (W = 300 across tiles,
+    W % 8 != 0, W < D, D = 2, ties with half-way offsets; F then O2 at
+    D = 96, 200, 256 and 320), its launches pinned to its route; true_right
+    F twice, then O2."""
+    from chip_smoke import (FOLD_CASES, CONFIG3, fold_held, fold_inputs,
+                            fold_volume)
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    assert len(FOLD_CASES) == 9
+    S_right = None
+    if isinstance(case, int):
+        name = list(FOLD_CASES)[case]
+        kind, a, b, D = fold_inputs(name)
+        p = SGMParams(disp_num=D)
+        S = torch.from_numpy(a).to(dev) if kind == "volume" else fold_volume(
+            torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), p)
+        want = "F then O2" if "(F then O2" in name else "fold"
+    elif case == "config 3":
+        rng = np.random.default_rng(3)
+        frame = rng.integers(0, 256, (CONFIG3[0], CONFIG3[1], CONFIG3[2] + 9))
+        frame = torch.from_numpy(frame.astype(np.uint8)).to(dev)
+        p = SGMParams()
+        S = fold_volume(frame[:, :, 9:].contiguous(),
+                        frame[:, :, :-9].contiguous(), p)
+        want = "fold"
+    else:
+        g = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
+        left, right = (torch.from_numpy(g[k][None]).to(dev)
+                       for k in ("left", "right"))
+        tr = case == "node, true_right"
+        p = dataclasses.replace(SGMParams(), true_right=tr)
+        S = fold_volume(left, right, p, tr)
+        if tr:
+            S, S_right = S
+        want = "F then O2" if tr else "fold"
+    assert fold_held(_hold_equal, str(case), S, p, S_right) == want
+    torch.cuda.empty_cache()
+
+
+def test_fold_launcher_refuses_past_its_shared_memory(dev):
+    """The fold's launcher refuses a slab with its halo past the card's
+    227 KB a block (D = 184 at the 256-column tile) and D past 256; no
+    route sends it such a D."""
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    for D in (184, 257):
+        S = torch.zeros((1, 2, D, 16), dtype=torch.int16, device=dev)
+        assert sk.sgm_tail_route(tuple(S.shape), False) == "F then O2"
+        with pytest.raises(RuntimeError, match="sgm_wta_epilogue"):
+            sk._fold_cuda(S, SGMParams(disp_num=D), False)
+
+
+def test_fold_kernel_never_runs_the_plain_twin(dev, monkeypatch):
+    from jackal_tpu_torch.config import SGMParams
+    from jackal_tpu_torch.ops import sgm_kernel as sk
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("sgm_wta_epilogue_plain", "sgm_wta_maps_plain",
+                 "sgm_epilogue_plain", "sgm_epilogue", "sgm_wta_maps",
+                 "wta_maps", "_wta_from_maps", "_lr_tail", "dmap_u8"):
+        monkeypatch.setattr(sk, name, refuse)
+    S = torch.full((1, 20, 16, 40), 7, dtype=torch.int16, device=dev)
+    S[:, :, 3] = 2
+    dl, dr, u8 = sk.sgm_wta_epilogue(S, SGMParams(disp_num=16), True)
+    assert bool((dl[:, :, 3:37] == 3).all()) and bool((u8[:, :, 3:37] == 3)
+                                                      .all())
+    with pytest.raises(ValueError, match="S"):
+        sk.sgm_wta_epilogue(S.to(torch.int32), SGMParams(disp_num=16))
+
+
+def test_fold_and_m1_contract_only_inside_divisions(dev):
+    """F with O2 folded in and M1 (two lanes a row, with M2's blocks) have
+    the FFMA and DFMA counts of their -fmad=false builds: the FMAs inside
+    IEEE division and nothing contracted."""
+    from chip_smoke import sass_by_function
+    from jackal_tpu_torch.ops import cuda_lib
+
+    for lib, name, ops in (("sgm_wta_kernel", "sgm_wta_epilogue_kernel",
+                            ("FFMA",)),
+                           ("prior_kernel", "coeff_grid_kernel",
+                            ("FFMA", "DFMA"))):
+        for lb in (lib, f"{lib}_nofmad"):
+            cuda_lib.load(lb)
+        for op in ops:
+            got, ref = (sass_by_function(cuda_lib.library(lb).path, op,
+                                         (name,))
+                        for lb in (lib, f"{lib}_nofmad"))
+            assert got == ref and set(got) == {name}, (lib, op, got, ref)
+
+
+def _m1_parts(card, CH, Np, Tp, SC, Ts, grid):
+    from chip_smoke import prior_parts_call
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    ptable, psels = dp.coeff_table_plain(card, CH, Np, Tp, SC, Ts)
+    table, sels, _ = prior_parts_call(card, CH, Np, Tp, SC, Ts, *grid, 1)
+    assert torch.equal(table, ptable)
+    assert all(torch.equal(a, b) for a, b in zip(sels, psels))
+    words = prior_parts_call(card, CH, Np, Tp, SC, Ts, *grid, 2)[2]
+    assert torch.equal(words, dp.grid_words_plain(card, CH, Np, *grid))
+
+
+@pytest.mark.parametrize("case", ["golden B = 8", *range(8)])
+def test_m1_two_lanes_a_row_equals_plain(dev, case):
+    """M1 (two lanes a table row, the tile lists by 16-byte loads) in
+    coeff_grid's one launch, and its blocks and M2's each alone (the build
+    variant prior_kernel_parts), against the plain versions on the golden
+    chunk of 8 frames and chip_smoke.PRIOR_EDGE_CASES (singular and tied
+    triangles, d > u, pad rows, the batched node's chunk)."""
+    from chip_smoke import (PRIOR_EDGE_CASES, batch_chunks, prior_chunk,
+                            prior_edge_case)
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+
+    if case == "golden B = 8":
+        g = [np.load(f"{FIX}/elas_golden_{f}.npz") for f in ("s640_boxes",
+                                                             "photo")]
+        lb = np.stack([g[i % 2]["left"] for i in range(8)])
+        rb = np.stack([g[i % 2]["right"] for i in range(8)])
+        p = ElasParams()
+        flat, Np, Tp, Ts, fr = next(iter(batch_chunks(p, lb, rb, 8, dev)))
+        W, H, CH = 640, 480, len(fr)
+        card = flat.to(dev)
+        SC = -(-H // 16) * -(-W // 128)
+    else:
+        wires, _, W, H, p = prior_edge_case(PRIOR_EDGE_CASES[case])
+        flat, CH, Np, Tp, Ts, SC = prior_chunk(wires, W, H)
+        card = torch.from_numpy(flat).to(dev)
+    gs = p.grid_size
+    grid = (gs, -(-H // gs), -(-W // gs), p.disp_num)
+    table, sels, words = dp.coeff_grid(card, CH, Np, Tp, SC, Ts, *grid)
+    ptable, psels = dp.coeff_table_plain(card, CH, Np, Tp, SC, Ts)
+    assert torch.equal(table, ptable)
+    assert all(torch.equal(a, b) for a, b in zip(sels, psels))
+    assert torch.equal(words, dp.grid_words_plain(card, CH, Np, *grid))
+    _m1_parts(card, CH, Np, Tp, SC, Ts, grid)
+
+
+def test_m1_tile_lists_at_an_unaligned_offset(dev):
+    """A wire whose tile lists do not start 16-byte aligned (an odd support
+    count Np * 3 * CH): M1 widens them entry by entry, as the plain version
+    does."""
+    from chip_smoke import prior_edge_case
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+
+    wires, _, W, H, p = prior_edge_case("seeded, pad rows")
+    _, Tp, Ts = ep._chunk_pads(wires)
+    SC = -(-H // 16) * -(-W // 128)
+    for Np in (41, 43):
+        flat = ep._flatten_chunk_wire_np(wires, Np, Tp, Ts)
+        card = torch.from_numpy(flat).to(dev)
+        CH = len(wires)
+        grid = (p.grid_size, -(-H // p.grid_size), -(-W // p.grid_size),
+                p.disp_num)
+        table, sels, _ = dp.coeff_grid(card, CH, Np, Tp, SC, Ts, *grid)
+        ptable, psels = dp.coeff_table_plain(card, CH, Np, Tp, SC, Ts)
+        assert torch.equal(table, ptable)
+        assert all(torch.equal(a, b) for a, b in zip(sels, psels))

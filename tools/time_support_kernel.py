@@ -67,8 +67,9 @@ tests/fixtures and a seed:
   checkout's batched path runs it (eager torch in a checkout from before
   kernels M1 and M2); on CUDA events, where the checkout has them as two
   launches, M1 (coeff_table) and M2 (grid_words) alone and one after the
-  other, and where it has their one launch (coeff_grid), that launch,
-  each held equal to its plain version;
+  other, and where it has their one launch (coeff_grid), that launch and,
+  where it builds the variant prior_kernel_parts, M1's blocks and M2's
+  each launched alone, each held equal to its plain version;
 - route: the per-frame ELAS node's 9 frames (chip_smoke phase 4's seeded
   raw pairs, make_pipeline(engine="elas") at 640x480), host clock a frame
   (a synchronize after each call; 3 rounds after a warm-up round, the
@@ -102,9 +103,13 @@ tests/fixtures and a seed:
   kernel D: on the host clock (a synchronize after each call, median of
   21) the cost-volume stage and the epilogue stage with the u8 map as the
   checkout's sgm_match_batch runs them (eager torch in a checkout from
-  before kernels O1 and O2); the golden pairs alternated at the BM node's
-  shape (B = 1), config 5's (B = 32) and bench_bm256's (B = 16, D = 256)
-  with kernel G's maps: the texture gate + u8 stage as the checkout's
+  before kernels O1 and O2) and, on CUDA events, F alone, F then O2 and,
+  where the checkout has it, F with O2 folded in (sgm_wta_epilogue), each
+  held equal to its plain version, and the fold's launch against F then
+  O2 at the node's shape at D = 32 to 176; the golden pairs alternated at
+  the BM node's shape (B = 1), config 5's (B = 32) and bench_bm256's
+  (B = 16, D = 256) with kernel G's maps: the texture gate + u8 stage as
+  the checkout's
   _match_batch runs it (eager torch before kernel S); where the checkout
   has them, O1, O2 and S alone on CUDA events, each held equal to its
   plain version; G then S on CUDA events (G's maps, then the gate's u8
@@ -246,14 +251,16 @@ def time_front(left, right, params, reps):
 
 def time_coeffs(left, right, params, reps):
     import torch
-    from chip_smoke import prior_chunk, prior_edge_case
+    from chip_smoke import prior_chunk, prior_edge_case, prior_parts_call
     from jackal_tpu_torch.matching.elas import device_prior as dp
     from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.ops import cuda_lib
     from jackal_tpu_torch.ops.transfer import to_device
 
     dev = torch.device("cuda", 0)
     _, H, W = left.shape
     fused = hasattr(dp, "coeff_grid")
+    parts = "prior_kernel_parts" in cuda_lib.VARIANTS
     kernels = fused or hasattr(dp, "coeff_table")
     res = {"kernels_m1_m2": kernels, "one_launch": fused}
     _, _, dc = ep._front(torch.from_numpy(left).to(dev),
@@ -286,6 +293,14 @@ def time_coeffs(left, right, params, reps):
             _held(f"M1 and M2 {label}", [table, *sels, words], want)
             res[f"{label}_m1m2_ms"] = events_ms(lambda: dp.coeff_grid(*args),
                                                 reps)
+            if parts:
+                # each part's blocks alone (the build variant), held first
+                got = (prior_parts_call(*args, 1), prior_parts_call(*args, 2))
+                _held(f"M1's and M2's blocks alone {label}",
+                      [got[0][0], *got[0][1], got[1][2]], want)
+                for k, n in (("m1", 1), ("m2", 2)):
+                    res[f"{label}_{k}_blocks_ms"] = events_ms(
+                        lambda: prior_parts_call(*args, n), reps)
             continue
         table, sels = dp.coeff_table(flat, CH, Np, Tp, SC, Ts)
         words = dp.grid_words(flat, CH, Np, *grid)
@@ -533,12 +548,30 @@ def time_tail(left, right, reps):
         np.uint8)).to(dev) for _ in range(2)]
     node = [torch.from_numpy(x[:1]).to(dev) for x in (left, right)]
     kernels = hasattr(sk, "sgm_epilogue")
+    fold = hasattr(sk, "sgm_wta_epilogue")
     for label, (lt, rt) in (("node", node), ("config3", cfg3)):
         B = lt.shape[0]
         codes = sk.census5x5_batch(torch.cat([lt, rt]))
         cl, cr = codes[:B], codes[B:]
         cost = sgm.census_cost_volume_hdw(cl, cr, D)
-        m = sk.sgm_wta_maps(sk.aggregate_paths_bhdw(cost, p))
+        S = sk.aggregate_paths_bhdw(cost, p)
+        m = sk.sgm_wta_maps(S)
+        if kernels:
+            # the SGM tail as the parent runs it (F then O2), and F with O2
+            # folded in where the checkout has it
+            def f_then_o2():
+                return sk.sgm_epilogue(sk.sgm_wta_maps(S), None, D, p, True)
+
+            res[f"F_ms_{label}"] = events_ms(lambda: sk.sgm_wta_maps(S),
+                                             reps)
+            res[f"F_then_O2_ms_{label}"] = events_ms(f_then_o2, reps)
+        if fold:
+            want = sk.sgm_wta_epilogue_plain(S, p, True)
+            _held(f"F with O2 folded in {label}",
+                  sk.sgm_wta_epilogue(S, p, True), want)
+            res[f"fold_ms_{label}"] = events_ms(
+                lambda: sk.sgm_wta_epilogue(S, p, True), reps)
+        del S
         if kernels:
             def cost_stage():
                 return sk.sgm_cost_volume(cl, cr, D)
@@ -565,6 +598,24 @@ def time_tail(left, right, reps):
         res[f"epilogue_stage_ms_{label}"] = host_ms(epi_stage, 21)
         del cost, m
         torch.cuda.empty_cache()
+    if fold:
+        # the fold's launch against F then O2 at the node's shape as D
+        # grows (the halo the right view walks grows with it)
+        lt, rt = node
+        for Dx in (32, 48, 72, 80, 96, 128, 176):
+            px = SGMParams(disp_num=Dx)
+            codes = sk.census5x5_pair(lt, rt)
+            S = sk.aggregate_paths_bhdw(sk.sgm_cost_volume(
+                codes[:1], codes[1:], Dx), px)
+            want = sk.sgm_wta_epilogue_plain(S, px, True)
+            _held(f"F with O2 folded in at D = {Dx}",
+                  sk._fold_cuda(S, px, True), want)
+            res[f"fold_ms_node_D{Dx}"] = events_ms(
+                lambda: sk._fold_cuda(S, px, True), reps)
+            res[f"F_then_O2_ms_node_D{Dx}"] = events_ms(
+                lambda: sk.sgm_epilogue(sk.sgm_wta_maps(S), None, Dx, px,
+                                        True), reps)
+            del S
     lt, rt = (torch.from_numpy(np.stack([x[i % 2] for i in range(32)])).to(dev)
               for x in (left, right))
     gate = hasattr(bm, "bm_gate_u8")
