@@ -16,7 +16,9 @@ Phases (any failure exits non-zero and prints no success line):
      cells of one pixel); support also on chip_smoke.SUPPORT_EDGE_CASES (the
      node's and the batched node's shapes, D = 512 at W = 2112 and 4096,
      W < D, disp_min near D, an odd width, constant descriptors);
-  2b. (a) the raster kernel against its plain version (torch.equal) on
+  2b. (a) the raster kernel (its decoded maps, both sides of a chunk in
+     one launch, and one side alone) against its plain version
+     (decode_win(raster_plain) a side; torch.equal) on
      every chunk of the two 640x480 golden fixtures batched by chunks of 1
      and 2, on wide triangles, on planes that overflow int32 and on
      chip_smoke.RASTER_EDGE_CASES (three rounds of slots, a triangle over
@@ -48,7 +50,8 @@ Phases (any failure exits non-zero and prints no success line):
   4b. (d) the batched node: StreamingRunner at batch 8 over 48 frames with
      the launch counters reset just before and read just after (the dense
      kernel with its L/R epilogue, L, I, J, P1, R and Q once a batch, M1
-     and M2 once a chunk of 8, H, K, P2 and P3 never);
+     and M2 once a chunk of 8, the raster C once a chunk for both sides,
+     H, K, P2, P3 and elas_u8 never: J's epilogue writes the u8 map);
      fps, the
      frames published, the device's busy time and idle share under
      torch.profiler beside process_batch's, and a per-stage breakdown of
@@ -146,7 +149,7 @@ Phases (any failure exits non-zero and prints no success line):
      ELAS fewer than 3 support points, so B does not run there), the
      median logged dmap time and the frame loop's fps from the CLI's
      per-frame lines; (b) --batch 8 over 48 and 240 frames of the replay
-     (the stream scheduler): A and B once a batch and C twice, the fps the
+     (the stream scheduler): A, B and C once a batch, the fps the
      CLI prints; (c) -m --phi --trans on the replay: scans against
      process_frame's after update_extrinsics, and unlike (a)'s; (d) the
      navigate CLI on (a)'s scans; each CLI call with the launch counters
@@ -275,6 +278,17 @@ Phases (any failure exits non-zero and prints no success line):
      bench_bm256's (G with the gate, beside G alone and G then S in the
      same run; S alone, and at D = 320), a time below its bound failing;
      one JSON line (phases 6c, 6d, 7b, 7c and 11 pin them);
+  18. the ELAS paths without eager ops and the ELAS options
+     (elas_eager_phase): the ATen ops that one call of the ELAS node's
+     process_frame, the MIDDLEBURY elas_match and u8 route, a batched
+     chunk with the u8 sink and the batched u8 route dispatch on the card,
+     only copies and the content order's index_selects, pinned
+     (ELAS_EAGER_PINS), C and elas_u8 counted; elas_match with
+     use_native=False and return_debug=True and post.postprocess on the
+     card against the CPU on a node frame; the node's u8 routes against
+     the CPU's; one JSON line (phase 12 holds I, J, K with their u8
+     epilogue and out rows and elas_u8 against dmap_u8, and times the tail
+     with and without the u8 map);
   8. a "kernels" JSON line, the card line, and the final JSON line.
 
 A kernel's time a call ("ms") is CUDA events around calls queued behind a
@@ -640,9 +654,9 @@ def dense_pair_work(desc1, desc2, maps_left, maps_right, params):
 
 
 def raster_work(table, sel, Tp, W, H):
-    """(bytes, operations by type, the old count, live slots) of one raster
-    call on these inputs: the table, the tile lists and the key map each
-    moved once. A live slot names a row of its frame other than the pad
+    """(bytes, operations by type, the old count, live slots) of one side's
+    raster on these inputs: the table, the tile lists and the decoded maps
+    (4 bytes a pixel) each moved once. A live slot names a row of its frame other than the pad
     row Tp-1 whose paint is >= 0. The operations are what this run's
     triangles need, by the instruction type that runs them:
       per live slot: its three intercepts (3 f32 multiplies, 3 subtracts,
@@ -655,7 +669,10 @@ def raster_work(table, sel, Tp, W, H):
         with H, the band's row range);
       per pixel of the band the slot covers (lo <= v < hi): the plane
         value's two f32 adds, one float -> int conversion, and 6 integer
-        operations: the clamp, the key and the maximum.
+        operations: the clamp, the key and the maximum;
+      per pixel of the image: the decode of its key into the three maps
+        the kernel stores (6 integer operations: the covered test, the
+        shift, mask and offset of d_plane, its select, the valid bit).
     Columns outside the span, rows outside [lo, hi) and pad slots need
     nothing. The scanline bounds are computed here as the kernel computes
     them (float32, each product and sum rounded on its own, XLA's
@@ -707,8 +724,9 @@ def raster_work(table, sel, Tp, W, H):
     n_slots, n_cols = len(r), int(span.sum())
     n_pix = int((covered * span).sum())
     ops = {"f32": 6 * n_slots + int(nrow.sum()) + 5 * n_cols + 2 * n_pix,
-           "int": 10 * n_cols + 6 * n_pix,
+           "int": 10 * n_cols + 6 * n_pix + 6 * CH * H * W,
            "cvt": 4 * n_slots + 3 * n_cols + n_pix}
+    # the maps written: d_plane (2 bytes), valid and covered (1 each)
     nbytes = 4 * (table.numel() + sel.numel() + CH * H * W)
     return nbytes, ops, old, n_slots
 
@@ -2166,7 +2184,7 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
             counts = dict(zip(("support", "elas_dense", "raster"), read()),
                           **front_counts(), **prior_counts())
             want = {"support": n, "elas_dense": 8 // chunk,
-                    "raster": 2 * 8 // chunk, "descriptor": n,
+                    "raster": 8 // chunk, "descriptor": n,
                     "support_fused": n, "support_epilogue": 0,
                     "coeff_grid": 8 // chunk}
             if counts != want:
@@ -2448,28 +2466,45 @@ def post_kernels_hold(D1, D2, params, hold, label, smax=-1):
     torch.equal takes -0.0 for +0.0). H under ``params`` and ``smax``; I
     under params and under MIDDLEBURY's 5000-pixel gaps with
     extrapolation; J's 8- and 4-tap variants; K; all on both views
-    stacked."""
+    stacked, and each of I, J, K again with its sinks (the two views'
+    frames into two given tensors and the first view's u8 map, its
+    epilogue), which must equal the call without them and dmap_u8 of its
+    first view; the u8 map alone (elas_u8) against dmap_u8."""
     import torch
     from jackal_tpu_torch.config import ElasParams
     from jackal_tpu_torch.matching.elas import post
+    from jackal_tpu_torch.ops.convert import dmap_u8
 
     X = torch.stack([D1, D2])
     mb = ElasParams.middlebury()
     checks = [("elas_lr", post.left_right_consistency_check(
                    D1, D2, params, smax),
                post.left_right_consistency_check_plain(D1, D2, params, smax))]
-    for p in (params, mb):
-        checks.append(("elas_gap", [post.gap_interpolation(X, p)],
-                       [post.gap_interpolation_plain(X, p)]))
-    checks += [("elas_mean", [post.adaptive_mean(X)],
-                [post.adaptive_mean_plain(X)]),
-               ("elas_mean", [post.adaptive_mean_sub(X)],
-                [post.adaptive_mean_sub_plain(X)]),
-               ("elas_median", [post.median_filter(X)],
-                [post.median_filter_plain(X)])]
+    maps = [("elas_gap", lambda Y, **kw: post.gap_interpolation(Y, params,
+                                                               **kw),
+             post.gap_interpolation_plain(X, params)),
+            ("elas_gap", lambda Y, **kw: post.gap_interpolation(Y, mb, **kw),
+             post.gap_interpolation_plain(X, mb)),
+            ("elas_mean", post.adaptive_mean, post.adaptive_mean_plain(X)),
+            ("elas_mean", post.adaptive_mean_sub,
+             post.adaptive_mean_sub_plain(X)),
+            ("elas_median", post.median_filter, post.median_filter_plain(X))]
+    for kernel, fn, want in maps:
+        got = fn(X)
+        checks.append((kernel, [got], [want]))
+        out = (torch.full_like(D1, 7.0), torch.full_like(D2, 7.0))
+        U = torch.empty(D1.shape, dtype=torch.uint8, device=D1.device)
+        sunk = fn(X, out=out, u8=U)
+        if sunk[0].data_ptr() != out[0].data_ptr():
+            raise AssertionError(f"{kernel} {label}: not written to out")
+        checks.append((kernel, [*sunk, U], [want[0], want[1],
+                                           dmap_u8(want[0])]))
+    checks.append(("elas_u8", [post.u8_map(X)], [dmap_u8(X)]))
     for kernel, got, want in checks:
         hold(kernel, f"{kernel} {label}", got, want)
         for g, w in zip(got, want):
+            if g.dtype != torch.float32:
+                continue
             if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
                 raise AssertionError(f"{kernel} {label}: bits differ at "
                                      f"{int((g.view(torch.int32) != w.view(torch.int32)).sum())} pixels")
@@ -2529,6 +2564,7 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
     from jackal_tpu_torch.matching.elas import dense as dense_mod
     from jackal_tpu_torch.matching.elas import post
     from jackal_tpu_torch.matching.elas.pipeline import elas_match
+    from jackal_tpu_torch.ops.convert import dmap_u8
 
     params = ElasParams()
     for name in POST_EDGE_CASES:
@@ -2561,7 +2597,7 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
     _same("MIDDLEBURY elas_match D1 vs libelas", D1, torch.from_numpy(g["D1"]))
     _same("MIDDLEBURY elas_match D2 vs libelas", D2, torch.from_numpy(g["D2"]))
     want = {"elas_lr": 0, "elas_gap": 1, "elas_mean": 0, "elas_median": 1,
-            "elas_speckle": 1}
+            "elas_speckle": 1, "elas_u8": 0}
     if mb_launches != want or mb_fused != 1 or mb_dev["elas_median"] != 1 \
             or mb_dev["elas_speckle"] != SPECKLE_LAUNCHES:
         raise AssertionError(f"MIDDLEBURY elas_match launched {mb_launches}"
@@ -2602,8 +2638,32 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
          lambda: post.gap_interpolation_plain(X2, mb),
          post_work(1, 1, tuple(X2.shape)), 2),
     ]
-    replaces = {"elas_lr": 34, "elas_gap": 443, "elas_mean": 587,
-                "elas_median": 686}
+    # each of I, J, K with the u8 epilogue (its sinks: the float map and
+    # the first view's u8 map) beside it without: one byte a pixel more
+    u8_shape = tuple(X.shape)
+    U1 = torch.empty(u8_shape, dtype=torch.uint8, device=dev)
+    O1 = torch.empty_like(X)
+    runs += [
+        ("elas_gap with the u8 epilogue", "elas_gap",
+         lambda: post.gap_interpolation(X, params, out=(O1,), u8=U1),
+         lambda: dmap_u8(post.gap_interpolation_plain(X, params)),
+         post_work(1, 1, shape) + X.numel(), 1),
+        ("elas_mean with the u8 epilogue", "elas_mean",
+         lambda: post.adaptive_mean(G, out=(O1,), u8=U1),
+         lambda: dmap_u8(post.adaptive_mean_plain(G)),
+         post_work(1, 1, shape) + X.numel(), 1),
+        ("elas_median with the u8 epilogue", "elas_median",
+         lambda: post.median_filter(G, out=(O1,), u8=U1),
+         lambda: dmap_u8(post.median_filter_plain(G)),
+         post_work(1, 1, shape) + X.numel(), 1),
+        ("elas_u8", "elas_u8", lambda: post.u8_map(X, U1),
+         lambda: dmap_u8(X), 5 * X.numel(), 1),
+    ]
+    replaces = {"elas_lr": "matching/elas/post.py:34",
+                "elas_gap": "matching/elas/post.py:443",
+                "elas_mean": "matching/elas/post.py:587",
+                "elas_median": "matching/elas/post.py:686",
+                "elas_u8": "pipeline/frame_pipeline.py:382"}
     entries, times = [], {}
     for label, k, kern, plain, nbytes, want in runs:
         # the kernel launches of one call, as the entry point reports them
@@ -2628,18 +2688,45 @@ def postprocess_phase(dev, hold, node, batch, node_launches, dense_cases,
         if label != k:
             continue
         # K runs on the MIDDLEBURY elas_match alone, H (off the presets'
-        # paths since it runs as B's epilogue) on the subsampled elas_match
+        # paths since it runs as B's epilogue) on the subsampled elas_match;
+        # elas_u8 on the bail-out alone (none of the node's frames)
         launches = {"elas_median": mb_launches[k],
                     "elas_lr": path_launches["elas_lr"]}.get(
                         k, node_launches[k])
         entries.append({
             "name": k, "route": "cuda",
             "source": "jackal_tpu_torch/csrc/elas_post_kernel.cu",
-            "replaces": f"jackal_tpu/matching/elas/post.py:{replaces[k]}",
+            "replaces": f"jackal_tpu/{replaces[k]}",
             "launches": launches, "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
         if k == "elas_lr":
             entries[-1]["fused_into"] = "elas_dense_lr"
+        if k in ("elas_gap", "elas_mean", "elas_median"):
+            entries[-1]["epilogue"] = ("the u8 map (jackal_tpu/pipeline/"
+                                       "frame_pipeline.py:382) where it is "
+                                       "the tail's last kernel")
+
+    # the tail and the u8 map at the node's frame: the parent's route (the
+    # tail, then dmap_u8's three eager launches) against the tail whose
+    # last kernel writes the u8 map; ROBOTICS (I, J, the left view) and
+    # MIDDLEBURY (I, K, both views)
+    tails = {}
+    for name, p, V2 in (("ROBOTICS", params, Db), ("MIDDLEBURY", mb, Db)):
+        U = torch.empty(tuple(S1.shape), dtype=torch.uint8, device=dev)
+        T1, _ = post.post_tail(S1, V2, p)
+        post.post_tail(S1, V2, p, u8=U)
+        hold("elas_u8", f"the tail's u8 epilogue, {name}", [U], [dmap_u8(T1)])
+        tails[name] = {
+            "tail_ms": events_ms(lambda: post.post_tail(S1, V2, p), 50),
+            "tail_then_dmap_u8_ms": events_ms(
+                lambda: dmap_u8(post.post_tail(S1, V2, p)[0]), 50),
+            "tail_with_u8_epilogue_ms": events_ms(
+                lambda: post.post_tail(S1, V2, p, u8=U), 50),
+            "dmap_u8_alone_ms": events_ms(lambda: dmap_u8(T1), 50)}
+        print(f"12c. the tail at 640x480, {name}: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in tails[name].items())
+            + " (CUDA events behind a spin; the u8 map equal to dmap_u8)")
+    times["tail and u8 map"] = tails
 
     # (d) kernel B with H's epilogue beside B alone and B then H; its bound
     # is B's (it writes the same two maps, already checked)
@@ -4693,6 +4780,156 @@ def prior_phase(dev, hold, chunks, launches):
                       "launches": launches, "aten_ops": ops}}, entries
 
 
+# ---- the ELAS paths without eager ops, and the ELAS options (phase 18) ------
+
+# ATen ops that may launch work on the card on an ELAS path: the path's own
+# host <-> card copies (the input frames, the per-frame prior's upload, the
+# batched path's index tables) and, on the batched path, the index_selects
+# of the content order (descriptors in, maps back out)
+ELAS_COPY_OPS = ("aten._to_copy.default", "aten.copy_.default")
+ELAS_ORDER_OPS = ("aten.index_select.default",)
+# the card ops of one call, pinned: the frame uploads and the prior's 8
+# (per frame), the content order's index tables and index_selects (the
+# batched route; its wire uploads run on the pool's threads, which the
+# dispatch mode does not see). The counts before kernel C decoded its maps
+# and the tail's last kernel wrote the u8 map are in PERF.md section 3.
+ELAS_EAGER_PINS = {
+    "process_frame ROBOTICS": {"aten._to_copy.default": 10},
+    "u8 route MIDDLEBURY": {"aten._to_copy.default": 8},
+    "elas_match MIDDLEBURY": {"aten._to_copy.default": 8},
+    "batched chunk of 8 with the u8 map": {},
+    "batched u8 route, 8 frames": {"aten._to_copy.default": 2,
+                                   "aten.index_select.default": 3}}
+
+
+def elas_eager_phase(dev, hold, pipe, pairs, L9, R9):
+    """Phase 18: (a) the ATen ops that one call of each ELAS path
+    dispatches on the card (aten_ops_of_a_call): the ELAS node's
+    process_frame (ROBOTICS), the per-frame u8 route and elas_match at
+    MIDDLEBURY, one batched chunk of 8 (_chunk_tail with the node's u8
+    sink) and the node's batched route over 8 frames; every op that
+    launches work must be one of the path's copies (ELAS_COPY_OPS) or an
+    index_select of the content order, and the counts are pinned
+    (ELAS_EAGER_PINS); the calls' kernels counted (C once for both sides,
+    elas_u8 never); (b) elas_match with use_native=False and with
+    return_debug=True, and post.postprocess, on the card against the CPU
+    on one 640x480 node frame (ROBOTICS; postprocess also MIDDLEBURY);
+    (c) the node's u8 maps on the card against the CPU's: the per-frame
+    route on one node frame at both presets, the batched route on two;
+    the batched route of 8 frames against dmap_u8 of
+    elas_match_batch_device's D1. pipe: phase 4's node; pairs: its raw
+    pairs; L9, R9: their rectified frames. Returns the phase's JSON
+    line."""
+    import torch
+    from jackal_tpu_torch.config import ElasParams
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.matching.elas import post
+    from jackal_tpu_torch.ops.convert import dmap_u8
+    from jackal_tpu_torch.ops.transfer import HostCopy
+
+    params, mb = ElasParams(), ElasParams.middlebury()
+    lr, rr = pairs[-1]
+    l1, r1 = L9[-1], R9[-1]
+    B8 = 8
+    L8, R8 = L9[:B8].contiguous(), R9[:B8].contiguous()
+    H, W = l1.shape
+    d1, d2, dcan_dev = ep._front(L8, R8, params)
+    dcan = HostCopy(dcan_dev).numpy()
+    wires = [ep._prior_tri_job(dcan[b], params, W, H) for b in range(B8)]
+    Np, Tp, Ts = ep._chunk_pads(wires)
+    lad = ep._lr_ladder(wires, params)
+    flat = torch.from_numpy(ep._flatten_chunk_wire(wires, Np, Tp,
+                                                   Ts)).to(dev)
+    U8 = torch.empty((B8, H, W), dtype=torch.uint8, device=dev)
+    node_params = ep._node_params(params, True)
+    calls = {
+        "process_frame ROBOTICS": lambda: pipe.process_frame(lr, rr),
+        "u8 route MIDDLEBURY": lambda: ep._elas_match_u8(l1, r1, mb,
+                                                         device=dev),
+        "elas_match MIDDLEBURY": lambda: ep.elas_match(l1, r1, mb,
+                                                       device=dev),
+        "batched chunk of 8 with the u8 map": lambda: ep._chunk_tail(
+            flat, d1, d2, B8, Np, Tp, Ts, W, H, node_params, lad, None, U8),
+        "batched u8 route, 8 frames": lambda: ep._elas_match_batch_u8(
+            L8, R8, params, chunk=B8, device=dev)}
+    counts, kernels, bad = {}, {}, {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        dp.launches = 0
+        for k in post.launches:
+            post.launches[k] = 0
+        ops = aten_ops_of_a_call(fn)
+        torch.cuda.synchronize()
+        card = [n for n, ok in ops if not ok]
+        counts[name] = {n: card.count(n) for n in sorted(set(card))}
+        kernels[name] = {"raster": dp.launches,
+                         "elas_u8": post.launches["elas_u8"]}
+        bad[name] = [n for n in card
+                     if n not in ELAS_COPY_OPS + ELAS_ORDER_OPS
+                     or (n in ELAS_ORDER_OPS and "batched" not in name)]
+        print(f"18a. ATen ops of one call, {name}: {len(ops)}, of which "
+              f"launch work on the card: {counts[name]}; kernels C and "
+              f"elas_u8 launched {kernels[name]}")
+    if any(bad.values()):
+        raise AssertionError(f"18a. eager ops on an ELAS path: {bad}")
+    if counts != ELAS_EAGER_PINS:
+        raise AssertionError(f"18a. the ELAS paths' card ops {counts}, "
+                             f"pinned {ELAS_EAGER_PINS}")
+    if counts["batched chunk of 8 with the u8 map"] \
+            or kernels["batched chunk of 8 with the u8 map"] \
+            != {"raster": 1, "elas_u8": 0} \
+            or any(k["elas_u8"] for k in kernels.values()):
+        raise AssertionError(f"18a. the chunk's tail ran {counts} on the "
+                             f"card, kernels {kernels}")
+
+    # (b) the options on the card against the CPU, one node frame
+    seen = []
+    for use_native, debug in ((False, False), (None, True), (False, True)):
+        got = ep.elas_match(l1, r1, params, return_debug=debug,
+                            use_native=use_native, device=dev)
+        want = ep.elas_match(l1.cpu(), r1.cpu(), params, return_debug=debug,
+                             use_native=use_native, device="cpu")
+        label = f"elas_match(use_native={use_native}, return_debug={debug})"
+        for g, w in zip(got[:2], want[:2]):
+            _same(label, g, w)
+        if debug:
+            _same(f"{label} dense_D1", got[2].dense_D1, want[2].dense_D1)
+            _same(f"{label} dense_D2", got[2].dense_D2, want[2].dense_D2)
+            if not np.array_equal(got[2].support, want[2].support):
+                raise AssertionError(f"{label}: support differs")
+        seen.append(label)
+    dbg = ep.elas_match(l1, r1, params, return_debug=True, device=dev)[2]
+    for p, name in ((params, "ROBOTICS"), (mb, "MIDDLEBURY")):
+        got = post.postprocess(dbg.dense_D1, dbg.dense_D2, p)
+        want = post.postprocess(dbg.dense_D1.cpu(), dbg.dense_D2.cpu(), p)
+        for g, w in zip(got, want):
+            _same(f"postprocess {name}", g, w)
+        seen.append(f"post.postprocess {name}")
+    print(f"18b. on the card == on the CPU, one 640x480 node frame: "
+          f"{'; '.join(seen)}")
+
+    # (c) the node's u8 maps, card against CPU
+    for p, name in ((params, "ROBOTICS"), (mb, "MIDDLEBURY")):
+        _same(f"per-frame u8 route {name}",
+              ep._elas_match_u8(l1, r1, p, device=dev),
+              ep._elas_match_u8(l1.cpu(), r1.cpu(), p, device="cpu"))
+    _same("batched u8 route, 2 frames",
+          ep._elas_match_batch_u8(L9[:2], R9[:2], params, device=dev),
+          ep._elas_match_batch_u8(L9[:2].cpu(), R9[:2].cpu(), params,
+                                  device="cpu"))
+    _same("batched u8 route, 8 frames, vs dmap_u8 of D1",
+          ep._elas_match_batch_u8(L8, R8, params, chunk=4, device=dev),
+          dmap_u8(ep.elas_match_batch_device(L8, R8, params, chunk=4,
+                                             device=dev)[0]))
+    print("18c. the node's u8 maps on the card == the CPU's: per frame "
+          "(ROBOTICS, MIDDLEBURY), batched on 2 frames; the batched route "
+          "on 8 frames (chunk 4) == dmap_u8 of elas_match_batch_device's D1")
+    return {"elas_eager": {"card_ops": counts, "kernels": kernels,
+                           "options": seen}}
+
+
 # ---- kernels O1, O2 and S: the SGM and BM tails (phase 17) -----------------
 
 # kernels O1, O2 and S by their names in the kernels line and in their
@@ -5571,7 +5808,7 @@ def shell_phase(dev):
             raise AssertionError(f"9b {frames} frames: {text}")
         batches = frames // 8
         want = {"support": batches, "elas_dense": batches,
-                "raster": 2 * batches, "remap": batches, "scan": batches,
+                "raster": batches, "remap": batches, "scan": batches,
                 "cloud": 0, "scan_points": 0, "cloud_scan": 0,
                 "descriptor": batches, "support_fused": batches,
                 "support_epilogue": 0, "coeff_grid": batches}
@@ -5685,7 +5922,7 @@ def main() -> int:
                "elas_median": 0.0, "elas_dense_lr": 0.0, "elas_speckle": 0.0,
                "remap": 0.0, "scan": 0.0, "cloud": 0.0, "scan_points": 0.0,
                "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0,
-               "support_fused": 0.0,
+               "support_fused": 0.0, "elas_u8": 0.0,
                "coeff_table": 0.0, "grid_words": 0.0, "sgm_cost": 0.0,
                "sgm_epilogue": 0.0, "bm_gate": 0.0}
 
@@ -5777,6 +6014,11 @@ def main() -> int:
             coeffs = ep._chunk_coeffs(flat.to(dev), CH, Np, Tp, Ts, W, H,
                                       params)
             coeffs_cpu = ep._chunk_coeffs(flat, CH, Np, Tp, Ts, W, H, params)
+            # both sides in one launch, against the plain decode of each
+            tables, sels, _ = zip(*coeffs)
+            maps = dp.raster_maps(tables, sels, Tp, W, H)
+            hold("raster", f"raster chunk {chunk}, both sides", maps,
+                 dp.raster_maps_plain(tables, sels, Tp, W, H))
             for side, ((tab, sel, words), cpu) in enumerate(zip(coeffs,
                                                                coeffs_cpu)):
                 # slopes (f32 division), planes (f64 fit) and grids: the
@@ -5791,10 +6033,8 @@ def main() -> int:
                     got = tab[f * Tp:f * Tp + len(tw), 8:11].cpu().numpy()
                     if not np.array_equal(got, want.view(np.int32)):
                         raise AssertionError("planes != fit_planes_native")
-                win = dp.raster(tab, sel, Tp, W, H)
-                hold("raster", f"raster chunk {chunk} side {side}", [win],
-                     [dp.raster_plain(tab, sel, Tp, W, H)])
-                dpl, valid, cov = (x.cpu().numpy() for x in dp.decode_win(win))
+                dpl, valid, cov = (x[side * CH:(side + 1) * CH].cpu().numpy()
+                                   for x in maps)
                 for f, (sp, t1, t2, _) in enumerate(fr):
                     host = build_priors_native(sp, W, H, params, tri_left=t1,
                                                tri_right=t2)
@@ -5809,9 +6049,10 @@ def main() -> int:
                             f"device prior != C++ host prior (chunk {chunk},"
                             f" frame {f}, side {side})")
             n_chunks += 1
-    print(f"raster kernel == plain (torch.equal) and device prior == C++ "
-          f"host prior, planes == fit_planes_native, card coefficients == "
-          f"CPU's: {n_chunks} chunks of the golden pair, both sides")
+    print(f"raster kernel (both sides, one launch) == plain "
+          f"(decode_win(raster_plain) a side, torch.equal) and device prior "
+          f"== C++ host prior, planes == fit_planes_native, card "
+          f"coefficients == CPU's: {n_chunks} chunks of the golden pair")
     pin_prior(f"2b. {n_chunks} card calls of _chunk_coeffs", n_chunks)
     rng_w = np.random.default_rng(11)
     sp = np.stack([rng_w.choice(np.arange(8, W - 8), 14, replace=False),
@@ -5829,22 +6070,23 @@ def main() -> int:
     Np, Tp, Ts = ep._chunk_pads([wire])
     flat = torch.from_numpy(ep._flatten_chunk_wire([wire], Np, Tp, Ts))
     host = build_priors_native(sp, W, H, params, tri_left=t1, tri_right=t2)
-    for side, (tab, sel, _) in enumerate(ep._chunk_coeffs(
-            flat.to(dev), 1, Np, Tp, Ts, W, H, params)):
-        win = dp.raster(tab, sel, Tp, W, H)
-        hold("raster", f"raster wide triangles side {side}", [win],
-             [dp.raster_plain(tab, sel, Tp, W, H)])
+    tables, sels, _ = zip(*ep._chunk_coeffs(flat.to(dev), 1, Np, Tp, Ts, W,
+                                            H, params))
+    maps = dp.raster_maps(tables, sels, Tp, W, H)
+    hold("raster", "raster wide triangles, both sides", maps,
+         dp.raster_maps_plain(tables, sels, Tp, W, H))
+    for side in range(2):
         c = host[side].tri_id >= 0
-        dpl, _, cov = (x[0].cpu().numpy() for x in dp.decode_win(win))
+        dpl, _, cov = (x[side].cpu().numpy() for x in maps)
         if not (np.array_equal(cov, c)
                 and np.array_equal(dpl[c], host[side].d_plane[c])):
             raise AssertionError("wide triangles: device prior != host")
-    tab, sel = raster_overflow_case(np.random.default_rng(5), 2, 300, W, H,
-                                    48)
-    win = dp.raster(tab.to(dev), sel.to(dev), 300, W, H)
-    hold("raster", "raster overflowing planes", [win],
-         [dp.raster_plain(tab.to(dev), sel.to(dev), 300, W, H)])
-    dpl = dp.decode_win(win)[0].cpu().numpy()
+    tab, sel = (x.to(dev) for x in raster_overflow_case(
+        np.random.default_rng(5), 2, 300, W, H, 48))
+    maps = dp.raster_maps((tab,), (sel,), 300, W, H)
+    hold("raster", "raster overflowing planes", maps,
+         dp.raster_maps_plain((tab,), (sel,), 300, W, H))
+    dpl = maps[0].cpu().numpy()
     v, u = np.mgrid[0:H, 0:W]
     want = np.array([511, -512, 0])[((v // 16) * 5 + u // 128) % 3]
     if not np.array_equal(dpl[:, :, 1:], np.broadcast_to(want[:, 1:],
@@ -5853,10 +6095,13 @@ def main() -> int:
     for name in RASTER_EDGE_CASES:
         tab, sel, Tp_e, W_e, H_e = (x.to(dev) if torch.is_tensor(x) else x
                                     for x in raster_edge_case(name))
-        hold("raster", f"raster {name}", [dp.raster(tab, sel, Tp_e, W_e, H_e)],
-             [dp.raster_plain(tab, sel, Tp_e, W_e, H_e)])
-    print(f"raster kernel == plain (torch.equal): "
-          f"{', '.join(RASTER_EDGE_CASES)}")
+        for n in (1, 2):
+            hold("raster", f"raster {name}, {n} side(s)",
+                 dp.raster_maps((tab,) * n, (sel,) * n, Tp_e, W_e, H_e),
+                 dp.raster_maps_plain((tab,) * n, (sel,) * n, Tp_e, W_e,
+                                      H_e))
+    print(f"raster kernel (decoded maps, one side and both in one launch) "
+          f"== plain (torch.equal): {', '.join(RASTER_EDGE_CASES)}")
     probe = torch.tensor([3e9, -3e9, float("nan")], device=dev)
     from jackal_tpu_torch.ops.convert import to_int32
     print(f"raster kernel == plain on wide triangles and overflowing planes "
@@ -5944,7 +6189,7 @@ def main() -> int:
     # speckle filter is kernel L (one cooperative launch a call), the BFS
     # hop never runs; rectify is one launch of kernel N a frame
     once = {"elas_lr": 0, "elas_gap": n9, "elas_mean": n9, "elas_median": 0,
-            "elas_speckle": n9}
+            "elas_speckle": n9, "elas_u8": 0}
     if node_post != once or node_post_dev != dict(
             once, elas_speckle=SPECKLE_LAUNCHES * n9):
         raise AssertionError(f"the node called the postprocess kernels "
@@ -6077,6 +6322,7 @@ def main() -> int:
 
     # ---- 4b. the batched node ---------------------------------------------
     from jackal_tpu_torch.io_bus.bus import TopicBus
+    from jackal_tpu_torch.ops.convert import dmap_u8
     from jackal_tpu_torch.matching.elas.post import (
         postprocess_after_lr, postprocess_batch, remove_small_segments_batch)
     from jackal_tpu_torch.ops.transfer import HostCopy, to_device
@@ -6122,7 +6368,7 @@ def main() -> int:
           f"{batch_post} (their kernel launches {batch_post_dev})")
     nb6 = n_frames // batch
     once = {"elas_lr": 0, "elas_gap": nb6, "elas_mean": nb6,
-            "elas_median": 0, "elas_speckle": nb6}
+            "elas_median": 0, "elas_speckle": nb6, "elas_u8": 0}
     if batch_post != once or batch_post_dev != dict(
             once, elas_speckle=SPECKLE_LAUNCHES * nb6):
         raise AssertionError(f"the batched node called the postprocess "
@@ -6137,6 +6383,10 @@ def main() -> int:
     if min(launches_b.values()) == 0:
         raise AssertionError(f"the batched node bypassed a kernel: "
                              f"{launches_b}")
+    if launches_b["raster"] != nb6:
+        raise AssertionError(f"the batched node launched kernel C "
+                             f"{launches_b['raster']} times over {nb6} "
+                             f"chunks, not once a chunk (both sides)")
     if launches_b["elas_dense"] != n_frames // batch:
         raise AssertionError(f"the batched node launched the dense kernel "
                              f"{launches_b['elas_dense']} times over "
@@ -6201,7 +6451,7 @@ def main() -> int:
     sb["coefficients + grids (both sides)"] = host_ms(
         lambda: ep._chunk_coeffs(flat, batch, Np, Tp, Ts, W, H, params), 5)
     coeffs = ep._chunk_coeffs(flat, batch, Np, Tp, Ts, W, H, params)
-    sb["raster (2 x kernel C + decode)"] = host_ms(
+    sb["raster (kernel C, both sides decoded, one launch)"] = host_ms(
         lambda: ep._chunk_raster(coeffs, Tp, W, H), 5)
     m1, m2 = ep._chunk_raster(coeffs, Tp, W, H)
     sb["dense, both views (kernel B, one launch)"] = host_ms(
@@ -6231,10 +6481,16 @@ def main() -> int:
     BS1 = remove_small_segments_batch(BL1, params)
     sb["  tail (kernels I, J)"] = host_ms(
         lambda: post_tail(BS1, BL2, params), 5)
+    U8b = torch.empty(tuple(BS1.shape), dtype=torch.uint8, device=dev)
+    sb["  tail with the u8 map as J's epilogue (the node's route)"] = \
+        host_ms(lambda: post_tail(BS1, BL2, params, u8=U8b), 5)
+    sb["  tail, then dmap_u8 (three eager launches; the route before)"] = \
+        host_ms(lambda: dmap_u8(post_tail(BS1, BL2, params)[0]), 5)
     sb["  tail, plain versions"] = host_ms(
         lambda: post_mod.adaptive_mean_plain(
             post_mod.gap_interpolation_plain(BS1, params)), 5)
-    dmaps8 = pipe._dmap_u8(postprocess_after_lr(BL1, BL2, params)[0])
+    dmaps8 = dmap_u8(postprocess_after_lr(BL1, BL2, params)[0])
+    _same("the batched node's u8 epilogue vs dmap_u8", U8b, dmaps8)
     sb["scan"] = host_ms(lambda: pipe._scan_stage(dmaps8), 5)
     for k, v in sb.items():
         print(f"  batch stage {k}: {v:.3f} ms")
@@ -6362,24 +6618,28 @@ def main() -> int:
         if k < b:
             raise AssertionError(f"{name}: {k} ms is below its bound {b} ms")
 
-    tabC, selC, _ = coeffs[0]
-    hold("raster", f"raster, left side of a chunk of {batch} frames",
-         [dp.raster(tabC, selC, Tp, W, H)],
-         [dp.raster_plain(tabC, selC, Tp, W, H)])
-    nbC, opsC, oldC, liveC = raster_work(tabC, selC, Tp, W, H)
+    tabsC, selsC, _ = zip(*coeffs)
+    hold("raster", f"raster, both sides of a chunk of {batch} frames",
+         dp.raster_maps(tabsC, selsC, Tp, W, H),
+         dp.raster_maps_plain(tabsC, selsC, Tp, W, H))
+    works = [raster_work(t, x, Tp, W, H) for t, x in zip(tabsC, selsC)]
+    nbC = sum(w[0] for w in works)
+    opsC = {k: sum(w[1][k] for w in works) for k in works[0][1]}
+    oldC, liveC = sum(w[2] for w in works), sum(w[3] for w in works)
     bC, byC, typeC = raster_bound_ms(nbC, opsC, dev)
     obC, obyC = bound_ms(nbC, oldC, PEAK_F32_OPS_PER_S)
-    kC = events_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50)
-    lC, seenC = launch_ms(lambda: dp.raster(tabC, selC, Tp, W, H), 50,
+    kC = events_ms(lambda: dp.raster_maps(tabsC, selsC, Tp, W, H), 50)
+    lC, seenC = launch_ms(lambda: dp.raster_maps(tabsC, selsC, Tp, W, H), 50,
                           "raster_kernel")
-    pC = events_ms(lambda: dp.raster_plain(tabC, selC, Tp, W, H), 3,
+    pC = events_ms(lambda: dp.raster_maps_plain(tabsC, selsC, Tp, W, H), 3,
                    spin=False)
-    print(f"device ms a call (CUDA events behind a spin): raster, left side "
-          f"of a chunk of {batch} frames {kC:.4f} (its kernel launch "
-          f"{lC:.4f}, {seenC} of 50 recorded; plain {pC:.3f}; bound "
-          f"{bC:.5f} by {byC}: {nbC} bytes, {liveC} live tile slots of "
-          f"{selC.numel()}, Ts {Ts}; operations f32 {opsC['f32']}, integer "
-          f"{opsC['int']}, conversions {opsC['cvt']}, ms at their rates "
+    print(f"device ms a call (CUDA events behind a spin): raster, both sides"
+          f" of a chunk of {batch} frames decoded in one launch {kC:.4f} (its"
+          f" kernel launch {lC:.4f}, {seenC} of 50 recorded; plain {pC:.3f};"
+          f" bound {bC:.5f} by {byC}: {nbC} bytes, {liveC} live tile slots "
+          f"of {sum(x.numel() for x in selsC)}, Ts {Ts}; operations f32 "
+          f"{opsC['f32']}, integer {opsC['int']}, conversions "
+          f"{opsC['cvt']}, ms at their rates "
           + ", ".join(f"{k} {v:.5f}" for k, v in typeC.items())
           + f"; the old bound, {oldC} operations at {PEAK_F32_OPS_PER_S:.3g}"
           f" /s, {obC:.5f} by {obyC})")
@@ -6403,6 +6663,7 @@ def main() -> int:
         {"name": "raster", "route": "cuda",
          "source": "jackal_tpu_torch/csrc/raster_kernel.cu",
          "replaces": "jackal_tpu/ops/pallas/raster_kernel.py:59",
+         "fuses": "jackal_tpu/ops/pallas/raster_kernel.py:162",
          "launches": launches_b["raster"], "max_abs_err": max_err["raster"],
          "ms": kC, "plain_ms": pC, "bound_ms": bC, "bound_by": byC,
          "library_ms": None},
@@ -6492,6 +6753,9 @@ def main() -> int:
     for entry in entries:
         entry["max_abs_err"] = max_err[entry["name"]]
         kernels.append(entry)
+
+    # ---- 18. the ELAS paths' eager ops and the ELAS options ---------------
+    print(json.dumps(elas_eager_phase(dev, hold, pipe, pairs, L9, R9)))
 
     # ---- 8. the kernels line, the card, the result -----------------------
     print(f"torch.profiler windows traced again for want of device activity:"

@@ -60,6 +60,16 @@
 // 132 SMs), with coalesced loads and one coalesced store; I's scan design
 // for long gaps has no thread walk a line: a block a line, the nearest
 // valid pixels from ballots.
+//
+// The u8 map. The node publishes clip(round(D1), 0, 255) as u8 (ops/
+// convert.dmap_u8, round half to even). The last of I, J, K that runs
+// writes it as its epilogue (Sink below): beside each float of the first
+// view's frames it stores (uint8) min(max(rintf(v), 0), 255), rintf in the
+// default rounding mode rounding half to even as torch.round does. The
+// same Sink lets the last kernel write each view's frames where the caller
+// wants them (the batched path's output rows), so no copy follows it.
+// elas_u8 is that store alone, one launch, for a map that reaches no tail
+// (the per-frame bail-out's -10 map).
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,6 +83,32 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ int64_t gid() {
   return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
+
+__device__ __forceinline__ uint8_t u8_of(float v) {
+  return static_cast<uint8_t>(
+      static_cast<int>(fminf(fmaxf(rintf(v), 0.0f), 255.0f)));
+}
+
+// Where a kernel's last pass stores frame b of its [B, H, W] output:
+// frames b < n0 (the first view) at O, the others at O2, and, where U is
+// set, the u8 map of the first view's frames beside them.
+struct Sink {
+  float* O;
+  float* O2;
+  uint8_t* U;
+  int n0;
+  __device__ __forceinline__ float* frame(int b, int64_t hw) const {
+    return b < n0 ? O + b * hw : O2 + (b - n0) * hw;
+  }
+  __device__ __forceinline__ uint8_t* u8_frame(int b, int64_t hw) const {
+    return U != nullptr && b < n0 ? U + b * hw : nullptr;
+  }
+  __device__ __forceinline__ void put(int b, int64_t hw, int64_t i,
+                                      float v) const {
+    frame(b, hw)[i] = v;
+    if (uint8_t* u = u8_frame(b, hw)) u[i] = u8_of(v);
+  }
+};
 
 // ---- H: the L/R consistency check ---------------------------------------
 
@@ -139,8 +175,8 @@ constexpr int kSpan = kTile + 2 * kHaloMax;   // staged rows and columns
 constexpr int kTileThreads = 256;
 
 __global__ void __launch_bounds__(kTileThreads)
-    gap_tile_kernel(const float* __restrict__ D, float* __restrict__ O,
-                    int H, int W, int tiles_x, int tiles_y, int gap) {
+    gap_tile_kernel(const float* __restrict__ D, Sink out, int H, int W,
+                    int tiles_x, int tiles_y, int gap) {
   __shared__ float S[kSpan][kSpan + 1];   // D, invalid (-1) outside
   __shared__ float Rf[kSpan][kTile + 1];  // the row fill, the tile's columns
   __shared__ float Of[kTile][kTile + 1];  // the column fill
@@ -175,11 +211,12 @@ __global__ void __launch_bounds__(kTileThreads)
                                kTile + 1);
   }
   __syncthreads();
-  float* Ofr = O + static_cast<int64_t>(b) * H * W;
+  const int64_t hw = static_cast<int64_t>(H) * W;
   for (int i = tid; i < kTile * kTile; i += kTileThreads) {
     const int r = i / kTile, c = i % kTile;
     const int y = y0 + K + r, x = x0 + K + c;
-    if (y < H && x < W) Ofr[static_cast<int64_t>(y) * W + x] = Of[r][c];
+    if (y < H && x < W) out.put(b, hw, static_cast<int64_t>(y) * W + x,
+                                Of[r][c]);
   }
 }
 
@@ -247,15 +284,18 @@ __device__ __forceinline__ float scan_pixel(const float* src, int64_t es,
 }
 
 // Line t of `lines` a frame: element k at (t / lines) * fs + (t % lines) *
-// ls + k * es.
+// ls + k * es of src, and at (t % lines) * ls + k * es of its frame of out.
 __global__ void __launch_bounds__(1024)
-    gap_scan_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                    int lines, int len, int64_t es, int64_t ls, int64_t fs,
-                    int gap, int corners) {
+    gap_scan_kernel(const float* __restrict__ src, Sink out, int lines,
+                    int len, int64_t es, int64_t ls, int64_t fs, int gap,
+                    int corners) {
   __shared__ unsigned wmask[32];   // the warps' validity ballots
-  const int64_t base = (blockIdx.x / lines) * fs + (blockIdx.x % lines) * ls;
-  src += base;
-  dst += base;
+  const int f = blockIdx.x / lines;
+  const int64_t at = (blockIdx.x % lines) * ls;
+  src += f * fs + at;
+  float* dst = out.frame(f, fs) + at;
+  uint8_t* du = out.u8_frame(f, fs);
+  if (du != nullptr) du += at;
   const int C = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = C >> 5;
   const int nch = (len + C - 1) / C;
@@ -265,10 +305,13 @@ __global__ void __launch_bounds__(1024)
     if (lane == 0) wmask[warp] = m;
     __syncthreads();
     const Near n = near_in_chunk(wmask, m, lane, warp, nwarps);
-    if (tid < len)
-      dst[tid * es] = scan_pixel(src, es, len, tid, x, n.before,
+    if (tid < len) {
+      const float v = scan_pixel(src, es, len, tid, x, n.before,
                                  min(n.after, len), n.first < 0 ? len : n.first,
                                  n.last, gap, corners);
+      dst[tid * es] = v;
+      if (du != nullptr) du[tid * es] = u8_of(v);
+    }
     return;
   }
   // from the end: each pixel's nearest valid pixel after it, into dst
@@ -300,9 +343,11 @@ __global__ void __launch_bounds__(1024)
     const Near n = near_in_chunk(wmask, m, lane, warp, nwarps);
     if (k < len) {
       const int after = __float_as_int(dst[k * es]);
-      dst[k * es] = scan_pixel(src, es, len, k, x,
-                               n.before >= 0 ? c * C + n.before : prev, after,
-                               first, last, gap, corners);
+      const float v = scan_pixel(src, es, len, k, x,
+                                 n.before >= 0 ? c * C + n.before : prev,
+                                 after, first, last, gap, corners);
+      dst[k * es] = v;
+      if (du != nullptr) du[k * es] = u8_of(v);
     }
     if (n.last >= 0) prev = c * C + n.last;
     __syncthreads();
@@ -425,8 +470,8 @@ __device__ __forceinline__ float copy_val(float x) {
 // it writes the tile once.
 template <int kTaps>
 __global__ void __launch_bounds__(kTileThreads)
-    mean_tile_kernel(const float* __restrict__ D, float* __restrict__ O,
-                     int H, int W, int tiles_x, int tiles_y) {
+    mean_tile_kernel(const float* __restrict__ D, Sink out, int H, int W,
+                     int tiles_x, int tiles_y) {
   constexpr int kHalf = kTaps / 2;
   constexpr int N = kTile + kTaps - 1;    // staged rows and columns
   __shared__ float S[N][N + 1];           // D, 0 outside the frame
@@ -462,7 +507,7 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   __syncthreads();
   const int vr0 = kTaps == 8 ? 4 : 2, vr1 = kTaps == 8 ? H - 4 : H - 2;
-  float* Of = O + static_cast<int64_t>(b) * H * W;
+  const int64_t hw = static_cast<int64_t>(H) * W;
   for (int r = warp; r < kTile; r += kTileThreads / 32) {
     const int y = y0 + kHalf + r, x = x0 + kHalf + lane;
     if (y >= H || x >= W) continue;
@@ -472,7 +517,8 @@ __global__ void __launch_bounds__(kTileThreads)
     bool ok;
     const float m = lane_mean<kTaps>(v, T[r + kHalf][lane], y, ok);
     const bool in = y >= vr0 && y <= vr1 && x >= 3 && x <= W - 4;
-    Of[static_cast<int64_t>(y) * W + x] = (in && ok) ? m : S[r + kHalf][lane + kHalf];
+    out.put(b, hw, static_cast<int64_t>(y) * W + x,
+            (in && ok) ? m : S[r + kHalf][lane + kHalf]);
   }
 }
 
@@ -544,8 +590,8 @@ __device__ __forceinline__ float median_taps(uint32_t (&k)[7], const float* v,
 // barrier the column median over D_temp where D >= 0 inside the border, D
 // elsewhere; it writes the tile once.
 __global__ void __launch_bounds__(kTileThreads)
-    median_tile_kernel(const float* __restrict__ D, float* __restrict__ O,
-                       int H, int W, int tiles_x, int tiles_y) {
+    median_tile_kernel(const float* __restrict__ D, Sink out, int H, int W,
+                       int tiles_x, int tiles_y) {
   constexpr int N = kTile + 2 * kWs;      // staged rows and columns
   __shared__ float S[N][N + 1];           // D, 0 outside the frame
   __shared__ uint32_t SK[N][N + 1];       // their keys
@@ -582,18 +628,18 @@ __global__ void __launch_bounds__(kTileThreads)
     TK[r][lane] = fkey(t);
   }
   __syncthreads();
-  float* Of = O + static_cast<int64_t>(b) * H * W;
+  const int64_t hw = static_cast<int64_t>(H) * W;
   for (int r = warp; r < kTile; r += kTileThreads / 32) {
     const int y = y0 + kWs + r, x = x0 + kWs + lane;
     if (y >= H || x >= W) continue;
-    float out = S[r + kWs][lane + kWs];
+    float v = S[r + kWs][lane + kWs];
     if (key_valid(SK[r + kWs][lane + kWs]) && interior(y, x, H, W)) {
       uint32_t k[7];
 #pragma unroll
       for (int j = 0; j < 7; ++j) k[j] = TK[r + j][lane];
-      out = median_taps(k, &T[r][lane], kTile + 1);
+      v = median_taps(k, &T[r][lane], kTile + 1);
     }
-    Of[static_cast<int64_t>(y) * W + x] = out;
+    out.put(b, hw, static_cast<int64_t>(y) * W + x, v);
   }
 }
 
@@ -604,12 +650,29 @@ __global__ void div_even_kernel(const float* __restrict__ fs,
     out[i] = div_even(fs[i], d);
 }
 
+// the u8 map alone: U = dmap_u8(D)
+__global__ void u8_kernel(const float* __restrict__ D, uint8_t* __restrict__ U,
+                          int64_t n) {
+  for (int64_t i = gid(); i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    U[i] = u8_of(D[i]);
+}
+
 int grid_for(int64_t n, int threads) {
   const int64_t b = (n + threads - 1) / threads;
   return static_cast<int>(b < 65536 ? b : 65536);
 }
 
 int tiles(int n) { return (n + kTile - 1) / kTile; }
+
+// The Sink of an entry point's O, O2 (null: the frames after O's n0), U
+// (null: no u8 map) and n0 (1 <= n0 <= B); false where n0 is out of range.
+bool make_sink(float* O, float* O2, uint8_t* U, int n0, int B, int H, int W,
+               Sink* s) {
+  if (n0 < 1 || n0 > B) return false;
+  *s = Sink{O, O2 != nullptr ? O2 : O + static_cast<int64_t>(n0) * H * W, U,
+            n0};
+  return true;
+}
 
 }  // namespace
 
@@ -628,19 +691,27 @@ extern "C" int elas_lr_check(const float* D1, const float* D2, float* O1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The map entry points (I, J, K) store their output through the Sink of
+// O, O2, U and n0 (make_sink): frames b < n0 at O (and their u8 map at U
+// where U is set), the rest at O2.
+
 // gap <= kGapTileMax without corners: one launch of the tile kernel, D ->
-// O (T may be null); else the scan kernel's row pass D -> T and column
-// pass T -> O.
-extern "C" int elas_gap_interp(const float* D, float* T, float* O, int B,
-                               int H, int W, int gap, int corners,
-                               int* launched, void* stream) {
+// out (T may be null); else the scan kernel's row pass D -> T and column
+// pass T -> out.
+extern "C" int elas_gap_interp(const float* D, float* T, float* O, float* O2,
+                               uint8_t* U, int n0, int B, int H, int W,
+                               int gap, int corners, int* launched,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  Sink out;
+  if (!make_sink(O, O2, U, n0, B, H, W, &out))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (gap <= kGapTileMax && !corners) {
     const int64_t blocks = static_cast<int64_t>(B) * tiles(H) * tiles(W);
     if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
     gap_tile_kernel<<<static_cast<unsigned>(blocks), kTileThreads, 0, st>>>(
-        D, O, H, W, tiles(W), tiles(H), gap);
+        D, out, H, W, tiles(W), tiles(H), gap);
     *launched = 1;
     return static_cast<int>(cudaGetLastError());
   }
@@ -649,45 +720,62 @@ extern "C" int elas_gap_interp(const float* D, float* T, float* O, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t fs = static_cast<int64_t>(H) * W;
   auto threads = [](int len) { return min(1024, (len + 31) / 32 * 32); };
-  gap_scan_kernel<<<B * H, threads(W), 0, st>>>(D, T, H, W, 1, W, fs, gap,
+  const Sink rows{T, T + static_cast<int64_t>(n0) * fs, nullptr, n0};
+  gap_scan_kernel<<<B * H, threads(W), 0, st>>>(D, rows, H, W, 1, W, fs, gap,
                                                  corners);
   cudaError_t err = cudaGetLastError();
   *launched = 1;
   if (err != cudaSuccess) return static_cast<int>(err);
-  gap_scan_kernel<<<B * W, threads(H), 0, st>>>(T, O, W, H, W, 1, fs, gap,
+  gap_scan_kernel<<<B * W, threads(H), 0, st>>>(T, out, W, H, W, 1, fs, gap,
                                                  corners);
   *launched = 2;
   return static_cast<int>(cudaGetLastError());
 }
 
-// D -> O in one launch; taps 8 or 4.
-extern "C" int elas_adaptive_mean(const float* D, float* O, int B, int H,
-                                  int W, int taps, int* launched,
-                                  void* stream) {
+// D -> out in one launch; taps 8 or 4.
+extern "C" int elas_adaptive_mean(const float* D, float* O, float* O2,
+                                  uint8_t* U, int n0, int B, int H, int W,
+                                  int taps, int* launched, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
+  Sink out;
+  if (!make_sink(O, O2, U, n0, B, H, W, &out))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = static_cast<int64_t>(B) * tiles(H) * tiles(W);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (taps == 8) {
     mean_tile_kernel<8><<<static_cast<unsigned>(blocks), kTileThreads, 0,
-                          st>>>(D, O, H, W, tiles(W), tiles(H));
+                          st>>>(D, out, H, W, tiles(W), tiles(H));
   } else {
     mean_tile_kernel<4><<<static_cast<unsigned>(blocks), kTileThreads, 0,
-                          st>>>(D, O, H, W, tiles(W), tiles(H));
+                          st>>>(D, out, H, W, tiles(W), tiles(H));
   }
   *launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 
-// D -> O in one launch
-extern "C" int elas_median(const float* D, float* O, int B, int H, int W,
-                           int* launched, void* stream) {
+// D -> out in one launch
+extern "C" int elas_median(const float* D, float* O, float* O2, uint8_t* U,
+                           int n0, int B, int H, int W, int* launched,
+                           void* stream) {
   *launched = 0;
+  Sink out;
+  if (!make_sink(O, O2, U, n0, B, H, W, &out))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = static_cast<int64_t>(B) * tiles(H) * tiles(W);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   median_tile_kernel<<<static_cast<unsigned>(blocks), kTileThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      D, O, H, W, tiles(W), tiles(H));
+      D, out, H, W, tiles(W), tiles(H));
+  *launched = 1;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// U = dmap_u8(D) over n floats, one launch
+extern "C" int elas_u8(const float* D, uint8_t* U, int64_t n, int* launched,
+                       void* stream) {
+  u8_kernel<<<grid_for(n, kThreads), kThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(D, U, n);
   *launched = 1;
   return static_cast<int>(cudaGetLastError());
 }

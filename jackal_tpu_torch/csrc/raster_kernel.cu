@@ -1,10 +1,12 @@
-// ELAS prior slab raster: per pixel, the winner key of the last-painted
-// triangle that covers it.
+// ELAS prior slab raster: per pixel, the plane of the last-painted
+// triangle that covers it, decoded into the dense matcher's prior maps.
 //
 // Replaces the TPU kernel jackal_tpu/ops/pallas/raster_kernel.py
-// (_raster_kernel l.59, wrapper raster_pallas l.137). The plain PyTorch
-// version of the same function is raster_plain in
-// matching/elas/device_prior.py (_slab_products_impl + _slab_raster_impl).
+// (_raster_kernel l.59, wrapper raster_pallas l.137) and the decode that
+// follows it in the same jitted program (decode_win l.162). The plain
+// PyTorch version of the same function is raster_maps_plain in
+// matching/elas/device_prior.py: decode_win of raster_plain
+// (_slab_products_impl + _slab_raster_impl), a side at a time.
 //
 // What it computes. The image is cut into tiles of 16 rows x 128 columns
 // (S x C tiles). sel[f, tile, :] lists the frame-local rows of the
@@ -21,16 +23,21 @@
 //   f    = (pa * u + pb * v) + pc,  dt = clamp(trunc(f), -512, 511)
 //   key  = (paint << 11) | ((dt + 512) << 1) | pvalid
 // and win[f, v, u] is the maximum key over the tile's triangles, -1 where
-// none covers the pixel. trunc() is float -> int32 toward zero with XLA's
+// none covers the pixel. The kernel stores it decoded, as the dense
+// matcher reads it: covered = win >= 0, d_plane = ((win >> 1) & 1023) - 512
+// (int16, 0 where not covered) and valid = covered && (win & 1), 4 bytes a
+// pixel. One launch takes both sides of a chunk (grid z = sides * CH, the
+// side's table and tile lists chosen by z), as the reference's one jitted
+// raster program takes both. trunc() is float -> int32 toward zero with XLA's
 // saturation (NaN -> 0), as ops/convert.to_int32; the casts to uint32 make
 // negative scanline bounds wrap, as the reference's cast chain does
 // (elas.cpp:878-879). Every multiply, add and subtract is written as
 // __fmul_rn / __fadd_rn / __fsub_rn so that nvcc fuses none of them into
 // an FFMA: the reference rounds each one on its own.
 //
-// What bounds it on an H100. The output, 4 bytes a pixel (9.8 MB for 8
-// frames at 640x480), and well under 2 MB of table and tile lists: 0.0035
-// ms at 3.35 TB/s. The operations are what this run's triangles need:
+// What bounds it on an H100. The output, 4 bytes a pixel a side (19.7 MB
+// for both sides of 8 frames at 640x480), and well under 4 MB of tables
+// and tile lists: about 0.007 ms at 3.35 TB/s. The operations are what this run's triangles need:
 // per live tile slot its three intercepts; per column of the tile inside
 // its span the two scanline bounds and pa * u (f32 multiplies and adds,
 // two float -> int conversions); per pixel it covers the plane value's two
@@ -60,7 +67,7 @@
 //    its span in the band), each key going into the tile by a shared
 //    atomicMax. The maximum of keys does not depend on the order,
 //    so the result is exact;
-//  - the block ends with one coalesced store of the tile.
+//  - the block ends with one coalesced store of the tile's three maps.
 // What still holds it above the bound: the instructions it runs. A warp walks, for
 // each of its slots, the longest covered row range of its lanes, while
 // the rows a column covers vary along the span; the staging and the store
@@ -149,20 +156,29 @@ __device__ __forceinline__ void raster_tri(const Tri& e, int (*keys)[kCTile],
   }
 }
 
+// The two sides' inputs: side i's table [CH * Tp, 16] and tile lists
+// [CH, S * C, Ts]
+struct Sides {
+  const int32_t* table[2];
+  const int32_t* sel[2];
+};
+
 __global__ void __launch_bounds__(kThreads)
-raster_kernel(const int32_t* __restrict__ table,
-              const int32_t* __restrict__ sel, int32_t* __restrict__ win,
-              int Tp, int S, int C, int Ts, int W, int H) {
+raster_kernel(Sides in, int16_t* __restrict__ d_plane,
+              uint8_t* __restrict__ valid, uint8_t* __restrict__ covered,
+              int CH, int Tp, int S, int C, int Ts, int W, int H) {
   __shared__ int keys[kSlab][kCTile];
   __shared__ Tri tris[kThreads];
   __shared__ int warp_live[kWarps];
 
-  const int c = blockIdx.x, s = blockIdx.y, f = blockIdx.z;
+  const int c = blockIdx.x, s = blockIdx.y, z = blockIdx.z;
+  const int side = z >= CH, f = z - side * CH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = c * kCTile, v0 = s * kSlab;
   const int32_t* tile_sel =
-      sel + ((static_cast<size_t>(f) * S + s) * C + c) * Ts;
-  const int32_t* frame_tab = table + static_cast<size_t>(f) * Tp * kCols;
+      in.sel[side] + ((static_cast<size_t>(f) * S + s) * C + c) * Ts;
+  const int32_t* frame_tab =
+      in.table[side] + static_cast<size_t>(f) * Tp * kCols;
 
 #pragma unroll
   for (int r = 0; r < kSlab; ++r) keys[r][tid] = -1;
@@ -203,18 +219,32 @@ raster_kernel(const int32_t* __restrict__ table,
 #pragma unroll
     for (int r = 0; r < kSlab; ++r) {
       const int v = v0 + r;
-      if (v < H) win[(static_cast<size_t>(f) * H + v) * W + u] = keys[r][tid];
+      if (v >= H) continue;
+      const size_t o = (static_cast<size_t>(z) * H + v) * W + u;
+      const int k = keys[r][tid];
+      const bool cov = k >= 0;
+      d_plane[o] = static_cast<int16_t>(cov ? ((k >> 1) & 1023) - 512 : 0);
+      valid[o] = cov && (k & 1);
+      covered[o] = cov;
     }
   }
 }
 
 }  // namespace
 
-extern "C" int raster_win(const int32_t* table, const int32_t* sel,
-                          int32_t* win, int CH, int Tp, int S, int C, int Ts,
-                          int W, int H, void* stream) {
-  const dim3 blocks(C, S, CH);
+// sides (1 or 2) x CH frames: side i from table_i and sel_i; the maps
+// [sides * CH, H, W], side 0's frames first.
+extern "C" int raster_maps(const int32_t* table0, const int32_t* sel0,
+                           const int32_t* table1, const int32_t* sel1,
+                           int16_t* d_plane, uint8_t* valid,
+                           uint8_t* covered, int sides, int CH, int Tp, int S,
+                           int C, int Ts, int W, int H, void* stream) {
+  if (sides < 1 || sides > 2 || static_cast<int64_t>(sides) * CH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sides in{{table0, sides > 1 ? table1 : table0},
+                 {sel0, sides > 1 ? sel1 : sel0}};
+  const dim3 blocks(C, S, sides * CH);
   raster_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, sel, win, Tp, S, C, Ts, W, H);
+      in, d_plane, valid, covered, CH, Tp, S, C, Ts, W, H);
   return static_cast<int>(cudaGetLastError());
 }

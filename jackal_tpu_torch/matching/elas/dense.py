@@ -24,7 +24,10 @@ the same kernel. dense_match_pair_lr() is the pair followed by the L/R
 check (post.left_right_consistency_check): on the card one launch of the
 kernel with the check as its row epilogue where one block owns whole rows
 (lr_fused: W <= 1024, no subsampling; every preset), else the pair and
-then kernel H. Under subsampling the function is the same: the caller
+then kernel H. The pair's two outputs are one [2, B, H, W] tensor, whose
+[0] and [1] the calls return (the postprocess takes them as one, post.
+_pair), or the tensors given as ``out`` (the batched path's output rows).
+Under subsampling the function is the same: the caller
 computes every pixel from the half-resolution descriptors and keeps the
 even ones (pipeline.elas_match, as the reference's elas_match does).
 """
@@ -164,12 +167,13 @@ def _checked_maps(maps, name, shape, grid_shape, dev):
 
 
 def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views,
-                      lr_smax=None):
+                      lr_smax=None, out=None):
     """Launch the kernel once for the views named by ``views`` (1 left, 2
     right, 3 both); maps_* are the views' prior maps (the unused view's
     may be None). With lr_smax (views 3, lr_fused shapes only) the kernel
     runs the L/R check with that sweep bound as its epilogue. Returns the
-    views' outputs."""
+    views' outputs: both views' are [0] and [1] of one tensor, or the
+    tensors of ``out`` (a pair, None for a view to allocate)."""
     global launches, lr_launches
     B, H, W, C = desc1.shape
     D = params.disp_num
@@ -195,14 +199,20 @@ def _dense_match_cuda(desc1, desc2, maps_left, maps_right, params, views,
     dts = {m[0].dtype for m in checked if m is not None}
     if len(dts) != 1:
         raise ValueError(f"both views' d_plane need one dtype, got {dts}")
-    outs, structs = [], []
-    for m in checked:
-        out = None if m is None else torch.empty((B, H, W),
-                                                 dtype=torch.float32,
-                                                 device=dev)
-        outs.append(out)
+    if views == 3 and out is None:
+        outs = list(torch.empty((2, B, H, W), dtype=torch.float32,
+                                device=dev))
+    else:
+        outs = [None if m is None else
+                torch.empty((B, H, W), dtype=torch.float32, device=dev)
+                if o is None else o
+                for m, o in zip(checked, out or (None, None))]
+    structs = []
+    for i, (m, o) in enumerate(zip(checked, outs)):
+        if m is not None:
+            cuda_lib.expect(o, f"out {i}", torch.float32, (B, H, W), dev, 4)
         structs.append(_ViewMaps() if m is None else _ViewMaps(
-            *(x.data_ptr() for x in m), out.data_ptr()))
+            *(x.data_ptr() for x in m), o.data_ptr()))
     table = prior_table(params)[:radius + 1]
     P, table_dev = _PriorTable(), None
     if radius <= _UNROLLED_RADIUS:
@@ -285,18 +295,27 @@ def dense_match_pair_lr_plain(desc1, desc2, maps_left, maps_right,
 
 
 def dense_match_pair_lr(desc1, desc2, maps_left, maps_right,
-                        params: ElasParams = ElasParams(), smax: int = -1):
+                        params: ElasParams = ElasParams(), smax: int = -1,
+                        out=None):
     """Both views' dense disparities after the L/R check (sweep bound smax;
     < 0 means disp_max), each [B, H, W] float32. On CUDA tensors one launch
     of the pair kernel with the check as its epilogue where lr_fused holds,
     else the pair kernel and then kernel H; the plain version on CPU
-    tensors."""
-    if not desc1.is_cuda:
-        return dense_match_pair_lr_plain(desc1, desc2, maps_left, maps_right,
-                                         params, smax)
-    if lr_fused(desc1.shape[2], params):
-        smax = params.disp_max if smax < 0 else min(smax, params.disp_max)
-        return tuple(_dense_match_cuda(desc1, desc2, maps_left, maps_right,
-                                       params, 3, smax))
-    D1, D2 = dense_match_pair(desc1, desc2, maps_left, maps_right, params)
-    return left_right_consistency_check(D1, D2, params, smax)
+    tensors. out: None, or a pair of contiguous float32 [B, H, W] tensors
+    (None for a view to allocate) the checked maps are written to (on the
+    fused route by the kernel itself)."""
+    if not desc1.is_cuda or not lr_fused(desc1.shape[2], params):
+        if desc1.is_cuda:
+            D1, D2 = dense_match_pair(desc1, desc2, maps_left, maps_right,
+                                      params)
+            D1, D2 = left_right_consistency_check(D1, D2, params, smax)
+        else:
+            D1, D2 = dense_match_pair_lr_plain(desc1, desc2, maps_left,
+                                               maps_right, params, smax)
+        if out is None:
+            return D1, D2
+        return tuple(D if o is None else o.copy_(D)
+                     for D, o in zip((D1, D2), out))
+    smax = params.disp_max if smax < 0 else min(smax, params.disp_max)
+    return tuple(_dense_match_cuda(desc1, desc2, maps_left, maps_right,
+                                   params, 3, smax, out))

@@ -18,15 +18,19 @@ prior (native/prior_engine.cpp) and to the reference's elas.cpp:
                     _grid_impl of both sides packed as pack_grid_device
                     words (grid_words_plain); coeff_grid_plain, the two
                     plain versions, on CPU tensors;
-  raster            the scanline rasterization of computeDisparity
+  raster_maps       the scanline rasterization of computeDisparity
                     (elas.cpp:813-904) as a slab raster: per 16-row x
                     128-column tile, the maximum over the tile's triangles
                     of the packed winner key
                         (paint << 11) | ((trunc(f) + 512) << 1) | pvalid,
                     f = (pa*u + pb*v) + pc, so the last-painted triangle
-                    wins and carries its plane value. raster() launches the
-                    CUDA kernel (csrc/raster_kernel.cu) on CUDA tensors and
-                    runs raster_plain() on CPU tensors.
+                    wins and carries its plane value (raster_plain), decoded
+                    into the dense matcher's (d_plane, valid, covered)
+                    maps (decode_win). raster_maps() launches the CUDA
+                    kernel (csrc/raster_kernel.cu) once for both sides of a
+                    chunk on CUDA tensors; raster_maps_plain() runs
+                    decode_win(raster_plain()) a side at a time on CPU
+                    tensors.
 
 Every float multiply, add and subtract of the raster is its own eager op
 in the plain version and an __fmul_rn/__fadd_rn/__fsub_rn in the kernel,
@@ -62,7 +66,8 @@ _PAINT_SHIFT = 11       # key's low bits: trunc(f)+512 (10), pvalid (1)
 _TABLE_COLS = 16        # pack_table row: A_u B_u C_u A_v B_v, slope bits x3,
 #                         plane bits x3, pvalid, paint, 3 zero words
 
-launches = 0            # raster kernel launches since the last reset
+launches = 0            # raster kernel launches (raster_maps calls that
+                        # launched it) since the last reset
 # launches of kernels M1 and M2's one launch (coeff_grid) since the last
 # reset
 prior_launches = {"coeff_grid": 0}
@@ -482,34 +487,54 @@ def raster_plain(table: torch.Tensor, sel: torch.Tensor, Tp: int, W: int,
                              slab=_RASTER_SLAB, CT=_RASTER_CTILE)
 
 
-def _raster_cuda(table: torch.Tensor, sel: torch.Tensor, Tp: int, W: int,
-                 H: int) -> torch.Tensor:
+def raster_maps_plain(tables, sels, Tp: int, W: int, H: int):
+    """The raster kernel's function in plain PyTorch: (d_plane int16,
+    valid bool, covered bool), each [n * CH, H, W], of the n sides
+    (tables[i] [CH*Tp, 16], sels[i] [CH, S*C, Ts]), side 0's frames first:
+    decode_win of raster_plain, a side at a time."""
+    maps = [decode_win(raster_plain(t, s, Tp, W, H))
+            for t, s in zip(tables, sels)]
+    return tuple(torch.cat(m) for m in zip(*maps))
+
+
+def _raster_maps_cuda(tables, sels, Tp: int, W: int, H: int):
     global launches
-    S, C = _tiles(sel, W, H)
-    CH, SC, Ts = sel.shape
-    dev = table.device
-    cuda_lib.expect(table, "table", torch.int32, (CH * Tp, _TABLE_COLS), dev)
-    cuda_lib.expect(sel, "sel", torch.int32, (CH, SC, Ts), dev)
-    lib = cuda_lib.load("raster_kernel")
-    fn = lib.raster_win
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+    n = len(sels)
+    S, C = _tiles(sels[0], W, H)
+    CH, SC, Ts = sels[0].shape
+    dev = tables[0].device
+    if n not in (1, 2) or len(tables) != n:
+        raise ValueError(f"raster_maps takes one or two sides, got "
+                         f"{len(tables)} tables and {n} tile lists")
+    for i in range(n):
+        cuda_lib.expect(tables[i], f"table {i}", torch.int32,
+                        (CH * Tp, _TABLE_COLS), dev)
+        cuda_lib.expect(sels[i], f"sel {i}", torch.int32, (CH, SC, Ts), dev)
+    fn = cuda_lib.load("raster_kernel").raster_maps
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    win = torch.empty((CH, H, W), dtype=torch.int32, device=dev)
-    cuda_lib.launch(fn, "raster", table, table.data_ptr(), sel.data_ptr(),
-                    win.data_ptr(), CH, Tp, S, C, Ts, W, H)
+    d_plane = torch.empty((n * CH, H, W), dtype=torch.int16, device=dev)
+    valid, covered = (torch.empty((n * CH, H, W), dtype=torch.bool,
+                                  device=dev) for _ in range(2))
+    last = n - 1
+    cuda_lib.launch(fn, "raster", tables[0], tables[0].data_ptr(),
+                    sels[0].data_ptr(), tables[last].data_ptr(),
+                    sels[last].data_ptr(), d_plane.data_ptr(),
+                    valid.data_ptr(), covered.data_ptr(), n, CH, Tp, S, C,
+                    Ts, W, H)
     launches += 1
-    return win
+    return d_plane, valid, covered
 
 
-def raster(table: torch.Tensor, sel: torch.Tensor, Tp: int, W: int,
-           H: int) -> torch.Tensor:
-    """Winner key map [CH, H, W] int32 of the slab raster (raster_plain's
-    contract): the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    if table.is_cuda:
-        return _raster_cuda(table, sel, Tp, W, H)
-    return raster_plain(table, sel, Tp, W, H)
+def raster_maps(tables, sels, Tp: int, W: int, H: int):
+    """The dense matcher's prior maps (d_plane int16, valid bool, covered
+    bool), each [n * CH, H, W], of n = 1 or 2 sides (raster_maps_plain's
+    contract): one launch of the CUDA kernel for every side on CUDA
+    tensors, the plain version on CPU tensors."""
+    if tables[0].is_cuda:
+        return _raster_maps_cuda(tables, sels, Tp, W, H)
+    return raster_maps_plain(tables, sels, Tp, W, H)
 
 
 

@@ -22,6 +22,16 @@ card's dense kernel owns whole rows (dense.lr_fused: every preset), the
 L/R check runs as its epilogue (dense.dense_match_pair_lr) and H does not
 launch.
 
+The tail (post_tail: I, then J and K where the filters are on) takes two
+optional sinks for its last step: ``out``, the tensors its final maps go
+to (the batched path's output rows), and ``u8``, a uint8 map that gets
+ops.convert.dmap_u8 of the final D1 (the node's published map). On the
+card the last kernel stores both itself (its epilogue), so neither costs
+a launch; on the CPU the plain result is copied into them. Both views of
+a pair that lie one after the other in one storage (kernel B's paired
+output, and every pair a wrapper returns) are taken as one [2, ...]
+tensor, without a stack.
+
 Exactness: every float operation of a plain version is a single eager
 PyTorch op, so no multiply is fused into an add, and f32 division is
 correctly rounded on both the CPU and the card. The adaptive mean's sums
@@ -38,10 +48,11 @@ import torch.nn.functional as F
 
 from ...config import ElasParams
 from ...ops import cuda_lib
+from ...ops.convert import dmap_u8
 from ...ops.shifts import shifted_row_lookup
 
 launches = {"elas_lr": 0, "elas_gap": 0, "elas_mean": 0, "elas_median": 0,
-            "elas_speckle": 0}
+            "elas_speckle": 0, "elas_u8": 0}
 device_launches = dict(launches)
 # kernel I's one-launch tile design takes gap widths up to this without
 # corners (csrc/elas_post_kernel.cu kGapTileMax); its scan design the rest
@@ -82,7 +93,7 @@ def _lr_cuda(D1: torch.Tensor, D2: torch.Tensor, smax: int,
         raise ValueError(f"L/R check: D1 {tuple(D1.shape)} on {D1.device} "
                          f"and D2 {tuple(D2.shape)} on {D2.device}")
     B, H, W = X1.shape
-    O1, O2 = torch.empty_like(X1), torch.empty_like(X1)
+    O1, O2 = torch.empty((2, B, H, W), dtype=X1.dtype, device=X1.device)
     _run("elas_lr_check", "elas_lr", X1,
          (X1.data_ptr(), X2.data_ptr(), O1.data_ptr(), O2.data_ptr()),
          (B, H, W, smax), ((ctypes.c_float, float(params.lr_threshold)),
@@ -90,19 +101,113 @@ def _lr_cuda(D1: torch.Tensor, D2: torch.Tensor, smax: int,
     return O1.reshape(D1.shape), O2.reshape(D2.shape)
 
 
+def _pair(D1: torch.Tensor, D2: torch.Tensor) -> torch.Tensor:
+    """Both views as one [2, ...] tensor: a view of their storage where D2
+    directly follows D1 in it, else torch.stack."""
+    n = D1.numel()
+    if D1.shape == D2.shape and D1.dtype == D2.dtype \
+            and D1.device == D2.device and D1.is_contiguous() \
+            and D2.is_contiguous() and n > 0 \
+            and D1.untyped_storage().data_ptr() \
+            == D2.untyped_storage().data_ptr() \
+            and D2.data_ptr() == D1.data_ptr() + n * D1.element_size():
+        return D1.as_strided((2, *D1.shape), (n, *D1.stride()))
+    return torch.stack([D1, D2])
+
+
+def _sink_frames(X: torch.Tensor, out, u8):
+    """(O, O2, n0) of a map kernel's store of X [B, H, W] (_map_cuda): out
+    (one tensor a view, their frames X's in order) checked, else None;
+    n0, the first view's frames, those of out[0], else of u8, else B."""
+    B, H, W = X.shape
+    if u8 is not None:
+        if u8.dtype != torch.uint8 or u8.device != X.device \
+                or not u8.is_contiguous() or u8.numel() % (H * W) \
+                or not 0 < u8.numel() <= X.numel():
+            raise ValueError(f"u8: expected a contiguous uint8 map of "
+                             f"{H}x{W} frames on {X.device}, got {u8.dtype}"
+                             f" {tuple(u8.shape)} on {u8.device}")
+    if out is None:
+        return None, None, B if u8 is None else u8.numel() // (H * W)
+    if not 1 <= len(out) <= 2 \
+            or sum(o.numel() for o in out) != X.numel() \
+            or any(o.dtype != torch.float32 or o.device != X.device
+                   or not o.is_contiguous() for o in out) \
+            or out[0].numel() % (H * W):
+        raise ValueError(f"out: expected one or two contiguous float32 "
+                         f"tensors on {X.device} holding {B} frames of "
+                         f"{H}x{W}, got "
+                         f"{[(o.dtype, tuple(o.shape)) for o in out]}")
+    n0 = out[0].numel() // (H * W)
+    if u8 is not None and u8.numel() != out[0].numel():
+        raise ValueError(f"u8 {tuple(u8.shape)} is not out[0]'s "
+                         f"{tuple(out[0].shape)}")
+    return out[0], out[1] if len(out) > 1 else None, n0
+
+
 def _map_cuda(entry: str, kernel: str, D: torch.Tensor, ints,
-              scratch: Optional[bool] = None):
+              scratch: Optional[bool] = None, out=None, u8=None):
     """A kernel of one map, D -> O. ``scratch`` for an entry point that
     takes a scratch map T (a row pass, then a column pass through T): True
     to allocate it, False to pass null (I's one-launch design); None for
-    one that takes none."""
+    one that takes none. ``out`` and ``u8`` are the sinks (_sink_frames):
+    the kernel writes its frames into out and the u8 map of the first
+    view's frames into u8 (its epilogue)."""
     X = _frames(D, kernel)
-    O = torch.empty_like(X)
+    O, O2, n0 = _sink_frames(X, out, u8)
+    O = torch.empty_like(X) if O is None else O
     T = torch.empty_like(X) if scratch else None
     ptrs = (X.data_ptr(),) + (() if scratch is None else (
-        None if T is None else T.data_ptr(),)) + (O.data_ptr(),)
-    _run(entry, kernel, X, ptrs, tuple(X.shape) + tuple(ints))
-    return O.reshape(D.shape)
+        None if T is None else T.data_ptr(),)) + (
+        O.data_ptr(), None if O2 is None else O2.data_ptr(),
+        None if u8 is None else u8.data_ptr())
+    _run(entry, kernel, X, ptrs, (n0,) + tuple(X.shape) + tuple(ints))
+    return tuple(out) if out is not None else O.reshape(D.shape)
+
+
+def _store(res: torch.Tensor, out, u8):
+    """A plain version's result of a map wrapper given sinks: res copied
+    into ``out`` (one tensor a view, res's frames in order) and dmap_u8 of
+    its first view's frames into ``u8``; returns what the kernel's wrapper
+    returns (out as a tuple, else res)."""
+    X = res.reshape(-1, *res.shape[-2:])
+    _sink_frames(X, out, u8)
+    if u8 is not None:
+        u8.copy_(dmap_u8(X[:u8.numel() // X[0].numel()]).reshape(u8.shape))
+    if out is None:
+        return res
+    at = 0
+    for o in out:
+        n = o.numel() // X[0].numel()
+        o.copy_(X[at:at + n].reshape(o.shape))
+        at += n
+    return tuple(out)
+
+
+def u8_map(D: torch.Tensor, u8: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """ops.convert.dmap_u8 of a float32 map (into ``u8`` where given): on a
+    CUDA tensor one launch of elas_u8 (for a map that reaches no tail
+    kernel: the per-frame bail-out), on a CPU one dmap_u8."""
+    if u8 is None:
+        u8 = torch.empty(D.shape, dtype=torch.uint8, device=D.device)
+    if not D.is_cuda:
+        return u8.copy_(dmap_u8(D))
+    X = _frames(D, "elas_u8")
+    _sink_frames(X, None, u8)
+    if u8.numel() != X.numel():
+        raise ValueError(f"u8 {tuple(u8.shape)} is not D's "
+                         f"{tuple(D.shape)}")
+    fn = cuda_lib.load("elas_post_kernel").elas_u8
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    cuda_lib.launch(fn, "elas_u8", X, X.data_ptr(), u8.data_ptr(),
+                    X.numel(), ctypes.byref(n))
+    launches["elas_u8"] += 1
+    device_launches["elas_u8"] += n.value
+    return u8
 
 
 def left_right_consistency_check(
@@ -224,18 +329,18 @@ def _extrapolate_rows(D: torch.Tensor, gap_width: int) -> torch.Tensor:
     return torch.where((idx > last) & (idx <= last + gap_width), dlast, out)
 
 
-def gap_interpolation(D: torch.Tensor,
-                      params: ElasParams = ElasParams()) -> torch.Tensor:
+def gap_interpolation(D: torch.Tensor, params: ElasParams = ElasParams(),
+                      out=None, u8=None):
     """gap_interpolation_plain's contract: kernel I on CUDA tensors (one
     launch up to GAP_TILE_MAX without corners, else a row launch and a
     column launch through a scratch map), the plain version on CPU
-    tensors."""
+    tensors. out, u8: sinks (_map_cuda)."""
     if D.is_cuda:
         g = gap_width_eff(params)
         corners = int(params.add_corners)
         return _map_cuda("elas_gap_interp", "elas_gap", D, (g, corners),
-                         g > GAP_TILE_MAX or bool(corners))
-    return gap_interpolation_plain(D, params)
+                         g > GAP_TILE_MAX or bool(corners), out, u8)
+    return _store(gap_interpolation_plain(D, params), out, u8)
 
 
 def gap_interpolation_plain(D: torch.Tensor,
@@ -328,12 +433,14 @@ def _adaptive_pass4(src: torch.Tensor, axis: int
     return (res, ok) if axis == 1 else (_t(res), _t(ok))
 
 
-def adaptive_mean_sub(D: torch.Tensor) -> torch.Tensor:
+def adaptive_mean_sub(D: torch.Tensor, out=None, u8=None):
     """adaptive_mean_sub_plain's contract: kernel J's 4-tap variant on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors. out, u8: sinks
+    (_map_cuda)."""
     if D.is_cuda:
-        return _map_cuda("elas_adaptive_mean", "elas_mean", D, (4,))
-    return adaptive_mean_sub_plain(D)
+        return _map_cuda("elas_adaptive_mean", "elas_mean", D, (4,),
+                         out=out, u8=u8)
+    return _store(adaptive_mean_sub_plain(D), out, u8)
 
 
 def adaptive_mean_sub_plain(D: torch.Tensor) -> torch.Tensor:
@@ -357,12 +464,13 @@ def adaptive_mean_sub_plain(D: torch.Tensor) -> torch.Tensor:
     return torch.where(vmask, vres, D)
 
 
-def adaptive_mean(D: torch.Tensor) -> torch.Tensor:
+def adaptive_mean(D: torch.Tensor, out=None, u8=None):
     """adaptive_mean_plain's contract: kernel J (8 taps) on CUDA tensors,
-    the plain version on CPU tensors."""
+    the plain version on CPU tensors. out, u8: sinks (_map_cuda)."""
     if D.is_cuda:
-        return _map_cuda("elas_adaptive_mean", "elas_mean", D, (8,))
-    return adaptive_mean_plain(D)
+        return _map_cuda("elas_adaptive_mean", "elas_mean", D, (8,),
+                         out=out, u8=u8)
+    return _store(adaptive_mean_plain(D), out, u8)
 
 
 def adaptive_mean_plain(D: torch.Tensor) -> torch.Tensor:
@@ -391,12 +499,14 @@ def adaptive_mean_plain(D: torch.Tensor) -> torch.Tensor:
     return torch.where(vmask, vres, D)
 
 
-def median_filter(D: torch.Tensor) -> torch.Tensor:
+def median_filter(D: torch.Tensor, out=None, u8=None):
     """median_filter_plain's contract: kernel K (one launch) on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors. out, u8: sinks
+    (_map_cuda)."""
     if D.is_cuda:
-        return _map_cuda("elas_median", "elas_median", D, ())
-    return median_filter_plain(D)
+        return _map_cuda("elas_median", "elas_median", D, (), out=out,
+                         u8=u8)
+    return _store(median_filter_plain(D), out, u8)
 
 
 def median_filter_plain(D: torch.Tensor) -> torch.Tensor:
@@ -423,19 +533,30 @@ def median_filter_plain(D: torch.Tensor) -> torch.Tensor:
 
 
 def post_tail(D1: torch.Tensor, D2: torch.Tensor,
-              params: ElasParams = ElasParams()
+              params: ElasParams = ElasParams(), out=None, u8=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gap interpolation + optional filters (the post-speckle tail); the
     adaptive mean is the subsampling branch's under subsampling. Both
     views go through each step together, so on the card each of kernels
-    I, J, K launches once a call."""
-    X = D1 if params.postprocess_only_left else torch.stack([D1, D2])
-    X = gap_interpolation(X, params)
+    I, J, K launches once a call. out: None, or the tensors the final maps
+    go to, (O1,) under postprocess_only_left (D2 is returned as it is),
+    else (O1, O2); u8: None, or a uint8 map of D1's shape that gets
+    dmap_u8 of the final D1. The last step writes both (on the card its
+    kernel's epilogue: no launch of its own)."""
+    left = params.postprocess_only_left
+    X = D1 if left else _pair(D1, D2)
+    steps = [lambda Y, **kw: gap_interpolation(Y, params, **kw)]
     if params.filter_adaptive_mean:
-        X = adaptive_mean_sub(X) if params.subsampling else adaptive_mean(X)
+        steps.append(adaptive_mean_sub if params.subsampling
+                     else adaptive_mean)
     if params.filter_median:
-        X = median_filter(X)
-    return (X, D2) if params.postprocess_only_left else (X[0], X[1])
+        steps.append(median_filter)
+    for step in steps[:-1]:
+        X = step(X)
+    Y = steps[-1](X, out=out, u8=u8)
+    if left:
+        return (Y if out is None else Y[0]), D2
+    return Y[0], Y[1]
 
 
 # ---------------------------------------------------------------------------
@@ -741,25 +862,41 @@ def speckle_labels(D: torch.Tensor, params: ElasParams
 
 def postprocess_after_lr(
     D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
+    out=None, u8=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The postprocess of [B, H, W] maps after their L/R check, on the
+    """The postprocess of [..., H, W] maps after their L/R check, on the
     device: speckle filter, gap interpolation, adaptive mean, median,
     honouring postprocess_only_left. Where both views are processed they
     go through the speckle filter together (one call of kernel L on the
-    card). The batched path calls it on
-    dense.dense_match_pair_lr's maps."""
+    card). The batched path calls it on dense.dense_match_pair_lr's maps.
+    out, u8: post_tail's sinks."""
     if params.postprocess_only_left:
         D1 = remove_small_segments_batch(D1, params)
     else:
-        D1, D2 = remove_small_segments_batch(torch.stack([D1, D2]), params)
-    return post_tail(D1, D2, params)
+        D1, D2 = remove_small_segments_batch(_pair(D1, D2), params)
+    return post_tail(D1, D2, params, out, u8)
+
+
+def postprocess(
+    D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
+    lr_smax: int = -1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole postprocess chain (elas.cpp:108-140) of dense maps on the
+    device: L/R check (sweep bound lr_smax), speckle filter by the device
+    function, gap interpolation, adaptive mean, median, honouring
+    postprocess_only_left. On the card kernels H, L, I, J and K, each
+    taking both views in one launch; on the CPU their plain versions. The
+    maps are [H, W] frames or batches [..., H, W] of them, each frame
+    processed alone."""
+    D1, D2 = left_right_consistency_check(D1, D2, params, lr_smax)
+    return postprocess_after_lr(D1, D2, params)
 
 
 def postprocess_batch(
     D1: torch.Tensor, D2: torch.Tensor, params: ElasParams = ElasParams(),
     lr_smax: int = -1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The whole postprocess of [B, H, W] dense maps on the device: L/R
-    check (sweep bound lr_smax), then postprocess_after_lr."""
-    D1, D2 = left_right_consistency_check(D1, D2, params, lr_smax)
-    return postprocess_after_lr(D1, D2, params)
+    """The whole postprocess of [B, H, W] dense maps on the device
+    (postprocess on a batch): L/R check (sweep bound lr_smax), then
+    postprocess_after_lr."""
+    return postprocess(D1, D2, params, lr_smax)

@@ -29,6 +29,14 @@ the block that holds a grid row's final keys); on the CPU the plain
 versions of both. support_epilogue() runs the tests alone on given keys:
 kernel Q's standalone launch on the card (on no path; the card tests feed
 it keys built at the ratio test's edge).
+
+The host-side pruning in numpy (remove_inconsistent_support_points,
+remove_redundant_support_points, collect_support_points) is a copy of the
+reference package's, in its scan order, in place: each invalidation
+changes later decisions. The C++ engine (native_prior.
+collect_support_points_native) computes the same; elas_match(...,
+use_native=False) runs this copy instead. prune_support_parallel is the
+reference's one-shot variant, on no path of either package.
 """
 from __future__ import annotations
 
@@ -314,3 +322,105 @@ def add_corner_support_points(
     extra.append([extra[2][0] + extra[2][2], extra[2][1], extra[2][2]])
     extra.append([extra[3][0] + extra[3][2], extra[3][1], extra[3][2]])
     return np.concatenate([support, np.array(extra, support.dtype)], axis=0)
+
+
+# ---------------------------------------------------------------------------
+# host-side pruning in numpy (elas.cpp:153-235), the C++ engine's twin
+# ---------------------------------------------------------------------------
+
+def remove_inconsistent_support_points(
+    D_can: np.ndarray, params: ElasParams = ElasParams()
+) -> np.ndarray:
+    """In place, elas.cpp:153-179 in its scan order (u outer): a candidate
+    with fewer than incon_min_support candidates within incon_threshold in
+    its (2 incon_window_size + 1)^2 window becomes -1."""
+    D = D_can
+    ncv, ncu = D.shape
+    win, thr, min_s = (params.incon_window_size, params.incon_threshold,
+                       params.incon_min_support)
+    for u in range(ncu):
+        u0, u1 = max(u - win, 0), min(u + win, ncu - 1)
+        for v in range(ncv):
+            d = D[v, u]
+            if d >= 0:
+                v0, v1 = max(v - win, 0), min(v + win, ncv - 1)
+                nb = D[v0:v1 + 1, u0:u1 + 1]
+                if ((nb >= 0) & (np.abs(nb - d) <= thr)).sum() < min_s:
+                    D[v, u] = -1
+    return D
+
+
+def remove_redundant_support_points(
+    D_can: np.ndarray, redun_max_dist: int = 5, redun_threshold: int = 1,
+    vertical: bool = True,
+) -> np.ndarray:
+    """In place, elas.cpp:181-235: a candidate with a candidate within
+    redun_threshold among the next redun_max_dist cells on both sides
+    (vertically or horizontally) becomes -1."""
+    D = D_can
+    ncv, ncu = D.shape
+    dirs = [(-1, 0), (1, 0)] if vertical else [(0, -1), (0, 1)]
+    for u in range(ncu):
+        for v in range(ncv):
+            d = D[v, u]
+            if d < 0:
+                continue
+            redundant = True
+            for dv, du in dirs:
+                support = False
+                v2, u2 = v, u
+                for _ in range(redun_max_dist):
+                    v2 += dv
+                    u2 += du
+                    if not (0 <= v2 < ncv and 0 <= u2 < ncu):
+                        break
+                    d2 = D[v2, u2]
+                    if d2 >= 0 and abs(int(d) - int(d2)) <= redun_threshold:
+                        support = True
+                        break
+                if not support:
+                    redundant = False
+                    break
+            if redundant:
+                D[v, u] = -1
+    return D
+
+
+def collect_support_points(
+    D_can: np.ndarray, params: ElasParams = ElasParams(),
+    width: int = 0, height: int = 0,
+) -> np.ndarray:
+    """Prune a copy of the candidate grid and collect the (u, v, d)
+    support points int32 [N, 3] in the reference's vector order (u outer,
+    elas.cpp:426), with the corner points under add_corners."""
+    D = np.array(D_can, dtype=np.int16)
+    remove_inconsistent_support_points(D, params)
+    remove_redundant_support_points(D, 5, 1, True)
+    remove_redundant_support_points(D, 5, 1, False)
+    step = effective_stepsize(params)
+    ncv, ncu = D.shape
+    pts = [(u * step, v * step, int(D[v, u]))
+           for u in range(1, ncu) for v in range(1, ncv) if D[v, u] >= 0]
+    out = np.array(pts, dtype=np.int32).reshape(-1, 3)
+    if params.add_corners and width and height:
+        out = add_corner_support_points(out, width, height)
+    return out
+
+
+def prune_support_parallel(D_can: torch.Tensor,
+                           params: ElasParams = ElasParams()) -> torch.Tensor:
+    """The one-shot pruning: remove_inconsistent_support_points' test with
+    every neighbourhood read from the unpruned grid (no sequential
+    effects), on [ncv, ncu] candidates; int16, -1 where pruned."""
+    D = D_can.to(torch.int32)
+    win = params.incon_window_size
+    Dp = F.pad(D, (win, win, win, win), value=-1)
+    support = torch.zeros_like(D)
+    ncv, ncu = D.shape
+    for dv in range(-win, win + 1):
+        for du in range(-win, win + 1):
+            nb = Dp[win + dv:win + dv + ncv, win + du:win + du + ncu]
+            support += ((nb >= 0)
+                        & ((nb - D).abs() <= params.incon_threshold))
+    keep = (D >= 0) & (support >= params.incon_min_support)
+    return torch.where(keep, D, -1).to(torch.int16)

@@ -5,10 +5,12 @@ Equivalent of point_cloud.cpp:431-471 + 213-404: one startup precompute
 (rectification maps and the valid-disparity cache, point_cloud.cpp:543-558)
 and a per-frame function, process_frame. Three engines:
 
-  - "elas": process_frame's ELAS host prior and speckle filter run in C++;
-    process_batch, the node's --batch > 1 step, is the batched ELAS path
+  - "elas": process_frame's ELAS host prior runs in C++; process_batch,
+    the node's --batch > 1 step, is the batched ELAS path
     (matching/elas/pipeline.elas_match_batch_device), which keeps only
-    pruning and triangulation on the host;
+    pruning and triangulation on the host. Both take the u8 map from the
+    epilogue of the postprocess's last kernel (pipeline._elas_match_u8,
+    _elas_match_batch_u8);
   - "sgm": every stage on the device (matching/sgm.sgm_match_batch,
     kernels D, O1, E, F, O2); process_frame runs it on a batch of one, and
     process_batch is process_batch_fused, rectify -> SGM -> scan on the
@@ -44,10 +46,9 @@ from ..geometry.rectify import init_undistort_rectify_map, stereo_rectify
 from ..geometry.remap import remap_bilinear, remap_bilinear_pair
 from ..geometry.reproject import (compose_rotation_cam_to_robot,
                                   compose_translation_cam_to_robot)
-from ..matching.elas.pipeline import elas_match, elas_match_batch_device
+from ..matching.elas.pipeline import _elas_match_batch_u8, _elas_match_u8
 from ..matching.sgm import sgm_match_batch
 from ..ops.bm_kernel import bm_match_gated
-from ..ops.convert import dmap_u8
 from ..scan.obstacle import (ScanResult, cloud_and_scan_from_disparity,
                              obstacle_scan_from_disparity)
 from ..scan.valid_disp import cache_disparity_values
@@ -153,12 +154,6 @@ class StereoPipeline:
                     p.crop_offset_x:p.crop_offset_x + p.crop_im_width]
         return rect.movedim(-3, -1)
 
-    @staticmethod
-    def _dmap_u8(D1: torch.Tensor) -> torch.Tensor:
-        """The published mono8 disparity: round, clip to [0, 255] (ELAS's
-        maps; SGM's and BM's come from kernels O2 and S on the card)."""
-        return dmap_u8(D1)
-
     def _scan_stage(self, dmap_u8: torch.Tensor) -> ScanResult:
         return obstacle_scan_from_disparity(
             dmap_u8, self.valid_disp, self.Q32, self.XR32, self.XT32,
@@ -194,8 +189,7 @@ class StereoPipeline:
                                          torch.as_tensor(right_raw).to(dev))
         t0 = self._sync(timing)
         if self.engine == "elas":
-            D1, _ = elas_match(left, right, self.elas_params, device=dev)
-            dmap_t = self._dmap_u8(D1)
+            dmap_t = _elas_match_u8(left, right, self.elas_params, device=dev)
         else:
             dmap_t = self._match_batch(left[None], right[None])[0]
         dmap = dmap_t.cpu().numpy()
@@ -231,9 +225,8 @@ class StereoPipeline:
             torch.as_tensor(right_raw_b).to(dev))
         B = left_b.shape[0]
         chunk = max(c for c in (1, 2, 4, 8) if B % c == 0 and c <= B)
-        D1, _ = elas_match_batch_device(left_b, right_b, self.elas_params,
-                                        chunk=chunk, device=dev)
-        return self._dmap_u8(D1)
+        return _elas_match_batch_u8(left_b, right_b, self.elas_params,
+                                    chunk=chunk, device=dev)
 
     def process_batch_fused(self, left_raw_b, right_raw_b,
                             timing: bool = False):

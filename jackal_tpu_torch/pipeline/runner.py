@@ -4,7 +4,8 @@ per frame.
 The reference overlaps its stages by ROS process pipelining. Here one host
 process keeps the card fed: frames are gathered into batches and
 rectified on the card. ELAS runs them through
-matching.elas.pipeline.elas_match_stream, which keeps two batches in
+matching.elas.pipeline._elas_stream_u8 (elas_match_stream's u8 maps, from
+the epilogue of the postprocess's last kernel), which keeps two batches in
 flight so one batch's host prior (support pruning, Delaunay) overlaps the
 card's work on the batch before. SGM runs
 StereoPipeline.process_batch_fused on batch k+1 while batch k is
@@ -40,7 +41,7 @@ import numpy as np
 from ..io_bus.bus import TopicBus
 from ..io_bus.messages import Header, Image, JackalTimeLog, LaserScan
 from ..io_bus.timelog import TimeLogWriter
-from ..matching.elas.pipeline import elas_match_stream
+from ..matching.elas.pipeline import _elas_stream_u8
 from ..ops.transfer import HostCopy, to_device
 from ..scan.obstacle import compact_cloud_msg, format_laser_scan_ranges
 from .frame_pipeline import StereoPipeline
@@ -143,12 +144,11 @@ class StreamingRunner:
         done = 0
         t_last = time.perf_counter()
         with self._ordered_publisher() as publish:
-            for D1, _ in elas_match_stream(pairs(), pipe.elas_params,
-                                           chunk=chunk, device=dev):
+            for dmaps in _elas_stream_u8(pairs(), pipe.elas_params,
+                                         chunk=chunk, device=dev):
                 n, cb = meta.popleft()
                 sampled = self.batch_no % self.stage_sample_every == 0
                 self.batch_no += 1
-                dmaps = pipe._dmap_u8(D1)
                 stage_times = cloud = None
                 t1 = pipe._sync(sampled)
                 if pipe.p.gen_pcl:          # the fused cloud and scan

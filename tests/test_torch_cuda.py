@@ -610,17 +610,21 @@ def test_raster_kernel_equals_plain(dev, CH, T, W, H, Ts):
     from jackal_tpu_torch.matching.elas import device_prior as dp
 
     # random triangles and three whose planes overflow int32, listed first
-    # in every third tile
-    table, sel = raster_overflow_case(np.random.default_rng(W), CH, T, W, H,
-                                      Ts)
+    # in every third tile; both sides (two such draws) in one launch
+    sides = [raster_overflow_case(np.random.default_rng(W + k), CH, T, W, H,
+                                  Ts) for k in range(2)]
+    tables, sels = zip(*sides)
     n0 = dp.launches
-    got = dp.raster(table.to(dev), sel.to(dev), T, W, H)
+    got = dp.raster_maps([t.to(dev) for t in tables],
+                         [x.to(dev) for x in sels], T, W, H)
     assert dp.launches == n0 + 1
-    want = dp.raster_plain(table, sel, T, W, H)
-    assert torch.equal(got.cpu(), want)
-    assert torch.equal(dp.raster_plain(table.to(dev), sel.to(dev), T, W, H),
-                       got)
-    dpl = dp.decode_win(got)[0].cpu()
+    want = dp.raster_maps_plain(tables, sels, T, W, H)
+    for g, w in zip(got, want):
+        assert g.shape == (2 * CH, H, W) and torch.equal(g.cpu(), w)
+    for g, w in zip(got, dp.decode_win(dp.raster_plain(
+            tables[0].to(dev), sels[0].to(dev), T, W, H))):
+        assert torch.equal(g[:CH], w)
+    dpl = got[0][:CH].cpu()
     C = -(-W // dp._RASTER_CTILE)
     v, u = np.mgrid[0:H, 0:W]
     tile = (v // dp._RASTER_SLAB) * C + u // dp._RASTER_CTILE
@@ -640,19 +644,24 @@ def test_raster_kernel_edges(dev, case):
 
     assert len(RASTER_EDGE_CASES) == 4
     table, sel, T, W, H = raster_edge_case(RASTER_EDGE_CASES[case])
-    n0 = dp.launches
-    got = dp.raster(table.to(dev), sel.to(dev), T, W, H)
-    assert dp.launches == n0 + 1
-    want = dp.raster_plain(table, sel, T, W, H)
-    assert torch.equal(got.cpu(), want)
+    for sides in ((table,), (table, table)):
+        sels = (sel,) * len(sides)
+        n0 = dp.launches
+        got = dp.raster_maps([t.to(dev) for t in sides],
+                             [x.to(dev) for x in sels], T, W, H)
+        assert dp.launches == n0 + 1
+        want = dp.raster_maps_plain(sides, sels, T, W, H)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    covered = want[2]
     if case == 1:           # the whole-image triangle covers every pixel
-        assert bool((want >= 0).all())
+        assert bool(covered.all())
     if case == 2:           # the pad-only tiles stay uncovered
         C = -(-W // dp._RASTER_CTILE)
         v, u = np.mgrid[0:H, 0:W]
         tile = (v // dp._RASTER_SLAB) * C + u // dp._RASTER_CTILE
         dead = torch.from_numpy((tile % 2 == 0) | (tile % 4 == 1))
-        assert bool((want[:, dead] == -1).all())
+        assert not bool(covered[:, dead].any())
 
 
 def test_raster_kernel_never_runs_the_plain_twin(dev, monkeypatch):
@@ -662,12 +671,14 @@ def test_raster_kernel_never_runs_the_plain_twin(dev, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain twin")
 
-    for name in ("raster_plain", "_slab_products_impl", "_slab_raster_impl"):
+    for name in ("raster_plain", "raster_maps_plain", "decode_win",
+                 "_slab_products_impl", "_slab_raster_impl"):
         monkeypatch.setattr(dp, name, refuse)
     table, sel = raster_overflow_case(np.random.default_rng(1), 1, 30, 200,
                                       40, 8)
-    win = dp.raster(table.to(dev), sel.to(dev), 30, 200, 40)
-    assert win.is_cuda and win.shape == (1, 40, 200)
+    maps = dp.raster_maps((table.to(dev),) * 2, (sel.to(dev),) * 2, 30, 200,
+                          40)
+    assert all(m.is_cuda and m.shape == (2, 40, 200) for m in maps)
 
 
 def test_raster_kernel_refuses_what_it_does_not_take(dev):
@@ -678,11 +689,13 @@ def test_raster_kernel_refuses_what_it_does_not_take(dev):
                                       40, 8)
     table, sel = table.to(dev), sel.to(dev)
     with pytest.raises(ValueError, match="table"):
-        dp.raster(table.long(), sel, 30, 200, 40)
+        dp.raster_maps((table.long(),), (sel,), 30, 200, 40)
     with pytest.raises(ValueError, match="sel"):
-        dp.raster(table, sel.cpu(), 30, 200, 40)
+        dp.raster_maps((table,), (sel.cpu(),), 30, 200, 40)
     with pytest.raises(ValueError, match="tiles"):
-        dp.raster(table, sel, 30, 400, 40)
+        dp.raster_maps((table,), (sel,), 30, 400, 40)
+    with pytest.raises(ValueError, match="sides"):
+        dp.raster_maps((table,) * 3, (sel,) * 3, 30, 200, 40)
 
 
 def test_fit_and_slopes_on_the_card_equal_native(dev):
@@ -1275,15 +1288,16 @@ def test_postprocess_kernels_edges(dev, case):
     for smax in (-1, 32):
         post_kernels_hold(D1, D2, p, _hold_equal, name, smax)
     # per hold: H once, I twice (the case's params, then MIDDLEBURY's), J
-    # twice (8 and 4 taps), K once
+    # twice (8 and 4 taps), K once, each of I, J, K again with its sinks
+    # (out and the u8 epilogue), and the u8 map alone once
     assert {k: post.launches[k] - n0[k] for k in n0} == {
-        "elas_lr": 2, "elas_gap": 4, "elas_mean": 4, "elas_median": 2,
-        "elas_speckle": 0}
+        "elas_lr": 2, "elas_gap": 8, "elas_mean": 8, "elas_median": 4,
+        "elas_speckle": 0, "elas_u8": 2}
     # kernel launches: I's tile design once, its scan design twice
     tile = post.gap_width_eff(p) <= post.GAP_TILE_MAX and not p.add_corners
     assert {k: post.device_launches[k] - d0[k] for k in d0} == {
-        "elas_lr": 2, "elas_gap": 2 * ((1 if tile else 2) + 2),
-        "elas_mean": 4, "elas_median": 2, "elas_speckle": 0}
+        "elas_lr": 2, "elas_gap": 4 * ((1 if tile else 2) + 2),
+        "elas_mean": 8, "elas_median": 4, "elas_speckle": 0, "elas_u8": 2}
 
 
 @pytest.mark.parametrize("fix", ["elas_golden_s640_boxes", "elas_golden_photo"])
@@ -2471,3 +2485,178 @@ def test_m1_tile_lists_at_an_unaligned_offset(dev):
         ptable, psels = dp.coeff_table_plain(card, CH, Np, Tp, SC, Ts)
         assert torch.equal(table, ptable)
         assert all(torch.equal(a, b) for a, b in zip(sels, psels))
+
+
+def _rounding_maps(dev, seed=0, B=2, H=70, W=90):
+    """Maps with what a u8 map must round and clip: x.5 of both parities,
+    -0.5, 0.49, -1, -10, runs of them past ROBOTICS' gap width, and values
+    past 255."""
+    rng = np.random.default_rng(seed)
+    D = rng.integers(0, 60, (B, H, W)).astype(np.float32)
+    D[..., ::5] += 0.5
+    D[:, ::7, :] = rng.choice([255.5, 256.0, 300.25, 1e6, 254.5],
+                              (B, 1, W))
+    D[rng.random(D.shape) < 0.15] = -1.0
+    D[rng.random(D.shape) < 0.05] = -10.0
+    D[:, 3, 3:9] = [0.5, 1.5, 2.5, -0.5, -0.4, 0.49]
+    D[:, 20:30, 10:30] = -1.0
+    D[:, 35:40, 40:60] = -10.0
+    return torch.from_numpy(D).to(dev)
+
+
+@pytest.mark.parametrize("views", [1, 2])
+def test_u8_epilogue_of_i_j_k_equals_dmap_u8(dev, views):
+    """Each of I (tile design: ROBOTICS; scan design: MIDDLEBURY), J (8 and
+    4 taps) and K with its sinks: the float frames written into the given
+    tensors == the call without sinks, and the first view's u8 map ==
+    dmap_u8 of its float output, on maps with x.5, -1, -10 and values past
+    255; with the filters off the tail leaves those values in place."""
+    from jackal_tpu_torch.matching.elas import post
+    from jackal_tpu_torch.ops.convert import dmap_u8
+
+    X = _rounding_maps(dev, views)
+    n0 = X.shape[0] // views
+    for name, fn in (
+            ("I tile", lambda Y, **k: post.gap_interpolation(
+                Y, ElasParams(), **k)),
+            ("I scan", lambda Y, **k: post.gap_interpolation(
+                Y, ElasParams.middlebury(), **k)),
+            ("J 8 taps", post.adaptive_mean),
+            ("J 4 taps", post.adaptive_mean_sub),
+            ("K", post.median_filter)):
+        want = fn(X)
+        out = tuple(torch.full_like(X[:n0], 3.0) for _ in range(views)) \
+            if views == 2 else None
+        U = torch.empty(X[:n0].shape, dtype=torch.uint8, device=dev)
+        got = fn(X, out=out, u8=U)
+        got = torch.cat(got) if out is not None else got
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+        assert torch.equal(U, dmap_u8(want[:n0])), name
+    p = dataclasses.replace(ElasParams(), filter_adaptive_mean=False,
+                            filter_median=False)
+    U = torch.empty(X[0].shape, dtype=torch.uint8, device=dev)
+    F1, _ = post.post_tail(X[0], X[-1], p, u8=U)
+    f = F1.cpu().numpy()
+    assert ((f % 1) == 0.5).any() and (f > 255).any() and (f == -10).any()
+    assert torch.equal(U, dmap_u8(F1))
+    V = torch.empty_like(U)
+    assert post.u8_map(X[0], V) is V and torch.equal(V, dmap_u8(X[0]))
+
+
+def test_dense_pair_writes_one_tensor(dev):
+    """Kernel B's two views: [0] and [1] of one tensor (the tail takes
+    them as one, no stack), equal to each view's launch alone and to the
+    given output rows."""
+    from chip_smoke import prior_inputs
+    from jackal_tpu_torch.matching.elas import post
+
+    g = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
+    desc = create_descriptor(torch.from_numpy(np.stack([g["left"],
+                                                        g["right"]])).to(dev))
+    d1, d2 = desc[0:1], desc[1:2]
+    p = ElasParams()
+    views = prior_inputs(d1, d2, p, dev)
+    D1, D2 = dm.dense_match_pair(d1, d2, *views, p)
+    X = post._pair(D1, D2)
+    assert X.data_ptr() == D1.data_ptr() and X.shape == (2, *D1.shape)
+    assert torch.equal(D1, dm.dense_match(d1, d2, *views[0], p, False))
+    assert torch.equal(D2, dm.dense_match(d1, d2, *views[1], p, True))
+    L1, L2 = dm.dense_match_pair_lr(d1, d2, *views, p)
+    assert post._pair(L1, L2).data_ptr() == L1.data_ptr()
+    rows = torch.zeros((2, 3, *D1.shape[1:]), device=dev)
+    R1, R2 = dm.dense_match_pair_lr(d1, d2, *views, p,
+                                    out=(rows[0, 1:2], rows[1, 2:3]))
+    assert torch.equal(R1, L1) and torch.equal(R2, L2)
+    assert torch.equal(rows[0, 1], L1[0]) and torch.equal(rows[1, 2], L2[0])
+    assert not rows[0, 0].any() and not rows[1, 1].any()
+
+
+def test_elas_chunk_tail_dispatches_no_eager_op(dev):
+    """One batched chunk's tail with the node's u8 sink (kernels M1+M2, C
+    for both sides, B with its L/R epilogue, L, I, J writing the u8 map):
+    no ATen op that launches work on the card, C launched once, the u8
+    map == dmap_u8 of the public path's D1."""
+    from chip_smoke import aten_ops_of_a_call
+    from jackal_tpu_torch.matching.elas import device_prior as dp
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.ops.convert import dmap_u8
+
+    g = [np.load(f"{FIX}/elas_golden_{f}.npz") for f in ("s640_boxes",
+                                                         "photo")]
+    L = torch.from_numpy(np.stack([x["left"] for x in g])).to(dev)
+    R = torch.from_numpy(np.stack([x["right"] for x in g])).to(dev)
+    p = ElasParams()
+    d1, d2, dcan = ep._front(L, R, p)
+    dcan = dcan.cpu().numpy()
+    wires = [ep._prior_tri_job(dcan[b], p, 640, 480) for b in range(2)]
+    Np, Tp, Ts = ep._chunk_pads(wires)
+    lad = ep._lr_ladder(wires, p)
+    flat = torch.from_numpy(ep._flatten_chunk_wire(wires, Np, Tp,
+                                                   Ts)).to(dev)
+    U = torch.empty((2, 480, 640), dtype=torch.uint8, device=dev)
+    args = (flat, d1, d2, 2, Np, Tp, Ts, 640, 480, ep._node_params(p, True),
+            lad, None, U)
+    ep._chunk_tail(*args)
+    n0 = dp.launches
+    ops = aten_ops_of_a_call(lambda: ep._chunk_tail(*args))
+    assert dp.launches == n0 + 1
+    assert [n for n, ok in ops if not ok] == []
+    D1, _ = ep.elas_match_batch_device(L, R, p, chunk=2, device=dev)
+    assert torch.equal(U, dmap_u8(D1))
+    for b, x in enumerate(g):
+        assert torch.equal(D1[b].cpu(), torch.from_numpy(x["D1"]))
+
+
+@pytest.mark.parametrize("preset", ["robotics", "middlebury"])
+def test_node_u8_routes_on_the_card_equal_the_cpu(dev, preset):
+    """The node's u8 routes (per frame, batched, streamed) on the card ==
+    on the CPU, on the stage fixture and its 8-pixel shift."""
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+
+    p = getattr(ElasParams, preset)()
+    z = np.load(f"{FIX}/elas_stages_st160.npz")
+    lb = np.stack([z["left"], np.roll(z["left"], 8, 1)])
+    rb = np.stack([z["right"], np.roll(z["right"], 8, 1)])
+    for b in range(2):
+        got = ep._elas_match_u8(lb[b], rb[b], p, device=dev)
+        assert got.is_cuda and torch.equal(
+            got.cpu(), ep._elas_match_u8(lb[b], rb[b], p, device="cpu"))
+    want = ep._elas_match_batch_u8(lb, rb, p, chunk=1, device="cpu")
+    assert torch.equal(ep._elas_match_batch_u8(lb, rb, p, chunk=1,
+                                               device=dev).cpu(), want)
+    got = next(ep._elas_stream_u8(iter([(lb, rb)]), p, chunk=2,
+                                  device=dev))
+    assert torch.equal(got.cpu(), want)
+    flat = np.full((40, 64), 128, np.uint8)
+    assert not ep._elas_match_u8(flat, flat, p, device=dev).any()
+
+
+def test_elas_options_on_the_card_equal_the_cpu(dev):
+    """elas_match with use_native=False and with return_debug=True, and
+    post.postprocess, on one 640x480 golden frame: card == CPU, every
+    field; the C++ route's D1 with the debug item == libelas's."""
+    from jackal_tpu_torch.matching.elas import pipeline as ep
+    from jackal_tpu_torch.matching.elas import post
+
+    g = np.load(f"{FIX}/elas_golden_s640_boxes.npz")
+    p = ElasParams()
+    for use_native, debug in ((False, False), (None, True), (False, True)):
+        got = ep.elas_match(g["left"], g["right"], p, return_debug=debug,
+                            use_native=use_native, device=dev)
+        want = ep.elas_match(g["left"], g["right"], p, return_debug=debug,
+                             use_native=use_native, device="cpu")
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a.cpu(), b)
+        if debug:
+            assert torch.equal(got[2].dense_D1.cpu(), want[2].dense_D1)
+            assert torch.equal(got[2].dense_D2.cpu(), want[2].dense_D2)
+            np.testing.assert_array_equal(got[2].support, want[2].support)
+        if use_native is None:
+            np.testing.assert_array_equal(got[0].cpu().numpy(), g["D1"])
+    dbg = got[2]
+    for q in (p, ElasParams.middlebury()):
+        for a, b in zip(post.postprocess(dbg.dense_D1, dbg.dense_D2, q),
+                        post.postprocess(dbg.dense_D1.cpu(),
+                                         dbg.dense_D2.cpu(), q)):
+            assert torch.equal(a.cpu(), b)

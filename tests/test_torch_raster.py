@@ -209,7 +209,7 @@ def test_raster_odd_shapes_and_overflow_equal_jax(CH, T, W, H, Ts):
     sel = _tile_lists(rng, CH, T, W, H, Ts)
     tile = torch.arange(sel.shape[1])
     sel[:, :, 0] = (tile % 3).to(torch.int32)
-    maps = dp.decode_win(dp.raster(table, sel, T, W, H))
+    maps = dp.raster_maps((table,), (sel,), T, W, H)
     assert maps[0].shape == (CH, H, W)
     _assert_maps(maps, _jax_slab(table, sel, T, W, H))
     dpl, _, cov = maps
