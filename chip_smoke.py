@@ -165,11 +165,15 @@ Phases (any failure exits non-zero and prints no success line):
      call: under subsampling the check runs on the kept even pixels,
      after B; R on half-resolution descriptors and A with Q's epilogue at
      the even step once a call, Q alone never); the
-     card's exact float64 scan
-     against the CPU's on phase 4's 9 maps at 640x480; one JSON line;
+     card's exact float64 scan (kernel V: once a call, one read, its DFMA
+     as at -fmad=false, its time against its bound) against the CPU's on
+     phase 4's 9 maps at 640x480 and EXACT_SCAN_EDGE_CASES; one JSON line;
   11. the multi-device paths on meshes of this one card repeated
      (multidevice_phase): DP SGM and DP BM against process_batch_fused,
-     TP BM at D = 64 and 256 against bm_match, the ELAS replicas against
+     TP BM (kernels T1 once a rank, T2 and S once a row, no other ATen
+     op on the card; TP_CARD_CASES) against the plain TP path on the card
+     and bm_match, T1 and T2 against their twins and their bounds, the
+     ELAS replicas against
      the single-device batched path and libelas, each with the launches of
      its kernels pinned (D, O1, E, F, O2 or G once a shard, S never
      there, S once a row of TP BM, R and A with Q's epilogue once a
@@ -1911,6 +1915,146 @@ def bm_phase(dev, hold):
     return tail
 
 
+# ---- kernel V: the exact float64 scan (phase 10c) ------------------------
+
+# maps that meet the exact scan's edges (tests/test_torch_exact_scan_edges.py
+# holds the CPU path to the JAX package on them, tests/test_torch_cuda.py and
+# phase 10c kernel V to the CPU path)
+EXACT_SCAN_EDGE_CASES = ("origin pixel", "X <= 0", "tied extrema",
+                         "nothing accepted")
+# the tied extrema's pixels: (u - cx, v - cy, d). (3, 1, 1) and (6, 2, 206)
+# have the same float64 ratio Y / X and band but atan2 values an ulp apart,
+# as (4, 3, 68) and (8, 6, 206) have: the least and the greatest angle are
+# the first pixel of each pair by flat index, not the pair's least or
+# greatest atan2
+EXACT_SCAN_TIES = ((3, 1, 1), (6, 2, 206), (4, 3, 68), (8, 6, 206))
+
+
+def exact_scan_edge_case(name):
+    """(uint8 map [H, W], uint8 range [H, W, 2], Q, XR, XT (float64), crop
+    offset x, y) of one of EXACT_SCAN_EDGE_CASES, from a seed. The
+    calibration is exact: X = (u - cx) / d, Y = (v - cy) / d, Xr = X,
+    Yr = Y. "origin pixel": the pixel at (cx, cy) has X = Y = 0 (bin 45,
+    range 0); "X <= 0": three quarters of the columns lie at or left of
+    cx (the angle's bands 0, 1, 3 and 4); "tied extrema": only
+    EXACT_SCAN_TIES' pixels accepted; "nothing accepted": every range is
+    empty (lo > hi)."""
+    i = EXACT_SCAN_EDGE_CASES.index(name)
+    rng = np.random.default_rng(100 + i)
+    H, W = 24, 40
+    cx, cy = {"X <= 0": (30, 12)}.get(name, (20, 12))
+    dmap = rng.integers(1, 256, (H, W)).astype(np.uint8)
+    valid = np.zeros((H, W, 2), np.uint8)
+    valid[..., 0], valid[..., 1] = 1, 255
+    if name == "nothing accepted":
+        valid[..., 0], valid[..., 1] = 255, 0
+    if name == "tied extrema":
+        valid[..., 0], valid[..., 1] = 255, 0
+        for dx, dy, d in EXACT_SCAN_TIES:
+            dmap[cy + dy, cx + dx] = d
+            valid[cy + dy, cx + dx] = d
+    Q = np.array([[1, 0, 0, -cx], [0, 1, 0, -cy], [0, 0, 0, 100],
+                  [0, 0, 1, 0]], np.float64)
+    return dmap, valid, Q, np.eye(3), np.zeros(3), 0, 0
+
+
+def exact_scan_work(n_px: int, accepted: int, midpoint: int):
+    """(bytes, float64 operations) of kernel V on a map of n_px pixels:
+    the map and its range in (3 bytes a pixel) and the int64 output out
+    (csrc/exact_scan_kernel.cu); 45 float64 operations an accepted pixel as
+    written (the Q rows 4 x 6, three quotients, the two robot rows 2 x 6,
+    the range's two products, sum and root, the ratio) and 94 more a pixel
+    that ran the midpoint tests (two error-free products of 17 each and
+    13 more a test, two tests)."""
+    from jackal_tpu_torch.scan.exact_scan import N_OUT
+
+    return 3 * n_px + 8 * N_OUT, 45 * accepted + 94 * midpoint
+
+
+# ---- kernels T1, T2: TP BM's shard (phase 11b) ---------------------------
+
+# the pairs of TP BM's cases (tests/test_torch_tp_partials.py holds the
+# plain twins of T1 and T2 to the JAX package's bm_match_tp on them at
+# 48x96, tests/test_torch_cuda.py the kernels to the twins)
+TP_PAIR_KINDS = ("seeded", "rank edges", "ties across ranks")
+
+
+def tp_pair(kind, B, H, W, D, ranks, seed=0, band=4):
+    """uint8 (left, right) [B, H, W] and the uniqueness factor of a TP BM
+    case. "seeded": a random left frame, the right one shifted by a random
+    disparity a band of ``band`` rows (a window much taller than a band
+    finds no unique d); "rank edges": shifted by the first and last
+    d of the ranks' ranges in turn (Dl = D // ranks), so many best d lie on
+    a range's edge; "ties across ranks": rows periodic with period Dl, so
+    a cost repeats Dl disparities on, in the next rank's range, the
+    uniqueness factor 1.5 so that tied pixels stay (ties go to the
+    smaller d)."""
+    rng = np.random.default_rng(seed + 17 * TP_PAIR_KINDS.index(kind))
+    Dl = D // ranks
+    if kind == "ties across ranks":
+        left = np.tile(rng.integers(0, 256, (B, H, Dl)),
+                       (1, 1, -(-W // Dl)))[..., :W].astype(np.uint8)
+    else:
+        left = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
+    if kind == "rank edges":
+        shifts = sorted({0, ranks * Dl - 1} | {e for k in range(1, ranks)
+                                             for e in (k * Dl - 1, k * Dl)})
+    else:
+        shifts = list(rng.integers(0, D, 8))
+    right = left.copy()
+    for i, v in enumerate(range(0, H, band)):
+        s = int(shifts[i % len(shifts)])
+        right[:, v:v + band] = np.roll(left[:, v:v + band], -s, 2)
+    return left, right, 1.5 if kind == "ties across ranks" else 0.85
+
+
+# phase 11b's cases at 640x480, (D, data rows, disp ranks, frames,
+# window): D = 64 on 2 x 2 and 1 x 4, D = 256 on 1 x 8, D = 30 on 1 x 4
+# (Dl = 7: d = 28 and 29 scored by no rank), and a window past G's strip
+# (227) on 1 x 4 (tests/test_torch_cuda.py runs them too)
+TP_CARD_CASES = ((64, 2, 2, 2, 9), (64, 1, 4, 2, 9), (256, 1, 8, 1, 9),
+                 (30, 1, 4, 2, 9), (64, 1, 4, 2, 227))
+
+
+def tp_work(kernel: str, B: int, H: int, W: int, D: int, ranks: int,
+            reads: int = 0):
+    """(bytes, 32-bit integer instructions) of TP BM's T1 over every rank
+    (each rank's frames in, 2 bytes a pixel, its partials out, 72; G's
+    5.75 instructions a pixel and scored d, over the ranks * Dl scored d)
+    or T2 (the ``reads`` int32 partials its combine reads, tp_combine_reads,
+    and the two float maps out, 8 bytes a pixel; no operation counted)."""
+    px = B * H * W
+    if kernel == "bm_tp_partials":
+        return ranks * px * (2 + 2 * 9 * 4), 5.75 * px * ranks * (D // ranks)
+    return 4 * reads + 8 * px, 0
+
+
+def tp_combine_reads(parts, D: int, Dl: int) -> int:
+    """The int32 partials that T2's combine reads from the ranks' partials
+    parts [K, 2, NF, B, H, W], summed over pixels and views: every rank's
+    key, the winner's best and second, cm and cp where a rank holds q -+ 1,
+    and two fields of each other rank (its first and xfirst, or its last
+    and xlast where it holds q - 1, or its first and xfirst where it holds
+    q + 1: one of them counted with cm or cp)."""
+    import torch
+
+    K = parts.shape[0]
+    total = 0
+    for view in range(2):
+        key, w = parts[:, view, 0].min(0)
+        q = key % D
+        lo = w * Dl
+        hi = lo + Dl
+        n = K + 2 + ((q - 1 >= lo) | (w > 0)).long() \
+            + ((q + 1 < hi) | (w + 1 < K)).long()
+        ks = torch.arange(K, device=parts.device).view(
+            -1, *([1] * key.dim()))
+        edge = ((ks == w - 1) & (q == lo)) | ((ks == w + 1) & (q == hi - 1))
+        rest = torch.where(ks == w, 0, torch.where(edge, 1, 2)).sum(0)
+        total += int((n + rest).sum())
+    return total
+
+
 def subsampling_phase(dev, hold, pipe, dmaps):
     """Phase 10: ELAS subsampling and the exact float64 scan on the card.
     (a) kernel A on half-resolution descriptors against its plain twin and
@@ -1921,9 +2065,12 @@ def subsampling_phase(dev, hold, pipe, dmaps):
     against the CPU's on the same inputs, with A's, B's and H's launch
     counters set to 0 just before and read just after (the L/R check runs
     on the kept even pixels: kernel H once a call, B without its L/R
-    epilogue); (c) the card's exact scan
-    against the CPU's on phase 4's 9 maps at 640x480 (pipe: phase 4's
-    node). Returns the phase's JSON line."""
+    epilogue); (c) the card's exact scan (kernel V) against the CPU's on
+    phase 4's 9 maps at 640x480 (pipe: phase 4's node) and on
+    EXACT_SCAN_EDGE_CASES, V's launches counted (once a call), the ATen ops
+    of a call, V's DFMA count against its -fmad=false build's, its time
+    against its bound and the call's host ms beside the eager path's.
+    Returns (the phase's JSON line, V's entry of the kernels line)."""
     import torch
     from jackal_tpu_torch.config import ElasParams
     from jackal_tpu_torch.matching.elas import dense as dense_mod
@@ -2003,33 +2150,115 @@ def subsampling_phase(dev, hold, pipe, dmaps):
           f"(elas_stages_sub320, its triangulations) bit for bit, and == the"
           f" CPU's D1, D2 on {', '.join(c[0] for c in cases)}")
 
-    # (c) the exact float64 scan: the card against the CPU
+    # (c) the exact float64 scan: kernel V against the CPU
+    fields, entry = exact_scan_phase(dev, hold, pipe, dmaps)
+    return {"subsampling": {"launches": launches, **fields}}, [entry]
+
+
+def exact_scan_phase(dev, hold, pipe, dmaps):
+    """Phase 10c: kernel V against the CPU path on phase 4's maps (numpy
+    u8, pipe: phase 4's node) and the CPU tests' edge maps (uploaded first:
+    their calls upload nothing); see subsampling_phase. Returns (the
+    phase's JSON fields, V's entry of the kernels line)."""
+    import torch
+    from jackal_tpu_torch.ops import cuda_lib
+    from jackal_tpu_torch.scan import exact_scan as es
+    from jackal_tpu_torch.scan.exact_scan import (
+        obstacle_scan_from_disparity_exact)
+
+
     Q, XR, XT = pipe.rect.Q, pipe.calib.XR, pipe.calib.XT
     valid = pipe.valid_disp.cpu().numpy()
     ox, oy = pipe.p.crop_offset_x, pipe.p.crop_offset_y
     fields = ("scan", "angle_min", "angle_max", "range_min", "range_max")
+    cases = [(f"phase 4's map {i}", (dm, valid, Q, XR, XT, ox, oy))
+             for i, dm in enumerate(dmaps)]
+    for name in EXACT_SCAN_EDGE_CASES:
+        dm, vd, *rest = exact_scan_edge_case(name)
+        cases.append((name, (torch.from_numpy(dm).to(dev),
+                             torch.from_numpy(vd).to(dev), *rest)))
+    read = _counted([(es, "exact_scan")])
     filled = []
-    for i, dm in enumerate(dmaps):
-        card = obstacle_scan_from_disparity_exact(dm, valid, Q, XR, XT, ox,
-                                                  oy, device=dev)
-        cpu = obstacle_scan_from_disparity_exact(dm, valid, Q, XR, XT, ox,
-                                                 oy, device="cpu")
+    for name, case in cases:
+        card = obstacle_scan_from_disparity_exact(*case, device=dev)
+        cpu = obstacle_scan_from_disparity_exact(
+            *(x.cpu() if torch.is_tensor(x) else x for x in case),
+            device="cpu")
         for f in fields:
             a, b = getattr(card, f), getattr(cpu, f)
             if a.dtype != torch.float64 or a.device.type != dev.type:
                 raise AssertionError(f"exact scan {f}: {a.dtype} on "
                                      f"{a.device}")
-            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                          err_msg=f"exact scan {name} {f}")
+        hold("exact_scan", f"exact scan {name}",
+             [card.scan.cpu(), torch.stack([card.angle_min, card.angle_max,
+                                         card.range_min, card.range_max]
+                                        ).cpu()],
+             [cpu.scan, torch.stack([cpu.angle_min, cpu.angle_max,
+                                  cpu.range_min, cpu.range_max])])
         filled.append(int((cpu.scan < 1e9 - 1).sum()))
+    v_launches = read()[0]
+    if v_launches != len(cases):
+        raise AssertionError(f"exact scan: V launched {v_launches} times in "
+                             f"{len(cases)} calls, not once a call")
+    ops = aten_ops_of_a_call(lambda: obstacle_scan_from_disparity_exact(
+        dmaps[0], valid, Q, XR, XT, ox, oy, device=dev))
+    card_ops = [n for n, ok in ops if not ok]
+    # the map's and the range's uploads; the one read's output lies on the
+    # host, and the result's torch.tensor on the card dispatches no ATen op
+    if len(card_ops) != 2:
+        raise AssertionError(f"exact scan: {card_ops} launch work on the "
+                             f"card, not the map's and the range's uploads")
+    dm_t, vd_t = (torch.from_numpy(x).to(dev) for x in (dmaps[0], valid))
+    Q64, XR64 = (np.asarray(x, np.float64) for x in (Q, XR))
+    XT64 = np.asarray(XT, np.float64).reshape(3)
+    out = es._device_scan_cuda(dm_t, vd_t, Q64, XR64, XT64, ox, oy).cpu()
+    H, W = dmaps[0].shape
+    nbV, opsV = exact_scan_work(H * W, int(out[es.OUT_N]),
+                                int(out[es.OUT_MID]))
+    bV, byV = bound_ms(nbV, opsV, PEAK_F64_OPS_PER_S)
+    kV = events_ms(lambda: es._device_scan_cuda(dm_t, vd_t, Q64, XR64, XT64,
+                                                ox, oy), 50)
+    pV = events_ms(lambda: es._device_scan(
+        dm_t, vd_t[..., 0], vd_t[..., 1], Q64.tolist(), XR64.tolist(),
+        XT64.tolist(), ox, oy), 3, spin=False)
     t_card = host_ms(lambda: obstacle_scan_from_disparity_exact(
         dmaps[0], valid, Q, XR, XT, ox, oy, device=dev), 5)
-    print(f"10c. exact float64 scan on the card == the CPU's "
-          f"(assert_array_equal, every field) on {len(dmaps)} maps at "
-          f"{dmaps[0].shape[1]}x{dmaps[0].shape[0]} (filled bins "
-          f"{filled}); host ms a call on the card {t_card:.3f}")
-    return {"subsampling": {"launches": launches,
-                            "exact_scan_frames": len(dmaps),
-                            "exact_scan_ms": t_card}}
+    t_eager = host_ms(lambda: es.obstacle_scan_from_disparity_exact_plain(
+        dmaps[0], valid, Q, XR, XT, ox, oy, device=dev), 5)
+    fns = ("exact_scan_records_kernel", "exact_scan_reduce_kernel")
+    dfma = {lib: sass_by_function(cuda_lib.library(lib).path, "DFMA", fns)
+            for lib in ("exact_scan_kernel", "exact_scan_kernel_nofmad")}
+    if dfma["exact_scan_kernel"] != dfma["exact_scan_kernel_nofmad"]:
+        raise AssertionError(f"kernel V: DFMA {dfma} differ from the "
+                             f"-fmad=false build's")
+    print(f"10c. exact float64 scan, kernel V, on the card == the CPU's "
+          f"(assert_array_equal, every field: the bins, so the card's atan2f "
+          f"candidate took every pixel's bin) on {len(dmaps)} maps at "
+          f"{W}x{H} (filled bins {filled[:len(dmaps)]}) and "
+          f"{', '.join(EXACT_SCAN_EDGE_CASES)} (filled {filled[len(dmaps):]});"
+          f" V {v_launches} launches in {len(cases)} calls; ATen ops that "
+          f"launch work a call {card_ops}; DFMA {dfma} (as at -fmad=false); "
+          f"device ms a call (CUDA events behind a spin) {kV:.5f} (plain, "
+          f"_device_scan's eager ops, {pV:.3f}; bound {bV:.6f} by {byV}: "
+          f"{nbV} bytes, {opsV} f64 operations, {int(out[es.OUT_N])} "
+          f"accepted, {int(out[es.OUT_MID])} midpoint-tested); host ms a "
+          f"call {t_card:.3f} (the eager _device_scan path on the card "
+          f"{t_eager:.3f})")
+    if kV < bV:
+        raise AssertionError(f"kernel V: {kV} ms is below its bound {bV} ms")
+    entry = {"name": "exact_scan", "route": "cuda",
+             "source": "jackal_tpu_torch/csrc/exact_scan_kernel.cu",
+             "replaces": "jackal_tpu/scan/exact_scan.py:132",
+             "launches": v_launches, "ms": kV, "plain_ms": pV,
+             "bound_ms": bV, "bound_by": byV, "library_ms": None}
+    return {"exact_scan_frames": len(dmaps),
+            "exact_scan_edge_maps": len(EXACT_SCAN_EDGE_CASES),
+            "exact_scan_launches": v_launches,
+            "exact_scan_card_ops": card_ops, "exact_scan_dfma": dfma,
+            "exact_scan_kernel_ms": kV, "exact_scan_bound_ms": bV,
+            "exact_scan_ms": t_card, "exact_scan_eager_ms": t_eager}, entry
 
 
 def _same(name, got, want) -> None:
@@ -2053,22 +2282,128 @@ def _counted(mods):
                     for m, k in mods]
 
 
-def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
+def tp_phase(dev, hold, rect_l, rect_r, out):
+    """Phase 11b: TP BM at TP_CARD_CASES on phase 4's rectified frames
+    (see multidevice_phase); each case's numbers go into ``out``. Returns
+    the kernels line's entries of T1 and T2 (the first case)."""
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.matching import bm as bm_mod
+    from jackal_tpu_torch.matching.bm import bm_match
+    from jackal_tpu_torch.ops import bm_tp_kernel as tpk
+    from jackal_tpu_torch.parallel.mesh import (bm_match_tp, bm_match_tp_plain,
+                                                gather, make_mesh)
+
+    rate = int_ops_rate(dev)
+    entries = []
+    for D, data, disp, B, win in TP_CARD_CASES:
+        n = data * disp
+        p = BMParams(disp_num=D, window=win)
+        mesh = make_mesh(n, disp_parallel=disp, devices=[dev] * n)
+        tp, plain = bm_match_tp(mesh, p), bm_match_tp_plain(mesh, p)
+        L, R = rect_l[:B], rect_r[:B]
+        H, W = L.shape[1:]
+        label = (f"D = {D}{'' if win == 9 else f', window {win}'} on "
+                 f"{data}x{disp}")
+        read = _counted([(tpk, "bm_tp_partials"), (tpk, "bm_tp_combine"),
+                         (bm_mod, "bm_gate")])
+        dl, dr = (gather(x) for x in tp(L, R))
+        counts = dict(zip(("T1", "T2", "S"), read()))
+        if counts != {"T1": n, "T2": data, "S": data}:
+            raise AssertionError(f"TP BM {label}: launches {counts}, not T1 "
+                                 f"once a rank, T2 and S once a row of "
+                                 f"'data'")
+        card_ops = [nm for nm, ok in aten_ops_of_a_call(lambda: tp(L, R))
+                    if not ok]
+        if card_ops:
+            raise AssertionError(f"TP BM {label}: {card_ops} launch work on "
+                                 f"the card")
+        pl, pr = (gather(x) for x in plain(L, R))
+        _same(f"TP BM {label} left vs the plain TP path", dl, pl)
+        _same(f"TP BM {label} right vs the plain TP path", dr, pr)
+        if D % disp == 0:
+            for b in range(B):
+                sl, sr = bm_match(L[b], R[b], p)
+                _same(f"TP BM {label} frame {b} left", dl[b], sl)
+                _same(f"TP BM {label} frame {b} right", dr[b], sr)
+        # T1 and T2 against their twins on the first row's frames
+        Bs, Dl, r = B // data, D // disp, win // 2
+        Ls, Rs = L[:Bs], R[:Bs]
+        parts = tpk.rank_partials(Ls, Rs, D, r, [dev] * disp)
+        for k in range(disp):
+            hold("bm_tp_partials", f"T1 {label} rank {k}", [parts[k]],
+                 [tpk.tp_partials_plain(Ls, Rs, k * Dl, Dl, D, r)])
+        hold("bm_tp_combine", f"T2 {label}", tpk.tp_combine(parts, D, Dl, p),
+             tpk.tp_combine_plain(parts, D, Dl, p))
+        k1 = events_ms(lambda: tpk.rank_partials(Ls, Rs, D, r, [dev] * disp),
+                       20)
+        k2 = events_ms(lambda: tpk.tp_combine(parts, D, Dl, p), 20)
+        p1 = events_ms(lambda: [tpk.tp_partials_plain(Ls, Rs, k * Dl, Dl, D,
+                                                      r)
+                                for k in range(disp)], 3, spin=False)
+        p2 = events_ms(lambda: tpk.tp_combine_plain(parts, D, Dl, p), 3,
+                       spin=False)
+        b1, by1 = bound_ms(*tp_work("bm_tp_partials", Bs, H, W, D, disp), rate)
+        b2, by2 = bound_ms(*tp_work("bm_tp_combine", Bs, H, W, D, disp,
+                                    tp_combine_reads(parts, D, Dl)), rate)
+        ms = host_ms(lambda: tp(L, R), 5)
+        plain_ms = host_ms(lambda: plain(L, R), 3)
+        single = host_ms(lambda: bm_match(L, R, p), 5)
+        shape = f"{data}x{disp}"
+        out[f"d{D}_w{win}_{shape}"] = {
+            "frames": B, "launches": counts, "ms": ms, "plain_ms": plain_ms,
+            "single_ms": single, "T1_ms": k1, "T1_bound_ms": b1,
+            "T2_ms": k2, "T2_bound_ms": b2}
+        print(f"11b. TP BM {W}x{H} {label} (data x disp) of {dev}, {B} "
+              f"frames: both maps == the plain TP path on the card and"
+              f"{' == bm_match frame by frame' if D % disp == 0 else ' (D % ranks != 0: no bm_match)'}"
+              f" (torch.equal); T1's partials and T2's maps == their twins; "
+              f"launches {counts}; ATen ops that launch work a call "
+              f"{card_ops}; host ms a call {ms:.3f} (the plain TP path on the"
+              f" card {plain_ms:.3f}, bm_match on the batch {single:.3f}); "
+              f"device ms (CUDA events behind a spin), a row of {Bs} frames:"
+              f" T1 over its {disp} ranks {k1:.4f} (plain {p1:.3f}; bound "
+              f"{b1:.5f} by {by1}), T2 {k2:.4f} (plain {p2:.3f}; bound "
+              f"{b2:.5f} by {by2})")
+        for nm, k, bd in (("T1", k1, b1), ("T2", k2, b2)):
+            if k < bd:
+                raise AssertionError(f"{nm} {label}: {k} ms is below its "
+                                     f"bound {bd} ms")
+        if not entries:   # the kernels line: D = 64 on 2 x 2
+            entries = [
+                {"name": "bm_tp_partials", "route": "cuda",
+                 "source": "jackal_tpu_torch/csrc/bm_tp_kernel.cu",
+                 "replaces": "jackal_tpu/parallel/mesh.py:118",
+                 "launches": counts["T1"], "ms": k1, "plain_ms": p1,
+                 "bound_ms": b1, "bound_by": by1, "library_ms": None},
+                {"name": "bm_tp_combine", "route": "cuda",
+                 "source": "jackal_tpu_torch/csrc/bm_tp_kernel.cu",
+                 "replaces": "jackal_tpu/parallel/mesh.py:81",
+                 "launches": counts["T2"], "ms": k2, "plain_ms": p2,
+                 "bound_ms": b2, "bound_by": by2, "library_ms": None}]
+    return entries
+
+
+def multidevice_phase(dev, hold, raw_pairs, rect_l, rect_r):
     """Phase 11: the multi-device paths (parallel/mesh.py, the ELAS
     replicas) and the last modules on meshes of one card repeated. (a) DP
     SGM and DP BM, make_pipeline at 640x480, D = 64, B = 8 of phase 4's
     raw pairs, on 4 and 8 ranks: maps, scans and closest against
     process_batch_fused on the batch, the launches of D, E, F or G counted
-    under the step; (b) TP BM on phase 4's rectified frames: D = 64 on
-    2 x 2 and 1 x 4, D = 256 on 1 x 8, both maps against bm_match frame by
-    frame; (c) the ELAS replicas on 8 distinct 640x480 pairs (phase 4's
+    under the step; (b) TP BM on phase 4's rectified frames at
+    TP_CARD_CASES (D = 64 on 2 x 2 and 1 x 4, D = 256 on 1 x 8, D = 30 on
+    1 x 4, window 227 on 1 x 4): both maps against the plain TP path on
+    the card and bm_match frame by frame where the ranks divide D, T1's
+    and T2's launches counted (T1 once a rank, T2 and S once a row), the
+    ATen ops of a call (none that launch work), T1's partials and T2's
+    maps against their twins, their times against their bounds; (c) the ELAS replicas on 8 distinct 640x480 pairs (phase 4's
     frames, frame b rolled 3 b columns) on 2 and 4 replicas, chunk 1 and
     2, against elas_match_batch_device(chunk=1), A, B and C counted; on
     the golden pairs against libelas; (d) entry.dryrun_multichip(8);
     (e) filters, linalg, the experiments and the coefficient-wire raster
     on the card against the CPU. Host-clock times (median of 5) beside
     the single-device step's; every rank is this one card, so no time
-    here says anything of scaling. Returns the phase's JSON line."""
+    here says anything of scaling. Returns (the phase's JSON line, the
+    kernels line's entries of T1 and T2)."""
     import torch
     from jackal_tpu_torch import entry as entry_mod
     from jackal_tpu_torch.config import BMParams, ElasParams, PipelineParams
@@ -2086,8 +2421,8 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
     from jackal_tpu_torch.ops import bm_kernel as bk
     from jackal_tpu_torch.ops import filters, linalg
     from jackal_tpu_torch.ops import sgm_kernel as sk
-    from jackal_tpu_torch.parallel.mesh import (bm_match_tp, dp_sharded_step,
-                                                gather, make_mesh)
+    from jackal_tpu_torch.parallel.mesh import (dp_sharded_step, gather,
+                                                make_mesh)
     from jackal_tpu_torch.pipeline.default import make_pipeline
 
     out = {"dp": {}, "tp": {}, "elas": {}}
@@ -2139,32 +2474,8 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
                   f"{single:.3f}, {n} single-device calls of B = {Bs} "
                   f"{shards:.3f})")
 
-    # (b) TP BM on the rectified frames
-    for D, n, disp, B in ((64, 4, 2, 2), (64, 4, 4, 2), (256, 8, 8, 1)):
-        p = BMParams(disp_num=D)
-        mesh = make_mesh(n, disp_parallel=disp, devices=[dev] * n)
-        tp = bm_match_tp(mesh, p)
-        read = _counted([(bm_mod, "bm_gate")])
-        dl, dr = (gather(x) for x in tp(rect_l[:B], rect_r[:B]))
-        gates = read()[0]
-        if gates != mesh.shape["data"]:
-            raise AssertionError(f"TP BM D = {D} on {mesh.shape}: kernel S "
-                                 f"launched {gates} times, not once a row "
-                                 f"of 'data'")
-        for b in range(B):
-            sl, sr = bm_match(rect_l[b], rect_r[b], p)
-            _same(f"TP BM D = {D} {mesh.shape} frame {b} left", dl[b], sl)
-            _same(f"TP BM D = {D} {mesh.shape} frame {b} right", dr[b], sr)
-        ms = host_ms(lambda: tp(rect_l[:B], rect_r[:B]), 5)
-        single = host_ms(lambda: bm_match(rect_l[:B], rect_r[:B], p), 5)
-        shape = f"{mesh.shape['data']}x{mesh.shape['disp']}"
-        out["tp"][f"d{D}_{shape}"] = {"frames": B, "ms": ms,
-                                      "single_ms": single}
-        print(f"11b. TP BM 640x480 D = {D} on {shape} (data x disp) of "
-              f"{dev}, {B} frames: both maps == bm_match frame by frame "
-              f"(torch.equal); kernel S (the texture gate) {gates} launches, "
-              f"once a row; host ms a call {ms:.3f} (bm_match on the "
-              f"batch {single:.3f})")
+    # (b) TP BM on the rectified frames: T1 a rank, T2 and S a row
+    entries = tp_phase(dev, hold, rect_l, rect_r, out["tp"])
 
     # (c) the ELAS replicas on 8 distinct pairs
     params = ElasParams()
@@ -2329,7 +2640,7 @@ def multidevice_phase(dev, raw_pairs, rect_l, rect_r):
     print(f"11f. host us a kernel launch for the stream argument: "
           f"{guard_us:.3f} with the device guard, {bare_us:.3f} without "
           f"(median of 5 loops of 1000)")
-    return {"multidevice": out}
+    return {"multidevice": out}, entries
 
 
 # the ELAS postprocess kernels' cases (tests/test_torch_cuda.py runs them too)
@@ -5907,7 +6218,7 @@ def main() -> int:
            "prior_kernel_nofmad", "sgm_tail_kernel_nofmad",
            "descriptor_kernel_nofmad", "support_kernel_nofmad",
            "bm_kernel_nofmad", "sgm_wta_kernel_nofmad",
-           "prior_kernel_parts")])
+           "prior_kernel_parts", "exact_scan_kernel_nofmad")])
     print(f"build: {time.perf_counter() - t:.1f} s (nvcc per kernel and "
           f"g++ in parallel)")
     for name in cuda_lib.KERNEL_SOURCES + ("bm_kernel_diag",):
@@ -5924,7 +6235,8 @@ def main() -> int:
                "cloud_scan": 0.0, "descriptor": 0.0, "support_epilogue": 0.0,
                "support_fused": 0.0, "elas_u8": 0.0,
                "coeff_table": 0.0, "grid_words": 0.0, "sgm_cost": 0.0,
-               "sgm_epilogue": 0.0, "bm_gate": 0.0}
+               "sgm_epilogue": 0.0, "bm_gate": 0.0, "exact_scan": 0.0,
+               "bm_tp_partials": 0.0, "bm_tp_combine": 0.0}
 
     def hold(kernel, name, got, want):
         """Kernel outputs must equal the plain version's (torch.equal);
@@ -6684,11 +6996,19 @@ def main() -> int:
     print(json.dumps(shell_phase(dev)))
 
     # ---- 10. ELAS subsampling (A, B, H under it) and the exact scan -------
-    sub_line = subsampling_phase(dev, hold, pipe, [fr.dmap for fr in results])
+    sub_line, entries = subsampling_phase(dev, hold, pipe,
+                                          [fr.dmap for fr in results])
     print(json.dumps(sub_line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
 
     # ---- 11. the multi-device paths and the last modules ------------------
-    print(json.dumps(multidevice_phase(dev, pairs, L9, R9)))
+    line, entries = multidevice_phase(dev, hold, pairs, L9, R9)
+    print(json.dumps(line))
+    for entry in entries:
+        entry["max_abs_err"] = max_err[entry["name"]]
+        kernels.append(entry)
 
     # ---- 12. the ELAS postprocess kernels H-K ------------------------------
     line, entries = postprocess_phase(

@@ -65,7 +65,6 @@ def _wta(c: torch.Tensor, params: BMParams) -> torch.Tensor:
     -1 where the best is not unique. The uniqueness factor is rounded to
     float32 first, as the reference's weakly typed scalar is."""
     D = c.shape[-3]
-    f32 = torch.float32
     dev = c.device
     big = torch.full((), _BIG, dtype=torch.int32, device=dev)
     best_d = torch.argmin(c, dim=-3, keepdim=True)          # first minimum
@@ -80,13 +79,25 @@ def _wta(c: torch.Tensor, params: BMParams) -> torch.Tensor:
                      c.gather(-3, (best_d + 1).clamp_max(D - 1)),
                      big).clamp_max(_BIG)
     best_d, best, cm, cp = (x.squeeze(-3) for x in (best_d, best, cm, cp))
+    return wta_disparity(best_d, best, second, cm, cp, D, params)
+
+
+def wta_disparity(bd: torch.Tensor, best: torch.Tensor, second: torch.Tensor,
+                  cm: torch.Tensor, cp: torch.Tensor, D: int,
+                  params: BMParams) -> torch.Tensor:
+    """The WTA's last step from a pixel's best d and cost, its least cost
+    outside best_d +- 1 and its costs at best_d -+ 1: float32 best_d + the
+    parabola's offset, -1 where best is not below uniqueness * second (in
+    float32)."""
+    f32 = torch.float32
+    dev = bd.device
     ratio = torch.full((), params.uniqueness, dtype=f32, device=dev)
     unique = best.to(f32) < ratio * second.to(f32)
     den = cm + cp - 2 * best
-    offs = torch.where((best_d > 0) & (best_d < D - 1) & (den > 0),
+    offs = torch.where((bd > 0) & (bd < D - 1) & (den > 0),
                        (cm - cp).to(f32) / (2.0 * den.to(f32)),
                        torch.zeros((), dtype=f32, device=dev))
-    return torch.where(unique, best_d.to(f32) + offs,
+    return torch.where(unique, bd.to(f32) + offs,
                        torch.full((), -1.0, dtype=f32, device=dev))
 
 

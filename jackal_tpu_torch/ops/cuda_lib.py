@@ -24,7 +24,8 @@ KERNEL_SOURCES = ("support_kernel", "elas_dense_kernel", "raster_kernel",
                   "census_kernel", "sgm_paths_kernel", "sgm_wta_kernel",
                   "bm_kernel", "elas_post_kernel", "speckle_kernel",
                   "remap_kernel", "scan_kernel", "descriptor_kernel",
-                  "prior_kernel", "sgm_tail_kernel", "bm_gate_kernel")
+                  "prior_kernel", "sgm_tail_kernel", "bm_gate_kernel",
+                  "bm_tp_kernel", "exact_scan_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # headers under csrc/, hashed into every library's name (elas_lr.cuh: the
@@ -37,6 +38,7 @@ HEADERS = ("elas_lr.cuh", "sgm_epilogue.cuh")
 # O2 folded in, the ELAS front (R; A with Q) and the BM kernel G (with S's
 # gate) built without contraction (-fmad=false), whose
 # FFMA and DFMA counts chip_smoke.py holds against the library's own;
+# the exact scan V, whose DFMA count chip_smoke.py holds likewise;
 # kernel R at the band heights that it does not run (tools/
 # time_support_kernel.py --kernel front times them beside its 8 rows);
 # and M1's and M2's one launch with an entry that launches either part's
@@ -50,6 +52,8 @@ VARIANTS = {"bm_kernel_diag": ("bm_kernel", ("-DBM_KERNEL_DIAG",)),
             "support_kernel_nofmad": ("support_kernel", ("-fmad=false",)),
             "bm_kernel_nofmad": ("bm_kernel", ("-fmad=false",)),
             "sgm_wta_kernel_nofmad": ("sgm_wta_kernel", ("-fmad=false",)),
+            "exact_scan_kernel_nofmad": ("exact_scan_kernel",
+                                         ("-fmad=false",)),
             "prior_kernel_parts": ("prior_kernel", ("-DPRIOR_KERNEL_PARTS",)),
             **{f"descriptor_kernel_band{b}": (
                 "descriptor_kernel", (f"-DDESCRIPTOR_BAND={b}",))

@@ -14,7 +14,12 @@ controller does; there is no torch.distributed:
     closest obstacle as a min over the shards.
   - bm_match_tp: BM with the disparity axis of its cost volume split over
     "disp"; the ranks combine by keyed min all-reduces (pmin), then the
-    texture gate and the L/R check. Equal to matching.bm.bm_match.
+    texture gate and the L/R check. Equal to matching.bm.bm_match. On a
+    mesh of cards each rank launches kernel T1 (its box and partial WTA,
+    ops/bm_tp_kernel.tp_partials), each data row kernel T2 (the combine
+    and the L/R check, tp_combine) and kernel S (the gate); on a CPU mesh
+    the reference's eager program runs (bm_match_tp_plain, which also
+    runs it on cards, for comparison).
 
 A collective takes one tensor per rank: pmin reduces on the axis's first
 device and sends the result back to each rank's device. Nothing else
@@ -32,20 +37,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import BMParams
 from ..device import DeviceLike, device_list
-from ..matching.bm import _BIG, _box_filter, bm_finalize
+from ..matching.bm import (_BIG, bm_finalize, bm_texture_gate,
+                           wta_disparity)
+from ..ops import bm_tp_kernel as tpk
 
 AXES = ("data", "disp")
-
-
-def _invalid_cost(D: int) -> int:
-    """The key's invalid-cost clamp: 1 << 24, the engine's in-volume
-    sentinel, while the key cost * D + d fits int32 (D <= 64); lower past
-    that (it changes only keys of costs that are invalid already)."""
-    return min(1 << 24, (1 << 30) // D - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +190,7 @@ def _tp_wta(costs: Sequence[torch.Tensor], local_d: Sequence[torch.Tensor],
     are read back from the volume by masked pmins (a d no rank holds reads
     the 1 << 24 sentinel), so they equal bm_match's. Returns float32
     [..., H, W] on the first rank's device, -1 where not unique."""
-    kclamp = _invalid_cost(D)
+    kclamp = tpk.invalid_cost(D)
     best_key = pmin([(torch.clamp_max(c, kclamp) * D + _at(ld, c)).amin(0)
                      for c, ld in zip(costs, local_d)])
     best_d = [k % D for k in best_key]
@@ -204,46 +203,26 @@ def _tp_wta(costs: Sequence[torch.Tensor], local_d: Sequence[torch.Tensor],
     second = masked(lambda d, q: (d - q).abs() > 1)[0]
     cm = masked(lambda d, q: d == q - 1)[0]
     cp = masked(lambda d, q: d == q + 1)[0]
-    bd = best_d[0]
-    f32 = torch.float32
-    dev = bd.device
-    ratio = torch.full((), params.uniqueness, dtype=f32, device=dev)
-    unique = best_c.to(f32) < ratio * second.to(f32)
-    den = cm + cp - 2 * best_c
-    offs = torch.where((bd > 0) & (bd < D - 1) & (den > 0),
-                       (cm - cp).to(f32) / (2.0 * den.to(f32)),
-                       torch.zeros((), dtype=f32, device=dev))
-    return torch.where(unique, bd.to(f32) + offs,
-                       torch.full((), -1.0, dtype=f32, device=dev))
+    return wta_disparity(best_d[0], best_c, second, cm, cp, D, params)
 
 
-def _bm_tp_shard(left: torch.Tensor, right: torch.Tensor, params: BMParams,
-                 devs: Sequence[torch.device]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _bm_tp_shard_plain(left: torch.Tensor, right: torch.Tensor,
+                       params: BMParams, devs: Sequence[torch.device]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One data row: uint8 [..., H, W] frames, the row's ranks ``devs``.
     Rank k scores d in [k * Dl, (k + 1) * Dl), Dl = D // ranks, on its
     device; the disparities from ranks * Dl to D - 1 (D % ranks of them)
     no rank scores, as in the reference. Both views' keyed WTA, then
-    bm_finalize on the row's first device."""
-    W = left.shape[-1]
+    bm_finalize on the row's first device: the reference's program, one
+    eager op at a time."""
     D = params.disp_num
     Dl = D // len(devs)
-    r = params.window // 2
     costs, costs_r, local_d = [], [], []
     for k, dev in enumerate(devs):
-        L = left.to(dev).to(torch.int32)
-        R_pad = F.pad(right.to(dev).to(torch.int32), (D, 0))
-        u = torch.arange(W, device=dev)
-        ds = range(k * Dl, (k + 1) * Dl)
-        cl = []
-        for d in ds:
-            c = _box_filter((L - R_pad[..., D - d:D - d + W]).abs(), r)
-            cl.append(torch.where(u >= d, c, _BIG))
-        # right view from the same slice: cost_R(u, d) = cost_L(u + d, d)
-        costs_r.append(torch.stack([
-            torch.cat([c[..., d:], torch.full_like(c[..., :d], _BIG)], -1)
-            for d, c in zip(ds, cl)]))
-        costs.append(torch.stack(cl))
+        cl, cr = tpk.rank_costs(left.to(dev), right.to(dev), k * Dl, Dl, D,
+                                params.window // 2)
+        costs.append(cl)
+        costs_r.append(cr)
         local_d.append(torch.arange(k * Dl, (k + 1) * Dl, dtype=torch.int32,
                                     device=dev))
     dL = _tp_wta(costs, local_d, D, params)
@@ -251,13 +230,30 @@ def _bm_tp_shard(left: torch.Tensor, right: torch.Tensor, params: BMParams,
     return bm_finalize(left.to(devs[0]), dL, dR, params)
 
 
-def bm_match_tp(mesh: Mesh, params: BMParams = BMParams()):
-    """Block matching with the disparity axis over "disp" and the batch
-    over "data". Returns fn(left_b, right_b) -> (dl, dr): for uint8
-    [B, H, W] batches (B a multiple of the data rows), lists of each
-    row's float32 maps [B / n_data, H, W] on its first device, in shard
-    order, left finalized (texture gate, L/R check) and right, each equal
-    to bm_match of its frames when the ranks divide D."""
+def _bm_tp_shard_cuda(left: torch.Tensor, right: torch.Tensor,
+                      params: BMParams, devs: Sequence[torch.device]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same on cards: T1 a rank, T2 and S on the row's first card."""
+    D = params.disp_num
+    Dl = D // len(devs)
+    if Dl < 1:
+        raise ValueError(f"D = {D} over {len(devs)} ranks leaves none a d")
+    parts = tpk.rank_partials(left, right, D, params.window // 2, devs)
+    dl, dr = tpk.tp_combine(parts, D, Dl, params)
+    return bm_texture_gate(left.to(devs[0]), dl, params), dr
+
+
+def _bm_tp_shard(left, right, params, devs):
+    kinds = {dev.type == "cuda" for dev in devs}
+    if kinds == {True}:
+        return _bm_tp_shard_cuda(left, right, params, devs)
+    if kinds == {False}:
+        return _bm_tp_shard_plain(left, right, params, devs)
+    raise ValueError(f"a row of 'disp' mixes cards and other devices: "
+                     f"{list(devs)}")
+
+
+def _tp_fn(mesh: Mesh, params: BMParams, shard):
     def fn(left_b, right_b):
         left, right = torch.as_tensor(left_b), torch.as_tensor(right_b)
         n = len(mesh.devices)
@@ -266,9 +262,26 @@ def bm_match_tp(mesh: Mesh, params: BMParams = BMParams()):
             raise ValueError(f"batch {B} not divisible by the {n} rows of "
                              f"'data'")
         Bs = B // n
-        outs = [_bm_tp_shard(left[i * Bs:(i + 1) * Bs],
-                             right[i * Bs:(i + 1) * Bs], params, row)
+        outs = [shard(left[i * Bs:(i + 1) * Bs], right[i * Bs:(i + 1) * Bs],
+                      params, row)
                 for i, row in enumerate(mesh.devices)]
         return [o[0] for o in outs], [o[1] for o in outs]
 
     return fn
+
+
+def bm_match_tp(mesh: Mesh, params: BMParams = BMParams()):
+    """Block matching with the disparity axis over "disp" and the batch
+    over "data". Returns fn(left_b, right_b) -> (dl, dr): for uint8
+    [B, H, W] batches (B a multiple of the data rows), lists of each
+    row's float32 maps [B / n_data, H, W] on its first device, in shard
+    order, left finalized (texture gate, L/R check) and right, each equal
+    to bm_match of its frames when the ranks divide D. On cards: kernel T1
+    once a rank, T2 and S once a row, no other op that launches work."""
+    return _tp_fn(mesh, params, _bm_tp_shard)
+
+
+def bm_match_tp_plain(mesh: Mesh, params: BMParams = BMParams()):
+    """bm_match_tp as the reference's eager program on any mesh (on cards,
+    the yardstick T1 and T2 are held to)."""
+    return _tp_fn(mesh, params, _bm_tp_shard_plain)

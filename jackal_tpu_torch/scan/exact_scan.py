@@ -31,11 +31,19 @@ correctly rounded at the <= 92 bin-boundary midpoints, and no two
 accepted pixels share a band with an angle gap below ~2^-104 while
 competing for an extremum.
 
+On the card the per-pixel work and its reductions are kernel V
+(csrc/exact_scan_kernel.cu, _device_scan_cuda: the same operations in
+the same order, the card's atan2f as the candidate, two launches), read
+with one copy to the host; _device_scan, one eager op a step, is the CPU
+path and V's plain version (obstacle_scan_from_disparity_exact_plain runs
+it on any device). ``launches`` counts V's calls.
+
 This is the verification path, with the reference's constants (90 bins
 over +/-45 degrees); scan/obstacle.py stays the node's scan.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from typing import Tuple
@@ -45,6 +53,7 @@ import torch
 
 from ..config import REF_PI
 from ..device import DeviceLike, resolve_device
+from ..ops import cuda_lib
 from .obstacle import INF, ScanResult
 
 _BINS = 90
@@ -275,6 +284,99 @@ def _host64(x) -> np.ndarray:
     return np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float64)
 
 
+# ---------------------------------------------------------------------------
+# card: kernel V
+# ---------------------------------------------------------------------------
+
+launches = {"exact_scan": 0}
+# V's int64 output: the bins' least range ords [90], the least and greatest
+# range ord, the flat indices of the least- and greatest-angle pixels, the
+# accepted count, those two pixels' d, the pixels that ran the midpoint
+# tests (csrc/exact_scan_kernel.cu)
+N_OUT = _BINS + 8
+OUT_RMIN, OUT_RMAX, OUT_AMIN, OUT_AMAX, OUT_N, OUT_DMIN, OUT_DMAX, OUT_MID = \
+    range(_BINS, N_OUT)
+
+
+@lru_cache(maxsize=1)
+def _tables_f64() -> np.ndarray:
+    return np.ascontiguousarray(np.concatenate(
+        [t.view(np.float64) for t in _boundary_tables()]))
+
+
+def _device_scan_cuda(dmap: torch.Tensor, valid: torch.Tensor, Q64, XR64,
+                      XT64, ox: int, oy: int) -> torch.Tensor:
+    """Kernel V on a card map: uint8 dmap [H, W] and valid [H, W, 2] ->
+    int64 [N_OUT] on the card, two launches (the blocks' records, their
+    reduction), no other op."""
+    dmap, valid = dmap.contiguous(), valid.contiguous()
+    H, W = dmap.shape
+    dev = dmap.device
+    cuda_lib.expect(dmap, "dmap", torch.uint8, (H, W), dev, 1)
+    cuda_lib.expect(valid, "valid_disp", torch.uint8, (H, W, 2), dev, 1)
+    lib = cuda_lib.load("exact_scan_kernel")
+    nrec = lib.exact_scan_records
+    nrec.argtypes = [ctypes.c_int] * 2
+    nrec.restype = ctypes.c_longlong
+    rec = torch.empty(nrec(H, W), dtype=torch.int64, device=dev)
+    out = torch.empty(N_OUT, dtype=torch.int64, device=dev)
+    coef = np.ascontiguousarray(np.concatenate(
+        [Q64.reshape(16), XR64[:2].reshape(6), XT64[:2]]), np.float64)
+    fn = lib.exact_scan
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_lib.launch(fn, "exact_scan", dmap, dmap.data_ptr(), valid.data_ptr(),
+                    rec.data_ptr(), out.data_ptr(), H, W, int(ox), int(oy),
+                    coef.ctypes.data, float(np.float32(180.0 / REF_PI)),
+                    _tables_f64().ctypes.data)
+    launches["exact_scan"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the entry
+# ---------------------------------------------------------------------------
+
+def _result(vals, Q64, XR64, XT64, W: int, ox: int, oy: int,
+            dev) -> ScanResult:
+    """The ScanResult of V's N_OUT values (python ints), float64 on dev in
+    one upload: the host's math.atan2 at the two extremal pixels."""
+    scan = [_from_ord(o) if o != _MAG else INF for o in vals[:_BINS]]
+    if vals[OUT_N] == 0:
+        host = scan + [400.0, -400.0, INF, -500.0]
+    else:
+        def host_theta(flat_idx, d):
+            j, i = divmod(flat_idx, W)
+            u = float(i + ox)
+            v = float(j + oy)
+            row = [None] * 4
+            for r in range(4):
+                t = Q64[r, 0] * u + Q64[r, 1] * v
+                t = t + Q64[r, 2] * float(d)
+                row[r] = t + Q64[r, 3]
+            X = row[0] / row[3]
+            Y = row[1] / row[3]
+            Z = row[2] / row[3]
+            Xr = (XR64[0, 0] * X + XR64[0, 1] * Y) + XR64[0, 2] * Z + XT64[0]
+            Yr = (XR64[1, 0] * X + XR64[1, 1] * Y) + XR64[1, 2] * Z + XT64[1]
+            return math.atan2(Yr, Xr)
+
+        host = scan + [host_theta(vals[OUT_AMIN], vals[OUT_DMIN]),
+                       host_theta(vals[OUT_AMAX], vals[OUT_DMAX]),
+                       _from_ord(vals[OUT_RMIN]), _from_ord(vals[OUT_RMAX])]
+    t = torch.tensor(host, dtype=torch.float64, device=dev)
+    return ScanResult(t[:_BINS], t[_BINS], t[_BINS + 1], t[_BINS + 2],
+                      t[_BINS + 3])
+
+
+def _inputs(dmap_u8, valid_disp, Q, XR, XT, device):
+    dev = resolve_device(device)
+    return (dev, torch.as_tensor(dmap_u8).to(dev),
+            torch.as_tensor(valid_disp).to(dev), _host64(Q), _host64(XR),
+            _host64(XT).reshape(3))
+
+
 def obstacle_scan_from_disparity_exact(
     dmap_u8, valid_disp, Q, XR, XT,
     crop_offset_x: int = 0, crop_offset_y: int = 0,
@@ -284,44 +386,43 @@ def obstacle_scan_from_disparity_exact(
     (point_cloud.cpp:213-296) for a uint8 [H, W] map and its [H, W, 2]
     valid range: the float64 arithmetic on ``device`` (the card unless
     "cpu"), host atan2 only at the two extremal pixels. The ScanResult's
-    fields are float64 tensors on ``device``."""
-    dev = resolve_device(device)
-    dmap = torch.as_tensor(dmap_u8).to(dev)
-    valid = torch.as_tensor(valid_disp).to(dev)
-    H, W = dmap.shape
-    Q64, XR64 = _host64(Q), _host64(XR)
-    XT64 = _host64(XT).reshape(3)
+    fields are float64 tensors on ``device``. On the card kernel V, its
+    results read with one copy to the host; on the CPU _device_scan."""
+    dev, dmap, valid, Q64, XR64, XT64 = _inputs(dmap_u8, valid_disp, Q, XR,
+                                                XT, device)
+    if not dmap.is_cuda:
+        return _scan_eager(dmap, valid, Q64, XR64, XT64, crop_offset_x,
+                           crop_offset_y, dev)
+    out = _device_scan_cuda(dmap, valid, Q64, XR64, XT64, crop_offset_x,
+                            crop_offset_y)
+    return _result(out.cpu().tolist(), Q64, XR64, XT64, dmap.shape[1],
+                   crop_offset_x, crop_offset_y, dev)
+
+
+def _scan_eager(dmap, valid, Q64, XR64, XT64, ox, oy, dev) -> ScanResult:
     out = _device_scan(dmap, valid[..., 0], valid[..., 1], Q64.tolist(),
-                       XR64.tolist(), XT64.tolist(), crop_offset_x,
-                       crop_offset_y)
+                       XR64.tolist(), XT64.tolist(), ox, oy)
     scan_ord, rmin_o, rmax_o, ai, ax, n_acc = (x.cpu().numpy() for x in out)
-
-    def f64(x):
-        return torch.tensor(x, dtype=torch.float64, device=dev)
-
-    scan = f64([_from_ord(int(o)) if int(o) != _MAG else INF
-                for o in scan_ord])
-    if int(n_acc) == 0:
-        return ScanResult(scan, f64(400.0), f64(-400.0), f64(INF),
-                          f64(-500.0))
     dmap_h = dmap.cpu().numpy()
+    ai, ax = int(ai), int(ax)
+    vals = [int(o) for o in scan_ord] + [0] * (N_OUT - _BINS)
+    vals[OUT_RMIN], vals[OUT_RMAX] = int(rmin_o), int(rmax_o)
+    vals[OUT_AMIN], vals[OUT_AMAX], vals[OUT_N] = ai, ax, int(n_acc)
+    if int(n_acc):
+        vals[OUT_DMIN] = int(dmap_h.flat[ai])
+        vals[OUT_DMAX] = int(dmap_h.flat[ax])
+    return _result(vals, Q64, XR64, XT64, dmap.shape[1], ox, oy, dev)
 
-    def host_theta(flat_idx):
-        j, i = divmod(int(flat_idx), W)
-        d = float(dmap_h[j, i])
-        u = float(i + crop_offset_x)
-        v = float(j + crop_offset_y)
-        row = [None] * 4
-        for r in range(4):
-            t = Q64[r, 0] * u + Q64[r, 1] * v
-            t = t + Q64[r, 2] * d
-            row[r] = t + Q64[r, 3]
-        X = row[0] / row[3]
-        Y = row[1] / row[3]
-        Z = row[2] / row[3]
-        Xr = (XR64[0, 0] * X + XR64[0, 1] * Y) + XR64[0, 2] * Z + XT64[0]
-        Yr = (XR64[1, 0] * X + XR64[1, 1] * Y) + XR64[1, 2] * Z + XT64[1]
-        return math.atan2(Yr, Xr)
 
-    return ScanResult(scan, f64(host_theta(ai)), f64(host_theta(ax)),
-                      f64(_from_ord(int(rmin_o))), f64(_from_ord(int(rmax_o))))
+def obstacle_scan_from_disparity_exact_plain(
+    dmap_u8, valid_disp, Q, XR, XT,
+    crop_offset_x: int = 0, crop_offset_y: int = 0,
+    device: DeviceLike = None,
+) -> ScanResult:
+    """obstacle_scan_from_disparity_exact through _device_scan on any
+    device, one eager op a step (on the card, the yardstick V is held to
+    and timed against)."""
+    dev, dmap, valid, Q64, XR64, XT64 = _inputs(dmap_u8, valid_disp, Q, XR,
+                                                XT, device)
+    return _scan_eager(dmap, valid, Q64, XR64, XT64, crop_offset_x,
+                       crop_offset_y, dev)

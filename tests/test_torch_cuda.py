@@ -2660,3 +2660,149 @@ def test_elas_options_on_the_card_equal_the_cpu(dev):
                         post.postprocess(dbg.dense_D1.cpu(),
                                          dbg.dense_D2.cpu(), q)):
             assert torch.equal(a.cpu(), b)
+
+
+# ---- TP BM's kernels T1, T2 and the exact scan's kernel V ----------------
+
+def _tp_hold(dev, left, right, p, data, disp):
+    """T1's partials and T2's maps against their plain twins on the card,
+    bm_match_tp against the eager TP path on the card and, where the ranks
+    divide D, bm_match frame by frame; T1 once a rank, T2 and S once a row
+    of 'data', no ATen op that launches work on the card."""
+    from chip_smoke import aten_ops_of_a_call
+    from jackal_tpu_torch.matching import bm as bm_mod
+    from jackal_tpu_torch.matching.bm import bm_match
+    from jackal_tpu_torch.ops import bm_tp_kernel as tpk
+    from jackal_tpu_torch.parallel import mesh as pmesh
+
+    D, r = p.disp_num, p.window // 2
+    Dl = D // disp
+    L, R = (torch.from_numpy(x).to(dev) for x in (left, right))
+    Bs = L.shape[0] // data
+    parts = tpk.rank_partials(L[:Bs], R[:Bs], D, r, [dev] * disp)
+    for k in range(disp):
+        assert torch.equal(parts[k], tpk.tp_partials_plain(
+            L[:Bs], R[:Bs], k * Dl, Dl, D, r))
+    for a, b in zip(tpk.tp_combine(parts, D, Dl, p),
+                    tpk.tp_combine_plain(parts, D, Dl, p)):
+        assert torch.equal(a, b)
+    mesh = pmesh.make_mesh(data * disp, disp_parallel=disp,
+                           devices=[dev] * (data * disp))
+    n0 = dict(tpk.launches)
+    s0 = bm_mod.launches["bm_gate"]
+    ops = aten_ops_of_a_call(lambda: pmesh.bm_match_tp(mesh, p)(L, R))
+    dl, dr = (pmesh.gather(x) for x in pmesh.bm_match_tp(mesh, p)(L, R))
+    torch.cuda.synchronize()
+    assert [n for n, ok in ops if not ok] == []
+    assert tpk.launches == {"bm_tp_partials": n0["bm_tp_partials"]
+                            + 2 * data * disp,
+                            "bm_tp_combine": n0["bm_tp_combine"] + 2 * data}
+    assert bm_mod.launches["bm_gate"] == s0 + 2 * data
+    el, er = (pmesh.gather(x) for x in pmesh.bm_match_tp_plain(mesh, p)(L, R))
+    assert torch.equal(dl, el) and torch.equal(dr, er)
+    if D % disp == 0:
+        for b in range(L.shape[0]):
+            sl, sr = bm_match(L[b], R[b], p)
+            assert torch.equal(dl[b], sl) and torch.equal(dr[b], sr)
+    return dl, dr
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_tp_kernels_at_the_phase_11b_shapes(dev, case):
+    """chip_smoke.TP_CARD_CASES at 640x480: D = 64 on 2 x 2 and 1 x 4,
+    D = 256 on 1 x 8, D = 30 on 1 x 4, window 227 on 1 x 4."""
+    from chip_smoke import TP_CARD_CASES, tp_pair
+    from jackal_tpu_torch.config import BMParams
+
+    D, data, disp, B, win = TP_CARD_CASES[case]
+    left, right, uniq = tp_pair("seeded", B, 480, 640, D, disp,
+                                band=max(4, 2 * win))
+    dl, dr = _tp_hold(dev, left, right,
+                      BMParams(disp_num=D, window=win, uniqueness=uniq),
+                      data, disp)
+    assert float((dl >= 0).float().mean()) > 0.1
+
+
+@pytest.mark.parametrize("kind", range(3))
+@pytest.mark.parametrize("D,disp", [(16, 2), (16, 4), (30, 4)])
+def test_tp_kernels_on_the_cpu_tests_pairs(dev, kind, D, disp):
+    """tests/test_torch_tp_partials.py's pairs (48x96, B = 2 on 2 data
+    rows): the kernels against the twins that file holds to the JAX
+    package."""
+    from chip_smoke import TP_PAIR_KINDS, tp_pair
+    from jackal_tpu_torch.config import BMParams
+
+    left, right, uniq = tp_pair(TP_PAIR_KINDS[kind], 2, 48, 96, D, disp)
+    _tp_hold(dev, left, right, BMParams(disp_num=D, uniqueness=uniq), 2,
+             disp)
+
+
+def test_tp_kernels_refuse_what_they_do_not_take(dev):
+    from jackal_tpu_torch.config import BMParams
+    from jackal_tpu_torch.ops import bm_tp_kernel as tpk
+    from jackal_tpu_torch.parallel import mesh as pmesh
+
+    L = torch.zeros((1, 8, 16), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        tpk.tp_partials(L.float(), L.float(), 0, 4, 8, 1)
+    with pytest.raises(ValueError):
+        tpk.tp_partials(L, L, 6, 4, 8, 1)          # past D
+    with pytest.raises(ValueError):
+        tpk.tp_combine(torch.zeros((3, 2, tpk.NF, 1, 8, 16), dtype=torch.int32,
+                                   device=dev), 8, 4, BMParams(disp_num=8))
+    mesh = pmesh.make_mesh(4, disp_parallel=4, devices=[dev] * 4)
+    with pytest.raises(ValueError):                   # 2 over 4 ranks: Dl 0
+        pmesh.bm_match_tp(mesh, BMParams(disp_num=2))(L, L)
+
+
+def _exact_scan_hold(dev, case):
+    """Kernel V against the CPU path, every field (assert_array_equal),
+    once a call; the ATen ops that launch work a call: the map's and the
+    range's uploads (the read's output lies on the host, and the result's
+    torch.tensor on the card dispatches no ATen op)."""
+    from chip_smoke import aten_ops_of_a_call
+    from jackal_tpu_torch.scan import exact_scan as es
+
+    dmap, valid, Q, XR, XT, ox, oy = case
+    want = es.obstacle_scan_from_disparity_exact(dmap, valid, Q, XR, XT, ox,
+                                                 oy, device="cpu")
+    n0 = es.launches["exact_scan"]
+    got = []
+    ops = aten_ops_of_a_call(lambda: got.append(
+        es.obstacle_scan_from_disparity_exact(dmap, valid, Q, XR, XT, ox,
+                                              oy, device=dev)))
+    assert es.launches["exact_scan"] == n0 + 1
+    assert len([n for n, ok in ops if not ok]) == 2, ops
+    for f in ("scan", "angle_min", "angle_max", "range_min", "range_max"):
+        a = getattr(got[0], f)
+        assert a.is_cuda and a.dtype == torch.float64
+        np.testing.assert_array_equal(a.cpu().numpy(),
+                                      getattr(want, f).numpy())
+    return got[0]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_exact_scan_kernel_edges(dev, case):
+    """chip_smoke.EXACT_SCAN_EDGE_CASES (tests/test_torch_exact_scan_edges.py
+    holds the CPU path to the JAX package on them)."""
+    from chip_smoke import EXACT_SCAN_EDGE_CASES, exact_scan_edge_case
+
+    _exact_scan_hold(dev, exact_scan_edge_case(EXACT_SCAN_EDGE_CASES[case]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_exact_scan_kernel_node_maps(dev, seed):
+    """640x480 maps of the node's shape on the default calibration's cache,
+    seeded d in 0..96 (many accepted pixels, every bin)."""
+    from jackal_tpu_torch.config import PipelineParams
+    from jackal_tpu_torch.pipeline.default import make_pipeline
+
+    pipe = make_pipeline(engine="bm", device="cpu", params=PipelineParams(
+        im_width=640, im_height=480, crop_im_width=640, crop_im_height=480))
+    rng = np.random.default_rng(seed)
+    H, W = pipe.valid_disp.shape[:2]
+    dmap = rng.integers(0, 97, (H, W)).astype(np.uint8)
+    res = _exact_scan_hold(dev, (dmap, pipe.valid_disp.numpy(), pipe.rect.Q,
+                                 pipe.calib.XR, pipe.calib.XT,
+                                 pipe.p.crop_offset_x, pipe.p.crop_offset_y))
+    assert int((res.scan < 1e9 - 1).sum()) > 10
